@@ -2,8 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llama_cpp_tpu_torch) on one NVIDIA
 H100.
 
-    python3 chip_smoke.py                  # everything, about a few minutes
-    python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
+    python3 chip_smoke.py        # about three minutes
 
 Phases, each of which fails the run:
   1. the card's name and power limit, torch / CUDA / nvcc versions;
@@ -12,7 +11,9 @@ Phases, each of which fails the run:
   3. every kernel at the main path's shapes on the card, held against its
      plain PyTorch version (NMSE < 5e-3), timed by CUDA events (L2 flushed
      before each launch) beside its bound, the plain version and one
-     PyTorch library call;
+     PyTorch library call; the qmm GEMV and tensor-core GEMM are also timed
+     against each other at 1-8 rows (the crossover the wrapper's
+     GEMV_MAX_N is set from), and the attention kernel on a bf16 pool;
   4. the main path through the port's entry points: a Llama-3-8B-shaped
      Q4_K_M model (random weights from a seed, full width, depth cut to 4
      layers), load_model, a Context with a paged int8 KV pool, a 2048-token
@@ -91,61 +92,74 @@ def plane_bytes(w) -> int:
                if t is not None)
 
 
-def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures):
+def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=None):
     """Hold the qmm kernel against its plain version at each (weight, N);
-    returns the summed numbers of the shapes at n_rows[0]."""
+    returns {N: numbers summed over the weights}. gemv_max_n forces the
+    GEMV (8) or the GEMM (0); None keeps the wrapper's crossover."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-             "max_abs_err": 0.0, "nmse": 0.0}
+    kw = {} if gemv_max_n is None else {"gemv_max_n": gemv_max_n}
+    res = {}
     for n in n_rows:
+        total = res[n] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                          "max_abs_err": 0.0, "nmse": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
         for wname, w in weights:
             K = w.in_features
             O = w.q.shape[1]
             x = torch.randn((n, K), generator=gen, device="cuda").to(torch.bfloat16)
-            got = qmm.qmm(x, w)
+            got = qmm.qmm(x, w, **kw)
             torch.cuda.synchronize()
             ref = qmm.qmm_plain(x, w)
             err = nmse(got, ref)
             mae = float((got - ref).abs().max())
             if not err < NMSE_LIMIT or not torch.isfinite(got).all():
                 failures.append(f"{label} {wname} N={n}: NMSE {err}")
-            wd = w.dequant(torch.bfloat16)
-            ms = timer(lambda: qmm.qmm(x, w))
-            plain_ms = timer(lambda: qmm.qmm_plain(x, w), reps=3)
-            lib_ms = timer(lambda: torch.matmul(x, wd))
+            ms = timer(lambda: qmm.qmm(x, w, **kw))
+            plain_ms = lib_ms = float("nan")
+            if gemv_max_n is None:
+                wd = w.dequant(torch.bfloat16)
+                plain_ms = timer(lambda: qmm.qmm_plain(x, w), reps=3)
+                lib_ms = timer(lambda: torch.matmul(x, wd))
+                del wd
             nbytes = n * K * 2 + plane_bytes(w) + n * O * 4
             flops = 2.0 * n * K * O
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-            log(f"  {label:22s} {wname:12s} N={n:4d} K={K:5d} O={O:6d}  nmse={err:.2e} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={bound:.4f} ({'bytes' if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else 'operations'})")
-            if n == n_rows[0]:
-                total["ms"] += ms
-                total["plain_ms"] += plain_ms
-                total["library_ms"] += lib_ms
-                total["bound_ms"] += bound
-                total["max_abs_err"] = max(total["max_abs_err"], mae)
-                total["nmse"] = max(total["nmse"], err)
-                total["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
-                                     else "operations")
-            del wd
-    return total
+            bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+            bound = max(bytes_s, ops_s) * 1e3
+            log(f"  {label:24s} {wname:12s} N={n:4d} K={K:5d} O={O:6d} "
+                f"[{qmm.kernel_name(w, n, kw.get('gemv_max_n', qmm.GEMV_MAX_N))}] "
+                f"nmse={err:.2e} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={bound:.4f} ({'bytes' if bytes_s > ops_s else 'operations'})")
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+            total["library_ms"] += lib_ms
+            total["bound_ms"] += bound
+            total["bytes_s"] += bytes_s
+            total["ops_s"] += ops_s
+            total["max_abs_err"] = max(total["max_abs_err"], mae)
+            total["nmse"] = max(total["nmse"], err)
+        total["bound_by"] = "bytes" if total["bytes_s"] > total["ops_s"] else "operations"
+    return res
 
 
-def attn_case(torch, B, G, T, depth, page=512, Hkv=8, D=128, seed=0):
-    """Random int8 pool with each batch row's `depth` cached positions plus
-    its T new rows at positions depth .. depth+T-1."""
+def attn_case(torch, B, G, T, depth, page=512, Hkv=8, D=128, seed=0, kv_dtype=None):
+    """Random pool (int8 with row scales, or bf16 without) with each batch
+    row's `depth` cached positions plus its T new rows at positions depth ..
+    depth+T-1."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_tok = depth + T
     mp = -(-n_tok // page) + 1
     n_pages = B * mp + 1
     S_pool = n_pages * page
-    k = torch.randint(-127, 128, (Hkv, S_pool, D), generator=gen, device="cuda",
-                      dtype=torch.int8)
-    v = torch.randint(-127, 128, (Hkv, S_pool, D), generator=gen, device="cuda",
-                      dtype=torch.int8)
-    ks = torch.rand((Hkv, S_pool), generator=gen, device="cuda") * 0.02 + 0.005
-    vs = torch.rand((Hkv, S_pool), generator=gen, device="cuda") * 0.02 + 0.005
+    if kv_dtype is torch.bfloat16:
+        k = (torch.randn((Hkv, S_pool, D), generator=gen, device="cuda")).to(torch.bfloat16)
+        v = (torch.randn((Hkv, S_pool, D), generator=gen, device="cuda")).to(torch.bfloat16)
+        ks = vs = None
+    else:
+        k = torch.randint(-127, 128, (Hkv, S_pool, D), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (Hkv, S_pool, D), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        ks = torch.rand((Hkv, S_pool), generator=gen, device="cuda") * 0.02 + 0.005
+        vs = torch.rand((Hkv, S_pool), generator=gen, device="cuda") * 0.02 + 0.005
     pos = torch.full((S_pool,), -1, dtype=torch.int32, device="cuda")
     table = torch.full((B, mp), n_pages - 1, dtype=torch.int32, device="cuda")
     for b in range(B):
@@ -184,18 +198,24 @@ def attn_phase(torch, timer, fa, label, case, failures):
     B, Hkv, R, D = q.shape
     MP = table.shape[1]
     rows = (table.long()[:, :, None] * page + torch.arange(page, device="cuda")).reshape(B, -1)
-    kd = (case["k"][:, rows].float() * case["k_scale"][:, rows][..., None]).permute(1, 0, 2, 3)
-    vd = (case["v"][:, rows].float() * case["v_scale"][:, rows][..., None]).permute(1, 0, 2, 3)
+    quantized = case["k_scale"] is not None
+    kd = case["k"][:, rows].float()
+    vd = case["v"][:, rows].float()
+    if quantized:
+        kd = kd * case["k_scale"][:, rows][..., None]
+        vd = vd * case["v_scale"][:, rows][..., None]
+    kd, vd = kd.permute(1, 0, 2, 3), vd.permute(1, 0, 2, 3)
     kd, vd = kd.to(torch.bfloat16).contiguous(), vd.to(torch.bfloat16).contiguous()
     cp = case["pos"][rows]
     rp = case["row_pos"]
     mask = ((cp[:, None, :] >= 0) & (cp[:, None, :] <= rp[:, :, None]))[:, None]
     lib_ms = timer(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask, scale=sm))
-    # bound: q, the K/V rows, scales and labels of the pages walked, out; the
-    # operations of the unmasked (row, column) pairs
-    lim = torch.clamp(torch.div(rp.max(dim=1).values, page, rounding_mode="floor") + 1, 1, MP)
-    kv_rows = int(lim.sum()) * page
-    nbytes = (q.numel() * 2 + kv_rows * Hkv * (2 * D + 8) + kv_rows * 4 + q.numel() * 4)
+    # bound: q, the K/V rows (and scales) and position labels that some row
+    # of the batch row can see (pos >= 0 and <= the row's largest position),
+    # out; the operations of the unmasked (row, column) pairs
+    kv_rows = int(((cp >= 0) & (cp <= rp.max(dim=1).values[:, None])).sum())
+    row_bytes = 2 * D * case["k"].element_size() + (8 if quantized else 0)
+    nbytes = q.numel() * 2 + kv_rows * (Hkv * row_bytes + 4) + q.numel() * 4
     flops = 4.0 * D * Hkv * float(mask.sum())
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else "operations"
@@ -262,7 +282,6 @@ def main() -> int:
         return 2
     import numpy as np
 
-    kernels_only = "--kernels-only" in sys.argv[1:]
     card = gpu_line()
     log(f"card: {card}")
     nvcc_v = subprocess.run([build._nvcc(), "--version"], capture_output=True,
@@ -298,16 +317,26 @@ def main() -> int:
     head = [("output", pad_out_features(weight(GGMLType.Q6_K, V, E)))]
     assert all(w.packed and w.hier for _, w in q4) and all(w.hier and not w.packed
                                                           for _, w in q6 + head)
-    log("kernels vs plain (per-layer sums at the first N go to the JSON line):")
-    res = {}
-    res["qmm4_planes"] = qmm_phase(torch, timer, qmm, "K1 qmm4_planes", q4, (1, 8, 32), failures)
-    res["qmm4_planes_prefill"] = qmm_phase(torch, timer, qmm, "K3 qmm4_planes_prefill", q4,
-                                           (512,), failures)
-    res["qmm_planes"] = qmm_phase(torch, timer, qmm, "K2 qmm_planes", q6, (1, 8, 32), failures)
+    log("qmm GEMV against the tensor-core GEMM at 1-8 rows (each held against plain):")
+    for lay, ws in (("Q4_K", q4), ("Q6_K", q6)):
+        gv = qmm_phase(torch, timer, qmm, f"{lay} forced gemv", ws, (1, 2, 4, 8), failures,
+                       gemv_max_n=8)
+        mm = qmm_phase(torch, timer, qmm, f"{lay} forced mma", ws, (1, 2, 4, 8), failures,
+                       gemv_max_n=0)
+        log(f"crossover {lay} (layer sums, ms; GEMV_MAX_N = {qmm.GEMV_MAX_N}): " + ", ".join(
+            f"N={n} gemv {gv[n]['ms']:.4f} mma {mm[n]['ms']:.4f}" for n in gv))
+    log("kernels vs plain at the main path's shapes (layer sums go to the JSON line):")
+    q4r = qmm_phase(torch, timer, qmm, "K1 qmm4_planes", q4, (1, 8, 32), failures)
+    q4p = qmm_phase(torch, timer, qmm, "K3 qmm4_planes_prefill", q4, (512,), failures)
+    q6r = qmm_phase(torch, timer, qmm, "K2 qmm_planes", q6, (1, 8, 32), failures)
     qmm_phase(torch, timer, qmm, "K2 qmm_planes (head)", head, (1, 8, 32), failures)
-    res["qmm_planes_prefill"] = qmm_phase(torch, timer, qmm, "K4 qmm_planes_prefill", q6,
-                                          (512,), failures)
+    q6p = qmm_phase(torch, timer, qmm, "K4 qmm_planes_prefill", q6, (512,), failures)
     del q4, q6, head
+    # one JSON entry per (TPU kernel, CUDA kernel): the GEMV at N=1, the GEMM
+    # at the B=32 decode step and at the prefill ubatch
+    res = {"qmm4_planes/gemv": q4r[1], "qmm4_planes/mma": q4r[32],
+           "qmm4_planes_prefill/mma": q4p[512], "qmm_planes/gemv": q6r[1],
+           "qmm_planes/mma": q6r[32], "qmm_planes_prefill/mma": q6p[512]}
     res["flash_attention_paged"] = attn_phase(
         torch, timer, flash_attn, "K5 decode B=1 d=2048",
         attn_case(torch, B=1, G=4, T=1, depth=2048), failures)
@@ -317,14 +346,16 @@ def main() -> int:
                attn_case(torch, B=32, G=4, T=1, depth=512), failures)
     attn_phase(torch, timer, flash_attn, "K5 prefill ubatch 4 of 2048",
                attn_case(torch, B=1, G=4, T=512, depth=1536), failures)
+    attn_phase(torch, timer, flash_attn, "K5 bf16 pool decode B=1 d=2048",
+               attn_case(torch, B=1, G=4, T=1, depth=2048, kv_dtype=torch.bfloat16), failures)
+    attn_phase(torch, timer, flash_attn, "K5 bf16 pool prefill ubatch 4 of 2048",
+               attn_case(torch, B=1, G=4, T=512, depth=1536, kv_dtype=torch.bfloat16),
+               failures)
     torch.cuda.empty_cache()
     if failures:
         for f in failures:
             log(f"FAIL {f}")
         return 1
-    if kernels_only:
-        log("kernels only: stopping before the main path")
-        return 0
 
     # -- phase 4: the main path ----------------------------------------------
     smoke_dir = os.path.join(ROOT, "build", "smoke")
@@ -421,7 +452,8 @@ def main() -> int:
     for name, r in res.items():
         src = ("llama_cpp_tpu_torch/csrc/flash_attn_paged.cu" if name.startswith("flash")
                else "llama_cpp_tpu_torch/csrc/qmm.cu")
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": tpu_of[name],
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": tpu_of[name.split("/")[0]],
                         "launches": counts[name], "max_abs_err": r["max_abs_err"],
                         "nmse": r["nmse"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

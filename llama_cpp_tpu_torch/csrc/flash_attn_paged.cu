@@ -1,4 +1,4 @@
-// Flash attention straight off the paged int8 KV pool, for Hopper.
+// Flash attention straight off the paged KV pool (int8 or bf16), for Hopper.
 //
 // Replaces the TPU Pallas kernel flash_attention_paged of
 // llama_cpp_tpu/ops/pallas/flash_attn.py (fold path _fa_kernel_allheads +
@@ -7,24 +7,25 @@
 // Function: for batch row b, KV head h and query row r (R = G*T rows, the
 // GQA group folded into rows), over the pool rows of pages
 // table[b, 0 .. lim) with lim = clip(max_row_pos // page + 1, 1, MP):
-//   s   = (q . k_int8) * k_scale * sm_scale   [softcap * tanh(s / softcap)]
+//   s   = (q . k) * k_scale * sm_scale   [softcap * tanh(s / softcap)]
 //   s   masked to -inf unless pos >= 0 and pos <= row_pos
 //         [and pos > row_pos - window]
-//   out = sum softmax(s) * v_scale * v_int8 over the unmasked columns, with an
+//   out = sum softmax(s) * v_scale * v over the unmasked columns, with an
 //         optional sink logit per row in the softmax denominator only.
+// An int8 pool carries f32 row scales; a bf16 pool has none (scale 1).
 // Rows with no unmasked column (padding) come out as 0; callers drop them.
 //
-// What bounds it on an H100: at decode the bytes of the int8 K/V pages plus
-// their f32 row scales (about 2 * 128 + 8 bytes per KV row and head); the
-// prefill ubatch (R = 4 * 512 rows per head) is bounded by FP32 CUDA-core
-// FMAs in this first version, which does not use the tensor cores.
+// What bounds it on an H100: at decode the bytes of the K/V pages (int8:
+// about 2 * 128 + 8 bytes per KV row and head, bf16: 2 * 256); the prefill
+// ubatch (R = 4 * 512 rows per head) is bounded by FP32 CUDA-core FMAs in
+// this first version, which does not use the tensor cores.
 //
 // Design: one block per (query-row tile, KV head, batch row * KV split).
 // 4 warps, each owning RPW query rows (f32 in shared memory). The block walks
-// its pages in 64-row tiles: int8 K (row stride padded to 33 words so a lane
-// per column reads without bank conflicts), int8 V, scales and position
-// labels go to shared memory; each lane scores two columns, the warp does
-// the online-softmax update for its rows, then each lane accumulates 4 of the
+// its pages in 64-row tiles: K (row stride padded by one word so a lane per
+// column reads without bank conflicts), V, scales and position labels go to
+// shared memory; each lane scores two columns, the warp does the
+// online-softmax update for its rows, then each lane accumulates 4 of the
 // 128 output dims. At decode (few rows, B*Hkv blocks) the KV tiles are split
 // across blocks (flash decoding) so more SMs stream the pool; a second kernel
 // merges the splits' (max, sum, acc) and adds the sink term.
@@ -46,6 +47,18 @@ __device__ __forceinline__ float4 unpack_i8x4(uint32_t w) {
                      (float)(int8_t)((w >> 16) & 0xFF), (float)(int8_t)(w >> 24));
 }
 
+__device__ __forceinline__ float4 unpack_bf16x4(uint32_t w0, uint32_t w1) {
+  return make_float4(__uint_as_float(w0 << 16), __uint_as_float(w0 & 0xFFFF0000u),
+                     __uint_as_float(w1 << 16), __uint_as_float(w1 & 0xFFFF0000u));
+}
+
+// dims 4*i .. 4*i+3 of a K/V row in shared memory (words from `row`)
+template <bool BF16>
+__device__ __forceinline__ float4 load_dims4(const uint32_t* row, int i) {
+  if (BF16) return unpack_bf16x4(row[2 * i], row[2 * i + 1]);
+  return unpack_i8x4(row[i]);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -58,10 +71,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int RPW>
+template <int RPW, bool BF16>
 __global__ void __launch_bounds__(kThreads)
-fa_paged_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
-                const int8_t* __restrict__ v, const float* __restrict__ ks,
+fa_paged_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
+                const void* __restrict__ v, const float* __restrict__ ks,
                 const float* __restrict__ vs, const int* __restrict__ pos,
                 const int* __restrict__ row_pos, const int* __restrict__ table,
                 float* __restrict__ part_acc, float* __restrict__ part_m,
@@ -69,7 +82,8 @@ fa_paged_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ 
                 int page, float sm_scale, int window, float softcap, int splits,
                 int tiles_per_split) {
   constexpr int BR = kWarps * RPW;
-  constexpr int KW = kD / 4;   // 32-bit words per K/V row
+  constexpr int EB = BF16 ? 2 : 1;  // bytes per K/V element
+  constexpr int KW = kD * EB / 4;  // 32-bit words per K/V row
   constexpr int KST = KW + 1;  // padded K row stride in words
   __shared__ __align__(16) float qs[BR][kD];
   __shared__ uint32_t kt[kTile * KST];
@@ -131,15 +145,17 @@ fa_paged_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ 
     const int pg = table[(size_t)b * MP + t / tiles_per_page];
     const long long row0 = (long long)pg * page + (long long)(t % tiles_per_page) * kTile;
     __syncthreads();  // the previous tile's shared data is no longer read
-    const uint32_t* kg = reinterpret_cast<const uint32_t*>(k + ((size_t)h * S_pool + row0) * kD);
-    const uint32_t* vg = reinterpret_cast<const uint32_t*>(v + ((size_t)h * S_pool + row0) * kD);
+    const uint32_t* kg = reinterpret_cast<const uint32_t*>(
+        static_cast<const char*>(k) + ((size_t)h * S_pool + row0) * kD * EB);
+    const uint32_t* vg = reinterpret_cast<const uint32_t*>(
+        static_cast<const char*>(v) + ((size_t)h * S_pool + row0) * kD * EB);
     for (int i = tid; i < kTile * KW; i += kThreads) {
       kt[(i / KW) * KST + (i % KW)] = __ldg(kg + i);
       vt[i] = __ldg(vg + i);
     }
     for (int i = tid; i < kTile; i += kThreads) {
-      kss[i] = __ldg(ks + (size_t)h * S_pool + row0 + i);
-      vss[i] = __ldg(vs + (size_t)h * S_pool + row0 + i);
+      kss[i] = BF16 ? 1.f : __ldg(ks + (size_t)h * S_pool + row0 + i);
+      vss[i] = BF16 ? 1.f : __ldg(vs + (size_t)h * S_pool + row0 + i);
       cps[i] = __ldg(pos + row0 + i);
     }
     __syncthreads();
@@ -149,9 +165,9 @@ fa_paged_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ 
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) s[rr][0] = s[rr][1] = 0.f;
 #pragma unroll 4
-    for (int w = 0; w < KW; ++w) {
-      const float4 k0 = unpack_i8x4(kt[lane * KST + w]);
-      const float4 k1 = unpack_i8x4(kt[(lane + 32) * KST + w]);
+    for (int w = 0; w < kD / 4; ++w) {
+      const float4 k0 = load_dims4<BF16>(kt + lane * KST, w);
+      const float4 k1 = load_dims4<BF16>(kt + (lane + 32) * KST, w);
 #pragma unroll
       for (int rr = 0; rr < RPW; ++rr) {
         const float4 qv = *reinterpret_cast<const float4*>(&qs[warp * RPW + rr][w * 4]);
@@ -193,7 +209,7 @@ fa_paged_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ 
     // acc[rr][dims 4*lane .. 4*lane+4) += sum_c p[c] * v[c]
 #pragma unroll 4
     for (int c = 0; c < kTile; ++c) {
-      const float4 vf = unpack_i8x4(vt[c * KW + lane]);
+      const float4 vf = load_dims4<BF16>(vt + c * KW, lane);
 #pragma unroll
       for (int rr = 0; rr < RPW; ++rr) {
         const float pc = ps[warp][rr][c];
@@ -248,27 +264,28 @@ fa_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ 
 
 }  // namespace
 
-// q [B, Hkv, R, 128] bf16; k, v [Hkv, S_pool, 128] int8; ks, vs [Hkv, S_pool]
-// f32; pos [S_pool] int32; row_pos [B, R] int32; table [B, MP] int32; sinks
-// [Hkv, R] f32 or null; part_acc [splits, B, Hkv, R, 128], part_m/part_l
-// [splits, B, Hkv, R] f32 scratch; out [B, Hkv, R, 128] f32. rows_per_warp
-// is 1 or 4; page a multiple of 64. Returns cudaGetLastError().
+// q [B, Hkv, R, 128] bf16; k, v [Hkv, S_pool, 128] int8 with ks, vs
+// [Hkv, S_pool] f32 row scales, or bf16 with ks = vs = null; pos [S_pool]
+// int32; row_pos [B, R] int32; table [B, MP] int32; sinks [Hkv, R] f32 or
+// null; part_acc [splits, B, Hkv, R, 128], part_m/part_l [splits, B, Hkv, R]
+// f32 scratch; out [B, Hkv, R, 128] f32. rows_per_warp is 1 or 4; page a
+// multiple of 64. Returns cudaGetLastError().
 extern "C" int fa_paged_launch(const void* q, const void* k, const void* v, const void* ks,
                                const void* vs, const void* pos, const void* row_pos,
                                const void* table, const void* sinks, void* part_acc,
                                void* part_m, void* part_l, void* out, int B, int Hkv, int R,
                                long long S_pool, int MP, int page, float sm_scale, int window,
-                               float softcap, int rows_per_warp, int splits, void* stream) {
+                               float softcap, int rows_per_warp, int splits, int bf16_kv,
+                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (page % kTile != 0 || splits <= 0 || B <= 0 || R <= 0 || Hkv <= 0) {
+  if (page % kTile != 0 || splits <= 0 || B <= 0 || R <= 0 || Hkv <= 0 ||
+      (bf16_kv == 0) != (ks != nullptr && vs != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int tiles_per_split = (MP * (page / kTile) + splits - 1) / splits;
   const int br = kWarps * rows_per_warp;
   const dim3 grid((R + br - 1) / br, Hkv, B * splits);
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* k8 = static_cast<const int8_t*>(k);
-  const auto* v8 = static_cast<const int8_t*>(v);
   const auto* ksf = static_cast<const float*>(ks);
   const auto* vsf = static_cast<const float*>(vs);
   const auto* posi = static_cast<const int*>(pos);
@@ -277,17 +294,19 @@ extern "C" int fa_paged_launch(const void* q, const void* k, const void* v, cons
   auto* pa = static_cast<float*>(part_acc);
   auto* pm = static_cast<float*>(part_m);
   auto* pl = static_cast<float*>(part_l);
+#define FA_PAGED(RPW, BF)                                                                 \
+  fa_paged_kernel<RPW, BF><<<grid, kThreads, 0, st>>>(qb, k, v, ksf, vsf, posi, rpi, tbl, pa, \
+                                                      pm, pl, B, Hkv, R, S_pool, MP, page,  \
+                                                      sm_scale, window, softcap, splits,    \
+                                                      tiles_per_split)
   if (rows_per_warp == 1) {
-    fa_paged_kernel<1><<<grid, kThreads, 0, st>>>(qb, k8, v8, ksf, vsf, posi, rpi, tbl, pa, pm,
-                                                  pl, B, Hkv, R, S_pool, MP, page, sm_scale,
-                                                  window, softcap, splits, tiles_per_split);
+    if (bf16_kv) FA_PAGED(1, true); else FA_PAGED(1, false);
   } else if (rows_per_warp == 4) {
-    fa_paged_kernel<4><<<grid, kThreads, 0, st>>>(qb, k8, v8, ksf, vsf, posi, rpi, tbl, pa, pm,
-                                                  pl, B, Hkv, R, S_pool, MP, page, sm_scale,
-                                                  window, softcap, splits, tiles_per_split);
+    if (bf16_kv) FA_PAGED(4, true); else FA_PAGED(4, false);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef FA_PAGED
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n_rows = (size_t)B * Hkv * R;

@@ -7,7 +7,8 @@
 //   qmm_planes_prefill   (_qmm_prefill_kernel_u)   int8 planes, 64..1023 rows
 // The GEMV/prefill split there is a VMEM tile policy of the TPU. Here the
 // row count picks between two kernels that compute the same function: a
-// CUDA-core GEMV for N <= 4 and a tensor-core (mma.sync bf16) GEMM above.
+// CUDA-core GEMV for N <= gemv_max_n (the wrapper passes 4, the measured
+// crossover on an H100) and a tensor-core (mma.sync bf16) GEMM above.
 //
 // Function: y[N, O] (f32) = x[N, K] (bf16) . W[K, O], where
 //   W[k, o] = q[k, o] * scale(k, o) + min(k, o)
@@ -104,7 +105,7 @@ __device__ __forceinline__ void load_group(const void* sc, const float* d, const
 }
 
 // ---------------------------------------------------------------------------
-// GEMV, N <= 4
+// GEMV, N <= gemv_max_n (BN = 1, 2, 4 or 8 rows per launch)
 // ---------------------------------------------------------------------------
 
 template <int BN, bool PACKED, int G>
@@ -215,7 +216,7 @@ qmm_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// GEMM on the tensor cores, N > 4
+// GEMM on the tensor cores, N > gemv_max_n
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
@@ -390,9 +391,9 @@ struct Args {
 };
 
 template <bool PACKED, int G>
-cudaError_t launch_layout(const Args& a, int splits, cudaStream_t st) {
-  if (a.N <= 4) {
-    const int bn = a.N <= 1 ? 1 : a.N <= 2 ? 2 : 4;
+cudaError_t launch_layout(const Args& a, int splits, int gemv_max_n, cudaStream_t st) {
+  if (a.N <= gemv_max_n) {
+    const int bn = a.N <= 1 ? 1 : a.N <= 2 ? 2 : a.N <= 4 ? 4 : 8;
     const int rps = (PACKED ? a.K / 2 : a.K) / splits;
     const dim3 grid(a.O / kCols, 1, splits);
 #define QMM_GEMV(B)                                                                  \
@@ -405,6 +406,7 @@ cudaError_t launch_layout(const Args& a, int splits, cudaStream_t st) {
       QMM_GEMV(1)
       QMM_GEMV(2)
       QMM_GEMV(4)
+      QMM_GEMV(8)
     }
 #undef QMM_GEMV
   } else {
@@ -432,27 +434,32 @@ cudaError_t launch_layout(const Args& a, int splits, cudaStream_t st) {
 // x [N, K] bf16; q [R, O] (R = K/2 packed, else K) int8; sc [K/g, O] int8
 // (hier) or f32; d [K/256, O] f32 (hier); mn like sc or null; dm like d or
 // null; part [splits, N, O] f32 scratch (used when splits > 1); out [N, O].
-// A split covers R/splits plane rows (N <= 4) or K/splits of K (N > 4), a
-// multiple of 64. Returns cudaGetLastError().
+// group is 16 or 32, K a multiple of 256. Rows N <= gemv_max_n (at most 8)
+// go to the GEMV, more to the tensor-core GEMM. A split covers R/splits
+// plane rows (GEMV) or K/splits of K (GEMM), a multiple of 64. Returns
+// cudaGetLastError().
 extern "C" int qmm_launch(const void* x, const void* q, const void* sc, const void* d,
                           const void* mn, const void* dm, void* part, void* out, int N,
                           int K, int O, int group, int packed, int hier, int splits,
-                          void* stream) {
+                          int gemv_max_n, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int units = N <= 4 && packed ? K / 2 : K;
-  if (N <= 0 || O % kCols != 0 || K % 512 != 0 || splits <= 0 ||
-      units % (splits * 64) != 0) {
+  const int units = N <= gemv_max_n && packed ? K / 2 : K;
+  if (N <= 0 || O % kCols != 0 || K % 256 != 0 || splits <= 0 ||
+      units % (splits * 64) != 0 || gemv_max_n < 0 || gemv_max_n > 8) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q), sc,
                static_cast<const float*>(d), mn, static_cast<const float*>(dm),
                static_cast<float*>(splits > 1 ? part : out), N, K, O, hier};
   cudaError_t err;
-  // the layouts Q4_K (packed, g = 32) and Q6_K (int8, g = 16) produce
-  if (packed && group == 32) {
-    err = launch_layout<true, 32>(a, splits, st);
-  } else if (!packed && group == 16) {
-    err = launch_layout<false, 16>(a, splits, st);
+  if (packed && group == 32) {  // Q4_K
+    err = launch_layout<true, 32>(a, splits, gemv_max_n, st);
+  } else if (!packed && group == 16) {  // Q6_K
+    err = launch_layout<false, 16>(a, splits, gemv_max_n, st);
+  } else if (packed && group == 16) {  // Q6_K planes that fit in 4 bits
+    err = launch_layout<true, 16>(a, splits, gemv_max_n, st);
+  } else if (!packed && group == 32) {
+    err = launch_layout<false, 32>(a, splits, gemv_max_n, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -90,9 +90,10 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     scale = cfg.attn_scale or (1.0 / float(Dk) ** 0.5)
     window = cfg.sliding_window if cfg.sliding_window > 0 else 0
     sinks = lw.get("attn_sinks")  # [H] attention-sink logits
-    # the kernel path needs a card, as the JAX package's needs a TPU
+    # the kernel path needs a card, as the JAX package's needs a TPU; where
+    # the JAX package would run its kernel, the port's runs or raises
     use_flash = (kernels and x.device.type == "cuda"
-                 and fa_kernel.supported(Dk, Dv, kv.page, kv.quantized))
+                 and fa_kernel.dispatches(Dk, Dv, kv.max_pages * kv.page, T * (H // Hkv)))
     if use_flash:
         out = fa_kernel.mha_flash_paged(
             q, kv, il, inputs.seq_idx, inputs.positions, sm_scale=scale, window=window,

@@ -5,8 +5,8 @@ Port of the TPU kernels qmm4_planes / qmm4_planes_prefill (packed 4-bit,
 Q4_K) and qmm_planes / qmm_planes_prefill (int8 planes, Q6_K) of
 llama_cpp_tpu/ops/pallas/qmm.py. The plain version is the JAX package's
 dequant -> dot: W = bf16(q * scale + min) in f32 arithmetic, y = bf16(x) . W
-accumulated in f32. The kernel's tensor-core GEMM (N > 4) rounds W the same
-way; its GEMV (N <= 4) keeps q * scale in f32 and applies scale and min per
+accumulated in f32. The kernel's tensor-core GEMM rounds W the same way; its
+GEMV (N <= GEMV_MAX_N) keeps q * scale in f32 and applies scale and min per
 group, an NMSE near 1e-6 from the plain version. The wrapper takes the plain
 version for a CPU tensor and launches the kernel for a CUDA tensor.
 """
@@ -20,32 +20,48 @@ import torch
 from . import build
 
 # the JAX package's decode/prefill tile-policy boundary (qmm.py
-# PREFILL_MIN_N); the port keeps it only to count launches per regime
+# PREFILL_MIN_N); the port keeps it only to name launches by TPU kernel
 PREFILL_MIN_N = 64
 GEMV_MAX_N = 4  # the kernel's CUDA-core GEMV up to here, tensor cores above
+_GEMV_MAX_N_BUILT = 8  # the widest GEMV the kernel has
 _SPLIT_UNIT = 64  # K splits fall on multiples of 64 rows
 _COLS = 128  # output columns per block
 _TARGET_WARPS = 4096  # ~31 warps per SM on 132 SMs before splitting K stops
 
-# launches per TPU kernel this wrapper stands in for
-launches = {"qmm4_planes": 0, "qmm4_planes_prefill": 0,
-            "qmm_planes": 0, "qmm_planes_prefill": 0}
+# launches per (TPU kernel stood in for, CUDA kernel that ran): the GEMV or
+# the tensor-core GEMM ("mma")
+launches = {"qmm4_planes/gemv": 0, "qmm4_planes/mma": 0, "qmm4_planes_prefill/mma": 0,
+            "qmm_planes/gemv": 0, "qmm_planes/mma": 0, "qmm_planes_prefill/mma": 0}
 
 
-def kernel_name(w, n_rows: int) -> str:
+def kernel_name(w, n_rows: int, gemv_max_n: int = GEMV_MAX_N) -> str:
     base = "qmm4_planes" if w.packed else "qmm_planes"
-    return base + ("_prefill" if n_rows >= PREFILL_MIN_N else "")
+    tpu = base + ("_prefill" if n_rows >= PREFILL_MIN_N else "")
+    return tpu + ("/gemv" if n_rows <= gemv_max_n else "/mma")
+
+
+def dispatches(w) -> bool:
+    """Whether the JAX package's pallas_qmm_dispatch (qmm.py:935-948) sends
+    this weight to its Pallas kernel below XLA_PREFILL_MIN_N rows. There the
+    port launches its kernel or raises; elsewhere the reference leaves the
+    product to XLA, and the port to dequantize + matmul."""
+    if not w.transposed or w.q.dim() != 2:
+        return False
+    K, O = w.in_features, w.q.shape[1]
+    if w.hier and K % 512:
+        return False
+    return K % 256 == 0 and O % _COLS == 0 and (K // w.group) % 8 == 0
 
 
 def supported(w) -> bool:
-    """Whether the kernel takes this weight (layouts of Q4_K and Q6_K)."""
-    if not w.transposed or w.q.dim() != 2:
-        return False
-    if (w.packed, w.group) not in ((True, 32), (False, 16)):
+    """Whether the kernel takes this weight: 2-D transposed planes, packed or
+    int8, groups of 16 or 32, flat scales or per-256 superblocks, K a
+    multiple of 256 and O of 128."""
+    if not w.transposed or w.q.dim() != 2 or w.group not in (16, 32):
         return False
     if w.hier and w.sgroup != 256:
         return False
-    return w.in_features % 512 == 0 and w.q.shape[1] % _COLS == 0
+    return w.in_features % 256 == 0 and w.q.shape[1] % _COLS == 0
 
 
 def qmm_plain(x: torch.Tensor, w) -> torch.Tensor:
@@ -57,12 +73,13 @@ def qmm_plain(x: torch.Tensor, w) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.out_features)
 
 
-def split_count(K: int, packed: bool, n: int, O: int, weight_bytes: int) -> int:
+def split_count(K: int, packed: bool, n: int, O: int, weight_bytes: int,
+                gemv: bool) -> int:
     """K splits for the kernel grid: enough warps to fill the card, splits on
     multiples of 64 rows (plane rows for the GEMV, K for the GEMM). The
     GEMV, bound by weight bytes, keeps its partial sums under a quarter of
     the weight's bytes; the GEMM is bound by operations."""
-    if n <= GEMV_MAX_N:  # one-warp blocks over plane rows
+    if gemv:  # one-warp blocks over plane rows
         units, warps = (K // 2 if packed else K) // _SPLIT_UNIT, O // _COLS
         max_partial = weight_bytes // 4
     else:  # four-warp blocks of 16, 32 or 64 rows over K
@@ -83,7 +100,7 @@ def _lib():
     lib = build.library("qmm.cu")
     fn = lib.qmm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -92,11 +109,15 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def qmm(x: torch.Tensor, w) -> torch.Tensor:
+def qmm(x: torch.Tensor, w, gemv_max_n: int = GEMV_MAX_N) -> torch.Tensor:
     """y = x . W for a transposed-plane QuantTensor: [..., K] bf16 ->
-    [..., out_features] f32."""
+    [..., out_features] f32. Up to gemv_max_n rows (at most 8) the GEMV
+    runs, above it the tensor-core GEMM; the default is the measured
+    crossover (chip_smoke.py times both)."""
     if x.device.type == "cpu":
         return qmm_plain(x, w)
+    if not 0 <= gemv_max_n <= _GEMV_MAX_N_BUILT:
+        raise ValueError(f"qmm: gemv_max_n must be in [0, {_GEMV_MAX_N_BUILT}]")
     K = w.in_features
     O = w.q.shape[1]
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.shape[-1] != K:
@@ -106,7 +127,7 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
         raise ValueError("qmm: x must be contiguous")
     if not supported(w):
         raise ValueError(f"qmm: unsupported weight layout (packed={w.packed}, "
-                         f"group={w.group}, shape={tuple(w.q.shape)})")
+                         f"group={w.group}, hier={w.hier}, shape={tuple(w.q.shape)})")
     planes = (w.q, w.scales, w.mins, w.d, w.dmin)
     for t in planes:
         if t is None:
@@ -120,19 +141,20 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
         raise ValueError("qmm: plane dtypes do not match the layout")
     x2 = x.reshape(-1, K)
     N = x2.shape[0]
-    if N > GEMV_MAX_N and x2.data_ptr() % 16:
+    gemv = N <= gemv_max_n
+    if not gemv and x2.data_ptr() % 16:
         raise ValueError("qmm: x must be 16-byte aligned for the tensor-core path")
     wbytes = sum(t.numel() * t.element_size() for t in planes if t is not None)
-    splits = split_count(K, w.packed, N, O, wbytes)
+    splits = split_count(K, w.packed, N, O, wbytes, gemv)
     out = torch.empty((N, O), dtype=torch.float32, device=x.device)
     part = (torch.empty((splits, N, O), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     err = _lib()(x2.data_ptr(), w.q.data_ptr(), w.scales.data_ptr(), _ptr(w.d),
                  _ptr(w.mins), _ptr(w.dmin), _ptr(part), out.data_ptr(), N, K, O,
-                 w.group, int(w.packed), int(w.hier), splits,
+                 w.group, int(w.packed), int(w.hier), splits, gemv_max_n,
                  torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "qmm_launch")
-    launches[kernel_name(w, N)] += 1
+    launches[kernel_name(w, N, gemv_max_n)] += 1
     if w.out_dim and w.out_dim != O:
         out = out[:, : w.out_dim]
     return out.reshape(*x.shape[:-1], w.out_features)

@@ -8,8 +8,11 @@ superblock factors d/dmin [in//256, out] (hierarchical scales) and 4-bit
 formats nibble-packed half-split into qp [in/2, out]. The route per call:
   * rows >= XLA_PREFILL_MIN_N: dequantize once and torch.matmul (the JAX
     package leaves these to XLA's dot);
-  * fewer rows: the qmm kernel (ops/kernels/qmm.py), which takes its plain
-    version for a CPU tensor.
+  * fewer rows, where the JAX package's dispatch runs its Pallas kernel:
+    the qmm kernel (ops/kernels/qmm.py), which takes its plain version for a
+    CPU tensor and raises on a CUDA tensor it cannot take;
+  * other layouts (row-major tables, untileable shapes): dequantize +
+    torch.matmul, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -239,7 +242,7 @@ def matmul(x: torch.Tensor, w: Weight, dtype=None, kernels: bool = True) -> torc
     out_dtype = dtype or x.dtype
     if isinstance(w, QuantTensor):
         rows = x.numel() // w.in_features
-        if kernels and rows < XLA_PREFILL_MIN_N and qmm_kernel.supported(w):
+        if kernels and rows < XLA_PREFILL_MIN_N and qmm_kernel.dispatches(w):
             return qmm_kernel.qmm(x.to(torch.bfloat16), w).to(out_dtype)
         mdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
         wd = w.dequant(mdt)

@@ -28,14 +28,20 @@ def bf16_round(a: np.ndarray) -> np.ndarray:
     return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
 
 
-def make_case(seed: int):
-    """Int8 pool where sequence b holds positions [0, depth_b + T) in pages
-    2b, 2b+1; the q rows are the last T positions, GQA-folded (row g*T+t)."""
+def make_case(seed: int, bf16: bool = False):
+    """Int8 pool (or a bf16 one without scales) where sequence b holds
+    positions [0, depth_b + T) in pages 2b, 2b+1; the q rows are the last T
+    positions, GQA-folded (row g*T+t)."""
     rng = np.random.default_rng(seed)
-    k = rng.integers(-127, 128, (HKV, P * PAGE, D)).astype(np.int8)
-    v = rng.integers(-127, 128, (HKV, P * PAGE, D)).astype(np.int8)
-    ks = (rng.random((HKV, P * PAGE)) * 0.02 + 0.005).astype(np.float32)
-    vs = (rng.random((HKV, P * PAGE)) * 0.02 + 0.005).astype(np.float32)
+    if bf16:
+        k = bf16_round(rng.standard_normal((HKV, P * PAGE, D)).astype(np.float32))
+        v = bf16_round(rng.standard_normal((HKV, P * PAGE, D)).astype(np.float32))
+        ks = vs = None
+    else:
+        k = rng.integers(-127, 128, (HKV, P * PAGE, D)).astype(np.int8)
+        v = rng.integers(-127, 128, (HKV, P * PAGE, D)).astype(np.int8)
+        ks = (rng.random((HKV, P * PAGE)) * 0.02 + 0.005).astype(np.float32)
+        vs = (rng.random((HKV, P * PAGE)) * 0.02 + 0.005).astype(np.float32)
     table = np.full((len(DEPTHS), MP), P - 1, np.int32)
     pos = np.full(P * PAGE, -1, np.int32)
     for b, dep in enumerate(DEPTHS):
@@ -57,25 +63,32 @@ def nmse(got, ref):
     return float(np.mean((got - ref) ** 2) / np.mean(ref ** 2))
 
 
-@pytest.mark.parametrize("window,softcap,use_sinks", [
-    (0, 0.0, False), (64, 0.0, False), (0, 2.0, False), (0, 0.0, True), (96, 2.0, True)],
-    ids=["causal", "window", "softcap", "sinks", "all"])
-def test_paged_attention_matches_jax(window, softcap, use_sinks):
-    c = make_case(0)
+@pytest.mark.parametrize("window,softcap,use_sinks,bf16", [
+    (0, 0.0, False, False), (64, 0.0, False, False), (0, 2.0, False, False),
+    (0, 0.0, True, False), (96, 2.0, True, False), (0, 0.0, False, True),
+    (96, 2.0, True, True)],
+    ids=["causal", "window", "softcap", "sinks", "all", "bf16_pool", "bf16_pool_all"])
+def test_paged_attention_matches_jax(window, softcap, use_sinks, bf16):
+    c = make_case(0, bf16=bf16)
     sm = 1.0 / np.sqrt(D)
+    kvdt = jnp.bfloat16 if bf16 else jnp.int8
     ref = np.asarray(jax_fa_paged(
-        jnp.asarray(c["q"], jnp.bfloat16), jnp.asarray(c["k"].reshape(HKV, P, PAGE, D)),
-        jnp.asarray(c["v"].reshape(HKV, P, PAGE, D)), jnp.asarray(c["row_pos"]),
+        jnp.asarray(c["q"], jnp.bfloat16), jnp.asarray(c["k"].reshape(HKV, P, PAGE, D), kvdt),
+        jnp.asarray(c["v"].reshape(HKV, P, PAGE, D), kvdt), jnp.asarray(c["row_pos"]),
         jnp.asarray(c["pos"].reshape(P, 1, PAGE)), jnp.asarray(c["table"]),
         sinks=jnp.asarray(c["sinks"]) if use_sinks else None,
-        k_scale4=jnp.asarray(c["ks"].reshape(HKV, P, 1, PAGE)),
-        v_scale4=jnp.asarray(c["vs"].reshape(HKV, P, 1, PAGE)),
+        k_scale4=None if bf16 else jnp.asarray(c["ks"].reshape(HKV, P, 1, PAGE)),
+        v_scale4=None if bf16 else jnp.asarray(c["vs"].reshape(HKV, P, 1, PAGE)),
         sm_scale=sm, window=window, softcap=softcap, page=PAGE, interpret=True))
+
+    def t(a, dt=None):
+        return None if a is None else torch.from_numpy(a).to(dt) if dt else torch.from_numpy(a)
+
+    kvt = torch.bfloat16 if bf16 else None
     got = tfa.flash_attention_paged(
-        torch.from_numpy(c["q"]).to(torch.bfloat16), torch.from_numpy(c["k"]),
-        torch.from_numpy(c["v"]), torch.from_numpy(c["row_pos"]), torch.from_numpy(c["pos"]),
-        torch.from_numpy(c["table"]), torch.from_numpy(c["ks"]), torch.from_numpy(c["vs"]),
-        torch.from_numpy(c["sinks"]) if use_sinks else None, sm_scale=sm, window=window,
+        t(c["q"], torch.bfloat16), t(c["k"], kvt), t(c["v"], kvt), t(c["row_pos"]),
+        t(c["pos"]), t(c["table"]), t(c["ks"]), t(c["vs"]),
+        t(c["sinks"]) if use_sinks else None, sm_scale=sm, window=window,
         softcap=softcap, page=PAGE).numpy()
     assert got.shape == ref.shape == (len(DEPTHS), HKV, G * T, D)
     valid = c["row_pos"] >= 0  # [B, R]
@@ -110,3 +123,17 @@ def test_mha_flash_paged_gqa_fold_matches_jax():
                               sm_scale=sm).numpy()
     assert got.shape == ref.shape == (B, T, HKV * G * D)
     assert nmse(got, ref) < 1e-4
+
+
+@pytest.mark.parametrize("dk,dv,n_slots,rows", [
+    (128, 128, 1024, 4), (64, 64, 1024, 4), (64, 64, 1024, 16), (128, 128, 1000, 4),
+    (96, 96, 1024, 32), (256, 128, 512, 1)],
+    ids=["d128", "d64_decode", "d64_prefill", "slots_untileable", "d96", "d256"])
+def test_attention_takes_the_kernel_where_jax_does(monkeypatch, dk, dv, n_slots, rows):
+    """The port's gate for the paged kernel is the JAX package's: its
+    flash_supported on an accelerator plus the small-head row rule."""
+    import llama_cpp_tpu.ops.pallas.flash_attn as jfa
+
+    monkeypatch.setattr(jfa, "_FORCE", True)  # as on a TPU
+    jax_kernel = jfa.flash_supported(dk, dv, n_slots) and not (min(dk, dv) < 128 and rows < 16)
+    assert tfa.dispatches(dk, dv, n_slots, rows) == jax_kernel

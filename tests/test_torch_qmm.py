@@ -119,13 +119,57 @@ def test_matmul_routes_by_row_count():
 
 def test_split_count_divides_and_fills():
     # decode GEMV of the fused gate|up plane: K/2 = 2048 packed rows
-    s = tqmm.split_count(4096, True, 1, 28672, 4096 * 28672 // 2)
+    s = tqmm.split_count(4096, True, 1, 28672, 4096 * 28672 // 2, gemv=True)
     assert s > 1 and (2048 // 64) % s == 0 and 224 * s <= 4096
     # the tensor-core path splits K, not plane rows
-    s = tqmm.split_count(14336, False, 32, 4096, 14336 * 4096)
+    s = tqmm.split_count(14336, False, 32, 4096, 14336 * 4096, gemv=False)
     assert s > 1 and (14336 // 64) % s == 0 and 4 * 32 * s <= 4096
     # a wide prefill needs no split, a narrow one does
-    assert tqmm.split_count(4096, True, 512, 28672, 4096 * 28672 // 2) == 1
-    assert tqmm.split_count(4096, False, 512, 1024, 4096 * 1024) > 1
+    assert tqmm.split_count(4096, True, 512, 28672, 4096 * 28672 // 2, gemv=False) == 1
+    assert tqmm.split_count(4096, False, 512, 1024, 4096 * 1024, gemv=False) > 1
     # the vocab head at B = 1 hardly any
-    assert tqmm.split_count(4096, False, 1, 131072, 4096 * 131072) <= 4
+    assert tqmm.split_count(4096, False, 1, 131072, 4096 * 131072, gemv=True) <= 4
+    # flat planes with K = 768: splits still divide the 64-row units
+    s = tqmm.split_count(768, True, 1, 256, 768 * 256 // 2, gemv=True)
+    assert (384 // 64) % s == 0
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K], ids=["q4_k", "q6_k"])
+def test_qmm_plain_matches_jax_pallas_flat_scales(qtype, n):
+    """K = 768 is no multiple of 512: both packages keep flat f32 scales,
+    and the JAX dispatch still runs its Pallas kernel on them."""
+    k = 768
+    raw = raw_weight(qtype, k=k, seed=8)
+    jw = jax_load_weight(raw, qtype, (O, k), prefer_quant=True, transpose=True)
+    tw = tq.load_weight(raw, qtype, (O, k), prefer_quant=True, transpose=True)
+    assert not tw.hier and not jw.hier and tw.packed == jw.packed
+    assert tqmm.dispatches(tw) and tqmm.supported(tw)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * 0.5).to(torch.bfloat16)
+    ref = np.asarray(jax_qmm(jnp.asarray(x.float().numpy(), jnp.bfloat16), jw, interpret=True))
+    got = tqmm.qmm(x, tw)
+    assert nmse(got.numpy(), ref) < 1e-4
+
+
+@pytest.mark.parametrize("qtype,o,k,transpose,rows", [
+    (GGMLType.Q4_K, 256, 512, True, 1), (GGMLType.Q6_K, 256, 512, True, 63),
+    (GGMLType.Q4_K, 256, 768, True, 8), (GGMLType.Q6_K, 256, 768, True, 512),
+    (GGMLType.Q6_K, 300, 512, True, 1), (GGMLType.Q4_K, 256, 512, False, 1),
+    (GGMLType.Q4_K, 256, 512, True, 1024)],
+    ids=["q4_k_hier", "q6_k_hier", "q4_k_flat", "q6_k_flat_prefill", "o_not_tileable",
+         "row_major", "xla_prefill"])
+def test_matmul_takes_the_kernel_where_jax_dispatches(monkeypatch, qtype, o, k, transpose, rows):
+    """The port's matmul sends a call to its qmm kernel exactly where the
+    JAX package's pallas_qmm_dispatch runs its Pallas kernel."""
+    import llama_cpp_tpu.ops.pallas.qmm as jqmm
+
+    raw = raw_weight(qtype, o=o, k=k, seed=10)
+    jw = jax_load_weight(raw, qtype, (o, k), prefer_quant=True, transpose=transpose)
+    tw = tq.load_weight(raw, qtype, (o, k), prefer_quant=True, transpose=transpose)
+    monkeypatch.setattr(jqmm, "qmm", lambda x, qt, interpret=False: "kernel")
+    jax_kernel = jqmm.pallas_qmm_dispatch(jnp.zeros((rows, k), jnp.bfloat16), jw) == "kernel"
+    calls = []
+    monkeypatch.setattr(tqmm, "qmm", lambda x, w: calls.append(x.shape) or tqmm.qmm_plain(x, w))
+    tq.matmul(torch.zeros((rows, k), dtype=torch.bfloat16), tw)
+    assert bool(calls) == jax_kernel
