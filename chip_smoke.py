@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (llama_cpp_tpu_torch) on one NVIDIA
 H100.
 
-    python3 chip_smoke.py        # about three minutes
+    python3 chip_smoke.py        # several minutes
 
 Phases, each of which fails the run:
   1. the card's name and power limit, torch / CUDA / nvcc versions;
@@ -13,14 +13,24 @@ Phases, each of which fails the run:
      before each launch) beside its bound, the plain version and one
      PyTorch library call; the qmm GEMV and tensor-core GEMM are also timed
      against each other at 1-8 rows (the crossover the wrapper's
-     GEMV_MAX_N is set from), and the attention kernel on a bf16 pool;
-  4. the main path through the port's entry points: a Llama-3-8B-shaped
-     Q4_K_M model (random weights from a seed, full width, depth cut to 4
-     layers), load_model, a Context with a paged int8 KV pool, a 2048-token
-     prefill, 32 greedy tokens at B=1 and decode_steps_greedy at B=8 and
-     B=32 over 512-token prefills, with every kernel's launch counter read;
-     the kernel path is held against the plain path (Context(kernels=False))
-     on the prefill's last-token logits.
+     GEMV_MAX_N is set from), and the attention kernel on a bf16 pool; the
+     indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes,
+     the slot-table attention kernel at the same depths as the paged one,
+     and both attention kernels once with 64-wide heads;
+  4. the main paths through the port's entry points, each with the launch
+     counters set to 0 before it and read after it, and each held against
+     the plain path (Context(kernels=False)) on the prefill's last-token
+     logits and greedy ids:
+     - a Llama-3-8B-shaped Q4_K_M model (random weights from a seed, full
+       width, depth cut to 4 layers), load_model, a Context with a paged
+       int8 KV pool, a 2048-token prefill, 32 greedy tokens at B=1 and
+       decode_steps_greedy at B=8 and B=32 over 512-token prefills;
+     - the same model on the slot-table cache (Context(paged=False)): every
+       attention goes through the slot-table kernel;
+     - a Mixtral-8x7B-shaped MoE model (full width, depth cut to 2 layers):
+       the sort-by-expert prefill, B=1 decode through the indexed-expert
+       kernel, batched decode at B=8;
+     - a TinyLlama-shaped model with 64-wide heads on both memories.
 The last two lines are the kernels JSON object and
 {"ok": true, "device": {...}}. Without a card, or without the port next to
 this script, it exits non-zero and prints no result.
@@ -38,6 +48,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 NMSE_LIMIT = 5e-3  # the reference's conformance threshold
 SMOKE_LAYERS = 4
+MOE_LAYERS = 2  # experts are 97% of a Mixtral layer's bytes
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -176,27 +187,49 @@ def attn_case(torch, B, G, T, depth, page=512, Hkv=8, D=128, seed=0, kv_dtype=No
                 v_scale=vs, page=page)
 
 
-def attn_phase(torch, timer, fa, label, case, failures):
+def attn_measure(torch, timer, label, run, run_plain, q, kd, vd, cp, rp, kv_elem, quantized,
+                 failures):
+    """Hold an attention kernel (run) against its plain version (run_plain)
+    and time both, beside SDPA on the gathered, dequantized K/V kd, vd
+    [B, Hkv, S, D] with the same mask (library yardstick, timed only).
+    cp [B, S] are the columns' position labels, rp [B, R] the rows'.
+    Bound: q, the K/V rows (and scales) and position labels that some row of
+    the batch row can see (pos >= 0 and <= the row's largest position), out;
+    the operations of the unmasked (row, column) pairs."""
     import torch.nn.functional as F
 
-    sm = 1.0 / 128 ** 0.5
-    got = fa.flash_attention_paged(**{k: v for k, v in case.items() if k != "page"},
-                                   sm_scale=sm, page=case["page"])
-    torch.cuda.synchronize()
-    ref = fa.flash_attention_paged_plain(**{k: v for k, v in case.items() if k != "page"},
-                                         sm_scale=sm, page=case["page"])
-    err = nmse(got, ref)
-    mae = float((got - ref).abs().max())
-    if not err < NMSE_LIMIT or not torch.isfinite(got).all():
-        failures.append(f"{label}: NMSE {err}")
-    args = {k: v for k, v in case.items() if k != "page"}
-    ms = timer(lambda: fa.flash_attention_paged(**args, sm_scale=sm, page=case["page"]))
-    plain_ms = timer(lambda: fa.flash_attention_paged_plain(**args, sm_scale=sm,
-                                                            page=case["page"]), reps=3)
-    # library yardstick: SDPA on the gathered, dequantized K/V (timed only)
-    q, page, table = case["q"], case["page"], case["table_b"]
     B, Hkv, R, D = q.shape
-    MP = table.shape[1]
+    sm = 1.0 / D ** 0.5
+    got = run(sm)
+    torch.cuda.synchronize()
+    ref = run_plain(sm)
+    valid = rp >= 0
+    g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
+    err = nmse(g, r)
+    mae = float((g - r).abs().max())
+    if not err < NMSE_LIMIT or not torch.isfinite(g).all():
+        failures.append(f"{label}: NMSE {err}")
+    ms = timer(lambda: run(sm))
+    plain_ms = timer(lambda: run_plain(sm), reps=3)
+    mask = ((cp[:, None, :] >= 0) & (cp[:, None, :] <= rp[:, :, None]))[:, None]
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask, scale=sm))
+    kv_rows = int(((cp >= 0) & (cp <= rp.max(dim=1).values[:, None])).sum())
+    row_bytes = 2 * D * kv_elem + (8 if quantized else 0)
+    nbytes = q.numel() * 2 + kv_rows * (Hkv * row_bytes + 4) + q.numel() * 4
+    flops = 4.0 * D * Hkv * float(mask.sum())
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else "operations"
+    log(f"  {label:38s} B={B} R={R} D={D} nmse={err:.2e} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": mae, "nmse": err}
+
+
+def attn_phase(torch, timer, fa, label, case, failures):
+    """The paged kernel at one case of attn_case."""
+    args = {k: v for k, v in case.items() if k != "page"}
+    q, page, table = case["q"], case["page"], case["table_b"]
+    B = q.shape[0]
     rows = (table.long()[:, :, None] * page + torch.arange(page, device="cuda")).reshape(B, -1)
     quantized = case["k_scale"] is not None
     kd = case["k"][:, rows].float()
@@ -204,25 +237,117 @@ def attn_phase(torch, timer, fa, label, case, failures):
     if quantized:
         kd = kd * case["k_scale"][:, rows][..., None]
         vd = vd * case["v_scale"][:, rows][..., None]
-    kd, vd = kd.permute(1, 0, 2, 3), vd.permute(1, 0, 2, 3)
-    kd, vd = kd.to(torch.bfloat16).contiguous(), vd.to(torch.bfloat16).contiguous()
-    cp = case["pos"][rows]
-    rp = case["row_pos"]
-    mask = ((cp[:, None, :] >= 0) & (cp[:, None, :] <= rp[:, :, None]))[:, None]
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask, scale=sm))
-    # bound: q, the K/V rows (and scales) and position labels that some row
-    # of the batch row can see (pos >= 0 and <= the row's largest position),
-    # out; the operations of the unmasked (row, column) pairs
-    kv_rows = int(((cp >= 0) & (cp <= rp.max(dim=1).values[:, None])).sum())
-    row_bytes = 2 * D * case["k"].element_size() + (8 if quantized else 0)
-    nbytes = q.numel() * 2 + kv_rows * (Hkv * row_bytes + 4) + q.numel() * 4
-    flops = 4.0 * D * Hkv * float(mask.sum())
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else "operations"
-    log(f"  {label:34s} B={B} R={R} MP={MP}  nmse={err:.2e} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+    kd = kd.permute(1, 0, 2, 3).to(torch.bfloat16).contiguous()
+    vd = vd.permute(1, 0, 2, 3).to(torch.bfloat16).contiguous()
+    return attn_measure(
+        torch, timer, label,
+        lambda sm: fa.flash_attention_paged(**args, sm_scale=sm, page=page),
+        lambda sm: fa.flash_attention_paged_plain(**args, sm_scale=sm, page=page),
+        q, kd, vd, case["pos"][rows], case["row_pos"], case["k"].element_size(), quantized,
+        failures)
+
+
+def slots_case(torch, B, G, T, depth, n_seqs=8, S=5120, Hkv=8, D=128, seed=0, kv_dtype=None):
+    """Random slot-table cache (int8 with row scales, or bf16) of n_seqs
+    sequences of S slots; batch row b reads sequence n_seqs - 1 - b, which
+    holds `depth` cached positions plus the T new rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_tok = depth + T
+    if kv_dtype is torch.bfloat16:
+        k = torch.randn((n_seqs, Hkv, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((n_seqs, Hkv, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+        ks = vs = None
+    else:
+        k = torch.randint(-127, 128, (n_seqs, Hkv, S, D), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (n_seqs, Hkv, S, D), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        ks = torch.rand((n_seqs, Hkv, S), generator=gen, device="cuda") * 0.02 + 0.005
+        vs = torch.rand((n_seqs, Hkv, S), generator=gen, device="cuda") * 0.02 + 0.005
+    seq_idx = (n_seqs - 1 - torch.arange(B, device="cuda")).to(torch.int32)
+    pos = torch.full((n_seqs, S), -1, dtype=torch.int32, device="cuda")
+    pos[seq_idx.long(), :n_tok] = torch.arange(n_tok, dtype=torch.int32, device="cuda")
+    q = (torch.randn((B, Hkv, G * T, D), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    rp = (depth + torch.arange(T, device="cuda", dtype=torch.int32)).repeat(G)
+    return dict(q=q, k=k, v=v, row_pos=rp[None, :].expand(B, G * T).contiguous(), col_pos=pos,
+                seq_idx=seq_idx, k_scale=ks, v_scale=vs)
+
+
+def slots_phase(torch, timer, fa, label, case, failures):
+    """The slot-table kernel at one case of slots_case."""
+    sel = case["seq_idx"].long()
+    quantized = case["k_scale"] is not None
+    kd, vd = case["k"][sel].float(), case["v"][sel].float()
+    if quantized:
+        kd = kd * case["k_scale"][sel][..., None]
+        vd = vd * case["v_scale"][sel][..., None]
+    return attn_measure(
+        torch, timer, label,
+        lambda sm: fa.flash_attention(**case, sm_scale=sm),
+        lambda sm: fa.flash_attention_plain(**case, sm_scale=sm),
+        case["q"], kd.to(torch.bfloat16), vd.to(torch.bfloat16), case["col_pos"][sel],
+        case["row_pos"], case["k"].element_size(), quantized, failures)
+
+
+def expert_stack(torch, tq, GGMLType, E, K, O, q4: bool, seed: int):
+    """Random stacked expert planes on the card, as the loader lays them out:
+    Q4_K-like (values 0..15, groups of 32, scales and mins) or Q6_K-like
+    (values -32..31, groups of 16, scales only)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = 32 if q4 else 16
+    lo, hi = (0, 16) if q4 else (-32, 32)
+    q = torch.randint(lo, hi, (E, K, O), generator=gen, device="cuda", dtype=torch.int8)
+    sc = torch.rand((E, K // g, O), generator=gen, device="cuda") * 0.02 + 0.001
+    mn = -(torch.rand((E, K // g, O), generator=gen, device="cuda") * 0.1) if q4 else None
+    return tq.QuantTensor(q=q, scales=sc, mins=mn, group=g,
+                          ggml_type=int(GGMLType.Q4_K if q4 else GGMLType.Q6_K),
+                          transposed=True)
+
+
+def expert_phase(torch, timer, qe, label, w, R, failures, seed=0, pool=None):
+    """Hold the indexed-expert kernel against its plain version at R rows
+    with random expert ids (distinct for R <= E, as a token's top-k are; with
+    `pool`, drawn from the first `pool` experts, so that rows share experts
+    as the top-k of several tokens do).
+    Library yardstick: torch.bmm on the pre-dequantized gathered experts.
+    Bound: x, ids, each distinct expert's planes once, out."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E, K, O = w.q.shape
+    x = torch.randn((R, K), generator=gen, device="cuda").to(torch.bfloat16)
+    if pool is not None:
+        ids = torch.randint(0, pool, (R,), generator=gen, device="cuda", dtype=torch.int32)
+    elif R <= E:
+        ids = torch.randperm(E, generator=gen, device="cuda")[:R].to(torch.int32)
+    else:
+        ids = torch.randint(0, E, (R,), generator=gen, device="cuda", dtype=torch.int32)
+    got = qe.qmm_expert(x, ids, w)
+    torch.cuda.synchronize()
+    ref = qe.qmm_expert_plain(x, ids, w)
+    err = nmse(got, ref)
+    mae = float((got - ref).abs().max())
+    if not err < NMSE_LIMIT or not torch.isfinite(got).all():
+        failures.append(f"{label} R={R}: NMSE {err}")
+    ms = timer(lambda: qe.qmm_expert(x, ids, w))
+    plain_ms = timer(lambda: qe.qmm_expert_plain(x, ids, w), reps=3)
+    g = w.group
+    wd = w.q[ids.long()].to(torch.bfloat16).reshape(R, K // g, g, O) * w.scales[ids.long()].to(
+        torch.bfloat16)[:, :, None, :]
+    if w.mins is not None:
+        wd = wd + w.mins[ids.long()].to(torch.bfloat16)[:, :, None, :]
+    wd = wd.reshape(R, K, O)
+    x3 = x[:, None, :]
+    lib_ms = timer(lambda: torch.bmm(x3, wd))
+    del wd
+    n_distinct = int(torch.unique(ids).numel())
+    per_expert = K * O + (K // g) * O * 4 * (2 if w.mins is not None else 1)
+    nbytes = R * K * 2 + R * 4 + n_distinct * per_expert + R * O * 4
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, 2.0 * R * K * O / BF16_FLOPS
+    bound = max(bytes_s, ops_s) * 1e3
+    log(f"  {label:30s} R={R:3d} E={E:3d} K={K:5d} O={O:5d} experts read {n_distinct:3d} "
+        f"nmse={err:.2e} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+        f"bound_ms={bound:.4f} ({'bytes' if bytes_s > ops_s else 'operations'})")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": bound_by, "max_abs_err": mae, "nmse": err}
+            "bytes_s": bytes_s, "ops_s": ops_s, "max_abs_err": mae, "nmse": err}
 
 
 def profile_decode(torch, ctx, steps: int):
@@ -272,10 +397,12 @@ def main() -> int:
     try:
         from llama_cpp_tpu_torch.gguf.constants import GGMLType
         from llama_cpp_tpu_torch.models.loader import load_model
-        from llama_cpp_tpu_torch.ops.kernels import build, flash_attn, qmm
+        from llama_cpp_tpu_torch.ops import qtensor
+        from llama_cpp_tpu_torch.ops.kernels import build, flash_attn, qmm, qmm_expert
         from llama_cpp_tpu_torch.ops.qtensor import load_weight, pad_out_features
         from llama_cpp_tpu_torch.runtime.context import Context
-        from llama_cpp_tpu_torch.testing import make_bench_llama_gguf, synth_quant_bytes
+        from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
+                                                 synth_quant_bytes)
     except ImportError as e:
         print(f"chip_smoke: the port package is not next to this script ({e})",
               file=sys.stderr)
@@ -351,13 +478,132 @@ def main() -> int:
     attn_phase(torch, timer, flash_attn, "K5 bf16 pool prefill ubatch 4 of 2048",
                attn_case(torch, B=1, G=4, T=512, depth=1536, kv_dtype=torch.bfloat16),
                failures)
+    attn_phase(torch, timer, flash_attn, "K5 heads of 64, decode B=8 d=512",
+               attn_case(torch, B=8, G=16, T=1, depth=512, D=64), failures)
+    torch.cuda.empty_cache()
+    log("K6 slot-table attention (cache [8 seqs, 8 heads, 5120 slots, D]):")
+    res["flash_attention"] = slots_phase(
+        torch, timer, flash_attn, "K6 decode B=1 d=2048",
+        slots_case(torch, B=1, G=4, T=1, depth=2048), failures)
+    slots_phase(torch, timer, flash_attn, "K6 decode B=8 d=512",
+                slots_case(torch, B=8, G=4, T=1, depth=512), failures)
+    slots_phase(torch, timer, flash_attn, "K6 prefill ubatch 4 of 2048",
+                slots_case(torch, B=1, G=4, T=512, depth=1536), failures)
+    slots_phase(torch, timer, flash_attn, "K6 bf16 cache decode B=1 d=2048",
+                slots_case(torch, B=1, G=4, T=1, depth=2048, kv_dtype=torch.bfloat16), failures)
+    slots_phase(torch, timer, flash_attn, "K6 bf16 cache decode B=8 d=512",
+                slots_case(torch, B=8, G=4, T=1, depth=512, kv_dtype=torch.bfloat16), failures)
+    slots_phase(torch, timer, flash_attn, "K6 bf16 cache prefill ubatch 4 of 2048",
+                slots_case(torch, B=1, G=4, T=512, depth=1536, kv_dtype=torch.bfloat16),
+                failures)
+    slots_phase(torch, timer, flash_attn, "K6 heads of 64, decode B=8 d=512",
+                slots_case(torch, B=8, G=16, T=1, depth=512, D=64), failures)
+    torch.cuda.empty_cache()
+    log("K7 indexed-expert product (Mixtral-8x7B: 8 experts; Qwen3-30B-A3B: 128 experts):")
+    mix = []
+    for wname, K, O, q4 in (("ffn_gate_exps", E, FF, True), ("ffn_up_exps", E, FF, True),
+                            ("ffn_down_exps", FF, E, False)):
+        w = expert_stack(torch, qtensor, GGMLType, 8, K, O, q4, seed=len(mix))
+        mix.append(expert_phase(torch, timer, qmm_expert, f"K7 mixtral {wname}", w, 2, failures))
+        del w
+    torch.cuda.empty_cache()
+    # one JSON entry: a Mixtral layer's three expert products at B=1 (R=2)
+    res["qmm_planes_expert"] = {
+        **{k: sum(r[k] for r in mix) for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "max_abs_err": max(r["max_abs_err"] for r in mix), "nmse": max(r["nmse"] for r in mix),
+        "bound_by": ("bytes" if sum(r["bytes_s"] for r in mix) > sum(r["ops_s"] for r in mix)
+                     else "operations")}
+    for wname, K, O, q4 in (("ffn_gate_exps", 2048, 768, True),
+                            ("ffn_down_exps", 768, 2048, False)):
+        w = expert_stack(torch, qtensor, GGMLType, 128, K, O, q4, seed=7)
+        for R in (8, 64):
+            expert_phase(torch, timer, qmm_expert, f"K7 qwen3-moe {wname}", w, R, failures)
+        expert_phase(torch, timer, qmm_expert, f"K7 qwen3-moe {wname} shared", w, 64, failures,
+                     pool=16)
+        del w
     torch.cuda.empty_cache()
     if failures:
         for f in failures:
             log(f"FAIL {f}")
         return 1
 
-    # -- phase 4: the main path ----------------------------------------------
+    # -- phase 4: the main paths ---------------------------------------------
+    counters = (qmm.launches, flash_attn.launches, qmm_expert.launches)
+    qmm_keys, paged_key, slots_key, expert_key = (
+        tuple(qmm.launches), "flash_attention_paged", "flash_attention", "qmm_planes_expert")
+
+    def reset_counts():
+        for counter in counters:
+            for key in counter:
+                counter[key] = 0
+
+    def read_counts(path, must_run, must_not_run=()):
+        """The launch counts of the path just driven; every kernel of the
+        path must have been launched, and none of another memory's."""
+        torch.cuda.synchronize()
+        counts = {k: v for counter in counters for k, v in counter.items()}
+        log(f"{path} launches: {counts}")
+        for name in must_run:
+            if counts[name] <= 0:
+                failures.append(f"{path}: kernel {name} was not launched")
+        for name in must_not_run:
+            if counts[name] != 0:
+                failures.append(f"{path}: kernel {name} was launched {counts[name]} times")
+        return counts
+
+    def against_plain(path, model, logits, gen_ids, prompt, **ctx_kw):
+        """The plain path (kernels=False) on the same model, prompt and
+        memory, as the reference of the kernel path."""
+        ref_ctx = Context(model, kernels=False, **ctx_kw)
+        ref_logits = ref_ctx.prefill(prompt, seq=0)
+        ref_ids = ref_ctx.generate(prompt, max_new_tokens=len(gen_ids), seq=1)
+        err = float(np.mean((logits - ref_logits) ** 2) / (np.mean(ref_logits ** 2) + 1e-30))
+        agree = sum(int(a == b) for a, b in zip(gen_ids, ref_ids))
+        log(f"{path}: kernel vs plain path: prefill last-token logits NMSE {err:.3e} "
+            f"(limit {NMSE_LIMIT}); greedy ids agree {agree}/{len(ref_ids)} "
+            f"(argmax {int(np.argmax(logits))} vs {int(np.argmax(ref_logits))})")
+        if not err < NMSE_LIMIT:
+            failures.append(f"{path}: logits NMSE {err}")
+        return ref_logits
+
+    def check_logits(path, logits, vocab):
+        if logits.shape != (vocab,) or not np.isfinite(logits).all():
+            failures.append(f"{path}: prefill logits shape {logits.shape}, finite "
+                            f"{bool(np.isfinite(logits).all())}")
+
+    def drive(ctx, prompt, prompts512, vocab, batches, label):
+        """One untimed ubatch (the caching allocator's first allocations and
+        first launches belong to start-up), a timed prefill, 32 greedy tokens
+        at B=1 with their own prefill, then decode_steps_greedy over
+        512-token prefills at each batch size."""
+        rates = {}
+        ctx.prefill(prompt[:512], seq=2)
+        ctx.seq_rm(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = ctx.prefill(prompt, seq=0)
+        rates[f"prefill_{len(prompt)}_tok_per_s"] = len(prompt) / (time.perf_counter() - t0)
+        n0, t_dec0 = ctx.perf.n_decode, ctx.perf.t_decode_ms
+        gen_ids = ctx.generate(prompt, max_new_tokens=32, seq=1)
+        rates[f"decode_b1_d{len(prompt)}_tok_per_s"] = (ctx.perf.n_decode - n0) / (
+            (ctx.perf.t_decode_ms - t_dec0) / 1e3)
+        ctx.reset()
+        for s, p in enumerate(prompts512):
+            ctx.prefill(p, seq=s)
+        firsts = np.asarray([1 + s for s in range(len(prompts512))], np.int32)
+        for B in batches:
+            seqs = np.arange(B)
+            ctx.decode_steps_greedy(firsts[:B], seqs, 2)  # warm step shapes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ctx.decode_steps_greedy(firsts[:B], seqs, 16)
+            rates[f"decode_steps_greedy_b{B}_d512_tok_per_s"] = B * 16 / (
+                time.perf_counter() - t0)
+            if out.shape != (B, 16) or out.min() < 0 or out.max() >= vocab:
+                failures.append(f"{label}: decode_steps_greedy B={B}: bad ids {out.shape}")
+        check_logits(label, logits, vocab)
+        return logits, gen_ids, rates
+
     smoke_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(smoke_dir, exist_ok=True)
     path = os.path.join(smoke_dir, f"llama8b-q4km-{SMOKE_LAYERS}l.gguf")
@@ -369,73 +615,103 @@ def main() -> int:
     t0 = time.perf_counter()
     model = load_model(path)
     torch.cuda.synchronize()
-    t_load = time.perf_counter() - t0
-    log(f"load_model: {t_load:.1f} s")
+    log(f"load_model: {time.perf_counter() - t0:.1f} s")
+    os.remove(path)
     lw0 = model.params["layers"][0]
     log("layer 0 weights: " + ", ".join(
         f"{k}:{'packed' if getattr(w, 'packed', False) else ''}{tuple(w.q.shape) if hasattr(w, 'q') else tuple(w.shape)}"
         for k, w in lw0.items()))
-    ctx = Context(model, n_ctx=4096, n_seqs=32, n_ubatch=512, quantized_kv=True,
-                  kv_total=40960)
+    paged_kw = dict(n_ctx=4096, n_seqs=32, n_ubatch=512, quantized_kv=True, kv_total=40960)
+    ctx = Context(model, **paged_kw)
     log(f"context: page {ctx.page}, pool pages {ctx.alloc.n_pages}, slots/seq {ctx.n_slots}")
     prng = np.random.default_rng(7)
     prompt = [int(t) for t in prng.integers(3, 128256, 2048)]
     prompts512 = [[int(t) for t in prng.integers(3, 128256, 512)] for _ in range(32)]
 
-    for counter in (qmm.launches, flash_attn.launches):
-        for key in counter:
-            counter[key] = 0
-    rates = {}
-    # one untimed ubatch first: the caching allocator's first device
-    # allocations and first launches belong to start-up, not to the rate
-    ctx.prefill(prompt[:512], seq=2)
-    ctx.seq_rm(2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits = ctx.prefill(prompt, seq=0)
-    rates["prefill_2048_tok_per_s"] = 2048 / (time.perf_counter() - t0)
-    n0, t_dec0 = ctx.perf.n_decode, ctx.perf.t_decode_ms
-    gen_ids = ctx.generate(prompt, max_new_tokens=32, seq=1)
-    rates["decode_b1_d2048_tok_per_s"] = (ctx.perf.n_decode - n0) / (
-        (ctx.perf.t_decode_ms - t_dec0) / 1e3)
-    ctx.reset()
-    for s, p in enumerate(prompts512):
-        ctx.prefill(p, seq=s)
-    firsts = np.asarray([1 + s for s in range(32)], np.int32)
-    for B in (8, 32):
-        seqs = np.arange(B)
-        ctx.decode_steps_greedy(firsts[:B], seqs, 2)  # warm step shapes
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = ctx.decode_steps_greedy(firsts[:B], seqs, 16)
-        rates[f"decode_steps_greedy_b{B}_d512_tok_per_s"] = B * 16 / (time.perf_counter() - t0)
-        if out.shape != (B, 16) or out.min() < 0 or out.max() >= V:
-            failures.append(f"decode_steps_greedy B={B}: bad ids {out.shape}")
-    torch.cuda.synchronize()
-    counts = {**qmm.launches, **flash_attn.launches}
-    log(f"main path launches: {counts}")
-    for name, n in counts.items():
-        if n <= 0:
-            failures.append(f"kernel {name} was not launched on the main path")
-    if logits.shape != (V,) or not np.isfinite(logits).all():
-        failures.append(f"prefill logits: shape {logits.shape}, finite "
-                        f"{bool(np.isfinite(logits).all())}")
+    reset_counts()
+    logits, gen_ids, rates = drive(ctx, prompt, prompts512, V, (8, 32), "llama paged")
+    all_counts = {"llama paged": read_counts("llama paged", qmm_keys + (paged_key,),
+                                             (slots_key, expert_key))}
     profile_decode(torch, ctx, steps=8)
-
-    # the plain path on the same model, as the reference of the kernel path
-    ref_ctx = Context(model, n_ctx=4096, n_seqs=2, n_ubatch=512, quantized_kv=True,
-                      kv_total=8192, kernels=False)
-    ref_logits = ref_ctx.prefill(prompt, seq=0)
-    ref_ids = ref_ctx.generate(prompt, max_new_tokens=32, seq=1)
-    err = float(np.mean((logits - ref_logits) ** 2) / (np.mean(ref_logits ** 2) + 1e-30))
-    agree = sum(int(a == b) for a, b in zip(gen_ids, ref_ids))
-    log(f"kernel vs plain path: prefill last-token logits NMSE {err:.3e} "
-        f"(limit {NMSE_LIMIT}); greedy ids agree {agree}/{len(ref_ids)} "
-        f"(argmax {int(np.argmax(logits))} vs {int(np.argmax(ref_logits))})")
-    if not err < NMSE_LIMIT:
-        failures.append(f"main path logits NMSE {err}")
-    log("main path rates (4-layer smoke run, not a benchmark; "
+    del ctx
+    against_plain("llama paged", model, logits, gen_ids, prompt,
+                  **{**paged_kw, "n_seqs": 2, "kv_total": 8192})
+    log("llama paged rates (4-layer smoke run, not a benchmark; "
         f"{card}): " + json.dumps(rates))
+
+    # path B: the same model on the slot-table cache
+    slots_kw = dict(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True, paged=False)
+    ctx = Context(model, **slots_kw)
+    log(f"path B: the same model under Context(paged=False): cache of {ctx.n_seqs} sequences x "
+        f"{ctx.n_slots} slots")
+    reset_counts()
+    s_logits, s_ids, rates = drive(ctx, prompt, prompts512[:8], V, (8,), "llama slots")
+    all_counts["llama slots"] = read_counts("llama slots", qmm_keys + (slots_key,),
+                                            (paged_key, expert_key))
+    del ctx
+    err = float(np.mean((s_logits - logits) ** 2) / (np.mean(logits ** 2) + 1e-30))
+    log(f"llama slots vs llama paged: prefill last-token logits NMSE {err:.3e}; greedy ids "
+        f"agree {sum(int(a == b) for a, b in zip(s_ids, gen_ids))}/{len(gen_ids)}")
+    if not err < NMSE_LIMIT:
+        failures.append(f"llama slots vs paged: logits NMSE {err}")
+    against_plain("llama slots", model, s_logits, s_ids, prompt, **{**slots_kw, "n_seqs": 2})
+    log(f"llama slots rates (4-layer smoke run, not a benchmark; {card}): " + json.dumps(rates))
+    del model, lw0
+    torch.cuda.empty_cache()
+
+    # path A: Mixtral-8x7B shape through the indexed-expert kernel
+    VM = 32000
+    path = os.path.join(smoke_dir, f"mixtral8x7b-q4k-{MOE_LAYERS}l.gguf")
+    t0 = time.perf_counter()
+    make_bench_moe_gguf(path, n_layers=MOE_LAYERS, seed=0)
+    log(f"path A: Mixtral-8x7B shape (n_embd 4096, 32/8 heads of 128, n_ff 14336, 8 experts, "
+        f"top-2, vocab 32000), Q4_K experts gate/up, Q6_K down, random weights (seed 0); "
+        f"depth cut 32 -> {MOE_LAYERS} layers (fixture {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    model = load_model(path)
+    torch.cuda.synchronize()
+    log(f"load_model: {time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    os.remove(path)
+    moe_kw = dict(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True)
+    ctx = Context(model, **moe_kw)
+    prompt = [int(t) for t in prng.integers(3, VM, 2048)]
+    prompts512 = [[int(t) for t in prng.integers(3, VM, 512)] for _ in range(8)]
+    reset_counts()
+    m_logits, m_ids, rates = drive(ctx, prompt, prompts512, VM, (8,), "mixtral")
+    all_counts["mixtral"] = read_counts("mixtral", qmm_keys + (paged_key, expert_key),
+                                        (slots_key,))
+    profile_decode(torch, ctx, steps=8)
+    del ctx
+    against_plain("mixtral", model, m_logits, m_ids, prompt, **{**moe_kw, "n_seqs": 2})
+    log(f"mixtral rates ({MOE_LAYERS}-layer smoke run, not a benchmark; {card}): "
+        + json.dumps(rates))
+    del model
+    torch.cuda.empty_cache()
+
+    # heads of 64: a TinyLlama-1.1B-shaped model (depth cut 22 -> 2) on both memories
+    path = os.path.join(smoke_dir, "tinyllama-q4km-2l.gguf")
+    make_bench_llama_gguf(path, n_layers=2, n_embd=2048, n_heads=32, n_kv_heads=4, n_ff=5632,
+                          vocab_size=VM, n_ctx=2048, seed=0)
+    model = load_model(path)
+    os.remove(path)
+    prompt = [int(t) for t in prng.integers(3, VM, 700)]
+    for label, kw, key in (("heads of 64, paged", dict(paged=True), paged_key),
+                           ("heads of 64, slots", dict(paged=False), slots_key)):
+        kw = dict(n_ctx=2048, n_seqs=2, n_ubatch=512, quantized_kv=True, **kw)
+        ctx = Context(model, **kw)
+        reset_counts()
+        d_logits = ctx.prefill(prompt, seq=0)
+        d_ids = ctx.generate(prompt, max_new_tokens=8, seq=1)
+        all_counts[label] = read_counts(label, (key,))
+        check_logits(label, d_logits, VM)
+        del ctx
+        against_plain(label, model, d_logits, d_ids, prompt, **kw)
+    log("heads of 64: the prefill ubatches go through the attention kernels; a decode step "
+        "has 8 rows a KV head, which the dispatch rule (heads under 128, fewer than 16 rows) "
+        "sends to the plain einsum, as the JAX package does")
+    del model
+    torch.cuda.empty_cache()
     if failures:
         for f in failures:
             log(f"FAIL {f}")
@@ -447,14 +723,22 @@ def main() -> int:
         "qmm_planes": "llama_cpp_tpu/ops/pallas/qmm.py:170",
         "qmm_planes_prefill": "llama_cpp_tpu/ops/pallas/qmm.py:675",
         "flash_attention_paged": "llama_cpp_tpu/ops/pallas/flash_attn.py:459",
+        "flash_attention": "llama_cpp_tpu/ops/pallas/flash_attn.py:172",
+        "qmm_planes_expert": "llama_cpp_tpu/ops/pallas/qmm.py:828",
     }
+    source_of = {"flash_attention_paged": "flash_attn_paged.cu", "flash_attention": "flash_attn.cu",
+                 "qmm_planes_expert": "qmm_expert.cu"}
+    # launches: from the path that is the kernel's own (the llama path on the
+    # pool, the slot-table path, the Mixtral path)
+    path_of = {"flash_attention": "llama slots", "qmm_planes_expert": "mixtral"}
     kernels = []
     for name, r in res.items():
-        src = ("llama_cpp_tpu_torch/csrc/flash_attn_paged.cu" if name.startswith("flash")
-               else "llama_cpp_tpu_torch/csrc/qmm.cu")
-        kernels.append({"name": name, "route": "cuda", "source": src,
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "llama_cpp_tpu_torch/csrc/" + source_of.get(name, "qmm.cu"),
                         "replaces": tpu_of[name.split("/")[0]],
-                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                        "launches": all_counts[path_of.get(name, "llama paged")][name],
+                        "launches_by_path": {p: c[name] for p, c in all_counts.items()},
+                        "max_abs_err": r["max_abs_err"],
                         "nmse": r["nmse"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})

@@ -118,6 +118,10 @@ class Keys:
         EMBEDDING_LENGTH = "{arch}.embedding_length"
         BLOCK_COUNT = "{arch}.block_count"
         FEED_FORWARD_LENGTH = "{arch}.feed_forward_length"
+        EXPERT_COUNT = "{arch}.expert_count"
+        EXPERT_USED_COUNT = "{arch}.expert_used_count"
+        EXPERT_FFN_LENGTH = "{arch}.expert_feed_forward_length"
+        EXPERT_SHARED_COUNT = "{arch}.expert_shared_count"
         ROPE_DIMENSION_COUNT = "{arch}.rope.dimension_count"
         ROPE_FREQ_BASE = "{arch}.rope.freq_base"
         ROPE_SCALING_TYPE = "{arch}.rope.scaling.type"

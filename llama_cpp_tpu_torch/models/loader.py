@@ -40,6 +40,20 @@ LAYER_TENSORS = {
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    # mixture of experts: router, stacked experts, shared experts
+    "ffn_gate_inp.weight": "ffn_gate_inp",
+    "ffn_gate_inp.bias": "ffn_gate_inp_bias",
+    "exp_probs_b.bias": "exp_probs_b",
+    "ffn_gate_exps.weight": "ffn_gate_exps",
+    "ffn_up_exps.weight": "ffn_up_exps",
+    "ffn_down_exps.weight": "ffn_down_exps",
+    "ffn_gate_exps.bias": "ffn_gate_exps_bias",
+    "ffn_up_exps.bias": "ffn_up_exps_bias",
+    "ffn_down_exps.bias": "ffn_down_exps_bias",
+    "ffn_gate_shexp.weight": "ffn_gate_shexp",
+    "ffn_up_shexp.weight": "ffn_up_shexp",
+    "ffn_down_shexp.weight": "ffn_down_shexp",
+    "ffn_gate_inp_shexp.weight": "ffn_gate_inp_shexp",
 }
 
 GLOBAL_TENSORS = {
@@ -50,7 +64,11 @@ GLOBAL_TENSORS = {
 }
 
 # 1-D tensors stay dense fp32; everything else follows its storage type
-_DENSE_KEYS = {"attn_norm", "ffn_norm", "output_norm", "rope_factors", "attn_sinks"}
+# (the router ffn_gate_inp is not a dense key: an F32 router lands as a dense
+# compute-dtype [out, in] weight through the storage-type route)
+_DENSE_KEYS = {"attn_norm", "ffn_norm", "output_norm", "rope_factors", "attn_sinks",
+               "ffn_gate_inp_bias", "exp_probs_b", "ffn_gate_exps_bias", "ffn_up_exps_bias",
+               "ffn_down_exps_bias"}
 
 
 def resolve_device(device) -> torch.device:
@@ -101,9 +119,10 @@ def load_model(path: str, device="cuda") -> Model:
             dense_dtype=torch.float32 if dense else cfg.compute_dtype,
             transpose=transpose, device=dev)
 
+    stand_ins = {"ffn_down": ("ffn_down_exps",)}  # an MoE layer's experts
     missing = [f"layer {i} missing {k}" for i, lw in enumerate(layers)
                for k in ("attn_norm", "attn_output", "ffn_norm", "ffn_down")
-               if k not in lw]
+               if k not in lw and not any(a in lw for a in stand_ins.get(k, ()))]
     if missing:
         raise ValueError(f"model load incomplete: {missing[:4]}")
     for lw in layers:
@@ -143,6 +162,9 @@ def _fold_scalar_scales(lw: dict) -> None:
 
 def _concat_weights(ws: list) -> Weight | None:
     """Concatenate same-type projection weights along the output axis."""
+    if any(isinstance(w, QuantTensor) and w.q.dim() == 3 for w in ws):
+        raise ValueError("stacked expert planes [E, K, O] are not fused along the output "
+                         "axis: the expert kernel takes one stack per projection")
     if all(isinstance(w, QuantTensor) for w in ws):
         if len({(w.group, w.ggml_type, w.transposed, w.packed, w.hier, w.sgroup)
                 for w in ws}) != 1:

@@ -3,7 +3,8 @@
 Each source in the package's csrc/ is compiled by nvcc into a shared library
 with a plain C interface and loaded with ctypes (no PyTorch headers, so a
 build takes seconds). Builds go to build/kernels/ at the checkout root,
-named by a hash of the source, and start at first use; the sources are
+named by a hash of the source and the shared headers (csrc/*.cuh), and start
+at first use; the sources are
 compiled in parallel, one nvcc process each.
 """
 
@@ -18,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("qmm.cu", "flash_attn_paged.cu")
+SOURCES = ("qmm.cu", "qmm_expert.cu", "flash_attn_paged.cu", "flash_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,7 +39,10 @@ def _nvcc() -> str:
 
 
 def _target(src: str) -> Path:
-    digest = hashlib.sha256((CSRC / src).read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{Path(src).stem}-{digest}.so"
 
 

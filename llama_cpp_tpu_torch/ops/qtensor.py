@@ -36,10 +36,14 @@ XLA_PREFILL_MIN_N = 1024
 
 @dataclass
 class QuantTensor:
-    """Block-scaled planes for a 2-D weight.
+    """Block-scaled planes for a 2-D weight, or for a 3-D stack of expert
+    weights.
 
     Non-transposed: q [out, in], scales [out, in//g] (embedding tables).
     Transposed (matmul weights): q [in, out], scales [in//g, out].
+    Stacked experts (3-D, transposed): q [E, in, out] int8 with flat f32
+      scales (and mins) [E, in//g, out]; never nibble-packed and never
+      hierarchical (both layouts are 2-D only).
     packed: q holds two 4-bit rows per byte, int8-viewed uint8 [in/2, out];
       row k in the low nibble, row k + in/2 in the high nibble (half-split),
       any value offset folded into the mins.
@@ -102,25 +106,26 @@ class QuantTensor:
 
     def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
         """Dequantize to storage orientation: [out, in], or [in, out] when
-        transposed. The arithmetic is f32 (q * scale + min), then one cast."""
+        transposed (a 3-D stack keeps its leading expert axis). The
+        arithmetic is f32 (q * scale + min), then one cast."""
         g = self.group
         scales = self.eff_scales()
         mins = self.eff_mins()
         if self.transposed:
             qsrc = self.unpack_q() if self.packed else self.q
-            k, out = qsrc.shape
-            w = qsrc.float().reshape(k // g, g, out) * scales[:, None, :]
+            *lead, k, out = qsrc.shape
+            w = qsrc.float().reshape(*lead, k // g, g, out) * scales[..., :, None, :]
             if mins is not None:
-                w = w + mins[:, None, :]
-            w = w.reshape(k, out)
+                w = w + mins[..., :, None, :]
+            w = w.reshape(*lead, k, out)
             if self.out_dim and self.out_dim != out:
-                w = w[:, : self.out_dim]
+                w = w[..., : self.out_dim]
             return w.to(dtype)
-        out, k = self.q.shape
-        w = self.q.float().reshape(out, k // g, g) * scales[..., None]
+        *lead, out, k = self.q.shape
+        w = self.q.float().reshape(*lead, out, k // g, g) * scales[..., None]
         if mins is not None:
             w = w + mins[..., None]
-        return w.reshape(out, k).to(dtype)
+        return w.reshape(*lead, out, k).to(dtype)
 
     def take_rows(self, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
         """Gather + dequantize rows (embedding lookup; row-major flat scales)."""
@@ -221,7 +226,9 @@ def pad_out_features(qt: QuantTensor, multiple: int = 4096) -> QuantTensor:
     such as 128256 wide). Pad columns dequantize to 0 and matmul slices them
     away via out_dim."""
     if not (qt.transposed and qt.q.ndim == 2):
-        raise ValueError("pad_out_features needs a 2-D transposed plane")
+        raise ValueError(f"pad_out_features needs a 2-D transposed plane, got "
+                         f"{'transposed' if qt.transposed else 'row-major'} planes of shape "
+                         f"{tuple(qt.q.shape)} (stacked expert planes are not padded)")
     o = qt.q.shape[1]
     o_pad = (o + multiple - 1) // multiple * multiple
     if o_pad == o:

@@ -1,7 +1,9 @@
-"""Inference context: the llama_context analog, on the paged KV pool.
+"""Inference context: the llama_context analog, on the paged KV pool or the
+slot-table cache.
 
-Owns the KV pool and its host-side page allocator, the batch bucketing
-policy (padding rows carry negative positions and write to the pool's trash
+Owns the KV memory (the pool with its host-side page allocator, or with
+paged=False a KVCache of n_slots per sequence), the batch bucketing policy
+(padding rows carry negative positions and write to the memory's trash
 row), and the greedy generation loops. PyTorch runs eagerly, so the buckets
 only keep the step shapes the JAX package uses.
 """
@@ -17,6 +19,7 @@ import torch
 
 from ..models.loader import Model, resolve_device
 from ..models.transformer import AttnInputs, forward
+from .kv_cache import KVCache
 from .paged_kv import PageAllocator, PagedKVCache
 
 
@@ -56,10 +59,12 @@ class Context:
         kv_total: int | None = None,
         device="cuda",
         kernels: bool = True,
+        paged: bool = True,
     ):
         """kernels=False runs every layer through the plain PyTorch versions
         (dequant -> matmul, gather + einsum attention): the reference a
-        kernel run is held against."""
+        kernel run is held against. paged=False keeps the KV in a slot table
+        of n_slots per sequence instead of the page pool (no allocator)."""
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, context asked for {self.device}")
@@ -75,14 +80,18 @@ class Context:
         headroom = min(max(n_ubatch, 8), 2048)
         want = n_ctx + 1 + headroom
         self.n_slots = 256 if want <= 256 else -(-want // 512) * 512
-        # 512-row pages keep the attention kernel's page walk short; small
-        # contexts take 256 for finer pool granularity
-        self.page = 512 if self.n_slots >= 2048 else min(256, self.n_slots)
-        max_pages = self.n_slots // self.page
-        pool_tokens = kv_total or n_seqs * self.n_slots
-        n_pages = -(-pool_tokens // self.page) + 1  # + trash page
-        self.alloc = PageAllocator(n_seqs, n_pages, max_pages, self.page)
+        self.paged = paged
+        self.alloc = None
+        if paged:
+            # 512-row pages keep the attention kernel's page walk short;
+            # small contexts take 256 for finer pool granularity
+            self.page = 512 if self.n_slots >= 2048 else min(256, self.n_slots)
+            max_pages = self.n_slots // self.page
+            pool_tokens = kv_total or n_seqs * self.n_slots
+            n_pages = -(-pool_tokens // self.page) + 1  # + trash page
+            self.alloc = PageAllocator(n_seqs, n_pages, max_pages, self.page)
         self.kv = self._make_memory()
+        self.trash_slot = self.n_slots - 1
         self.seq_len = np.zeros(n_seqs, dtype=np.int64)  # host-side lengths
         self.perf = PerfCounters()
         self.prefill_buckets = [b for b in (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -90,7 +99,12 @@ class Context:
         if self.prefill_buckets[-1] < n_ubatch:
             self.prefill_buckets.append(n_ubatch)
 
-    def _make_memory(self) -> PagedKVCache:
+    def _make_memory(self) -> PagedKVCache | KVCache:
+        if not self.paged:
+            return KVCache.create(
+                self.cfg.n_layers, self.n_seqs, self.n_slots, self.cfg.n_kv_heads,
+                self.cfg.head_dim_k, self.cfg.head_dim_v, dtype=self.cfg.compute_dtype,
+                quantized=self._kv_quant, device=self.device)
         return PagedKVCache.create(
             self.cfg.n_layers, self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
             self.cfg.n_kv_heads, self.cfg.head_dim_k, self.cfg.head_dim_v,
@@ -101,7 +115,10 @@ class Context:
     def _ensure_pages(self, seq_idx, positions) -> None:
         """Host-side page allocation before a step (find_slot analog): every
         position that will be written must resolve through the table.
-        Raises KVCacheFull when the pool is exhausted."""
+        Raises KVCacheFull when the pool is exhausted. A slot table needs
+        none."""
+        if self.alloc is None:
+            return
         pos = np.atleast_2d(np.asarray(positions))
         seqs = np.asarray(seq_idx).reshape(-1)
         for b in range(len(seqs)):
@@ -111,7 +128,7 @@ class Context:
         self._sync_table()
 
     def _sync_table(self) -> None:
-        if self.alloc.dirty:
+        if self.alloc is not None and self.alloc.dirty:
             self.kv.table.copy_(torch.from_numpy(self.alloc.table))
             self.alloc.dirty = False
 
@@ -211,9 +228,10 @@ class Context:
         t0 = time.perf_counter()
         seqs = np.asarray(seqs)
         B = len(seqs)
-        for b in range(B):
-            self.alloc.ensure(int(seqs[b]), int(self.seq_len[seqs[b]]) + n_steps)
-        self._sync_table()
+        if self.alloc is not None:
+            for b in range(B):
+                self.alloc.ensure(int(seqs[b]), int(self.seq_len[seqs[b]]) + n_steps)
+            self._sync_table()
         # pad rows: the position stays negative for every step (trash writes)
         t, p, s = self._greedy_batch(tokens, seqs, -(1 << 20))
         rows = torch.arange(len(t), device=self.device)
@@ -249,24 +267,28 @@ class Context:
             self.seq_len[seq] = 0
         else:
             self.seq_len[seq] = min(self.seq_len[seq], p0)
-        if p1 >= int(1e9):
+        if self.alloc is not None and p1 >= int(1e9):
             # suffix removal: release whole pages past the cut point
             self.alloc.trim(seq, p0)
             self._sync_table()
 
     def seq_cp(self, dst: int, src: int) -> None:
-        # page-granular copy: dst gets fresh pages mirroring src's
-        self.alloc.trim(dst, 0)
-        self.alloc.ensure(dst, int(self.alloc.count[src]) * self.page)
-        self._sync_table()
-        src_p = self._tensor(self.alloc.table[src])
-        dst_p = self._tensor(self.alloc.table[dst])
-        self.kv.copy_pages(src_p, dst_p)
+        if self.alloc is None:
+            self.kv.seq_cp(dst, src)
+        else:
+            # page-granular copy: dst gets fresh pages mirroring src's
+            self.alloc.trim(dst, 0)
+            self.alloc.ensure(dst, int(self.alloc.count[src]) * self.page)
+            self._sync_table()
+            src_p = self._tensor(self.alloc.table[src])
+            dst_p = self._tensor(self.alloc.table[dst])
+            self.kv.copy_pages(src_p, dst_p)
         self.seq_len[dst] = self.seq_len[src]
 
     def reset(self) -> None:
-        self.alloc = PageAllocator(self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
-                                   self.page)
+        if self.alloc is not None:
+            self.alloc = PageAllocator(self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
+                                       self.page)
         self.kv = self._make_memory()
         self.seq_len[:] = 0
 

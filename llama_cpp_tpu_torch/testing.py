@@ -86,6 +86,38 @@ def synth_quant_bytes(rng, n_elements: int, ftype: GGMLType) -> bytes:
     return buf.tobytes()
 
 
+def _bench_llama_writer(name: str, n_layers: int, n_embd: int, n_heads: int, n_kv_heads: int,
+                        n_ff: int, vocab_size: int, n_ctx: int, rope_base: float) -> GGUFWriter:
+    """Metadata and vocab of a synthetic llama-arch GGUF."""
+    head_dim = n_embd // n_heads
+    w = GGUFWriter()
+    w.add(Keys.General.ARCHITECTURE, "llama")
+    w.add(Keys.General.NAME, name)
+    w.add("llama.block_count", np.uint32(n_layers))
+    w.add("llama.context_length", np.uint32(n_ctx))
+    w.add("llama.embedding_length", np.uint32(n_embd))
+    w.add("llama.feed_forward_length", np.uint32(n_ff))
+    w.add("llama.attention.head_count", np.uint32(n_heads))
+    w.add("llama.attention.head_count_kv", np.uint32(n_kv_heads))
+    w.add("llama.attention.layer_norm_rms_epsilon", 1e-5)
+    w.add("llama.rope.freq_base", rope_base)
+    w.add("llama.rope.dimension_count", np.uint32(head_dim))
+    w.add("llama.vocab_size", np.uint32(vocab_size))
+    return w
+
+
+def _add_bench_vocab(w: GGUFWriter, vocab_size: int) -> None:
+    vocab = tiny_spm_vocab(min(vocab_size, 512))
+    vocab[Keys.Tokenizer.TOKENS] = (
+        vocab[Keys.Tokenizer.TOKENS]
+        + [f"▁tk{i}" for i in range(vocab_size - len(vocab[Keys.Tokenizer.TOKENS]))])
+    vocab[Keys.Tokenizer.SCORES] = np.full(vocab_size, -100.0, np.float32)
+    vocab[Keys.Tokenizer.TOKEN_TYPE] = np.concatenate([
+        np.asarray(vocab[Keys.Tokenizer.TOKEN_TYPE], np.int32),
+        np.ones(vocab_size - len(vocab[Keys.Tokenizer.TOKEN_TYPE]), np.int32)])
+    w.add_all(vocab)
+
+
 def make_bench_llama_gguf(
     path: str,
     n_layers: int = 32,
@@ -102,28 +134,9 @@ def make_bench_llama_gguf(
     (reference llama_tensor_get_type, src/llama-quant.cpp:424)."""
     rng = np.random.default_rng(seed)
     head_dim = n_embd // n_heads
-    w = GGUFWriter()
-    w.add(Keys.General.ARCHITECTURE, "llama")
-    w.add(Keys.General.NAME, "bench-llama-synthetic")
-    w.add("llama.block_count", np.uint32(n_layers))
-    w.add("llama.context_length", np.uint32(n_ctx))
-    w.add("llama.embedding_length", np.uint32(n_embd))
-    w.add("llama.feed_forward_length", np.uint32(n_ff))
-    w.add("llama.attention.head_count", np.uint32(n_heads))
-    w.add("llama.attention.head_count_kv", np.uint32(n_kv_heads))
-    w.add("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    w.add("llama.rope.freq_base", 500000.0)
-    w.add("llama.rope.dimension_count", np.uint32(head_dim))
-    w.add("llama.vocab_size", np.uint32(vocab_size))
-    vocab = tiny_spm_vocab(min(vocab_size, 512))
-    vocab[Keys.Tokenizer.TOKENS] = (
-        vocab[Keys.Tokenizer.TOKENS]
-        + [f"▁tk{i}" for i in range(vocab_size - len(vocab[Keys.Tokenizer.TOKENS]))])
-    vocab[Keys.Tokenizer.SCORES] = np.full(vocab_size, -100.0, np.float32)
-    vocab[Keys.Tokenizer.TOKEN_TYPE] = np.concatenate([
-        np.asarray(vocab[Keys.Tokenizer.TOKEN_TYPE], np.int32),
-        np.ones(vocab_size - len(vocab[Keys.Tokenizer.TOKEN_TYPE]), np.int32)])
-    w.add_all(vocab)
+    w = _bench_llama_writer("bench-llama-synthetic", n_layers, n_embd, n_heads, n_kv_heads,
+                            n_ff, vocab_size, n_ctx, 500000.0)
+    _add_bench_vocab(w, vocab_size)
 
     t_main, t_heavy = GGMLType.Q4_K, GGMLType.Q6_K
 
@@ -149,5 +162,61 @@ def make_bench_llama_gguf(
         emit_q(b + "ffn_gate.weight", n_ff, n_embd, t_main)
         emit_q(b + "ffn_up.weight", n_ff, n_embd, t_main)
         emit_q(b + "ffn_down.weight", n_embd, n_ff, t_heavy)
+    w.write(path)
+    return path
+
+
+def make_bench_moe_gguf(
+    path: str,
+    n_layers: int = 32,
+    n_embd: int = 4096,
+    n_heads: int = 32,
+    n_kv_heads: int = 8,
+    n_ff: int = 14336,
+    n_expert: int = 8,
+    n_expert_used: int = 2,
+    vocab_size: int = 32000,
+    n_ctx: int = 32768,
+    seed: int = 0,
+) -> str:
+    """Mixtral-8x7B-shaped (by default) llama-arch MoE GGUF with synthetic
+    packed weights: per layer an F32 router ffn_gate_inp [n_expert, n_embd]
+    and stacked experts ffn_gate_exps / ffn_up_exps (Q4_K) and ffn_down_exps
+    (Q6_K); attention and head in make_bench_llama_gguf's mix (the real
+    Q4_K_M recipe stores attn_k / attn_v of 8-expert models as Q8_0)."""
+    rng = np.random.default_rng(seed)
+    head_dim = n_embd // n_heads
+    w = _bench_llama_writer("bench-moe-synthetic", n_layers, n_embd, n_heads, n_kv_heads,
+                            n_ff, vocab_size, n_ctx, 1000000.0)
+    w.add("llama.expert_count", np.uint32(n_expert))
+    w.add("llama.expert_used_count", np.uint32(n_expert_used))
+    _add_bench_vocab(w, vocab_size)
+
+    t_main, t_heavy = GGMLType.Q4_K, GGMLType.Q6_K
+
+    def emit_q(name, rows, cols, t, stack=()):
+        n = rows * cols * int(np.prod(stack, dtype=np.int64))
+        w.add_tensor(name, synth_quant_bytes(rng, n, t), (cols, rows, *stack), t)
+
+    def emit_f(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+
+    emit_q("token_embd.weight", vocab_size, n_embd, t_main)
+    emit_f("output_norm.weight", np.ones(n_embd))
+    emit_q("output.weight", vocab_size, n_embd, t_heavy)
+    kv_dim = n_kv_heads * head_dim
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        emit_f(b + "attn_norm.weight", np.ones(n_embd))
+        emit_q(b + "attn_q.weight", n_embd, n_embd, t_main)
+        emit_q(b + "attn_k.weight", kv_dim, n_embd, t_main)
+        emit_q(b + "attn_v.weight", kv_dim, n_embd, t_heavy)
+        emit_q(b + "attn_output.weight", n_embd, n_embd, t_main)
+        emit_f(b + "ffn_norm.weight", np.ones(n_embd))
+        emit_f(b + "ffn_gate_inp.weight", rng.standard_normal((n_expert, n_embd)) * 0.02)
+        emit_q(b + "ffn_gate_exps.weight", n_ff, n_embd, t_main, (n_expert,))
+        emit_q(b + "ffn_up_exps.weight", n_ff, n_embd, t_main, (n_expert,))
+        emit_q(b + "ffn_down_exps.weight", n_embd, n_ff, t_heavy, (n_expert,))
     w.write(path)
     return path

@@ -15,8 +15,10 @@ from llama_cpp_tpu_torch.models.loader import load_model
 from llama_cpp_tpu_torch.ops import qtensor as tq
 from llama_cpp_tpu_torch.ops.kernels import flash_attn as tfa
 from llama_cpp_tpu_torch.ops.kernels import qmm as tqmm
+from llama_cpp_tpu_torch.ops.kernels import qmm_expert as tqe
 from llama_cpp_tpu_torch.runtime.context import Context
-from llama_cpp_tpu_torch.testing import make_bench_llama_gguf, synth_quant_bytes
+from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
+                                         synth_quant_bytes)
 
 pytestmark = pytest.mark.gpu
 
@@ -168,7 +170,7 @@ def test_paged_attention_kernel_matches_plain(cuda_device, window, softcap, use_
 
 
 def test_paged_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
-    args, _, page = paged_case(cuda_device, D=64)
+    args, _, page = paged_case(cuda_device, D=32)  # heads of 64 and 128 run
     with pytest.raises(ValueError):
         tfa.flash_attention_paged(*args, sm_scale=0.125, page=page)
     args, _, page = paged_case(cuda_device)
@@ -190,11 +192,156 @@ def test_main_path_kernel_route_matches_plain_route(cuda_device, tmp_path, quant
     ctx = Context(model, n_ctx=512, n_seqs=4, n_ubatch=128, quantized_kv=quantized_kv)
     got = ctx.prefill(prompt)
     ids = ctx.decode_steps_greedy(np.array([int(np.argmax(got))]), np.array([0]), 4)
-    assert all(n > 0 for n in tfa.launches.values())
+    assert tfa.launches["flash_attention_paged"] > 0 and tfa.launches["flash_attention"] == 0
     assert tqmm.launches["qmm4_planes_prefill/mma"] > 0
     assert tqmm.launches["qmm_planes/gemv"] > 0
     ref_ctx = Context(model, n_ctx=512, n_seqs=4, n_ubatch=128, quantized_kv=quantized_kv,
                       kernels=False)
     ref = ref_ctx.prefill(prompt)
     assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+    assert ids.shape == (1, 4)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8_pool", "bf16_pool"])
+@pytest.mark.parametrize("T", [1, 5], ids=["decode", "prefill"])
+def test_paged_attention_kernel_heads_of_64(cuda_device, T, bf16):
+    args, sinks, page = paged_case(cuda_device, T=T, D=64, bf16=bf16)
+    kw = dict(sm_scale=0.125, window=96, softcap=2.0, page=page)
+    got = tfa.flash_attention_paged(*args, sinks, **kw)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_paged_plain(*args, sinks, **kw)
+    valid = args[3] >= 0
+    assert nmse(got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]) < 1e-5
+
+
+def slot_case(device, D=128, T=5, G=4, Hkv=2, n_seqs=5, S=512, bf16=False, ring=False, seed=0):
+    """A slot-table cache with ragged fills; batch rows pick sequences 3, 0
+    and 3 again through seq_idx."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fills = [300, 129, 40, 450, 7]
+    if bf16:
+        k = torch.randn((n_seqs, Hkv, S, D), generator=gen, device=device).to(torch.bfloat16)
+        v = torch.randn((n_seqs, Hkv, S, D), generator=gen, device=device).to(torch.bfloat16)
+        ks = vs = None
+    else:
+        k = torch.randint(-127, 128, (n_seqs, Hkv, S, D), generator=gen, device=device,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (n_seqs, Hkv, S, D), generator=gen, device=device,
+                          dtype=torch.int8)
+        ks = torch.rand((n_seqs, Hkv, S), generator=gen, device=device) * 0.02 + 0.005
+        vs = torch.rand((n_seqs, Hkv, S), generator=gen, device=device) * 0.02 + 0.005
+    pos = torch.full((n_seqs, S), -1, dtype=torch.int32)
+    for s, f in enumerate(fills):
+        pos[s, :f] = torch.arange(f, dtype=torch.int32)
+        if ring:
+            pos[s] = torch.roll(pos[s], 200 + 11 * s)
+    seq_idx = torch.tensor([3, 0, 3], dtype=torch.int32, device=device)
+    q = (torch.randn((3, Hkv, G * T, D), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+    row_pos = torch.stack([(fills[s] - T + torch.arange(T, dtype=torch.int32)).repeat(G)
+                           for s in (3, 0, 3)]).to(device)
+    row_pos[-1, -1] = -1  # a padding row
+    sinks = torch.randn((Hkv, G * T), generator=gen, device=device)
+    return (q, k, v, row_pos, pos.to(device), seq_idx, ks, vs), sinks
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+@pytest.mark.parametrize("D", [64, 128], ids=["d64", "d128"])
+@pytest.mark.parametrize("window,softcap,use_sinks,T", [
+    (0, 0.0, False, 1), (0, 0.0, False, 5), (96, 2.0, True, 5), (64, 0.0, True, 1)],
+    ids=["decode", "prefill", "all", "decode_window_sinks"])
+def test_slot_attention_kernel_matches_plain(cuda_device, window, softcap, use_sinks, T, D,
+                                             bf16, ring):
+    args, sinks = slot_case(cuda_device, D=D, T=T, bf16=bf16, ring=ring)
+    kw = dict(sm_scale=1.0 / np.sqrt(D), window=window, softcap=softcap, ring=ring)
+    sinks = sinks if use_sinks else None
+    before = tfa.launches["flash_attention"]
+    got = tfa.flash_attention(*args, sinks, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches["flash_attention"] == before + 1
+    ref = tfa.flash_attention_plain(*args, sinks, **kw)
+    valid = args[3] >= 0
+    g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
+    assert torch.isfinite(g).all()
+    assert nmse(g, r) < 1e-5
+
+
+def test_slot_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
+    args, _ = slot_case(cuda_device, D=32)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(*args, sm_scale=0.125)
+    args, _ = slot_case(cuda_device)
+    with pytest.raises(ValueError):  # an int8 cache without its scales
+        tfa.flash_attention(*args[:6], sm_scale=0.125)
+    with pytest.raises(ValueError):  # seq_idx must be int32
+        tfa.flash_attention(*args[:5], args[5].long(), *args[6:], sm_scale=0.125)
+
+
+@pytest.mark.parametrize("mins", [False, True], ids=["scales", "scales_mins"])
+@pytest.mark.parametrize("E,K,O,R,g", [
+    (8, 1024, 512, 2, 32), (8, 512, 1024, 1, 16), (4, 768, 256, 9, 32), (128, 256, 384, 64, 16),
+    (2, 2048, 128, 17, 32)],
+    ids=["top2", "one_row", "shared_experts", "many_experts", "five_rows_an_expert"])
+def test_expert_kernel_matches_plain(cuda_device, E, K, O, R, g, mins):
+    """The indexed-expert kernel against its plain version: NMSE < 1e-4 (the
+    kernel skips the plain version's bf16 rounding of W)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(E + R)
+    q = torch.randint(-127, 128, (E, K, O), generator=gen, device=cuda_device, dtype=torch.int8)
+    sc = torch.randn((E, K // g, O), generator=gen, device=cuda_device) * 0.02
+    mn = torch.randn((E, K // g, O), generator=gen, device=cuda_device) * 0.01 if mins else None
+    w = tq.QuantTensor(q=q, scales=sc, mins=mn, group=g, ggml_type=int(GGMLType.Q4_K),
+                       transposed=True)
+    x = torch.randn((R, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    ids = torch.randint(0, E, (R,), generator=gen, device=cuda_device, dtype=torch.int32)
+    before = tqe.launches["qmm_planes_expert"]
+    got = tqe.qmm_expert(x, ids, w)
+    torch.cuda.synchronize()
+    assert tqe.launches["qmm_planes_expert"] == before + 1
+    assert got.shape == (R, O) and torch.isfinite(got).all()
+    assert nmse(got, tqe.qmm_expert_plain(x, ids, w)) < 1e-4
+
+
+def test_expert_kernel_raises_on_what_it_does_not_take(cuda_device):
+    q = torch.zeros((2, 256, 128), dtype=torch.int8, device=cuda_device)
+    sc = torch.ones((2, 8, 128), device=cuda_device)
+    w = tq.QuantTensor(q=q, scales=sc, mins=None, group=32, ggml_type=int(GGMLType.Q4_K),
+                       transposed=True)
+    x = torch.zeros((2, 256), dtype=torch.bfloat16, device=cuda_device)
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        tqe.qmm_expert(x.float(), ids, w)
+    with pytest.raises(ValueError):
+        tqe.qmm_expert(x, ids.long(), w)
+    with pytest.raises(ValueError):  # a 2-D plane is the plain qmm's
+        tqe.qmm_expert(x, ids, tq.QuantTensor(q=q[0], scales=sc[0], mins=None, group=32,
+                                              ggml_type=int(GGMLType.Q4_K), transposed=True))
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slots"])
+@pytest.mark.parametrize("heads", [4, 8], ids=["d128", "d64"])
+def test_moe_path_kernel_route_matches_plain_route(cuda_device, tmp_path, paged, heads):
+    """A small Mixtral-shaped model on the card: the ragged prefill, B = 1
+    decode through the indexed-expert kernel and batched decode, on either
+    memory, held against Context(kernels=False)."""
+    path = make_bench_moe_gguf(str(tmp_path / "moe.gguf"), n_layers=2, n_embd=512,
+                               n_heads=heads, n_kv_heads=2, n_ff=1024, n_expert=8,
+                               n_expert_used=2, vocab_size=512, seed=0)
+    model = load_model(path)
+    prompt = [int(t) for t in np.random.default_rng(1).integers(3, 512, 200)]
+    for counter in (tqmm.launches, tfa.launches, tqe.launches):
+        for key in counter:
+            counter[key] = 0
+    kw = dict(n_ctx=512, n_seqs=4, n_ubatch=128, quantized_kv=True, paged=paged)
+    ctx = Context(model, **kw)
+    got = ctx.prefill(prompt)
+    step = ctx.decode_one(int(np.argmax(got)))
+    ids = ctx.decode_steps_greedy(np.array([int(np.argmax(step))]), np.array([0]), 4)
+    assert tqe.launches["qmm_planes_expert"] == 3 * 2 * 5  # three a layer and B = 1 step
+    assert tfa.launches["flash_attention_paged" if paged else "flash_attention"] > 0
+    assert tfa.launches["flash_attention" if paged else "flash_attention_paged"] == 0
+    ref_ctx = Context(model, kernels=False, **kw)
+    ref = ref_ctx.prefill(prompt)
+    assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+    ref_step = ref_ctx.decode_one(int(np.argmax(got)))
+    assert nmse(torch.from_numpy(step), torch.from_numpy(ref_step)) < 5e-3
     assert ids.shape == (1, 4)

@@ -22,7 +22,7 @@ from llama_cpp_tpu.models.loader import load_model as jax_load_model
 from llama_cpp_tpu.runtime.context import Context as JaxContext
 from llama_cpp_tpu.testing import make_bench_llama_gguf as jax_make_bench
 from llama_cpp_tpu.testing import make_tiny_llama_gguf as jax_make_tiny
-from llama_cpp_tpu_torch.models.from_jax import params_from_jax
+from llama_cpp_tpu_torch.models.from_jax import kv_cache_from_jax, params_from_jax
 from llama_cpp_tpu_torch.models.loader import Model, load_model
 from llama_cpp_tpu_torch.runtime.context import Context
 from llama_cpp_tpu_torch.testing import make_bench_llama_gguf
@@ -240,6 +240,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for new in ('ops.kernels.qmm_expert', 'ops.kernels.flash_attn', 'runtime.kv_cache',\n"
+        "            'models.from_jax', 'models.transformer', 'testing'):\n"
+        "    assert 'llama_cpp_tpu_torch.' + new in sys.modules, new\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'llama_cpp_tpu' or m.startswith('llama_cpp_tpu.')]\n"
         "assert not bad, bad\n"
@@ -249,3 +252,99 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+# -- the slot-table cache (Context(paged=False)) -----------------------------
+
+@KV
+def test_slot_table_prefill_and_greedy_match_jax(models, quantized):
+    """The llama fixture on the slot-table cache against the JAX package's
+    Context(paged=False), and against the port's own paged context."""
+    model, jmodel = models
+    prompt = prompts(1, 100, seed=7)[0]  # two ubatches of 64
+    ctx = Context(model, quantized_kv=quantized, device="cpu", paged=False, **CTX)
+    jctx = JaxContext(jmodel, quantized_kv=quantized, paged=False, **CTX)
+    assert ctx.alloc is None and jctx.alloc is None
+    assert ctx.kv.n_slots == jctx.kv.n_slots == ctx.n_slots and ctx.trash_slot == jctx.trash_slot
+    got, ref = ctx.prefill(prompt), jctx.prefill(prompt)
+    assert nmse(got, ref) < 1e-3
+    paged = Context(model, quantized_kv=quantized, device="cpu", **CTX).prefill(prompt)
+    assert nmse(got, paged) < 1e-6
+    ids, jids = [], []
+    for _ in range(8):
+        ids.append(int(np.argmax(got)))
+        jids.append(int(np.argmax(ref)))
+        got, ref = ctx.decode_one(ids[-1]), jctx.decode_one(jids[-1])
+    assert ids == jids
+    live = np.asarray(jctx.kv.pos) >= 0
+    np.testing.assert_array_equal(ctx.kv.pos.numpy() >= 0, live)
+    if quantized:  # the same int8 rows in every live slot of every layer
+        for li in range(2):
+            np.testing.assert_array_equal(
+                ctx.kv.k[li].numpy().transpose(0, 2, 1, 3)[live],
+                np.asarray(jctx.kv.k[li]).transpose(0, 2, 1, 3)[live])
+
+
+def test_slot_table_batched_decode_and_seq_ops_match_jax(quantized_models):
+    """seq_cp / seq_rm / reset on the slot table, and decode_steps_greedy at
+    B = 3 against the JAX package's B = 1 steps of each sequence (XLA:CPU has
+    no bf16 x bf16 -> f32 dot for its batched step)."""
+    model, jmodel = quantized_models
+    ctx = Context(model, quantized_kv=True, device="cpu", paged=False, **CTX)
+    jctx = JaxContext(jmodel, quantized_kv=True, paged=False, **CTX)
+    p0, p1 = prompts(2, 30, seed=4)
+    firsts = []
+    for c in (ctx, jctx):
+        a = c.prefill(p0, seq=0)
+        b = c.prefill(p1, seq=1)
+        c.seq_cp(2, 0)
+        c.seq_rm(1, 20)
+        firsts.append([int(np.argmax(a)), 5, int(np.argmax(a))])
+    np.testing.assert_array_equal(ctx.seq_len, jctx.seq_len[: len(ctx.seq_len)])
+    np.testing.assert_array_equal(ctx.kv.pos.numpy(), np.asarray(jctx.kv.pos))
+    assert firsts[0] == firsts[1]
+    ref = []
+    for s in range(3):
+        tok, ids = firsts[1][s], []
+        for _ in range(6):
+            tok = int(np.argmax(jctx.decode_one(tok, seq=s)))
+            ids.append(tok)
+        ref.append(ids)
+    got = ctx.decode_steps_greedy(np.asarray(firsts[0]), np.arange(3), 6)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    np.testing.assert_array_equal(got[0], got[2])  # seq 2 is seq 0's copy
+    ctx.reset()
+    assert ctx.seq_len.sum() == 0 and int((ctx.kv.pos >= 0).sum()) == 0
+
+
+def test_port_continues_a_jax_prefill_from_its_cache(models):
+    """A JAX slot-table prefill carried across by kv_cache_from_jax: the
+    port's next step gives the JAX package's next logits."""
+    model, jmodel = models
+    prompt = prompts(1, 50, seed=9)[0]
+    jctx = JaxContext(jmodel, quantized_kv=True, paged=False, **CTX)
+    tok = int(np.argmax(jctx.prefill(prompt)))
+    ctx = Context(model, quantized_kv=True, device="cpu", paged=False, **CTX)
+    ctx.kv = kv_cache_from_jax(jax.tree_util.tree_map(np.asarray, jctx.kv))
+    ctx.seq_len[0] = len(prompt)
+    got, ref = ctx.decode_one(tok), jctx.decode_one(tok)
+    assert nmse(got, ref) < 1e-3 and int(np.argmax(got)) == int(np.argmax(ref))
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slots"])
+def test_heads_of_64_match_jax(tmp_path, paged):
+    """A narrow llama with 64-wide heads (n_embd 256, 4/2 heads) on both
+    memories."""
+    shape = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, n_ff=512, vocab_size=512,
+                 seed=1)
+    path = make_bench_llama_gguf(str(tmp_path / "d64.gguf"), **shape)
+    model, jmodel = load_model(path, device="cpu"), jax_load_model(path)
+    assert model.cfg.head_dim_k == 64
+    prompt = prompts(1, 70, seed=10)[0]
+    ctx = Context(model, quantized_kv=True, device="cpu", paged=paged, **CTX)
+    jctx = JaxContext(jmodel, quantized_kv=True, paged=paged, **CTX)
+    got, ref = ctx.prefill(prompt), jctx.prefill(prompt)
+    assert nmse(got, ref) < 1e-3
+    tok = int(np.argmax(ref))
+    assert int(np.argmax(got)) == tok
+    assert nmse(ctx.decode_one(tok), jctx.decode_one(tok)) < 1e-3
