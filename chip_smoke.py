@@ -16,7 +16,11 @@ Phases, each of which fails the run:
      GEMV_MAX_N is set from), and the attention kernel on a bf16 pool; the
      indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes,
      the slot-table attention kernel at the same depths as the paged one,
-     and both attention kernels once with 64-wide heads;
+     and both attention kernels once with 64-wide heads; the microbenchmark's
+     four probe kernels (stream probe, the two nibble unpacks, the tile sweep
+     flat and tile by tile) at the gate/up and down shapes of an 8B llama,
+     and the tile sweep once, untimed, at every shape and tile the
+     microbenchmark entry point launches it at, the vocab head included;
   4. the main paths through the port's entry points, each with the launch
      counters set to 0 before it and read after it, and each held against
      the plain path (Context(kernels=False)) on the prefill's last-token
@@ -30,7 +34,13 @@ Phases, each of which fails the run:
      - a Mixtral-8x7B-shaped MoE model (full width, depth cut to 2 layers):
        the sort-by-expert prefill, B=1 decode through the indexed-expert
        kernel, batched decode at B=8;
-     - a TinyLlama-shaped model with 64-wide heads on both memories.
+     - a TinyLlama-shaped model with 64-wide heads on both memories;
+     - path C, the qmm microbenchmark entry point
+       (llama_cpp_tpu_torch.tools.bench_qmm) with every case at full width,
+       the 4096 x 128256 vocab head included;
+     - path D, the command-line tool (llama_cpp_tpu_torch.tools.cli) on the
+       4-layer llama file, text in and text out: greedy, held against
+       Context.generate on the encoded prompt, and sampled under a seed twice.
 The last two lines are the kernels JSON object and
 {"ok": true, "device": {...}}. Without a card, or without the port next to
 this script, it exits non-zero and prints no result.
@@ -38,6 +48,8 @@ this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -48,6 +60,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 NMSE_LIMIT = 5e-3  # the reference's conformance threshold
 SMOKE_LAYERS = 4
+CLI_PROMPT = "the cat is on the mat and that was the end of it"
 MOE_LAYERS = 2  # experts are 97% of a Mixtral layer's bytes
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -65,37 +78,6 @@ def gpu_line() -> str:
 def nmse(got, ref) -> float:
     got, ref = got.float(), ref.float()
     return float(((got - ref) ** 2).mean() / ((ref ** 2).mean() + 1e-30))
-
-
-class Timer:
-    """Mean device time of fn over reps launches, by CUDA events around each
-    launch, with the 50 MB L2 flushed before every launch (the main path
-    reads each weight and KV page once per step). A spin kernel before the
-    start event lets the host enqueue fn's launches ahead of the device, so
-    the interval holds device time, not Python launch overhead."""
-
-    SPIN_CYCLES = 2_000_000  # about 1 ms on an H100
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn, reps: int = 10) -> float:
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            self.flush_buf.zero_()
-            torch.cuda._sleep(self.SPIN_CYCLES)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        return total / reps
 
 
 def plane_bytes(w) -> int:
@@ -350,6 +332,168 @@ def expert_phase(torch, timer, qe, label, w, R, failures, seed=0, pool=None):
             "bytes_s": bytes_s, "ops_s": ops_s, "max_abs_err": mae, "nmse": err}
 
 
+BENCH_TILES = ((128, 512), (256, 1024), (512, 2048))  # (to, tk); the last is the variant's
+BENCH_TILES_4D = ((256, 1024), (512, 2048))
+
+
+def bench_phase(torch, timer, qb, name, K, O, failures):
+    """The microbenchmark's probe kernels at one shape (8 rows of x, groups
+    of 32), each held against its plain version; returns {counter name:
+    numbers}. Bound: the plane bytes (x and out too) over the memory rate,
+    against the operations over the bf16 peak. Library yardsticks, timed
+    only: a device-to-device copy of the three planes for the stream probe,
+    torch.matmul on the pre-dequantized bf16 weight for the products."""
+    gen = torch.Generator(device="cuda").manual_seed(K + O)
+    N, G = 8, 32
+    qp = torch.randint(0, 256, (K // 2, O), generator=gen, device="cuda",
+                       dtype=torch.uint8).view(torch.int8)
+    sc = torch.randn((K // G, O), generator=gen, device="cuda") * 0.05
+    mn = torch.randn((K // G, O), generator=gen, device="cuda") * 0.1
+    x = torch.randn((N, K), generator=gen, device="cuda").to(torch.bfloat16)
+    planes = (qp, sc, mn)
+    pbytes = sum(t.numel() * t.element_size() for t in planes)
+    res = {}
+
+    def line(label, r):
+        log(f"  {label:34s} {name:7s} K={K:5d} O={O:5d} err={r['max_abs_err']:.2e} "
+            f"nmse={r['nmse']:.2e} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"-> {pbytes / r['ms'] / 1e6:.0f} GB/s of plane bytes")
+
+    # B1
+    got = qb.stream_planes(x, *planes, group=G)
+    torch.cuda.synchronize()
+    ref = qb.stream_planes_plain(x, *planes, group=G)
+    if not torch.allclose(got, ref, rtol=1e-5, atol=1e-4):
+        failures.append(f"B1 stream_planes {name}: differs from plain by "
+                        f"{float((got - ref).abs().max())}")
+    copies = [torch.empty_like(t) for t in planes]
+    ms = timer(lambda: qb.stream_planes(x, *planes, group=G))
+
+    def copy_planes():
+        for dst, src in zip(copies, planes):
+            dst.copy_(src)
+
+    r = res["stream_planes"] = {
+        "ms": ms, "plain_ms": timer(lambda: qb.stream_planes_plain(x, *planes, group=G), reps=3),
+        "library_ms": timer(copy_planes), "bound_by": "bytes",
+        "bound_ms": (pbytes + got.numel() * 4) / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": float((got - ref).abs().max()), "nmse": nmse(got, ref)}
+    line("B1 stream_planes", r)
+    del copies
+    if pbytes / (ms * 1e-3) > 1.05 * HBM_BYTES_PER_S:
+        failures.append(f"B1 stream_planes {name}: {pbytes / ms / 1e6:.0f} GB/s is over the "
+                        "card's memory rate: plane bytes were skipped")
+
+    # B2-B4
+    ref = qb.qmm4_variant_plain(x, *planes, group=G)
+    plain_ms = timer(lambda: qb.qmm4_variant_plain(x, *planes, group=G), reps=3)
+    u = qp.view(torch.uint8)
+    wd = torch.stack((u & 0xF, u >> 4), dim=1).reshape(K // G, G, O).float()
+    wd = (wd * sc[:, None, :] + mn[:, None, :]).reshape(K, O).to(torch.bfloat16)
+    lib_ms = timer(lambda: torch.matmul(x, wd))
+    del wd, u
+    nbytes = N * K * 2 + pbytes + N * O * 4
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, 2.0 * N * K * O / BF16_FLOPS
+    common = {"plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
+              "bound_by": "bytes" if bytes_s > ops_s else "operations"}
+
+    def held(label, fn):
+        out = fn()
+        torch.cuda.synchronize()
+        err = nmse(out, ref)
+        if not err < NMSE_LIMIT or not torch.isfinite(out).all():
+            failures.append(f"{label} {name}: NMSE {err}")
+        r = {"ms": timer(fn), "max_abs_err": float((out - ref).abs().max()), "nmse": err,
+             **common}
+        line(label, r)
+        return out, r
+
+    outs = {}
+    for unpack in ("fp", "i16"):
+        outs[unpack], res[f"qmm4_variant/{unpack}"] = held(
+            f"B2 qmm4_variant {unpack}",
+            lambda: qb.qmm4_variant(x, *planes, group=G, unpack=unpack))
+    if not torch.equal(outs["fp"], outs["i16"]):
+        failures.append(f"B2 {name}: the two unpacks differ by "
+                        f"{float((outs['fp'] - outs['i16']).abs().max())}")
+    b2 = outs["i16"]
+    for key, label, tiles in (("qmm_tiled", "B3 qmm_tiled", BENCH_TILES),
+                              ("qmm_tiled4d", "B4 qmm_tiled4d", BENCH_TILES_4D)):
+        runs = []
+        for to, tk in tiles:
+            if key == "qmm_tiled":
+                def fn():
+                    return qb.qmm_tiled(x, *planes, group=G, tn=8, to=to, tk=tk)
+            else:
+                tiled = qb.tile_planes_4d(*planes, to, tk)
+
+                def fn():
+                    return qb.qmm_tiled4d(x, *tiled, group=G, to=to, tk=tk)
+            out, r = held(f"{label} to={to} tk={tk}", fn)
+            if not nmse(out, b2) < 1e-6:
+                failures.append(f"{label} {name} to={to} tk={tk}: NMSE {nmse(out, b2)} from B2")
+            r["tile"] = [8, to, tk]
+            runs.append(r)
+        # the fastest tile's times go to the JSON line, the largest error of any
+        res[key] = {**min(runs, key=lambda r: r["ms"]),
+                    "max_abs_err": max(r["max_abs_err"] for r in runs),
+                    "nmse": max(r["nmse"] for r in runs)}
+    return res
+
+
+def bench_tiles_phase(torch, qb, tool, failures):
+    """The tile sweep at every (shape, tile) the microbenchmark entry point
+    launches it at: flat (its cases `tiles` and `shapes`) and tile by tile
+    (its case `4d`), the four decode shapes and the 4096 x 128256 head. Each
+    launch is held against the plain version (NMSE < 5e-3) and against the
+    shape's first tile (NMSE < 1e-6: one function whatever the tile); nothing
+    is timed. Returns {counter name: tiles held, largest errors}."""
+    N, G = tool.ROWS, tool.GROUP
+    sweep = [(to, tk) for _, to, tk in tool.REFERENCE_TILES + tool.CARD_TILES]
+    res = {key: {"held": 0, "max_abs_err": 0.0, "nmse": 0.0}
+           for key in ("qmm_tiled", "qmm_tiled4d")}
+    for name, K, O in tool.DECODE_SHAPES + (tool.HEAD,):
+        gen = torch.Generator(device="cuda").manual_seed(K + O + 1)
+        qp = torch.randint(0, 256, (K // 2, O), generator=gen, device="cuda",
+                           dtype=torch.uint8).view(torch.int8)
+        sc = torch.randn((K // G, O), generator=gen, device="cuda") * 0.05
+        mn = torch.randn((K // G, O), generator=gen, device="cuda") * 0.1
+        x = torch.randn((N, K), generator=gen, device="cuda").to(torch.bfloat16)
+        ref = qb.qmm4_variant_plain(x, qp, sc, mn, group=G)
+        flat = [] if name == tool.HEAD[0] else tool.shape_tiles(O)
+        if (K, O) == tool.GATEUP:
+            flat = flat + sweep  # a tile of both lists is launched by both cases
+        first = None
+        worst = 0.0
+        for key, tiles in (("qmm_tiled", flat), ("qmm_tiled4d", tool.tiles_4d(O))):
+            r = res[key]
+            for to, tk in tiles:
+                if qb.tile_unsupported(N, to, tk, K, O):
+                    continue
+                if key == "qmm_tiled":
+                    out = qb.qmm_tiled(x, qp, sc, mn, group=G, tn=N, to=to, tk=tk)
+                else:
+                    out = qb.qmm_tiled4d(x, *qb.tile_planes_4d(qp, sc, mn, to, tk), group=G,
+                                         to=to, tk=tk)
+                torch.cuda.synchronize()
+                err = nmse(out, ref)
+                first = out if first is None else first
+                if (not err < NMSE_LIMIT or not torch.isfinite(out).all()
+                        or not nmse(out, first) < 1e-6):
+                    failures.append(f"{key} {name} K={K} O={O} to={to} tk={tk}: NMSE {err} from "
+                                    f"plain, {nmse(out, first)} from the shape's first tile")
+                r["held"] += 1
+                r["nmse"] = max(r["nmse"], err)
+                r["max_abs_err"] = max(r["max_abs_err"], float((out - ref).abs().max()))
+                worst = max(worst, err)
+        log(f"  tiles held at {name:7s} K={K:5d} O={O:6d}: worst NMSE {worst:.2e}; so far "
+            f"{res['qmm_tiled']['held']} flat, {res['qmm_tiled4d']['held']} tile by tile")
+        del qp, sc, mn, x, ref, first
+        torch.cuda.empty_cache()
+    return res
+
+
 def profile_decode(torch, ctx, steps: int):
     """Where a B=1 decode step's time goes: `steps` decode_one calls of
     sequence 0 timed by the host clock, then as many under torch.profiler
@@ -398,11 +542,15 @@ def main() -> int:
         from llama_cpp_tpu_torch.gguf.constants import GGMLType
         from llama_cpp_tpu_torch.models.loader import load_model
         from llama_cpp_tpu_torch.ops import qtensor
-        from llama_cpp_tpu_torch.ops.kernels import build, flash_attn, qmm, qmm_expert
+        from llama_cpp_tpu_torch.ops.kernels import (build, flash_attn, qmm, qmm_bench,
+                                                     qmm_expert)
         from llama_cpp_tpu_torch.ops.qtensor import load_weight, pad_out_features
         from llama_cpp_tpu_torch.runtime.context import Context
         from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
                                                  synth_quant_bytes)
+        from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
+        from llama_cpp_tpu_torch.tools import cli as cli_tool
+        from llama_cpp_tpu_torch.utils.timing import Timer
     except ImportError as e:
         print(f"chip_smoke: the port package is not next to this script ({e})",
               file=sys.stderr)
@@ -428,7 +576,7 @@ def main() -> int:
 
     # -- phase 3: kernels against their plain versions ---------------------
     failures: list[str] = []
-    timer = Timer(torch)
+    timer = Timer()
     rng = np.random.default_rng(0)
     E, FF, KVD, V = 4096, 14336, 1024, 128256
 
@@ -522,13 +670,30 @@ def main() -> int:
                      pool=16)
         del w
     torch.cuda.empty_cache()
+    log("B1-B4, the microbenchmark's probe kernels (8 rows of x, groups of 32; the JSON line "
+        "takes the gate/up shape, B3 and B4 at their fastest tile):")
+    bench_res = bench_phase(torch, timer, qmm_bench, "gateup", E, 2 * FF, failures)
+    down_res = bench_phase(torch, timer, qmm_bench, "down", FF, E, failures)
+    for key, r in bench_res.items():
+        r["max_abs_err"] = max(r["max_abs_err"], down_res[key]["max_abs_err"])
+        r["nmse"] = max(r["nmse"], down_res[key]["nmse"])
+    log("B3, B4 at every shape and tile of the microbenchmark's sweeps (held, not timed):")
+    t0 = time.perf_counter()
+    tiles_res = bench_tiles_phase(torch, qmm_bench, bench_qmm_tool, failures)
+    log(f"  {sum(r['held'] for r in tiles_res.values())} tiles held in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for key, r in tiles_res.items():
+        bench_res[key]["max_abs_err"] = max(bench_res[key]["max_abs_err"], r["max_abs_err"])
+        bench_res[key]["nmse"] = max(bench_res[key]["nmse"], r["nmse"])
+    res.update(bench_res)
+    torch.cuda.empty_cache()
     if failures:
         for f in failures:
             log(f"FAIL {f}")
         return 1
 
     # -- phase 4: the main paths ---------------------------------------------
-    counters = (qmm.launches, flash_attn.launches, qmm_expert.launches)
+    counters = (qmm.launches, flash_attn.launches, qmm_expert.launches, qmm_bench.launches)
     qmm_keys, paged_key, slots_key, expert_key = (
         tuple(qmm.launches), "flash_attention_paged", "flash_attention", "qmm_planes_expert")
 
@@ -616,7 +781,7 @@ def main() -> int:
     model = load_model(path)
     torch.cuda.synchronize()
     log(f"load_model: {time.perf_counter() - t0:.1f} s")
-    os.remove(path)
+    llama_path = path  # path D reads the file again
     lw0 = model.params["layers"][0]
     log("layer 0 weights: " + ", ".join(
         f"{k}:{'packed' if getattr(w, 'packed', False) else ''}{tuple(w.q.shape) if hasattr(w, 'q') else tuple(w.shape)}"
@@ -656,7 +821,43 @@ def main() -> int:
         failures.append(f"llama slots vs paged: logits NMSE {err}")
     against_plain("llama slots", model, s_logits, s_ids, prompt, **{**slots_kw, "n_seqs": 2})
     log(f"llama slots rates (4-layer smoke run, not a benchmark; {card}): " + json.dumps(rates))
-    del model, lw0
+
+    # path D: text in, text out through the command-line tool on the same file
+    def run_cli(*flags):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_tool.main(["-m", llama_path, "-p", CLI_PROMPT, "-n", "32", "--kv-quant",
+                                *flags])
+        if rc != 0:
+            failures.append(f"path D: llama-cli {flags} exited with {rc}: {err.getvalue()[-300:]}")
+        return out.getvalue(), err.getvalue()
+
+    tok = model.tokenizer
+    cli_ids = tok.encode(CLI_PROMPT, add_special=True, parse_special=True)
+    ref_gen = Context(model, n_ctx=2048, quantized_kv=True).generate(cli_ids, 32)
+    ref_text = "".join(tok.piece(t) for t in ref_gen if not tok.is_eog(t)) + "\n"
+    reset_counts()
+    t0 = time.perf_counter()
+    text, err_text = run_cli("--temp", "0")
+    all_counts["llama-cli"] = read_counts(
+        "path D (llama-cli)", ("qmm4_planes/gemv", "qmm_planes/gemv", paged_key),
+        (slots_key, expert_key))
+    perf_lines = [ln for ln in err_text.splitlines() if ln.startswith("perf:")]
+    log(f"path D: llama-cli -p {CLI_PROMPT!r} ({len(cli_ids)} tokens) -n 32 --temp 0 --kv-quant: "
+        f"{time.perf_counter() - t0:.1f} s with its own load_model; {len(ref_gen)} ids from "
+        f"Context.generate, text equal: {text == ref_text} ({text[:48]!r}...); {perf_lines}")
+    if text != ref_text:
+        failures.append(f"path D: llama-cli printed {text!r}, Context.generate gives {ref_text!r}")
+    if len(perf_lines) != 1 or "tok/s" not in perf_lines[0]:
+        failures.append(f"path D: no perf line on stderr: {err_text[-300:]!r}")
+    sampled = [run_cli("--temp", "0.8", "--seed", "1")[0] for _ in range(2)]
+    log(f"path D: --temp 0.8 --seed 1 twice: same text {sampled[0] == sampled[1]}, "
+        f"{len(sampled[0].split())} pieces, equal to the greedy text {sampled[0] == text}")
+    if sampled[0] != sampled[1] or not sampled[0].strip():
+        failures.append(f"path D: sampled text differs between two runs with one seed: "
+                        f"{sampled[0]!r} / {sampled[1]!r}")
+    os.remove(llama_path)
+    del model, lw0, tok
     torch.cuda.empty_cache()
 
     # path A: Mixtral-8x7B shape through the indexed-expert kernel
@@ -712,6 +913,29 @@ def main() -> int:
         "sends to the plain einsum, as the JAX package does")
     del model
     torch.cuda.empty_cache()
+
+    # path C: the qmm microbenchmark entry point, every case at full width
+    log("path C: llama_cpp_tpu_torch.tools.bench_qmm with every case (its own lines follow)")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = bench_qmm_tool.main(list(bench_qmm_tool.CASES))
+    if rc != 0:
+        failures.append(f"path C: bench_qmm exited with {rc}")
+    all_counts["bench_qmm"] = read_counts(
+        "path C (bench_qmm)",
+        (*qmm_bench.launches, "qmm4_planes/gemv", "qmm4_planes/mma", "qmm_planes/gemv",
+         "qmm_planes/mma"), (paged_key, slots_key, expert_key))
+    # each line of the tool launches its kernel as often as the one stream line
+    per_line = all_counts["bench_qmm"]["stream_planes"]
+    for key, r in tiles_res.items():
+        if all_counts["bench_qmm"][key] != per_line * r["held"]:
+            failures.append(f"path C launched {key} {all_counts['bench_qmm'][key]} times, "
+                            f"{per_line} a line, where phase 3 held {r['held']} tiles against "
+                            "the plain version: the two sweeps differ")
+    log(f"path C: {time.perf_counter() - t0:.1f} s; {per_line} launches a line, "
+        + ", ".join(f"{r['held']} lines of {key}" for key, r in tiles_res.items())
+        + ", each held in phase 3")
+    torch.cuda.empty_cache()
     if failures:
         for f in failures:
             log(f"FAIL {f}")
@@ -725,12 +949,18 @@ def main() -> int:
         "flash_attention_paged": "llama_cpp_tpu/ops/pallas/flash_attn.py:459",
         "flash_attention": "llama_cpp_tpu/ops/pallas/flash_attn.py:172",
         "qmm_planes_expert": "llama_cpp_tpu/ops/pallas/qmm.py:828",
+        "stream_planes": "scripts/bench_qmm.py:97",
+        "qmm4_variant": "scripts/bench_qmm.py:177",
+        "qmm_tiled": "scripts/bench_qmm.py:285",
+        "qmm_tiled4d": "scripts/bench_qmm.py:337",
     }
     source_of = {"flash_attention_paged": "flash_attn_paged.cu", "flash_attention": "flash_attn.cu",
-                 "qmm_planes_expert": "qmm_expert.cu"}
+                 "qmm_planes_expert": "qmm_expert.cu",
+                 **{name: "qmm_bench.cu" for name in qmm_bench.launches}}
     # launches: from the path that is the kernel's own (the llama path on the
-    # pool, the slot-table path, the Mixtral path)
-    path_of = {"flash_attention": "llama slots", "qmm_planes_expert": "mixtral"}
+    # pool, the slot-table path, the Mixtral path, the microbenchmark)
+    path_of = {"flash_attention": "llama slots", "qmm_planes_expert": "mixtral",
+               **{name: "bench_qmm" for name in qmm_bench.launches}}
     kernels = []
     for name, r in res.items():
         kernels.append({"name": name, "route": "cuda",
@@ -741,7 +971,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"],
                         "nmse": r["nmse"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **({"tile": r["tile"]} if "tile" in r else {})})
     log(f"card: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

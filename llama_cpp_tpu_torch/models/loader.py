@@ -10,15 +10,19 @@ same-type projections are fused (q+k, gate+up) and the vocab head is padded.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import replace
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..gguf.reader import read_gguf
+from ..gguf.reader import GGUFFile, read_gguf
 from ..ops.qtensor import QuantTensor, Weight, load_weight, pad_out_features
+from ..tokenizer import Tokenizer
 from .config import ModelConfig
+
+log = logging.getLogger(__name__)
 
 # layer-tensor suffix -> weight-dict key (the llama subset)
 LAYER_TENSORS = {
@@ -84,10 +88,13 @@ def resolve_device(device) -> torch.device:
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, params: dict[str, Any], device: torch.device):
+    def __init__(self, cfg: ModelConfig, params: dict[str, Any], device: torch.device,
+                 tokenizer: Tokenizer | None = None, gguf: GGUFFile | None = None):
         self.cfg = cfg
         self.params = params
         self.device = device
+        self.tokenizer = tokenizer  # None when the file carries no vocab
+        self.gguf = gguf  # the parsed file: metadata and tensor index
 
 
 def load_model(path: str, device="cuda") -> Model:
@@ -95,6 +102,11 @@ def load_model(path: str, device="cuda") -> Model:
     dev = resolve_device(device)
     f = read_gguf(path)
     cfg = ModelConfig.from_gguf(f.metadata)
+    tokenizer = None
+    try:
+        tokenizer = Tokenizer.from_gguf(f.metadata)
+    except (ValueError, KeyError) as e:
+        log.warning("no tokenizer loaded: %s", e)
 
     layers: list[dict[str, Weight]] = [dict() for _ in range(cfg.n_layers)]
     params: dict[str, Any] = {"layers": layers}
@@ -137,7 +149,7 @@ def load_model(path: str, device="cuda") -> Model:
     if (isinstance(hw, QuantTensor) and hw.transposed and hw.q.dim() == 2
             and hw.q.shape[1] % 1024 and hw.q.shape[1] >= 16384):
         params["output"] = pad_out_features(hw)
-    return Model(cfg, params, dev)
+    return Model(cfg, params, dev, tokenizer=tokenizer, gguf=f)
 
 
 def _fold_scalar_scales(lw: dict) -> None:

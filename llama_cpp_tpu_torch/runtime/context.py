@@ -4,7 +4,8 @@ slot-table cache.
 Owns the KV memory (the pool with its host-side page allocator, or with
 paged=False a KVCache of n_slots per sequence), the batch bucketing policy
 (padding rows carry negative positions and write to the memory's trash
-row), and the greedy generation loops. PyTorch runs eagerly, so the buckets
+row), and the generation loops (greedy on the device, or through a host
+sampler chain). PyTorch runs eagerly, so the buckets
 only keep the step shapes the JAX package uses.
 """
 
@@ -12,13 +13,14 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
 from ..models.loader import Model, resolve_device
 from ..models.transformer import AttnInputs, forward
+from ..sampling.samplers import SamplerChain
 from .kv_cache import KVCache
 from .paged_kv import PageAllocator, PagedKVCache
 
@@ -293,15 +295,39 @@ class Context:
         self.seq_len[:] = 0
 
     # ------------------------------------------------------------------
-    def generate(self, prompt: list[int], max_new_tokens: int = 128, seq: int = 0) -> list[int]:
-        """Greedy generation: prefill, then one decode step per token until
-        max_new_tokens or the end of the context."""
+    def generate(
+        self,
+        prompt: list[int],
+        max_new_tokens: int = 128,
+        sampler: SamplerChain | None = None,
+        seq: int = 0,
+        stop_fn: Callable[[int], bool] | None = None,
+        stream: Callable[[int], None] | None = None,
+    ) -> list[int]:
+        """Prefill, then one decode step per token until max_new_tokens,
+        stop_fn(token), an end-of-generation token (when the model has a
+        tokenizer) or the end of the context. The stopping token is part of
+        the result. With a sampler the last row's f32 logits come to the
+        host once a step and go through the chain; without one the loop is
+        greedy with the argmax taken on the device (the same ids as the
+        default greedy chain, without the copy of the logits)."""
+        vocab = self.model.tokenizer.vocab if self.model.tokenizer else None
         logits = self.prefill(prompt, seq=seq)
+        greedy = int(np.argmax(logits))
         out: list[int] = []
         for _ in range(max_new_tokens):
-            token = int(np.argmax(logits))
+            token = sampler.sample(logits) if sampler is not None else greedy
             out.append(token)
+            if stream:
+                stream(token)
+            if stop_fn and stop_fn(token):
+                break
+            if vocab is not None and vocab.is_eog(token):
+                break
             if self.seq_len[seq] >= self.n_ctx:
                 break
-            logits = self.decode_one(token, seq=seq)
+            if sampler is not None:
+                logits = self.decode_one(token, seq=seq)
+            else:
+                greedy = int(self.decode_step_greedy(np.asarray([token]), np.asarray([seq]))[0])
         return out

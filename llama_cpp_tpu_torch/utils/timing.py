@@ -1,0 +1,46 @@
+"""Device time of a function on the card, by CUDA events.
+
+Shared by the entry points that measure (tools/bench_qmm.py) and by
+chip_smoke.py, so that their numbers are taken the same way.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Timer:
+    """Mean device time in ms of fn over reps launches, by CUDA events around
+    each launch, with the 50 MB L2 flushed before every launch (a decode step
+    reads each weight and KV page once). A spin kernel before the start event
+    lets the host enqueue fn's launches ahead of the device, so the interval
+    holds device time, not Python launch overhead."""
+
+    SPIN_CYCLES = 2_000_000  # about 1 ms on an H100
+
+    def __init__(self, device="cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("Timer measures device time and needs a CUDA device")
+        self.flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+
+    def flush(self) -> None:
+        """Push the timed function's data out of the L2 by writing 128 MB.
+        The lines written stay dirty in the L2, so a kernel that streams
+        more than the cache holds also pays for their write-back."""
+        self.flush_buf.zero_()
+
+    def __call__(self, fn, reps: int = 10) -> float:
+        fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(reps):
+            self.flush()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps

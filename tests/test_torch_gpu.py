@@ -15,6 +15,7 @@ from llama_cpp_tpu_torch.models.loader import load_model
 from llama_cpp_tpu_torch.ops import qtensor as tq
 from llama_cpp_tpu_torch.ops.kernels import flash_attn as tfa
 from llama_cpp_tpu_torch.ops.kernels import qmm as tqmm
+from llama_cpp_tpu_torch.ops.kernels import qmm_bench as tqb
 from llama_cpp_tpu_torch.ops.kernels import qmm_expert as tqe
 from llama_cpp_tpu_torch.runtime.context import Context
 from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
@@ -345,3 +346,99 @@ def test_moe_path_kernel_route_matches_plain_route(cuda_device, tmp_path, paged,
     ref_step = ref_ctx.decode_one(int(np.argmax(got)))
     assert nmse(torch.from_numpy(step), torch.from_numpy(ref_step)) < 5e-3
     assert ids.shape == (1, 4)
+
+
+# -- the microbenchmark's probe kernels (csrc/qmm_bench.cu) ----------------------
+
+BENCH_SHAPES = [(4096, 28672), (14336, 4096), (4096, 6144), (2048, 512), (1024, 256)]
+
+
+def bench_planes(device, K, O, seed=0, rows=8):
+    """Even/odd packed planes with every byte value (high nibbles 8..15 make
+    negative int8 bytes), f32 scales and mins, and x."""
+    rng = np.random.default_rng(seed)
+    qp = torch.from_numpy(rng.integers(0, 256, (K // 2, O), np.uint8).view(np.int8))
+    sc = torch.from_numpy((rng.normal(size=(K // 32, O)) * 0.05).astype(np.float32))
+    mn = torch.from_numpy((rng.normal(size=(K // 32, O)) * 0.1).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(rows, K)).astype(np.float32)).to(torch.bfloat16)
+    return tuple(t.to(device) for t in (x, qp, sc, mn))
+
+
+@pytest.mark.parametrize("K,O", BENCH_SHAPES)
+def test_stream_planes_kernel_matches_plain(cuda_device, K, O):
+    """The stream probe against its plain version; f32 sums of up to 42
+    values of magnitude up to 128 in another order: rtol 1e-5, atol 1e-4."""
+    x, qp, sc, mn = bench_planes(cuda_device, K, O, seed=K + O)
+    before = tqb.launches["stream_planes"]
+    got = tqb.stream_planes(x, qp, sc, mn, group=32)
+    torch.cuda.synchronize()
+    assert tqb.launches["stream_planes"] == before + 1
+    ref = tqb.stream_planes_plain(x, qp, sc, mn, group=32)
+    assert got.shape == (8, O)
+    assert torch.allclose(got, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_stream_planes_kernel_other_tile(cuda_device):
+    """tk2 is part of the function: 512-row tiles sum other rows than 1024."""
+    x, qp, sc, mn = bench_planes(cuda_device, 4096, 512, seed=3)
+    a = tqb.stream_planes(x, qp, sc, mn, group=32, tk2=512)
+    b = tqb.stream_planes(x, qp, sc, mn, group=32, tk2=1024)
+    torch.cuda.synchronize()
+    assert torch.allclose(a, tqb.stream_planes_plain(x, qp, sc, mn, group=32, tk2=512),
+                          rtol=1e-5, atol=1e-4)
+    assert not torch.allclose(a, b)
+
+
+@pytest.mark.parametrize("K,O", [s for s in BENCH_SHAPES if s[0] % 2048 == 0])
+def test_qmm4_variant_kernels_match_plain_and_each_other(cuda_device, K, O):
+    """Both unpacks against the plain version (NMSE < 1e-4: a group's sum is
+    scaled in f32 where the plain version rounds W to bf16, near 1e-6), and
+    equal to the bit: the same integers in the same summation order."""
+    x, qp, sc, mn = bench_planes(cuda_device, K, O, seed=K + O, rows=16)
+    fp = tqb.qmm4_variant(x, qp, sc, mn, group=32, unpack="fp")
+    i16 = tqb.qmm4_variant(x, qp, sc, mn, group=32, unpack="i16")
+    torch.cuda.synchronize()
+    ref = tqb.qmm4_variant_plain(x, qp, sc, mn, group=32)
+    assert nmse(i16, ref) < 1e-4
+    assert torch.equal(fp, i16)
+
+
+@pytest.mark.parametrize("to,tk", [(128, 256), (256, 1024), (512, 2048), (512, 512),
+                                   (1024, 1024), (2048, 2048), (2048, 512), (128, 4096)])
+@pytest.mark.parametrize("K,O", [(4096, 28672), (14336, 4096), (4096, 6144), (4096, 128256)])
+def test_qmm_tiled_kernels_match_plain(cuda_device, K, O, to, tk):
+    """The tile sweep, flat and tile by tile, is one function: every tile the
+    kernel takes against the plain version, and the two layouts against each
+    other (same stages, same order: equal bits). The wrapper raises on a tile
+    that does not divide the shape: the 4096 x 128256 vocab head takes only
+    128 and 256 columns a block."""
+    x, qp, sc, mn = bench_planes(cuda_device, K, O, seed=to + tk)
+    if tqb.tile_unsupported(8, to, tk, K, O):  # the tile does not divide the shape
+        with pytest.raises(ValueError):
+            tqb.qmm_tiled(x, qp, sc, mn, group=32, tn=8, to=to, tk=tk)
+        return
+    flat = tqb.qmm_tiled(x, qp, sc, mn, group=32, tn=8, to=to, tk=tk)
+    q4, sc4, mn4 = tqb.tile_planes_4d(qp, sc, mn, to, tk)
+    tiled = tqb.qmm_tiled4d(x, q4, sc4, mn4, group=32, to=to, tk=tk)
+    torch.cuda.synchronize()
+    ref = tqb.qmm4_variant_plain(x, qp, sc, mn, group=32)
+    assert nmse(flat, ref) < 1e-4
+    assert torch.equal(flat, tiled)
+
+
+def test_qmm_bench_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    x, qp, sc, mn = bench_planes(cuda_device, 2048, 512)
+    with pytest.raises(ValueError):
+        tqb.qmm4_variant(x[:4], qp, sc, mn, group=32)  # rows not a multiple of 8
+    with pytest.raises(ValueError):
+        tqb.qmm4_variant(x, qp, sc, mn, group=16)
+    with pytest.raises(ValueError):
+        tqb.qmm_tiled(x, qp, sc, mn, group=32, tn=16, to=512, tk=2048)
+    with pytest.raises(ValueError):
+        tqb.qmm_tiled(x, qp, sc, mn, group=32, tn=8, to=64, tk=2048)
+    with pytest.raises(ValueError):
+        tqb.qmm4_variant(x.float(), qp, sc, mn, group=32)
+    with pytest.raises(ValueError):
+        tqb.stream_planes(x, qp[:, :128], sc[:, :128], mn[:, :128], group=32)  # not contiguous
+    with pytest.raises(ValueError):
+        tqb.qmm4_variant(x, qp.cpu(), sc, mn, group=32)

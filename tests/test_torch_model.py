@@ -236,16 +236,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import llama_cpp_tpu_torch.tokenizer\n"
+        "assert 'regex' not in sys.modules, 'the tokenizer package imported regex'\n"
         "import llama_cpp_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for new in ('ops.kernels.qmm_expert', 'ops.kernels.flash_attn', 'runtime.kv_cache',\n"
-        "            'models.from_jax', 'models.transformer', 'testing'):\n"
+        "            'models.from_jax', 'models.transformer', 'testing',\n"
+        "            'ops.kernels.qmm_bench', 'utils.timing', 'utils.logging', 'tools.bench_qmm',\n"
+        "            'tools.cli', 'tools.args', 'tools.tokenize', 'tokenizer.bpe',\n"
+        "            'tokenizer.spm', 'tokenizer.vocab', 'sampling.samplers'):\n"
         "    assert 'llama_cpp_tpu_torch.' + new in sys.modules, new\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'llama_cpp_tpu' or m.startswith('llama_cpp_tpu.')]\n"
         "assert not bad, bad\n"
+        "assert 'regex' not in sys.modules, 'a module of the port imported regex'\n"
         "print('clean', len([m for m in sys.modules if m.startswith('llama_cpp_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
