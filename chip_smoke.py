@@ -11,9 +11,14 @@ Phases, each of which fails the run:
   3. every kernel at the main path's shapes on the card, held against its
      plain PyTorch version (NMSE < 5e-3), timed by CUDA events (L2 flushed
      before each launch) beside its bound, the plain version and one
-     PyTorch library call; the qmm GEMV and tensor-core GEMM are also timed
+     PyTorch library call; the qmm GEMV and mma.sync GEMM are also timed
      against each other at 1-8 rows (the crossover the wrapper's
-     GEMV_MAX_N is set from), and the attention kernel on a bf16 pool; the
+     GEMV_MAX_N is set from); the wgmma prefill GEMM (K3, K4) is held,
+     untimed, at every main-path shape (the 8B and TinyLlama layers) and
+     64, 65, 200, 512 and 1023 rows, and timed for the record against the
+     mma.sync GEMM forced at 64-1023 rows, beside its registers and spills;
+     the attention kernel on a bf16 pool and, int8 and bf16, with heads of
+     32 and 256 at decode and at a prefill ubatch; the
      indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes,
      the slot-table attention kernel at the same depths as the paged one,
      and both attention kernels once with 64-wide heads; the microbenchmark's
@@ -35,6 +40,9 @@ Phases, each of which fails the run:
        the sort-by-expert prefill, B=1 decode through the indexed-expert
        kernel, batched decode at B=8;
      - a TinyLlama-shaped model with 64-wide heads on both memories;
+     every path's prefill ubatches through the wgmma GEMM (the mma.sync
+     GEMM at prefill rows must not run), and 32 of 32 greedy ids equal to
+     the plain path's;
      - path C, the qmm microbenchmark entry point
        (llama_cpp_tpu_torch.tools.bench_qmm) with every case at full width,
        the 4096 x 128256 vocab head included;
@@ -85,12 +93,16 @@ def plane_bytes(w) -> int:
                if t is not None)
 
 
-def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=None):
+def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=None,
+              prefill_min_n=None):
     """Hold the qmm kernel against its plain version at each (weight, N);
     returns {N: numbers summed over the weights}. gemv_max_n forces the
-    GEMV (8) or the GEMM (0); None keeps the wrapper's crossover."""
+    GEMV (8) or the mma.sync GEMM (0), prefill_min_n the mma.sync GEMM at
+    prefill rows (1024); None keeps the wrapper's routes. With either given
+    the plain version and the library call are not timed."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    kw = {} if gemv_max_n is None else {"gemv_max_n": gemv_max_n}
+    kw = {k: v for k, v in (("gemv_max_n", gemv_max_n), ("prefill_min_n", prefill_min_n))
+          if v is not None}
     res = {}
     for n in n_rows:
         total = res[n] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
@@ -108,7 +120,7 @@ def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=No
                 failures.append(f"{label} {wname} N={n}: NMSE {err}")
             ms = timer(lambda: qmm.qmm(x, w, **kw))
             plain_ms = lib_ms = float("nan")
-            if gemv_max_n is None:
+            if not kw:
                 wd = w.dequant(torch.bfloat16)
                 plain_ms = timer(lambda: qmm.qmm_plain(x, w), reps=3)
                 lib_ms = timer(lambda: torch.matmul(x, wd))
@@ -117,8 +129,9 @@ def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=No
             flops = 2.0 * n * K * O
             bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
             bound = max(bytes_s, ops_s) * 1e3
-            log(f"  {label:24s} {wname:12s} N={n:4d} K={K:5d} O={O:6d} "
-                f"[{qmm.kernel_name(w, n, kw.get('gemv_max_n', qmm.GEMV_MAX_N))}] "
+            name = qmm.kernel_name(w, n, kw.get("gemv_max_n", qmm.GEMV_MAX_N),
+                                   kw.get("prefill_min_n", qmm.PREFILL_MIN_N))
+            log(f"  {label:24s} {wname:12s} N={n:4d} K={K:5d} O={O:6d} [{name}] "
                 f"nmse={err:.2e} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={bound:.4f} ({'bytes' if bytes_s > ops_s else 'operations'})")
             total["ms"] += ms
@@ -131,6 +144,30 @@ def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=No
             total["nmse"] = max(total["nmse"], err)
         total["bound_by"] = "bytes" if total["bytes_s"] > total["ops_s"] else "operations"
     return res
+
+
+def prefill_held(torch, qmm, label, weights, n_rows, failures):
+    """The wgmma prefill GEMM against its plain version at each (weight, N),
+    untimed; returns the largest NMSE and absolute error."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"nmse": 0.0, "max_abs_err": 0.0}
+    for wname, w in weights:
+        errs = []
+        for n in n_rows:
+            x = torch.randn((n, w.in_features), generator=gen, device="cuda").to(torch.bfloat16)
+            got = qmm.qmm(x, w)
+            torch.cuda.synchronize()
+            ref = qmm.qmm_plain(x, w)
+            err = nmse(got, ref)
+            errs.append(err)
+            if not err < NMSE_LIMIT or not torch.isfinite(got).all():
+                failures.append(f"{label} {wname} N={n}: NMSE {err}")
+            worst["nmse"] = max(worst["nmse"], err)
+            worst["max_abs_err"] = max(worst["max_abs_err"], float((got - ref).abs().max()))
+        log(f"  {label:24s} {wname:18s} K={w.in_features:5d} O={w.q.shape[1]:6d} "
+            f"[{qmm.kernel_name(w, n_rows[0])}] N={list(n_rows)}: NMSE "
+            + " ".join(f"{e:.2e}" for e in errs))
+    return worst
 
 
 def attn_case(torch, B, G, T, depth, page=512, Hkv=8, D=128, seed=0, kv_dtype=None):
@@ -606,12 +643,35 @@ def main() -> int:
     q6r = qmm_phase(torch, timer, qmm, "K2 qmm_planes", q6, (1, 8, 32), failures)
     qmm_phase(torch, timer, qmm, "K2 qmm_planes (head)", head, (1, 8, 32), failures)
     q6p = qmm_phase(torch, timer, qmm, "K4 qmm_planes_prefill", q6, (512,), failures)
-    del q4, q6, head
-    # one JSON entry per (TPU kernel, CUDA kernel): the GEMV at N=1, the GEMM
-    # at the B=32 decode step and at the prefill ubatch
+    tiny = [("tinyllama attn_qk", weight(GGMLType.Q4_K, 2048 + 256, 2048)),
+            ("tinyllama attn_output", weight(GGMLType.Q4_K, 2048, 2048)),
+            ("tinyllama ffn_gateup", weight(GGMLType.Q4_K, 2 * 5632, 2048)),
+            ("tinyllama attn_v", weight(GGMLType.Q6_K, 256, 2048)),
+            ("tinyllama ffn_down", weight(GGMLType.Q6_K, 2048, 5632))]
+    log("K3, K4 wgmma GEMM at every main-path shape and ragged ubatch (held, not timed):")
+    held = prefill_held(torch, qmm, "K3/K4 wgmma", q4 + q6 + tiny, (64, 65, 200, 512, 1023),
+                        failures)
+    for r in (q4p[512], q6p[512]):
+        r["max_abs_err"] = max(r["max_abs_err"], held["max_abs_err"])
+        r["nmse"] = max(r["nmse"], held["nmse"])
+    log("wgmma GEMM against qmm_mma_kernel forced, prefill rows (for the record; layer sums):")
+    for lay, ws in (("Q4_K", q4), ("Q6_K", q6)):
+        rows = (64, 128, 256, 512, 1023)
+        wg = qmm_phase(torch, timer, qmm, f"{lay} wgmma", ws, rows, failures,
+                       prefill_min_n=qmm.PREFILL_MIN_N)
+        mm = qmm_phase(torch, timer, qmm, f"{lay} forced mma", ws, rows, failures,
+                       prefill_min_n=1024)
+        log(f"wgmma vs mma {lay} (ms): " + ", ".join(
+            f"N={n} wgmma {wg[n]['ms']:.4f} mma {mm[n]['ms']:.4f}" for n in rows))
+    regs = [ln.strip() for ln in build.BUILD_LOGS.get("qmm_prefill.cu", "").splitlines()
+            if "Used" in ln or "spill" in ln]
+    log("wgmma kernel (4 instantiations, then the split sum), ptxas: " + "; ".join(regs))
+    del q4, q6, head, tiny
+    # one JSON entry per (TPU kernel, CUDA kernel): the GEMV at N=1, the
+    # mma.sync GEMM at the B=32 decode step, the wgmma GEMM at the ubatch
     res = {"qmm4_planes/gemv": q4r[1], "qmm4_planes/mma": q4r[32],
-           "qmm4_planes_prefill/mma": q4p[512], "qmm_planes/gemv": q6r[1],
-           "qmm_planes/mma": q6r[32], "qmm_planes_prefill/mma": q6p[512]}
+           "qmm4_planes_prefill/wgmma": q4p[512], "qmm_planes/gemv": q6r[1],
+           "qmm_planes/mma": q6r[32], "qmm_planes_prefill/wgmma": q6p[512]}
     res["flash_attention_paged"] = attn_phase(
         torch, timer, flash_attn, "K5 decode B=1 d=2048",
         attn_case(torch, B=1, G=4, T=1, depth=2048), failures)
@@ -628,6 +688,13 @@ def main() -> int:
                failures)
     attn_phase(torch, timer, flash_attn, "K5 heads of 64, decode B=8 d=512",
                attn_case(torch, B=8, G=16, T=1, depth=512, D=64), failures)
+    for D in (32, 256):
+        for dt, name in ((None, "int8"), (torch.bfloat16, "bf16")):
+            attn_phase(torch, timer, flash_attn, f"K5 heads of {D}, {name}, decode B=8 d=512",
+                       attn_case(torch, B=8, G=4, T=1, depth=512, D=D, kv_dtype=dt), failures)
+            attn_phase(torch, timer, flash_attn, f"K5 heads of {D}, {name}, ubatch 4 of 2048",
+                       attn_case(torch, B=1, G=4, T=512, depth=1536, D=D, kv_dtype=dt),
+                       failures)
     torch.cuda.empty_cache()
     log("K6 slot-table attention (cache [8 seqs, 8 heads, 5120 slots, D]):")
     res["flash_attention"] = slots_phase(
@@ -646,6 +713,14 @@ def main() -> int:
                 failures)
     slots_phase(torch, timer, flash_attn, "K6 heads of 64, decode B=8 d=512",
                 slots_case(torch, B=8, G=16, T=1, depth=512, D=64), failures)
+    for D in (32, 256):
+        for dt, name in ((None, "int8"), (torch.bfloat16, "bf16")):
+            slots_phase(torch, timer, flash_attn, f"K6 heads of {D}, {name}, decode B=8 d=512",
+                        slots_case(torch, B=8, G=4, T=1, depth=512, D=D, kv_dtype=dt), failures)
+            slots_phase(torch, timer, flash_attn, f"K6 heads of {D}, {name}, ubatch 4 of 2048",
+                        slots_case(torch, B=1, G=4, T=512, depth=1536, D=D, kv_dtype=dt),
+                        failures)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log("K7 indexed-expert product (Mixtral-8x7B: 8 experts; Qwen3-30B-A3B: 128 experts):")
     mix = []
@@ -694,8 +769,13 @@ def main() -> int:
 
     # -- phase 4: the main paths ---------------------------------------------
     counters = (qmm.launches, flash_attn.launches, qmm_expert.launches, qmm_bench.launches)
-    qmm_keys, paged_key, slots_key, expert_key = (
-        tuple(qmm.launches), "flash_attention_paged", "flash_attention", "qmm_planes_expert")
+    # the main paths' qmm kernels; the mma.sync GEMM at prefill rows runs only
+    # when forced, so a path that launches it did not go through wgmma
+    forced = ("qmm4_planes_prefill/mma", "qmm_planes_prefill/mma")
+    qmm_keys = tuple(k for k in qmm.launches if k not in forced)
+    prefill_keys = ("qmm4_planes_prefill/wgmma", "qmm_planes_prefill/wgmma")
+    paged_key, slots_key, expert_key = (
+        "flash_attention_paged", "flash_attention", "qmm_planes_expert")
 
     def reset_counts():
         for counter in counters:
@@ -729,6 +809,8 @@ def main() -> int:
             f"(argmax {int(np.argmax(logits))} vs {int(np.argmax(ref_logits))})")
         if not err < NMSE_LIMIT:
             failures.append(f"{path}: logits NMSE {err}")
+        if agree != len(ref_ids) or len(gen_ids) != len(ref_ids):
+            failures.append(f"{path}: greedy ids agree {agree} of {len(ref_ids)}")
         return ref_logits
 
     def check_logits(path, logits, vocab):
@@ -796,7 +878,7 @@ def main() -> int:
     reset_counts()
     logits, gen_ids, rates = drive(ctx, prompt, prompts512, V, (8, 32), "llama paged")
     all_counts = {"llama paged": read_counts("llama paged", qmm_keys + (paged_key,),
-                                             (slots_key, expert_key))}
+                                             (slots_key, expert_key) + forced)}
     profile_decode(torch, ctx, steps=8)
     del ctx
     against_plain("llama paged", model, logits, gen_ids, prompt,
@@ -812,7 +894,7 @@ def main() -> int:
     reset_counts()
     s_logits, s_ids, rates = drive(ctx, prompt, prompts512[:8], V, (8,), "llama slots")
     all_counts["llama slots"] = read_counts("llama slots", qmm_keys + (slots_key,),
-                                            (paged_key, expert_key))
+                                            (paged_key, expert_key) + forced)
     del ctx
     err = float(np.mean((s_logits - logits) ** 2) / (np.mean(logits ** 2) + 1e-30))
     log(f"llama slots vs llama paged: prefill last-token logits NMSE {err:.3e}; greedy ids "
@@ -881,7 +963,7 @@ def main() -> int:
     reset_counts()
     m_logits, m_ids, rates = drive(ctx, prompt, prompts512, VM, (8,), "mixtral")
     all_counts["mixtral"] = read_counts("mixtral", qmm_keys + (paged_key, expert_key),
-                                        (slots_key,))
+                                        (slots_key,) + forced)
     profile_decode(torch, ctx, steps=8)
     del ctx
     against_plain("mixtral", model, m_logits, m_ids, prompt, **{**moe_kw, "n_seqs": 2})
@@ -903,8 +985,8 @@ def main() -> int:
         ctx = Context(model, **kw)
         reset_counts()
         d_logits = ctx.prefill(prompt, seq=0)
-        d_ids = ctx.generate(prompt, max_new_tokens=8, seq=1)
-        all_counts[label] = read_counts(label, (key,))
+        d_ids = ctx.generate(prompt, max_new_tokens=32, seq=1)
+        all_counts[label] = read_counts(label, (key,) + prefill_keys, forced)
         check_logits(label, d_logits, VM)
         del ctx
         against_plain(label, model, d_logits, d_ids, prompt, **kw)
@@ -955,7 +1037,7 @@ def main() -> int:
         "qmm_tiled4d": "scripts/bench_qmm.py:337",
     }
     source_of = {"flash_attention_paged": "flash_attn_paged.cu", "flash_attention": "flash_attn.cu",
-                 "qmm_planes_expert": "qmm_expert.cu",
+                 "qmm_planes_expert": "qmm_expert.cu", **{k: "qmm_prefill.cu" for k in prefill_keys},
                  **{name: "qmm_bench.cu" for name in qmm_bench.launches}}
     # launches: from the path that is the kernel's own (the llama path on the
     # pool, the slot-table path, the Mixtral path, the microbenchmark)

@@ -15,7 +15,7 @@
 
 #include "flash_attn_common.cuh"
 
-// q [B, Hkv, R, D] bf16, D = 64 or 128; k, v [n_seqs, Hkv, S, D] int8 with
+// q [B, Hkv, R, D] bf16, D = 32, 64, 128 or 256; k, v [n_seqs, Hkv, S, D] int8 with
 // ks, vs [n_seqs, Hkv, S] f32 row scales, or bf16 with ks = vs = null; pos
 // [n_seqs, S] int32; row_pos [B, R] int32; seq_idx [B] int32 (clamped to the
 // cache); sinks [Hkv, R] f32 or null; part_acc [splits, B, Hkv, R, D],

@@ -18,12 +18,13 @@
 // its live tiles of 64 KV rows: K (row stride padded by one word so a lane
 // per column reads without bank conflicts), V, scales and position labels go
 // to shared memory; each lane scores two columns, the warp does the
-// online-softmax update for its rows, then each lane accumulates 4 output
-// dims (with 64-wide heads the two half-warps take alternate columns and add
-// their sums at the end). The live tiles are split evenly across `splits`
-// blocks (flash decoding), so at decode, where there are only B * Hkv (row
-// tile, head) pairs, more SMs stream the memory; a second kernel merges the
-// splits' (max, sum, acc) and adds the sink term.
+// online-softmax update for its rows, then each lane accumulates D / 32
+// output dims, at least 4 (with heads under 128 the warp's lanes form 128 / D
+// groups that take alternate columns and add their sums at the end). Shared
+// memory is dynamic: heads of 256 need up to 85 KB. The live tiles are split
+// evenly across `splits` blocks (flash decoding), so at decode, where there
+// are only B * Hkv (row tile, head) pairs, more SMs stream the memory; a
+// second kernel merges the splits' (max, sum, acc) and adds the sink term.
 
 #pragma once
 
@@ -83,6 +84,23 @@ struct Layout {
   int ring;     // slot table: visit every tile
 };
 
+// Shared memory of one block, in bytes from the start of the dynamic
+// allocation; every region starts on 16 bytes (q rows are read as float4).
+template <int D, int RPW, bool BF16>
+struct Smem {
+  static constexpr int BR = kWarps * RPW;
+  static constexpr int KW = D * (BF16 ? 2 : 1) / 4;  // 32-bit words per K/V row
+  static constexpr int KST = KW + 1;                  // padded K row stride in words
+  static constexpr int qs = 0;                        // float [BR][D]
+  static constexpr int kt = qs + BR * D * 4;          // uint32 [kTile][KST]
+  static constexpr int vt = kt + kTile * KST * 4;     // uint32 [kTile][KW]
+  static constexpr int kss = vt + kTile * KW * 4;     // float [kTile]
+  static constexpr int vss = kss + kTile * 4;         // float [kTile]
+  static constexpr int cps = vss + kTile * 4;         // int [kTile]
+  static constexpr int ps = cps + kTile * 4;          // float [kWarps][RPW][kTile]
+  static constexpr int bytes = ps + kWarps * RPW * kTile * 4;
+};
+
 template <int D, int RPW, bool BF16, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
@@ -92,19 +110,25 @@ fa_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
           float* __restrict__ part_acc, float* __restrict__ part_m,
           float* __restrict__ part_l, int B, int Hkv, int R, Layout lay, float sm_scale,
           int window, float softcap, int splits) {
-  constexpr int BR = kWarps * RPW;
+  using L = Smem<D, RPW, BF16>;
+  constexpr int BR = L::BR;
   constexpr int EB = BF16 ? 2 : 1;  // bytes per K/V element
-  constexpr int KW = D * EB / 4;    // 32-bit words per K/V row
-  constexpr int KST = KW + 1;       // padded K row stride in words
-  constexpr int HALVES = 128 / D;   // column groups of a warp in the P.V step
-  constexpr int LPH = 32 / HALVES;  // lanes per group, 4 output dims each
-  __shared__ __align__(16) float qs[BR][D];
-  __shared__ uint32_t kt[kTile * KST];
-  __shared__ uint32_t vt[kTile * KW];
-  __shared__ float kss[kTile];
-  __shared__ float vss[kTile];
-  __shared__ int cps[kTile];
-  __shared__ float ps[kWarps][RPW][kTile];
+  constexpr int KW = L::KW;
+  constexpr int KST = L::KST;
+  // P.V: a warp's lanes form HALVES groups that take alternate KV columns;
+  // a lane adds up NV float4s of output dims (dims 4 * (dl + LPH * j))
+  constexpr int HALVES = D >= 128 ? 1 : 128 / D;
+  constexpr int LPH = 32 / HALVES;
+  constexpr int NV = D > 128 ? D / 128 : 1;
+  static_assert(D % 32 == 0 && D <= 256 && LPH * NV * 4 == D, "head dim 32, 64, 128 or 256");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + L::qs);
+  uint32_t* kt = reinterpret_cast<uint32_t*>(smem + L::kt);
+  uint32_t* vt = reinterpret_cast<uint32_t*>(smem + L::vt);
+  float* kss = reinterpret_cast<float*>(smem + L::kss);
+  float* vss = reinterpret_cast<float*>(smem + L::vss);
+  int* cps = reinterpret_cast<int*>(smem + L::cps);
+  float* ps = reinterpret_cast<float*>(smem + L::ps);
   __shared__ int n_tiles_s;
 
   const int tid = threadIdx.x;
@@ -119,7 +143,7 @@ fa_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
     const int rr = i / D;
     const int dd = i % D;
     const int r = r0 + rr;
-    qs[rr][dd] = r < R ? __bfloat162float(q[(((size_t)b * Hkv + h) * R + r) * D + dd]) : 0.f;
+    qs[rr * D + dd] = r < R ? __bfloat162float(q[(((size_t)b * Hkv + h) * R + r) * D + dd]) : 0.f;
   }
   int rp[RPW];
 #pragma unroll
@@ -154,15 +178,18 @@ fa_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
   const int tiles_per_page = PAGED ? lay.page / kTile : 1;
   const long long seq = PAGED ? 0 : min(max(index[b], 0), lay.n_seqs - 1);
 
-  float m[RPW], l[RPW], acc[RPW][4];
+  float m[RPW], l[RPW], acc[RPW][NV][4];
 #pragma unroll
   for (int rr = 0; rr < RPW; ++rr) {
     m[rr] = -INFINITY;
     l[rr] = 0.f;
-    acc[rr][0] = acc[rr][1] = acc[rr][2] = acc[rr][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      acc[rr][j][0] = acc[rr][j][1] = acc[rr][j][2] = acc[rr][j][3] = 0.f;
+    }
   }
   const int sub = lane / LPH;  // which columns of a tile this lane adds up
-  const int dl = lane % LPH;   // its output dims are 4*dl .. 4*dl+3
+  const int dl = lane % LPH;   // its output dims are 4 * (dl + LPH * j) .. + 3
 
   for (int t = t_begin; t < t_end; ++t) {
     long long kv_row, pos_row;  // first row of the tile in k/v/scales, in pos
@@ -200,7 +227,7 @@ fa_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
       const float4 k1 = load_dims4<BF16>(kt + (lane + 32) * KST, w);
 #pragma unroll
       for (int rr = 0; rr < RPW; ++rr) {
-        const float4 qv = *reinterpret_cast<const float4*>(&qs[warp * RPW + rr][w * 4]);
+        const float4 qv = *reinterpret_cast<const float4*>(&qs[(warp * RPW + rr) * D + w * 4]);
         s[rr][0] = fmaf(qv.x, k0.x, fmaf(qv.y, k0.y, fmaf(qv.z, k0.z, fmaf(qv.w, k0.w, s[rr][0]))));
         s[rr][1] = fmaf(qv.x, k1.x, fmaf(qv.y, k1.y, fmaf(qv.z, k1.z, fmaf(qv.w, k1.w, s[rr][1]))));
       }
@@ -219,6 +246,7 @@ fa_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
       }
     }
     // online softmax update per row
+    float* pw = ps + warp * RPW * kTile;
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
       const float m_new = fmaxf(m[rr], warp_max(fmaxf(s[rr][0], s[rr][1])));
@@ -231,31 +259,42 @@ fa_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
       l[rr] = l[rr] * alpha + warp_sum(p0 + p1);
       m[rr] = m_new;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[rr][e] *= alpha;
-      ps[warp][rr][lane] = p0 * vss[lane];
-      ps[warp][rr][lane + 32] = p1 * vss[lane + 32];
+      for (int j = 0; j < NV; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[rr][j][e] *= alpha;
+      }
+      pw[rr * kTile + lane] = p0 * vss[lane];
+      pw[rr * kTile + lane + 32] = p1 * vss[lane + 32];
     }
     __syncwarp();
-    // acc[rr][dims 4*dl .. 4*dl+4) += sum over this lane's columns of p[c] * v[c]
+    // acc[rr][j] += sum over this lane's columns of p[c] * v[c, its dims]
 #pragma unroll 4
     for (int c = sub; c < kTile; c += HALVES) {
-      const float4 vf = load_dims4<BF16>(vt + c * KW, dl);
 #pragma unroll
-      for (int rr = 0; rr < RPW; ++rr) {
-        const float pc = ps[warp][rr][c];
-        acc[rr][0] = fmaf(pc, vf.x, acc[rr][0]);
-        acc[rr][1] = fmaf(pc, vf.y, acc[rr][1]);
-        acc[rr][2] = fmaf(pc, vf.z, acc[rr][2]);
-        acc[rr][3] = fmaf(pc, vf.w, acc[rr][3]);
+      for (int j = 0; j < NV; ++j) {
+        const float4 vf = load_dims4<BF16>(vt + c * KW, dl + LPH * j);
+#pragma unroll
+        for (int rr = 0; rr < RPW; ++rr) {
+          const float pc = pw[rr * kTile + c];
+          acc[rr][j][0] = fmaf(pc, vf.x, acc[rr][j][0]);
+          acc[rr][j][1] = fmaf(pc, vf.y, acc[rr][j][1]);
+          acc[rr][j][2] = fmaf(pc, vf.z, acc[rr][j][2]);
+          acc[rr][j][3] = fmaf(pc, vf.w, acc[rr][j][3]);
+        }
       }
     }
   }
 
 #pragma unroll
   for (int rr = 0; rr < RPW; ++rr) {
-    if (HALVES == 2) {
+    // add up the column groups' sums (lanes dl, dl + LPH, ...)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[rr][e] += __shfl_xor_sync(0xffffffffu, acc[rr][e], 16);
+    for (int o = 16; o >= LPH; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[rr][j][e] += __shfl_xor_sync(0xffffffffu, acc[rr][j][e], o);
+      }
     }
     const int r = r0 + warp * RPW + rr;
     if (r >= R) continue;
@@ -265,8 +304,11 @@ fa_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
       part_l[idx] = l[rr];
     }
     if (sub == 0) {
-      *reinterpret_cast<float4*>(part_acc + idx * D + dl * 4) =
-          make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        *reinterpret_cast<float4*>(part_acc + idx * D + (dl + LPH * j) * 4) =
+            make_float4(acc[rr][j][0], acc[rr][j][1], acc[rr][j][2], acc[rr][j][3]);
+      }
     }
   }
 }
@@ -301,10 +343,55 @@ static __global__ void fa_combine_kernel(const float* __restrict__ part_acc,
   out[row * D + d] = res;
 }
 
-// Launch the attention kernel for head dim 64 or 128, 1 or 4 rows per warp,
-// an int8 or bf16 memory, then the merge. part_acc [splits, B, Hkv, R, D],
-// part_m/part_l [splits, B, Hkv, R] f32 scratch; out [B, Hkv, R, D] f32.
-// Returns cudaGetLastError().
+struct Args {
+  const __nv_bfloat16* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* pos;
+  const int* row_pos;
+  const int* index;
+  float* part_acc;
+  float* part_m;
+  float* part_l;
+  int B, Hkv, R;
+  Layout lay;
+  float sm_scale;
+  int window;
+  float softcap;
+  int splits;
+};
+
+// one instantiation; above 48 KB of shared memory (heads of 256) the kernel
+// is first allowed that much dynamic shared memory
+template <int D, int RPW, bool BF16, bool PAGED>
+cudaError_t run(dim3 grid, cudaStream_t st, const Args& a) {
+  constexpr int bytes = Smem<D, RPW, BF16>::bytes;
+  auto* kern = fa_kernel<D, RPW, BF16, PAGED>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<grid, kThreads, bytes, st>>>(a.q, a.k, a.v, a.ks, a.vs, a.pos, a.row_pos, a.index,
+                                      a.part_acc, a.part_m, a.part_l, a.B, a.Hkv, a.R, a.lay,
+                                      a.sm_scale, a.window, a.softcap, a.splits);
+  return cudaGetLastError();
+}
+
+template <int D, bool PAGED>
+cudaError_t run_d(dim3 grid, cudaStream_t st, const Args& a, int rows_per_warp, int bf16_kv) {
+  if (rows_per_warp == 1) {
+    return bf16_kv ? run<D, 1, true, PAGED>(grid, st, a) : run<D, 1, false, PAGED>(grid, st, a);
+  }
+  return bf16_kv ? run<D, 4, true, PAGED>(grid, st, a) : run<D, 4, false, PAGED>(grid, st, a);
+}
+
+// Launch the attention kernel for head dim 32, 64, 128 or 256, 1 or 4 rows
+// per warp, an int8 or bf16 memory, then the merge. part_acc [splits, B,
+// Hkv, R, D], part_m/part_l [splits, B, Hkv, R] f32 scratch; out [B, Hkv,
+// R, D] f32. Returns cudaGetLastError().
 template <bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* pos, const void* row_pos, const void* index, const void* sinks,
@@ -314,38 +401,26 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (splits <= 0 || B <= 0 || R <= 0 || Hkv <= 0 || lay.S % kTile != 0 ||
       (bf16_kv == 0) != (ks != nullptr && vs != nullptr) ||
-      (rows_per_warp != 1 && rows_per_warp != 4) || (D != 64 && D != 128)) {
+      (rows_per_warp != 1 && rows_per_warp != 4) ||
+      (D != 32 && D != 64 && D != 128 && D != 256)) {
     return (int)cudaErrorInvalidValue;
   }
   const int br = kWarps * rows_per_warp;
   const dim3 grid((R + br - 1) / br, Hkv, B * splits);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* ksf = static_cast<const float*>(ks);
-  const auto* vsf = static_cast<const float*>(vs);
-  const auto* posi = static_cast<const int*>(pos);
-  const auto* rpi = static_cast<const int*>(row_pos);
-  const auto* idx = static_cast<const int*>(index);
   auto* pa = static_cast<float*>(part_acc);
   auto* pm = static_cast<float*>(part_m);
   auto* pl = static_cast<float*>(part_l);
-#define FA_RUN(DD, RPW, BF)                                                              \
-  fa_kernel<DD, RPW, BF, PAGED><<<grid, kThreads, 0, st>>>(qb, k, v, ksf, vsf, posi, rpi, \
-                                                           idx, pa, pm, pl, B, Hkv, R, lay, \
-                                                           sm_scale, window, softcap, splits)
-#define FA_RUN_D(DD)                                            \
-  if (rows_per_warp == 1) {                                     \
-    if (bf16_kv) FA_RUN(DD, 1, true); else FA_RUN(DD, 1, false); \
-  } else {                                                      \
-    if (bf16_kv) FA_RUN(DD, 4, true); else FA_RUN(DD, 4, false); \
+  const Args a{static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(ks),
+               static_cast<const float*>(vs), static_cast<const int*>(pos),
+               static_cast<const int*>(row_pos), static_cast<const int*>(index), pa, pm, pl,
+               B, Hkv, R, lay, sm_scale, window, softcap, splits};
+  cudaError_t err;
+  switch (D) {
+    case 32: err = run_d<32, PAGED>(grid, st, a, rows_per_warp, bf16_kv); break;
+    case 64: err = run_d<64, PAGED>(grid, st, a, rows_per_warp, bf16_kv); break;
+    case 128: err = run_d<128, PAGED>(grid, st, a, rows_per_warp, bf16_kv); break;
+    default: err = run_d<256, PAGED>(grid, st, a, rows_per_warp, bf16_kv); break;
   }
-  if (D == 64) {
-    FA_RUN_D(64)
-  } else {
-    FA_RUN_D(128)
-  }
-#undef FA_RUN_D
-#undef FA_RUN
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n_rows = (size_t)B * Hkv * R;
   fa_combine_kernel<<<(unsigned)n_rows, D, 0, st>>>(pa, pm, pl, static_cast<const float*>(sinks),

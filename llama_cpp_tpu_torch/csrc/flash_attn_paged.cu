@@ -14,7 +14,7 @@
 
 #include "flash_attn_common.cuh"
 
-// q [B, Hkv, R, D] bf16, D = 64 or 128; k, v [Hkv, S_pool, D] int8 with ks, vs
+// q [B, Hkv, R, D] bf16, D = 32, 64, 128 or 256; k, v [Hkv, S_pool, D] int8 with ks, vs
 // [Hkv, S_pool] f32 row scales, or bf16 with ks = vs = null; pos [S_pool]
 // int32; row_pos [B, R] int32; table [B, MP] int32; sinks [Hkv, R] f32 or
 // null; part_acc [splits, B, Hkv, R, D], part_m/part_l [splits, B, Hkv, R]

@@ -21,7 +21,9 @@ clip(row_pos // 64 + 1, 1, S / 64) of a slot table unless it is a ring
 dropped by the callers.
 
 Bound on an H100: at decode the live K/V bytes; the kernels split the live
-tiles over blocks and merge in a second pass. Head dims 64 and 128.
+tiles over blocks and merge in a second pass. Head dims 32, 64, 128 and 256
+(K and V alike): every head dim of this kind that the JAX package sends to
+its kernel.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (64, 128)  # the kernels' K and V head dims (K and V alike)
+HEAD_DIMS = (32, 64, 128, 256)  # the kernels' K and V head dims (K and V alike)
 _TILE = 64  # KV rows per kernel tile
 _MIN_BLOCKS = 264  # two blocks per SM on 132 SMs before splitting KV
 _LANES = 128  # the TPU lane width the JAX package's dispatch tests against
@@ -52,8 +54,9 @@ def dispatches(head_dim_k: int, head_dim_v: int, n_slots: int, rows: int) -> boo
 
 
 def supported(head_dim_k: int, head_dim_v: int, page: int, kv_dtype: torch.dtype) -> bool:
-    """Whether the kernels take this attention: K and V heads of 64 or of
-    128, an int8 or bf16 memory, pages (or a slot table) of whole tiles."""
+    """Whether the kernels take this attention: K and V heads alike of 32,
+    64, 128 or 256, an int8 or bf16 memory, pages (or a slot table) of whole
+    tiles."""
     return (head_dim_k in HEAD_DIMS and head_dim_v == head_dim_k and page % _TILE == 0
             and kv_dtype in (torch.int8, torch.bfloat16))
 

@@ -36,7 +36,7 @@ def bf16_round(a: np.ndarray) -> np.ndarray:
     return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
 
 
-def make_case(seed: int, bf16: bool = False):
+def make_case(seed: int, bf16: bool = False, D: int = D):
     """Int8 pool (or a bf16 one without scales) where sequence b holds
     positions [0, depth_b + T) in pages 2b, 2b+1; the q rows are the last T
     positions, GQA-folded (row g*T+t)."""
@@ -71,13 +71,8 @@ def nmse(got, ref):
     return float(np.mean((got - ref) ** 2) / np.mean(ref ** 2))
 
 
-@pytest.mark.parametrize("window,softcap,use_sinks,bf16", [
-    (0, 0.0, False, False), (64, 0.0, False, False), (0, 2.0, False, False),
-    (0, 0.0, True, False), (96, 2.0, True, False), (0, 0.0, False, True),
-    (96, 2.0, True, True)],
-    ids=["causal", "window", "softcap", "sinks", "all", "bf16_pool", "bf16_pool_all"])
-def test_paged_attention_matches_jax(window, softcap, use_sinks, bf16):
-    c = make_case(0, bf16=bf16)
+def paged_parity(window, softcap, use_sinks, bf16, D=D):
+    c = make_case(0, bf16=bf16, D=D)
     sm = 1.0 / np.sqrt(D)
     kvdt = jnp.bfloat16 if bf16 else jnp.int8
     ref = np.asarray(jax_fa_paged(
@@ -104,6 +99,25 @@ def test_paged_attention_matches_jax(window, softcap, use_sinks, bf16):
     r = ref.transpose(0, 2, 1, 3)[valid]
     assert np.isfinite(g).all()
     assert nmse(g, r) < 1e-4
+
+
+@pytest.mark.parametrize("window,softcap,use_sinks,bf16", [
+    (0, 0.0, False, False), (64, 0.0, False, False), (0, 2.0, False, False),
+    (0, 0.0, True, False), (96, 2.0, True, False), (0, 0.0, False, True),
+    (96, 2.0, True, True)],
+    ids=["causal", "window", "softcap", "sinks", "all", "bf16_pool", "bf16_pool_all"])
+def test_paged_attention_matches_jax(window, softcap, use_sinks, bf16):
+    paged_parity(window, softcap, use_sinks, bf16)
+
+
+@pytest.mark.parametrize("window,softcap,use_sinks", [(0, 0.0, False), (96, 2.0, True)],
+                         ids=["causal", "all"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8_pool", "bf16_pool"])
+@pytest.mark.parametrize("head_dim", [32, 256], ids=["d32", "d256"])
+def test_paged_attention_head_dims_match_jax(head_dim, bf16, window, softcap, use_sinks):
+    """Heads of 32 and 256, which the JAX package also runs through its
+    paged kernel."""
+    paged_parity(window, softcap, use_sinks, bf16, D=head_dim)
 
 
 def test_mha_flash_paged_gqa_fold_matches_jax():
@@ -184,7 +198,7 @@ def slot_case(D, quantized, ring=False, seed=0):
     (0, 0.0, False), (64, 0.0, False), (0, 2.0, False), (0, 0.0, True), (96, 2.0, True)],
     ids=["causal", "window", "softcap", "sinks", "all"])
 @pytest.mark.parametrize("quantized", [True, False], ids=["int8", "bf16"])
-@pytest.mark.parametrize("D", [64, 128], ids=["d64", "d128"])
+@pytest.mark.parametrize("D", [64, 128, 32, 256], ids=["d64", "d128", "d32", "d256"])
 def test_slot_table_attention_matches_jax(D, quantized, window, softcap, use_sinks, ring):
     c = slot_case(D, quantized, ring, seed=D + window)
     sm = 1.0 / np.sqrt(D)
@@ -245,11 +259,21 @@ def test_mha_flash_gqa_fold_matches_jax(D):
 
 @pytest.mark.parametrize("dk,dv,page,dtype,ok", [
     (128, 128, 512, torch.int8, True), (64, 64, 256, torch.bfloat16, True),
-    (32, 32, 512, torch.int8, False), (256, 256, 512, torch.int8, False),
+    (32, 32, 512, torch.int8, True), (256, 256, 512, torch.bfloat16, True),
     (128, 64, 512, torch.int8, False), (128, 128, 96, torch.int8, False),
     (128, 128, 512, torch.float16, False)],
     ids=["d128", "d64", "d32", "d256", "dk_ne_dv", "page96", "f16"])
 def test_supported_names_what_the_kernels_take(dk, dv, page, dtype, ok):
-    """Head dims 64 and 128 run; 32, 256 and unequal K/V dims raise on the
-    card where the JAX package would run its kernel."""
+    """Head dims 32, 64, 128 and 256 run; unequal K/V dims raise on the card
+    where the JAX package would run its kernel."""
     assert tfa.supported(dk, dv, page, dtype) == ok
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 96, 128, 192, 256, 512])
+def test_supported_agrees_with_dispatches_for_equal_head_dims(head_dim):
+    """Where K and V heads are alike and at most 256 wide, the kernels take
+    exactly the head dims the JAX package sends to its kernel (at a prefill
+    row count). Wider multiples of 128 (512 here) come with no arch the port
+    loads and still raise."""
+    sent = tfa.dispatches(head_dim, head_dim, 1024, 64)
+    assert tfa.supported(head_dim, head_dim, 512, torch.int8) == (sent and head_dim <= 256)

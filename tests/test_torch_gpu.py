@@ -42,10 +42,12 @@ def nmse(got, ref):
                                      (GGMLType.Q4_K, 768), (GGMLType.Q6_K, 768)],
                          ids=["q4_k", "q6_k", "q4_k_flat", "q6_k_flat"])
 def test_qmm_kernel_matches_plain(cuda_device, qtype, K, n):
-    """GEMV and tensor-core GEMM against the plain version, on hierarchical
-    planes (K % 512 == 0) and flat f32 scales (K = 768). NMSE < 1e-4: the
-    GEMV skips the plain version's bf16 rounding of W (an NMSE near 1e-6),
-    the GEMM differs only in summation order."""
+    """GEMV, mma.sync GEMM and (from 64 rows) wgmma GEMM against the plain
+    version, on hierarchical planes (K % 512 == 0) and flat f32 scales (K =
+    768). NMSE < 1e-4: the GEMV skips the plain version's bf16 rounding of W
+    (an NMSE near 1e-6), the mma.sync GEMM differs only in summation order,
+    the wgmma GEMM rounds packed planes' scale and min to bf16 first (near
+    1e-5 on these planes)."""
     O = 384
     rng = np.random.default_rng(int(qtype) + n + K)
     raw = np.frombuffer(synth_quant_bytes(rng, O * K, qtype), np.uint8)
@@ -103,6 +105,48 @@ def test_qmm_kernel_every_layout(cuda_device, packed, group, hier, mins, gemv_ma
         got = tqmm.qmm(x, w, gemv_max_n=gemv_max_n)
         torch.cuda.synchronize()
         assert torch.isfinite(got).all()
+        assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4, n
+
+
+PREFILL_LAYOUTS = {
+    "p16_hier_mins": (True, 16, True, True), "p16_flat": (True, 16, False, False),
+    "i32_hier": (False, 32, True, False), "i32_flat_mins": (False, 32, False, True),
+    "p32_flat_mins": (True, 32, False, True), "i16_flat": (False, 16, False, False),
+    "p32_hier_mins": (True, 32, True, True), "i16_hier": (False, 16, True, False)}
+
+
+@pytest.mark.parametrize("layout", list(PREFILL_LAYOUTS))
+def test_qmm_wgmma_kernel_every_layout(cuda_device, layout):
+    """The wgmma prefill GEMM at ragged and full ubatches (64, 65, 200, 512
+    and 1023 rows) on every plane layout the kernel takes, the two of the
+    Q4_K/Q6_K main path included: NMSE < 1e-4 from the plain version (packed
+    planes' scale and min are rounded to bf16 before W, near 1e-5 on these
+    random planes; int8 planes round W as the plain version does)."""
+    w = synth_planes(cuda_device, *PREFILL_LAYOUTS[layout])
+    assert tqmm.dispatches(w) and tqmm.supported(w)
+    name = ("qmm4_planes" if w.packed else "qmm_planes") + "_prefill/wgmma"
+    for n in (64, 65, 200, 512, 1023):
+        x = torch.randn((n, 512), device=cuda_device).to(torch.bfloat16)
+        before = tqmm.launches[name]
+        got = tqmm.qmm(x, w)
+        torch.cuda.synchronize()
+        assert tqmm.launches[name] == before + 1
+        assert got.shape == (n, 256) and torch.isfinite(got).all()
+        assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4, n
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K], ids=["q4_k", "q6_k"])
+def test_qmm_wgmma_kernel_deep_k(cuda_device, qtype):
+    """K = 14336 x O = 4096 (an 8B ffn_down) at 512 and 200 rows: 64-bit
+    plane offsets, and split-K where the plan splits."""
+    rng = np.random.default_rng(int(qtype))
+    K, O = 14336, 4096
+    raw = np.frombuffer(synth_quant_bytes(rng, O * K, qtype), np.uint8)
+    w = tq.load_weight(raw, qtype, (O, K), transpose=True, device=cuda_device)
+    for n in (512, 200):
+        x = torch.randn((n, K), device=cuda_device).to(torch.bfloat16)
+        got = tqmm.qmm(x, w)
+        torch.cuda.synchronize()
         assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4, n
 
 
@@ -171,7 +215,7 @@ def test_paged_attention_kernel_matches_plain(cuda_device, window, softcap, use_
 
 
 def test_paged_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
-    args, _, page = paged_case(cuda_device, D=32)  # heads of 64 and 128 run
+    args, _, page = paged_case(cuda_device, D=96)  # heads of 32, 64, 128 and 256 run
     with pytest.raises(ValueError):
         tfa.flash_attention_paged(*args, sm_scale=0.125, page=page)
     args, _, page = paged_case(cuda_device)
@@ -194,7 +238,9 @@ def test_main_path_kernel_route_matches_plain_route(cuda_device, tmp_path, quant
     got = ctx.prefill(prompt)
     ids = ctx.decode_steps_greedy(np.array([int(np.argmax(got))]), np.array([0]), 4)
     assert tfa.launches["flash_attention_paged"] > 0 and tfa.launches["flash_attention"] == 0
-    assert tqmm.launches["qmm4_planes_prefill/mma"] > 0
+    assert tqmm.launches["qmm4_planes_prefill/wgmma"] > 0
+    assert tqmm.launches["qmm_planes_prefill/wgmma"] > 0
+    assert tqmm.launches["qmm4_planes_prefill/mma"] == 0
     assert tqmm.launches["qmm_planes/gemv"] > 0
     ref_ctx = Context(model, n_ctx=512, n_seqs=4, n_ubatch=128, quantized_kv=quantized_kv,
                       kernels=False)
@@ -208,6 +254,19 @@ def test_main_path_kernel_route_matches_plain_route(cuda_device, tmp_path, quant
 def test_paged_attention_kernel_heads_of_64(cuda_device, T, bf16):
     args, sinks, page = paged_case(cuda_device, T=T, D=64, bf16=bf16)
     kw = dict(sm_scale=0.125, window=96, softcap=2.0, page=page)
+    got = tfa.flash_attention_paged(*args, sinks, **kw)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_paged_plain(*args, sinks, **kw)
+    valid = args[3] >= 0
+    assert nmse(got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]) < 1e-5
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8_pool", "bf16_pool"])
+@pytest.mark.parametrize("T", [1, 5], ids=["decode", "prefill"])
+@pytest.mark.parametrize("D", [32, 256], ids=["d32", "d256"])
+def test_paged_attention_kernel_heads_of_32_and_256(cuda_device, D, T, bf16):
+    args, sinks, page = paged_case(cuda_device, T=T, D=D, bf16=bf16)
+    kw = dict(sm_scale=1.0 / np.sqrt(D), window=96, softcap=2.0, page=page)
     got = tfa.flash_attention_paged(*args, sinks, **kw)
     torch.cuda.synchronize()
     ref = tfa.flash_attention_paged_plain(*args, sinks, **kw)
@@ -247,7 +306,7 @@ def slot_case(device, D=128, T=5, G=4, Hkv=2, n_seqs=5, S=512, bf16=False, ring=
 
 @pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])
 @pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
-@pytest.mark.parametrize("D", [64, 128], ids=["d64", "d128"])
+@pytest.mark.parametrize("D", [64, 128, 32, 256], ids=["d64", "d128", "d32", "d256"])
 @pytest.mark.parametrize("window,softcap,use_sinks,T", [
     (0, 0.0, False, 1), (0, 0.0, False, 5), (96, 2.0, True, 5), (64, 0.0, True, 1)],
     ids=["decode", "prefill", "all", "decode_window_sinks"])
@@ -268,7 +327,7 @@ def test_slot_attention_kernel_matches_plain(cuda_device, window, softcap, use_s
 
 
 def test_slot_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
-    args, _ = slot_case(cuda_device, D=32)
+    args, _ = slot_case(cuda_device, D=96)
     with pytest.raises(ValueError):
         tfa.flash_attention(*args, sm_scale=0.125)
     args, _ = slot_case(cuda_device)

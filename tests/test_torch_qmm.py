@@ -173,3 +173,109 @@ def test_matmul_takes_the_kernel_where_jax_dispatches(monkeypatch, qtype, o, k, 
     monkeypatch.setattr(tqmm, "qmm", lambda x, w: calls.append(x.shape) or tqmm.qmm_plain(x, w))
     tq.matmul(torch.zeros((rows, k), dtype=torch.bfloat16), tw)
     assert bool(calls) == jax_kernel
+
+
+# main-path shapes of the wgmma prefill GEMM: (K, O, packed) of a Llama-3-8B
+# layer (Q4_K attn_qk, attn_output, ffn_gateup; Q6_K attn_v, ffn_down), of a
+# TinyLlama-1.1B layer (heads of 64) and flat planes with K = 768
+PREFILL_SHAPES = {
+    "attn_qk": (4096, 5120, True), "attn_output": (4096, 4096, True),
+    "ffn_gateup": (4096, 28672, True), "attn_v": (4096, 1024, False),
+    "ffn_down": (14336, 4096, False), "tiny_attn_qk": (2048, 2304, True),
+    "tiny_attn_output": (2048, 2048, True), "tiny_ffn_gateup": (2048, 11264, True),
+    "tiny_attn_v": (2048, 256, False), "tiny_ffn_down": (5632, 2048, False),
+    "flat_k768": (768, 256, True)}
+
+
+@pytest.mark.parametrize("n", [64, 512, 1023])
+@pytest.mark.parametrize("shape", list(PREFILL_SHAPES))
+def test_prefill_plan_divides_and_fills(shape, n):
+    """Every split of the wgmma GEMM's grid is a whole number of 64-deep K
+    steps (64-row plane blocks, two steps each when packed), and the grid
+    fills the card's 132 SMs or the plan says why it cannot."""
+    K, O, packed = PREFILL_SHAPES[shape]
+    plan = tqmm.prefill_plan(n, K, O, packed)
+    rows = K // 2 if packed else K
+    assert rows % (plan.splits * 64) == 0
+    assert plan.steps * 64 * plan.splits == K
+    assert plan.row_blocks == -(-n // 128) and plan.col_blocks * 128 == O
+    assert plan.blocks >= 132 or plan.note
+    assert (plan.note == "") == (plan.blocks >= 132)
+
+
+def test_prefill_plan_splits_the_narrow_shapes():
+    """At the 512-row ubatch attn_v (8 column blocks) is split; the wide
+    shapes are not."""
+    assert tqmm.prefill_plan(512, 4096, 1024, False).splits > 1
+    for K, O, packed in (PREFILL_SHAPES["ffn_gateup"], PREFILL_SHAPES["attn_qk"]):
+        assert tqmm.prefill_plan(512, K, O, packed).splits == 1
+
+
+@pytest.mark.parametrize("rows,cuda_kernel", [
+    (4, "qmm4_planes/gemv"), (5, "qmm4_planes/mma"), (63, "qmm4_planes/mma"),
+    (64, "qmm4_planes_prefill/wgmma"), (1023, "qmm4_planes_prefill/wgmma"), (1024, None)])
+def test_kernel_name_routes_by_row_count(monkeypatch, rows, cuda_kernel):
+    """The GEMV up to 4 rows, the mma.sync GEMM to 63, the wgmma GEMM from 64
+    (the JAX PREFILL_MIN_N) to 1023; from 1024 rows the matmul route
+    dequantizes once and calls torch.matmul (XLA_PREFILL_MIN_N)."""
+    raw = raw_weight(GGMLType.Q4_K, seed=11)
+    tw = tq.load_weight(raw, GGMLType.Q4_K, (O, K), transpose=True)
+    calls = []
+    monkeypatch.setattr(tqmm, "qmm", lambda x, w: calls.append(x.shape[0]) or
+                        tqmm.qmm_plain(x, w))
+    tq.matmul(torch.zeros((rows, K), dtype=torch.bfloat16), tw)
+    assert calls == ([] if cuda_kernel is None else [rows])
+    if cuda_kernel is not None:
+        assert tqmm.kernel_name(tw, rows) == cuda_kernel
+        assert cuda_kernel in tqmm.launches
+    # the mma.sync GEMM forced at prefill rows keeps its own counter
+    assert tqmm.kernel_name(tw, 200, prefill_min_n=1024) == "qmm4_planes_prefill/mma"
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K], ids=["q4_k", "q6_k"])
+def test_qmm_plain_matches_jax_pallas_ragged_prefill(qtype):
+    """A ragged prefill ubatch (200 rows, which the JAX wrapper pads to a
+    multiple of 8) through the JAX prefill kernel in interpret mode."""
+    raw = raw_weight(qtype, seed=12)
+    jw = jax_load_weight(raw, qtype, (O, K), prefer_quant=True, transpose=True)
+    tw = tq.load_weight(raw, qtype, (O, K), prefer_quant=True, transpose=True)
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((200, K)).astype(np.float32) * 0.5)
+    x = x.to(torch.bfloat16)
+    ref = np.asarray(jax_qmm(jnp.asarray(x.float().numpy(), jnp.bfloat16), jw, interpret=True))
+    got = tqmm.qmm(x, tw)
+    assert tuple(got.shape) == ref.shape == (200, O)
+    assert nmse(got.numpy(), ref) < 1e-4
+
+
+def wgmma_dequant(w) -> torch.Tensor:
+    """W as the wgmma prefill kernel forms it: packed planes with the
+    group's scale and min rounded to bf16 and one bf16 FMA (its
+    product and sum are exact in f32 here); int8 planes as the plain
+    version."""
+    if not w.packed:
+        return w.dequant(torch.bfloat16).float()
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    q = w.unpack_q().float()
+    k, o = q.shape
+    wf = q.reshape(k // w.group, w.group, o) * bf(w.eff_scales())[:, None]
+    if w.mins is not None:
+        wf = wf + bf(w.eff_mins())[:, None]
+    return bf(wf.reshape(k, o))
+
+
+@pytest.mark.parametrize("qtype,k", [(GGMLType.Q4_K, 4096), (GGMLType.Q6_K, 4096),
+                                     (GGMLType.Q4_K, 768)], ids=["q4_k", "q6_k", "q4_k_flat"])
+def test_wgmma_dequant_rounding_within_tolerance(qtype, k):
+    """The wgmma kernel's cheaper rounding of packed planes (scale and min to
+    bf16 first) keeps its product within NMSE 1e-4 of the plain version on
+    weights made by the quantizer, the card-only tests' tolerance."""
+    raw = raw_weight(qtype, o=512, k=k, seed=14)
+    tw = tq.load_weight(raw, qtype, (512, k), prefer_quant=True, transpose=True)
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32)).to(torch.bfloat16)
+    got = x.float() @ wgmma_dequant(tw)
+    assert nmse(got.numpy(), tqmm.qmm_plain(x, tw).numpy()) < 1e-4
