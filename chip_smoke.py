@@ -11,12 +11,13 @@ Phases, each of which fails the run:
   3. every kernel at the main path's shapes on the card, held against its
      plain PyTorch version (NMSE < 5e-3), timed by CUDA events (L2 flushed
      before each launch) beside its bound, the plain version and one
-     PyTorch library call; the qmm GEMV and mma.sync GEMM are also timed
-     against each other at 1-8 rows (the crossover the wrapper's
-     GEMV_MAX_N is set from); the wgmma prefill GEMM (K3, K4) is held,
-     untimed, at every main-path shape (the 8B and TinyLlama layers) and
-     64, 65, 200, 512 and 1023 rows, and timed for the record against the
-     mma.sync GEMM forced at 64-1023 rows, beside its registers and spills;
+     PyTorch library call: the qmm decode kernel (csrc/qmm_decode.cu) at
+     every main-path decode shape of an 8B layer and the vocab head and
+     N = 1, 2, 4, 8, 16, 32, 63 (and held, untimed, at the TinyLlama
+     layer's), then K1 and K2 at N = 1, 8, 32 beside the stream probe's
+     rate; the wgmma prefill GEMM (K3, K4) held, untimed, at every
+     main-path shape (the 8B and TinyLlama layers) and 64, 65, 200, 512 and
+     1023 rows, timed at 64-1023 rows, beside its registers and spills;
      the attention kernel on a bf16 pool and, int8 and bf16, with heads of
      32 and 256 at decode and at a prefill ubatch; the
      indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes,
@@ -40,9 +41,10 @@ Phases, each of which fails the run:
        the sort-by-expert prefill, B=1 decode through the indexed-expert
        kernel, batched decode at B=8;
      - a TinyLlama-shaped model with 64-wide heads on both memories;
-     every path's prefill ubatches through the wgmma GEMM (the mma.sync
-     GEMM at prefill rows must not run), and 32 of 32 greedy ids equal to
-     the plain path's;
+     every path's qmm calls through the kernels its route names (decode
+     rows through the decode kernel, ubatches through the wgmma GEMM; a
+     path that launches any other kernel fails), and 32 of 32 greedy ids
+     equal to the plain path's;
      - path C, the qmm microbenchmark entry point
        (llama_cpp_tpu_torch.tools.bench_qmm) with every case at full width,
        the 4096 x 128256 vocab head included;
@@ -93,16 +95,11 @@ def plane_bytes(w) -> int:
                if t is not None)
 
 
-def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=None,
-              prefill_min_n=None):
-    """Hold the qmm kernel against its plain version at each (weight, N);
-    returns {N: numbers summed over the weights}. gemv_max_n forces the
-    GEMV (8) or the mma.sync GEMM (0), prefill_min_n the mma.sync GEMM at
-    prefill rows (1024); None keeps the wrapper's routes. With either given
-    the plain version and the library call are not timed."""
+def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures):
+    """Hold the qmm kernel against its plain version at each (weight, N)
+    and time it, the plain version and the library call; returns {N:
+    numbers summed over the weights}."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    kw = {k: v for k, v in (("gemv_max_n", gemv_max_n), ("prefill_min_n", prefill_min_n))
-          if v is not None}
     res = {}
     for n in n_rows:
         total = res[n] = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
@@ -111,26 +108,23 @@ def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=No
             K = w.in_features
             O = w.q.shape[1]
             x = torch.randn((n, K), generator=gen, device="cuda").to(torch.bfloat16)
-            got = qmm.qmm(x, w, **kw)
+            got = qmm.qmm(x, w)
             torch.cuda.synchronize()
             ref = qmm.qmm_plain(x, w)
             err = nmse(got, ref)
             mae = float((got - ref).abs().max())
             if not err < NMSE_LIMIT or not torch.isfinite(got).all():
                 failures.append(f"{label} {wname} N={n}: NMSE {err}")
-            ms = timer(lambda: qmm.qmm(x, w, **kw))
-            plain_ms = lib_ms = float("nan")
-            if not kw:
-                wd = w.dequant(torch.bfloat16)
-                plain_ms = timer(lambda: qmm.qmm_plain(x, w), reps=3)
-                lib_ms = timer(lambda: torch.matmul(x, wd))
-                del wd
+            ms = timer(lambda: qmm.qmm(x, w))
+            wd = w.dequant(torch.bfloat16)
+            plain_ms = timer(lambda: qmm.qmm_plain(x, w), reps=3)
+            lib_ms = timer(lambda: torch.matmul(x, wd))
+            del wd
             nbytes = n * K * 2 + plane_bytes(w) + n * O * 4
             flops = 2.0 * n * K * O
             bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
             bound = max(bytes_s, ops_s) * 1e3
-            name = qmm.kernel_name(w, n, kw.get("gemv_max_n", qmm.GEMV_MAX_N),
-                                   kw.get("prefill_min_n", qmm.PREFILL_MIN_N))
+            name = qmm.kernel_name(w, n)
             log(f"  {label:24s} {wname:12s} N={n:4d} K={K:5d} O={O:6d} [{name}] "
                 f"nmse={err:.2e} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={bound:.4f} ({'bytes' if bytes_s > ops_s else 'operations'})")
@@ -146,8 +140,28 @@ def qmm_phase(torch, timer, qmm, label, weights, n_rows, failures, gemv_max_n=No
     return res
 
 
-def prefill_held(torch, qmm, label, weights, n_rows, failures):
-    """The wgmma prefill GEMM against its plain version at each (weight, N),
+DECODE_ROWS = (1, 2, 4, 8, 16, 32, 63)
+
+
+def decode_sweep(torch, timer, qmm, weights, failures):
+    """The decode kernel one shape at a time at N = 1, 2, 4, 8, 16, 32, 63,
+    each launch held against the plain version. Prints, per (shape, N), its
+    time, the bound, the library call and the share of the bound; returns
+    each shape's GB/s of plane bytes."""
+    rates = {}
+    for wname, w in weights:
+        r = qmm_phase(torch, timer, qmm, "decode", [(wname, w)], DECODE_ROWS, failures)
+        for n in DECODE_ROWS:
+            log(f"  decode {wname:12s} N={n:2d}: {r[n]['ms']:.4f} ms, bound "
+                f"{r[n]['bound_ms']:.4f}, library {r[n]['library_ms']:.4f} "
+                f"({r[n]['ms'] / r[n]['library_ms']:.2f}x), share of bound "
+                f"{r[n]['bound_ms'] / r[n]['ms']:.3f}")
+        rates[wname] = {n: plane_bytes(w) / r[n]["ms"] / 1e6 for n in DECODE_ROWS}
+    return rates
+
+
+def held_phase(torch, qmm, label, weights, n_rows, failures):
+    """The qmm kernel against its plain version at each (weight, N),
     untimed; returns the largest NMSE and absolute error."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {"nmse": 0.0, "max_abs_err": 0.0}
@@ -531,20 +545,39 @@ def bench_tiles_phase(torch, qb, tool, failures):
     return res
 
 
-def profile_decode(torch, ctx, steps: int):
+def profile_decode(torch, qmm, ctx, steps: int):
     """Where a B=1 decode step's time goes: `steps` decode_one calls of
-    sequence 0 timed by the host clock, then as many under torch.profiler
-    for the device time by kernel (the profiler's own start-up cost makes
-    its window's wall time meaningless, so the share uses the first)."""
+    sequence 0 timed by the host clock, with the host time spent inside the
+    qmm wrapper (planning, checks and the launch) summed beside it, then as
+    many steps under torch.profiler for the device time by kernel (the
+    profiler's own start-up cost makes its window's wall time meaningless,
+    so the share uses the first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    wrapper = qmm.qmm
+    in_qmm = [0.0, 0]
+
+    def timed_qmm(x, w):
+        t = time.perf_counter()
+        y = wrapper(x, w)
+        in_qmm[0] += time.perf_counter() - t
+        in_qmm[1] += 1
+        return y
+
     tok = 1
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        tok = int(ctx.decode_one(tok, seq=0).argmax())
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    qmm.qmm = timed_qmm
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = int(ctx.decode_one(tok, seq=0).argmax())
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        qmm.qmm = wrapper
+    log(f"B=1 decode host time in the qmm wrapper: {in_qmm[0] * 1e3 / steps:.3f} ms a step over "
+        f"{in_qmm[1] / steps:.0f} calls ({in_qmm[0] * 1e6 / max(in_qmm[1], 1):.1f} us a call) "
+        f"of {wall_ms:.3f} ms wall")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             tok = int(ctx.decode_one(tok, seq=0).argmax())
@@ -629,49 +662,50 @@ def main() -> int:
     head = [("output", pad_out_features(weight(GGMLType.Q6_K, V, E)))]
     assert all(w.packed and w.hier for _, w in q4) and all(w.hier and not w.packed
                                                           for _, w in q6 + head)
-    log("qmm GEMV against the tensor-core GEMM at 1-8 rows (each held against plain):")
-    for lay, ws in (("Q4_K", q4), ("Q6_K", q6)):
-        gv = qmm_phase(torch, timer, qmm, f"{lay} forced gemv", ws, (1, 2, 4, 8), failures,
-                       gemv_max_n=8)
-        mm = qmm_phase(torch, timer, qmm, f"{lay} forced mma", ws, (1, 2, 4, 8), failures,
-                       gemv_max_n=0)
-        log(f"crossover {lay} (layer sums, ms; GEMV_MAX_N = {qmm.GEMV_MAX_N}): " + ", ".join(
-            f"N={n} gemv {gv[n]['ms']:.4f} mma {mm[n]['ms']:.4f}" for n in gv))
+    log("the decode kernel at every main-path decode shape and the head (each launch held "
+        "against plain):")
+    decode_rates = decode_sweep(torch, timer, qmm, q4 + q6 + head, failures)
     log("kernels vs plain at the main path's shapes (layer sums go to the JSON line):")
     q4r = qmm_phase(torch, timer, qmm, "K1 qmm4_planes", q4, (1, 8, 32), failures)
     q4p = qmm_phase(torch, timer, qmm, "K3 qmm4_planes_prefill", q4, (512,), failures)
     q6r = qmm_phase(torch, timer, qmm, "K2 qmm_planes", q6, (1, 8, 32), failures)
-    qmm_phase(torch, timer, qmm, "K2 qmm_planes (head)", head, (1, 8, 32), failures)
+    hr = qmm_phase(torch, timer, qmm, "K2 qmm_planes (head)", head, (1, 8, 32), failures)
     q6p = qmm_phase(torch, timer, qmm, "K4 qmm_planes_prefill", q6, (512,), failures)
+    for lay, r in (("K1", q4r), ("K2", q6r), ("K2 head", hr)):
+        log(f"{lay} layer sums ({card}): " + "; ".join(
+            f"N={n} {r[n]['ms']:.4f} ms, library {r[n]['library_ms']:.4f} "
+            f"({r[n]['ms'] / r[n]['library_ms']:.2f}x), bound {r[n]['bound_ms']:.4f} (share "
+            f"{r[n]['bound_ms'] / r[n]['ms']:.3f}, half the bound "
+            f"{'met' if r[n]['ms'] <= 2 * r[n]['bound_ms'] else 'not met'})" for n in r))
     tiny = [("tinyllama attn_qk", weight(GGMLType.Q4_K, 2048 + 256, 2048)),
             ("tinyllama attn_output", weight(GGMLType.Q4_K, 2048, 2048)),
             ("tinyllama ffn_gateup", weight(GGMLType.Q4_K, 2 * 5632, 2048)),
             ("tinyllama attn_v", weight(GGMLType.Q6_K, 256, 2048)),
             ("tinyllama ffn_down", weight(GGMLType.Q6_K, 2048, 5632))]
+    log("K1, K2 decode kernel at the TinyLlama layer's shapes (held, not timed):")
+    for r, ws in ((q4r, tiny[:3]), (q6r, tiny[3:])):
+        worst = held_phase(torch, qmm, "K1/K2 decode", ws, DECODE_ROWS, failures)
+        r[32]["max_abs_err"] = max(r[32]["max_abs_err"], worst["max_abs_err"])
+        r[32]["nmse"] = max(r[32]["nmse"], worst["nmse"])
     log("K3, K4 wgmma GEMM at every main-path shape and ragged ubatch (held, not timed):")
-    held = prefill_held(torch, qmm, "K3/K4 wgmma", q4 + q6 + tiny, (64, 65, 200, 512, 1023),
-                        failures)
+    held = held_phase(torch, qmm, "K3/K4 wgmma", q4 + q6 + tiny, (64, 65, 200, 512, 1023),
+                      failures)
     for r in (q4p[512], q6p[512]):
         r["max_abs_err"] = max(r["max_abs_err"], held["max_abs_err"])
         r["nmse"] = max(r["nmse"], held["nmse"])
-    log("wgmma GEMM against qmm_mma_kernel forced, prefill rows (for the record; layer sums):")
-    for lay, ws in (("Q4_K", q4), ("Q6_K", q6)):
-        rows = (64, 128, 256, 512, 1023)
-        wg = qmm_phase(torch, timer, qmm, f"{lay} wgmma", ws, rows, failures,
-                       prefill_min_n=qmm.PREFILL_MIN_N)
-        mm = qmm_phase(torch, timer, qmm, f"{lay} forced mma", ws, rows, failures,
-                       prefill_min_n=1024)
-        log(f"wgmma vs mma {lay} (ms): " + ", ".join(
-            f"N={n} wgmma {wg[n]['ms']:.4f} mma {mm[n]['ms']:.4f}" for n in rows))
     regs = [ln.strip() for ln in build.BUILD_LOGS.get("qmm_prefill.cu", "").splitlines()
             if "Used" in ln or "spill" in ln]
     log("wgmma kernel (4 instantiations, then the split sum), ptxas: " + "; ".join(regs))
     del q4, q6, head, tiny
-    # one JSON entry per (TPU kernel, CUDA kernel): the GEMV at N=1, the
-    # mma.sync GEMM at the B=32 decode step, the wgmma GEMM at the ubatch
-    res = {"qmm4_planes/gemv": q4r[1], "qmm4_planes/mma": q4r[32],
-           "qmm4_planes_prefill/wgmma": q4p[512], "qmm_planes/gemv": q6r[1],
-           "qmm_planes/mma": q6r[32], "qmm_planes_prefill/wgmma": q6p[512]}
+    # one JSON entry per (TPU kernel, CUDA kernel): the decode kernel at the
+    # B=32 step with its N = 1, 8, 32 rows beside, the wgmma GEMM at the
+    # ubatch
+    def with_rows(r):
+        return {**r[32], "rows": {n: {k: r[n][k] for k in ("ms", "bound_ms", "library_ms")}
+                                  for n in r}}
+
+    res = {"qmm4_planes/decode": with_rows(q4r), "qmm_planes/decode": with_rows(q6r),
+           "qmm4_planes_prefill/wgmma": q4p[512], "qmm_planes_prefill/wgmma": q6p[512]}
     res["flash_attention_paged"] = attn_phase(
         torch, timer, flash_attn, "K5 decode B=1 d=2048",
         attn_case(torch, B=1, G=4, T=1, depth=2048), failures)
@@ -748,6 +782,11 @@ def main() -> int:
     log("B1-B4, the microbenchmark's probe kernels (8 rows of x, groups of 32; the JSON line "
         "takes the gate/up shape, B3 and B4 at their fastest tile):")
     bench_res = bench_phase(torch, timer, qmm_bench, "gateup", E, 2 * FF, failures)
+    b1 = bench_res["stream_planes"]
+    log(f"stream probe B1 at 4096 x 28672 (same call): {b1['bound_ms'] / b1['ms']:.3f} of "
+        f"3.35 TB/s; the decode kernel in GB/s of plane bytes at N = 1, 8, 32: " + "; ".join(
+            f"{wname} " + "/".join(f"{r[n]:.0f}" for n in (1, 8, 32))
+            for wname, r in decode_rates.items()))
     down_res = bench_phase(torch, timer, qmm_bench, "down", FF, E, failures)
     for key, r in bench_res.items():
         r["max_abs_err"] = max(r["max_abs_err"], down_res[key]["max_abs_err"])
@@ -769,10 +808,9 @@ def main() -> int:
 
     # -- phase 4: the main paths ---------------------------------------------
     counters = (qmm.launches, flash_attn.launches, qmm_expert.launches, qmm_bench.launches)
-    # the main paths' qmm kernels; the mma.sync GEMM at prefill rows runs only
-    # when forced, so a path that launches it did not go through wgmma
-    forced = ("qmm4_planes_prefill/mma", "qmm_planes_prefill/mma")
-    qmm_keys = tuple(k for k in qmm.launches if k not in forced)
+    # the main paths' qmm kernels: the decode kernel below 64 rows, the
+    # wgmma GEMM at the ubatches; a path that launches any other kernel fails
+    decode_keys = ("qmm4_planes/decode", "qmm_planes/decode")
     prefill_keys = ("qmm4_planes_prefill/wgmma", "qmm_planes_prefill/wgmma")
     paged_key, slots_key, expert_key = (
         "flash_attention_paged", "flash_attention", "qmm_planes_expert")
@@ -782,18 +820,18 @@ def main() -> int:
             for key in counter:
                 counter[key] = 0
 
-    def read_counts(path, must_run, must_not_run=()):
+    def read_counts(path, must_run):
         """The launch counts of the path just driven; every kernel of the
-        path must have been launched, and none of another memory's."""
+        path must have been launched, and no other kernel."""
         torch.cuda.synchronize()
         counts = {k: v for counter in counters for k, v in counter.items()}
         log(f"{path} launches: {counts}")
         for name in must_run:
             if counts[name] <= 0:
                 failures.append(f"{path}: kernel {name} was not launched")
-        for name in must_not_run:
-            if counts[name] != 0:
-                failures.append(f"{path}: kernel {name} was launched {counts[name]} times")
+        for name, c in counts.items():
+            if c and name not in must_run:
+                failures.append(f"{path}: kernel {name} was launched {c} times")
         return counts
 
     def against_plain(path, model, logits, gen_ids, prompt, **ctx_kw):
@@ -877,9 +915,9 @@ def main() -> int:
 
     reset_counts()
     logits, gen_ids, rates = drive(ctx, prompt, prompts512, V, (8, 32), "llama paged")
-    all_counts = {"llama paged": read_counts("llama paged", qmm_keys + (paged_key,),
-                                             (slots_key, expert_key) + forced)}
-    profile_decode(torch, ctx, steps=8)
+    all_counts = {"llama paged": read_counts(
+        "llama paged", decode_keys + prefill_keys + (paged_key,))}
+    profile_decode(torch, qmm, ctx, steps=8)
     del ctx
     against_plain("llama paged", model, logits, gen_ids, prompt,
                   **{**paged_kw, "n_seqs": 2, "kv_total": 8192})
@@ -893,8 +931,8 @@ def main() -> int:
         f"{ctx.n_slots} slots")
     reset_counts()
     s_logits, s_ids, rates = drive(ctx, prompt, prompts512[:8], V, (8,), "llama slots")
-    all_counts["llama slots"] = read_counts("llama slots", qmm_keys + (slots_key,),
-                                            (paged_key, expert_key) + forced)
+    all_counts["llama slots"] = read_counts(
+        "llama slots", decode_keys + prefill_keys + (slots_key,))
     del ctx
     err = float(np.mean((s_logits - logits) ** 2) / (np.mean(logits ** 2) + 1e-30))
     log(f"llama slots vs llama paged: prefill last-token logits NMSE {err:.3e}; greedy ids "
@@ -921,9 +959,7 @@ def main() -> int:
     reset_counts()
     t0 = time.perf_counter()
     text, err_text = run_cli("--temp", "0")
-    all_counts["llama-cli"] = read_counts(
-        "path D (llama-cli)", ("qmm4_planes/gemv", "qmm_planes/gemv", paged_key),
-        (slots_key, expert_key))
+    all_counts["llama-cli"] = read_counts("path D (llama-cli)", decode_keys + (paged_key,))
     perf_lines = [ln for ln in err_text.splitlines() if ln.startswith("perf:")]
     log(f"path D: llama-cli -p {CLI_PROMPT!r} ({len(cli_ids)} tokens) -n 32 --temp 0 --kv-quant: "
         f"{time.perf_counter() - t0:.1f} s with its own load_model; {len(ref_gen)} ids from "
@@ -962,9 +998,9 @@ def main() -> int:
     prompts512 = [[int(t) for t in prng.integers(3, VM, 512)] for _ in range(8)]
     reset_counts()
     m_logits, m_ids, rates = drive(ctx, prompt, prompts512, VM, (8,), "mixtral")
-    all_counts["mixtral"] = read_counts("mixtral", qmm_keys + (paged_key, expert_key),
-                                        (slots_key,) + forced)
-    profile_decode(torch, ctx, steps=8)
+    all_counts["mixtral"] = read_counts(
+        "mixtral", decode_keys + prefill_keys + (paged_key, expert_key))
+    profile_decode(torch, qmm, ctx, steps=8)
     del ctx
     against_plain("mixtral", model, m_logits, m_ids, prompt, **{**moe_kw, "n_seqs": 2})
     log(f"mixtral rates ({MOE_LAYERS}-layer smoke run, not a benchmark; {card}): "
@@ -986,7 +1022,7 @@ def main() -> int:
         reset_counts()
         d_logits = ctx.prefill(prompt, seq=0)
         d_ids = ctx.generate(prompt, max_new_tokens=32, seq=1)
-        all_counts[label] = read_counts(label, (key,) + prefill_keys, forced)
+        all_counts[label] = read_counts(label, (key,) + decode_keys + prefill_keys)
         check_logits(label, d_logits, VM)
         del ctx
         against_plain(label, model, d_logits, d_ids, prompt, **kw)
@@ -1003,10 +1039,8 @@ def main() -> int:
     rc = bench_qmm_tool.main(list(bench_qmm_tool.CASES))
     if rc != 0:
         failures.append(f"path C: bench_qmm exited with {rc}")
-    all_counts["bench_qmm"] = read_counts(
-        "path C (bench_qmm)",
-        (*qmm_bench.launches, "qmm4_planes/gemv", "qmm4_planes/mma", "qmm_planes/gemv",
-         "qmm_planes/mma"), (paged_key, slots_key, expert_key))
+    all_counts["bench_qmm"] = read_counts("path C (bench_qmm)",
+                                          (*qmm_bench.launches, *decode_keys))
     # each line of the tool launches its kernel as often as the one stream line
     per_line = all_counts["bench_qmm"]["stream_planes"]
     for key, r in tiles_res.items():
@@ -1038,6 +1072,7 @@ def main() -> int:
     }
     source_of = {"flash_attention_paged": "flash_attn_paged.cu", "flash_attention": "flash_attn.cu",
                  "qmm_planes_expert": "qmm_expert.cu", **{k: "qmm_prefill.cu" for k in prefill_keys},
+                 **{k: "qmm_decode.cu" for k in decode_keys},
                  **{name: "qmm_bench.cu" for name in qmm_bench.launches}}
     # launches: from the path that is the kernel's own (the llama path on the
     # pool, the slot-table path, the Mixtral path, the microbenchmark)
@@ -1046,7 +1081,7 @@ def main() -> int:
     kernels = []
     for name, r in res.items():
         kernels.append({"name": name, "route": "cuda",
-                        "source": "llama_cpp_tpu_torch/csrc/" + source_of.get(name, "qmm.cu"),
+                        "source": "llama_cpp_tpu_torch/csrc/" + source_of[name],
                         "replaces": tpu_of[name.split("/")[0]],
                         "launches": all_counts[path_of.get(name, "llama paged")][name],
                         "launches_by_path": {p: c[name] for p, c in all_counts.items()},
@@ -1054,7 +1089,7 @@ def main() -> int:
                         "nmse": r["nmse"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **({"tile": r["tile"]} if "tile" in r else {})})
+                        **({k: r[k] for k in ("tile", "rows") if k in r})})
     log(f"card: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,8 +18,8 @@
 //       row 2r in its low nibble and row 2r + 1 in its high nibble. The TPU
 //       bodies round nib * sc to bf16 before the product; these kernels sum
 //       nib * x per scale group (exact operands, f32 sums) and scale once per
-//       group in f32, as the GEMV of qmm.cu does, so they differ from the
-//       plain version by that one rounding of W (NMSE near 1e-6).
+//       group in f32, as csrc/qmm_decode.cu does up to 8 rows, so they differ
+//       from the plain version by that one rounding of W (NMSE near 1e-6).
 //
 // What bounds them on an H100: at 8 rows of x the plane bytes over 3.35 TB/s,
 // for all four. On the CUDA cores the products of B2-B4 would be 2 * 8 FMAs

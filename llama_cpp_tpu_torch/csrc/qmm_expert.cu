@@ -20,8 +20,8 @@
 // matrix for 2 rows of activations; there is nothing to reuse but the rows
 // that picked the same expert.
 //
-// Design: the int8-plane GEMV of qmm.cu with the expert picked inside the
-// kernel. Grid (O / 128, R, K splits), one warp per block, each thread owns 4
+// Design: a CUDA-core GEMV over int8 planes with the expert picked inside
+// the kernel. Grid (O / 128, R, K splits), one warp per block, each thread owns 4
 // adjacent output columns (one 32-bit load per plane row, a warp reads 128
 // contiguous bytes). Block (., r, .) reads ids itself: the rows with the same
 // expert as r are numbered in row order, and only a row whose number is a

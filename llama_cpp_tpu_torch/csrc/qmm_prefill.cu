@@ -6,7 +6,7 @@
 // 64 <= N < 1024 rows (PREFILL_MIN_N .. XLA_PREFILL_MIN_N):
 //   qmm4_planes_prefill  (_qmm4_prefill_kernel_u)  packed 4-bit planes (Q4_K)
 //   qmm_planes_prefill   (_qmm_prefill_kernel_u)   int8 planes (Q6_K)
-// Function (as csrc/qmm.cu): y[N, O] (f32) = x[N, K] (bf16) . W[K, O], where
+// Function: y[N, O] (f32) = x[N, K] (bf16) . W[K, O], where
 //   W[k, o] = q[k, o] * scale(k, o) + min(k, o)
 //   scale   = sub[k/g, o] * d[k/256, o]     (hierarchical, int8 sub + f32 d)
 //           | scales[k/g, o]                (flat f32)

@@ -19,8 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("qmm.cu", "qmm_prefill.cu", "qmm_expert.cu", "flash_attn_paged.cu", "flash_attn.cu",
-           "qmm_bench.cu")
+SOURCES = ("qmm_decode.cu", "qmm_prefill.cu", "qmm_expert.cu", "flash_attn_paged.cu",
+           "flash_attn.cu", "qmm_bench.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,9 +10,9 @@ bytes streamed, the byte bound (plane bytes over the card's memory rate) and
 the share of that rate reached.
 
   stream  the stream probe: every plane byte through the SM (the ceiling)
-  qmm4    the product kernel on the same packed planes (half-split pairing,
-          flat f32 scales), with and without mins, GEMV and tensor-core GEMM
-  qmm8    the product kernel on int8 planes
+  qmm4    the decode product kernel on the same packed planes (half-split
+          pairing, flat f32 scales), with and without mins
+  qmm8    the same kernel on int8 planes
   fp/i16  the even/odd GEMV with the nibbles unpacked by bf16 bit tricks / by
           shift, mask and convert
   tiles   the even/odd GEMV over a sweep of tiles
@@ -152,19 +152,15 @@ def run(cases, device: torch.device) -> None:
                         transposed=True, packed=True)
         w0 = QuantTensor(q=qp, scales=sc, mins=None, group=GROUP, ggml_type=int(GGMLType.Q4_K),
                          transposed=True, packed=True)
-        for kern, gmax in (("gemv", 8), ("mma", 0)):
-            b.report(f"qmm4_planes {kern}", lambda: qmm.qmm(x, w, gemv_max_n=gmax), nbytes)
-            b.report(f"qmm4_planes {kern} no-mins", lambda: qmm.qmm(x, w0, gemv_max_n=gmax),
-                     _nbytes(qp, sc))
+        b.report("qmm4_planes decode", lambda: qmm.qmm(x, w), nbytes)
+        b.report("qmm4_planes decode no-mins", lambda: qmm.qmm(x, w0), _nbytes(qp, sc))
 
     if "qmm8" in cases:
         q8 = torch.from_numpy(b.rng.integers(-127, 127, (K, O), np.int8)).to(device)
         sc8 = torch.from_numpy(b.rng.normal(size=(K // GROUP, O)).astype(np.float32)).to(device)
         w8 = QuantTensor(q=q8, scales=sc8, mins=None, group=GROUP, ggml_type=int(GGMLType.Q8_0),
                          transposed=True)
-        for kern, gmax in (("gemv", 8), ("mma", 0)):
-            b.report(f"qmm_planes int8 {kern}", lambda: qmm.qmm(x, w8, gemv_max_n=gmax),
-                     _nbytes(q8, sc8))
+        b.report("qmm_planes int8 decode", lambda: qmm.qmm(x, w8), _nbytes(q8, sc8))
         del q8, sc8, w8
 
     for unpack in ("fp", "i16"):

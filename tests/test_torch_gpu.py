@@ -42,12 +42,13 @@ def nmse(got, ref):
                                      (GGMLType.Q4_K, 768), (GGMLType.Q6_K, 768)],
                          ids=["q4_k", "q6_k", "q4_k_flat", "q6_k_flat"])
 def test_qmm_kernel_matches_plain(cuda_device, qtype, K, n):
-    """GEMV, mma.sync GEMM and (from 64 rows) wgmma GEMM against the plain
-    version, on hierarchical planes (K % 512 == 0) and flat f32 scales (K =
-    768). NMSE < 1e-4: the GEMV skips the plain version's bf16 rounding of W
-    (an NMSE near 1e-6), the mma.sync GEMM differs only in summation order,
-    the wgmma GEMM rounds packed planes' scale and min to bf16 first (near
-    1e-5 on these planes)."""
+    """The kernel each row count is routed to (the decode kernel below 64
+    rows, the wgmma GEMM from 64) against the plain version, on
+    hierarchical planes (K % 512 == 0) and flat f32 scales (K = 768).
+    NMSE < 1e-4: the decode kernel skips the plain version's bf16 rounding
+    of W up to 8 rows (near 1e-6) and rounds scale and min to bf16 above
+    (near 1e-5), the wgmma GEMM rounds packed planes' scale and min to bf16
+    first (near 1e-5 on these planes)."""
     O = 384
     rng = np.random.default_rng(int(qtype) + n + K)
     raw = np.frombuffer(synth_quant_bytes(rng, O * K, qtype), np.uint8)
@@ -89,20 +90,19 @@ def synth_planes(device, packed: bool, group: int, hier: bool, mins: bool, K=512
                           d=t(d), dmin=t(dm))
 
 
-@pytest.mark.parametrize("gemv_max_n", [8, 0], ids=["gemv", "mma"])
 @pytest.mark.parametrize("packed,group,hier,mins", [
     (True, 16, True, True), (True, 16, False, False), (False, 32, True, False),
     (False, 32, False, True), (True, 32, False, True), (False, 16, False, False)],
     ids=["p16_hier_mins", "p16_flat", "i32_hier", "i32_flat_mins", "p32_flat_mins",
          "i16_flat"])
-def test_qmm_kernel_every_layout(cuda_device, packed, group, hier, mins, gemv_max_n):
+def test_qmm_kernel_every_layout(cuda_device, packed, group, hier, mins):
     """Each plane layout the JAX dispatch sends to its kernel, through the
-    GEMV and the GEMM forced, at 1-8 rows."""
+    decode kernel at 1-8 rows."""
     w = synth_planes(cuda_device, packed, group, hier, mins)
     assert tqmm.dispatches(w) and tqmm.supported(w)
     for n in (1, 2, 4, 8):
         x = torch.randn((n, 512), device=cuda_device).to(torch.bfloat16)
-        got = tqmm.qmm(x, w, gemv_max_n=gemv_max_n)
+        got = tqmm.qmm(x, w)
         torch.cuda.synchronize()
         assert torch.isfinite(got).all()
         assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4, n
@@ -148,6 +148,128 @@ def test_qmm_wgmma_kernel_deep_k(cuda_device, qtype):
         got = tqmm.qmm(x, w)
         torch.cuda.synchronize()
         assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4, n
+
+
+DECODE_ROWS = (1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 32, 33, 63)
+
+
+def one_split_plan(n, K, O, packed, group=None):
+    """The decode kernel's grid with K unsplit (no partial sums)."""
+    units = (K // 2 if packed else K) // 64
+    return tqmm.DecodePlan(O // 128, 1, units, tqmm.decode_tiles(n), "")
+
+
+@pytest.mark.parametrize("layout", list(PREFILL_LAYOUTS))
+def test_qmm_decode_kernel_every_layout(cuda_device, monkeypatch, layout):
+    """The decode kernel at every row count class (1-63: one, two,
+    four and eight n-tiles, full and ragged) on every plane layout it takes:
+    NMSE < 1e-4 from the plain version (up to 8 rows q stays exact and the
+    scale f32, where the plain version rounds W to bf16: near 1e-6; from 9
+    rows W is formed from a bf16 scale and min: near 1e-5). A second launch
+    agrees to the bit (the partial sums add in a fixed order), and one split
+    (no partial sums) within summation order."""
+    w = synth_planes(cuda_device, *PREFILL_LAYOUTS[layout])
+    assert tqmm.dispatches(w) and tqmm.supported(w)
+    name = ("qmm4_planes" if w.packed else "qmm_planes") + "/decode"
+    for n in DECODE_ROWS:
+        x = torch.randn((n, 512), device=cuda_device).to(torch.bfloat16)
+        before = tqmm.launches[name]
+        got = tqmm.qmm(x, w)
+        torch.cuda.synchronize()
+        assert tqmm.launches[name] == before + 1
+        assert got.shape == (n, 256) and torch.isfinite(got).all()
+        assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4, n
+        assert torch.equal(tqmm.qmm(x, w), got), n
+        with monkeypatch.context() as m:
+            m.setattr(tqmm, "decode_plan", one_split_plan)
+            assert nmse(tqmm.qmm(x, w), got) < 1e-10, n
+
+
+DECODE_SHAPES = {"deep_k": (GGMLType.Q4_K, 14336, 4096), "deep_k_q6": (GGMLType.Q6_K, 14336, 4096),
+                 "narrow_o": (GGMLType.Q6_K, 4096, 1024), "narrow_o_q4": (GGMLType.Q4_K, 4096, 1024)}
+
+
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+def test_qmm_decode_kernel_main_path_shapes(cuda_device, shape):
+    """K = 14336 (an 8B ffn_down: 64-bit plane offsets, the longest split)
+    and O = 1024 (an 8B attn_v: 8 column blocks, the most splits) at 1, 8,
+    32 and 63 rows."""
+    qtype, K, O = DECODE_SHAPES[shape]
+    rng = np.random.default_rng(K + O + int(qtype))
+    raw = np.frombuffer(synth_quant_bytes(rng, O * K, qtype), np.uint8)
+    w = tq.load_weight(raw, qtype, (O, K), transpose=True, device=cuda_device)
+    assert tqmm.decode_plan(8, K, O, w.packed).splits > 1
+    for n in (1, 8, 32, 63):
+        x = torch.randn((n, K), device=cuda_device).to(torch.bfloat16)
+        got = tqmm.qmm(x, w)
+        torch.cuda.synchronize()
+        assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4, n
+
+
+def test_qmm_decode_kernel_vocab_head(cuda_device):
+    """The 4096 x 128256 Q6_K head, padded to 131072 columns (1024 column
+    blocks, more than a wave): the padded columns are cut off."""
+    rng = np.random.default_rng(3)
+    V, K = 128256, 4096
+    raw = np.frombuffer(synth_quant_bytes(rng, V * K, GGMLType.Q6_K), np.uint8)
+    w = tq.pad_out_features(tq.load_weight(raw, GGMLType.Q6_K, (V, K), transpose=True,
+                                           device=cuda_device))
+    assert w.q.shape == (K, 131072) and w.out_features == V
+    wd = w.dequant(torch.bfloat16).float()
+    for n in (1, 8, 32):
+        x = torch.randn((n, K), device=cuda_device).to(torch.bfloat16)
+        got = tqmm.qmm(x, w)
+        torch.cuda.synchronize()
+        assert got.shape == (n, V)
+        assert nmse(got, x.float() @ wd) < 1e-4, n
+
+
+@pytest.mark.parametrize("what", ["group_64", "sgroup_512", "o_not_128", "k_not_256",
+                                  "row_major", "stacked"])
+def test_qmm_decode_raises_on_layouts_it_does_not_take(cuda_device, what):
+    """Each layout outside `supported` raises on a CUDA tensor at decode
+    rows instead of running anything."""
+    w = synth_planes(cuda_device, True, 32, True, True)
+    K = 512
+    if what == "group_64":
+        w = tq.QuantTensor(q=w.q, scales=w.scales[::2].contiguous(), mins=None, group=64,
+                           ggml_type=w.ggml_type, transposed=True, packed=True)
+    elif what == "sgroup_512":
+        w = tq.QuantTensor(q=w.q, scales=w.scales, mins=w.mins, group=32, ggml_type=w.ggml_type,
+                           transposed=True, packed=True, d=w.d[:1].contiguous(),
+                           dmin=w.dmin[:1].contiguous(), sgroup=512)
+    elif what == "o_not_128":
+        w = synth_planes(cuda_device, False, 16, False, False, O=192)
+    elif what == "k_not_256":
+        K = 384
+        w = synth_planes(cuda_device, False, 16, False, False, K=384)
+    elif what == "row_major":
+        w = tq.QuantTensor(q=w.q.t().contiguous(), scales=w.scales, mins=None, group=32,
+                           ggml_type=w.ggml_type, transposed=False, packed=False)
+        K = w.in_features
+    elif what == "stacked":
+        w = tq.QuantTensor(q=w.q[None].contiguous(), scales=w.scales[None].float(), mins=None,
+                           group=32, ggml_type=w.ggml_type, transposed=True, packed=True)
+    x = torch.zeros((3, K), device=cuda_device, dtype=torch.bfloat16)
+    before = dict(tqmm.launches)
+    with pytest.raises(ValueError):
+        tqmm.qmm(x, w)
+    assert tqmm.launches == before
+
+
+def test_qmm_decode_smem_matches_the_planner(cuda_device):
+    """The planner's copy of the decode kernel's shared-memory layout
+    (ops/kernels/qmm.py decode_smem) equals the kernel's own."""
+    import ctypes
+
+    from llama_cpp_tpu_torch.ops.kernels import build
+
+    fn = build.library("qmm_decode.cu").qmm_decode_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for nt in (1, 2, 4, 8):
+        for packed in (True, False):
+            for group in (16, 32):
+                assert fn(nt, int(packed), group) == tqmm.decode_smem(nt, packed, group)[1]
 
 
 def test_qmm_raises_on_what_the_kernel_does_not_take(cuda_device):
@@ -240,8 +362,8 @@ def test_main_path_kernel_route_matches_plain_route(cuda_device, tmp_path, quant
     assert tfa.launches["flash_attention_paged"] > 0 and tfa.launches["flash_attention"] == 0
     assert tqmm.launches["qmm4_planes_prefill/wgmma"] > 0
     assert tqmm.launches["qmm_planes_prefill/wgmma"] > 0
-    assert tqmm.launches["qmm4_planes_prefill/mma"] == 0
-    assert tqmm.launches["qmm_planes/gemv"] > 0
+    assert tqmm.launches["qmm4_planes/decode"] > 0
+    assert tqmm.launches["qmm_planes/decode"] > 0
     ref_ctx = Context(model, n_ctx=512, n_seqs=4, n_ubatch=128, quantized_kv=quantized_kv,
                       kernels=False)
     ref = ref_ctx.prefill(prompt)

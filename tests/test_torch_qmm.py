@@ -117,23 +117,6 @@ def test_matmul_routes_by_row_count():
     torch.testing.assert_close(plain, small, rtol=0, atol=0)
 
 
-def test_split_count_divides_and_fills():
-    # decode GEMV of the fused gate|up plane: K/2 = 2048 packed rows
-    s = tqmm.split_count(4096, True, 1, 28672, 4096 * 28672 // 2, gemv=True)
-    assert s > 1 and (2048 // 64) % s == 0 and 224 * s <= 4096
-    # the tensor-core path splits K, not plane rows
-    s = tqmm.split_count(14336, False, 32, 4096, 14336 * 4096, gemv=False)
-    assert s > 1 and (14336 // 64) % s == 0 and 4 * 32 * s <= 4096
-    # a wide prefill needs no split, a narrow one does
-    assert tqmm.split_count(4096, True, 512, 28672, 4096 * 28672 // 2, gemv=False) == 1
-    assert tqmm.split_count(4096, False, 512, 1024, 4096 * 1024, gemv=False) > 1
-    # the vocab head at B = 1 hardly any
-    assert tqmm.split_count(4096, False, 1, 131072, 4096 * 131072, gemv=True) <= 4
-    # flat planes with K = 768: splits still divide the 64-row units
-    s = tqmm.split_count(768, True, 1, 256, 768 * 256 // 2, gemv=True)
-    assert (384 // 64) % s == 0
-
-
 @pytest.mark.parametrize("n", [1, 8])
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K], ids=["q4_k", "q6_k"])
 def test_qmm_plain_matches_jax_pallas_flat_scales(qtype, n):
@@ -212,11 +195,11 @@ def test_prefill_plan_splits_the_narrow_shapes():
 
 
 @pytest.mark.parametrize("rows,cuda_kernel", [
-    (4, "qmm4_planes/gemv"), (5, "qmm4_planes/mma"), (63, "qmm4_planes/mma"),
+    (4, "qmm4_planes/decode"), (5, "qmm4_planes/decode"), (63, "qmm4_planes/decode"),
     (64, "qmm4_planes_prefill/wgmma"), (1023, "qmm4_planes_prefill/wgmma"), (1024, None)])
 def test_kernel_name_routes_by_row_count(monkeypatch, rows, cuda_kernel):
-    """The GEMV up to 4 rows, the mma.sync GEMM to 63, the wgmma GEMM from 64
-    (the JAX PREFILL_MIN_N) to 1023; from 1024 rows the matmul route
+    """Packed planes: the decode kernel up to 63 rows, the wgmma GEMM from
+    64 (the JAX PREFILL_MIN_N) to 1023; from 1024 rows the matmul route
     dequantizes once and calls torch.matmul (XLA_PREFILL_MIN_N)."""
     raw = raw_weight(GGMLType.Q4_K, seed=11)
     tw = tq.load_weight(raw, GGMLType.Q4_K, (O, K), transpose=True)
@@ -228,8 +211,6 @@ def test_kernel_name_routes_by_row_count(monkeypatch, rows, cuda_kernel):
     if cuda_kernel is not None:
         assert tqmm.kernel_name(tw, rows) == cuda_kernel
         assert cuda_kernel in tqmm.launches
-    # the mma.sync GEMM forced at prefill rows keeps its own counter
-    assert tqmm.kernel_name(tw, 200, prefill_min_n=1024) == "qmm4_planes_prefill/mma"
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K], ids=["q4_k", "q6_k"])
@@ -279,3 +260,196 @@ def test_wgmma_dequant_rounding_within_tolerance(qtype, k):
     x = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32)).to(torch.bfloat16)
     got = x.float() @ wgmma_dequant(tw)
     assert nmse(got.numpy(), tqmm.qmm_plain(x, tw).numpy()) < 1e-4
+
+
+# -- the decode kernel (csrc/qmm_decode.cu), 1-63 rows ---------------------------
+
+# every plane layout the decode kernel takes: (packed, group, hier, mins)
+DECODE_LAYOUTS = {f"{'p' if p else 'i'}{g}_{'hier' if h else 'flat'}{'_mins' if m else ''}":
+                  (p, g, h, m) for p in (True, False) for g in (16, 32)
+                  for h in (True, False) for m in (True, False)}
+
+
+def decode_planes(packed, group, hier, mins, K=512, O=256, seed=0):
+    """Random planes of one layout as numpy arrays: q (nibble pairs or int8),
+    scales, mins, d, dmin (hierarchical: int8 sub-scales and sub-mins, f32
+    per-256 d and pre-negated dmin)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-128, 128, (K // 2 if packed else K, O)).astype(np.int8)
+    if hier:
+        sc = rng.integers(1, 64, (K // group, O)).astype(np.int8)
+        mn = rng.integers(0, 64, (K // group, O)).astype(np.int8) if mins else None
+        d = (rng.random((K // 256, O)) * 1e-3 + 1e-4).astype(np.float32)
+        dm = -(rng.random((K // 256, O)) * 1e-3).astype(np.float32) if mins else None
+    else:
+        sc = (rng.random((K // group, O)) * 0.02 + 1e-3).astype(np.float32)
+        mn = -(rng.random((K // group, O)) * 0.1).astype(np.float32) if mins else None
+        d = dm = None
+    return q, sc, mn, d, dm
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf of f32 tensors: a * b + c with one rounding to f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def decode_emulation(x: torch.Tensor, w) -> torch.Tensor:
+    """The decode kernel's arithmetic in plain PyTorch, in f32 where the
+    card's step is f32 (the order of the f32 sums across groups, split-K
+    ranges and the two warps of a slice is not modelled).
+
+    Up to 8 rows each weight reaches the tensor cores unscaled and biased:
+    a nibble as 128 + q (bf16 128.0 with the nibble in its mantissa); an
+    int8 byte as its two nibbles of q + 128, the low one as 128 + lo, the
+    high one as 2048 + 16 hi (bf16 2048.0, mantissa step 16), by two MMAs
+    into one f32 sum of 2304 + q. Each group's f32 sum of those times bf16
+    x is scaled once: acc = fmaf(s, sum, fmaf(m - bias * s, xsum, acc)),
+    with s = sub * d and m = subm * dmin in f32 and xsum the group's f32
+    sum of x, so the bias leaves through the mins term.
+
+    From 9 rows: W = bf16(q * bf16(s) + bf16(m)), one rounding of an exact
+    bf16 FMA in the A fragment, and f32 sums of W times x."""
+    K, O, g = w.in_features, w.q.shape[1], w.group
+    N = x.shape[0]
+    xb = x.to(torch.bfloat16).float()
+    s = w.eff_scales()
+    m = w.eff_mins() if w.mins is not None else torch.zeros_like(s)
+    if w.packed:
+        q = w.unpack_q().int()
+        parts = [128 + q]
+        bias = 128.0
+    else:
+        q = w.q.int()
+        u = q & 0xFF  # the byte, unsigned
+        parts = [128 + (u & 0xF), 2048 + 16 * ((u >> 4) ^ 8)]
+        bias = 2304.0
+        assert torch.equal(parts[0] + parts[1], 2304 + q)
+    if tqmm.decode_tiles(N) > 1:
+        def bf(t):
+            return t.to(torch.bfloat16).double()
+
+        wq = q.double().reshape(K // g, g, O) * bf(s)[:, None] + bf(m)[:, None]
+        return xb @ wq.reshape(K, O).to(torch.bfloat16).float()
+    mb = fma32(torch.full_like(s, -bias), s, m)  # min - bias * scale, per group
+    acc = torch.zeros((N, O))
+    for gi in range(K // g):
+        tmp = torch.zeros((N, O))
+        xs = torch.zeros((N, 1))
+        for k0 in range(gi * g, (gi + 1) * g, 16):  # the k16 steps of the group
+            xk = xb[:, k0:k0 + 16]
+            for p in parts:
+                tmp = tmp + xk @ p[k0:k0 + 16].float()
+            xs = xs + xk.sum(1, keepdim=True)
+        acc = fma32(s[gi].expand(N, O), tmp, fma32(mb[gi].expand(N, O), xs.expand(N, O), acc))
+    return acc
+
+
+def decode_layout_weight(layout):
+    """A QuantTensor of random planes of one decode layout (CPU) and its
+    numpy planes."""
+    packed, group, hier, mins = DECODE_LAYOUTS[layout]
+    planes = decode_planes(packed, group, hier, mins, seed=len(layout))
+    q, sc, mn, d, dm = (None if a is None else torch.from_numpy(a) for a in planes)
+    w = tq.QuantTensor(q=q, scales=sc, mins=mn, group=group, ggml_type=int(GGMLType.Q4_K),
+                       transposed=True, packed=packed, d=d, dmin=dm)
+    return w, planes
+
+
+@pytest.mark.parametrize("layout", list(DECODE_LAYOUTS))
+def test_decode_emulation_matches_jax_pallas(layout):
+    """The decode kernel's arithmetic, emulated, against the JAX package's
+    qmm4_planes / qmm_planes in interpret mode at every layout and N = 1, 5,
+    8 (the biased integer sums scaled once a group in f32), 33 and 63 (the
+    weights scaled in bf16). NMSE < 1e-4, the JAX package's own tolerance
+    (test_pallas_qmm): both sides keep f32 sums; they differ by where W is
+    rounded to bf16 (never, or once after a bf16-rounded scale and min,
+    here; once in the Pallas kernel), which is near 1e-5 on these planes."""
+    import llama_cpp_tpu.ops.pallas.qmm as jqmm
+
+    w, (q, sc, mn, d, dm) = decode_layout_weight(layout)
+    assert tqmm.supported(w) and tqmm.dispatches(w)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal((64, 512)).astype(np.float32)).to(torch.bfloat16)
+    fn = jqmm.qmm4_planes if w.packed else jqmm.qmm_planes
+
+    def j(a):
+        return None if a is None else jnp.asarray(a)
+
+    ref = np.asarray(fn(jnp.asarray(x.float().numpy(), jnp.bfloat16), j(q), j(sc), j(mn), j(d),
+                        j(dm), group=w.group, interpret=True))
+    for n in (1, 5, 8, 33, 63):
+        got = decode_emulation(x[:n], w)
+        assert got.shape == (n, 256)
+        assert nmse(got.numpy(), ref[:n]) < 1e-4, n
+
+
+@pytest.mark.parametrize("layout", list(DECODE_LAYOUTS))
+def test_decode_bias_cancels_through_the_mins(layout):
+    """Up to 8 rows the kernel sums biased weights (128 + q, or 2304 + q
+    for int8 planes) and takes the bias back out through the mins term
+    (min - bias * scale times the group's sum of x). In f32 that
+    cancellation costs almost nothing: the emulated kernel is within NMSE
+    1e-9 of the exact function q * scale + min in float64 at N = 1, 4, 8
+    (it reads near 1e-12 on these planes; a bf16 rounding of W, the plain
+    version's, costs near 3e-6)."""
+    w, _ = decode_layout_weight(layout)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((8, 512)).astype(np.float32)).to(torch.bfloat16)
+    q = (w.unpack_q() if w.packed else w.q).double()
+    wq = q.reshape(512 // w.group, w.group, 256) * w.eff_scales().double()[:, None]
+    if w.mins is not None:
+        wq = wq + w.eff_mins().double()[:, None]
+    exact = x.double() @ wq.reshape(512, 256)
+    for n in (1, 4, 8):
+        got = decode_emulation(x[:n], w)
+        assert nmse(got.double().numpy(), exact[:n].numpy()) < 1e-9, n
+
+
+@pytest.mark.parametrize("n,cols", [(1, 4096), (8, 4096), (32, 4096), (33, 4096), (63, 1024),
+                                    (1, 131072), (32, 131072), (63, 131072)])
+def test_kernel_name_sends_every_decode_row_count_to_the_decode_kernel(n, cols):
+    """Int8 and packed planes alike take the decode kernel at 1-63 rows and
+    the wgmma GEMM from 64, at attn_v's, ffn_down's and the head's widths."""
+    w = tq.QuantTensor(q=torch.zeros((256, cols), dtype=torch.int8),
+                       scales=torch.zeros((16, cols), dtype=torch.int8), mins=None, group=16,
+                       ggml_type=int(GGMLType.Q6_K), transposed=True,
+                       d=torch.zeros((1, cols)), dmin=None)
+    packed = tq.QuantTensor(q=w.q[:128], scales=w.scales, mins=None, group=16,
+                            ggml_type=int(GGMLType.Q4_K), transposed=True, packed=True,
+                            d=w.d, dmin=None)
+    assert tqmm.kernel_name(w, n) == "qmm_planes/decode"
+    assert tqmm.kernel_name(packed, n) == "qmm4_planes/decode"
+    assert tqmm.kernel_name(w, 64) == "qmm_planes_prefill/wgmma"
+    assert tqmm.kernel_name(packed, 64) == "qmm4_planes_prefill/wgmma"
+
+
+# main-path shapes of the decode kernel: (K, O, packed), the prefill GEMM's
+# and the 4096 x 128256 vocab head padded to 131072 columns
+DECODE_SHAPES = {**PREFILL_SHAPES, "head": (4096, 131072, False)}
+
+
+@pytest.mark.parametrize("n", [1, 8, 32, 63])
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+def test_decode_plan_divides_and_fills(shape, n):
+    """Every split of the decode kernel's grid is a whole number of 64-row
+    plane blocks, and the grid fills the card's 132 SMs (two blocks an SM
+    is the aim) or the plan says why it cannot."""
+    K, O, packed = DECODE_SHAPES[shape]
+    plan = tqmm.decode_plan(n, K, O, packed)
+    rows = K // 2 if packed else K
+    assert rows % (plan.splits * 64) == 0
+    assert plan.stages * 64 * plan.splits == rows
+    assert plan.col_blocks * 128 == O and plan.n_tiles == tqmm.decode_tiles(n)
+    assert (plan.note == "") == (plan.blocks >= 132)
+    assert plan.blocks <= 4 * 2 * 132 or plan.splits == 1
+
+
+@pytest.mark.parametrize("nt", [1, 2, 4, 8])
+def test_decode_blocks_fit_two_an_sm(nt):
+    """At every layout a block's shared memory (the planner's copy of the
+    kernel's layout) lets two blocks share an SM's 228 KB."""
+    for packed in (True, False):
+        for group in (16, 32):
+            stages, smem = tqmm.decode_smem(nt, packed, group)
+            assert stages in (3, 4)
+            assert 2 * (smem + 1024) <= 233472
