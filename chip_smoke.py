@@ -18,11 +18,15 @@ Phases, each of which fails the run:
      rate; the wgmma prefill GEMM (K3, K4) held, untimed, at every
      main-path shape (the 8B and TinyLlama layers) and 64, 65, 200, 512 and
      1023 rows, timed at 64-1023 rows, beside its registers and spills;
-     the attention kernel on a bf16 pool and, int8 and bf16, with heads of
-     32 and 256 at decode and at a prefill ubatch; the
+     the attention kernels (a prefill kernel from PREFILL_MIN_ROWS rows a
+     KV head, a decode kernel below it; each held call must launch its
+     route's kernel once) at decode B = 1, 8, 32 and at a prefill ubatch, on
+     an int8 and a bf16 pool, with heads of 32, 64 and 256, then both
+     kernels forced at 16-512 rows and depths 2048 and 128 to read the
+     route threshold; the
      indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes,
-     the slot-table attention kernel at the same depths as the paged one,
-     and both attention kernels once with 64-wide heads; the microbenchmark's
+     the slot-table attention kernels at the same depths as the paged ones,
+     and with 64-wide heads; the microbenchmark's
      four probe kernels (stream probe, the two nibble unpacks, the tile sweep
      flat and tile by tile) at the gate/up and down shapes of an 8B llama,
      and the tile sweep once, untimed, at every shape and tile the
@@ -35,8 +39,12 @@ Phases, each of which fails the run:
        width, depth cut to 4 layers), load_model, a Context with a paged
        int8 KV pool, a 2048-token prefill, 32 greedy tokens at B=1 and
        decode_steps_greedy at B=8 and B=32 over 512-token prefills;
+     - the same model and prompt with one ubatch of 2048 rows, whose
+       products of 1024 rows and more take the library route (bf16
+       operands, f32 sums), held against the 512-row ubatches (logits NMSE
+       and 32 of 32 greedy ids);
      - the same model on the slot-table cache (Context(paged=False)): every
-       attention goes through the slot-table kernel;
+       attention goes through the slot-table kernels;
      - a Mixtral-8x7B-shaped MoE model (full width, depth cut to 2 layers):
        the sort-by-expert prefill, B=1 decode through the indexed-expert
        kernel, batched decode at B=8;
@@ -220,11 +228,13 @@ def attn_case(torch, B, G, T, depth, page=512, Hkv=8, D=128, seed=0, kv_dtype=No
                 v_scale=vs, page=page)
 
 
-def attn_measure(torch, timer, label, run, run_plain, q, kd, vd, cp, rp, kv_elem, quantized,
-                 failures):
+def attn_measure(torch, timer, fa, name, label, run, run_plain, q, kd, vd, cp, rp, kv_elem,
+                 quantized, failures):
     """Hold an attention kernel (run) against its plain version (run_plain)
     and time both, beside SDPA on the gathered, dequantized K/V kd, vd
     [B, Hkv, S, D] with the same mask (library yardstick, timed only).
+    The held call must launch the CUDA kernel of its route (name/prefill or
+    name/decode) once and nothing else.
     cp [B, S] are the columns' position labels, rp [B, R] the rows'.
     Bound: q, the K/V rows (and scales) and position labels that some row of
     the batch row can see (pos >= 0 and <= the row's largest position), out;
@@ -233,8 +243,13 @@ def attn_measure(torch, timer, label, run, run_plain, q, kd, vd, cp, rp, kv_elem
 
     B, Hkv, R, D = q.shape
     sm = 1.0 / D ** 0.5
+    key = f"{name}/{fa.route(R)}"
+    before = dict(fa.launches)
     got = run(sm)
     torch.cuda.synchronize()
+    if fa.launches != {**before, key: before[key] + 1}:
+        failures.append(f"{label}: expected one launch of {key}, counts went from {before} "
+                        f"to {fa.launches}")
     ref = run_plain(sm)
     valid = rp >= 0
     g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
@@ -252,7 +267,7 @@ def attn_measure(torch, timer, label, run, run_plain, q, kd, vd, cp, rp, kv_elem
     flops = 4.0 * D * Hkv * float(mask.sum())
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else "operations"
-    log(f"  {label:38s} B={B} R={R} D={D} nmse={err:.2e} ms={ms:.4f} "
+    log(f"  {label:38s} [{key.split('/')[1]}] B={B} R={R} D={D} nmse={err:.2e} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
             "bound_by": bound_by, "max_abs_err": mae, "nmse": err}
@@ -273,7 +288,7 @@ def attn_phase(torch, timer, fa, label, case, failures):
     kd = kd.permute(1, 0, 2, 3).to(torch.bfloat16).contiguous()
     vd = vd.permute(1, 0, 2, 3).to(torch.bfloat16).contiguous()
     return attn_measure(
-        torch, timer, label,
+        torch, timer, fa, "flash_attention_paged", label,
         lambda sm: fa.flash_attention_paged(**args, sm_scale=sm, page=page),
         lambda sm: fa.flash_attention_paged_plain(**args, sm_scale=sm, page=page),
         q, kd, vd, case["pos"][rows], case["row_pos"], case["k"].element_size(), quantized,
@@ -315,7 +330,7 @@ def slots_phase(torch, timer, fa, label, case, failures):
         kd = kd * case["k_scale"][sel][..., None]
         vd = vd * case["v_scale"][sel][..., None]
     return attn_measure(
-        torch, timer, label,
+        torch, timer, fa, "flash_attention", label,
         lambda sm: fa.flash_attention(**case, sm_scale=sm),
         lambda sm: fa.flash_attention_plain(**case, sm_scale=sm),
         case["q"], kd.to(torch.bfloat16), vd.to(torch.bfloat16), case["col_pos"][sel],
@@ -706,15 +721,16 @@ def main() -> int:
 
     res = {"qmm4_planes/decode": with_rows(q4r), "qmm_planes/decode": with_rows(q6r),
            "qmm4_planes_prefill/wgmma": q4p[512], "qmm_planes_prefill/wgmma": q6p[512]}
-    res["flash_attention_paged"] = attn_phase(
+    res["flash_attention_paged/decode"] = attn_phase(
         torch, timer, flash_attn, "K5 decode B=1 d=2048",
         attn_case(torch, B=1, G=4, T=1, depth=2048), failures)
     attn_phase(torch, timer, flash_attn, "K5 decode B=8 d=512",
                attn_case(torch, B=8, G=4, T=1, depth=512), failures)
     attn_phase(torch, timer, flash_attn, "K5 decode B=32 d=512",
                attn_case(torch, B=32, G=4, T=1, depth=512), failures)
-    attn_phase(torch, timer, flash_attn, "K5 prefill ubatch 4 of 2048",
-               attn_case(torch, B=1, G=4, T=512, depth=1536), failures)
+    res["flash_attention_paged/prefill"] = attn_phase(
+        torch, timer, flash_attn, "K5 prefill ubatch 4 of 2048",
+        attn_case(torch, B=1, G=4, T=512, depth=1536), failures)
     attn_phase(torch, timer, flash_attn, "K5 bf16 pool decode B=1 d=2048",
                attn_case(torch, B=1, G=4, T=1, depth=2048, kv_dtype=torch.bfloat16), failures)
     attn_phase(torch, timer, flash_attn, "K5 bf16 pool prefill ubatch 4 of 2048",
@@ -722,6 +738,26 @@ def main() -> int:
                failures)
     attn_phase(torch, timer, flash_attn, "K5 heads of 64, decode B=8 d=512",
                attn_case(torch, B=8, G=16, T=1, depth=512, D=64), failures)
+    attn_phase(torch, timer, flash_attn, "K5 heads of 64, ubatch 188 rows x 8",
+               attn_case(torch, B=1, G=8, T=188, depth=512, D=64, Hkv=4), failures)
+    log("route threshold: each kernel forced at R rows (G=4; int8 pool, heads of 128, B=1, "
+        f"8 KV heads; PREFILL_MIN_ROWS = {flash_attn.PREFILL_MIN_ROWS}):")
+    keep = flash_attn.PREFILL_MIN_ROWS
+    try:
+        for depth in (2048, 128):
+            for R in (16, 32, 64, 128, 256, 512):
+                case = attn_case(torch, B=1, G=4, T=R // 4, depth=depth)
+                t = {}
+                for kind, threshold in (("decode", 1 << 30), ("prefill", 1)):
+                    flash_attn.PREFILL_MIN_ROWS = threshold
+                    t[kind] = attn_phase(torch, timer, flash_attn,
+                                         f"K5 d={depth} R={R}, {kind} kernel", case,
+                                         failures)["ms"]
+                log(f"  depth {depth} R={R}: decode kernel {t['decode']:.4f} ms, prefill kernel "
+                    f"{t['prefill']:.4f} ms; the {min(t, key=t.get)} kernel is faster")
+                del case
+    finally:
+        flash_attn.PREFILL_MIN_ROWS = keep
     for D in (32, 256):
         for dt, name in ((None, "int8"), (torch.bfloat16, "bf16")):
             attn_phase(torch, timer, flash_attn, f"K5 heads of {D}, {name}, decode B=8 d=512",
@@ -731,13 +767,16 @@ def main() -> int:
                        failures)
     torch.cuda.empty_cache()
     log("K6 slot-table attention (cache [8 seqs, 8 heads, 5120 slots, D]):")
-    res["flash_attention"] = slots_phase(
+    res["flash_attention/decode"] = slots_phase(
         torch, timer, flash_attn, "K6 decode B=1 d=2048",
         slots_case(torch, B=1, G=4, T=1, depth=2048), failures)
     slots_phase(torch, timer, flash_attn, "K6 decode B=8 d=512",
                 slots_case(torch, B=8, G=4, T=1, depth=512), failures)
-    slots_phase(torch, timer, flash_attn, "K6 prefill ubatch 4 of 2048",
-                slots_case(torch, B=1, G=4, T=512, depth=1536), failures)
+    slots_phase(torch, timer, flash_attn, "K6 decode B=32 d=512",
+                slots_case(torch, B=32, G=4, T=1, depth=512, n_seqs=32), failures)
+    res["flash_attention/prefill"] = slots_phase(
+        torch, timer, flash_attn, "K6 prefill ubatch 4 of 2048",
+        slots_case(torch, B=1, G=4, T=512, depth=1536), failures)
     slots_phase(torch, timer, flash_attn, "K6 bf16 cache decode B=1 d=2048",
                 slots_case(torch, B=1, G=4, T=1, depth=2048, kv_dtype=torch.bfloat16), failures)
     slots_phase(torch, timer, flash_attn, "K6 bf16 cache decode B=8 d=512",
@@ -812,8 +851,9 @@ def main() -> int:
     # wgmma GEMM at the ubatches; a path that launches any other kernel fails
     decode_keys = ("qmm4_planes/decode", "qmm_planes/decode")
     prefill_keys = ("qmm4_planes_prefill/wgmma", "qmm_planes_prefill/wgmma")
-    paged_key, slots_key, expert_key = (
-        "flash_attention_paged", "flash_attention", "qmm_planes_expert")
+    paged_keys = ("flash_attention_paged/prefill", "flash_attention_paged/decode")
+    slots_keys = ("flash_attention/prefill", "flash_attention/decode")
+    expert_key = "qmm_planes_expert"
 
     def reset_counts():
         for counter in counters:
@@ -916,13 +956,37 @@ def main() -> int:
     reset_counts()
     logits, gen_ids, rates = drive(ctx, prompt, prompts512, V, (8, 32), "llama paged")
     all_counts = {"llama paged": read_counts(
-        "llama paged", decode_keys + prefill_keys + (paged_key,))}
+        "llama paged", decode_keys + prefill_keys + paged_keys)}
     profile_decode(torch, qmm, ctx, steps=8)
     del ctx
     against_plain("llama paged", model, logits, gen_ids, prompt,
                   **{**paged_kw, "n_seqs": 2, "kv_total": 8192})
     log("llama paged rates (4-layer smoke run, not a benchmark; "
         f"{card}): " + json.dumps(rates))
+
+    # the same prompt in one ubatch of 2048 rows: every quantized product of
+    # 1024 rows or more takes the library route (bf16 operands, f32 sums),
+    # so no qmm prefill kernel may launch; held against the 512-row ubatches
+    ub_kw = dict(n_ctx=4096, n_seqs=2, n_ubatch=2048, quantized_kv=True, kv_total=8192)
+    ctx = Context(model, **ub_kw)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_logits = ctx.prefill(prompt, seq=0)
+    u_s = time.perf_counter() - t0
+    u_ids = ctx.generate(prompt, max_new_tokens=32, seq=1)
+    all_counts["llama ubatch 2048"] = read_counts("llama ubatch 2048", decode_keys + paged_keys)
+    del ctx
+    check_logits("llama ubatch 2048", u_logits, V)
+    err = float(np.mean((u_logits - logits) ** 2) / (np.mean(logits ** 2) + 1e-30))
+    agree = sum(int(a == b) for a, b in zip(u_ids, gen_ids))
+    log(f"llama ubatch 2048 (library route) vs ubatches of 512 (kernels): prefill last-token "
+        f"logits NMSE {err:.3e} (limit {NMSE_LIMIT}); greedy ids agree {agree}/{len(gen_ids)}; "
+        f"first prefill {len(prompt) / u_s:.0f} tok/s (cuBLAS start-up included)")
+    if not err < NMSE_LIMIT:
+        failures.append(f"llama ubatch 2048: logits NMSE {err} against the 512-row ubatches")
+    if agree != len(gen_ids) or len(u_ids) != len(gen_ids):
+        failures.append(f"llama ubatch 2048: greedy ids agree {agree} of {len(gen_ids)}")
 
     # path B: the same model on the slot-table cache
     slots_kw = dict(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True, paged=False)
@@ -932,7 +996,7 @@ def main() -> int:
     reset_counts()
     s_logits, s_ids, rates = drive(ctx, prompt, prompts512[:8], V, (8,), "llama slots")
     all_counts["llama slots"] = read_counts(
-        "llama slots", decode_keys + prefill_keys + (slots_key,))
+        "llama slots", decode_keys + prefill_keys + slots_keys)
     del ctx
     err = float(np.mean((s_logits - logits) ** 2) / (np.mean(logits ** 2) + 1e-30))
     log(f"llama slots vs llama paged: prefill last-token logits NMSE {err:.3e}; greedy ids "
@@ -959,7 +1023,7 @@ def main() -> int:
     reset_counts()
     t0 = time.perf_counter()
     text, err_text = run_cli("--temp", "0")
-    all_counts["llama-cli"] = read_counts("path D (llama-cli)", decode_keys + (paged_key,))
+    all_counts["llama-cli"] = read_counts("path D (llama-cli)", decode_keys + paged_keys)
     perf_lines = [ln for ln in err_text.splitlines() if ln.startswith("perf:")]
     log(f"path D: llama-cli -p {CLI_PROMPT!r} ({len(cli_ids)} tokens) -n 32 --temp 0 --kv-quant: "
         f"{time.perf_counter() - t0:.1f} s with its own load_model; {len(ref_gen)} ids from "
@@ -999,7 +1063,7 @@ def main() -> int:
     reset_counts()
     m_logits, m_ids, rates = drive(ctx, prompt, prompts512, VM, (8,), "mixtral")
     all_counts["mixtral"] = read_counts(
-        "mixtral", decode_keys + prefill_keys + (paged_key, expert_key))
+        "mixtral", decode_keys + prefill_keys + paged_keys + (expert_key,))
     profile_decode(torch, qmm, ctx, steps=8)
     del ctx
     against_plain("mixtral", model, m_logits, m_ids, prompt, **{**moe_kw, "n_seqs": 2})
@@ -1015,8 +1079,8 @@ def main() -> int:
     model = load_model(path)
     os.remove(path)
     prompt = [int(t) for t in prng.integers(3, VM, 700)]
-    for label, kw, key in (("heads of 64, paged", dict(paged=True), paged_key),
-                           ("heads of 64, slots", dict(paged=False), slots_key)):
+    for label, kw, key in (("heads of 64, paged", dict(paged=True), paged_keys[0]),
+                           ("heads of 64, slots", dict(paged=False), slots_keys[0])):
         kw = dict(n_ctx=2048, n_seqs=2, n_ubatch=512, quantized_kv=True, **kw)
         ctx = Context(model, **kw)
         reset_counts()
@@ -1026,9 +1090,9 @@ def main() -> int:
         check_logits(label, d_logits, VM)
         del ctx
         against_plain(label, model, d_logits, d_ids, prompt, **kw)
-    log("heads of 64: the prefill ubatches go through the attention kernels; a decode step "
-        "has 8 rows a KV head, which the dispatch rule (heads under 128, fewer than 16 rows) "
-        "sends to the plain einsum, as the JAX package does")
+    log("heads of 64: the prefill ubatches go through the attention prefill kernel; a decode "
+        "step has 8 rows a KV head, which the dispatch rule (heads under 128, fewer than 16 "
+        "rows) sends to the plain einsum, as the JAX package does")
     del model
     torch.cuda.empty_cache()
 
@@ -1070,13 +1134,14 @@ def main() -> int:
         "qmm_tiled": "scripts/bench_qmm.py:285",
         "qmm_tiled4d": "scripts/bench_qmm.py:337",
     }
-    source_of = {"flash_attention_paged": "flash_attn_paged.cu", "flash_attention": "flash_attn.cu",
+    source_of = {**{k: "flash_attn_paged.cu" for k in paged_keys},
+                 **{k: "flash_attn.cu" for k in slots_keys},
                  "qmm_planes_expert": "qmm_expert.cu", **{k: "qmm_prefill.cu" for k in prefill_keys},
                  **{k: "qmm_decode.cu" for k in decode_keys},
                  **{name: "qmm_bench.cu" for name in qmm_bench.launches}}
     # launches: from the path that is the kernel's own (the llama path on the
     # pool, the slot-table path, the Mixtral path, the microbenchmark)
-    path_of = {"flash_attention": "llama slots", "qmm_planes_expert": "mixtral",
+    path_of = {**{k: "llama slots" for k in slots_keys}, "qmm_planes_expert": "mixtral",
                **{name: "bench_qmm" for name in qmm_bench.launches}}
     kernels = []
     for name, r in res.items():

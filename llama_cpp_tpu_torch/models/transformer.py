@@ -17,7 +17,7 @@ import torch
 from ..ops.basic import rms_norm, silu, swiglu
 from ..ops.kernels import flash_attn as fa_kernel
 from ..ops.kernels import qmm_expert as expert_kernel
-from ..ops.qtensor import QuantTensor, Weight, embed_lookup, matmul
+from ..ops.qtensor import QuantTensor, Weight, dot_f32, embed_lookup, matmul
 from ..ops.rope import ROPE_TYPE_NONE, RopeParams, apply_rope
 from ..runtime.kv_cache import KVCache
 from ..runtime.paged_kv import PagedKVCache
@@ -265,8 +265,7 @@ def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
 
         def emm(key, h):  # h [n, a] -> [n, b] f32
             wd = _dequant_experts(lw[key], eid, mdt)[0]
-            return (torch.matmul(h.to(mdt).float(), wd.float())
-                    + _expert_bias(lw, key + "_bias", es))
+            return dot_f32(h.to(mdt), wd) + _expert_bias(lw, key + "_bias", es)
 
         h = silu(emm("ffn_gate_exps", xs[seg])) * emm("ffn_up_exps", xs[seg])
         y[seg] = emm("ffn_down_exps", h)

@@ -20,10 +20,16 @@ clip(row_pos // 64 + 1, 1, S / 64) of a slot table unless it is a ring
 (wrapped slots). Rows whose columns are all masked come out as 0 and are
 dropped by the callers.
 
-Bound on an H100: at decode the live K/V bytes; the kernels split the live
-tiles over blocks and merge in a second pass. Head dims 32, 64, 128 and 256
-(K and V alike): every head dim of this kind that the JAX package sends to
-its kernel.
+Two CUDA kernels a layout, chosen by the rows per (batch row, KV head), R =
+G*T: from PREFILL_MIN_ROWS rows the prefill kernel (wgmma; 128 query rows a
+block, 64 at heads of 256; bound by its tensor-core operations), below it
+the decode kernel (swap-AB mma.sync; 8 query rows a block, the live tiles
+split over blocks and merged by the last block of each row group in the
+same launch; bound by the live K/V bytes). Launch
+counters per CUDA kernel: "flash_attention_paged/prefill",
+"flash_attention_paged/decode", "flash_attention/prefill",
+"flash_attention/decode". Head dims 32, 64, 128 and 256 (K and V alike):
+every head dim of this kind that the JAX package sends to its kernel.
 """
 
 from __future__ import annotations
@@ -35,11 +41,15 @@ import torch
 from . import build
 
 HEAD_DIMS = (32, 64, 128, 256)  # the kernels' K and V head dims (K and V alike)
+PREFILL_MIN_ROWS = 64  # rows per (batch row, KV head) from which the prefill kernel runs
 _TILE = 64  # KV rows per kernel tile
-_MIN_BLOCKS = 264  # two blocks per SM on 132 SMs before splitting KV
+_DECODE_ROWS = 8  # query rows per decode block
+_MIN_BLOCKS = 132  # decode: one block per SM on 132 SMs before splitting KV
+_MAX_SPLITS = 64  # the decode kernel's bound on KV splits
 _LANES = 128  # the TPU lane width the JAX package's dispatch tests against
 
-launches = {"flash_attention_paged": 0, "flash_attention": 0}
+launches = {f"{name}/{route}": 0 for name in ("flash_attention_paged", "flash_attention")
+            for route in ("prefill", "decode")}
 
 
 def dispatches(head_dim_k: int, head_dim_v: int, n_slots: int, rows: int) -> bool:
@@ -117,20 +127,28 @@ def flash_attention_paged_plain(q, k, v, row_pos, pos, table_b, k_scale=None, v_
 
 def _lib(paged: bool):
     """fa_paged_launch / fa_slots_launch: 13 pointers, B, Hkv, R, the rows
-    of the memory, then the layout's ints, D and the scalars."""
+    of the memory, then the layout's ints, D, the scalars, the route and
+    the splits."""
     if paged:
         fn = build.library("flash_attn_paged.cu").fa_paged_launch
         tail = ([ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
-                + [ctypes.c_int] * 3)  # MP, page, D | sm_scale, window, softcap | rpw, splits, bf16
+                + [ctypes.c_int] * 3)  # MP, page, D | sm_scale, window, softcap | prefill, splits, bf16
     else:
         fn = build.library("flash_attn.cu").fa_slots_launch
         tail = ([ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
-                + [ctypes.c_int] * 4)  # n_seqs, D | ... | ring, rpw, splits, bf16
+                + [ctypes.c_int] * 4)  # n_seqs, D | ... | ring, prefill, splits, bf16
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
                        + tail + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(head_dim: int, prefill: bool, bf16_kv: bool) -> int:
+    """Dynamic shared memory of one block of the prefill or decode kernel
+    (read from the built library)."""
+    return int(build.library("flash_attn_paged.cu").fa_smem_bytes(
+        int(head_dim), int(prefill), int(bf16_kv)))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -141,12 +159,74 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"flash attention: {name} must be contiguous")
 
 
-def _grid(B: int, Hkv: int, R: int, max_tiles: int) -> tuple[int, int]:
-    """(rows per warp, KV splits): 4 rows a warp for prefill row counts, and
-    at decode enough KV splits to put two blocks on every SM."""
-    rpw = 1 if R <= 8 else 4
-    blocks = -(-R // (4 * rpw)) * Hkv * B
-    return rpw, max(1, min(max_tiles, -(-_MIN_BLOCKS // blocks)))
+def route(R: int) -> str:
+    """The CUDA kernel that takes R rows per (batch row, KV head)."""
+    return "prefill" if R >= PREFILL_MIN_ROWS else "decode"
+
+
+def decode_splits(B: int, Hkv: int, R: int, max_tiles: int) -> int:
+    """KV splits of the decode kernel: enough blocks for one on every SM
+    (fewer, longer splits beat two blocks an SM on the card: each split
+    adds partial sums to merge and keeps fewer tiles in flight), at most
+    one per tile the memory could hold and at most _MAX_SPLITS."""
+    groups = B * Hkv * -(-R // _DECODE_ROWS)
+    return max(1, min(max_tiles, _MAX_SPLITS, -(-_MIN_BLOCKS // groups)))
+
+
+# The decode kernel's scratch per (device, stream): the splits' partial sums
+# and the row groups' counters, zero between launches (the last block of a
+# row group resets its own), so launches on one stream, which run in order,
+# may share them.
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, stream: int, n_floats: int, n_counters: int):
+    """(partial sums, counters) of at least the sizes asked, grown when short."""
+    key = (device.index, stream)
+    part, counters = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < n_floats:
+        part = torch.empty(max(n_floats, 1 << 20), dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 4096), dtype=torch.int32, device=device)
+    _SCRATCH[key] = (part, counters)
+    return part, counters
+
+
+def _launch(paged: bool, q, k, v, ks, vs, pos, row_pos, index, sinks, lay: tuple,
+            max_tiles: int, sm_scale: float, window: int, softcap: float,
+            ring: bool = False) -> torch.Tensor:
+    """Allocate the output, pick the kernel and its splits, launch, count.
+    lay: (S_pool, MP, page) of the pool or (S, n_seqs) of a slot table."""
+    B, Hkv, R, D = q.shape
+    dev = q.device
+    for t in (q, k, v, ks, vs, pos):  # read 16 bytes at a time
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("flash attention: q, k, v, their scales and the position "
+                             "labels must be 16-byte aligned")
+    kind = route(R)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    splits = 1 if kind == "prefill" else decode_splits(B, Hkv, R, max_tiles)
+    part = counters = None
+    if splits > 1:
+        n_rows = B * Hkv * R
+        part, counters = _scratch(dev, stream, splits * n_rows * (D + 2),
+                                  B * Hkv * -(-R // _DECODE_ROWS))
+    out = torch.empty((B, Hkv, R, D), dtype=torch.float32, device=dev)
+    quantized = ks is not None
+    ptr = [None if t is None else t.data_ptr() for t in (q, k, v, ks, vs, pos, row_pos,
+                                                         index, sinks)]
+    part_acc = part_ml = None
+    if part is not None:
+        part_acc = part.data_ptr()
+        part_ml = part_acc + 4 * splits * B * Hkv * R * D
+    err = _lib(paged)(*ptr, part_acc, part_ml, None if counters is None else counters.data_ptr(),
+                      out.data_ptr(), B, Hkv, R, *lay, D, float(sm_scale), int(window),
+                      float(softcap), *(() if paged else (int(ring),)),
+                      int(kind == "prefill"), splits, int(not quantized), stream)
+    name = "flash_attention_paged" if paged else "flash_attention"
+    build.check(err, "fa_paged_launch" if paged else "fa_slots_launch")
+    launches[f"{name}/{kind}"] += 1
+    return out
 
 
 def flash_attention_paged(q, k, v, row_pos, pos, table_b, k_scale=None, v_scale=None,
@@ -184,21 +264,9 @@ def flash_attention_paged(q, k, v, row_pos, pos, table_b, k_scale=None, v_scale=
     _check(table_b, "table_b", torch.int32, (B, MP), dev)
     if sinks is not None:
         _check(sinks, "sinks", torch.float32, (Hkv, R), dev)
-    rpw, splits = _grid(B, Hkv, R, MP * (page // _TILE))
-    part_acc = torch.empty((splits, B, Hkv, R, D), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((2, splits, B, Hkv, R), dtype=torch.float32, device=dev)
-    out = torch.empty((B, Hkv, R, D), dtype=torch.float32, device=dev)
-    err = _lib(True)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     k_scale.data_ptr() if quantized else None,
-                     v_scale.data_ptr() if quantized else None, pos.data_ptr(),
-                     row_pos.data_ptr(), table_b.data_ptr(),
-                     None if sinks is None else sinks.data_ptr(), part_acc.data_ptr(),
-                     part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(), B, Hkv, R,
-                     S_pool, MP, page, D, float(sm_scale), int(window), float(softcap), rpw,
-                     splits, int(not quantized), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "fa_paged_launch")
-    launches["flash_attention_paged"] += 1
-    return out
+    return _launch(True, q, k, v, k_scale if quantized else None,
+                   v_scale if quantized else None, pos, row_pos, table_b, sinks,
+                   (S_pool, MP, page), MP * (page // _TILE), sm_scale, window, softcap)
 
 
 def _fold_gqa(q, Hkv: int, positions, sinks):
@@ -290,22 +358,9 @@ def flash_attention(q, k, v, row_pos, col_pos, seq_idx, k_scale=None, v_scale=No
     _check(seq_idx, "seq_idx", torch.int32, (B,), dev)
     if sinks is not None:
         _check(sinks, "sinks", torch.float32, (Hkv, R), dev)
-    rpw, splits = _grid(B, Hkv, R, S // _TILE)
-    part_acc = torch.empty((splits, B, Hkv, R, D), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((2, splits, B, Hkv, R), dtype=torch.float32, device=dev)
-    out = torch.empty((B, Hkv, R, D), dtype=torch.float32, device=dev)
-    err = _lib(False)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      k_scale.data_ptr() if quantized else None,
-                      v_scale.data_ptr() if quantized else None, col_pos.data_ptr(),
-                      row_pos.data_ptr(), seq_idx.data_ptr(),
-                      None if sinks is None else sinks.data_ptr(), part_acc.data_ptr(),
-                      part_ml[0].data_ptr(), part_ml[1].data_ptr(), out.data_ptr(), B, Hkv, R,
-                      S, n_seqs, D, float(sm_scale), int(window), float(softcap), int(ring),
-                      rpw, splits, int(not quantized),
-                      torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "fa_slots_launch")
-    launches["flash_attention"] += 1
-    return out
+    return _launch(False, q, k, v, k_scale if quantized else None,
+                   v_scale if quantized else None, col_pos, row_pos, seq_idx, sinks,
+                   (S, n_seqs), S // _TILE, sm_scale, window, softcap, ring)
 
 
 def mha_flash(q, kvc, li: int, seq_idx, positions, *, sm_scale: float, window: int = 0,

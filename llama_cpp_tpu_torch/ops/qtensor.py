@@ -6,13 +6,15 @@ produced once at load by quant/repack.py. Matmul weights keep the JAX
 package's transposed layout: q [in, out], scales [in//g, out], with K-quant
 superblock factors d/dmin [in//256, out] (hierarchical scales) and 4-bit
 formats nibble-packed half-split into qp [in/2, out]. The route per call:
-  * rows >= XLA_PREFILL_MIN_N: dequantize once and torch.matmul (the JAX
-    package leaves these to XLA's dot);
+  * rows >= XLA_PREFILL_MIN_N: dequantize, a slab of columns at a time, and
+    a library product (the JAX package leaves these to XLA's dot of bf16
+    operands into f32: on the card cuBLAS from bf16 operands with an f32
+    output; on the CPU the f32 product, the parity reference);
   * fewer rows, where the JAX package's dispatch runs its Pallas kernel:
     the qmm kernel (ops/kernels/qmm.py), which takes its plain version for a
     CPU tensor and raises on a CUDA tensor it cannot take;
-  * other layouts (row-major tables, untileable shapes): dequantize +
-    torch.matmul, as the reference leaves them to XLA.
+  * other layouts (row-major tables, untileable shapes): the same library
+    route, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ from .kernels import qmm as qmm_kernel
 
 # at or above this many activation rows the JAX package routes quantized
 # matmuls to XLA's dequant -> dot (qmm.py XLA_PREFILL_MIN_N); the port does
-# the same with one dequantization and torch.matmul
+# the same with a dequantization and a library product
 XLA_PREFILL_MIN_N = 1024
+LIBRARY_SLAB = 4096  # weight columns dequantized at a time for the library product
 
 
 @dataclass
@@ -94,6 +97,19 @@ class QuantTensor:
     def in_features(self) -> int:
         k = self.q.shape[-2] if self.transposed else self.q.shape[-1]
         return k * 2 if self.packed else k
+
+    def column_slab(self, o0: int, o1: int) -> "QuantTensor":
+        """Output columns [o0, o1) of a 2-D weight, as views of its planes."""
+        if self.q.ndim != 2:
+            raise ValueError("column_slab takes a 2-D weight")
+
+        def cut(t):
+            if t is None:
+                return None
+            return t[:, o0:o1] if self.transposed else t[o0:o1]
+
+        return replace(self, q=cut(self.q), scales=cut(self.scales), mins=cut(self.mins),
+                       d=cut(self.d), dmin=cut(self.dmin), out_dim=0)
 
     def unpack_q(self) -> torch.Tensor:
         """Packed nibbles -> int8 rows [in, out]: low nibbles are rows
@@ -241,6 +257,31 @@ def pad_out_features(qt: QuantTensor, multiple: int = 4096) -> QuantTensor:
                    d=pad(qt.d), dmin=pad(qt.dmin), out_dim=o)
 
 
+def dot_f32(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """x [N, K] . wd [K, O] -> f32, both in one dtype: the reference's
+    jnp.dot(..., preferred_element_type=f32). bf16 operands on the card go
+    to cuBLAS with an f32 output, so the sums and any split-K partials stay
+    f32 whatever allow_bf16_reduced_precision_reduction says; otherwise (the
+    CPU, or f32 operands) the f32 product."""
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        return torch.mm(x, wd, out_dtype=torch.float32)
+    return torch.matmul(x.float(), wd.float())
+
+
+def _library_matmul(x: torch.Tensor, w: QuantTensor, mdt: torch.dtype) -> torch.Tensor:
+    """x . W by dequantize -> dot_f32, [..., in] -> [..., out] f32. The
+    weight is dequantized LIBRARY_SLAB columns at a time, so no whole copy
+    of it (in f32 or bf16) is made."""
+    x2 = x.to(mdt).reshape(-1, w.in_features)
+    O = w.out_features
+    out = torch.empty((x2.shape[0], O), dtype=torch.float32, device=x.device)
+    for o0 in range(0, O, LIBRARY_SLAB):
+        o1 = min(o0 + LIBRARY_SLAB, O)
+        wd = w.column_slab(o0, o1).dequant(mdt)
+        out[:, o0:o1] = dot_f32(x2, wd if w.transposed else wd.t())
+    return out.reshape(*x.shape[:-1], O)
+
+
 def matmul(x: torch.Tensor, w: Weight, dtype=None, kernels: bool = True) -> torch.Tensor:
     """y = x @ W.T with W in [out, in] orientation (ggml mul_mat convention),
     f32 accumulation, cast to `dtype` (default: x's dtype). kernels=False
@@ -252,10 +293,7 @@ def matmul(x: torch.Tensor, w: Weight, dtype=None, kernels: bool = True) -> torc
         if kernels and rows < XLA_PREFILL_MIN_N and qmm_kernel.dispatches(w):
             return qmm_kernel.qmm(x.to(torch.bfloat16), w).to(out_dtype)
         mdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
-        wd = w.dequant(mdt)
-        if not w.transposed:
-            wd = wd.t()
-        return torch.matmul(x.to(mdt).float(), wd.float()).to(out_dtype)
+        return _library_matmul(x, w, mdt).to(out_dtype)
     xin = x.to(w.dtype) if w.dtype == torch.bfloat16 else x
     return torch.matmul(xin.float(), w.float().t()).to(out_dtype)
 

@@ -12,7 +12,7 @@ only keep the step shapes the JAX package uses.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, is_dataclass
 from typing import Callable, Iterable
 
 import numpy as np
@@ -50,7 +50,26 @@ class PerfCounters:
         }
 
 
+def _nbytes(obj) -> int:
+    """Bytes of every tensor reachable from obj (dicts, lists, tuples and
+    dataclasses such as QuantTensor and the KV memories)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(_nbytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_nbytes(v) for v in obj)
+    if is_dataclass(obj) and not isinstance(obj, type):
+        return sum(_nbytes(getattr(obj, f.name)) for f in fields(obj))
+    return 0
+
+
 class Context:
+    # members the JAX package's server scheduler reads: the port has no
+    # recurrent memory and no speculator, so no layer's features are captured
+    recurrent = False
+    aux_layers: tuple[int, ...] = ()
+
     def __init__(
         self,
         model: Model,
@@ -143,10 +162,21 @@ class Context:
                        kernels=self.kernels)
 
     # ------------------------------------------------------------------
+    def set_aux_capture(self, layer_ids) -> None:
+        """Capture of hidden features for a speculator: refused, the port has
+        no speculator yet (an empty capture is a no-op)."""
+        if layer_ids:
+            raise NotImplementedError("set_aux_capture: speculative decoding (-md, "
+                                      "--spec-ngram) is not ported")
+
     def decode(self, tokens: np.ndarray, seq_idx: np.ndarray, positions: np.ndarray,
-               output_rows: np.ndarray) -> np.ndarray:
+               output_rows: np.ndarray, aux: bool = False) -> np.ndarray:
         """Low-level ubatch step -> logits [M, vocab] (f32, host) for the flat
-        rows `output_rows` of the [B, T] token grid."""
+        rows `output_rows` of the [B, T] token grid. aux=True (logits and a
+        speculator's features) is refused: the port has no speculator yet."""
+        if aux:
+            raise NotImplementedError("decode(aux=True): speculative decoding (-md, "
+                                      "--spec-ngram) is not ported")
         tokens = np.atleast_2d(np.asarray(tokens))
         positions = np.atleast_2d(np.asarray(positions))
         seq_idx = np.asarray(seq_idx).reshape(-1)
@@ -286,6 +316,13 @@ class Context:
             dst_p = self._tensor(self.alloc.table[dst])
             self.kv.copy_pages(src_p, dst_p)
         self.seq_len[dst] = self.seq_len[src]
+
+    def memory_breakdown(self) -> dict:
+        """Device-memory bytes of the model's tensors, of the KV memory's,
+        and their total (the reference's llama_memory_breakdown)."""
+        model = _nbytes(self.model.params)
+        memory = _nbytes(self.kv)
+        return {"model_bytes": model, "memory_bytes": memory, "total_bytes": model + memory}
 
     def reset(self) -> None:
         if self.alloc is not None:

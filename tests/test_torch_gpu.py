@@ -37,6 +37,12 @@ def nmse(got, ref):
     return float(((got - ref) ** 2).mean() / (ref ** 2).mean())
 
 
+def fa_launches(name):
+    """Launches of both CUDA kernels (prefill and decode) of an attention
+    kernel's layout."""
+    return tfa.launches[f"{name}/prefill"] + tfa.launches[f"{name}/decode"]
+
+
 @pytest.mark.parametrize("n", [1, 3, 5, 8, 16, 32, 64, 512])
 @pytest.mark.parametrize("qtype,K", [(GGMLType.Q4_K, 1024), (GGMLType.Q6_K, 1024),
                                      (GGMLType.Q4_K, 768), (GGMLType.Q6_K, 768)],
@@ -285,7 +291,7 @@ def test_qmm_raises_on_what_the_kernel_does_not_take(cuda_device):
 def paged_case(device, B=3, Hkv=2, G=4, T=5, D=128, page=128, depths=(300, 129, 40), seed=0,
                bf16=False):
     gen = torch.Generator(device=device).manual_seed(seed)
-    mp = 4
+    mp = max(4, max(-(-(dep + T) // page) for dep in depths) + 1)
     n_pages = B * mp + 1
     S = n_pages * page
     if bf16:
@@ -325,10 +331,11 @@ def test_paged_attention_kernel_matches_plain(cuda_device, window, softcap, use_
     args, sinks, page = paged_case(cuda_device, T=T, bf16=bf16)
     kw = dict(sm_scale=1.0 / np.sqrt(128), window=window, softcap=softcap, page=page)
     sinks = sinks if use_sinks else None
-    before = tfa.launches["flash_attention_paged"]
+    key = f"flash_attention_paged/{tfa.route(args[0].shape[2])}"
+    before = tfa.launches[key]
     got = tfa.flash_attention_paged(*args, sinks, **kw)
     torch.cuda.synchronize()
-    assert tfa.launches["flash_attention_paged"] == before + 1
+    assert tfa.launches[key] == before + 1
     ref = tfa.flash_attention_paged_plain(*args, sinks, **kw)
     valid = args[3] >= 0  # [B, R]
     g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
@@ -359,7 +366,9 @@ def test_main_path_kernel_route_matches_plain_route(cuda_device, tmp_path, quant
     ctx = Context(model, n_ctx=512, n_seqs=4, n_ubatch=128, quantized_kv=quantized_kv)
     got = ctx.prefill(prompt)
     ids = ctx.decode_steps_greedy(np.array([int(np.argmax(got))]), np.array([0]), 4)
-    assert tfa.launches["flash_attention_paged"] > 0 and tfa.launches["flash_attention"] == 0
+    assert tfa.launches["flash_attention_paged/prefill"] > 0
+    assert tfa.launches["flash_attention_paged/decode"] > 0
+    assert fa_launches("flash_attention") == 0
     assert tqmm.launches["qmm4_planes_prefill/wgmma"] > 0
     assert tqmm.launches["qmm_planes_prefill/wgmma"] > 0
     assert tqmm.launches["qmm4_planes/decode"] > 0
@@ -437,10 +446,11 @@ def test_slot_attention_kernel_matches_plain(cuda_device, window, softcap, use_s
     args, sinks = slot_case(cuda_device, D=D, T=T, bf16=bf16, ring=ring)
     kw = dict(sm_scale=1.0 / np.sqrt(D), window=window, softcap=softcap, ring=ring)
     sinks = sinks if use_sinks else None
-    before = tfa.launches["flash_attention"]
+    key = f"flash_attention/{tfa.route(args[0].shape[2])}"
+    before = tfa.launches[key]
     got = tfa.flash_attention(*args, sinks, **kw)
     torch.cuda.synchronize()
-    assert tfa.launches["flash_attention"] == before + 1
+    assert tfa.launches[key] == before + 1
     ref = tfa.flash_attention_plain(*args, sinks, **kw)
     valid = args[3] >= 0
     g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
@@ -457,6 +467,126 @@ def test_slot_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
         tfa.flash_attention(*args[:6], sm_scale=0.125)
     with pytest.raises(ValueError):  # seq_idx must be int32
         tfa.flash_attention(*args[:5], args[5].long(), *args[6:], sm_scale=0.125)
+
+
+# -- the two attention kernels: routes, head dims, memories, masks -------------
+
+ROUTE_ROWS = {"decode_below": tfa.PREFILL_MIN_ROWS - 1, "prefill_at": tfa.PREFILL_MIN_ROWS}
+MASKS = {"causal": dict(window=0, softcap=0.0, sinks=False),
+         "window_softcap_sinks": dict(window=96, softcap=2.0, sinks=True)}
+
+
+def held(fn, plain, args, sinks, kw, mask):
+    """One launch of the kernel through its route, against the plain
+    version on the valid rows."""
+    kw = dict(kw, window=mask["window"], softcap=mask["softcap"])
+    sinks = sinks if mask["sinks"] else None
+    name = "flash_attention_paged" if fn is tfa.flash_attention_paged else "flash_attention"
+    key = f"{name}/{tfa.route(args[0].shape[2])}"
+    before = dict(tfa.launches)
+    got = fn(*args, sinks, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == {**before, key: before[key] + 1}
+    ref = plain(*args, sinks, **kw)
+    valid = args[3] >= 0
+    g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
+    assert torch.isfinite(got).all()
+    assert (got.transpose(1, 2)[~valid] == 0).all()  # padding rows come out as 0
+    assert nmse(g, r) < 1e-5
+    return got
+
+
+@pytest.mark.parametrize("mask", list(MASKS), ids=list(MASKS))
+@pytest.mark.parametrize("rows", list(ROUTE_ROWS), ids=list(ROUTE_ROWS))
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 128, 256], ids=["d32", "d64", "d128", "d256"])
+def test_paged_attention_routes_every_head_dim(cuda_device, D, bf16, rows, mask):
+    """Both kernels of the pool at every head dim and memory type, one row
+    below the prefill threshold and at it (one query head a KV head)."""
+    args, sinks, page = paged_case(cuda_device, G=1, T=ROUTE_ROWS[rows], D=D, bf16=bf16)
+    held(tfa.flash_attention_paged, tfa.flash_attention_paged_plain, args, sinks,
+         dict(sm_scale=1.0 / np.sqrt(D), page=page), MASKS[mask])
+
+
+@pytest.mark.parametrize("mask", list(MASKS), ids=list(MASKS))
+@pytest.mark.parametrize("rows", list(ROUTE_ROWS), ids=list(ROUTE_ROWS))
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 128, 256], ids=["d32", "d64", "d128", "d256"])
+def test_slot_attention_routes_every_head_dim(cuda_device, D, bf16, rows, mask):
+    args, sinks = slot_case(cuda_device, D=D, G=1, T=ROUTE_ROWS[rows], bf16=bf16)
+    held(tfa.flash_attention, tfa.flash_attention_plain, args, sinks,
+         dict(sm_scale=1.0 / np.sqrt(D)), MASKS[mask])
+
+
+@pytest.mark.parametrize("G,T", [(4, 1), (4, 5), (3, 33), (4, 16), (4, 25), (1, 200)],
+                         ids=["r4", "r20", "r99", "r64", "r100", "r200"])
+@pytest.mark.parametrize("page", [64, 512], ids=["page64", "page512"])
+def test_paged_attention_pages_and_ragged_rows(cuda_device, page, G, T):
+    """Pages of one tile and of eight; row counts that fill no whole decode
+    row group or prefill row tile."""
+    args, sinks, page = paged_case(cuda_device, G=G, T=T, page=page, bf16=False)
+    held(tfa.flash_attention_paged, tfa.flash_attention_paged_plain, args, sinks,
+         dict(sm_scale=0.088, page=page), MASKS["window_softcap_sinks"])
+
+
+@pytest.mark.parametrize("T", [1, 16, 50], ids=["decode", "prefill_r64", "prefill_r200"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+def test_slot_attention_ring_both_routes(cuda_device, bf16, T):
+    args, sinks = slot_case(cuda_device, T=T, bf16=bf16, ring=True)
+    held(tfa.flash_attention, tfa.flash_attention_plain, args, sinks,
+         dict(sm_scale=0.088, ring=True), MASKS["window_softcap_sinks"])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+def test_decode_splits_agree_and_repeat(cuda_device, monkeypatch, bf16):
+    """At decode the live tiles of a deep sequence are split over many
+    blocks (B=1, two KV heads); the merge by the last block holds to the
+    plain version as one split does (each split rounds its P to bf16 against
+    its own running max, so the two differ by that rounding, an NMSE near
+    5e-6), and gives the same bits every call."""
+    args, sinks, page = paged_case(cuda_device, B=1, G=4, T=1, depths=(1900,), page=512,
+                                   bf16=bf16)
+    assert tfa.decode_splits(1, 2, 4, 16) > 8
+    kw = dict(sm_scale=0.088, window=0, softcap=0.0, page=page)
+    many = tfa.flash_attention_paged(*args, sinks, **kw)
+    again = tfa.flash_attention_paged(*args, sinks, **kw)
+    monkeypatch.setattr(tfa, "decode_splits", lambda *a: 1)
+    one = tfa.flash_attention_paged(*args, sinks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(many, again)
+    ref = tfa.flash_attention_paged_plain(*args, sinks, **kw)
+    assert nmse(many, ref) < 1e-5 and nmse(one, ref) < 1e-5
+    assert nmse(many, one) < 2e-5
+
+
+def test_decode_is_one_launch(cuda_device):
+    """One decode call runs one CUDA kernel: the split merge is the last
+    block's, not a second kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args, sinks, page = paged_case(cuda_device, B=1, G=4, T=1, depths=(1900,), page=512)
+    kw = dict(sm_scale=0.088, page=page)
+    tfa.flash_attention_paged(*args, sinks, **kw)  # scratch and counters exist
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tfa.flash_attention_paged(*args, sinks, **kw)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "fa_decode" in kernels[0][0] and kernels[0][1] == 1, kernels
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256], ids=["d32", "d64", "d128", "d256"])
+def test_attention_shared_memory_budget(cuda_device, D):
+    """Every block fits the card's 227 KB; at heads up to 128 the decode
+    kernel fits two blocks an SM (a prefill block of two warpgroups takes
+    one)."""
+    for prefill in (True, False):
+        for bf16 in (True, False):
+            b = tfa.smem_bytes(D, prefill, bf16)
+            assert 0 < b + 2048 <= 232448
+            if D <= 128 and not prefill:
+                assert 2 * (b + 3072) <= 233472, (D, prefill, bf16, b)
 
 
 @pytest.mark.parametrize("mins", [False, True], ids=["scales", "scales_mins"])
@@ -519,8 +649,8 @@ def test_moe_path_kernel_route_matches_plain_route(cuda_device, tmp_path, paged,
     step = ctx.decode_one(int(np.argmax(got)))
     ids = ctx.decode_steps_greedy(np.array([int(np.argmax(step))]), np.array([0]), 4)
     assert tqe.launches["qmm_planes_expert"] == 3 * 2 * 5  # three a layer and B = 1 step
-    assert tfa.launches["flash_attention_paged" if paged else "flash_attention"] > 0
-    assert tfa.launches["flash_attention" if paged else "flash_attention_paged"] == 0
+    assert fa_launches("flash_attention_paged" if paged else "flash_attention") > 0
+    assert fa_launches("flash_attention" if paged else "flash_attention_paged") == 0
     ref_ctx = Context(model, kernels=False, **kw)
     ref = ref_ctx.prefill(prompt)
     assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3

@@ -453,3 +453,31 @@ def test_decode_blocks_fit_two_an_sm(nt):
             stages, smem = tqmm.decode_smem(nt, packed, group)
             assert stages in (3, 4)
             assert 2 * (smem + 1024) <= 233472
+
+
+@pytest.mark.parametrize("transpose", [True, False], ids=["transposed", "row_major"])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K], ids=["q4_k", "q6_k"])
+def test_library_route_sums_bf16_operands_in_f32(monkeypatch, qtype, transpose):
+    """From XLA_PREFILL_MIN_N rows the product is the reference's
+    jnp.dot(bf16 x, bf16 W, preferred_element_type=f32): bf16 operands, f32
+    sums, an f32 result where f32 is asked for (not a bf16-rounded one). The
+    weight is dequantized a slab of columns at a time (three ragged slabs
+    here), each slab bit for bit the columns of the whole dequantization."""
+    monkeypatch.setattr(tq, "LIBRARY_SLAB", 96)
+    tw = tq.load_weight(raw_weight(qtype, seed=5), qtype, (O, K), prefer_quant=True,
+                        transpose=transpose)
+    whole = tw.dequant(torch.bfloat16)
+    for o0 in range(0, O, 96):
+        slab = tw.column_slab(o0, min(o0 + 96, O)).dequant(torch.bfloat16)
+        cut = whole[:, o0:o0 + 96] if transpose else whole[o0:o0 + 96]
+        assert torch.equal(slab, cut)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((tq.XLA_PREFILL_MIN_N, K)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    y = tq.matmul(x, tw, dtype=torch.float32)
+    wd = (whole if transpose else whole.t()).double()
+    exact = x.double() @ wd
+    assert y.dtype == torch.float32 and y.shape == (tq.XLA_PREFILL_MIN_N, O)
+    err = float((y.double() - exact).abs().max() / exact.abs().max())
+    assert err < 1e-5  # f32 sums; a bf16-rounded result would be near 4e-3 off
+    assert torch.equal(tq.matmul(x, tw, dtype=torch.float32, kernels=False), y)
