@@ -9,8 +9,8 @@ Phases, each of which fails the run:
   2. build the CUDA kernels from the package's csrc/ (ptxas register and
      shared-memory lines printed);
   3. every kernel at the main path's shapes on the card, held against its
-     plain PyTorch version (NMSE < 5e-3), timed by CUDA events (L2 flushed
-     before each launch) beside its bound, the plain version and one
+     plain PyTorch version (NMSE < 5e-3), timed by CUDA events (the L2
+     flushed by a 128 MB read before each launch) beside its bound, the plain version and one
      PyTorch library call: the qmm decode kernel (csrc/qmm_decode.cu) at
      every main-path decode shape of an 8B layer and the vocab head and
      N = 1, 2, 4, 8, 16, 32, 63 (and held, untimed, at the TinyLlama
@@ -24,7 +24,8 @@ Phases, each of which fails the run:
      an int8 and a bf16 pool, with heads of 32, 64 and 256, then both
      kernels forced at 16-512 rows and depths 2048 and 128 to read the
      route threshold; the
-     indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes,
+     indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes
+     (R = 8, 64 and 64 rows drawn from 16 experts),
      the slot-table attention kernels at the same depths as the paged ones,
      and with 64-wide heads; the microbenchmark's
      four probe kernels (stream probe, the two nibble unpacks, the tile sweep
@@ -393,7 +394,8 @@ def expert_phase(torch, timer, qe, label, w, R, failures, seed=0, pool=None):
     bound = max(bytes_s, ops_s) * 1e3
     log(f"  {label:30s} R={R:3d} E={E:3d} K={K:5d} O={O:5d} experts read {n_distinct:3d} "
         f"nmse={err:.2e} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-        f"bound_ms={bound:.4f} ({'bytes' if bytes_s > ops_s else 'operations'})")
+        f"bound_ms={bound:.4f} ({'bytes' if bytes_s > ops_s else 'operations'}), share of "
+        f"bound {bound / ms:.3f}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
             "bytes_s": bytes_s, "ops_s": ops_s, "max_abs_err": mae, "nmse": err}
 
@@ -560,39 +562,68 @@ def bench_tiles_phase(torch, qb, tool, failures):
     return res
 
 
-def profile_decode(torch, qmm, ctx, steps: int):
+def timed_wrapper(module, name, acc, before=None):
+    """module.name wrapped so that the host time of each call adds to acc
+    [seconds, calls]; `before` runs ahead of each call, outside the timing."""
+    fn = getattr(module, name)
+
+    def call(*args):
+        if before is not None:
+            before()
+        t = time.perf_counter()
+        y = fn(*args)
+        acc[0] += time.perf_counter() - t
+        acc[1] += 1
+        return y
+    return fn, call
+
+
+def profile_decode(torch, qmm, ctx, steps: int, qe=None):
     """Where a B=1 decode step's time goes: `steps` decode_one calls of
     sequence 0 timed by the host clock, with the host time spent inside the
-    qmm wrapper (planning, checks and the launch) summed beside it, then as
-    many steps under torch.profiler for the device time by kernel (the
-    profiler's own start-up cost makes its window's wall time meaningless,
-    so the share uses the first)."""
+    qmm wrapper (planning, checks and the launch) summed beside it, and with
+    `qe` inside the qmm_expert wrapper, once as it runs (tensor maps and
+    scratch cached) and once more with both cleared before every call (made
+    anew each call); then as many steps under
+    torch.profiler for the device time by kernel (the profiler's own
+    start-up cost makes its window's wall time meaningless, so the share
+    uses the first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wrapper = qmm.qmm
-    in_qmm = [0.0, 0]
-
-    def timed_qmm(x, w):
-        t = time.perf_counter()
-        y = wrapper(x, w)
-        in_qmm[0] += time.perf_counter() - t
-        in_qmm[1] += 1
-        return y
+    def uncache():
+        qe._MAPS.clear()
+        qe._SCRATCH.clear()
 
     tok = 1
-    torch.cuda.synchronize()
-    qmm.qmm = timed_qmm
-    try:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            tok = int(ctx.decode_one(tok, seq=0).argmax())
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    finally:
-        qmm.qmm = wrapper
-    log(f"B=1 decode host time in the qmm wrapper: {in_qmm[0] * 1e3 / steps:.3f} ms a step over "
-        f"{in_qmm[1] / steps:.0f} calls ({in_qmm[0] * 1e6 / max(in_qmm[1], 1):.1f} us a call) "
-        f"of {wall_ms:.3f} ms wall")
+    runs = [("cached", None)] + ([("made anew", uncache)] if qe is not None else [])
+    wall_ms = None  # the cached run's
+    for label, before in runs:
+        in_qmm, in_qe = [0.0, 0], [0.0, 0]
+        qmm_fn, qmm_timed = timed_wrapper(qmm, "qmm", in_qmm)
+        torch.cuda.synchronize()
+        qmm.qmm = qmm_timed
+        if qe is not None:
+            qe_fn, qe_timed = timed_wrapper(qe, "qmm_expert", in_qe, before)
+            qe.qmm_expert = qe_timed
+        try:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok = int(ctx.decode_one(tok, seq=0).argmax())
+            run_ms = (time.perf_counter() - t0) * 1e3 / steps
+        finally:
+            qmm.qmm = qmm_fn
+            if qe is not None:
+                qe.qmm_expert = qe_fn
+        if wall_ms is None:
+            wall_ms = run_ms
+            log(f"B=1 decode host time in the qmm wrapper: {in_qmm[0] * 1e3 / steps:.3f} ms a "
+                f"step over {in_qmm[1] / steps:.0f} calls "
+                f"({in_qmm[0] * 1e6 / max(in_qmm[1], 1):.1f} us a call) of {run_ms:.3f} ms wall")
+        if qe is not None:
+            log(f"B=1 decode host time in the qmm_expert wrapper, tensor maps and scratch "
+                f"{label}: {in_qe[0] * 1e6 / max(in_qe[1], 1):.1f} us a call over "
+                f"{in_qe[1] / steps:.0f} calls a step ({run_ms:.3f} ms wall a step)")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             tok = int(ctx.decode_one(tok, seq=0).argmax())
@@ -803,19 +834,24 @@ def main() -> int:
         mix.append(expert_phase(torch, timer, qmm_expert, f"K7 mixtral {wname}", w, 2, failures))
         del w
     torch.cuda.empty_cache()
-    # one JSON entry: a Mixtral layer's three expert products at B=1 (R=2)
+    # one JSON entry: a Mixtral layer's three expert products at B=1 (R=2),
+    # with the Qwen3-30B-A3B rows beside
     res["qmm_planes_expert"] = {
         **{k: sum(r[k] for r in mix) for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         "max_abs_err": max(r["max_abs_err"] for r in mix), "nmse": max(r["nmse"] for r in mix),
         "bound_by": ("bytes" if sum(r["bytes_s"] for r in mix) > sum(r["ops_s"] for r in mix)
-                     else "operations")}
+                     else "operations"), "rows": {}}
+    qwen = res["qmm_planes_expert"]
     for wname, K, O, q4 in (("ffn_gate_exps", 2048, 768, True),
                             ("ffn_down_exps", 768, 2048, False)):
         w = expert_stack(torch, qtensor, GGMLType, 128, K, O, q4, seed=7)
-        for R in (8, 64):
-            expert_phase(torch, timer, qmm_expert, f"K7 qwen3-moe {wname}", w, R, failures)
-        expert_phase(torch, timer, qmm_expert, f"K7 qwen3-moe {wname} shared", w, 64, failures,
-                     pool=16)
+        for R, pool in ((8, None), (64, None), (64, 16)):
+            r = expert_phase(torch, timer, qmm_expert, f"K7 qwen3-moe {wname}"
+                             + (" shared" if pool else ""), w, R, failures, pool=pool)
+            qwen["rows"][f"qwen3 {wname} R={R}" + (" shared" if pool else "")] = {
+                k: r[k] for k in ("ms", "bound_ms", "library_ms")}
+            qwen["max_abs_err"] = max(qwen["max_abs_err"], r["max_abs_err"])
+            qwen["nmse"] = max(qwen["nmse"], r["nmse"])
         del w
     torch.cuda.empty_cache()
     log("B1-B4, the microbenchmark's probe kernels (8 rows of x, groups of 32; the JSON line "
@@ -1064,7 +1100,7 @@ def main() -> int:
     m_logits, m_ids, rates = drive(ctx, prompt, prompts512, VM, (8,), "mixtral")
     all_counts["mixtral"] = read_counts(
         "mixtral", decode_keys + prefill_keys + paged_keys + (expert_key,))
-    profile_decode(torch, qmm, ctx, steps=8)
+    profile_decode(torch, qmm, ctx, steps=8, qe=qmm_expert)
     del ctx
     against_plain("mixtral", model, m_logits, m_ids, prompt, **{**moe_kw, "n_seqs": 2})
     log(f"mixtral rates ({MOE_LAYERS}-layer smoke run, not a benchmark; {card}): "

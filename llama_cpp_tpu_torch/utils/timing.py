@@ -11,7 +11,7 @@ import torch
 
 class Timer:
     """Mean device time in ms of fn over reps launches, by CUDA events around
-    each launch, with the 50 MB L2 flushed before every launch (a decode step
+    each launch, with the 50 MB L2 flushed by a read before every launch (a decode step
     reads each weight and KV page once). A spin kernel before the start event
     lets the host enqueue fn's launches ahead of the device, so the interval
     holds device time, not Python launch overhead."""
@@ -21,13 +21,14 @@ class Timer:
     def __init__(self, device="cuda"):
         if not torch.cuda.is_available():
             raise RuntimeError("Timer measures device time and needs a CUDA device")
-        self.flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+        self.flush_buf = torch.zeros(128 << 20, dtype=torch.uint8, device=device)
+        self.flush_sum = None
 
     def flush(self) -> None:
-        """Push the timed function's data out of the L2 by writing 128 MB.
-        The lines written stay dirty in the L2, so a kernel that streams
-        more than the cache holds also pays for their write-back."""
-        self.flush_buf.zero_()
+        """Push the timed function's data out of the L2 by reading 128 MB
+        (a sum over a buffer kept alive). Read lines are clean, so the timed
+        kernel pays for no write-back of the flush, only for its own misses."""
+        self.flush_sum = self.flush_buf.sum()
 
     def __call__(self, fn, reps: int = 10) -> float:
         fn()

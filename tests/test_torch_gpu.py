@@ -589,28 +589,105 @@ def test_attention_shared_memory_budget(cuda_device, D):
                 assert 2 * (b + 3072) <= 233472, (D, prefill, bf16, b)
 
 
-@pytest.mark.parametrize("mins", [False, True], ids=["scales", "scales_mins"])
-@pytest.mark.parametrize("E,K,O,R,g", [
-    (8, 1024, 512, 2, 32), (8, 512, 1024, 1, 16), (4, 768, 256, 9, 32), (128, 256, 384, 64, 16),
-    (2, 2048, 128, 17, 32)],
-    ids=["top2", "one_row", "shared_experts", "many_experts", "five_rows_an_expert"])
-def test_expert_kernel_matches_plain(cuda_device, E, K, O, R, g, mins):
-    """The indexed-expert kernel against its plain version: NMSE < 1e-4 (the
-    kernel skips the plain version's bf16 rounding of W)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(E + R)
-    q = torch.randint(-127, 128, (E, K, O), generator=gen, device=cuda_device, dtype=torch.int8)
-    sc = torch.randn((E, K // g, O), generator=gen, device=cuda_device) * 0.02
-    mn = torch.randn((E, K // g, O), generator=gen, device=cuda_device) * 0.01 if mins else None
+def expert_case(device, E, K, O, R, g, mins, pick="random"):
+    gen = torch.Generator(device=device).manual_seed(E + R)
+    q = torch.randint(-127, 128, (E, K, O), generator=gen, device=device, dtype=torch.int8)
+    sc = torch.randn((E, K // g, O), generator=gen, device=device) * 0.02
+    mn = torch.randn((E, K // g, O), generator=gen, device=device) * 0.01 if mins else None
     w = tq.QuantTensor(q=q, scales=sc, mins=mn, group=g, ggml_type=int(GGMLType.Q4_K),
                        transposed=True)
-    x = torch.randn((R, K), generator=gen, device=cuda_device).to(torch.bfloat16)
-    ids = torch.randint(0, E, (R,), generator=gen, device=cuda_device, dtype=torch.int32)
+    x = torch.randn((R, K), generator=gen, device=device).to(torch.bfloat16)
+    if pick == "distinct":
+        ids = torch.randperm(E, generator=gen, device=device)[:R].to(torch.int32)
+    else:
+        ids = torch.randint(0, E, (R,), generator=gen, device=device, dtype=torch.int32)
+    if pick == "one":
+        ids[:] = E - 1
+    return x, ids, w
+
+
+@pytest.mark.parametrize("mins", [False, True], ids=["scales", "scales_mins"])
+@pytest.mark.parametrize("E,K,O,R,g,pick", [
+    (8, 1024, 512, 2, 32, "random"), (8, 512, 1024, 1, 16, "random"),
+    (4, 768, 256, 9, 32, "random"), (128, 256, 384, 64, 16, "random"),
+    (2, 2048, 128, 17, 32, "random"), (8, 768, 256, 8, 16, "one"), (8, 2048, 384, 9, 32, "one"),
+    (128, 2048, 768, 64, 32, "random"), (16, 768, 2048, 64, 16, "random"),
+    (64, 256, 256, 400, 16, "random"), (128, 2048, 768, 8, 32, "distinct"),
+    (8, 4096, 1024, 2, 16, "distinct")],
+    ids=["top2", "one_row", "shared_experts", "many_experts", "five_rows_an_expert",
+         "eight_of_one", "nine_of_one", "qwen3_gate", "qwen3_down_shared", "rows_400",
+         "qwen3_top8", "mixtral_top2"])
+def test_expert_kernel_matches_plain(cuda_device, E, K, O, R, g, mins, pick):
+    """The indexed-expert kernel against its plain version: NMSE < 1e-4 (the
+    kernel skips the plain version's bf16 rounding of W). Distinct experts
+    keep the first copies the kernel issues before it groups the rows; rows
+    that share one (R <= E) make it drop them."""
+    x, ids, w = expert_case(cuda_device, E, K, O, R, g, mins, pick)
     before = tqe.launches["qmm_planes_expert"]
     got = tqe.qmm_expert(x, ids, w)
     torch.cuda.synchronize()
     assert tqe.launches["qmm_planes_expert"] == before + 1
     assert got.shape == (R, O) and torch.isfinite(got).all()
     assert nmse(got, tqe.qmm_expert_plain(x, ids, w)) < 1e-4
+
+
+def test_expert_kernel_past_two_gib_of_planes(cuda_device):
+    """A stack of 128 x 2048 x 8320 int8 planes (2.18 GB, so expert 127's
+    planes start past 2^31 bytes): the last experts' rows against the plain
+    version."""
+    E, K, O, g = 128, 2048, 8320, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randint(-127, 128, (E, K, O), generator=gen, device=cuda_device, dtype=torch.int8)
+    sc = torch.rand((E, K // g, O), generator=gen, device=cuda_device) * 0.02
+    mn = torch.randn((E, K // g, O), generator=gen, device=cuda_device) * 0.01
+    w = tq.QuantTensor(q=q, scales=sc, mins=mn, group=g, ggml_type=int(GGMLType.Q4_K),
+                       transposed=True)
+    assert E * K * O > 2 ** 31
+    x = torch.randn((4, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    ids = torch.tensor([127, 0, 126, 127], dtype=torch.int32, device=cuda_device)
+    got = tqe.qmm_expert(x, ids, w)
+    torch.cuda.synchronize()
+    assert nmse(got, tqe.qmm_expert_plain(x, ids, w)) < 1e-4
+
+
+def test_expert_kernel_is_one_launch_and_repeatable(cuda_device):
+    """One call runs one CUDA kernel (the split merge is the last block's),
+    the same ids give the same bits twice on one stream (the split counters
+    reset themselves), and ids out of [0, E) read the clamped expert."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, ids, w = expert_case(cuda_device, 8, 14336, 512, 2, 16, False)  # split K
+    assert tqe.max_splits(2, 14336, 512, tqe.slots(cuda_device, 16, False)) > 1
+    first = tqe.qmm_expert(x, ids, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        second = tqe.qmm_expert(x, ids, w)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "qmm_expert" in kernels[0][0] and kernels[0][1] == 1, kernels
+    assert torch.equal(first, second)
+    wild = torch.tensor([-5, 99], dtype=torch.int32, device=cuda_device)
+    clamped = torch.tensor([0, 7], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(tqe.qmm_expert(x, wild, w), tqe.qmm_expert(x, clamped, w))
+
+
+def test_expert_kernel_plans_as_its_wrapper(cuda_device):
+    """The kernel's split rule is the wrapper's split_count, and the grid's
+    slots are two blocks an SM (the shared memory and registers fit)."""
+    import ctypes
+
+    lib = tqe._lib()
+    lib.qmm_expert_split_count.argtypes = [ctypes.c_int] * 4
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for g in (16, 32):
+        for mins in (False, True):
+            assert tqe.slots(cuda_device, g, mins) == 2 * sms
+    for ct in (1, 6, 16, 32, 112):
+        for ng in (1, 2, 8, 16, 50, 64, 300):
+            for ku in (4, 12, 32, 64, 224):
+                assert lib.qmm_expert_split_count(ct, ng, ku, 264) == tqe.split_count(
+                    ct, ng, ku, 264), (ct, ng, ku)
 
 
 def test_expert_kernel_raises_on_what_it_does_not_take(cuda_device):
@@ -627,6 +704,10 @@ def test_expert_kernel_raises_on_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):  # a 2-D plane is the plain qmm's
         tqe.qmm_expert(x, ids, tq.QuantTensor(q=q[0], scales=sc[0], mins=None, group=32,
                                               ggml_type=int(GGMLType.Q4_K), transposed=True))
+    big = tqe.MAX_ROWS + 1
+    with pytest.raises(ValueError):  # more rows than the kernel's group table
+        tqe.qmm_expert(torch.zeros((big, 256), dtype=torch.bfloat16, device=cuda_device),
+                       torch.zeros(big, dtype=torch.int32, device=cuda_device), w)
 
 
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "slots"])
