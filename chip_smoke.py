@@ -30,8 +30,17 @@ Phases, each of which fails the run:
      and with 64-wide heads; the microbenchmark's
      four probe kernels (stream probe, the two nibble unpacks, the tile sweep
      flat and tile by tile) at the gate/up and down shapes of an 8B llama,
-     and the tile sweep once, untimed, at every shape and tile the
-     microbenchmark entry point launches it at, the vocab head included;
+     the tile sweep once, untimed, at every shape and tile the
+     microbenchmark entry point launches it at, the vocab head included,
+     and the even/odd GEMV B2 (csrc/qmm_bench.cu qmm4_variant_kernel)
+     timed at 4096 x 4096 too, held, untimed, at the four decode shapes and
+     N = 8, 16, 32 with both unpacks (equal bits), and seen by the profiler
+     to run one kernel a call;
+     then the conformance sweep (llama_cpp_tpu_torch.tools.conformance):
+     every row of the JAX package's scripts/conformance.py through the
+     port's kernel against its f64 oracle (NMSE < 5e-3), written to
+     build/conformance_h100.csv; a FAIL row fails the run unless
+     KNOWN_FAULTS names it;
   4. the main paths through the port's entry points, each with the launch
      counters set to 0 before it and read after it, and each held against
      the plain path (Context(kernels=False)) on the prefill's last-token
@@ -81,6 +90,12 @@ NMSE_LIMIT = 5e-3  # the reference's conformance threshold
 SMOKE_LAYERS = 4
 CLI_PROMPT = "the cat is on the mat and that was the end of it"
 MOE_LAYERS = 2  # experts are 97% of a Mixtral layer's bytes
+# conformance rows that fail for a fault open in ROADMAP.md queue 3:
+# (kernel, config); printed as "known fault" with their NMSE
+KNOWN_FAULTS: tuple[tuple[str, str], ...] = ()
+# conformance rows whose shapes the port's kernels do not take (K and V heads
+# that differ, ROADMAP.md queue 1, item 12): they must raise
+UNTAKEN_ROWS = (("flash_attn_paged", "mla-576"), ("flash_attn_paged", "mla-576-int8"))
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -510,6 +525,122 @@ def bench_phase(torch, timer, qb, name, K, O, failures):
     return res
 
 
+def variant_rows(torch, timer, qb, name, K, O, failures):
+    """B2 at one more shape, 8 rows of x: both unpacks held against the plain
+    version and against each other, timed beside the bound (plane bytes, x
+    and out over the memory rate) and torch.matmul on the pre-dequantized
+    bf16 weight. Returns {unpack: numbers}."""
+    gen = torch.Generator(device="cuda").manual_seed(K + O + 2)
+    N, G = 8, 32
+    qp = torch.randint(0, 256, (K // 2, O), generator=gen, device="cuda",
+                       dtype=torch.uint8).view(torch.int8)
+    sc = torch.randn((K // G, O), generator=gen, device="cuda") * 0.05
+    mn = torch.randn((K // G, O), generator=gen, device="cuda") * 0.1
+    x = torch.randn((N, K), generator=gen, device="cuda").to(torch.bfloat16)
+    ref = qb.qmm4_variant_plain(x, qp, sc, mn, group=G)
+    u = qp.view(torch.uint8)
+    wd = torch.stack((u & 0xF, u >> 4), dim=1).reshape(K // G, G, O).float()
+    wd = (wd * sc[:, None, :] + mn[:, None, :]).reshape(K, O).to(torch.bfloat16)
+    lib_ms = timer(lambda: torch.matmul(x, wd))
+    plain_ms = timer(lambda: qb.qmm4_variant_plain(x, qp, sc, mn, group=G), reps=3)
+    nbytes = N * K * 2 + qp.numel() + 2 * sc.numel() * 4 + N * O * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, 2.0 * N * K * O / BF16_FLOPS) * 1e3
+    res, outs = {}, {}
+    for unpack in ("fp", "i16"):
+        def fn():
+            return qb.qmm4_variant(x, qp, sc, mn, group=G, unpack=unpack)
+        out = outs[unpack] = fn()
+        torch.cuda.synchronize()
+        err = nmse(out, ref)
+        if not err < NMSE_LIMIT or not torch.isfinite(out).all():
+            failures.append(f"B2 {unpack} {name}: NMSE {err}")
+        res[unpack] = {"ms": timer(fn), "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound, "max_abs_err": float((out - ref).abs().max()),
+                       "nmse": err}
+        log(f"  B2 qmm4_variant {unpack:3s} {name:7s} K={K:5d} O={O:5d} nmse={err:.2e} "
+            f"ms={res[unpack]['ms']:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={bound:.4f} (bytes), share of bound {bound / res[unpack]['ms']:.3f}; "
+            f"plan {qb.variant_plan(N, K, O)}")
+    if not torch.equal(outs["fp"], outs["i16"]):
+        failures.append(f"B2 {name}: the two unpacks differ")
+    return res
+
+
+def variant_held(torch, qb, tool, failures):
+    """B2 at the four decode shapes and N = 8, 16, 32, untimed: both unpacks
+    against the plain version (NMSE < 5e-3) and equal to the bit; then one
+    call of each unpack under the profiler, which must see one kernel, the
+    B2 kernel. Returns the largest errors."""
+    from torch.profiler import ProfilerActivity, profile
+
+    worst = {"nmse": 0.0, "max_abs_err": 0.0}
+    G = tool.GROUP
+    for name, K, O in tool.DECODE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(K + O + 3)
+        qp = torch.randint(0, 256, (K // 2, O), generator=gen, device="cuda",
+                           dtype=torch.uint8).view(torch.int8)
+        sc = torch.randn((K // G, O), generator=gen, device="cuda") * 0.05
+        mn = torch.randn((K // G, O), generator=gen, device="cuda") * 0.1
+        errs = []
+        for n in (8, 16, 32):
+            x = torch.randn((n, K), generator=gen, device="cuda").to(torch.bfloat16)
+            fp = qb.qmm4_variant(x, qp, sc, mn, group=G, unpack="fp")
+            i16 = qb.qmm4_variant(x, qp, sc, mn, group=G, unpack="i16")
+            torch.cuda.synchronize()
+            ref = qb.qmm4_variant_plain(x, qp, sc, mn, group=G)
+            err = nmse(fp, ref)
+            errs.append(err)
+            if not err < NMSE_LIMIT or not torch.isfinite(fp).all():
+                failures.append(f"B2 {name} K={K} O={O} N={n}: NMSE {err}")
+            if not torch.equal(fp, i16):
+                failures.append(f"B2 {name} K={K} O={O} N={n}: the two unpacks differ")
+            worst["nmse"] = max(worst["nmse"], err)
+            worst["max_abs_err"] = max(worst["max_abs_err"], float((fp - ref).abs().max()))
+        log(f"  B2 held at {name:6s} K={K:5d} O={O:5d} N=[8, 16, 32]: NMSE "
+            + " ".join(f"{e:.2e}" for e in errs) + ", fp and i16 equal")
+    # one profiler session for both calls (a second session right after a
+    # first one has come back empty on the card)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for unpack in ("fp", "i16"):
+            qb.qmm4_variant(x, qp, sc, mn, group=G, unpack=unpack)
+        torch.cuda.synchronize()
+    kernels = sorted((e.key, e.count) for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"  B2: one call of each unpack runs {kernels}")
+    want = [f"qmm4_variant_kernel<4, {fp}>" for fp in ("false", "true")]
+    if len(kernels) != 2 or any(c != 1 or w not in k for (k, c), w in zip(kernels, want)):
+        failures.append(f"B2: one call of each unpack ran {kernels}, not one qmm4_variant_kernel "
+                        "each")
+    return worst
+
+
+def conformance_phase(torch, tool, failures):
+    """Every row of the reference's conformance sweep through the port's
+    kernel on the card, written to build/conformance_h100.csv."""
+    rows = tool.run("cuda")
+    path = os.path.join(ROOT, "build", "conformance_h100.csv")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(tool.to_csv(rows, torch.device("cuda")))
+    for r in rows:
+        key = (r.kernel, r.config)
+        if r.status == "PASS":
+            continue
+        if r.status == "FAIL" and key in KNOWN_FAULTS:
+            log(f"  known fault {r.kernel} {r.config}: NMSE {r.nmse} ({r.route})")
+        elif r.status == "raises" and key in UNTAKEN_ROWS:
+            log(f"  {r.kernel} {r.config}: {r.route}")
+        else:
+            failures.append(f"conformance {r.kernel} {r.config}: {r.status}, NMSE {r.nmse} "
+                            f"({r.route})")
+    counts = {s: sum(r.status == s for r in rows) for s in ("PASS", "FAIL", "raises")}
+    worst = max((r for r in rows if r.nmse is not None), key=lambda r: r.nmse)
+    log(f"conformance sweep: {len(rows)} rows, {counts['PASS']} PASS, {counts['FAIL']} FAIL, "
+        f"{counts['raises']} raises (known faults: {list(KNOWN_FAULTS)}); largest NMSE "
+        f"{worst.nmse:.3e} ({worst.kernel} {worst.config}); written to {path}")
+
+
 def bench_tiles_phase(torch, qb, tool, failures):
     """The tile sweep at every (shape, tile) the microbenchmark entry point
     launches it at: flat (its cases `tiles` and `shapes`) and tile by tile
@@ -666,6 +797,7 @@ def main() -> int:
                                                  synth_quant_bytes)
         from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
         from llama_cpp_tpu_torch.tools import cli as cli_tool
+        from llama_cpp_tpu_torch.tools import conformance as conformance_tool
         from llama_cpp_tpu_torch.utils.timing import Timer
     except ImportError as e:
         print(f"chip_smoke: the port package is not next to this script ({e})",
@@ -874,7 +1006,25 @@ def main() -> int:
     for key, r in tiles_res.items():
         bench_res[key]["max_abs_err"] = max(bench_res[key]["max_abs_err"], r["max_abs_err"])
         bench_res[key]["nmse"] = max(bench_res[key]["nmse"], r["nmse"])
+    log("B2 at 4096 x 4096 (timed), at the decode shapes and N = 8, 16, 32 (held), one "
+        "kernel a call (profiler):")
+    attno = variant_rows(torch, timer, qmm_bench, "attno", E, E, failures)
+    held = variant_held(torch, qmm_bench, bench_qmm_tool, failures)
+    for unpack in ("fp", "i16"):
+        r = bench_res[f"qmm4_variant/{unpack}"]
+        r["kernel"] = "qmm4_variant_kernel"
+        r["rows"] = {"gateup 4096x28672": {k: r[k] for k in ("ms", "bound_ms", "library_ms")},
+                     "down 14336x4096": {k: down_res[f"qmm4_variant/{unpack}"][k]
+                                         for k in ("ms", "bound_ms", "library_ms")},
+                     "attno 4096x4096": {k: attno[unpack][k]
+                                         for k in ("ms", "bound_ms", "library_ms")}}
+        r["max_abs_err"] = max(r["max_abs_err"], attno[unpack]["max_abs_err"],
+                               held["max_abs_err"])
+        r["nmse"] = max(r["nmse"], attno[unpack]["nmse"], held["nmse"])
     res.update(bench_res)
+    torch.cuda.empty_cache()
+    log("conformance sweep of every kernel (the reference's rows, f64 oracles):")
+    conformance_phase(torch, conformance_tool, failures)
     torch.cuda.empty_cache()
     if failures:
         for f in failures:
@@ -1190,7 +1340,7 @@ def main() -> int:
                         "nmse": r["nmse"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **({k: r[k] for k in ("tile", "rows") if k in r})})
+                        **({k: r[k] for k in ("kernel", "tile", "rows") if k in r})})
     log(f"card: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -62,6 +62,8 @@
 #include <cudaTypedefs.h>
 #include <stdint.h>
 
+#include "tma_ring.cuh"
+
 namespace {
 
 constexpr int kBN = 128;           // output columns per block
@@ -98,47 +100,6 @@ struct Layout {
       NT < 8 && 2 * (4 * kStageBytes + kScratch + 64 + 2048) <= 233472 ? 4 : 3;
   static constexpr int kSmemBytes = kStages * kStageBytes + kScratch + 16 * kStages + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// TMA: the box of tensor map `map` at (c0 inner, c1 row) -> shared memory at
-// dst; the barrier's transaction count falls by its bytes when it lands
-// (rows past the tensor's end land as zeros)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
 
 // the consumer warps alone (the producer warp has left)
 __device__ __forceinline__ void consumers_sync() {
@@ -627,39 +588,6 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap tm_x,
     fold<4, 4>(out, part, stride, total, splits, O, o_blk, tid);
   }
   if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next launch
-}
-
-// cuTensorMapEncodeTiled, looked up once at run time through
-// cudaGetDriverEntryPoint (no link against libcuda)
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
-            cudaSuccess &&
-        res == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-    }
-  }
-  return fn;
-}
-
-// a 2-D row-major tensor [rows, cols] of `elem` bytes, boxes of box_cols x
-// box_rows, optionally under the 128-byte swizzle
-bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem,
-              uint64_t cols, uint64_t rows, uint32_t box_cols, uint32_t box_rows, bool swizzle) {
-  const auto fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estrides[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estrides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 template <bool PACKED, int G, int NT>

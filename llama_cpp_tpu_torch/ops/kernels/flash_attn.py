@@ -38,7 +38,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, scratch
 
 HEAD_DIMS = (32, 64, 128, 256)  # the kernels' K and V head dims (K and V alike)
 PREFILL_MIN_ROWS = 64  # rows per (batch row, KV head) from which the prefill kernel runs
@@ -180,18 +180,6 @@ def decode_splits(B: int, Hkv: int, R: int, max_tiles: int) -> int:
 _SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _scratch(device: torch.device, stream: int, n_floats: int, n_counters: int):
-    """(partial sums, counters) of at least the sizes asked, grown when short."""
-    key = (device.index, stream)
-    part, counters = _SCRATCH.get(key, (None, None))
-    if part is None or part.numel() < n_floats:
-        part = torch.empty(max(n_floats, 1 << 20), dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(max(n_counters, 4096), dtype=torch.int32, device=device)
-    _SCRATCH[key] = (part, counters)
-    return part, counters
-
-
 def _launch(paged: bool, q, k, v, ks, vs, pos, row_pos, index, sinks, lay: tuple,
             max_tiles: int, sm_scale: float, window: int, softcap: float,
             ring: bool = False) -> torch.Tensor:
@@ -209,8 +197,8 @@ def _launch(paged: bool, q, k, v, ks, vs, pos, row_pos, index, sinks, lay: tuple
     part = counters = None
     if splits > 1:
         n_rows = B * Hkv * R
-        part, counters = _scratch(dev, stream, splits * n_rows * (D + 2),
-                                  B * Hkv * -(-R // _DECODE_ROWS))
+        part, counters = scratch.grow(_SCRATCH, dev, stream, splits * n_rows * (D + 2),
+                                      B * Hkv * -(-R // _DECODE_ROWS))
     out = torch.empty((B, Hkv, R, D), dtype=torch.float32, device=dev)
     quantized = ks is not None
     ptr = [None if t is None else t.data_ptr() for t in (q, k, v, ks, vs, pos, row_pos,

@@ -16,22 +16,28 @@ unscaled (exact in bf16) and scale each group's sum in f32, an NMSE near
 1e-6 from the plain version.
 
 Bound on an H100: the plane bytes over 3.35 TB/s, for all four at 8 rows of
-x. A wrapper takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor, or raises.
+x. _variant_call has a kernel of its own, planned by variant_plan: column
+tiles of 128, K split to give every SM a block, one launch. A
+wrapper takes the plain version for a CPU tensor and launches the kernel for
+a CUDA tensor, or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
-from . import build
+from . import build, scratch
 
 ROWS = 8  # rows of x per block; N is a multiple
 GROUP = 32  # rows of K per scale that the kernels take
 TILE_COLS = (128, 256, 512, 1024, 2048)  # columns per block the GEMV is built for
-VARIANT_TILE = (8, 512, 2048)  # the fixed tile of _variant_call
+# the fixed tile of _variant_call: its domain is N % 8 == 0, O % 512 == 0,
+# K % 2048 == 0 (the card's blocking is variant_plan's)
+VARIANT_TILE = (8, 512, 2048)
 _STREAM_COLS = 256  # columns per block of the stream probe
 _STREAM_Q_ROWS = 32  # byte rows per 8 KB chunk of the stream probe
 _STREAM_S_ROWS = 8  # f32 rows per chunk
@@ -200,10 +206,157 @@ def stream_planes(x, qp: torch.Tensor, sc: torch.Tensor, mn: torch.Tensor, *, gr
     return out
 
 
-# -- B2-B4 -------------------------------------------------------------------------
+# -- B2 ----------------------------------------------------------------------------
+
+# the kernel (csrc/qmm_bench.cu qmm4_variant_kernel): a block is 128 columns
+# of the output, up to 4 n-tiles of 8 rows of x, and a range of K walked in
+# stages of 64 plane byte rows, 8 consumer warps and a producer warp
+_SMS = 132
+_SMEM_PER_SM = 233472  # bytes of shared memory an H100 SM has for blocks
+_VARIANT_COLS = 128
+_VARIANT_STAGE_ROWS = 64  # plane byte rows a stage: 128 rows of K
+_VARIANT_STAGES = 4
+_VARIANT_MAX_BLOCKS_PER_SM = 2  # its launch bounds: the registers of two blocks
+
+
+def variant_tiles(n: int) -> int:
+    """n-tiles of 8 rows of x a block takes at n rows: 1, 2 or 4 (from 33
+    rows on, blocks along the rows of x take 32 each)."""
+    return 1 if n <= 8 else 2 if n <= 16 else 4
+
+
+def variant_smem(nt: int) -> int:
+    """Shared memory bytes of one block (csrc/qmm_bench.cu VLayout): per
+    stage 8 KB of plane rows, x as two boxes of 8 nt rows x 64 k, 4 rows of
+    scales and 4 of mins; the barriers; 1 KB to align the swizzled tiles."""
+    stage = _VARIANT_STAGE_ROWS * _VARIANT_COLS + 2 * nt * 8 * 128 + 2 * 4 * _VARIANT_COLS * 4
+    return _VARIANT_STAGES * stage + 16 * _VARIANT_STAGES + 1024
+
+
+@dataclass(frozen=True)
+class VariantPlan:
+    """Grid of the B2 kernel: column blocks of 128, K splits (each `stages`
+    stages of 64 plane byte rows), blocks along the rows of x (n_tiles
+    n-tiles of 8 each), the blocks an SM holds, and why the grid is short of
+    the card's SMs when it is ('' when it fills them)."""
+    col_blocks: int
+    splits: int
+    stages: int
+    row_blocks: int
+    n_tiles: int
+    blocks_per_sm: int
+    note: str
+
+    @property
+    def blocks(self) -> int:
+        return self.col_blocks * self.splits * self.row_blocks
+
+    @property
+    def slots(self) -> int:
+        return _SMS * self.blocks_per_sm
+
+
+@functools.lru_cache(maxsize=None)
+def variant_plan(n: int, K: int, O: int) -> VariantPlan:
+    """K splits for the B2 kernel at n rows of x: the most splits (dividing
+    the K/128 stages of 64 plane byte rows) whose blocks do not outnumber
+    the SMs, with the partial sums within half the plane bytes (the last
+    block of each column tile reads them all). Two blocks fit an SM, but a
+    split block pays its ring's fill and the merge again, and one block's 4
+    stages of 12 KB in flight keep an SM's share of the memory rate busy:
+    sweeps of the split count on an H100 at 4096 x 4096, 4096 x 6144 and
+    14336 x 4096 read one block an SM as fast as two or faster (PERF.md).
+    Where the column blocks alone outnumber the SMs (4096 x 28672: 224 of
+    the 264 slots) K is not split."""
+    nt = variant_tiles(n)
+    rows = -(-n // (8 * nt))
+    cols = O // _VARIANT_COLS
+    units = K // 2 // _VARIANT_STAGE_ROWS
+    per_sm = min(_VARIANT_MAX_BLOCKS_PER_SM, _SMEM_PER_SM // (variant_smem(nt) + 1024))
+    slots = _SMS * per_sm
+    plane = K * O // 2 + 2 * (K // GROUP) * O * 4
+    fits = [d for d in range(1, units + 1)
+            if units % d == 0 and (d == 1 or (cols * rows * d <= _SMS
+                                              and d * n * O * 4 <= plane // 2))]
+    s = max(fits)
+    blocks = cols * rows * s
+    note = ""
+    if blocks > slots:
+        note = f"{blocks} column and row blocks pass the {slots} resident slots"
+    elif blocks < _SMS:
+        more = [d for d in range(s + 1, units + 1) if units % d == 0]
+        note = (f"{units} stages of 64 plane rows admit no split above {s}" if not more else
+                f"{more[0]} splits would pass one block an SM" if cols * rows * more[0] > _SMS
+                else f"{more[0]} splits would write more partial sums than half the plane bytes")
+    return VariantPlan(cols, s, units // s, rows, nt, per_sm, note)
+
+
+def _variant_lib():
+    lib = build.library("qmm_bench.cu")
+    fn = lib.qmm4_variant_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.qmm4_variant_encode_planes.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        lib.qmm4_variant_encode_planes.restype = ctypes.c_int
+        lib.qmm4_variant_encode_x.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        lib.qmm4_variant_encode_x.restype = ctypes.c_int
+        lib.qmm4_variant_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.qmm4_variant_blocks_per_sm.restype = ctypes.c_int
+        lib.qmm4_variant_smem_bytes.argtypes = [ctypes.c_int]
+        lib.qmm4_variant_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+# encoded tensor maps: a map holds only the device address, the sizes, the
+# strides and the box, so a key of the device, the pointers and the shapes
+# (the box follows from the rows of x) decides it
+_MAPS: dict[tuple, ctypes.Array] = {}
+_MAX_MAPS = 1024
+# per (device, stream): split-K partial sums, and the (column tile, row
+# block) counters, zero between launches (the last block of a tile resets
+# its own), so launches on one stream, which run in order, may share them
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _map(key: tuple, n_maps: int, encode) -> ctypes.Array:
+    maps = _MAPS.get(key)
+    if maps is None:
+        maps = ctypes.create_string_buffer(n_maps * 128)
+        build.check(encode(maps), "qmm4_variant tensor map encoding")
+        if len(_MAPS) >= _MAX_MAPS:
+            _MAPS.clear()
+        _MAPS[key] = maps
+    return maps
+
+
+def _variant(x, qp, sc, mn, K: int, O: int, fp: bool) -> torch.Tensor:
+    N = x.shape[0]
+    plan = variant_plan(N, K, O)
+    lib = _variant_lib()
+    dev = x.device
+    pmaps = _map(("planes", dev.index, qp.data_ptr(), sc.data_ptr(), mn.data_ptr(), K, O), 3,
+                 lambda m: lib.qmm4_variant_encode_planes(qp.data_ptr(), sc.data_ptr(),
+                                                          mn.data_ptr(), K, O, m))
+    xmap = _map(("x", dev.index, x.data_ptr(), N, K), 1,
+                lambda m: lib.qmm4_variant_encode_x(x.data_ptr(), N, K, m))
+    stream = _stream(x)
+    part, counters = scratch.grow(_SCRATCH, dev, stream,
+                                  plan.splits * N * O if plan.splits > 1 else 0,
+                                  plan.col_blocks * plan.row_blocks)
+    out = torch.empty((N, O), dtype=torch.float32, device=dev)
+    err = lib.qmm4_variant_launch(xmap, pmaps, part.data_ptr(), counters.data_ptr(),
+                                  out.data_ptr(), N, K, O, plan.splits, int(fp), stream)
+    build.check(err, "qmm4_variant_launch")
+    return out
+
+
+# -- B3, B4 ------------------------------------------------------------------------
 
 def _gemv(what: str, symbol: str, x, planes, K: int, O: int, group: int, tile, ints, counter):
-    """Checks shared by the three GEMV wrappers, scratch, launch, count."""
+    """Checks shared by the two tiled GEMV wrappers, scratch, launch, count."""
     tn, to, tk = tile
     if group != GROUP:
         raise ValueError(f"{what}: the kernel takes groups of {GROUP}, got {group}")
@@ -239,17 +392,24 @@ def _flat_planes(what: str, x, qp, sc, mn, group: int):
 
 def qmm4_variant(x: torch.Tensor, qp: torch.Tensor, sc: torch.Tensor, mn: torch.Tensor, *,
                  group: int, unpack: str = "i16") -> torch.Tensor:
-    """Packed 4-bit GEMV, even/odd pairing, at the reference's fixed tile
-    (8, 512, 2048): x [N, K] bf16 -> [N, O] f32. unpack="fp" builds the bf16
-    pair of a byte's nibbles with bit operations and one subtraction; "i16"
-    shifts, masks and converts. Both give the same bits."""
+    """Packed 4-bit GEMV, even/odd pairing, in the domain of the reference's
+    fixed tile (8, 512, 2048): x [N, K] bf16 -> [N, O] f32. unpack="fp" puts
+    a nibble in the mantissa of bf16 128.0 by bit operations; "i16" shifts,
+    masks and converts. Both give the same bits."""
     if unpack not in ("fp", "i16"):
         raise ValueError(f"qmm4_variant: unpack is 'fp' or 'i16', got {unpack!r}")
     if x.device.type == "cpu":
         return qmm4_variant_plain(x, qp, sc, mn, group=group)
     K, O = _flat_planes("qmm4_variant", x, qp, sc, mn, group)
-    return _gemv("qmm4_variant", "qmm4_variant_launch", x, (qp, sc, mn), K, O, group,
-                 VARIANT_TILE, (int(unpack == "fp"),), f"qmm4_variant/{unpack}")
+    if group != GROUP:
+        raise ValueError(f"qmm4_variant: the kernel takes groups of {GROUP}, got {group}")
+    tn, to, tk = VARIANT_TILE
+    if O % to or K % tk:
+        raise ValueError(f"qmm4_variant: the reference's tile ({tn}, {to}, {tk}) does not "
+                         f"divide K={K}, O={O}")
+    out = _variant(x, qp, sc, mn, K, O, unpack == "fp")
+    launches[f"qmm4_variant/{unpack}"] += 1
+    return out
 
 
 def qmm_tiled(x: torch.Tensor, qp: torch.Tensor, sc: torch.Tensor, mn: torch.Tensor, *,

@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, scratch
 
 _COLS = 128  # output columns per block
 _STAGE_ROWS = 64  # plane rows a stage; K splits fall on multiples of it
@@ -186,18 +186,6 @@ def _maps(w) -> ctypes.Array:
     return maps
 
 
-def _scratch(device: torch.device, stream: int, n_floats: int, n_counters: int):
-    """(partial sums, counters) of at least the sizes asked, grown when short."""
-    key = (device.index, stream)
-    part, counters = _SCRATCH.get(key, (None, None))
-    if part is None or part.numel() < n_floats:
-        part = torch.empty(max(n_floats, 1 << 20), dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(max(n_counters, 4096), dtype=torch.int32, device=device)
-    _SCRATCH[key] = (part, counters)
-    return part, counters
-
-
 def qmm_expert(x: torch.Tensor, ids: torch.Tensor, w) -> torch.Tensor:
     """y[r] = x[r] . W[ids[r]] for a stacked transposed-plane QuantTensor:
     x [R, K] bf16, ids [R] int32 -> [R, O] f32."""
@@ -237,8 +225,8 @@ def qmm_expert(x: torch.Tensor, ids: torch.Tensor, w) -> torch.Tensor:
     n_slots = slots(x.device, w.group, mins)
     s_max = max_splits(R, K, O, n_slots)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    part, counters = _scratch(x.device, stream, s_max * R * O if s_max > 1 else 0,
-                              2 + (O // _COLS) * R)
+    part, counters = scratch.grow(_SCRATCH, x.device, stream,
+                                  s_max * R * O if s_max > 1 else 0, 2 + (O // _COLS) * R)
     grid, hint = distinct_plan(R, E, K, O, n_slots)
     out = torch.empty((R, O), dtype=torch.float32, device=x.device)
     err = _lib().qmm_expert_launch(_maps(w), x.data_ptr(), ids.data_ptr(), part.data_ptr(),

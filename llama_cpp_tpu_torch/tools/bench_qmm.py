@@ -14,7 +14,8 @@ the share of that rate reached.
           pairing, flat f32 scales), with and without mins
   qmm8    the same kernel on int8 planes
   fp/i16  the even/odd GEMV with the nibbles unpacked by bf16 bit tricks / by
-          shift, mask and convert
+          shift, mask and convert, after a line with its kernel's plan
+          (column blocks, K splits, blocks an SM)
   tiles   the even/odd GEMV over a sweep of tiles
   shapes  the same at the four decode shapes of an 8B llama
   4d      the same over planes stored tile by tile, plus the vocab head
@@ -163,6 +164,12 @@ def run(cases, device: torch.device) -> None:
         b.report("qmm_planes int8 decode", lambda: qmm.qmm(x, w8), _nbytes(q8, sc8))
         del q8, sc8, w8
 
+    if "fp" in cases or "i16" in cases:
+        p = qmm_bench.variant_plan(ROWS, K, O)
+        log(f"qmm4 fp/i16 plan: {p.col_blocks} column blocks x {p.splits} K splits of "
+            f"{p.stages} stages of 64 plane rows x {p.row_blocks} row blocks = {p.blocks} "
+            f"blocks, {p.blocks_per_sm} an SM ({p.slots} slots)"
+            + (f"; {p.note}" if p.note else ""))
     for unpack in ("fp", "i16"):
         if unpack in cases:
             b.report(f"qmm4 {unpack}-unpack",

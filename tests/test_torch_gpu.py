@@ -781,18 +781,82 @@ def test_stream_planes_kernel_other_tile(cuda_device):
     assert not torch.allclose(a, b)
 
 
-@pytest.mark.parametrize("K,O", [s for s in BENCH_SHAPES if s[0] % 2048 == 0])
-def test_qmm4_variant_kernels_match_plain_and_each_other(cuda_device, K, O):
+VARIANT_SHAPES = [s for s in BENCH_SHAPES if s[0] % 2048 == 0 and s[1] % 512 == 0]
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32])
+@pytest.mark.parametrize("K,O", VARIANT_SHAPES)
+def test_qmm4_variant_kernels_match_plain_and_each_other(cuda_device, K, O, rows):
     """Both unpacks against the plain version (NMSE < 1e-4: a group's sum is
     scaled in f32 where the plain version rounds W to bf16, near 1e-6), and
     equal to the bit: the same integers in the same summation order."""
-    x, qp, sc, mn = bench_planes(cuda_device, K, O, seed=K + O, rows=16)
+    x, qp, sc, mn = bench_planes(cuda_device, K, O, seed=K + O, rows=rows)
     fp = tqb.qmm4_variant(x, qp, sc, mn, group=32, unpack="fp")
     i16 = tqb.qmm4_variant(x, qp, sc, mn, group=32, unpack="i16")
     torch.cuda.synchronize()
     ref = tqb.qmm4_variant_plain(x, qp, sc, mn, group=32)
     assert nmse(i16, ref) < 1e-4
     assert torch.equal(fp, i16)
+
+
+@pytest.mark.parametrize("unpack", ["fp", "i16"])
+def test_qmm4_variant_is_one_launch_and_repeatable(cuda_device, unpack):
+    """One call runs one CUDA kernel, the B2 kernel (the split merge is the
+    last block's), and gives the same bits twice on one stream (the split
+    counters reset themselves)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, qp, sc, mn = bench_planes(cuda_device, 4096, 4096, seed=4)
+    assert tqb.variant_plan(8, 4096, 4096).splits > 1
+    first = tqb.qmm4_variant(x, qp, sc, mn, group=32, unpack=unpack)
+    torch.cuda.synchronize()
+    before = tqb.launches[f"qmm4_variant/{unpack}"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        second = tqb.qmm4_variant(x, qp, sc, mn, group=32, unpack=unpack)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "qmm4_variant_kernel" in kernels[0][0], kernels
+    assert kernels[0][1] == 1 and tqb.launches[f"qmm4_variant/{unpack}"] == before + 1
+    assert torch.equal(first, second)
+
+
+def test_qmm4_variant_fresh_planes_after_free(cuda_device):
+    """Planes freed and made anew with the same shape (the caching allocator
+    hands back the same addresses) still match the plain version: a cached
+    tensor map holds only what its key holds."""
+    for seed in (5, 6, 7):
+        x, qp, sc, mn = bench_planes(cuda_device, 4096, 6144, seed=seed, rows=16)
+        got = tqb.qmm4_variant(x, qp, sc, mn, group=32, unpack="fp")
+        torch.cuda.synchronize()
+        assert nmse(got, tqb.qmm4_variant_plain(x, qp, sc, mn, group=32)) < 1e-4
+        del x, qp, sc, mn, got
+
+
+def test_qmm4_variant_plan_matches_the_card(cuda_device):
+    """variant_plan's blocks an SM, shared memory and SM count are the
+    kernel's on this card."""
+    lib = tqb._variant_lib()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n in (8, 16, 32):
+        p = tqb.variant_plan(n, 4096, 28672)
+        assert lib.qmm4_variant_smem_bytes(p.n_tiles) == tqb.variant_smem(p.n_tiles)
+        for fp in (0, 1):
+            assert lib.qmm4_variant_blocks_per_sm(p.n_tiles, fp) == p.blocks_per_sm
+        assert p.slots == p.blocks_per_sm * sms and p.blocks <= p.slots
+
+
+def test_conformance_sweep_on_the_card(cuda_device):
+    """Every row of the reference's sweep through the port's kernel, one
+    launch of its route's kernel each, within NMSE 5e-3 of the f64 oracle;
+    only the MLA rows (K and V heads that differ) raise."""
+    from llama_cpp_tpu_torch.tools import conformance
+
+    rows = conformance.run(cuda_device)
+    assert len(rows) == 120
+    bad = [r for r in rows if r.status != "PASS" and r.config not in ("mla-576", "mla-576-int8")]
+    assert not bad, bad
+    assert all(r.status == "raises" for r in rows if r.config.startswith("mla-576"))
 
 
 @pytest.mark.parametrize("to,tk", [(128, 256), (256, 1024), (512, 2048), (512, 512),
@@ -834,3 +898,6 @@ def test_qmm_bench_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         tqb.stream_planes(x, qp[:, :128], sc[:, :128], mn[:, :128], group=32)  # not contiguous
     with pytest.raises(ValueError):
         tqb.qmm4_variant(x, qp.cpu(), sc, mn, group=32)
+    x2, qp2, sc2, mn2 = bench_planes(cuda_device, 1024, 256)
+    with pytest.raises(ValueError, match="tile"):  # outside the reference's tile (8, 512, 2048)
+        tqb.qmm4_variant(x2, qp2, sc2, mn2, group=32)

@@ -245,7 +245,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for new in ('ops.kernels.qmm_expert', 'ops.kernels.flash_attn', 'runtime.kv_cache',\n"
         "            'models.from_jax', 'models.transformer', 'testing',\n"
         "            'ops.kernels.qmm_bench', 'utils.timing', 'utils.logging', 'tools.bench_qmm',\n"
-        "            'tools.cli', 'tools.args', 'tools.tokenize', 'tokenizer.bpe',\n"
+        "            'tools.cli', 'tools.args', 'tools.tokenize', 'tools.conformance', 'tokenizer.bpe',\n"
         "            'tokenizer.spm', 'tokenizer.vocab', 'sampling.samplers'):\n"
         "    assert 'llama_cpp_tpu_torch.' + new in sys.modules, new\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

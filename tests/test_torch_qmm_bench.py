@@ -180,9 +180,93 @@ def test_bench_qmm_entry_point_rehearses_on_the_cpu_and_needs_a_card_otherwise(c
     assert bench_qmm.main(["stream", "fp", "i16", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "stream ceiling" in out and "qmm4 fp-unpack" in out and "not measured" in out
+    assert "qmm4 fp/i16 plan: 14 column blocks x 8 K splits" in out
     assert "GB/s" not in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench_qmm.main(["stream"])
     with pytest.raises(SystemExit):
         bench_qmm.main(["no-such-case", "--device", "cpu"])
+
+
+# -- B2's card design: its planning rule and its arithmetic ----------------------
+
+PLAN_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (2048, 512)]
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("K,O", PLAN_SHAPES)
+def test_variant_plan_covers_every_column_and_k_range_once(K, O, n):
+    """The kernel's blocks (column tile x, K split y, rows z) cover each
+    column, each 64-row range of plane bytes and each row of x exactly once,
+    never with more blocks than the card holds at once."""
+    p = tqb.variant_plan(n, K, O)
+    ranges = K // 2 // 64
+    cover = np.zeros((O // 128, ranges, n), np.int64)
+    for x in range(p.col_blocks):
+        for y in range(p.splits):
+            for z in range(p.row_blocks):
+                rows = slice(z * 8 * p.n_tiles, min(n, (z + 1) * 8 * p.n_tiles))
+                cover[x, y * p.stages: (y + 1) * p.stages, rows] += 1
+    assert (cover == 1).all()
+    assert p.col_blocks * 128 == O and p.splits * p.stages == ranges
+    assert p.n_tiles == tqb.variant_tiles(n) and p.row_blocks == -(-n // (8 * p.n_tiles))
+    assert p.blocks <= p.slots == 132 * p.blocks_per_sm
+    assert p.blocks_per_sm * (tqb.variant_smem(p.n_tiles) + 1024) <= 233472
+    if p.splits > 1:  # split only to give the SMs blocks, never past one an SM
+        assert p.blocks <= 132
+    if (K, O) == (4096, 28672):
+        assert p.blocks > 112 and p.splits == 1 and p.note == ""
+    if p.blocks < 132:
+        assert p.note
+
+
+def emulate_variant(x, qp, sc, mn, splits):
+    """The B2 kernel's arithmetic in numpy: the nibbles exact as 128 + n,
+    their products with bf16 x summed per scale group in f32 (the tensor
+    cores' exact products, f32 sums), one f32 scaling a group and column,
+    the bias and the mins through the group sums of x, each K split's sum in
+    group order, the splits merged in split order."""
+    xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    N, K = xb.shape
+    u = qp.view(np.uint8)
+    w = np.empty((K, u.shape[1]), np.float32)
+    w[0::2], w[1::2] = 128 + (u & 0xF), 128 + (u >> 4)
+    groups = K // GROUP
+    out = np.zeros((N, u.shape[1]), np.float32)
+    for s in range(splits):
+        acc = np.zeros_like(out)
+        for gi in range(s * groups // splits, (s + 1) * groups // splits):
+            k = slice(gi * GROUP, (gi + 1) * GROUP)
+            gsum = (xb[:, k] @ w[k]).astype(np.float32)
+            xs = xb[:, k].sum(axis=1, dtype=np.float32)[:, None]
+            bias = (mn[gi] - np.float32(128) * sc[gi]).astype(np.float32)
+            acc = (sc[gi] * gsum + (bias * xs + acc)).astype(np.float32)
+        out = (out + acc).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["_qmm4_fp_kernel", "_qmm4_i16_kernel"])
+@pytest.mark.parametrize("K,O,rows", [(2048, 512, 8), (4096, 512, 16), (2048, 1024, 32)])
+def test_variant_kernel_arithmetic_matches_the_tpu_kernels(ref, kernel, K, O, rows):
+    """The emulation at the kernel's own K split (variant_plan) against the
+    TPU bodies in interpret mode (NMSE < 5e-3), and against the plain
+    version, which rounds W to bf16 where the kernel scales exact sums in
+    f32 (NMSE < 1e-4, near 1e-6)."""
+    a = planes(K, O, seed=K + O + rows, rows=rows)
+    splits = tqb.variant_plan(rows, K, O).splits
+    assert splits > 1
+    got = emulate_variant(*a, splits)
+    want = ref._variant_call(getattr(ref, kernel), *to_jax(*a), group=GROUP)
+    assert nmse(got, want) < NMSE_LIMIT
+    assert nmse(got, tqb.qmm4_variant_plain(*to_torch(*a), group=GROUP).numpy()) < 1e-4
+
+
+def test_variant_wrapper_checks_the_unpack_and_takes_any_shape_on_the_cpu():
+    """On the CPU the plain version takes any shape; the card's domain (the
+    reference's tile (8, 512, 2048), group 32) is held in
+    tests/test_torch_gpu.py."""
+    x, qp, sc, mn = to_torch(*planes(1024, 512, seed=2))
+    assert tqb.qmm4_variant(x, qp, sc, mn, group=GROUP).shape == (8, 512)
+    with pytest.raises(ValueError, match="unpack"):
+        tqb.qmm4_variant(x, qp, sc, mn, group=GROUP, unpack="i8")
