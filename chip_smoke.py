@@ -68,7 +68,27 @@ Phases, each of which fails the run:
        the 4096 x 128256 vocab head included;
      - path D, the command-line tool (llama_cpp_tpu_torch.tools.cli) on the
        4-layer llama file, text in and text out: greedy, held against
-       Context.generate on the encoded prompt, and sampled under a seed twice.
+       Context.generate on the encoded prompt, and sampled under a seed twice;
+     - path E, the measurement tools on the same file: llama-bench
+       (tools/bench_tool.py, pp512 and tg32 through generate_ondevice, then
+       the batched grid at B = 1 and 8), llama-perplexity
+       (tools/perplexity.py, 2 chunks of 512 of a seeded text, the vocab
+       head through K4 at 512 rows), its ln PPL within 1e-3 of the same run
+       under Context(kernels=False), and llama-results (tools/results.py),
+       recorded and checked with no drift;
+     after the pool, slot-table, Mixtral and heads-of-64 paths, the graph
+     phase of that path: the decode loop on CUDA graphs
+     (runtime/decode_graph.py) against the same step launched eagerly
+     (Context(graphs=False)): decode_steps_greedy at each batch size the
+     path drives (16 of 16 ids a row equal), 100 consecutive replays at
+     B=1, the kernel set a replay launches (torch.profiler) equal to the
+     eager step's, wall and device ms a step and the device's busy share at
+     B = 1 and the path's batch sizes, and generate_ondevice (greedy, 32
+     tokens, chunk 32) against Context.generate's ids; on the pool path
+     also generate_ondevice sampled (temp 0.8, top_k 40, seed 1) twice:
+     equal ids, each inside the top 40 of the plain path's teacher-forced
+     logits, and top_k 1 equal to greedy. Launch counts include every graph
+     replay (a graph adds its step's launches at each replay).
 The last two lines are the kernels JSON object and
 {"ok": true, "device": {...}}. Without a card, or without the port next to
 this script, it exits non-zero and prints no result.
@@ -796,8 +816,10 @@ def main() -> int:
         from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
                                                  synth_quant_bytes)
         from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
+        from llama_cpp_tpu_torch.tools import bench_tool
         from llama_cpp_tpu_torch.tools import cli as cli_tool
         from llama_cpp_tpu_torch.tools import conformance as conformance_tool
+        from llama_cpp_tpu_torch.tools import decode_wall, perplexity, results
         from llama_cpp_tpu_torch.utils.timing import Timer
     except ImportError as e:
         print(f"chip_smoke: the port package is not next to this script ({e})",
@@ -849,6 +871,8 @@ def main() -> int:
     q6r = qmm_phase(torch, timer, qmm, "K2 qmm_planes", q6, (1, 8, 32), failures)
     hr = qmm_phase(torch, timer, qmm, "K2 qmm_planes (head)", head, (1, 8, 32), failures)
     q6p = qmm_phase(torch, timer, qmm, "K4 qmm_planes_prefill", q6, (512,), failures)
+    # the perplexity tool's all-rows logits: the vocab head over a 512-row ubatch
+    hp = qmm_phase(torch, timer, qmm, "K4 qmm_planes_prefill (head)", head, (512,), failures)
     for lay, r in (("K1", q4r), ("K2", q6r), ("K2 head", hr)):
         log(f"{lay} layer sums ({card}): " + "; ".join(
             f"N={n} {r[n]['ms']:.4f} ms, library {r[n]['library_ms']:.4f} "
@@ -883,7 +907,10 @@ def main() -> int:
                                   for n in r}}
 
     res = {"qmm4_planes/decode": with_rows(q4r), "qmm_planes/decode": with_rows(q6r),
-           "qmm4_planes_prefill/wgmma": q4p[512], "qmm_planes_prefill/wgmma": q6p[512]}
+           "qmm4_planes_prefill/wgmma": q4p[512],
+           "qmm_planes_prefill/wgmma": {**q6p[512], "max_abs_err": max(
+               q6p[512]["max_abs_err"], hp[512]["max_abs_err"]), "head_512": {
+               k: hp[512][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "nmse")}}}
     res["flash_attention_paged/decode"] = attn_phase(
         torch, timer, flash_attn, "K5 decode B=1 d=2048",
         attn_case(torch, B=1, G=4, T=1, depth=2048), failures)
@@ -1115,6 +1142,186 @@ def main() -> int:
         check_logits(label, logits, vocab)
         return logits, gen_ids, rates
 
+    def graph_phase(label, model, ctx_kw, prompt, gen_ids, prompts, batches, must_run):
+        """The decode loop on CUDA graphs against the same step launched
+        eagerly (Context(graphs=False)) on one path: decode_steps_greedy at
+        each batch size (16 of 16 ids a row), 100 consecutive replays at B=1,
+        wall and device ms a step with the kernel set a step launches, read
+        by the profiler, which must be the eager step's; then
+        generate_ondevice, greedy, 32 tokens over the path's prompt with
+        chunk 32, against Context.generate's ids. Returns the graphed
+        context, reset."""
+        reset_counts()
+        ctxs = {}
+        for graphs in (True, False):
+            c = ctxs[graphs] = Context(model, graphs=graphs, **ctx_kw)
+            for s, p in enumerate(prompts[: max(batches)]):
+                c.prefill(p, seq=s)
+        firsts = np.asarray([1 + s for s in range(max(batches))], np.int32)
+        for B in batches:
+            out = {g: c.decode_steps_greedy(firsts[:B], np.arange(B), 16)
+                   for g, c in ctxs.items()}
+            rows_equal = int((out[True] == out[False]).all(axis=1).sum())
+            log(f"{label} graphs: decode_steps_greedy B={B}, 16 steps: {rows_equal} of {B} rows "
+                f"equal to the eager loop's")
+            if rows_equal != B:
+                failures.append(f"{label}: graphed decode_steps_greedy B={B}: {rows_equal} of "
+                                f"{B} rows equal the eager loop's")
+        out = {g: c.decode_steps_greedy(firsts[:1], np.arange(1), 100) for g, c in ctxs.items()}
+        agree = int((out[True] == out[False]).sum())
+        log(f"{label} graphs: 100 consecutive replays at B=1: {agree} of 100 ids equal the "
+            f"eager loop's ({ctxs[True].decode_loop(1).replays} replays of the B=1 graph)")
+        if agree != 100:
+            failures.append(f"{label}: 100 replays: {agree} of 100 ids equal the eager loop's")
+        rows = {g: decode_wall.measure(torch, c, (1, *[b for b in batches if b > 1]), 16, 2)
+                for g, c in ctxs.items()}
+        for g_row, e_row in zip(rows[True], rows[False]):
+            B = g_row["B"]
+            log(f"{label} B={B} ({card}): graphed wall {min(g_row['wall_ms_per_step']):.3f} "
+                f"ms/step, device {g_row['device_ms_per_step']:.3f} ms, busy "
+                f"{g_row['busy_share']:.3f}, {g_row['launches_per_step']:.0f} launches; eager "
+                f"wall {min(e_row['wall_ms_per_step']):.3f} ms/step, device "
+                f"{e_row['device_ms_per_step']:.3f} ms, busy {e_row['busy_share']:.3f}, "
+                f"{e_row['launches_per_step']:.0f} launches")
+            graph_rows.append({"path": label, "B": B, "graphed": {
+                k: g_row[k] for k in ("wall_ms_per_step", "device_ms_per_step", "busy_share")},
+                "eager": {k: e_row[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                                "busy_share")}})
+            if not g_row["kernels"] or g_row["kernels"] != e_row["kernels"]:
+                only_g = sorted(set(g_row["kernels"]) - set(e_row["kernels"]))
+                only_e = sorted(set(e_row["kernels"]) - set(g_row["kernels"]))
+                failures.append(f"{label} B={B}: a replay's kernels differ from the eager "
+                                f"step's: only replayed {only_g[:5]}, only eager {only_e[:5]}")
+        del ctxs[False]
+        ctx = ctxs.pop(True)
+        ctx.reset()
+        ids = ctx.generate_ondevice(prompt, max_new_tokens=len(gen_ids), chunk=32)
+        agree = sum(int(a == b) for a, b in zip(ids, gen_ids))
+        log(f"{label} graphs: generate_ondevice greedy at depth {len(prompt)}, chunk 32: "
+            f"{agree} of {len(gen_ids)} ids equal Context.generate's")
+        if agree != len(gen_ids) or len(ids) != len(gen_ids):
+            failures.append(f"{label}: generate_ondevice ids agree {agree} of {len(gen_ids)} "
+                            "with Context.generate")
+        all_counts[f"{label} graphs"] = read_counts(f"{label} graphs", must_run)
+        ctx.reset()
+        return ctx
+
+    def sampled_phase(ctx, model, ref_kw, prompt, greedy_ids):
+        """generate_ondevice with temp 0.8, top_k 40, seed 1, twice: equal
+        ids, each inside the top 40 of the plain path's teacher-forced
+        logits (up to that step's largest difference between the kernel
+        path's logits and the plain path's, where the 40th and 41st lie
+        closer than that); top_k=1 gives the greedy ids."""
+        runs = []
+        for k in (40, 40, 1):
+            runs.append(ctx.generate_ondevice(prompt, max_new_tokens=32, temp=0.8, top_k=k,
+                                              seed=1, chunk=32))
+            ctx.reset()
+        plain = Context(model, kernels=False, **ref_kw)
+        kern = Context(model, **ref_kw)
+        lp, lk = plain.prefill(prompt), kern.prefill(prompt)
+        ranks, outside = [], 0
+        for t in runs[0]:
+            kth = np.sort(lp)[-40]
+            ranks.append(int((lp > lp[t]).sum()))
+            if ranks[-1] >= 40 and lp[t] < kth - float(np.abs(lk - lp).max()):
+                outside += 1
+            lp, lk = plain.decode_one(t), kern.decode_one(t)
+        log(f"sampled generate_ondevice (temp 0.8, top_k 40, seed 1): repeat "
+            f"{runs[0] == runs[1]}, ranks in the plain path's teacher-forced logits {ranks}, "
+            f"{outside} outside the top 40; top_k 1 equal to greedy {runs[2] == greedy_ids}")
+        if runs[0] != runs[1] or outside or runs[2] != greedy_ids or len(runs[0]) != 32:
+            failures.append(f"sampled generate_ondevice: repeat {runs[0] == runs[1]}, "
+                            f"{outside} ids outside the top 40, top_k=1 greedy "
+                            f"{runs[2] == greedy_ids}")
+
+    def run_tool(name, main_fn, argv):
+        """A tool's main(argv) -> its stdout; a non-zero exit fails the run."""
+        out, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main_fn(argv)
+        log(f"path E: {name} {' '.join(argv[2:])}: exit {rc}, {time.perf_counter() - t:.1f} s "
+            "with its own load_model")
+        if rc != 0:
+            failures.append(f"path E: {name} {argv} exited with {rc}: {err.getvalue()[-300:]}")
+        return out.getvalue()
+
+    def path_e(model, path, out_dir):
+        """The measurement tools on the 4-layer llama file: llama-bench
+        (pp512 and tg32 through generate_ondevice, then the batched grid at
+        B = 1 and 8), llama-perplexity on a seeded text of the fixture's
+        vocabulary (2 chunks of 512; the head through K4 at 512 rows), its
+        ln PPL held against the same run under Context(kernels=False) to
+        1e-3 relative, and llama-results, recorded and then checked with no
+        drift."""
+        reset_counts()
+        doc = json.loads(run_tool("llama-bench", bench_tool.main,
+                                  ["-m", path, "-p", "512", "-n", "32", "-o", "json"]))
+        rows = doc["results"]
+        log(f"path E: llama-bench rows ({card}): {rows}")
+        if [r["test"] for r in rows] != ["pp512", "tg32"] or not all(r["t/s"] > 0 for r in rows):
+            failures.append(f"path E: llama-bench rows {rows}")
+        grid = json.loads(run_tool("llama-bench --batched", bench_tool.main,
+                                   ["-m", path, "--batched", "-b", "1,8", "-p", "512", "-n",
+                                    "32", "-o", "json"]))["results"]
+        log(f"path E: llama-bench --batched rows ({card}): {grid}")
+        if [r["B"] for r in grid] != [1, 8] or not all(r["S_TG t/s"] > 0 for r in grid):
+            failures.append(f"path E: llama-bench --batched rows {grid}")
+        all_counts["llama-bench"] = read_counts("path E (llama-bench)",
+                                                decode_keys + prefill_keys + paged_keys)
+
+        # the pieces of seeded token ids, as many as make 1100 tokens again
+        # (the fixture's vocabulary splits its words into several tokens)
+        tok = model.tokenizer
+        pieces = [tok.piece(int(t))
+                  for t in np.random.default_rng(11).integers(300, model.cfg.vocab_size, 1100)]
+
+        def n_tokens(n):
+            return len(tok.encode("".join(pieces[:n]), add_special=True, parse_special=False))
+
+        lo, hi = 1, len(pieces)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if n_tokens(mid) >= 1100 else (mid + 1, hi)
+        text = "".join(pieces[:lo])
+        n_tok = n_tokens(lo)
+        corpus = os.path.join(out_dir, "perplexity.txt")
+        with open(corpus, "w", encoding="utf-8") as fh:
+            fh.write(text)
+        if not 1024 <= n_tok < 1536:
+            failures.append(f"path E: the corpus is {n_tok} tokens, not 2 chunks of 512")
+        reset_counts()
+        lines = run_tool("llama-perplexity", perplexity.main,
+                         ["-m", path, "-f", corpus, "-c", "512"]).strip().splitlines()
+        all_counts["llama-perplexity"] = read_counts(
+            "path E (llama-perplexity)", prefill_keys + ("flash_attention_paged/prefill",))
+        # held on ln PPL, the mean NLL: the random weights' logits run to
+        # hundreds, so PPL is near e^700 and a 1e-3 bound on it would ask for
+        # the mean NLL to 1e-3 nats
+        ref = perplexity.perplexity(Context(model, n_ctx=512, n_seqs=1, kernels=False),
+                                    text=text, n_ctx=512)
+        got = float(lines[-1].split()[2]) if lines and lines[-1].startswith("PPL = ") else None
+        err = (abs(np.log(got) - np.log(ref.ppl)) / abs(np.log(ref.ppl))
+               if got is not None and got > 0 else None)
+        log(f"path E: llama-perplexity over {n_tok} tokens (2 chunks of 512): {lines[-1:]}; "
+            f"the plain path {ref}; ln PPL {np.log(got) if got else None} against "
+            f"{np.log(ref.ppl)}, relative difference {err}")
+        if err is None or not err < 1e-3 or not np.isfinite(np.log(ref.ppl)):
+            failures.append(f"path E: perplexity {got} against the plain path's {ref.ppl}")
+
+        reset_counts()
+        base = os.path.join(out_dir, "results.json")
+        run_tool("llama-results", results.main, ["-m", path, "-o", base])
+        report = run_tool("llama-results --check", results.main, ["-m", path, "--check", base])
+        # prompts of 4-8 tokens: every product and attention below the prefill kernels' rows
+        all_counts["llama-results"] = read_counts("path E (llama-results)",
+                                                  decode_keys + ("flash_attention_paged/decode",))
+        report = json.loads(report.strip().splitlines()[-1])
+        log(f"path E: llama-results record, then check: {report}")
+        if report.get("token_mismatches") != 0 or report.get("max_logit_drift") != 0.0:
+            failures.append(f"path E: llama-results drift {report}")
+
     smoke_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(smoke_dir, exist_ok=True)
     path = os.path.join(smoke_dir, f"llama8b-q4km-{SMOKE_LAYERS}l.gguf")
@@ -1139,6 +1346,7 @@ def main() -> int:
     prompt = [int(t) for t in prng.integers(3, 128256, 2048)]
     prompts512 = [[int(t) for t in prng.integers(3, 128256, 512)] for _ in range(32)]
 
+    graph_rows: list[dict] = []  # wall and device ms a step, graphed and eager
     reset_counts()
     logits, gen_ids, rates = drive(ctx, prompt, prompts512, V, (8, 32), "llama paged")
     all_counts = {"llama paged": read_counts(
@@ -1149,6 +1357,10 @@ def main() -> int:
                   **{**paged_kw, "n_seqs": 2, "kv_total": 8192})
     log("llama paged rates (4-layer smoke run, not a benchmark; "
         f"{card}): " + json.dumps(rates))
+    gctx = graph_phase("llama paged", model, paged_kw, prompt, gen_ids, prompts512, (8, 32),
+                       decode_keys + prefill_keys + paged_keys)
+    sampled_phase(gctx, model, {**paged_kw, "n_seqs": 2, "kv_total": 8192}, prompt, gen_ids)
+    del gctx
 
     # the same prompt in one ubatch of 2048 rows: every quantized product of
     # 1024 rows or more takes the library route (bf16 operands, f32 sums),
@@ -1191,6 +1403,8 @@ def main() -> int:
         failures.append(f"llama slots vs paged: logits NMSE {err}")
     against_plain("llama slots", model, s_logits, s_ids, prompt, **{**slots_kw, "n_seqs": 2})
     log(f"llama slots rates (4-layer smoke run, not a benchmark; {card}): " + json.dumps(rates))
+    graph_phase("llama slots", model, slots_kw, prompt, s_ids, prompts512[:8], (8,),
+                decode_keys + prefill_keys + slots_keys)
 
     # path D: text in, text out through the command-line tool on the same file
     def run_cli(*flags):
@@ -1224,6 +1438,7 @@ def main() -> int:
     if sampled[0] != sampled[1] or not sampled[0].strip():
         failures.append(f"path D: sampled text differs between two runs with one seed: "
                         f"{sampled[0]!r} / {sampled[1]!r}")
+    path_e(model, llama_path, smoke_dir)
     os.remove(llama_path)
     del model, lw0, tok
     torch.cuda.empty_cache()
@@ -1255,6 +1470,8 @@ def main() -> int:
     against_plain("mixtral", model, m_logits, m_ids, prompt, **{**moe_kw, "n_seqs": 2})
     log(f"mixtral rates ({MOE_LAYERS}-layer smoke run, not a benchmark; {card}): "
         + json.dumps(rates))
+    graph_phase("mixtral", model, moe_kw, prompt, m_ids, prompts512, (8,),
+                decode_keys + prefill_keys + paged_keys + (expert_key,))
     del model
     torch.cuda.empty_cache()
 
@@ -1276,6 +1493,8 @@ def main() -> int:
         check_logits(label, d_logits, VM)
         del ctx
         against_plain(label, model, d_logits, d_ids, prompt, **kw)
+        graph_phase(label, model, kw, prompt, d_ids, [prompt[:512]], (1,),
+                    (key,) + decode_keys + prefill_keys)
     log("heads of 64: the prefill ubatches go through the attention prefill kernel; a decode "
         "step has 8 rows a KV head, which the dispatch rule (heads under 128, fewer than 16 "
         "rows) sends to the plain einsum, as the JAX package does")
@@ -1341,6 +1560,8 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **({k: r[k] for k in ("kernel", "tile", "rows") if k in r})})
+    log("decode loop, graphed and eager, ms a step by path and B (4-layer smoke run, not a "
+        f"benchmark; {card}): " + json.dumps(graph_rows))
     log(f"card: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -180,8 +180,8 @@ def _route(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor, kernels: bo
     return topi, topw * cfg.expert_weights_scale
 
 
-def _dequant_experts(w: Weight, idx: torch.Tensor, dtype) -> torch.Tensor:
-    """Gather + dequantize expert slices idx [M] -> [M, in, out], in `dtype`
+def _dequant_experts(w: Weight, idx: torch.Tensor | slice, dtype) -> torch.Tensor:
+    """Gather + dequantize expert slices idx ([M] or a slice) -> [M, in, out], in `dtype`
     arithmetic (q and scale cast to it, product and min-add rounded in it),
     as the JAX package's gather and ragged routes do outside its kernel."""
     if isinstance(w, QuantTensor):
@@ -237,42 +237,35 @@ def _moe_gather(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
 
 
 def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
-    """Sort-by-expert dispatch for prefill-sized token counts: (token, slot)
-    pairs sorted by expert id (stable: token order kept within an expert),
-    each expert's segment through its three GEMMs, unsorted and mixed by gate
-    weight. Where the JAX package leaves the segment GEMMs to XLA's
-    ragged_dot, this loops over the experts that have rows, dequantizing one
-    expert at a time (all eight of a Mixtral layer would be 2.8 GB) around
-    torch.matmul; the segment sizes come to the host once a layer."""
+    """Per-expert dispatch for prefill-sized token counts: each expert's
+    three GEMMs over every token, each (token, slot) pair taking the rows of
+    the expert it chose, mixed by gate weight in slot order. Where the JAX
+    package leaves the segment GEMMs to XLA's ragged_dot over tokens sorted
+    by expert, this visits every expert, dequantizing one expert at a time
+    (all eight of a Mixtral layer would be 2.8 GB) around torch.matmul, with
+    the choice applied on the device: no segment size comes to the host, so
+    a decode step can be captured in a CUDA graph. A pair's row is the same
+    product as in a segment of its expert's tokens; the GEMMs take
+    n_expert / top_k times the rows a segment would."""
     lead, E = x.shape[:-1], x.shape[-1]
     k = topi.shape[-1]
     xf = x.reshape(-1, E)
     N = xf.shape[0]
-    e_flat = topi.reshape(N * k).long()
     tw = topw.reshape(N, k)
-    order = torch.sort(e_flat, stable=True).indices
-    counts = torch.bincount(e_flat, minlength=cfg.n_expert).tolist()
+    chosen = topi.reshape(N, k)
     mdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
-    xs = xf[order // k].to(mdt)  # [M, E] sorted by expert
-    y = torch.empty((N * k, E), dtype=torch.float32, device=x.device)
-    start = 0
-    for e, n in enumerate(counts):
-        if n == 0:
-            continue
-        seg = slice(start, start + n)
-        eid = torch.tensor([e], device=x.device)
-        es = eid.expand(n)
+    xs = xf.to(mdt)
+    y = torch.zeros((N, k, E), dtype=torch.float32, device=x.device)
+    for e in range(cfg.n_expert):
+        sel = slice(e, e + 1)
 
-        def emm(key, h):  # h [n, a] -> [n, b] f32
-            wd = _dequant_experts(lw[key], eid, mdt)[0]
-            return dot_f32(h.to(mdt), wd) + _expert_bias(lw, key + "_bias", es)
+        def emm(key, h):  # h [N, a] -> [N, b] f32
+            wd = _dequant_experts(lw[key], sel, mdt)[0]
+            bias = lw[key + "_bias"].float()[sel] if key + "_bias" in lw else 0.0
+            return dot_f32(h.to(mdt), wd) + bias
 
-        h = silu(emm("ffn_gate_exps", xs[seg])) * emm("ffn_up_exps", xs[seg])
-        y[seg] = emm("ffn_down_exps", h)
-        start += n
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(N * k, device=x.device)
-    y = y[inv].reshape(N, k, E)  # back to (token, slot) order
+        h = silu(emm("ffn_gate_exps", xs)) * emm("ffn_up_exps", xs)
+        y = torch.where((chosen == e)[:, :, None], emm("ffn_down_exps", h)[:, None, :], y)
     return (y * tw[:, :, None]).sum(dim=1).reshape(*lead, E)
 
 
@@ -280,7 +273,7 @@ def moe_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
               kernels: bool = True) -> torch.Tensor:
     """Mixture-of-experts FFN (build_moe_ffn analog): router, then the
     gather route when tokens * top_k < n_expert (decode: the indexed-expert
-    kernel on the card) or the sort-by-expert route, plus shared experts.
+    kernel on the card) or the per-expert route, plus shared experts.
     Gatings softmax, sigmoid and softmax_weight; sparsemixer, sqrt_softplus,
     gate-before-expert weighting, the clamped oai glu and expert parallelism
     are not ported."""

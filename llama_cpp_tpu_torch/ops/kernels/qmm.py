@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-from . import build
+from . import build, scratch
 
 # the JAX package's decode/prefill tile-policy boundary (qmm.py
 # PREFILL_MIN_N): launches are named by TPU kernel from it, and from it the
@@ -233,6 +233,7 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
         c = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    scratch.hand_out(c)
     return c
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 ROPE_TYPE_NONE = -1
@@ -68,16 +69,34 @@ def rope_freqs_and_scale(p: RopeParams, head_dim: int, device=None):
     return theta_interp, theta_extrap, ramp_mix, float(mscale)
 
 
+# (RopeParams fields, head_dim, device) -> (inv_freq [n_dims/2] f32, mscale)
+_FREQS: dict[tuple, tuple[torch.Tensor, float]] = {}
+
+
+def _freqs(p: RopeParams, head_dim: int, device: torch.device) -> tuple[torch.Tensor, float]:
+    """The applied per-pair inverse frequencies, mix(interp, extrap), and the
+    YaRN magnitude scale, made on `device` once per (params, head_dim,
+    device): a decode step then copies nothing from the host, so it can be
+    captured in a CUDA graph."""
+    ff = p.freq_factors
+    ff_key = None if ff is None else np.asarray(ff, dtype=np.float32).tobytes()
+    key = (p.rope_type, p.n_dims, p.freq_base, p.freq_scale, p.ext_factor, p.attn_factor,
+           p.beta_fast, p.beta_slow, p.orig_ctx, ff_key, head_dim, str(device))
+    hit = _FREQS.get(key)
+    if hit is None:
+        theta_i, theta_e, ramp_mix, mscale = rope_freqs_and_scale(p, head_dim, device)
+        hit = _FREQS[key] = (theta_i * (1.0 - ramp_mix) + theta_e * ramp_mix, mscale)
+    return hit
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, p: RopeParams) -> torch.Tensor:
     """Rotate the first p.n_dims dims of each head.
     x [..., seq, n_heads, head_dim], positions [..., seq]."""
     head_dim = x.shape[-1]
     n_dims = p.n_dims or head_dim
     half = n_dims // 2
-    theta_i, theta_e, ramp_mix, mscale = rope_freqs_and_scale(p, head_dim, x.device)
-    inv_freq = theta_i * (1.0 - ramp_mix) + theta_e * ramp_mix  # [half]
+    inv_freq, mscale = _freqs(p, head_dim, x.device)  # [half], a Python float
     angles = positions[..., None].float() * inv_freq  # [..., seq, half]
-    mscale = torch.tensor(mscale, dtype=torch.float32, device=x.device)
     cos = (torch.cos(angles) * mscale)[..., None, :]  # [..., seq, 1, half]
     sin = (torch.sin(angles) * mscale)[..., None, :]
 

@@ -4,9 +4,10 @@ slot-table cache.
 Owns the KV memory (the pool with its host-side page allocator, or with
 paged=False a KVCache of n_slots per sequence), the batch bucketing policy
 (padding rows carry negative positions and write to the memory's trash
-row), and the generation loops (greedy on the device, or through a host
-sampler chain). PyTorch runs eagerly, so the buckets
-only keep the step shapes the JAX package uses.
+row), and the generation loops: through a host sampler chain, or on the
+device (decode_steps_greedy, generate_ondevice), where one decode step per
+(batch bucket, sampler) is captured as a CUDA graph at first use and
+replayed once a step (runtime/decode_graph.py).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 
 from ..models.loader import Model, resolve_device
 from ..models.transformer import AttnInputs, forward
-from ..sampling.samplers import SamplerChain
+from ..sampling.samplers import SamplerChain, SamplingParams
+from .decode_graph import GREEDY, DecodeLoop, DeviceSampler
 from .kv_cache import KVCache
 from .paged_kv import PageAllocator, PagedKVCache
 
@@ -81,11 +83,15 @@ class Context:
         device="cuda",
         kernels: bool = True,
         paged: bool = True,
+        graphs: bool = True,
     ):
         """kernels=False runs every layer through the plain PyTorch versions
         (dequant -> matmul, gather + einsum attention): the reference a
         kernel run is held against. paged=False keeps the KV in a slot table
-        of n_slots per sequence instead of the page pool (no allocator)."""
+        of n_slots per sequence instead of the page pool (no allocator).
+        graphs=False runs the on-device decode loops' step eagerly on the
+        card instead of replaying its CUDA graph: the reference a graph run
+        is held against (the CPU always runs it eagerly)."""
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, context asked for {self.device}")
@@ -95,6 +101,8 @@ class Context:
         self.n_seqs = n_seqs
         self.n_ubatch = n_ubatch
         self.kernels = kernels
+        self.graphs = graphs
+        self._loops: dict[tuple[int, DeviceSampler], DecodeLoop] = {}
         self._kv_quant = quantized_kv
         # per-sequence slot range: a 256 multiple with headroom for one padded
         # prefill bucket; 512 multiples beyond 512
@@ -223,13 +231,29 @@ class Context:
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
         return logits[0]
 
-    def _greedy_batch(self, tokens, seqs, pos_pad: int):
+    def _batch_bucket(self, B: int) -> int:
+        return min(max(_bucket(B, [1, 2, 4, 8, 16, 32, 64, self.n_seqs]), B), self.n_seqs)
+
+    def decode_loop(self, batch: int, sampler: DeviceSampler = GREEDY) -> DecodeLoop:
+        """The on-device decode loop of a batch bucket and sampler, made at
+        first use (its CUDA graph is captured at its first run on the card).
+        Loops made over an earlier KV memory are dropped."""
+        if any(loop.kv is not self.kv for loop in self._loops.values()):
+            self._loops.clear()
+        key = (batch, sampler)
+        loop = self._loops.get(key)
+        if loop is None:
+            capture = self.graphs and self.device.type == "cuda"
+            loop = self._loops[key] = DecodeLoop(self, batch, sampler, capture)
+        return loop
+
+    def _greedy_batch(self, tokens, seqs):
         """Bucketed [Bb] device tensors (tokens, positions, seq ids) for a
-        batched decode step; padding rows get position `pos_pad`."""
+        batched decode step; padding rows get position -1."""
         B = len(seqs)
-        Bb = min(max(_bucket(B, [1, 2, 4, 8, 16, 32, 64, self.n_seqs]), B), self.n_seqs)
+        Bb = self._batch_bucket(B)
         toks = np.zeros(Bb, np.int32)
-        pos = np.full(Bb, pos_pad, np.int32)
+        pos = np.full(Bb, -1, np.int32)
         sidx = np.zeros(Bb, np.int32)
         toks[:B] = tokens
         pos[:B] = self.seq_len[seqs]
@@ -242,7 +266,7 @@ class Context:
         t0 = time.perf_counter()
         seqs = np.asarray(seqs)
         B = len(seqs)
-        t, p, s = self._greedy_batch(tokens, seqs, -1)
+        t, p, s = self._greedy_batch(tokens, seqs)
         self._ensure_pages(seqs, self.seq_len[seqs][:, None])
         logits = self._forward(t[:, None], s, p[:, None], torch.arange(len(t), device=self.device))
         out = torch.argmax(logits, dim=-1).to(torch.int32)[:B].cpu().numpy()
@@ -254,9 +278,11 @@ class Context:
     def decode_steps_greedy(self, tokens: np.ndarray, seqs: np.ndarray,
                             n_steps: int) -> np.ndarray:
         """n_steps batched greedy decode steps with the argmax on the device:
-        each step feeds the previous step's tokens without a host copy of
-        the logits. Returns [B, n_steps]. All sequences advance n_steps;
-        callers finishing a sequence early drop its tail (and seq_rm it)."""
+        each step feeds the previous step's tokens without a host copy, and
+        on the card each step is a replay of the batch bucket's captured
+        graph; the [B, n_steps] ids come to the host once. All sequences
+        advance n_steps; callers finishing a sequence early drop its tail
+        (and seq_rm it)."""
         t0 = time.perf_counter()
         seqs = np.asarray(seqs)
         B = len(seqs)
@@ -264,16 +290,9 @@ class Context:
             for b in range(B):
                 self.alloc.ensure(int(seqs[b]), int(self.seq_len[seqs[b]]) + n_steps)
             self._sync_table()
+        loop = self.decode_loop(self._batch_bucket(B))
         # pad rows: the position stays negative for every step (trash writes)
-        t, p, s = self._greedy_batch(tokens, seqs, -(1 << 20))
-        rows = torch.arange(len(t), device=self.device)
-        outs = []
-        for _ in range(n_steps):
-            logits = self._forward(t[:, None], s, p[:, None], rows)
-            t = torch.argmax(logits, dim=-1).to(torch.int32)
-            outs.append(t)
-            p = p + 1
-        out = torch.stack(outs, dim=1)[:B].cpu().numpy()
+        out = loop.run(np.asarray(tokens), self.seq_len[seqs], seqs, n_steps)
         self.seq_len[seqs] += n_steps
         self.perf.n_decode += B * n_steps
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
@@ -329,6 +348,7 @@ class Context:
             self.alloc = PageAllocator(self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
                                        self.page)
         self.kv = self._make_memory()
+        self._loops.clear()  # their graphs write the old memory
         self.seq_len[:] = 0
 
     # ------------------------------------------------------------------
@@ -367,4 +387,63 @@ class Context:
                 logits = self.decode_one(token, seq=seq)
             else:
                 greedy = int(self.decode_step_greedy(np.asarray([token]), np.asarray([seq]))[0])
+        return out
+
+    def generate_ondevice(
+        self,
+        prompt: list[int],
+        max_new_tokens: int = 128,
+        temp: float = 0.0,
+        top_k: int = 0,
+        seed: int = 0,
+        seq: int = 0,
+        chunk: int = 32,
+        stream: Callable[[int], None] | None = None,
+    ) -> list[int]:
+        """Greedy or simply sampled (temp, top_k) generation with the decode
+        loop on the device: prefill, the first token from the prefill's
+        logits (through the host chain when temp > 0), then chunks of up to
+        `chunk` steps, each step a replay of the B=1 graph on the card and
+        each chunk's ids copied to the host once. An end-of-generation token
+        is checked on the host once a chunk (the loop stops at it; the chunk's
+        positions stay written), and the loop stops before a chunk would
+        reach n_ctx. The JAX package's semantics (runtime/context.py
+        generate_ondevice); the sampled ids differ from jax.random's."""
+        logits = self.prefill(prompt, seq=seq)
+        if temp <= 0:
+            first = int(np.argmax(logits))
+        else:
+            chain = SamplerChain.from_params(SamplingParams(temp=temp, top_k=top_k, seed=seed))
+            first = chain.sample(logits)
+        out = [first]
+        if stream:
+            stream(first)
+        vocab = self.model.tokenizer.vocab if self.model.tokenizer else None
+        if vocab is not None and vocab.is_eog(first):
+            return out
+        loop = self.decode_loop(1, GREEDY if temp <= 0 else DeviceSampler(temp, top_k))
+        loop.ready()
+        loop.generator.manual_seed(seed)
+        t0 = time.perf_counter()
+        while len(out) < max_new_tokens:
+            n = min(chunk, max_new_tokens - len(out))
+            if int(self.seq_len[seq]) + n + 1 >= self.n_ctx:
+                break
+            if self.alloc is not None:
+                self.alloc.ensure(seq, int(self.seq_len[seq]) + n + 1)
+                self._sync_table()
+            toks = loop.run([out[-1]], [self.seq_len[seq]], [seq], n)[0]
+            self.seq_len[seq] += n
+            self.perf.n_decode += n
+            stop = False
+            for t in toks:
+                out.append(int(t))
+                if stream:
+                    stream(int(t))
+                if vocab is not None and vocab.is_eog(int(t)):
+                    stop = True
+                    break
+            if stop:
+                break
+        self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
         return out

@@ -17,7 +17,9 @@ from llama_cpp_tpu_torch.ops.kernels import flash_attn as tfa
 from llama_cpp_tpu_torch.ops.kernels import qmm as tqmm
 from llama_cpp_tpu_torch.ops.kernels import qmm_bench as tqb
 from llama_cpp_tpu_torch.ops.kernels import qmm_expert as tqe
+from llama_cpp_tpu_torch.runtime import decode_graph
 from llama_cpp_tpu_torch.runtime.context import Context
+from llama_cpp_tpu_torch.runtime.decode_graph import DeviceSampler
 from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
                                          synth_quant_bytes)
 
@@ -729,7 +731,8 @@ def test_moe_path_kernel_route_matches_plain_route(cuda_device, tmp_path, paged,
     got = ctx.prefill(prompt)
     step = ctx.decode_one(int(np.argmax(got)))
     ids = ctx.decode_steps_greedy(np.array([int(np.argmax(step))]), np.array([0]), 4)
-    assert tqe.launches["qmm_planes_expert"] == 3 * 2 * 5  # three a layer and B = 1 step
+    # three a layer and B = 1 step: decode_one, the graph's warm-up steps and 4 replays
+    assert tqe.launches["qmm_planes_expert"] == 3 * 2 * (1 + decode_graph.WARMUP_STEPS + 4)
     assert fa_launches("flash_attention_paged" if paged else "flash_attention") > 0
     assert fa_launches("flash_attention" if paged else "flash_attention_paged") == 0
     ref_ctx = Context(model, kernels=False, **kw)
@@ -901,3 +904,193 @@ def test_qmm_bench_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     x2, qp2, sc2, mn2 = bench_planes(cuda_device, 1024, 256)
     with pytest.raises(ValueError, match="tile"):  # outside the reference's tile (8, 512, 2048)
         tqb.qmm4_variant(x2, qp2, sc2, mn2, group=32)
+
+
+# -- the decode loop on CUDA graphs (runtime/decode_graph.py) ---------------------
+
+GRAPH_SHAPE = dict(n_layers=2, n_embd=512, n_heads=4, n_kv_heads=2, n_ff=1024, vocab_size=512,
+                   seed=0)
+
+
+@pytest.fixture(scope="module")
+def graph_models(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run `python -m pytest --noconftest -m gpu "
+                    "tests/test_torch_gpu.py` on the card")
+    d = tmp_path_factory.mktemp("graphs")
+    llama = load_model(make_bench_llama_gguf(str(d / "m.gguf"), **GRAPH_SHAPE))
+    moe = load_model(make_bench_moe_gguf(str(d / "moe.gguf"), n_expert=8, n_expert_used=2,
+                                         **GRAPH_SHAPE))
+    return {"llama": llama, "moe": moe}
+
+
+def prefilled(model, n_seqs, graphs, **kw):
+    """A context over n_seqs sequences of ragged prompts -> (ctx, first ids)."""
+    ctx = Context(model, n_ctx=1024, n_seqs=n_seqs, n_ubatch=128, quantized_kv=True,
+                  graphs=graphs, **kw)
+    rng = np.random.default_rng(3)
+    firsts = [int(np.argmax(ctx.prefill([int(t) for t in rng.integers(3, 512, 40 + 7 * s)],
+                                        seq=s))) for s in range(n_seqs)]
+    return ctx, np.asarray(firsts, np.int32)
+
+
+def same_memory(a, b):
+    """Equal position labels and equal K/V rows wherever a position is held
+    (the trash rows take the graph's warm-up writes, labels included, and
+    are not compared)."""
+    live = a.kv.pos >= 0
+    if not torch.equal(live, b.kv.pos >= 0) or not torch.equal(a.kv.pos[live], b.kv.pos[live]):
+        return False
+    bufs = list(zip(a.kv.k + a.kv.v, b.kv.k + b.kv.v))
+    if a.kv.quantized:
+        bufs += list(zip(a.kv.k_scale + a.kv.v_scale, b.kv.k_scale + b.kv.v_scale))
+    for x, y in bufs:
+        if a.paged:  # [Hkv, S_pool, ...], labels [S_pool]
+            x, y = x[:, live], y[:, live]
+        else:  # [n_seqs, Hkv, S, ...], labels [n_seqs, S]
+            x, y = x.transpose(1, 2)[live], y.transpose(1, 2)[live]
+        if not torch.equal(x, y):
+            return False
+    return bool(live.any())
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slots"])
+def test_graphed_ids_equal_eager_ids(graph_models, B, paged):
+    """decode_steps_greedy replaying the bucket's graph against the same step
+    launched eagerly (graphs=False): equal ids and a bit-equal KV memory."""
+    runs = []
+    for graphs in (True, False):
+        ctx, firsts = prefilled(graph_models["llama"], B, graphs, paged=paged)
+        runs.append((ctx, ctx.decode_steps_greedy(firsts, np.arange(B), 16)))
+    (g, ids), (e, ref) = runs
+    np.testing.assert_array_equal(ids, ref)
+    assert same_memory(g, e)
+    loop = g.decode_loop(B)
+    assert loop.graph is not None and loop.replays == 16
+    assert e.decode_loop(B).graph is None
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_moe_graphed_ids_equal_eager_ids(graph_models, B):
+    """B=1 through the indexed-expert kernel, B=8 through the per-expert
+    route, replayed against eager."""
+    runs = []
+    for graphs in (True, False):
+        ctx, firsts = prefilled(graph_models["moe"], B, graphs)
+        runs.append((ctx, ctx.decode_steps_greedy(firsts, np.arange(B), 12)))
+    (g, ids), (e, ref) = runs
+    np.testing.assert_array_equal(ids, ref)
+    assert same_memory(g, e) and g.decode_loop(B).replays == 12
+
+
+def test_hundred_replays_match_eager_and_count_launches(graph_models):
+    """100 consecutive replays (the kernels' split counters reset themselves
+    across replays); the launch counters count every replay."""
+    counts = []
+    outs = []
+    for graphs in (False, True):
+        ctx, firsts = prefilled(graph_models["llama"], 1, graphs)
+        for counter in (tqmm.launches, tfa.launches):
+            for key in counter:
+                counter[key] = 0
+        outs.append(ctx.decode_steps_greedy(firsts, np.arange(1), 100))
+        counts.append({k: v for c in (tqmm.launches, tfa.launches) for k, v in c.items()})
+    np.testing.assert_array_equal(outs[0], outs[1])
+    eager, graphed = counts
+    assert eager["qmm4_planes/decode"] > 0 and eager["flash_attention_paged/decode"] > 0
+    for key, n in eager.items():  # the graph's warm-up steps ran eagerly too
+        assert graphed[key] == n // 100 * (100 + decode_graph.WARMUP_STEPS), key
+
+
+def test_replay_stays_right_after_an_eager_call_grows_the_scratch(graph_models):
+    """The graph holds the scratch it was captured with: an eager call on the
+    capture stream that grows the indexed-expert kernel's scratch (its work
+    and tile counters), then the old buffers freed and their memory
+    overwritten, do not change the replay's ids (Mixtral-shaped model, B=1:
+    K7 three times a layer)."""
+    g, firsts = prefilled(graph_models["moe"], 1, True)
+    e, _ = prefilled(graph_models["moe"], 1, False)
+    seqs = np.arange(1)
+    first = g.decode_steps_greedy(firsts, seqs, 4)
+    np.testing.assert_array_equal(first, e.decode_steps_greedy(firsts, seqs, 4))
+    loop = g.decode_loop(1)
+    key = (torch.device("cuda", torch.cuda.current_device()).index, loop.stream.cuda_stream)
+    old = tqe._SCRATCH[key]
+    assert all(any(t is h for h in loop.held) for t in old)
+    x, ids, w = expert_case(torch.device("cuda"), 64, 256, 1024, 512, 16, True)
+    with torch.cuda.stream(loop.stream):
+        tqe.qmm_expert(x, ids, w)
+    torch.cuda.synchronize()
+    assert tqe._SCRATCH[key][1] is not old[1]  # the counters grew
+    del old, x, ids, w
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 28,), -7.0, device="cuda")  # 1 GiB over the freed memory
+    got = g.decode_steps_greedy(first[:, -1], seqs, 12)
+    ref = e.decode_steps_greedy(first[:, -1], seqs, 12)
+    del junk
+    np.testing.assert_array_equal(got, ref)
+    assert same_memory(g, e)
+
+
+def test_reset_drops_the_graphs(graph_models):
+    ctx, firsts = prefilled(graph_models["llama"], 1, True)
+    ctx.decode_steps_greedy(firsts, np.arange(1), 4)
+    old = ctx.decode_loop(1)
+    assert old.graph is not None
+    ctx.reset()
+    assert not ctx._loops
+    ref, _ = prefilled(graph_models["llama"], 1, False)
+    ctx2, firsts = prefilled(graph_models["llama"], 1, True)
+    for c in (ctx, ref):  # the same prompt again on the reset context
+        c.reset()
+        c.prefill([5, 6, 7, 8], seq=0)
+    got = ctx.decode_steps_greedy(np.asarray([9]), np.arange(1), 8)
+    np.testing.assert_array_equal(got, ref.decode_steps_greedy(np.asarray([9]), np.arange(1), 8))
+    assert ctx.decode_loop(1) is not old and ctx.decode_loop(1).graph is not None
+
+
+def test_sampled_on_the_card_repeats_and_top_k_one_is_greedy(graph_models):
+    ctx, _ = prefilled(graph_models["llama"], 2, True)
+    ctx.reset()
+    p = [int(t) for t in np.random.default_rng(4).integers(3, 512, 60)]
+    runs, replays = [], []
+    for seed, k in ((1, 40), (1, 40), (1, 1)):
+        runs.append(ctx.generate_ondevice(p, max_new_tokens=24, temp=0.8, top_k=k, seed=seed,
+                                          chunk=8))
+        loop = ctx.decode_loop(1, DeviceSampler(0.8, k))
+        replays.append(loop.replays if loop.graph is not None else None)
+        ctx.reset()
+    greedy = ctx.generate_ondevice(p, max_new_tokens=24, chunk=8)
+    assert runs[0] == runs[1] and runs[2] == greedy
+    assert replays == [23, 23, 23]  # the first id comes from the prefill's logits
+
+
+def test_sampler_draws_on_the_card_follow_the_softmax(cuda_device):
+    from scipy import stats
+
+    logits = torch.tensor([2.0, 1.0, 0.5, 0.0, -0.5, -1.0, -2.0, 3.0], device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    draws = DeviceSampler(0.7, 0)(logits.expand(20000, 8), gen).cpu().numpy()
+    probs = torch.softmax(logits / 0.7, dim=-1).cpu().numpy().astype(np.float64)
+    counts = np.bincount(draws, minlength=8)
+    assert stats.chisquare(counts, probs / probs.sum() * len(draws)).pvalue > 1e-3
+
+
+def test_capture_raises_instead_of_falling_back(graph_models, monkeypatch):
+    """A step that reads a tensor to the host cannot be captured: on a CUDA
+    context the loop raises with the reason. Last in this file: a refused
+    capture leaves nothing behind, but nothing after it depends on that."""
+    ctx, firsts = prefilled(graph_models["llama"], 1, True)
+    forward = Context._forward
+
+    def reads_the_host(self, *a):
+        logits = forward(self, *a)
+        if float(logits[0, 0]) > 1e30:
+            raise AssertionError("unreachable")
+        return logits
+
+    monkeypatch.setattr(Context, "_forward", reads_the_host)
+    with pytest.raises(RuntimeError, match="could not be captured as a CUDA graph"):
+        ctx.decode_steps_greedy(firsts, np.arange(1), 4)
+    assert ctx.decode_loop(1).graph is None
