@@ -68,7 +68,9 @@ Phases, each of which fails the run:
        the 4096 x 128256 vocab head included;
      - path D, the command-line tool (llama_cpp_tpu_torch.tools.cli) on the
        4-layer llama file, text in and text out: greedy, held against
-       Context.generate on the encoded prompt, and sampled under a seed twice;
+       Context.generate on the encoded prompt, sampled under a seed twice,
+       and constrained by a GBNF grammar (--grammar), held against
+       Context.generate with the same chain behind the same grammar;
      - path E, the measurement tools on the same file: llama-bench
        (tools/bench_tool.py, pp512 and tg32 through generate_ondevice, then
        the batched grid at B = 1 and 8), llama-perplexity
@@ -76,6 +78,19 @@ Phases, each of which fails the run:
        head through K4 at 512 rows), its ln PPL within 1e-3 of the same run
        under Context(kernels=False), and llama-results (tools/results.py),
        recorded and checked with no drift;
+     - path F, llama-server (llama_cpp_tpu_torch.server.app run_server, the
+       standard library's HTTP server over the continuous-batching
+       scheduler) on the same loaded model, -np 4 --kv-quant, n_ctx 4096,
+       graphed and under Context(graphs=False): three rounds of four
+       concurrent greedy /completion requests of 32 tokens (the first
+       captures; the second's ids equal Context.generate's, 32 of 32; the
+       third streamed, timed to the first token), every scheduler decode
+       step after the first round a graph replay, a streamed chat equal to
+       the non-streamed one, a request at temperature 0.8 and seed 1 twice
+       (equal text), /metrics' tokens_predicted_total equal to the
+       replies' tokens; the served tok/s and times to first token, the
+       buckets captured and their memory, and the host sampler chain's and
+       the JSON grammar's time on 128256 logits;
      after the pool, slot-table, Mixtral and heads-of-64 paths, the graph
      phase of that path: the decode loop on CUDA graphs
      (runtime/decode_graph.py) against the same step launched eagerly
@@ -85,10 +100,14 @@ Phases, each of which fails the run:
      eager step's, wall and device ms a step and the device's busy share at
      B = 1 and the path's batch sizes, and generate_ondevice (greedy, 32
      tokens, chunk 32) against Context.generate's ids; on the pool path
-     also generate_ondevice sampled (temp 0.8, top_k 40, seed 1) twice:
-     equal ids, each inside the top 40 of the plain path's teacher-forced
-     logits, and top_k 1 equal to greedy. Launch counts include every graph
-     replay (a graph adds its step's launches at each replay).
+     also the server's one-step calls at B = 1, 4, 8 (decode_step_multi's
+     logits within NMSE 5e-3 of eager with equal argmax, decode_step_greedy's
+     ids equal, wall and device ms a call, busy share and kernel set, by
+     tools/decode_wall.measure_steps) and generate_ondevice sampled (temp
+     0.8, top_k 40, seed 1) twice: equal ids, each inside the top 40 of the
+     plain path's teacher-forced logits, and top_k 1 equal to greedy.
+     Launch counts include every graph replay (a graph adds its step's
+     launches at each replay).
 The last two lines are the kernels JSON object and
 {"ok": true, "device": {...}}. Without a card, or without the port next to
 this script, it exits non-zero and prints no result.
@@ -109,6 +128,10 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 NMSE_LIMIT = 5e-3  # the reference's conformance threshold
 SMOKE_LAYERS = 4
 CLI_PROMPT = "the cat is on the mat and that was the end of it"
+CLI_GRAMMAR = 'root ::= (" w" [0-9]+)+'  # the fixture's word pieces, " w0" ... " w127999"
+GRAMMAR_TOKENS = 6
+SERVER_PROMPTS = (CLI_PROMPT, "a long story: " + CLI_PROMPT * 4, "the mat was on the cat",
+                  "and that was the end")  # the second takes the prefill kernels (>= 64 rows)
 MOE_LAYERS = 2  # experts are 97% of a Mixtral layer's bytes
 # conformance rows that fail for a fault open in ROADMAP.md queue 3:
 # (kernel, config); printed as "known fault" with their NMSE
@@ -132,6 +155,17 @@ def gpu_line() -> str:
 def nmse(got, ref) -> float:
     got, ref = got.float(), ref.float()
     return float(((got - ref) ** 2).mean() / ((ref ** 2).mean() + 1e-30))
+
+
+def captured(loops) -> str:
+    """A context's decode loops: (batch bucket, sampler; MiB of device
+    memory its capture reserved)."""
+    def name(smp):
+        return "logits" if smp is None else "greedy" if smp.greedy else str(smp)
+
+    return ", ".join(f"({b}, {name(smp)}; {loop.graph_bytes / 2 ** 20:.1f})"
+                     for (b, smp), loop in sorted(loops.items(),
+                                                  key=lambda kv: (kv[0][0], str(kv[0][1]))))
 
 
 def plane_bytes(w) -> int:
@@ -813,6 +847,8 @@ def main() -> int:
                                                      qmm_expert)
         from llama_cpp_tpu_torch.ops.qtensor import load_weight, pad_out_features
         from llama_cpp_tpu_torch.runtime.context import Context
+        from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
+        from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
         from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
                                                  synth_quant_bytes)
         from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
@@ -1090,7 +1126,7 @@ def main() -> int:
     def against_plain(path, model, logits, gen_ids, prompt, **ctx_kw):
         """The plain path (kernels=False) on the same model, prompt and
         memory, as the reference of the kernel path."""
-        ref_ctx = Context(model, kernels=False, **ctx_kw)
+        ref_ctx = Context(model, kernels=False, graphs=False, **ctx_kw)
         ref_logits = ref_ctx.prefill(prompt, seq=0)
         ref_ids = ref_ctx.generate(prompt, max_new_tokens=len(gen_ids), seq=1)
         err = float(np.mean((logits - ref_logits) ** 2) / (np.mean(ref_logits ** 2) + 1e-30))
@@ -1142,7 +1178,50 @@ def main() -> int:
         check_logits(label, logits, vocab)
         return logits, gen_ids, rates
 
-    def graph_phase(label, model, ctx_kw, prompt, gen_ids, prompts, batches, must_run):
+    def server_steps_phase(label, ctxs, batches):
+        """The server's one-step calls on the graphed and the eager context:
+        decode_step_multi's [B, vocab] logits (NMSE under the plain path's
+        limit, equal argmax) and then decode_step_greedy's ids at each B;
+        then tools/decode_wall.measure_steps: wall and device ms a call, the
+        busy share and the kernel set of a replay, which must be the eager
+        call's; the buckets captured and the device memory their graphs
+        reserved."""
+        for B in batches:
+            seqs = np.arange(B)
+            toks = np.asarray([7 + 3 * b for b in range(B)], np.int32)
+            lg = {g: c.decode_step_multi(toks, seqs) for g, c in ctxs.items()}
+            err = nmse(torch.from_numpy(lg[True]), torch.from_numpy(lg[False]))
+            same = int((np.argmax(lg[True], -1) == np.argmax(lg[False], -1)).sum())
+            nxt = np.argmax(lg[False], -1).astype(np.int32)
+            ids = {g: c.decode_step_greedy(nxt, seqs) for g, c in ctxs.items()}
+            log(f"{label} graphs: decode_step_multi B={B}: logits {lg[True].shape} "
+                f"{lg[True].dtype}, NMSE {err:.3e} against eager (limit {NMSE_LIMIT}), argmax "
+                f"{same} of {B} equal; decode_step_greedy: {int((ids[True] == ids[False]).sum())} "
+                f"of {B} ids equal")
+            if (lg[True].shape != (B, V) or not err < NMSE_LIMIT or same != B
+                    or not np.array_equal(ids[True], ids[False])):
+                failures.append(f"{label}: graphed one-step calls at B={B}: NMSE {err}, "
+                                f"argmax {same} of {B}, greedy ids {ids}")
+        rows = {g: decode_wall.measure_steps(torch, c, batches, 16, 2) for g, c in ctxs.items()}
+        for g_row, e_row in zip(rows[True], rows[False]):
+            call, B = g_row["call"], g_row["B"]
+            log(f"{label} {call} B={B} ({card}): graphed wall {min(g_row['wall_ms_per_step']):.3f} "
+                f"ms a call, device {g_row['device_ms_per_step']:.3f} ms, busy "
+                f"{g_row['busy_share']:.3f}; eager wall {min(e_row['wall_ms_per_step']):.3f} "
+                f"ms, device {e_row['device_ms_per_step']:.3f} ms, busy "
+                f"{e_row['busy_share']:.3f}; {g_row['launches_per_step']:.0f} launches")
+            graph_rows.append({"path": label, "call": call, "B": B, "graphed": {
+                k: g_row[k] for k in ("wall_ms_per_step", "device_ms_per_step", "busy_share")},
+                "eager": {k: e_row[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                                "busy_share")}})
+            if not g_row["kernels"] or g_row["kernels"] != e_row["kernels"]:
+                failures.append(f"{label} {call} B={B}: a replay's kernels differ from the eager "
+                                "call's")
+        log(f"{label} graphs captured (bucket, sampler; MiB reserved): "
+            f"{captured(ctxs[True]._loops)}")
+
+    def graph_phase(label, model, ctx_kw, prompt, gen_ids, prompts, batches, must_run,
+                    server_steps=()):
         """The decode loop on CUDA graphs against the same step launched
         eagerly (Context(graphs=False)) on one path: decode_steps_greedy at
         each batch size (16 of 16 ids a row), 100 consecutive replays at B=1,
@@ -1173,6 +1252,8 @@ def main() -> int:
             f"eager loop's ({ctxs[True].decode_loop(1).replays} replays of the B=1 graph)")
         if agree != 100:
             failures.append(f"{label}: 100 replays: {agree} of 100 ids equal the eager loop's")
+        if server_steps:
+            server_steps_phase(label, ctxs, server_steps)
         rows = {g: decode_wall.measure(torch, c, (1, *[b for b in batches if b > 1]), 16, 2)
                 for g, c in ctxs.items()}
         for g_row, e_row in zip(rows[True], rows[False]):
@@ -1322,6 +1403,194 @@ def main() -> int:
         if report.get("token_mismatches") != 0 or report.get("max_logit_drift") != 0.0:
             failures.append(f"path E: llama-results drift {report}")
 
+    def http(url, path, body=None, stream=False):
+        """One request -> the JSON reply, or for a stream (text, usage, finish
+        reason, seconds to the first text, to the end)."""
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(url + path, data=data),
+                                    timeout=600) as r:
+            if path == "/metrics":
+                return r.read().decode()
+            if not stream:
+                return json.loads(r.read())
+            text, first, last = "", None, None
+            for line in r:
+                if not line.startswith(b"data: ") or line.strip() == b"data: [DONE]":
+                    continue
+                ev = json.loads(line[6:])
+                c = ev["choices"][0]
+                piece = c.get("text") if "text" in c else (c.get("delta") or {}).get("content")
+                if piece and first is None:
+                    first = time.perf_counter() - t0
+                text += piece or ""
+                last = ev
+            return (text, last["usage"], last["choices"][0]["finish_reason"], first,
+                    time.perf_counter() - t0)
+
+    def path_f(model):
+        """llama-server (server/app.py run_server: the standard library's
+        HTTP server over the continuous-batching scheduler) on the pool
+        path's model, -np 4 --kv-quant, n_ctx 4096, n_ubatch 512, graphed
+        and under Context(graphs=False): four concurrent greedy /completion
+        requests of 32 tokens (ignore_eos), three rounds: the first captures,
+        the second's ids must equal Context.generate's (32 of 32), the
+        third is streamed (time to the first token); every scheduler decode
+        step of rounds two and three must be a replay. On the graphed
+        server also: a streamed chat equal to the non-streamed one, a
+        request at temperature 0.8 and seed 1 twice (equal text), /metrics'
+        tokens_predicted_total equal to the replies' tokens. Then the host
+        sampler chain's time a token on 128256 logits, and the JSON
+        grammar's mask."""
+        import gc
+        import importlib.util
+        import threading
+
+        from llama_cpp_tpu_torch.server.app import run_server
+        from llama_cpp_tpu_torch.sampling.json_schema import JSON_GBNF
+
+        tok = model.tokenizer
+        log(f"path F: jinja2 importable: {importlib.util.find_spec('jinja2') is not None} "
+            "(without it chat templates fall back to the family formatter)")
+        ids = [tok.encode(p, add_special=True, parse_special=True) for p in SERVER_PROMPTS]
+        ref_ctx = Context(model, n_ctx=4096, n_ubatch=512, quantized_kv=True)
+        want = []
+        for p in ids:
+            want.append(ref_ctx.generate(p, 32))
+            ref_ctx.reset()
+        log(f"path F: prompts of {[len(p) for p in ids]} tokens")
+        served = {}
+        for graphs in (True, False):
+            label = f"path F ({'graphs' if graphs else 'eager'})"
+            gc.collect()
+            torch.cuda.synchronize()
+            reset_counts()
+            box, ready = {}, threading.Event()
+            th = threading.Thread(target=run_server, args=(model,), daemon=True, kwargs=dict(
+                host="127.0.0.1", port=0, n_seqs=4, n_ctx=4096, n_ubatch=512,
+                quantized_kv=True, graphs=graphs,
+                ready=lambda srv: (box.setdefault("srv", srv), ready.set())))
+            th.start()
+            if not ready.wait(300):
+                failures.append(f"{label}: the server did not start")
+                return
+            srv = box["srv"]
+            url = f"http://127.0.0.1:{srv.port}"
+            ctx = srv.app.ctx
+            n_tokens = 0
+            steps = [0]
+
+            def counted(fn):
+                def step(*a):
+                    steps[0] += 1
+                    return fn(*a)
+                return step
+
+            def round_of_four(stream):
+                out = [None] * 4
+
+                def ask(i):
+                    out[i] = http(url, "/completion", {
+                        "prompt": SERVER_PROMPTS[i], "n_predict": 32, "temperature": 0,
+                        "ignore_eos": True, "return_tokens": True, "cache_prompt": False,
+                        "stream": stream}, stream=stream)
+
+                threads = [threading.Thread(target=ask, args=(i,)) for i in range(4)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                return out, time.perf_counter() - t0
+
+            try:
+                warm, warm_s = round_of_four(False)
+                for name in ("decode_step_greedy", "decode_step_multi"):
+                    setattr(ctx, name, counted(getattr(ctx, name)))
+                replays0 = sum(loop.replays for loop in ctx._loops.values())
+                replies, wall = round_of_four(False)
+                streamed, s_wall = round_of_four(True)
+                replays = sum(loop.replays for loop in ctx._loops.values()) - replays0
+                n_tokens = sum(r["usage"]["completion_tokens"] for r in warm + replies)
+                n_tokens += sum(r[1]["completion_tokens"] for r in streamed)
+                agree = [sum(int(a == b) for a, b in zip(r["tokens"], w))
+                         for r, w in zip(replies, want)]
+                same_stream = [r[0] == q["choices"][0]["text"]
+                               for r, q in zip(streamed, replies)]
+                ttft = [r[3] for r in streamed]
+                rate, s_rate = 4 * 32 / wall, 4 * 32 / s_wall
+                served[graphs] = (rate, s_rate, ttft)
+                log(f"{label} ({card}): ids equal to Context.generate's {agree} of 32 each; "
+                    f"streamed text equal {same_stream}; scheduler decode steps {steps[0]}, "
+                    f"graph replays {replays}; served {rate:.1f} tok/s (4 x 32 tokens in "
+                    f"{wall:.3f} s, first round {warm_s:.3f} s), streamed {s_rate:.1f} tok/s, "
+                    f"time to first token {[round(t * 1e3, 1) for t in ttft]} ms")
+                if agree != [32] * 4 or not all(len(w) == 32 for w in want):
+                    failures.append(f"{label}: ids agree {agree} of 32 with Context.generate")
+                if not all(same_stream) or any(t is None for t in ttft):
+                    failures.append(f"{label}: streamed replies {[r[0][:40] for r in streamed]}")
+                if graphs and (steps[0] == 0 or replays != steps[0]):
+                    failures.append(f"{label}: {steps[0]} scheduler decode steps after the "
+                                    f"first round, {replays} graph replays")
+                if graphs:
+                    chat = {"messages": [{"role": "user", "content": CLI_PROMPT}],
+                            "max_tokens": 16, "temperature": 0}
+                    plain = http(url, "/v1/chat/completions", chat)
+                    text, usage, finish, _, _ = http(url, "/v1/chat/completions",
+                                                     {**chat, "stream": True}, stream=True)
+                    same_chat = (text == plain["choices"][0]["message"]["content"]
+                                 and usage == plain["usage"]
+                                 and finish == plain["choices"][0]["finish_reason"])
+                    hot = {"prompt": CLI_PROMPT, "n_predict": 16, "temperature": 0.8,
+                           "seed": 1}
+                    hot_replies = [http(url, "/completion", hot) for _ in range(2)]
+                    hot_text = [r["choices"][0]["text"] for r in hot_replies]
+                    n_tokens += plain["usage"]["completion_tokens"] + usage["completion_tokens"]
+                    n_tokens += sum(r["usage"]["completion_tokens"] for r in hot_replies)
+                    metrics = http(url, "/metrics")
+                    predicted = int(next(ln.split()[1] for ln in metrics.splitlines()
+                                         if ln.startswith("llamacpp_tpu_tokens_predicted_total")))
+                    log(f"{label}: streamed chat equal to the non-streamed reply: {same_chat} "
+                        f"({text[:40]!r}); temperature 0.8, seed 1 twice: equal "
+                        f"{hot_text[0] == hot_text[1]} "
+                        f"({hot_text[0][:40]!r}); tokens_predicted_total {predicted}, the replies' "
+                        f"tokens {n_tokens}")
+                    if not same_chat or hot_text[0] != hot_text[1] or predicted != n_tokens:
+                        failures.append(f"{label}: stream equal {same_chat}, seeded repeat "
+                                        f"{hot_text[0] == hot_text[1]}, metrics {predicted} of "
+                                        f"{n_tokens}")
+                    log(f"{label}: graphs captured (bucket, sampler; MiB reserved): "
+                        f"{captured(ctx._loops)}")
+            finally:
+                srv.shutdown()
+                th.join(timeout=60)
+            if th.is_alive():
+                failures.append(f"{label}: the server thread did not stop")
+            all_counts[label] = read_counts(label, decode_keys + prefill_keys + paged_keys)
+            del ctx, srv
+        if len(served) == 2:
+            log(f"path F at -np 4 ({card}): served tok/s graphed {served[True][0]:.1f} "
+                f"(streamed {served[True][1]:.1f}), eager {served[False][0]:.1f} (streamed "
+                f"{served[False][1]:.1f}); time to first token ms graphed "
+                f"{[round(t * 1e3, 1) for t in served[True][2]]}, eager "
+                f"{[round(t * 1e3, 1) for t in served[False][2]]}")
+        # the host's cost a token of the temperature request: its sampler
+        # chain on the prefill's 128256 logits, and the JSON grammar's mask
+        logits = ref_ctx.prefill(ids[0])
+        chain = SamplerChain.from_params(SamplingParams(temp=0.8, seed=1), tok.vocab)
+        t0 = time.perf_counter()
+        for _ in range(32):
+            chain.sample(np.array(logits))
+        chain_ms = (time.perf_counter() - t0) * 1e3 / 32
+        t0 = time.perf_counter()
+        GrammarSampler(JSON_GBNF, tok).filter_logits(np.array(logits))
+        grammar_ms = (time.perf_counter() - t0) * 1e3
+        log(f"path F: host sampler chain (temp 0.8, top_k 40, top_p 0.95, min_p 0.05) "
+            f"{chain_ms:.3f} ms a token on {logits.shape[0]} logits; the JSON grammar's mask "
+            f"{grammar_ms:.1f} ms for its first token (host Python)")
+
     smoke_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(smoke_dir, exist_ok=True)
     path = os.path.join(smoke_dir, f"llama8b-q4km-{SMOKE_LAYERS}l.gguf")
@@ -1358,7 +1627,7 @@ def main() -> int:
     log("llama paged rates (4-layer smoke run, not a benchmark; "
         f"{card}): " + json.dumps(rates))
     gctx = graph_phase("llama paged", model, paged_kw, prompt, gen_ids, prompts512, (8, 32),
-                       decode_keys + prefill_keys + paged_keys)
+                       decode_keys + prefill_keys + paged_keys, server_steps=(1, 4, 8))
     sampled_phase(gctx, model, {**paged_kw, "n_seqs": 2, "kv_total": 8192}, prompt, gen_ids)
     del gctx
 
@@ -1438,7 +1707,27 @@ def main() -> int:
     if sampled[0] != sampled[1] or not sampled[0].strip():
         failures.append(f"path D: sampled text differs between two runs with one seed: "
                         f"{sampled[0]!r} / {sampled[1]!r}")
+    # a grammar-constrained run: the CLI's text against Context.generate with
+    # the same greedy chain behind the same grammar
+    t0 = time.perf_counter()
+    g_text, _ = run_cli("--temp", "0", "-n", str(GRAMMAR_TOKENS), "--grammar", CLI_GRAMMAR)
+    g_s = time.perf_counter() - t0
+    constrained = cli_tool.Constrained(SamplerChain.from_params(SamplingParams(temp=0.0),
+                                                                tok.vocab),
+                                       GrammarSampler(CLI_GRAMMAR, tok))
+    g_ref = Context(model, n_ctx=2048, quantized_kv=True).generate(
+        cli_ids, GRAMMAR_TOKENS, sampler=constrained)
+    g_ref_text = "".join(tok.piece(t) for t in g_ref if not tok.is_eog(t)) + "\n"
+    accepted = GBNFParser().parse(CLI_GRAMMAR).would_accept(g_text[:-1])
+    log(f"path D: --grammar {CLI_GRAMMAR!r} -n {GRAMMAR_TOKENS} --temp 0: {g_text[:60]!r}, "
+        f"equal to Context.generate behind the grammar: {g_text == g_ref_text}, accepted by "
+        f"the grammar: {accepted}; {g_s:.1f} s with its own load_model (the mask over "
+        f"{V} pieces is host Python, once a token)")
+    if g_text != g_ref_text or not accepted or len(g_text) < 2:
+        failures.append(f"path D: constrained text {g_text!r}, Context.generate behind the "
+                        f"grammar {g_ref_text!r}, accepted {accepted}")
     path_e(model, llama_path, smoke_dir)
+    path_f(model)
     os.remove(llama_path)
     del model, lw0, tok
     torch.cuda.empty_cache()

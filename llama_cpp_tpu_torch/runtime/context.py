@@ -5,9 +5,10 @@ Owns the KV memory (the pool with its host-side page allocator, or with
 paged=False a KVCache of n_slots per sequence), the batch bucketing policy
 (padding rows carry negative positions and write to the memory's trash
 row), and the generation loops: through a host sampler chain, or on the
-device (decode_steps_greedy, generate_ondevice), where one decode step per
-(batch bucket, sampler) is captured as a CUDA graph at first use and
-replayed once a step (runtime/decode_graph.py).
+device (decode_steps_greedy, generate_ondevice). Every batched decode step,
+the server's one-step calls (decode_step_greedy, decode_step_multi)
+included, runs one step per (batch bucket, sampler) that is captured as a
+CUDA graph at first use and replayed once a step (runtime/decode_graph.py).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from ..models.loader import Model, resolve_device
 from ..models.transformer import AttnInputs, forward
 from ..sampling.samplers import SamplerChain, SamplingParams
-from .decode_graph import GREEDY, DecodeLoop, DeviceSampler
+from .decode_graph import GREEDY, LOGITS, DecodeLoop, DeviceSampler
 from .kv_cache import KVCache
 from .paged_kv import PageAllocator, PagedKVCache
 
@@ -102,7 +103,7 @@ class Context:
         self.n_ubatch = n_ubatch
         self.kernels = kernels
         self.graphs = graphs
-        self._loops: dict[tuple[int, DeviceSampler], DecodeLoop] = {}
+        self._loops: dict[tuple[int, DeviceSampler | None], DecodeLoop] = {}
         self._kv_quant = quantized_kv
         # per-sequence slot range: a 256 multiple with headroom for one padded
         # prefill bucket; 512 multiples beyond 512
@@ -234,10 +235,11 @@ class Context:
     def _batch_bucket(self, B: int) -> int:
         return min(max(_bucket(B, [1, 2, 4, 8, 16, 32, 64, self.n_seqs]), B), self.n_seqs)
 
-    def decode_loop(self, batch: int, sampler: DeviceSampler = GREEDY) -> DecodeLoop:
-        """The on-device decode loop of a batch bucket and sampler, made at
-        first use (its CUDA graph is captured at its first run on the card).
-        Loops made over an earlier KV memory are dropped."""
+    def decode_loop(self, batch: int, sampler: DeviceSampler | None = GREEDY) -> DecodeLoop:
+        """The on-device decode loop of a batch bucket and sampler (LOGITS:
+        the step keeps its logits for the host), made at first use (its CUDA
+        graph is captured at its first run on the card). Loops made over an
+        earlier KV memory are dropped."""
         if any(loop.kv is not self.kv for loop in self._loops.values()):
             self._loops.clear()
         key = (batch, sampler)
@@ -247,29 +249,18 @@ class Context:
             loop = self._loops[key] = DecodeLoop(self, batch, sampler, capture)
         return loop
 
-    def _greedy_batch(self, tokens, seqs):
-        """Bucketed [Bb] device tensors (tokens, positions, seq ids) for a
-        batched decode step; padding rows get position -1."""
-        B = len(seqs)
-        Bb = self._batch_bucket(B)
-        toks = np.zeros(Bb, np.int32)
-        pos = np.full(Bb, -1, np.int32)
-        sidx = np.zeros(Bb, np.int32)
-        toks[:B] = tokens
-        pos[:B] = self.seq_len[seqs]
-        sidx[:B] = seqs
-        return self._tensor(toks), self._tensor(pos), self._tensor(sidx)
-
     def decode_step_greedy(self, tokens: np.ndarray, seqs: np.ndarray) -> np.ndarray:
         """One batched decode step returning only the argmax token per
-        sequence (B int32s to the host instead of [B, vocab] logits)."""
+        sequence (B int32s to the host instead of [B, vocab] logits): one
+        step of the batch bucket's greedy loop, a replay on the card. Pages
+        are allocated first, so a full pool raises KVCacheFull before the
+        step runs."""
         t0 = time.perf_counter()
         seqs = np.asarray(seqs)
         B = len(seqs)
-        t, p, s = self._greedy_batch(tokens, seqs)
         self._ensure_pages(seqs, self.seq_len[seqs][:, None])
-        logits = self._forward(t[:, None], s, p[:, None], torch.arange(len(t), device=self.device))
-        out = torch.argmax(logits, dim=-1).to(torch.int32)[:B].cpu().numpy()
+        loop = self.decode_loop(self._batch_bucket(B))
+        out = loop.run(np.asarray(tokens), self.seq_len[seqs], seqs, 1)[:, 0]
         self.seq_len[seqs] += 1
         self.perf.n_decode += B
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
@@ -300,12 +291,15 @@ class Context:
 
     def decode_step_multi(self, tokens: np.ndarray, seqs: np.ndarray) -> np.ndarray:
         """One decode step for several sequences at once (continuous
-        batching): tokens[i] appended to seqs[i]; logits [len(seqs), vocab]."""
+        batching): tokens[i] appended to seqs[i]; logits [len(seqs), vocab]
+        f32 on the host. One step of the batch bucket's LOGITS loop, a
+        replay on the card; pages are allocated first (KVCacheFull before
+        the step runs)."""
         t0 = time.perf_counter()
         seqs = np.asarray(seqs)
-        pos = self.seq_len[seqs]
-        logits = self.decode(np.asarray(tokens)[:, None], seqs, np.asarray(pos)[:, None],
-                             np.arange(len(seqs)))
+        self._ensure_pages(seqs, self.seq_len[seqs][:, None])
+        loop = self.decode_loop(self._batch_bucket(len(seqs)), LOGITS)
+        logits = loop.logits_step(np.asarray(tokens), self.seq_len[seqs], seqs)
         self.seq_len[seqs] += 1
         self.perf.n_decode += len(seqs)
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3

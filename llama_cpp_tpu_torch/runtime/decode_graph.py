@@ -11,6 +11,11 @@ graph n times is the scan of n steps, and the host copies the ids once a
 chunk. The KV memory is written in place, which is the effect the JAX
 package's runtime/decode_window.py gets under XLA.
 
+A loop of sampler LOGITS is the server's step (`Context.decode_step_multi`):
+it keeps the [bucket, vocab] f32 logits, the graph's own output buffer, for
+the host's sampler chain and grammar, and advances nothing; the host copies
+the first B rows out before the next replay overwrites them.
+
 `DecodeLoop.step` is the only step body: on the card it is captured, on
 the CPU (and under Context(graphs=False)) it runs eagerly. A step that
 cannot be captured raises with the reason; nothing falls back.
@@ -75,6 +80,7 @@ class DeviceSampler:
 
 
 GREEDY = DeviceSampler()
+LOGITS = None  # no sampler on the device: the step keeps its logits for the host
 
 
 def _counts() -> list[dict[str, int]]:
@@ -85,7 +91,7 @@ class DecodeLoop:
     """The decode loop of one batch bucket and sampler over a Context's KV
     memory: static buffers, the step body, and its graph when captured."""
 
-    def __init__(self, ctx, batch: int, sampler: DeviceSampler, capture: bool):
+    def __init__(self, ctx, batch: int, sampler: DeviceSampler | None, capture: bool):
         dev = ctx.device
         # a weak reference: the context owns its loops, so dropping it frees
         # their graphs at once, never in a garbage collection that might run
@@ -102,15 +108,20 @@ class DecodeLoop:
         self.out = torch.zeros((batch, CAPACITY), dtype=torch.int32, device=dev)
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         self.generator = torch.Generator(device=dev)
+        self.logits: torch.Tensor | None = None  # [batch, vocab] f32, LOGITS loops
         self.graph: torch.cuda.CUDAGraph | None = None
         self.stream: torch.cuda.Stream | None = None  # the capture's
         self.held: list[torch.Tensor] = []  # scratch buffers the graph replays into
         self.step_counts: dict[tuple[int, str], int] = {}  # launches of one replay
         self.replays = 0
+        self.graph_bytes = 0  # device memory the capture reserved (its private pool)
 
     def step(self) -> None:
         """One decode step of every row: the only step body."""
         logits = self._ctx()._forward(self.tok[:, None], self.seq, self.pos[:, None], self.rows)
+        if self.sampler is LOGITS:
+            self.logits = logits  # captured: the graph's output, rewritten by every replay
+            return
         nxt = self.sampler(logits, self.generator)
         self.out.index_copy_(1, self.index, nxt[:, None])
         self.tok.copy_(nxt)
@@ -134,9 +145,14 @@ class DecodeLoop:
                 for _ in range(WARMUP_STEPS):
                     self.step()
             torch.cuda.current_stream(dev).wait_stream(stream)
-            if not self.sampler.greedy:
+            if self.sampler is not LOGITS and not self.sampler.greedy:
                 graph.register_generator_state(self.generator)
             before = _counts()
+            # what the capture's entry does first: its private pool is then
+            # the growth of the reserved memory
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
             with scratch.holding() as held, torch.cuda.graph(graph, stream=stream):
                 self.step()
         except RuntimeError as e:
@@ -144,6 +160,7 @@ class DecodeLoop:
                 f"the decode step at B={self.batch} ({self.sampler}) could not be captured "
                 f"as a CUDA graph: {e}") from e
         after = _counts()
+        self.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.step_counts = {(i, k): after[i][k] - before[i][k] for i in range(len(after))
                             for k in after[i] if after[i][k] != before[i][k]}
         for (i, k), n in self.step_counts.items():  # nothing launched at capture
@@ -164,14 +181,10 @@ class DecodeLoop:
         for (i, k), n in self.step_counts.items():
             LAUNCH_COUNTERS[i][k] += n
 
-    def run(self, tokens, positions, seqs, n_steps: int) -> np.ndarray:
-        """n_steps steps from tokens [B] at positions [B] of sequences [B]
-        (B <= the bucket; the other rows pad) -> ids [B, n_steps], copied to
-        the host once."""
-        self.ready()
+    def _load(self, tokens, positions, seqs) -> None:
+        """Fill the static buffers: tokens [B] at positions [B] of sequences
+        [B] (B <= the bucket); the other rows pad at PAD_POS (trash writes)."""
         B = len(tokens)
-        if n_steps <= 0:
-            return np.zeros((B, 0), np.int32)
         tok = np.zeros(self.batch, np.int32)
         pos = np.full(self.batch, PAD_POS, np.int32)
         seq = np.zeros(self.batch, np.int32)
@@ -180,6 +193,16 @@ class DecodeLoop:
         seq[:B] = seqs
         for buf, a in ((self.tok, tok), (self.pos, pos), (self.seq, seq)):
             buf.copy_(torch.from_numpy(a))
+
+    def run(self, tokens, positions, seqs, n_steps: int) -> np.ndarray:
+        """n_steps steps from tokens [B] at positions [B] of sequences [B]
+        (B <= the bucket; the other rows pad) -> ids [B, n_steps], copied to
+        the host once."""
+        self.ready()
+        B = len(tokens)
+        if n_steps <= 0:
+            return np.zeros((B, 0), np.int32)
+        self._load(tokens, positions, seqs)
         self.index.zero_()
         parts = []
         done = 0
@@ -191,3 +214,13 @@ class DecodeLoop:
             parts.append(self.out[:, :n].clone() if done < n_steps else self.out[:, :n])
             self.index.zero_()
         return torch.cat(parts, dim=1)[:B].cpu().numpy()
+
+    def logits_step(self, tokens, positions, seqs) -> np.ndarray:
+        """One step of a LOGITS loop -> f32 logits [B, vocab] on the host,
+        copied before the next replay can overwrite them."""
+        if self.sampler is not LOGITS:
+            raise ValueError(f"logits_step on a loop that samples ({self.sampler})")
+        self.ready()
+        self._load(tokens, positions, seqs)
+        self.advance()
+        return self.logits[: len(tokens)].cpu().numpy()

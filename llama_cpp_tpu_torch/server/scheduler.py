@@ -1,0 +1,461 @@
+"""Continuous-batching scheduler: slots + task queue + step loop.
+
+Parity with reference llama-server internals (tools/server/server-context.cpp):
+slot states IDLE->PROCESSING_PROMPT->GENERATING (:58-65), the update_slots
+step loop (:2802-2910) doing prompt chunking + one batched decode per token
+step + per-slot sampling/stop handling, and the deferred task queue
+(server-queue.h:13-60). Runs in a dedicated thread; results stream out via
+thread-safe callbacks.
+
+A copy of the JAX package's server/scheduler.py over this package's Context,
+samplers and grammar. The scheduler thread is the only thread that touches
+the card: HTTP threads reach the Context through `run_sync`. On the card the
+batched decode step (`decode_step_greedy` when every slot is greedy,
+`decode_step_multi` otherwise) replays the batch bucket's CUDA graph.
+Refused, not emulated, because the modules they need are not ported:
+speculative decoding (no drafting, every step is one token a slot),
+multimodal prompts (a task with `chunks` fails with a message naming mtmd)
+and context shift (a slot that reaches n_ctx finishes with "length", as
+the JAX scheduler does with enable_ctx_shift=False).
+"""
+
+from __future__ import annotations
+
+import enum
+import logging
+import queue
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+
+from ..runtime.context import Context
+from ..runtime.paged_kv import KVCacheFull
+from ..sampling.grammar import GrammarSampler
+from ..sampling.samplers import SamplerChain, SamplingParams
+
+log = logging.getLogger("server")
+
+MTMD_REFUSED = "error: multimodal prompts (multimodal/mtmd.py) are not ported"
+
+
+class SlotState(enum.Enum):
+    IDLE = 0
+    PROMPT = 1
+    GENERATING = 2
+
+
+@dataclass
+class GenTask:
+    prompt_ids: list[int]
+    params: SamplingParams
+    max_tokens: int = 128
+    stop_strings: list[str] = field(default_factory=list)
+    ignore_eos: bool = False
+    grammar: str = ""
+    grammar_lazy: bool = False
+    grammar_trigger_patterns: tuple = ()
+    grammar_trigger_tokens: tuple = ()
+    stream_cb: Callable[[dict], None] | None = None  # called per token (any thread)
+    done_cb: Callable[[dict], None] | None = None
+    task_id: str = field(default_factory=lambda: uuid.uuid4().hex[:16])
+    n_probs: int = 0
+    cache_prompt: bool = True  # reuse common KV prefix (reference default)
+    cancelled: bool = False
+    # multimodal chunks: refused (the task fails with MTMD_REFUSED)
+    chunks: list | None = None
+
+
+@dataclass
+class Slot:
+    idx: int
+    state: SlotState = SlotState.IDLE
+    task: GenTask | None = None
+    sampler: SamplerChain | None = None
+    grammar: GrammarSampler | None = None
+    prompt_pos: int = 0
+    generated: list[int] = field(default_factory=list)
+    cache_tokens: list[int] = field(default_factory=list)  # tokens in KV
+    text: str = ""
+    sent_text_len: int = 0
+    t_start: float = 0.0
+    t_first_token: float = 0.0
+
+    def reset(self):
+        # cache_tokens survives reset: the KV keeps the old sequence so the
+        # next request can reuse a common prefix (server prompt cache,
+        # reference tools/server update_slots prompt reuse)
+        self.state = SlotState.IDLE
+        self.task = None
+        self.sampler = None
+        self.grammar = None
+        self.prompt_pos = 0
+        self.generated = []
+        self.text = ""
+        self.sent_text_len = 0
+
+
+class Scheduler:
+    """One inference thread owning the Context; HTTP threads post GenTasks."""
+
+    def __init__(self, ctx: Context, n_slots: int | None = None):
+        self.ctx = ctx
+        self.n_slots = n_slots or ctx.n_seqs
+        if self.n_slots > ctx.n_seqs:
+            raise ValueError(f"{self.n_slots} slots over a context of {ctx.n_seqs} sequences")
+        self.slots = [Slot(i) for i in range(self.n_slots)]
+        self.tasks: queue.Queue[GenTask] = queue.Queue()
+        self.calls: queue.Queue = queue.Queue()  # sync calls into the sched thread
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.metrics = {
+            "requests_total": 0,
+            "tokens_predicted_total": 0,
+            "tokens_prompt_total": 0,
+            "tokens_prompt_cached_total": 0,
+            "busy_slots": 0,
+        }
+
+    # ------------------------------------------------------------------
+    def submit(self, task: GenTask) -> str:
+        self.tasks.put(task)
+        self.metrics["requests_total"] += 1
+        return task.task_id
+
+    def start(self):
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="sched")
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=10)
+
+    # ------------------------------------------------------------------
+    def _launch(self, slot: Slot, task: GenTask):
+        tok = self.ctx.model.tokenizer
+        slot.task = task
+        slot.state = SlotState.PROMPT
+        slot.prompt_pos = 0
+        slot.generated = []
+        slot.text = ""
+        slot.sent_text_len = 0
+        slot.t_start = time.perf_counter()
+        slot.sampler = SamplerChain.from_params(
+            task.params, tok.vocab if tok else None
+        )
+        if task.params.reasoning_budget >= 0 and tok is not None:
+            from ..sampling.samplers import make_reasoning_budget
+
+            slot.sampler.samplers.insert(0, make_reasoning_budget(
+                tok.vocab,
+                lambda s: tok.encode(s, add_special=False,
+                                     parse_special=True),
+                task.params.reasoning_budget))
+        slot.grammar = None
+        if task.grammar and tok is not None:
+            try:
+                slot.grammar = GrammarSampler(
+                    task.grammar, tok, lazy=task.grammar_lazy,
+                    trigger_patterns=tuple(task.grammar_trigger_patterns),
+                    trigger_tokens=tuple(task.grammar_trigger_tokens))
+            except Exception as e:
+                log.warning("grammar rejected: %s", e)
+        # sampler sees the prompt for penalties context
+        for t in task.prompt_ids[-task.params.n_prev :]:
+            slot.sampler.state.prev.append(t)
+        # prompt cache: keep the longest common prefix with what this slot's
+        # KV already holds; re-decode only the divergent tail (at least the
+        # final token, whose logits we need)
+        n_keep = 0
+        if task.cache_prompt:
+            limit = min(len(slot.cache_tokens), len(task.prompt_ids) - 1)
+            while n_keep < limit and slot.cache_tokens[n_keep] == task.prompt_ids[n_keep]:
+                n_keep += 1
+        if n_keep > 0:
+            self.ctx.seq_rm(slot.idx, p0=n_keep)
+            slot.prompt_pos = n_keep
+            self.metrics["tokens_prompt_cached_total"] += n_keep
+        else:
+            self.ctx.seq_rm(slot.idx)
+        # cache_tokens tracks tokens actually DECODED into KV (reference
+        # pushes to the cache list only when a token enters a decode batch,
+        # server-context.cpp:520); prompt chunks extend it as they decode
+        slot.cache_tokens = list(task.prompt_ids[:n_keep])
+
+    def _finish(self, slot: Slot, reason: str):
+        task = slot.task
+        n_gen = len(slot.generated)
+        dt = time.perf_counter() - slot.t_start
+        if task and task.done_cb:
+            task.done_cb(
+                {
+                    "task_id": task.task_id,
+                    "text": slot.text,
+                    "tokens": list(slot.generated),
+                    "finish_reason": reason,
+                    "n_prompt": len(task.prompt_ids),
+                    "n_generated": n_gen,
+                    "t_total_s": dt,
+                }
+            )
+        self.metrics["tokens_predicted_total"] += n_gen
+        slot.reset()
+
+    # ------------------------------------------------------------------
+    def run_sync(self, fn: Callable[[], Any], timeout: float = 120.0):
+        """Execute fn on the scheduler thread (the Context is single-owner,
+        like the reference's single inference thread) and return its result."""
+        ev = threading.Event()
+        box: dict[str, Any] = {}
+
+        def wrapped():
+            try:
+                box["result"] = fn()
+            except Exception as e:  # pragma: no cover
+                box["error"] = e
+            ev.set()
+
+        self.calls.put(wrapped)
+        if not ev.wait(timeout):
+            raise TimeoutError("scheduler call timed out")
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    def _loop(self):
+        while not self._stop.is_set():
+            while not self.calls.empty():
+                try:
+                    self.calls.get_nowait()()
+                except queue.Empty:
+                    break
+            try:
+                did_work = self._step()
+            except Exception as e:
+                # the inference thread must survive (reference converts step
+                # exceptions into abort_all_slots + HTTP errors,
+                # server-context.cpp:2895): fail the active slots, keep going
+                log.exception("scheduler step failed: %s", e)
+                for s in self.slots:
+                    if s.state != SlotState.IDLE:
+                        try:
+                            self.ctx.seq_rm(s.idx)
+                        except Exception:
+                            pass
+                        s.cache_tokens = []
+                        self._finish(s, f"error: {type(e).__name__}")
+                did_work = True
+            if not did_work:
+                try:
+                    task = self.tasks.get(timeout=0.05)
+                    self._admit(task)
+                except queue.Empty:
+                    pass
+
+    def _admit(self, task: GenTask):
+        free = [s for s in self.slots if s.state == SlotState.IDLE]
+        if free:
+            # pick the slot whose cached tokens share the longest prefix
+            # (reference server slot selection by prompt similarity)
+            def common(slot):
+                n = 0
+                lim = min(len(slot.cache_tokens), len(task.prompt_ids))
+                while n < lim and slot.cache_tokens[n] == task.prompt_ids[n]:
+                    n += 1
+                return n
+            self._launch(max(free, key=common), task)
+            return
+        # no free slot: requeue at the back (deferred task)
+        self.tasks.put(task)
+        time.sleep(0.005)
+
+    def _step(self) -> bool:
+        """One update_slots iteration. Returns True if any work happened."""
+        # admit queued tasks into free slots first
+        while not self.tasks.empty():
+            free = [s for s in self.slots if s.state == SlotState.IDLE]
+            if not free:
+                break
+            try:
+                self._admit(self.tasks.get_nowait())
+            except queue.Empty:
+                break
+
+        self.metrics["busy_slots"] = sum(
+            1 for s in self.slots if s.state != SlotState.IDLE
+        )
+
+        # 1) prompt processing: chunk one slot's prompt per iteration, then
+        # FALL THROUGH to a decode step so generating slots are not starved
+        # by a long prompt (reference update_slots packs both in one batch)
+        did_prompt = False
+        for slot in self.slots:
+            if slot.state != SlotState.PROMPT:
+                continue
+            task = slot.task
+            if task.cancelled:
+                self._finish(slot, "cancelled")
+                continue
+            if task.chunks is not None:
+                self._finish(slot, MTMD_REFUSED)
+                continue
+            remaining = task.prompt_ids[slot.prompt_pos :]
+            chunk = remaining[: self.ctx.n_ubatch]
+            is_last = len(chunk) == len(remaining)
+            try:
+                logits = self._prefill_chunk(slot.idx, chunk, slot.prompt_pos)
+            except KVCacheFull:
+                # pool over-committed (reference FAILED_PREPARE): release
+                # this slot's pages; retry once other slots free capacity,
+                # or fail if this prompt alone exceeds the pool
+                self.ctx.seq_rm(slot.idx)
+                slot.cache_tokens = []
+                if any(s is not slot and s.state != SlotState.IDLE
+                       for s in self.slots):
+                    log.warning("KV pool full; deferring task %s", task.task_id)
+                    t = slot.task
+                    slot.reset()
+                    self.tasks.put(t)
+                else:
+                    self._finish(slot, "error_kv_cache_full")
+                continue
+            slot.prompt_pos += len(chunk)
+            slot.cache_tokens.extend(chunk)
+            self.metrics["tokens_prompt_total"] += len(chunk)
+            if is_last:
+                slot.state = SlotState.GENERATING
+                self._emit_token(slot, logits)
+            did_prompt = True
+            break
+
+        # 2) one batched decode step across all generating slots
+        gen = [s for s in self.slots if s.state == SlotState.GENERATING]
+        if not gen:
+            return did_prompt
+        for s in list(gen):
+            if s.task.cancelled:
+                self._finish(s, "cancelled")
+                gen.remove(s)
+        if not gen:
+            return True
+        toks = np.asarray([s.generated[-1] for s in gen])
+        seqs = np.asarray([s.idx for s in gen])
+        if all(self._device_greedy_ok(s) for s in gen):
+            # fused on-device sampling: ship B token ids, not [B, vocab]
+            # logits (critical across a slow host<->chip link)
+            try:
+                new_toks = self.ctx.decode_step_greedy(toks, seqs)
+            except KVCacheFull:
+                self._reclaim_victim(gen)
+                return True
+            for i, slot in enumerate(gen):
+                slot.cache_tokens.append(int(toks[i]))
+            for i, slot in enumerate(gen):
+                t = int(new_toks[i])
+                slot.sampler.accept(t)  # keep prev-window state coherent
+                self._process_token(slot, t)
+            return True
+        try:
+            logits = self.ctx.decode_step_multi(toks, seqs)
+        except KVCacheFull:
+            self._reclaim_victim(gen)
+            return True
+        for i, slot in enumerate(gen):
+            slot.cache_tokens.append(int(toks[i]))  # now decoded into KV
+        for i, slot in enumerate(gen):
+            self._emit_token(slot, logits[i])
+        return True
+
+    @staticmethod
+    def _device_greedy_ok(slot: Slot) -> bool:
+        """Token choice is exactly device argmax: greedy chain with no
+        logit-mutating samplers or grammar."""
+        p = slot.task.params
+        return (p.is_greedy and slot.grammar is None and not p.logit_bias
+                and p.penalty_repeat == 1.0 and p.penalty_freq == 0.0
+                and p.penalty_present == 0.0 and p.dry_multiplier == 0.0
+                and p.reasoning_budget < 0 and slot.task.n_probs == 0)
+
+    def _reclaim_victim(self, gen):
+        # reclaim by finishing the longest-running generation; the
+        # remaining slots retry next iteration
+        victim = max(gen, key=lambda s: len(s.cache_tokens))
+        log.warning("KV pool full; truncating slot %d", victim.idx)
+        self.ctx.seq_rm(victim.idx)  # release its pages now
+        victim.cache_tokens = []
+        self._finish(victim, "length")
+
+    def _sample_slot(self, slot: Slot, logits: np.ndarray) -> int:
+        lg = np.array(logits, dtype=np.float32)
+        if slot.grammar is not None:
+            lg = slot.grammar.filter_logits(lg)
+        token = slot.sampler.sample(lg)
+        if slot.grammar is not None:
+            slot.grammar.accept(token)
+        return token
+
+    def _prefill_chunk(self, seq: int, chunk: list[int], pos0: int):
+        positions = np.arange(pos0, pos0 + len(chunk))
+        logits = self.ctx.decode(
+            np.asarray(chunk)[None, :],
+            np.asarray([seq]),
+            positions[None, :],
+            np.asarray([len(chunk) - 1]),
+        )
+        self.ctx.seq_len[seq] = pos0 + len(chunk)
+        return logits[0]
+
+    def _emit_token(self, slot: Slot, logits: np.ndarray):
+        self._process_token(slot, self._sample_slot(slot, logits))
+
+    def _process_token(self, slot: Slot, token: int):
+        """Post-sampling bookkeeping for one emitted token: stop conditions,
+        streaming (reference process_token)."""
+        task = slot.task
+        tok = self.ctx.model.tokenizer
+        slot.generated.append(token)
+        if not slot.t_first_token:
+            slot.t_first_token = time.perf_counter() - slot.t_start
+
+        piece = tok.piece(token) if tok else str(token)
+        is_eog = tok.is_eog(token) if tok else False
+        if is_eog and not task.ignore_eos:
+            self._finish(slot, "stop")
+            return
+        slot.text += piece
+
+        # stop strings (reference process_token stop handling)
+        for ss in task.stop_strings:
+            idx = slot.text.find(ss, max(0, len(slot.text) - len(ss) - len(piece)))
+            if idx >= 0:
+                slot.text = slot.text[:idx]
+                self._delta(slot)
+                self._finish(slot, "stop")
+                return
+
+        self._delta(slot)
+        if len(slot.generated) >= task.max_tokens:
+            self._finish(slot, "length")
+            return
+        if int(self.ctx.seq_len[slot.idx]) + 1 >= self.ctx.n_ctx:
+            # no context shift (runtime/context.py context_shift is not
+            # ported): the slot ends where the context does
+            self._finish(slot, "length")
+
+    def _delta(self, slot: Slot):
+        task = slot.task
+        if task.stream_cb is None:
+            return
+        # hold back a possible partial stop-string suffix
+        hold = max((len(s) - 1 for s in task.stop_strings), default=0)
+        emit_to = len(slot.text) - hold
+        if emit_to > slot.sent_text_len:
+            delta = slot.text[slot.sent_text_len : emit_to]
+            slot.sent_text_len = emit_to
+            task.stream_cb(
+                {"task_id": task.task_id, "delta": delta, "token": slot.generated[-1]}
+            )

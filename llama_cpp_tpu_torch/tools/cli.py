@@ -5,10 +5,13 @@ reference tools/cli; counterpart of the JAX package's tools/cli.py).
 
 Text in, text out: the prompt is tokenized with the model's vocab, prefilled,
 and tokens are sampled by the host sampler chain and printed piece by piece;
-the perf line goes to stderr. Runs on the card unless --device cpu is given.
-The flags whose modules are not part of the port yet (grammar, JSON schema,
-conversation, speculative decoding, prompt cache, multimodal, LoRA, control
-vectors, dense weights) are parsed and refused by name with exit code 2.
+the perf line goes to stderr. --grammar, --grammar-file and --json-schema
+constrain the sampling with a GBNF grammar (sampling/grammar.py), whose mask
+over the vocabulary is applied to each step's logits on the host. Runs on the
+card unless --device cpu is given. The flags whose modules are not part of
+the port yet (conversation, speculative decoding, prompt cache, multimodal,
+LoRA, control vectors, dense weights) are parsed and refused by name with
+exit code 2.
 """
 
 from __future__ import annotations
@@ -16,15 +19,32 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
+
 # flag -> its argparse dest; a value other than the default means it was given
 NOT_PORTED = {
-    "--grammar": "grammar", "--grammar-file": "grammar_file", "--json-schema": "json_schema",
     "-cnv/--conversation": "conversation", "-md/--model-draft": "model_draft",
     "--spec-ngram": "spec_ngram", "--prompt-cache": "prompt_cache", "--mmproj": "mmproj",
     "--image": "image", "--lora": "lora", "--lora-scale": "lora_scale",
     "--control-vector": "control_vector", "--control-vector-scale": "control_vector_scale",
     "--no-quant": "no_quant", "--draft-max": "draft_max",
 }
+
+
+class Constrained:
+    """A sampler chain behind a GBNF grammar: each step's logits masked to
+    the tokens the grammar allows, then sampled, and the token fed to the
+    grammar (the JAX package's CLI loop, tools/cli.py, as a sampler that
+    Context.generate takes)."""
+
+    def __init__(self, chain, grammar):
+        self.chain = chain
+        self.grammar = grammar
+
+    def sample(self, logits) -> int:
+        token = self.chain.sample(self.grammar.filter_logits(np.array(logits, np.float32)))
+        self.grammar.accept(token)
+        return token
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,12 +62,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=-1)
     ap.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
     ap.add_argument("--verbose-prompt", action="store_true")
+    ap.add_argument("--grammar", default=None, help="GBNF grammar text")
+    ap.add_argument("--grammar-file", default=None, help="GBNF grammar from a file")
+    ap.add_argument("--json-schema", default=None, help="JSON schema, as a grammar")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), or cpu for the plain PyTorch versions")
     not_ported = ap.add_argument_group("not ported yet (refused with exit code 2)")
-    not_ported.add_argument("--grammar", default=None)
-    not_ported.add_argument("--grammar-file", default=None)
-    not_ported.add_argument("--json-schema", default=None)
     not_ported.add_argument("-cnv", "--conversation", action="store_true")
     not_ported.add_argument("-md", "--model-draft", default=None)
     not_ported.add_argument("--draft-max", type=int, default=None)
@@ -91,10 +111,20 @@ def main(argv=None) -> int:
     print(f"arch={model.cfg.arch} layers={model.cfg.n_layers} vocab={model.cfg.vocab_size} "
           f"device={model.device}", file=sys.stderr)
 
+    grammar = args.grammar
+    if args.grammar_file:
+        with open(args.grammar_file, encoding="utf-8") as fh:
+            grammar = fh.read()
+    if args.json_schema:
+        from ..sampling.json_schema import schema_to_gbnf
+
+        grammar = schema_to_gbnf(args.json_schema)
+
     params = SamplingParams(
         temp=args.temp, top_k=args.top_k, top_p=args.top_p, min_p=args.min_p,
         penalty_repeat=args.repeat_penalty,
         seed=args.seed if args.seed >= 0 else 0xFFFFFFFF,
+        grammar=grammar or "",
     )
     # model-embedded sampling defaults (general.sampling.*) fill any knob
     # the user left at its CLI default
@@ -117,6 +147,10 @@ def main(argv=None) -> int:
         for t in ids:
             print(f"{t:7d} -> {tok.piece(t)!r}", file=sys.stderr)
     sampler = SamplerChain.from_params(params, tok.vocab)
+    if grammar:
+        from ..sampling.grammar import GrammarSampler
+
+        sampler = Constrained(sampler, GrammarSampler(grammar, tok))
 
     def show(token: int) -> None:
         if not tok.is_eog(token):

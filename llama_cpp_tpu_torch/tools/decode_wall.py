@@ -1,5 +1,5 @@
-"""Wall time of greedy decode steps on the card, graphed against eager, on
-a Llama-3-8B-shaped Q4_K_M model with random weights from a seed.
+"""Wall time of decode steps on the card, graphed against eager, on a
+Llama-3-8B-shaped Q4_K_M model with random weights from a seed.
 
     python -m llama_cpp_tpu_torch.tools.decode_wall [--layers 4] [--depth 512]
         [--steps 32] [--rounds 3] [--batches 1,8] [--model PATH]
@@ -15,7 +15,9 @@ the host clock, and one more call under torch.profiler for the device time
 a step, its kernel launches and the device's busy share. Prints one JSON
 line: the package it imported, the card, and per (loop, B) the wall ms a
 step of each round, the device ms and launches a step, and the busy share
-(device ms over the rounds' best wall ms).
+(device ms over the rounds' best wall ms). Then the same for the server's
+one-step calls, decode_step_multi (f32 logits to the host) and
+decode_step_greedy, --steps calls a round (rows with "call").
 
 It imports the package by its name only, so a copy of this file in another
 checkout's tools/ times that checkout, on the same card and in the same
@@ -73,6 +75,40 @@ def measure(torch, ctx, batches, steps: int, rounds: int) -> list[dict]:
     return rows
 
 
+def measure_steps(torch, ctx, batches, steps: int, rounds: int) -> list[dict]:
+    """The server's one-step calls: per call (decode_step_multi, whose
+    argmax feeds the next call, and decode_step_greedy) and batch size, wall
+    ms a call of `rounds` runs of `steps` calls over sequences 0..B-1
+    (already prefilled), after an untimed run (the capture), then a run
+    under the profiler. Every call ends in a copy to the host."""
+    import numpy as np
+
+    rows = []
+    for call in ("decode_step_multi", "decode_step_greedy"):
+        fn = getattr(ctx, call)
+        for B in batches:
+            seqs = np.arange(B)
+            toks = [np.full(B, 1, np.int32)]
+
+            def run():
+                for _ in range(steps):
+                    out = fn(toks[0], seqs)
+                    toks[0] = (np.argmax(out, axis=-1) if out.ndim == 2 else out).astype(
+                        np.int32)
+
+            run()
+            walls = []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                walls.append((time.perf_counter() - t0) * 1e3 / steps)
+            prof = profile_steps(torch, run, steps)
+            rows.append({"graphs": ctx.graphs, "call": call, "B": B, "wall_ms_per_step": walls,
+                         "busy_share": prof["device_ms_per_step"] / min(walls), **prof})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4)
@@ -107,6 +143,7 @@ def main(argv=None) -> int:
         for s in range(max(batches)):
             ctx.prefill([int(t) for t in rng.integers(3, 128256, args.depth)], seq=s)
         rows += measure(torch, ctx, batches, args.steps, args.rounds)
+        rows += measure_steps(torch, ctx, batches, args.steps, args.rounds)
         del ctx
         torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,8 +1,8 @@
 """The port's command-line tools against the JAX package's on the same GGUF:
 tools/cli.py prints the same greedy text, tools/tokenize.py the same lines;
 the port's sampled text repeats under a seed and equals Context.generate with
-the same sampler; every flag whose module is not ported exits with 2 and
-names itself."""
+the same sampler; a grammar-constrained run prints the JAX CLI's text;
+every flag whose module is not ported exits with 2 and names itself."""
 
 import numpy as np
 import pytest
@@ -111,11 +111,66 @@ def test_eog_token_ends_generation(q4k_gguf, capsys):
     assert Context(model, n_ctx=256, device="cpu").generate(ids, 6) == free[:3]
 
 
-NOT_PORTED = [["--grammar", "root ::= \"a\""], ["--grammar-file", "g.gbnf"],
-              ["--json-schema", "{}"], ["-cnv"], ["-md", "draft.gguf"], ["--draft-max", "4"],
+NOT_PORTED = [["-cnv"], ["-md", "draft.gguf"], ["--draft-max", "4"],
               ["--spec-ngram"], ["--prompt-cache", "cache.bin"], ["--mmproj", "mm.gguf"],
               ["--image", "a.png"], ["--lora", "l.gguf"], ["--lora-scale", "0.5"],
               ["--control-vector", "cv.gguf"], ["--control-vector-scale", "2"], ["--no-quant"]]
+
+
+GRAMMAR = 'root ::= (" w" [0-9]+)+'
+GRAMMAR_FLAGS = {"--grammar": GRAMMAR, "--grammar-file": GRAMMAR,
+                 "--json-schema": '{"type": "array", "items": {"type": "integer"}}'}
+
+
+def jax_constrained_text(path, grammar_text, n):
+    """The JAX CLI's grammar loop (llama_cpp_tpu/tools/cli.py:208-235),
+    greedy, over the JAX package's Context, sampler chain and grammar. Run
+    here rather than through jax_cli.main, whose loop masks the read-only
+    array that np.asarray makes of a JAX array, and raises."""
+    from llama_cpp_tpu.models.loader import load_model as jax_load_model
+    from llama_cpp_tpu.runtime.context import Context as JaxContext
+    from llama_cpp_tpu.sampling.grammar import GrammarSampler as JaxGrammarSampler
+    from llama_cpp_tpu.sampling.samplers import SamplerChain as JaxChain
+    from llama_cpp_tpu.sampling.samplers import SamplingParams as JaxParams
+
+    model = jax_load_model(path)
+    tok = model.tokenizer
+    ctx = JaxContext(model, n_ctx=256)
+    chain = JaxChain.from_params(JaxParams(temp=0.0, grammar=grammar_text), tok.vocab)
+    gs = JaxGrammarSampler(grammar_text, tok)
+    logits = ctx.prefill(tok.encode(PROMPT, add_special=True, parse_special=True))
+    text = ""
+    for _ in range(n):
+        token = chain.sample(gs.filter_logits(np.array(logits, dtype=np.float32)))
+        gs.accept(token)
+        if tok.is_eog(token):
+            break
+        text += tok.piece(token)
+        if ctx.seq_len[0] >= ctx.n_ctx - 1:
+            break
+        logits = ctx.decode_one(token)
+    return text + "\n"
+
+
+@pytest.mark.parametrize("flag", list(GRAMMAR_FLAGS))
+def test_grammar_constrained_text_equals_the_jax_cli(q4k_gguf, capsys, tmp_path, flag):
+    """A GBNF grammar given as text, as a file or as a JSON schema: the
+    port's CLI prints the JAX CLI loop's constrained greedy text, which the
+    grammar accepts and the free run does not give."""
+    from llama_cpp_tpu_torch.sampling.grammar import GBNFParser
+    from llama_cpp_tpu_torch.sampling.json_schema import schema_to_gbnf
+
+    value = GRAMMAR_FLAGS[flag]
+    text = GRAMMAR if flag != "--json-schema" else schema_to_gbnf(value)
+    if flag == "--grammar-file":
+        (tmp_path / "g.gbnf").write_text(value, encoding="utf-8")
+        value = str(tmp_path / "g.gbnf")
+    argv = ["-m", q4k_gguf, "-p", PROMPT, "-n", "6", "-c", "256", "--temp", "0",
+            "--device", "cpu"]
+    rc, out, _ = run(cli.main, argv + [flag, value], capsys)
+    _, free, _ = run(cli.main, argv, capsys)
+    assert rc == 0 and out == jax_constrained_text(q4k_gguf, text, 6) and len(out) > 1
+    assert GBNFParser().parse(text).would_accept(out[:-1]) and out != free
 
 
 @pytest.mark.parametrize("flag", NOT_PORTED, ids=[f[0] for f in NOT_PORTED])

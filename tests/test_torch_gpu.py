@@ -1077,6 +1077,102 @@ def test_sampler_draws_on_the_card_follow_the_softmax(cuda_device):
     assert stats.chisquare(counts, probs / probs.sum() * len(draws)).pvalue > 1e-3
 
 
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_graphed_server_steps_equal_eager(graph_models, B):
+    """The server's one-step calls on the card: decode_step_multi (the
+    bucket's LOGITS loop, [B, vocab] f32 to the host) and decode_step_greedy
+    (one step of the greedy loop), replayed, against the same calls under
+    graphs=False; B of the bucket's rows live, the rest padding."""
+    runs = []
+    for graphs in (True, False):
+        ctx, firsts = prefilled(graph_models["llama"], 8, graphs)
+        seqs = np.arange(B)
+        logits = [ctx.decode_step_multi(firsts[:B], seqs) for _ in range(2)]
+        ids = ctx.decode_step_greedy(np.argmax(logits[-1], axis=-1), seqs)
+        runs.append((ctx, logits, ids))
+    (g, g_logits, g_ids), (e, e_logits, e_ids) = runs
+    for a, b in zip(g_logits, e_logits):
+        assert a.shape == (B, 512) and a.dtype == np.float32
+        assert nmse(torch.from_numpy(a), torch.from_numpy(b)) < 1e-6
+        np.testing.assert_array_equal(np.argmax(a, -1), np.argmax(b, -1))
+    np.testing.assert_array_equal(g_ids, e_ids)
+    bucket = g._batch_bucket(B)
+    multi = g.decode_loop(bucket, decode_graph.LOGITS)
+    assert multi.graph is not None and multi.replays == 2 and multi.graph_bytes > 0
+    assert g.decode_loop(bucket).replays == 1
+    assert e.decode_loop(bucket, decode_graph.LOGITS).graph is None
+    assert same_memory(g, e)
+
+
+def test_capture_holds_while_another_thread_makes_http_requests(graph_models):
+    """The port's server on the card: a thread keeps asking /health, /props,
+    /slots, /metrics and /tokenize while greedy requests make the scheduler
+    capture its B = 1, 2 and 4 graphs; every capture holds, every decode
+    step after them is a replay, and each reply equals Context.generate."""
+    import json
+    import threading
+    import urllib.request
+
+    from llama_cpp_tpu_torch.server.app import run_server
+
+    model = graph_models["llama"]
+    box, ready = {}, threading.Event()
+    server_thread = threading.Thread(target=run_server, args=(model,), daemon=True, kwargs=dict(
+        host="127.0.0.1", port=0, n_seqs=4, n_ctx=1024, n_ubatch=128, quantized_kv=True,
+        ready=lambda s: (box.setdefault("s", s), ready.set())))
+    server_thread.start()
+    assert ready.wait(60)
+    server = box["s"]
+    url = f"http://127.0.0.1:{server.port}"
+
+    def call(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        with urllib.request.urlopen(urllib.request.Request(url + path, data=data),
+                                    timeout=120) as r:
+            return json.loads(r.read()) if path != "/metrics" else r.read().decode()
+
+    stop, polls = threading.Event(), []
+
+    def poll():
+        while not stop.is_set():
+            for path in ("/health", "/props", "/slots", "/metrics"):
+                polls.append(call(path))
+            polls.append(call("/tokenize", {"content": "the cat"}))
+
+    rng = np.random.default_rng(9)
+    prompts = [[int(t) for t in rng.integers(3, 512, 30 + 11 * i)] for i in range(4)]
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        for n in (1, 2, 4, 4):
+            replies = [None] * n
+
+            def ask(i):
+                replies[i] = call("/completion", {
+                    "prompt": prompts[i], "n_predict": 12, "temperature": 0,
+                    "ignore_eos": True, "return_tokens": True, "cache_prompt": False})
+
+            threads = [threading.Thread(target=ask, args=(i,)) for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            ref = Context(model, n_ctx=1024, n_ubatch=128, quantized_kv=True, graphs=False)
+            for i in range(n):
+                want = ref.generate(prompts[i], 12)
+                ref.reset()
+                assert replies[i]["tokens"] == want
+    finally:
+        stop.set()
+        poller.join(timeout=60)
+        server.shutdown()
+        server_thread.join(timeout=60)
+    assert len(polls) > 10 and not server_thread.is_alive()
+    loops = server.app.ctx._loops
+    assert {b for b, _ in loops} == {1, 2, 4}
+    assert all(loop.graph is not None and loop.replays > 0 for loop in loops.values())
+
+
 def test_capture_raises_instead_of_falling_back(graph_models, monkeypatch):
     """A step that reads a tensor to the host cannot be captured: on a CUDA
     context the loop raises with the reason. Last in this file: a refused

@@ -247,8 +247,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "            'ops.kernels.qmm_bench', 'utils.timing', 'utils.logging', 'tools.bench_qmm',\n"
         "            'tools.cli', 'tools.args', 'tools.tokenize', 'tools.conformance', 'tokenizer.bpe',\n"
         "            'tokenizer.spm', 'tokenizer.vocab', 'sampling.samplers', 'runtime.decode_graph',\n"
-        "            'tools.bench_tool', 'tools.perplexity', 'tools.results', 'tools.decode_wall'):\n"
+        "            'tools.bench_tool', 'tools.perplexity', 'tools.results', 'tools.decode_wall',\n"
+        "            'sampling.grammar', 'sampling.json_schema', 'server.app', 'server.scheduler',\n"
+        "            'server.chat', 'server.chat_parser', 'server.peg', 'server.tool_calls',\n"
+        "            'server.webui'):\n"
         "    assert 'llama_cpp_tpu_torch.' + new in sys.modules, new\n"
+        "assert 'aiohttp' not in sys.modules, 'a module of the port imported aiohttp'\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'llama_cpp_tpu' or m.startswith('llama_cpp_tpu.')]\n"
         "assert not bad, bad\n"
