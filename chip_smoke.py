@@ -27,7 +27,12 @@ Phases, each of which fails the run:
      indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes
      (R = 8, 64 and 64 rows drawn from 16 experts),
      the slot-table attention kernels at the same depths as the paged ones,
-     and with 64-wide heads; the microbenchmark's
+     and with 64-wide heads, and in ring mode at a Gemma-3-4B window layer
+     (1792 slots, 4 KV heads of 256, window 1024, positions past the wrap:
+     decode B=8 and a 512-row ubatch, each held call one ring launch; the
+     ring decode beside the slot-table decode at that shape and a live depth
+     of 1024);
+     the microbenchmark's
      four probe kernels (stream probe, the two nibble unpacks, the tile sweep
      flat and tile by tile) at the gate/up and down shapes of an 8B llama,
      the tile sweep once, untimed, at every shape and tile the
@@ -105,7 +110,20 @@ Phases, each of which fails the run:
      ids equal, wall and device ms a call, busy share and kernel set, by
      tools/decode_wall.measure_steps) and generate_ondevice sampled (temp
      0.8, top_k 40, seed 1) twice: equal ids, each inside the top 40 of the
-     plain path's teacher-forced logits, and top_k 1 equal to greedy.
+     plain path's teacher-forced logits, and top_k 1 equal to greedy;
+     - the Qwen and Gemma families on the shared decoder, each at full width
+       with random weights from a seed, Context(n_ctx=4096, n_seqs=8,
+       n_ubatch=512, quantized_kv=True): a 2048-token prefill, 32 greedy
+       tokens at B=1, decode_steps_greedy at B=8, the B=1 profile, the plain
+       path on the prefill logits (NMSE 5e-3), on 8 teacher-forced decode
+       steps' logits and on the greedy ids, then the graph phase at B=8:
+       Qwen3-8B (depth 36 -> 4; K1-K5; then one round of four concurrent
+       16-token greedy /completion requests through run_server, graphed,
+       ids against Context.generate), Qwen3-30B-A3B (48 -> 2, all 128
+       experts; K1-K5 and K7 at R = 8 and 64) and Gemma-3-4B (34 -> 6, one
+       period of its pattern: five window layers on ISWA rings of 1792
+       slots through K6 in ring mode, one full layer on the pool through
+       K5; the tied 262208-row head on the library route, timed);
      Launch counts include every graph replay (a graph adds its step's
      launches at each replay).
 The last two lines are the kernels JSON object and
@@ -133,6 +151,9 @@ GRAMMAR_TOKENS = 6
 SERVER_PROMPTS = (CLI_PROMPT, "a long story: " + CLI_PROMPT * 4, "the mat was on the cat",
                   "and that was the end")  # the second takes the prefill kernels (>= 64 rows)
 MOE_LAYERS = 2  # experts are 97% of a Mixtral layer's bytes
+QWEN3_LAYERS = 4  # Qwen3-8B: 36 layers
+QWEN3MOE_LAYERS = 2  # Qwen3-30B-A3B: 48 layers, all 128 experts each
+GEMMA3_LAYERS = 6  # Gemma-3-4B: 34 layers; one period of its pattern (five window, one full)
 # conformance rows that fail for a fault open in ROADMAP.md queue 3:
 # (kernel, config); printed as "known fault" with their NMSE
 KNOWN_FAULTS: tuple[tuple[str, str], ...] = ()
@@ -299,27 +320,35 @@ def attn_case(torch, B, G, T, depth, page=512, Hkv=8, D=128, seed=0, kv_dtype=No
 
 
 def attn_measure(torch, timer, fa, name, label, run, run_plain, q, kd, vd, cp, rp, kv_elem,
-                 quantized, failures):
+                 quantized, failures, window=0, ring=False):
     """Hold an attention kernel (run) against its plain version (run_plain)
     and time both, beside SDPA on the gathered, dequantized K/V kd, vd
     [B, Hkv, S, D] with the same mask (library yardstick, timed only).
     The held call must launch the CUDA kernel of its route (name/prefill or
-    name/decode) once and nothing else.
-    cp [B, S] are the columns' position labels, rp [B, R] the rows'.
+    name/decode) once and nothing else (and, for a ring, count one ring
+    launch of it).
+    cp [B, S] are the columns' position labels, rp [B, R] the rows'; a
+    window > 0 masks columns at or below a row's position less the window.
     Bound: q, the K/V rows (and scales) and position labels that some row of
-    the batch row can see (pos >= 0 and <= the row's largest position), out;
-    the operations of the unmasked (row, column) pairs."""
+    the batch row can see (pos >= 0, <= the row's largest position and
+    inside the window of its smallest), out; the operations of the unmasked
+    (row, column) pairs."""
     import torch.nn.functional as F
 
     B, Hkv, R, D = q.shape
     sm = 1.0 / D ** 0.5
     key = f"{name}/{fa.route(R)}"
-    before = dict(fa.launches)
+    before, ring_before = dict(fa.launches), dict(fa.ring_launches)
     got = run(sm)
     torch.cuda.synchronize()
     if fa.launches != {**before, key: before[key] + 1}:
         failures.append(f"{label}: expected one launch of {key}, counts went from {before} "
                         f"to {fa.launches}")
+    ring_want = {**ring_before, f"{key} ring": ring_before[f"{key} ring"] + 1} if ring \
+        else ring_before
+    if fa.ring_launches != ring_want:
+        failures.append(f"{label}: ring launches went from {ring_before} to "
+                        f"{fa.ring_launches}, expected {ring_want}")
     ref = run_plain(sm)
     valid = rp >= 0
     g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
@@ -329,9 +358,15 @@ def attn_measure(torch, timer, fa, name, label, run, run_plain, q, kd, vd, cp, r
         failures.append(f"{label}: NMSE {err}")
     ms = timer(lambda: run(sm))
     plain_ms = timer(lambda: run_plain(sm), reps=3)
-    mask = ((cp[:, None, :] >= 0) & (cp[:, None, :] <= rp[:, :, None]))[:, None]
+    mask = (cp[:, None, :] >= 0) & (cp[:, None, :] <= rp[:, :, None])
+    if window:
+        mask = mask & (cp[:, None, :] > rp[:, :, None] - window)
+    mask = mask[:, None]
     lib_ms = timer(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask, scale=sm))
-    kv_rows = int(((cp >= 0) & (cp <= rp.max(dim=1).values[:, None])).sum())
+    seen = (cp >= 0) & (cp <= rp.max(dim=1).values[:, None])
+    if window:
+        seen = seen & (cp > rp.min(dim=1).values[:, None] - window)
+    kv_rows = int(seen.sum())
     row_bytes = 2 * D * kv_elem + (8 if quantized else 0)
     nbytes = q.numel() * 2 + kv_rows * (Hkv * row_bytes + 4) + q.numel() * 4
     flops = 4.0 * D * Hkv * float(mask.sum())
@@ -391,8 +426,31 @@ def slots_case(torch, B, G, T, depth, n_seqs=8, S=5120, Hkv=8, D=128, seed=0, kv
                 seq_idx=seq_idx, k_scale=ks, v_scale=vs)
 
 
+def ring_case(torch, B, G, T, n_pos, S=1792, window=1024, Hkv=4, D=256, seed=0):
+    """Random int8 window ring (row scales) of B sequences of S slots, the
+    last the trash slot, at a Gemma-3-4B window layer's shape by default:
+    sequence b holds positions n_pos - (S - 1) .. n_pos - 1 at slot
+    position % (S - 1) (n_pos past S - 1: the ring has wrapped), its T new
+    rows the last T of them; each row sees the `window` positions up to its
+    own."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cap = S - 1
+    k = torch.randint(-127, 128, (B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand((B, Hkv, S), generator=gen, device="cuda") * 0.02 + 0.005
+    vs = torch.rand((B, Hkv, S), generator=gen, device="cuda") * 0.02 + 0.005
+    pos = torch.full((B, S), -1, dtype=torch.int32, device="cuda")
+    held = torch.arange(max(0, n_pos - cap), n_pos, dtype=torch.int32, device="cuda")
+    pos[:, held.long() % cap] = held
+    q = (torch.randn((B, Hkv, G * T, D), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    rp = (n_pos - T + torch.arange(T, device="cuda", dtype=torch.int32)).repeat(G)
+    return dict(q=q, k=k, v=v, row_pos=rp[None, :].expand(B, G * T).contiguous(), col_pos=pos,
+                seq_idx=(B - 1 - torch.arange(B, device="cuda")).to(torch.int32), k_scale=ks,
+                v_scale=vs, window=window, ring=True)
+
+
 def slots_phase(torch, timer, fa, label, case, failures):
-    """The slot-table kernel at one case of slots_case."""
+    """The slot-table kernel at one case of slots_case or ring_case."""
     sel = case["seq_idx"].long()
     quantized = case["k_scale"] is not None
     kd, vd = case["k"][sel].float(), case["v"][sel].float()
@@ -404,7 +462,8 @@ def slots_phase(torch, timer, fa, label, case, failures):
         lambda sm: fa.flash_attention(**case, sm_scale=sm),
         lambda sm: fa.flash_attention_plain(**case, sm_scale=sm),
         case["q"], kd.to(torch.bfloat16), vd.to(torch.bfloat16), case["col_pos"][sel],
-        case["row_pos"], case["k"].element_size(), quantized, failures)
+        case["row_pos"], case["k"].element_size(), quantized, failures,
+        window=case.get("window", 0), ring=case.get("ring", False))
 
 
 def expert_stack(torch, tq, GGMLType, E, K, O, q4: bool, seed: int):
@@ -847,10 +906,12 @@ def main() -> int:
                                                      qmm_expert)
         from llama_cpp_tpu_torch.ops.qtensor import load_weight, pad_out_features
         from llama_cpp_tpu_torch.runtime.context import Context
+        from llama_cpp_tpu_torch.runtime.kv_cache import ISWACache
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
-        from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
-                                                 synth_quant_bytes)
+        from llama_cpp_tpu_torch.testing import (make_bench_gemma3_gguf, make_bench_llama_gguf,
+                                                 make_bench_moe_gguf, make_bench_qwen3_gguf,
+                                                 make_bench_qwen3moe_gguf, synth_quant_bytes)
         from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
         from llama_cpp_tpu_torch.tools import bench_tool
         from llama_cpp_tpu_torch.tools import cli as cli_tool
@@ -1020,6 +1081,30 @@ def main() -> int:
                         slots_case(torch, B=1, G=4, T=512, depth=1536, D=D, kv_dtype=dt),
                         failures)
         torch.cuda.empty_cache()
+    log("K6 in ring mode at a Gemma-3-4B window layer (int8 ring of 1792 slots, 4 KV heads of "
+        "256, G=2, window 1024, positions past the wrap):")
+    for kind, label, case in (
+            ("decode", "K6 ring decode B=8 pos 2304",
+             ring_case(torch, B=8, G=2, T=1, n_pos=2304)),
+            ("prefill", "K6 ring prefill ubatch 4 of 2048",
+             ring_case(torch, B=1, G=2, T=512, n_pos=2048))):
+        r = slots_phase(torch, timer, flash_attn, label, case, failures)
+        entry = res[f"flash_attention/{kind}"]
+        entry.setdefault("rows", {})[f"gemma3 ring {label[len('K6 ring '):]}"] = {
+            k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "nmse")}
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+        entry["nmse"] = max(entry["nmse"], r["nmse"])
+        if kind == "decode":
+            ring_decode_ms = r["ms"]
+        del case
+    # the yardstick of the ring: the same kernel's slot-table decode at the
+    # same shape over a live depth of 1024 (a ring visits every tile)
+    case = slots_case(torch, B=8, G=2, T=1, depth=1024, S=1792, Hkv=4, D=256)
+    r = slots_phase(torch, timer, flash_attn, "K6 slot-table decode B=8 d=1024, Gemma-3-4B shape",
+                    case, failures)
+    log(f"  ring decode against the slot-table decode at depth 1024 ({card}): "
+        f"{ring_decode_ms:.4f} / {r['ms']:.4f} ms = {ring_decode_ms / r['ms']:.3f}x")
+    del case
     torch.cuda.empty_cache()
     log("K7 indexed-expert product (Mixtral-8x7B: 8 experts; Qwen3-30B-A3B: 128 experts):")
     mix = []
@@ -1095,13 +1180,15 @@ def main() -> int:
         return 1
 
     # -- phase 4: the main paths ---------------------------------------------
-    counters = (qmm.launches, flash_attn.launches, qmm_expert.launches, qmm_bench.launches)
+    counters = (qmm.launches, flash_attn.launches, flash_attn.ring_launches, qmm_expert.launches,
+                qmm_bench.launches)
     # the main paths' qmm kernels: the decode kernel below 64 rows, the
     # wgmma GEMM at the ubatches; a path that launches any other kernel fails
     decode_keys = ("qmm4_planes/decode", "qmm_planes/decode")
     prefill_keys = ("qmm4_planes_prefill/wgmma", "qmm_planes_prefill/wgmma")
     paged_keys = ("flash_attention_paged/prefill", "flash_attention_paged/decode")
     slots_keys = ("flash_attention/prefill", "flash_attention/decode")
+    ring_keys = tuple(flash_attn.ring_launches)
     expert_key = "qmm_planes_expert"
 
     def reset_counts():
@@ -1123,11 +1210,25 @@ def main() -> int:
                 failures.append(f"{path}: kernel {name} was launched {c} times")
         return counts
 
-    def against_plain(path, model, logits, gen_ids, prompt, **ctx_kw):
+    def against_plain(path, model, logits, gen_ids, prompt, decode_logits=0, **ctx_kw):
         """The plain path (kernels=False) on the same model, prompt and
-        memory, as the reference of the kernel path."""
+        memory, as the reference of the kernel path; with decode_logits = n
+        also the logits of n teacher-forced decode steps (the greedy ids fed
+        to a kernel context and to the plain one), each within the limit."""
         ref_ctx = Context(model, kernels=False, graphs=False, **ctx_kw)
         ref_logits = ref_ctx.prefill(prompt, seq=0)
+        if decode_logits:
+            kern = Context(model, graphs=False, **ctx_kw)
+            kern.prefill(prompt, seq=0)
+            errs = []
+            for t in gen_ids[:decode_logits]:
+                got, ref = kern.decode_one(t, seq=0), ref_ctx.decode_one(t, seq=0)
+                errs.append(float(np.mean((got - ref) ** 2) / (np.mean(ref ** 2) + 1e-30)))
+            del kern
+            log(f"{path}: kernel vs plain path: logits of {len(errs)} teacher-forced decode "
+                f"steps, NMSE largest {max(errs):.3e} (limit {NMSE_LIMIT})")
+            if not max(errs) < NMSE_LIMIT:
+                failures.append(f"{path}: decode logits NMSE {errs}")
         ref_ids = ref_ctx.generate(prompt, max_new_tokens=len(gen_ids), seq=1)
         err = float(np.mean((logits - ref_logits) ** 2) / (np.mean(ref_logits ** 2) + 1e-30))
         agree = sum(int(a == b) for a, b in zip(gen_ids, ref_ids))
@@ -1147,9 +1248,10 @@ def main() -> int:
 
     def drive(ctx, prompt, prompts512, vocab, batches, label):
         """One untimed ubatch (the caching allocator's first allocations and
-        first launches belong to start-up), a timed prefill, 32 greedy tokens
-        at B=1 with their own prefill, then decode_steps_greedy over
-        512-token prefills at each batch size."""
+        first launches belong to start-up), a timed prefill, the B=1 graph
+        captured untimed, 32 greedy tokens at B=1 with their own prefill,
+        then decode_steps_greedy over 512-token prefills at each batch
+        size."""
         rates = {}
         ctx.prefill(prompt[:512], seq=2)
         ctx.seq_rm(2)
@@ -1157,6 +1259,7 @@ def main() -> int:
         t0 = time.perf_counter()
         logits = ctx.prefill(prompt, seq=0)
         rates[f"prefill_{len(prompt)}_tok_per_s"] = len(prompt) / (time.perf_counter() - t0)
+        ctx.decode_loop(1).ready()  # the B=1 graph's capture is start-up, not decode
         n0, t_dec0 = ctx.perf.n_decode, ctx.perf.t_decode_ms
         gen_ids = ctx.generate(prompt, max_new_tokens=32, seq=1)
         rates[f"decode_b1_d{len(prompt)}_tok_per_s"] = (ctx.perf.n_decode - n0) / (
@@ -1810,6 +1913,147 @@ def main() -> int:
         + ", ".join(f"{r['held']} lines of {key}" for key, r in tiles_res.items())
         + ", each held in phase 3")
     torch.cuda.empty_cache()
+
+    # the Qwen3 and Gemma-3 families at full width on the shared decoder
+    import importlib.util
+    log("tokenizer and chat extras on this machine: "
+        + ", ".join(f"{m} importable: {importlib.util.find_spec(m) is not None}"
+                    for m in ("regex", "jinja2"))
+        + " (the Qwen2 pre-tokenizer needs regex; chat templates need jinja2)")
+
+    def server_round(model, label):
+        """llama-server (run_server, graphed, -np 4 --kv-quant) over the
+        loaded model: one round of four concurrent greedy /completion
+        requests of 16 tokens, ids against Context.generate's."""
+        import threading
+
+        from llama_cpp_tpu_torch.server.app import run_server
+
+        tok = model.tokenizer
+        ids = [tok.encode(p, add_special=True, parse_special=True) for p in SERVER_PROMPTS]
+        ref_ctx = Context(model, n_ctx=4096, n_ubatch=512, quantized_kv=True)
+        want = []
+        for p in ids:
+            want.append(ref_ctx.generate(p, 16))
+            ref_ctx.reset()
+        del ref_ctx
+        reset_counts()
+        box, ready = {}, threading.Event()
+        th = threading.Thread(target=run_server, args=(model,), daemon=True, kwargs=dict(
+            host="127.0.0.1", port=0, n_seqs=4, n_ctx=4096, n_ubatch=512, quantized_kv=True,
+            graphs=True, ready=lambda srv: (box.setdefault("srv", srv), ready.set())))
+        th.start()
+        if not ready.wait(300):
+            failures.append(f"{label}: the server did not start")
+            return
+        srv = box["srv"]
+        url = f"http://127.0.0.1:{srv.port}"
+        out = [None] * 4
+
+        def ask(i):
+            out[i] = http(url, "/completion", {
+                "prompt": SERVER_PROMPTS[i], "n_predict": 16, "temperature": 0,
+                "ignore_eos": True, "return_tokens": True, "cache_prompt": False})
+
+        try:
+            threads = [threading.Thread(target=ask, args=(i,)) for i in range(4)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            agree = [sum(int(a == b) for a, b in zip(r["tokens"], w)) if r else 0
+                     for r, w in zip(out, want)]
+            log(f"{label} ({card}): four concurrent 16-token requests (prompts of "
+                f"{[len(p) for p in ids]} tokens), graphed: ids equal to Context.generate's "
+                f"{agree} of 16 each, {wall:.3f} s with the graphs' capture "
+                f"({captured(srv.app.ctx._loops)})")
+            if agree != [16] * 4:
+                failures.append(f"{label}: served ids agree {agree} of 16")
+        finally:
+            srv.shutdown()
+            th.join(timeout=60)
+        if th.is_alive():
+            failures.append(f"{label}: the server thread did not stop")
+        all_counts[label] = read_counts(label, decode_keys + prefill_keys + paged_keys)
+
+    def tied_head_phase(model, label):
+        """The tied head (the row-major Q6_K token_embd, which the qmm
+        dispatch refuses, as the JAX package's does): its library route,
+        dequantize LIBRARY_SLAB rows at a time then torch.mm, timed at the
+        decode rows beside its byte bound; no qmm kernel may launch."""
+        w = model.params["token_embd"]
+        before = {k: v for c in counters for k, v in c.items()}
+        for n in (1, 8):
+            x = torch.randn((n, w.in_features), device="cuda").to(torch.bfloat16)
+            ms = timer(lambda: qtensor.matmul(x, w, dtype=torch.float32), reps=5)
+            nbytes = plane_bytes(w) + x.numel() * 2 + n * w.out_features * 4
+            log(f"{label} tied head {w.out_features} x {w.in_features} (Q6_K, row-major), "
+                f"library route at N={n} ({card}): {ms:.4f} ms, byte bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        after = {k: v for c in counters for k, v in c.items()}
+        if after != before:
+            failures.append(f"{label}: the tied head launched a kernel: {before} -> {after}")
+
+    def arch_path(label, make, n_layers, vocab, must_run, note, profile_qe=None,
+                  server=False):
+        """One family's model at full width, depth cut to n_layers: load,
+        drive (prefill 2048, 32 greedy tokens at B=1, decode_steps_greedy
+        at B=8), its kernel set, the B=1 profile, the plain path on the
+        prefill logits, 8 teacher-forced decode steps' logits and the greedy
+        ids, then the graph phase at B=8; the tied head's library route
+        where the model has no output.weight; with server=True one served
+        round."""
+        path = os.path.join(smoke_dir, f"{label}.gguf")
+        t0 = time.perf_counter()
+        make(path, n_layers=n_layers, seed=0)
+        t1 = time.perf_counter()
+        model = load_model(path)
+        torch.cuda.synchronize()
+        os.remove(path)
+        cfg = model.cfg
+        log(f"{label}: {note}; random weights (seed 0), depth cut to {n_layers} layers (fixture "
+            f"{t1 - t0:.1f} s, load_model {time.perf_counter() - t1:.1f} s, device memory "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB); window layers "
+            f"{[i for i in range(cfg.n_layers) if cfg.is_swa_layer(i)]}")
+        kw = dict(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True)
+        ctx = Context(model, **kw)
+        if isinstance(ctx.kv, ISWACache):
+            log(f"{label}: memory {type(ctx.kv).__name__}: full layers on the pool "
+                f"({ctx.alloc.n_pages} pages of {ctx.page}), window layers on rings of "
+                f"{ctx.kv.swa.n_slots} slots")
+        prompt = [int(t) for t in prng.integers(3, vocab, 2048)]
+        prompts512 = [[int(t) for t in prng.integers(3, vocab, 512)] for _ in range(8)]
+        reset_counts()
+        logits, gen_ids, rates = drive(ctx, prompt, prompts512, vocab, (8,), label)
+        all_counts[label] = read_counts(label, must_run)
+        profile_decode(torch, qmm, ctx, steps=8, qe=profile_qe)
+        del ctx
+        against_plain(label, model, logits, gen_ids, prompt, decode_logits=8,
+                      **{**kw, "n_seqs": 2})
+        log(f"{label} rates ({n_layers}-layer smoke run, not a benchmark; {card}): "
+            + json.dumps(rates))
+        graph_phase(label, model, kw, prompt, gen_ids, prompts512, (8,), must_run)
+        if "output" not in model.params:
+            tied_head_phase(model, label)
+        if server:
+            server_round(model, f"{label} server")
+        del model
+        torch.cuda.empty_cache()
+
+    full_keys = decode_keys + prefill_keys + paged_keys
+    arch_path("qwen3-8b", make_bench_qwen3_gguf, QWEN3_LAYERS, 151936, full_keys,
+              "Qwen3-8B shape (n_embd 4096, 32/8 heads of 128, n_ff 12288, vocab 151936, "
+              "q/k norms, NEOX rope 1e6), Q4_K/Q6_K mix", server=True)
+    arch_path("qwen3-30b-a3b", make_bench_qwen3moe_gguf, QWEN3MOE_LAYERS, 151936,
+              full_keys + (expert_key,),
+              "Qwen3-30B-A3B shape (n_embd 2048, 32/4 heads of 128, 128 experts of 768, top 8, "
+              "vocab 151936), Q4_K experts gate/up, Q6_K down", profile_qe=qmm_expert)
+    arch_path("gemma3-4b", make_bench_gemma3_gguf, GEMMA3_LAYERS, 262208,
+              full_keys + slots_keys + ring_keys,
+              "Gemma-3-4B shape (n_embd 2560, 8/4 heads of 256, n_ff 10240, vocab 262208, "
+              "window 1024 on five layers of six, GeGLU, post-norms, tied Q6_K head)")
     if failures:
         for f in failures:
             log(f"FAIL {f}")
@@ -1844,6 +2088,9 @@ def main() -> int:
                         "replaces": tpu_of[name.split("/")[0]],
                         "launches": all_counts[path_of.get(name, "llama paged")][name],
                         "launches_by_path": {p: c[name] for p, c in all_counts.items()},
+                        **({"ring_launches_by_path": {p: c[f"{name} ring"]
+                                                      for p, c in all_counts.items()}}
+                           if f"{name} ring" in ring_keys else {}),
                         "max_abs_err": r["max_abs_err"],
                         "nmse": r["nmse"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,8 +1,10 @@
-"""Model hyperparameters parsed from GGUF metadata, for the llama family.
+"""Model hyperparameters parsed from GGUF metadata.
 
 Analog of reference src/llama-hparams.h + load_arch_hparams (src/models/
-llama.cpp:3-33); the subset of the JAX package's ModelConfig that from_gguf
-fills for llama, plus the llama entry of its architecture registry.
+llama.cpp:3-33); the subset of the JAX package's ModelConfig that the
+decoder families of the port's registry (models/registry.py) read. from_gguf
+reads the metadata; the registry's entry for the architecture then sets
+that family's flags.
 """
 
 from __future__ import annotations
@@ -43,11 +45,18 @@ class ModelConfig:
     rope_beta_slow: float = 1.0
     rope_orig_ctx: int = 0
 
+    act: str = "silu"
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
     logit_scale: float = 1.0
     attn_scale: float = 0.0  # 0 -> 1/sqrt(head_dim_k)
+    embd_scale: float = 1.0  # gemma: sqrt(n_embd)
+
+    qk_norm: bool = False  # qwen3/gemma3 per-head rmsnorm on q/k before rope
+    post_norms: bool = False  # gemma2/3: post-attention/post-ffn norms
+
     sliding_window: int = 0
+    swa_pattern: int = 0  # every Nth layer is full-attention (gemma3: 6)
 
     n_expert: int = 0
     n_expert_used: int = 0
@@ -62,8 +71,19 @@ class ModelConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     extra: dict[str, Any] = field(default_factory=dict)
 
+    def is_swa_layer(self, il: int) -> bool:
+        """Whether layer il attends over the sliding window: every layer when
+        there is a window and no pattern, else all but every swa_pattern-th."""
+        if self.sliding_window <= 0:
+            return False
+        if self.swa_pattern <= 0:
+            return True
+        return (il + 1) % self.swa_pattern != 0
+
     @classmethod
     def from_gguf(cls, md: dict[str, Any]) -> "ModelConfig":
+        """The metadata's hyperparameters, before the registry's entry for
+        the architecture (models/registry.apply_arch) sets its flags."""
         arch = md.get(Keys.General.ARCHITECTURE, "llama")
 
         def g(tmpl: str, default=None):
@@ -117,26 +137,7 @@ class ModelConfig:
             cfg.rope_attn_factor = float(g(K.ROPE_SCALING_ATTN_FACTOR, 1.0))
             cfg.rope_beta_fast = float(g(K.ROPE_SCALING_BETA_FAST, 32.0))
             cfg.rope_beta_slow = float(g(K.ROPE_SCALING_BETA_SLOW, 1.0))
-        return apply_arch(cfg)
+        return cfg
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
-
-
-def _llama(cfg: ModelConfig) -> ModelConfig:
-    # GGUF llama q/k weights are permuted for NORM-style rope
-    # (reference src/models/llama.cpp:99-247); MoE (mixtral) gates by softmax
-    # and normalizes the top-k router weights (build_moe_ffn norm_w=true,
-    # src/models/llama.cpp:196)
-    return cfg.with_(rope_type=ROPE_TYPE_NORM, expert_weights_norm=True)
-
-
-_REGISTRY = {"llama": _llama}
-
-
-def apply_arch(cfg: ModelConfig) -> ModelConfig:
-    fn = _REGISTRY.get(cfg.arch)
-    if fn is None:
-        raise NotImplementedError(
-            f"architecture {cfg.arch!r} not implemented (have: {sorted(_REGISTRY)})")
-    return fn(cfg)

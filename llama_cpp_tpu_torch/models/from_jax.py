@@ -6,9 +6,11 @@ numpy (for instance `jax.tree_util.tree_map(np.asarray, params)`): dense
 weights are numpy arrays, quantized weights are objects with the JAX
 QuantTensor's fields (q, scales, mins, d, dmin as numpy arrays; group,
 ggml_type, transposed, packed, out_dim, sgroup); stacked expert weights are
-such objects with 3-D planes, the router a dense array. kv_cache_from_jax
-does the same for a slot-table KVCache, so a test can continue a JAX prefill
-in the port. Nothing of JAX is imported.
+such objects with 3-D planes, the router a dense array; every key of a
+layer (biases, q/k norms, post-norms included) comes across as it is.
+kv_cache_from_jax does the same for a slot-table KVCache and iswa_from_jax
+for an ISWACache on slot tables, so a test can continue a JAX prefill in
+the port. Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.qtensor import QuantTensor
-from ..runtime.kv_cache import KVCache
+from ..runtime.kv_cache import ISWACache, KVCache
 
 
 def _tensor(a, device) -> torch.Tensor | None:
@@ -67,3 +69,14 @@ def kv_cache_from_jax(jkv, device="cpu") -> KVCache:
     return KVCache(k=layers(jkv.k), v=layers(jkv.v), pos=_tensor(jkv.pos, device),
                    k_scale=layers(jkv.k_scale), v_scale=layers(jkv.v_scale),
                    ring=bool(jkv.ring))
+
+
+def iswa_from_jax(jkv, device="cpu") -> ISWACache:
+    """The JAX package's ISWACache (fields full and swa, slot-table KVCaches
+    whose arrays are numpy; is_swa, full_idx, swa_idx) -> the port's."""
+    if hasattr(jkv.full, "table"):
+        raise ValueError("iswa_from_jax takes an ISWACache on slot tables (Context(paged="
+                         "False)), not one whose full layers are on the page pool")
+    return ISWACache(full=kv_cache_from_jax(jkv.full, device),
+                     swa=kv_cache_from_jax(jkv.swa, device), is_swa=tuple(jkv.is_swa),
+                     full_idx=tuple(jkv.full_idx), swa_idx=tuple(jkv.swa_idx))

@@ -1,5 +1,5 @@
-"""Model loader for the llama family: GGUF file -> (ModelConfig, weights on
-the device).
+"""Model loader for the registry's decoder families: GGUF file ->
+(ModelConfig, weights on the device).
 
 Analog of reference llama_model_loader + llama_model::load_tensors
 (src/llama-model-loader.cpp; src/models/llama.cpp:35-94). Weights are read
@@ -21,16 +21,25 @@ from ..gguf.reader import GGUFFile, read_gguf
 from ..ops.qtensor import QuantTensor, Weight, load_weight, pad_out_features
 from ..tokenizer import Tokenizer
 from .config import ModelConfig
+from .registry import apply_arch
 
 log = logging.getLogger(__name__)
 
-# layer-tensor suffix -> weight-dict key (the llama subset)
+# layer-tensor suffix -> weight-dict key (the subset of the JAX package's
+# names that the registry's families carry)
 LAYER_TENSORS = {
     "attn_norm.weight": "attn_norm",
     "attn_q.weight": "attn_q",
     "attn_k.weight": "attn_k",
     "attn_v.weight": "attn_v",
     "attn_output.weight": "attn_output",
+    "attn_q.bias": "attn_q_bias",
+    "attn_k.bias": "attn_k_bias",
+    "attn_v.bias": "attn_v_bias",
+    "attn_q_norm.weight": "attn_q_norm",
+    "attn_k_norm.weight": "attn_k_norm",
+    "attn_post_norm.weight": "attn_post_norm",
+    "post_attention_norm.weight": "attn_post_norm",
     "attn_sinks.weight": "attn_sinks",
     # per-tensor scalar scales (folded into the weight at load)
     "attn_q.scale": "attn_q.__scale",
@@ -44,6 +53,8 @@ LAYER_TENSORS = {
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    "ffn_post_norm.weight": "ffn_post_norm",
+    "post_ffw_norm.weight": "ffn_post_norm",
     # mixture of experts: router, stacked experts, shared experts
     "ffn_gate_inp.weight": "ffn_gate_inp",
     "ffn_gate_inp.bias": "ffn_gate_inp_bias",
@@ -70,9 +81,10 @@ GLOBAL_TENSORS = {
 # 1-D tensors stay dense fp32; everything else follows its storage type
 # (the router ffn_gate_inp is not a dense key: an F32 router lands as a dense
 # compute-dtype [out, in] weight through the storage-type route)
-_DENSE_KEYS = {"attn_norm", "ffn_norm", "output_norm", "rope_factors", "attn_sinks",
-               "ffn_gate_inp_bias", "exp_probs_b", "ffn_gate_exps_bias", "ffn_up_exps_bias",
-               "ffn_down_exps_bias"}
+_DENSE_KEYS = {"attn_norm", "attn_q_norm", "attn_k_norm", "attn_post_norm", "ffn_norm",
+               "ffn_post_norm", "output_norm", "rope_factors", "attn_q_bias", "attn_k_bias",
+               "attn_v_bias", "attn_sinks", "ffn_gate_inp_bias", "exp_probs_b",
+               "ffn_gate_exps_bias", "ffn_up_exps_bias", "ffn_down_exps_bias"}
 
 
 def resolve_device(device) -> torch.device:
@@ -98,10 +110,11 @@ class Model:
 
 
 def load_model(path: str, device="cuda") -> Model:
-    """Load a llama-family GGUF model onto `device` (bf16 activations)."""
+    """Load a GGUF model of one of the registry's architectures onto
+    `device` (bf16 activations)."""
     dev = resolve_device(device)
     f = read_gguf(path)
-    cfg = ModelConfig.from_gguf(f.metadata)
+    cfg = apply_arch(ModelConfig.from_gguf(f.metadata), f.metadata)
     tokenizer = None
     try:
         tokenizer = Tokenizer.from_gguf(f.metadata)
@@ -210,17 +223,26 @@ def _fuse_projections(lw: dict) -> None:
     """Fuse Q/K/V and gate/up projections into single matmuls (fewer
     launches per layer). Q4_K_M stores attn_v as Q6_K (reference
     llama_tensor_get_type, src/llama-quant.cpp:424): then q+k fuse and v
-    stays standalone."""
-    if all(k in lw for k in ("attn_q", "attn_k", "attn_v")):
-        fused = _concat_weights([lw["attn_q"], lw["attn_k"], lw["attn_v"]])
-        if fused is not None:
+    stays standalone. Biases follow the JAX package's rule: projections fuse
+    only when all of them or none carry a bias (the fused bias is
+    attn_qkv_bias or attn_qk_bias)."""
+    names = ("attn_q", "attn_k", "attn_v")
+    if all(k in lw for k in names):
+        fused = _concat_weights([lw[k] for k in names])
+        biased = [f"{k}_bias" in lw for k in names]
+        if fused is not None and (all(biased) or not any(biased)):
             lw["attn_qkv"] = fused
-            for k in ("attn_q", "attn_k", "attn_v"):
+            if all(biased):
+                lw["attn_qkv_bias"] = torch.cat([lw.pop(f"{k}_bias") for k in names])
+            for k in names:
                 del lw[k]
-        else:
+        elif fused is None:
             fused = _concat_weights([lw["attn_q"], lw["attn_k"]])
-            if fused is not None:
+            biased = biased[:2]
+            if fused is not None and (all(biased) or not any(biased)):
                 lw["attn_qk"] = fused
+                if all(biased):
+                    lw["attn_qk_bias"] = torch.cat([lw.pop(f"{k}_bias") for k in names[:2]])
                 del lw["attn_q"], lw["attn_k"]
     if all(k in lw for k in ("ffn_gate", "ffn_up")):
         fused = _concat_weights([lw["ffn_gate"], lw["ffn_up"]])

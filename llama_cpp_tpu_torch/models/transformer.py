@@ -1,11 +1,14 @@
-"""Pre-norm decoder transformer forward pass for the llama family, dense or
-mixture-of-experts, on the paged KV pool or the slot-table cache.
+"""Pre-norm decoder transformer forward pass shared by the registry's
+families (llama, mistral, qwen2/3, qwen2moe/3moe, gemma/2/3), dense or
+mixture-of-experts, on the paged KV pool, the slot-table cache or the
+interleaved sliding-window memory (ISWACache).
 
 Analog of reference llm_graph_context build_attn / build_ffn / build_moe_ffn
-(src/llama-graph.h:1048-1143, src/llama-graph.cpp:1955-2075) and the llama
-graph (src/models/llama.cpp:99-247); the llama subset of the JAX package's
-models/transformer.py with its casts (bf16 activations, f32 accumulation,
-f32 logits).
+(src/llama-graph.h:1048-1143, src/llama-graph.cpp:1955-2075) and the llama,
+qwen and gemma graphs (src/models/llama.cpp:99-247, qwen3.cpp, gemma3.cpp);
+the subset of the JAX package's models/transformer.py these families take,
+with its casts (bf16 activations, f32 accumulation, f32 logits; an f32 bias
+promotes what it is added to, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -14,12 +17,13 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..ops.basic import rms_norm, silu, swiglu
+# silu stays importable from this module, where the llama graph kept it
+from ..ops.basic import ACTIVATIONS, rms_norm, silu  # noqa: F401
 from ..ops.kernels import flash_attn as fa_kernel
 from ..ops.kernels import qmm_expert as expert_kernel
 from ..ops.qtensor import QuantTensor, Weight, dot_f32, embed_lookup, matmul
 from ..ops.rope import ROPE_TYPE_NONE, RopeParams, apply_rope
-from ..runtime.kv_cache import KVCache
+from ..runtime.kv_cache import ISWACache, KVCache
 from ..runtime.paged_kv import PagedKVCache
 from .config import ModelConfig
 
@@ -33,17 +37,29 @@ class AttnInputs(NamedTuple):
     positions: torch.Tensor  # [B, T] rope/causal position (< 0 = pad)
 
 
+Memory = PagedKVCache | KVCache | ISWACache
+
+
 def norm(cfg: ModelConfig, x: torch.Tensor, w: dict[str, Weight], key: str) -> torch.Tensor:
     return rms_norm(x, w.get(key), cfg.rms_eps)
 
 
-def _rope_params(cfg: ModelConfig) -> RopeParams:
+def _add_bias(y: torch.Tensor, lw: dict[str, Weight], key: str) -> torch.Tensor:
+    return y + lw[key] if key in lw else y
+
+
+def _rope_params(cfg: ModelConfig, il: int) -> RopeParams:
+    """Layer il's rope: gemma3's SWA layers take their own base at scale 1,
+    its full layers the metadata's base and (linear) scaling."""
+    base, scale = cfg.rope_freq_base, cfg.rope_freq_scale
+    if cfg.is_swa_layer(il) and cfg.extra.get("rope_freq_base_swa"):
+        base, scale = cfg.extra["rope_freq_base_swa"], 1.0
     return RopeParams(
         freq_factors=cfg.extra.get("rope_factors_arr"),
         rope_type=cfg.rope_type,
         n_dims=cfg.rope_dims,
-        freq_base=cfg.rope_freq_base,
-        freq_scale=cfg.rope_freq_scale,
+        freq_base=base,
+        freq_scale=scale,
         ext_factor=cfg.rope_ext_factor,
         attn_factor=cfg.rope_attn_factor,
         beta_fast=cfg.rope_beta_fast,
@@ -53,66 +69,73 @@ def _rope_params(cfg: ModelConfig) -> RopeParams:
 
 
 def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
-                    inputs: AttnInputs, kv: PagedKVCache | KVCache, il: int,
+                    inputs: AttnInputs, kv: Memory, il: int,
                     kernels: bool = True) -> torch.Tensor:
-    """Plain GQA attention over the paged pool or the slot-table cache;
-    writes this step's K/V rows in place. kernels=False takes the gather +
-    einsum path everywhere."""
+    """Plain GQA attention over the paged pool, the slot-table cache or the
+    ISWA memory's sub-cache of layer il (its full layers on the pool or a
+    slot table, its SWA layers on a ring); writes this step's K/V rows in
+    place. kernels=False takes the gather + einsum path everywhere."""
     B, T = x.shape[:2]
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     Dk, Dv = cfg.head_dim_k, cfg.head_dim_v
 
     if "attn_qkv" in lw:
-        qkv = matmul(x, lw["attn_qkv"], kernels=kernels)
+        qkv = _add_bias(matmul(x, lw["attn_qkv"], kernels=kernels), lw, "attn_qkv_bias")
         q = qkv[..., : H * Dk]
         k = qkv[..., H * Dk: H * Dk + Hkv * Dk]
         v = qkv[..., H * Dk + Hkv * Dk:]
     elif "attn_qk" in lw:  # q+k fused, v standalone (Q4_K_M's Q6_K attn_v)
-        qk = matmul(x, lw["attn_qk"], kernels=kernels)
+        qk = _add_bias(matmul(x, lw["attn_qk"], kernels=kernels), lw, "attn_qk_bias")
         q = qk[..., : H * Dk]
         k = qk[..., H * Dk:]
-        v = matmul(x, lw["attn_v"], kernels=kernels)
+        v = _add_bias(matmul(x, lw["attn_v"], kernels=kernels), lw, "attn_v_bias")
     else:
-        q = matmul(x, lw["attn_q"], kernels=kernels)
-        k = matmul(x, lw["attn_k"], kernels=kernels)
-        v = matmul(x, lw["attn_v"], kernels=kernels)
+        q = _add_bias(matmul(x, lw["attn_q"], kernels=kernels), lw, "attn_q_bias")
+        k = _add_bias(matmul(x, lw["attn_k"], kernels=kernels), lw, "attn_k_bias")
+        v = _add_bias(matmul(x, lw["attn_v"], kernels=kernels), lw, "attn_v_bias")
 
     q = q.reshape(B, T, H, Dk)
     k = k.reshape(B, T, Hkv, Dk)
     v = v.reshape(B, T, Hkv, Dv)
+    if cfg.qk_norm:  # per-head RMSNorm over [head_dim], before rope
+        q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
+        k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
     if cfg.rope_type != ROPE_TYPE_NONE:
-        rp = _rope_params(cfg)
+        rp = _rope_params(cfg, il)
         q = apply_rope(q, inputs.positions, rp)
         k = apply_rope(k, inputs.positions, rp)
 
-    # position-addressed write of the [B, T] token grid (SET_ROWS analog)
+    # position-addressed write of the [B, T] token grid (SET_ROWS analog);
+    # the ISWA memory's sub-caches each write their position labels on
+    # their own first layer
     seq_flat = inputs.seq_idx.repeat_interleave(T)
     kv.write_layer(il, seq_flat, inputs.positions.reshape(-1),
-                   k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv),
-                   update_pos=il == 0)
+                   k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv))
+    kvc, li = kv.layer_view(il)
 
     scale = cfg.attn_scale or (1.0 / float(Dk) ** 0.5)
-    window = cfg.sliding_window if cfg.sliding_window > 0 else 0
+    window = cfg.sliding_window if cfg.is_swa_layer(il) else 0
     sinks = lw.get("attn_sinks")  # [H] attention-sink logits
     # the kernel path needs a card, as the JAX package's needs a TPU; where
     # the JAX package would run its kernel, the port's runs or raises
-    paged = isinstance(kv, PagedKVCache)
-    n_slots = kv.max_pages * kv.page if paged else kv.n_slots
+    paged = isinstance(kvc, PagedKVCache)
+    n_slots = kvc.max_pages * kvc.page if paged else kvc.n_slots
     use_flash = (kernels and x.device.type == "cuda"
                  and fa_kernel.dispatches(Dk, Dv, n_slots, T * (H // Hkv)))
     if use_flash:
         # the slot-table kernel takes the cache and seq_idx as they are: no
-        # per-step gather of the sequences' cache rows
+        # per-step gather of the sequences' cache rows; a ring visits every
+        # tile (its slot order is not position order)
         mha = fa_kernel.mha_flash_paged if paged else fa_kernel.mha_flash
-        out = mha(q, kv, il, inputs.seq_idx, inputs.positions, sm_scale=scale, window=window,
-                  softcap=cfg.attn_logit_softcap,
+        out = mha(q.to(torch.bfloat16), kvc, li, inputs.seq_idx, inputs.positions,
+                  sm_scale=scale, window=window, softcap=cfg.attn_logit_softcap,
                   sinks=None if sinks is None else sinks.float()).to(x.dtype)
     else:
         if paged:
-            k_seq, v_seq, slot_pos = kv.gather_seq(il, inputs.seq_idx)
+            k_seq, v_seq, slot_pos = kvc.gather_seq(li, inputs.seq_idx)
         else:
-            k_seq, v_seq = kv.read(il, inputs.seq_idx)  # [B, Hkv, S, D]
-            slot_pos = kv.pos[inputs.seq_idx.long()]  # [B, S]
+            k_seq, v_seq = kvc.read(li, inputs.seq_idx)  # [B, Hkv, S, D]
+            slot_pos = kvc.pos[inputs.seq_idx.long()]  # [B, S]
         pos = inputs.positions.long()
         slot_pos = slot_pos.long()
         mask = (slot_pos >= 0)[:, None, :] & (slot_pos[:, None, :] <= pos[:, :, None])
@@ -140,13 +163,15 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
 
 def ffn_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
               kernels: bool = True) -> torch.Tensor:
+    """Gated FFN (SwiGLU, GeGLU): act(gate) * up in the activation dtype."""
+    act = ACTIVATIONS[cfg.act]
     if "ffn_gateup" in lw:  # load-time fused gate|up projection
         gu = matmul(x, lw["ffn_gateup"], kernels=kernels)
         half = gu.shape[-1] // 2
-        h = swiglu(gu[..., :half], gu[..., half:])
+        h = act(gu[..., :half]) * gu[..., half:]
     else:
-        h = swiglu(matmul(x, lw["ffn_gate"], kernels=kernels),
-                   matmul(x, lw["ffn_up"], kernels=kernels))
+        h = (act(matmul(x, lw["ffn_gate"], kernels=kernels))
+             * matmul(x, lw["ffn_up"], kernels=kernels))
     return matmul(h, lw["ffn_down"], kernels=kernels)
 
 
@@ -231,7 +256,7 @@ def _moe_gather(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
                 + _expert_bias(lw, key + "_bias", idx))
 
     xk = xf.repeat_interleave(k, dim=0)  # row n*k + j = token n
-    h = silu(emm("ffn_gate_exps", xk)) * emm("ffn_up_exps", xk)
+    h = ACTIVATIONS[cfg.act](emm("ffn_gate_exps", xk)) * emm("ffn_up_exps", xk)
     y = emm("ffn_down_exps", h).reshape(N, k, E)
     return (y * tw[:, :, None]).sum(dim=1).reshape(*lead, E)
 
@@ -255,6 +280,7 @@ def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
     chosen = topi.reshape(N, k)
     mdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
     xs = xf.to(mdt)
+    act = ACTIVATIONS[cfg.act]
     y = torch.zeros((N, k, E), dtype=torch.float32, device=x.device)
     for e in range(cfg.n_expert):
         sel = slice(e, e + 1)
@@ -264,7 +290,7 @@ def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
             bias = lw[key + "_bias"].float()[sel] if key + "_bias" in lw else 0.0
             return dot_f32(h.to(mdt), wd) + bias
 
-        h = silu(emm("ffn_gate_exps", xs)) * emm("ffn_up_exps", xs)
+        h = act(emm("ffn_gate_exps", xs)) * emm("ffn_up_exps", xs)
         y = torch.where((chosen == e)[:, :, None], emm("ffn_down_exps", h)[:, None, :], y)
     return (y * tw[:, :, None]).sum(dim=1).reshape(*lead, E)
 
@@ -284,7 +310,7 @@ def moe_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     else:
         out = _moe_ragged(cfg, lw, x, topi, topw, kernels)
     if cfg.n_expert_shared > 0 and "ffn_gate_shexp" in lw:
-        h = (silu(matmul(x, lw["ffn_gate_shexp"], kernels=kernels))
+        h = (ACTIVATIONS[cfg.act](matmul(x, lw["ffn_gate_shexp"], kernels=kernels))
              * matmul(x, lw["ffn_up_shexp"], kernels=kernels))
         sh = matmul(h, lw["ffn_down_shexp"], kernels=kernels).float()
         if "ffn_gate_inp_shexp" in lw:  # sigmoid-gated shared expert
@@ -295,20 +321,28 @@ def moe_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
 
 
 def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-            inputs: AttnInputs, kv: PagedKVCache | KVCache,
+            inputs: AttnInputs, kv: Memory,
             output_rows: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
     """tokens [B, T] -> logits [M or B*T, vocab] f32; writes the KV memory in
     place."""
     cdtype = cfg.compute_dtype
     x = embed_lookup(params["token_embd"], tokens.long(), dtype=cdtype)  # [B, T, E]
+    if cfg.embd_scale != 1.0:
+        x = (x.float() * cfg.embd_scale).to(x.dtype)
     for il, lw in enumerate(params["layers"]):
         h = norm(cfg, x, lw, "attn_norm")
-        x = x + attention_block(cfg, lw, h, inputs, kv, il, kernels=kernels)
+        attn = attention_block(cfg, lw, h, inputs, kv, il, kernels=kernels)
+        if cfg.post_norms and "attn_post_norm" in lw:
+            attn = rms_norm(attn, lw["attn_post_norm"], cfg.rms_eps)
+        x = x + attn
         h = norm(cfg, x, lw, "ffn_norm")
         if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
-            x = x + moe_block(cfg, lw, h, kernels=kernels)
+            ff = moe_block(cfg, lw, h, kernels=kernels)
         else:
-            x = x + ffn_block(cfg, lw, h, kernels=kernels)
+            ff = ffn_block(cfg, lw, h, kernels=kernels)
+        if cfg.post_norms and "ffn_post_norm" in lw:
+            ff = rms_norm(ff, lw["ffn_post_norm"], cfg.rms_eps)
+        x = x + ff
     B, T, E = x.shape
     x = x.reshape(B * T, E)
     if output_rows is not None:

@@ -21,5 +21,14 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x.float()).to(x.dtype)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation (jax.nn.gelu(approximate=True), the
+    reference's GGML_OP_GELU) in f32, cast back."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return silu(gate) * up
+
+
+ACTIVATIONS = {"silu": silu, "gelu": gelu}

@@ -28,7 +28,9 @@ split over blocks and merged by the last block of each row group in the
 same launch; bound by the live K/V bytes). Launch
 counters per CUDA kernel: "flash_attention_paged/prefill",
 "flash_attention_paged/decode", "flash_attention/prefill",
-"flash_attention/decode". Head dims 32, 64, 128 and 256 (K and V alike):
+"flash_attention/decode"; of the slot-table launches, those in ring mode
+(the window rings of an ISWA memory) are counted again in ring_launches,
+"flash_attention/prefill ring" and "flash_attention/decode ring". Head dims 32, 64, 128 and 256 (K and V alike):
 every head dim of this kind that the JAX package sends to its kernel.
 """
 
@@ -50,6 +52,7 @@ _LANES = 128  # the TPU lane width the JAX package's dispatch tests against
 
 launches = {f"{name}/{route}": 0 for name in ("flash_attention_paged", "flash_attention")
             for route in ("prefill", "decode")}
+ring_launches = {f"flash_attention/{route} ring": 0 for route in ("prefill", "decode")}
 
 
 def dispatches(head_dim_k: int, head_dim_v: int, n_slots: int, rows: int) -> bool:
@@ -214,6 +217,8 @@ def _launch(paged: bool, q, k, v, ks, vs, pos, row_pos, index, sinks, lay: tuple
     name = "flash_attention_paged" if paged else "flash_attention"
     build.check(err, "fa_paged_launch" if paged else "fa_slots_launch")
     launches[f"{name}/{kind}"] += 1
+    if ring:
+        ring_launches[f"{name}/{kind} ring"] += 1
     return out
 
 

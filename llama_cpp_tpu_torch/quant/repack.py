@@ -37,16 +37,20 @@ def planes_q4_K(raw, n):
 
 
 def planes_q6_K(raw, n):
+    # the 6-bit values are assembled in uint8 straight into their slots of
+    # q (no int32 temporaries, no stack), then shifted to -32..31 in place
     b = D._blocks(raw, GGMLType.Q6_K, n)
-    ql = b[:, 0:128].reshape(-1, 2, 2, 32).astype(np.int32)
-    qh = b[:, 128:192].reshape(-1, 2, 32).astype(np.int32)
+    ql = b[:, 0:128].reshape(-1, 2, 2, 32)
+    qh = b[:, 128:192].reshape(-1, 2, 32)
     sc = b[:, 192:208].view(np.int8).reshape(-1, 16).astype(np.float32)
     d = D._f16(b[:, 208:210])
-    q1 = (ql[:, :, 0] & 0xF) | (((qh >> 0) & 3) << 4)
-    q2 = (ql[:, :, 1] & 0xF) | (((qh >> 2) & 3) << 4)
-    q3 = (ql[:, :, 0] >> 4) | (((qh >> 4) & 3) << 4)
-    q4 = (ql[:, :, 1] >> 4) | (((qh >> 6) & 3) << 4)
-    q = (np.stack([q1, q2, q3, q4], axis=2) - 32).astype(np.int8)  # [nb,2,4,32]
+    q = np.empty((b.shape[0], 2, 4, 32), np.uint8)  # [nb,2,4,32]
+    q[:, :, 0] = (ql[:, :, 0] & 0xF) | ((qh & 3) << 4)
+    q[:, :, 1] = (ql[:, :, 1] & 0xF) | (((qh >> 2) & 3) << 4)
+    q[:, :, 2] = (ql[:, :, 0] >> 4) | (((qh >> 4) & 3) << 4)
+    q[:, :, 3] = (ql[:, :, 1] >> 4) | ((qh >> 6) << 4)
+    q = q.view(np.int8)
+    q -= 32
     scales = (d * sc).astype(np.float32)  # [nb,1]*[nb,16] -> [nb,16] per-16 groups
     return q.reshape(-1), scales.reshape(-1), None, 16
 

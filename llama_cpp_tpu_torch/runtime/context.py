@@ -2,7 +2,9 @@
 slot-table cache.
 
 Owns the KV memory (the pool with its host-side page allocator, or with
-paged=False a KVCache of n_slots per sequence), the batch bucketing policy
+paged=False a KVCache of n_slots per sequence; for an interleaved
+sliding-window model an ISWACache whose full layers take that memory and
+whose window layers take rings), the batch bucketing policy
 (padding rows carry negative positions and write to the memory's trash
 row), and the generation loops: through a host sampler chain, or on the
 device (decode_steps_greedy, generate_ondevice). Every batched decode step,
@@ -24,7 +26,7 @@ from ..models.loader import Model, resolve_device
 from ..models.transformer import AttnInputs, forward
 from ..sampling.samplers import SamplerChain, SamplingParams
 from .decode_graph import GREEDY, LOGITS, DecodeLoop, DeviceSampler
-from .kv_cache import KVCache
+from .kv_cache import ISWACache, KVCache
 from .paged_kv import PageAllocator, PagedKVCache
 
 
@@ -129,17 +131,36 @@ class Context:
         if self.prefill_buckets[-1] < n_ubatch:
             self.prefill_buckets.append(n_ubatch)
 
-    def _make_memory(self) -> PagedKVCache | KVCache:
-        if not self.paged:
-            return KVCache.create(
-                self.cfg.n_layers, self.n_seqs, self.n_slots, self.cfg.n_kv_heads,
-                self.cfg.head_dim_k, self.cfg.head_dim_v, dtype=self.cfg.compute_dtype,
-                quantized=self._kv_quant, device=self.device)
-        return PagedKVCache.create(
-            self.cfg.n_layers, self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
-            self.cfg.n_kv_heads, self.cfg.head_dim_k, self.cfg.head_dim_v,
-            dtype=self.cfg.compute_dtype, quantized=self._kv_quant, page=self.page,
+    def _make_memory(self) -> PagedKVCache | KVCache | ISWACache:
+        cfg = self.cfg
+        iswa = cfg.sliding_window > 0 and cfg.swa_pattern > 0
+        n_layers = cfg.n_layers
+        if iswa:  # the pool (if any) holds the full layers only
+            n_layers = max(sum(not cfg.is_swa_layer(i) for i in range(cfg.n_layers)), 1)
+        pool = None
+        if self.paged:
+            pool = PagedKVCache.create(
+                n_layers, self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
+                cfg.n_kv_heads, cfg.head_dim_k, cfg.head_dim_v, dtype=cfg.compute_dtype,
+                quantized=self._kv_quant, page=self.page, device=self.device)
+        if iswa:
+            # a window layer's ring holds the window plus the largest ubatch
+            # in flight (the JAX package's runtime/context.py:284-311)
+            ring = -(-(cfg.sliding_window + self.n_ubatch + 1) // 256) * 256
+            return ISWACache.build(cfg, self.n_seqs, self.n_slots, min(ring, self.n_slots),
+                                   dtype=cfg.compute_dtype, quantized=self._kv_quant,
+                                   device=self.device, full=pool)
+        if pool is not None:
+            return pool
+        return KVCache.create(
+            n_layers, self.n_seqs, self.n_slots, cfg.n_kv_heads, cfg.head_dim_k,
+            cfg.head_dim_v, dtype=cfg.compute_dtype, quantized=self._kv_quant,
             device=self.device)
+
+    def _pool(self) -> PagedKVCache | None:
+        """The page pool: the memory itself, or the ISWA memory's full tier."""
+        kv = self.kv.full if isinstance(self.kv, ISWACache) else self.kv
+        return kv if isinstance(kv, PagedKVCache) else None
 
     # ------------------------------------------------------------------
     def _ensure_pages(self, seq_idx, positions) -> None:
@@ -159,7 +180,7 @@ class Context:
 
     def _sync_table(self) -> None:
         if self.alloc is not None and self.alloc.dirty:
-            self.kv.table.copy_(torch.from_numpy(self.alloc.table))
+            self._pool().table.copy_(torch.from_numpy(self.alloc.table))
             self.alloc.dirty = False
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -321,13 +342,16 @@ class Context:
         if self.alloc is None:
             self.kv.seq_cp(dst, src)
         else:
-            # page-granular copy: dst gets fresh pages mirroring src's
+            # page-granular copy: dst gets fresh pages mirroring src's (and
+            # an ISWA memory's window rings their rows)
             self.alloc.trim(dst, 0)
             self.alloc.ensure(dst, int(self.alloc.count[src]) * self.page)
             self._sync_table()
             src_p = self._tensor(self.alloc.table[src])
             dst_p = self._tensor(self.alloc.table[dst])
-            self.kv.copy_pages(src_p, dst_p)
+            self._pool().copy_pages(src_p, dst_p)
+            if isinstance(self.kv, ISWACache):
+                self.kv.swa.seq_cp(dst, src)
         self.seq_len[dst] = self.seq_len[src]
 
     def memory_breakdown(self) -> dict:

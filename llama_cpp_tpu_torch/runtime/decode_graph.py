@@ -48,7 +48,8 @@ from ..ops.kernels import flash_attn, qmm, qmm_bench, qmm_expert, scratch
 CAPACITY = 256  # steps of ids a loop holds on the device between copies
 PAD_POS = -(1 << 20)  # a padding row's position: negative for every step
 WARMUP_STEPS = 2
-LAUNCH_COUNTERS = (qmm.launches, flash_attn.launches, qmm_expert.launches, qmm_bench.launches)
+LAUNCH_COUNTERS = (qmm.launches, flash_attn.launches, flash_attn.ring_launches,
+                   qmm_expert.launches, qmm_bench.launches)
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,10 @@
 """Slot-table KV cache: per sequence a fixed row of slots with an explicit
-position label per slot.
+position label per slot; and the two-tier memory of interleaved
+sliding-window models (ISWACache) built on it.
 
-Port of the JAX package's runtime/kv_cache.py KVCache: the memory of every
-context that is not the page pool (Context(paged=False)). Attention masks
+Port of the JAX package's runtime/kv_cache.py KVCache and ISWACache: the
+memory of every context that is not the page pool (Context(paged=False)),
+and the window rings of SWA layers. Attention masks
 come from `pos` (slot -> position, -1 = empty), so seq_rm / seq_cp are plain
 tensor updates. Layout: per layer k/v [n_seqs, Hkv, n_slots, D] (the head
 axis before the slot axis, so the attention kernel streams [S, D] tiles per
@@ -17,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .paged_kv import _quant_rows
+from .paged_kv import PagedKVCache, _quant_rows
 
 
 @dataclass
@@ -146,3 +148,90 @@ class KVCache:
 
     def seq_len(self, seq: int) -> int:
         return int((self.pos[seq] >= 0).sum())
+
+
+@dataclass
+class ISWACache:
+    """Two-tier KV memory of interleaved sliding-window models (reference
+    llama_kv_cache_iswa, src/llama-kv-cache-iswa.h): full-attention layers
+    keep the whole context, on the page pool or a slot table; SWA layers
+    keep a ring per sequence sized to the window plus the largest ubatch
+    (slot = position % capacity, computed on the device), so their memory
+    is O(window). Each sub-cache has its own position labels, written on
+    its own first layer.
+
+    is_swa:   per model layer, whether it is a window layer
+    full_idx: model layer -> layer of `full` (-1 for a window layer)
+    swa_idx:  model layer -> layer of `swa` (-1 for a full layer)"""
+
+    full: KVCache | PagedKVCache
+    swa: KVCache
+    is_swa: tuple
+    full_idx: tuple
+    swa_idx: tuple
+
+    @staticmethod
+    def layer_split(cfg) -> tuple[tuple, tuple, tuple]:
+        """-> (is_swa, full_idx, swa_idx) of cfg's layers."""
+        is_swa = tuple(cfg.is_swa_layer(i) for i in range(cfg.n_layers))
+        full_idx, swa_idx = [], []
+        n_full = n_swa = 0
+        for s in is_swa:
+            full_idx.append(-1 if s else n_full)
+            swa_idx.append(n_swa if s else -1)
+            n_swa += s
+            n_full += not s
+        return is_swa, tuple(full_idx), tuple(swa_idx)
+
+    @classmethod
+    def build(cls, cfg, n_seqs: int, n_slots_full: int, n_slots_swa: int,
+              dtype=torch.bfloat16, quantized: bool = False, device="cpu",
+              full: PagedKVCache | None = None) -> "ISWACache":
+        """Window rings of n_slots_swa for the SWA layers; for the full
+        layers `full` (a pool with one layer per full layer) or, without
+        it, a slot table of n_slots_full."""
+        is_swa, full_idx, swa_idx = cls.layer_split(cfg)
+        n_full = max(sum(not s for s in is_swa), 1)
+        n_swa = max(sum(is_swa), 1)
+
+        def table(n_layers, n_slots, ring):
+            return KVCache.create(n_layers, n_seqs, n_slots, cfg.n_kv_heads, cfg.head_dim_k,
+                                  cfg.head_dim_v, dtype=dtype, quantized=quantized,
+                                  ring=ring, device=device)
+
+        if full is None:
+            full = table(n_full, n_slots_full, False)
+        return cls(full=full, swa=table(n_swa, n_slots_swa, True), is_swa=is_swa,
+                   full_idx=full_idx, swa_idx=swa_idx)
+
+    @property
+    def quantized(self) -> bool:
+        return self.full.quantized
+
+    def layer_view(self, il: int):
+        """-> (sub-cache, its layer index) of model layer il."""
+        if self.is_swa[il]:
+            return self.swa, self.swa_idx[il]
+        return self.full, self.full_idx[il]
+
+    def write_layer(self, il: int, seq_idx: torch.Tensor, positions: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor,
+                    update_pos: bool | None = None) -> None:
+        """Position-addressed in-place write into layer il's sub-cache; its
+        position labels are written on its own first layer unless
+        update_pos says otherwise."""
+        cache, li = self.layer_view(il)
+        cache.write_layer(li, seq_idx, positions, k_new, v_new,
+                          update_pos=li == 0 if update_pos is None else update_pos)
+
+    def seq_rm(self, seq: int, p0: int = 0, p1: int = 1 << 30) -> None:
+        self.full.seq_rm(seq, p0, p1)
+        self.swa.seq_rm(seq, p0, p1)
+
+    def seq_cp(self, dst: int, src: int) -> None:
+        """Both sub-caches' rows of src to dst (a pool's pages are copied by
+        the context, which owns their table)."""
+        if isinstance(self.full, PagedKVCache):
+            raise TypeError("seq_cp of a pool's pages goes through Context.seq_cp")
+        self.full.seq_cp(dst, src)
+        self.swa.seq_cp(dst, src)

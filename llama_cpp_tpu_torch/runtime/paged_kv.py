@@ -100,6 +100,10 @@ class PagedKVCache:
     def quantized(self) -> bool:
         return self.k[0].dtype == torch.int8
 
+    def layer_view(self, il: int):
+        """-> (memory, local layer index): identity for the pool."""
+        return self, il
+
     # -- write ----------------------------------------------------------
     def slot_of(self, seq_idx: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """(seq, position) -> pool row. Invalid positions -> trash row."""

@@ -67,12 +67,15 @@ def _rand_pool() -> np.ndarray:
     return np.random.default_rng(1234).integers(0, 256, size=1 << 24, dtype=np.uint8)
 
 
-def synth_quant_bytes(rng, n_elements: int, ftype: GGMLType) -> bytes:
+def synth_quant_bytes(rng, n_elements: int, ftype: GGMLType, offset: int = 0) -> bytes:
     """Random-but-valid packed quantized data without running a quantizer:
     payload bits come from a shared random pool (every bit pattern decodes
-    for these formats), the fp16 block scales are overwritten with small
-    sane values. Only for uses where the weight values do not matter."""
+    for these formats), read from `offset` on, the fp16 block scales are
+    overwritten with small sane values. Only for uses where the weight
+    values do not matter."""
     pool = _rand_pool()
+    if offset:
+        pool = np.roll(pool, -offset)
     lay = GGML_BLOCK_LAYOUT[ftype]
     nb = n_elements // lay.block_size
     total = nb * lay.type_size
@@ -220,3 +223,180 @@ def make_bench_moe_gguf(
         emit_q(b + "ffn_down_exps.weight", n_embd, n_ff, t_heavy, (n_expert,))
     w.write(path)
     return path
+
+
+def make_bench_arch_gguf(
+    path: str,
+    arch: str,
+    n_layers: int,
+    n_embd: int,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    n_ff: int,
+    vocab_size: int,
+    n_ctx: int = 4096,
+    rope_base: float = 10000.0,
+    rms_eps: float = 1e-6,
+    qkv_bias: bool = False,
+    qk_norm: bool = False,
+    post_norms: bool = False,
+    tie: bool = False,
+    n_expert: int = 0,
+    n_expert_used: int = 0,
+    n_ff_exp: int = 0,
+    shared_expert_ff: int = 0,
+    sliding_window: int = 0,
+    swa_pattern: int = 0,
+    rope_base_swa: float = 0.0,
+    rope_linear_factor: float = 0.0,
+    attn_softcap: float = 0.0,
+    final_softcap: float = 0.0,
+    f32: bool = False,
+    seed: int = 0,
+) -> str:
+    """A GGUF of one of the registry's decoder families (`arch`) with
+    synthetic packed weights in make_bench_llama_gguf's mix: Q4_K for
+    token_embd, attn_q/k/output and ffn_gate/up, Q6_K for attn_v, ffn_down
+    and output (with tie=True no output: the head is a Q6_K token_embd), F32
+    for norms, biases and the router. Each quantized tensor reads the random
+    pool from its own seeded offset, so no two tensors share their values.
+    Options add the family's tensors: q/k/v biases (qwen2), per-head q/k
+    norms (qwen3, gemma3), post-attention and post-FFN norms (gemma2/3);
+    n_expert > 0 makes every layer MoE (an F32 router, stacked experts Q4_K
+    gate/up and Q6_K down, as make_bench_moe_gguf), shared_expert_ff > 0
+    adds a sigmoid-gated shared expert (qwen2moe); the sliding window, its
+    pattern and its rope base, linear rope scaling and the softcaps go to
+    the metadata. f32=True writes every matrix as F32 random values (scale
+    1/sqrt(in)) instead, for exact comparisons."""
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter()
+    w.add(Keys.General.ARCHITECTURE, arch)
+    w.add(Keys.General.NAME, f"bench-{arch}-synthetic")
+    P = arch + "."
+    for key, val in (("block_count", n_layers), ("context_length", n_ctx),
+                     ("embedding_length", n_embd), ("feed_forward_length", n_ff),
+                     ("attention.head_count", n_heads), ("attention.head_count_kv", n_kv_heads),
+                     ("attention.key_length", head_dim), ("attention.value_length", head_dim),
+                     ("rope.dimension_count", head_dim), ("vocab_size", vocab_size)):
+        w.add(P + key, np.uint32(val))
+    w.add(P + "attention.layer_norm_rms_epsilon", float(rms_eps))
+    w.add(P + "rope.freq_base", float(rope_base))
+    if n_expert:
+        w.add(P + "expert_count", np.uint32(n_expert))
+        w.add(P + "expert_used_count", np.uint32(n_expert_used))
+        w.add(P + "expert_feed_forward_length", np.uint32(n_ff_exp))
+    if shared_expert_ff:
+        w.add(P + "expert_shared_count", np.uint32(1))
+        w.add(P + "expert_shared_feed_forward_length", np.uint32(shared_expert_ff))
+    if sliding_window:
+        w.add(P + "attention.sliding_window", np.uint32(sliding_window))
+    if swa_pattern:
+        w.add(P + "attention.sliding_window_pattern", np.uint32(swa_pattern))
+    if rope_base_swa:
+        w.add(P + "rope.freq_base_swa", float(rope_base_swa))
+    if rope_linear_factor:
+        w.add(P + "rope.scaling.type", "linear")
+        w.add(P + "rope.scaling.factor", float(rope_linear_factor))
+    if attn_softcap:
+        w.add(P + "attn_logit_softcapping", float(attn_softcap))
+    if final_softcap:
+        w.add(P + "final_logit_softcapping", float(final_softcap))
+    _add_bench_vocab(w, vocab_size)
+
+    q4, q6 = GGMLType.Q4_K, GGMLType.Q6_K
+
+    def emit_f(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+
+    def emit_q(name, rows, cols, t, stack=()):
+        if f32:
+            emit_f(name, rng.standard_normal((*reversed(stack), rows, cols)) / np.sqrt(cols))
+            return
+        n = rows * cols * int(np.prod(stack, dtype=np.int64))
+        data = synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)))
+        w.add_tensor(name, data, (cols, rows, *stack), t)
+
+    def norm_w(n):
+        return 1.0 + 0.1 * rng.standard_normal(n)
+
+    emit_q("token_embd.weight", vocab_size, n_embd, q6 if tie else q4)
+    emit_f("output_norm.weight", norm_w(n_embd))
+    if not tie:
+        emit_q("output.weight", vocab_size, n_embd, q6)
+    q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        emit_f(b + "attn_norm.weight", norm_w(n_embd))
+        emit_q(b + "attn_q.weight", q_dim, n_embd, q4)
+        emit_q(b + "attn_k.weight", kv_dim, n_embd, q4)
+        emit_q(b + "attn_v.weight", kv_dim, n_embd, q6)
+        emit_q(b + "attn_output.weight", n_embd, q_dim, q4)
+        if qkv_bias:
+            for name, n in (("attn_q", q_dim), ("attn_k", kv_dim), ("attn_v", kv_dim)):
+                emit_f(b + name + ".bias", 0.1 * rng.standard_normal(n))
+        if qk_norm:
+            emit_f(b + "attn_q_norm.weight", norm_w(head_dim))
+            emit_f(b + "attn_k_norm.weight", norm_w(head_dim))
+        if post_norms:
+            emit_f(b + "post_attention_norm.weight", norm_w(n_embd))
+            emit_f(b + "post_ffw_norm.weight", norm_w(n_embd))
+        emit_f(b + "ffn_norm.weight", norm_w(n_embd))
+        if n_expert:
+            emit_f(b + "ffn_gate_inp.weight", rng.standard_normal((n_expert, n_embd)) * 0.02)
+            emit_q(b + "ffn_gate_exps.weight", n_ff_exp, n_embd, q4, (n_expert,))
+            emit_q(b + "ffn_up_exps.weight", n_ff_exp, n_embd, q4, (n_expert,))
+            emit_q(b + "ffn_down_exps.weight", n_embd, n_ff_exp, q6, (n_expert,))
+            if shared_expert_ff:
+                emit_f(b + "ffn_gate_inp_shexp.weight", rng.standard_normal((1, n_embd)) * 0.02)
+                emit_q(b + "ffn_gate_shexp.weight", shared_expert_ff, n_embd, q4)
+                emit_q(b + "ffn_up_shexp.weight", shared_expert_ff, n_embd, q4)
+                emit_q(b + "ffn_down_shexp.weight", n_embd, shared_expert_ff, q6)
+        else:
+            emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
+            emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
+            emit_q(b + "ffn_down.weight", n_embd, n_ff, q6)
+    w.write(path)
+    return path
+
+
+def make_bench_qwen3_gguf(path: str, n_layers: int = 36, n_embd: int = 4096, n_heads: int = 32,
+                          n_kv_heads: int = 8, head_dim: int = 128, n_ff: int = 12288,
+                          vocab_size: int = 151936, n_ctx: int = 40960, seed: int = 0) -> str:
+    """Qwen3-8B-shaped (by default; Qwen/Qwen3-8B config.json) dense GGUF:
+    per-head q/k RMSNorm, NEOX rope at base 1e6, rms eps 1e-6, an untied
+    head."""
+    return make_bench_arch_gguf(path, "qwen3", n_layers, n_embd, n_heads, n_kv_heads,
+                                head_dim, n_ff, vocab_size, n_ctx, rope_base=1e6,
+                                qk_norm=True, seed=seed)
+
+
+def make_bench_qwen3moe_gguf(path: str, n_layers: int = 48, n_embd: int = 2048,
+                             n_heads: int = 32, n_kv_heads: int = 4, head_dim: int = 128,
+                             n_expert: int = 128, n_expert_used: int = 8, n_ff_exp: int = 768,
+                             vocab_size: int = 151936, n_ctx: int = 40960,
+                             seed: int = 0) -> str:
+    """Qwen3-30B-A3B-shaped (by default; Qwen/Qwen3-30B-A3B config.json)
+    MoE GGUF: 128 experts of 768, top 8 with normalised weights, per-head
+    q/k RMSNorm, NEOX rope at base 1e6, an untied head."""
+    return make_bench_arch_gguf(path, "qwen3moe", n_layers, n_embd, n_heads, n_kv_heads,
+                                head_dim, 6144, vocab_size, n_ctx, rope_base=1e6, qk_norm=True,
+                                n_expert=n_expert, n_expert_used=n_expert_used,
+                                n_ff_exp=n_ff_exp, seed=seed)
+
+
+def make_bench_gemma3_gguf(path: str, n_layers: int = 34, n_embd: int = 2560, n_heads: int = 8,
+                           n_kv_heads: int = 4, head_dim: int = 256, n_ff: int = 10240,
+                           vocab_size: int = 262208, sliding_window: int = 1024,
+                           swa_pattern: int = 6, n_ctx: int = 131072, seed: int = 0) -> str:
+    """Gemma-3-4B-shaped (by default; google/gemma-3-4b-it config.json,
+    text_config) GGUF: five sliding-window layers (window 1024, rope base
+    1e4) to each full layer (rope base 1e6, linear factor 8), heads of 256
+    (query_pre_attn_scalar 256), GeGLU, post-norms, q/k norms and a tied
+    head."""
+    return make_bench_arch_gguf(path, "gemma3", n_layers, n_embd, n_heads, n_kv_heads,
+                                head_dim, n_ff, vocab_size, n_ctx, rope_base=1e6, qk_norm=True,
+                                post_norms=True, tie=True, sliding_window=sliding_window,
+                                swa_pattern=swa_pattern, rope_base_swa=1e4,
+                                rope_linear_factor=8.0, seed=seed)

@@ -1190,3 +1190,79 @@ def test_capture_raises_instead_of_falling_back(graph_models, monkeypatch):
     with pytest.raises(RuntimeError, match="could not be captured as a CUDA graph"):
         ctx.decode_steps_greedy(firsts, np.arange(1), 4)
     assert ctx.decode_loop(1).graph is None
+
+
+@pytest.mark.parametrize("T,n_pos", [(1, 2304), (512, 2048), (3, 700)],
+                         ids=["decode_wrapped", "ubatch_wrapped", "decode_unwrapped"])
+def test_ring_mode_kernel_matches_plain_at_gemma_shape(cuda_device, T, n_pos):
+    """K6 in ring mode (every tile visited: slot order is not position
+    order) at a Gemma-3-4B window layer: int8 ring of 1792 slots, 4 KV
+    heads of 256, G=2, window 1024; one ring launch a call; NMSE < 1e-4."""
+    S, cap, Hkv, D, G, B = 1792, 1791, 4, 256, 2, 3
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    k = torch.randint(-127, 128, (B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand((B, Hkv, S), generator=gen, device="cuda") * 0.02 + 0.005
+    vs = torch.rand((B, Hkv, S), generator=gen, device="cuda") * 0.02 + 0.005
+    pos = torch.full((B, S), -1, dtype=torch.int32, device="cuda")
+    held = torch.arange(max(0, n_pos - cap), n_pos, dtype=torch.int32, device="cuda")
+    pos[:, held.long() % cap] = held
+    q = (torch.randn((B, Hkv, G * T, D), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    rp = (n_pos - T + torch.arange(T, device="cuda", dtype=torch.int32)).repeat(G)
+    args = (q, k, v, rp[None].expand(B, G * T).contiguous(), pos,
+            torch.tensor([2, 0, 1], dtype=torch.int32, device="cuda"), ks, vs)
+    kw = dict(sm_scale=1 / 16, window=1024, ring=True)
+    before = dict(tfa.ring_launches)
+    got = tfa.flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    route = tfa.route(G * T)
+    assert tfa.ring_launches[f"flash_attention/{route} ring"] == before[
+        f"flash_attention/{route} ring"] + 1
+    assert nmse(got, tfa.flash_attention_plain(*args, **kw)) < 1e-4
+
+
+@pytest.fixture(scope="module")
+def family_models(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run `python -m pytest --noconftest -m gpu "
+                    "tests/test_torch_gpu.py` on the card")
+    from llama_cpp_tpu_torch.testing import make_bench_arch_gguf
+
+    d = tmp_path_factory.mktemp("families")
+    shape = dict(n_layers=3, n_embd=1024, n_heads=8, n_kv_heads=4, vocab_size=512)
+    return {
+        "gemma3": load_model(make_bench_arch_gguf(
+            str(d / "gemma3.gguf"), "gemma3", head_dim=256, n_ff=2048, tie=True,
+            post_norms=True, qk_norm=True, sliding_window=128, swa_pattern=3,
+            rope_base=1e6, rope_base_swa=1e4, rope_linear_factor=8.0, **shape)),
+        "qwen3moe": load_model(make_bench_arch_gguf(
+            str(d / "qwen3moe.gguf"), "qwen3moe", head_dim=128, n_ff=2048, qk_norm=True,
+            n_expert=32, n_expert_used=4, n_ff_exp=512, rope_base=1e6, **shape)),
+    }
+
+
+@pytest.mark.parametrize("family", ["gemma3", "qwen3moe"])
+def test_family_kernels_match_plain_and_graphs_match_eager(family_models, family):
+    """The kernel path against Context(kernels=False) on a 600-token prefill
+    (NMSE < 5e-3; gemma3's window layers wrap their rings of 511 positions), then
+    decode_steps_greedy at B=4 graphed against eager: equal ids; gemma3's
+    window layers launch K6 in ring mode, qwen3moe's experts K7."""
+    model = family_models[family]
+    p = [int(t) for t in np.random.default_rng(5).integers(3, 512, 600)]
+    kw = dict(n_ctx=1024, n_seqs=4, n_ubatch=128, quantized_kv=True)
+    for counter in (tfa.ring_launches, tqe.launches):
+        for key in counter:
+            counter[key] = 0
+    got = Context(model, **kw).prefill(p)
+    ref = Context(model, kernels=False, **kw).prefill(p)
+    assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+    runs = []
+    for graphs in (True, False):
+        ctx, firsts = prefilled(model, 4, graphs)
+        runs.append(ctx.decode_steps_greedy(firsts, np.arange(4), 12))
+    np.testing.assert_array_equal(runs[0], runs[1])
+    if family == "gemma3":
+        assert ctx.kv.swa.ring and ctx.kv.swa.n_slots == 512
+        assert all(n > 0 for n in tfa.ring_launches.values())
+    else:
+        assert sum(tqe.launches.values()) > 0
