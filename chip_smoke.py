@@ -45,7 +45,11 @@ Phases, each of which fails the run:
      every row of the JAX package's scripts/conformance.py through the
      port's kernel against its f64 oracle (NMSE < 5e-3), written to
      build/conformance_h100.csv; a FAIL row fails the run unless
-     KNOWN_FAULTS names it;
+     KNOWN_FAULTS names it; then the storage-type sweep: every plane type
+     of quant/repack.py at Qwen3-8B's ffn_down and fused ffn_gateup shapes
+     from synthetic bytes through load_weight, qmm at N = 1, 8, 512 against
+     qmm_plain with each launch read by name, seven types timed at N = 1, 8
+     (SWEEP_TIMED), and K7 on Q8_0 expert stacks at Qwen3-30B-A3B's shapes;
   4. the main paths through the port's entry points, each with the launch
      counters set to 0 before it and read after it, and each held against
      the plain path (Context(kernels=False)) on the prefill's last-token
@@ -124,6 +128,18 @@ Phases, each of which fails the run:
        period of its pattern: five window layers on ISWA rings of 1792
        slots through K6 in ring mode, one full layer on the pool through
        K5; the tied 262208-row head on the library route, timed);
+     - the storage types users download beside Q4_K_M: Qwen3-8B at Q8_0
+       (depth 36 -> 4, every matrix Q8_0: K2 and K4 over int8 flat-g32
+       planes, no other qmm kernel; the families' whole treatment), at
+       Q5_K_M and at Q4_0 (depth 2: prefill 2048, 16 greedy tokens, B=8,
+       the plain path on the logits and the ids); then path Q, the port's
+       llama-quantize on this machine: an F16 Qwen3-0.6B-shaped file through
+       tools/quantize_tool.main to q8_0 and q4_0, each loaded and held
+       against the plain path, and on the Q8_0 file generate_ondevice and a
+       served round of four 32-token requests against Context.generate,
+       with at least 4 distinct ids each. Paths whose greedy ids vary hold
+       each id teacher-forced against the plain path (against_plain's
+       near_ties rule);
      Launch counts include every graph replay (a graph adds its step's
      launches at each replay).
 The last two lines are the kernels JSON object and
@@ -134,6 +150,7 @@ this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -154,6 +171,8 @@ MOE_LAYERS = 2  # experts are 97% of a Mixtral layer's bytes
 QWEN3_LAYERS = 4  # Qwen3-8B: 36 layers
 QWEN3MOE_LAYERS = 2  # Qwen3-30B-A3B: 48 layers, all 128 experts each
 GEMMA3_LAYERS = 6  # Gemma-3-4B: 34 layers; one period of its pattern (five window, one full)
+QWEN3_MIX_LAYERS = 2  # Qwen3-8B at Q5_K_M and Q4_0
+QUANT_LAYERS = 2  # the F16 Qwen3-0.6B file llama-quantize turns into q8_0 and q4_0: 28 layers
 # conformance rows that fail for a fault open in ROADMAP.md queue 3:
 # (kernel, config); printed as "known fault" with their NMSE
 KNOWN_FAULTS: tuple[tuple[str, str], ...] = ()
@@ -526,6 +545,62 @@ def expert_phase(torch, timer, qe, label, w, R, failures, seed=0, pool=None):
         f"bound {bound / ms:.3f}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
             "bytes_s": bytes_s, "ops_s": ops_s, "max_abs_err": mae, "nmse": err}
+
+
+# the storage-type sweep: Qwen3-8B's ffn_down and fused ffn_gateup, (name,
+# O, K); every plane type at N = 1, 8, 512, the types users download beside
+# Q4_K_M timed at N = 1 and 8
+SWEEP_SHAPES = (("ffn_down", 4096, 12288), ("ffn_gateup", 24576, 4096))
+SWEEP_ROWS = (1, 8, 512)
+SWEEP_TIMED = ("Q8_0", "Q5_0", "Q5_1", "Q5_K", "Q4_0", "Q4_1", "IQ4_XS")
+
+
+def layout_of(w) -> str:
+    return (f"{'packed' if w.packed else 'int8'} {'hier' if w.hier else 'flat'} g{w.group}"
+            f"{' mins' if w.mins is not None else ''}")
+
+
+def type_sweep(torch, timer, qmm, weight, types, failures):
+    """Each plane type at SWEEP_SHAPES from synthetic bytes through
+    load_weight: qmm at SWEEP_ROWS against qmm_plain (NMSE < 5e-3), each
+    call's launch read on the counter of its kernel's name (one more); the
+    SWEEP_TIMED types then timed at N = 1 and 8 by qmm_phase. Returns
+    {type: {"layout", "kernel", shape: {N: numbers}}} of the timed ones."""
+    from llama_cpp_tpu_torch.gguf.constants import GGML_BLOCK_LAYOUT
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for t in types:
+        for sname, O, K in SWEEP_SHAPES:
+            w = weight(t, O, K)
+            errs = []
+            for n in SWEEP_ROWS:
+                x = torch.randn((n, K), generator=gen, device="cuda").to(torch.bfloat16)
+                name = qmm.kernel_name(w, n)
+                before = qmm.launches[name]
+                got = qmm.qmm(x, w)
+                torch.cuda.synchronize()
+                launched = qmm.launches[name] - before
+                err = nmse(got, qmm.qmm_plain(x, w))
+                errs.append(err)
+                if not err < NMSE_LIMIT or not torch.isfinite(got).all() or launched != 1:
+                    failures.append(f"sweep {t.name} {sname} N={n} [{name}]: NMSE {err}, "
+                                    f"launches {launched}")
+            lay = GGML_BLOCK_LAYOUT[t]
+            log(f"  sweep {t.name:8s} {sname:10s} K={K:5d} O={O:5d} {layout_of(w):22s} "
+                f"[{qmm.kernel_name(w, 1)}, {qmm.kernel_name(w, 512)}] N={list(SWEEP_ROWS)}: "
+                "NMSE " + " ".join(f"{e:.2e}" for e in errs) + f"; bytes a weight: planes "
+                f"{plane_bytes(w) / (K * O):.4f}, file {lay.type_size / lay.block_size:.4f}")
+            if t.name in SWEEP_TIMED:
+                r = qmm_phase(torch, timer, qmm, f"sweep {t.name}", [(sname, w)], (1, 8),
+                              failures)
+                rows.setdefault(t.name, {"layout": layout_of(w),
+                                         "kernel": qmm.kernel_name(w, 1)})[sname] = {
+                    n: {k: r[n][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                             "nmse", "max_abs_err")} for n in r}
+            del w
+        torch.cuda.empty_cache()
+    return rows
 
 
 BENCH_TILES = ((128, 512), (256, 1024), (512, 2048))  # (to, tk); the last is the variant's
@@ -905,18 +980,20 @@ def main() -> int:
         from llama_cpp_tpu_torch.ops.kernels import (build, flash_attn, qmm, qmm_bench,
                                                      qmm_expert)
         from llama_cpp_tpu_torch.ops.qtensor import load_weight, pad_out_features
+        from llama_cpp_tpu_torch.quant.repack import PLANE_TYPES
         from llama_cpp_tpu_torch.runtime.context import Context
         from llama_cpp_tpu_torch.runtime.kv_cache import ISWACache
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
-        from llama_cpp_tpu_torch.testing import (make_bench_gemma3_gguf, make_bench_llama_gguf,
-                                                 make_bench_moe_gguf, make_bench_qwen3_gguf,
-                                                 make_bench_qwen3moe_gguf, synth_quant_bytes)
+        from llama_cpp_tpu_torch.testing import (make_bench_arch_gguf, make_bench_gemma3_gguf,
+                                                 make_bench_llama_gguf, make_bench_moe_gguf,
+                                                 make_bench_qwen3_gguf, make_bench_qwen3moe_gguf,
+                                                 synth_quant_bytes)
         from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
         from llama_cpp_tpu_torch.tools import bench_tool
         from llama_cpp_tpu_torch.tools import cli as cli_tool
         from llama_cpp_tpu_torch.tools import conformance as conformance_tool
-        from llama_cpp_tpu_torch.tools import decode_wall, perplexity, results
+        from llama_cpp_tpu_torch.tools import decode_wall, perplexity, quantize_tool, results
         from llama_cpp_tpu_torch.utils.timing import Timer
     except ImportError as e:
         print(f"chip_smoke: the port package is not next to this script ({e})",
@@ -924,6 +1001,7 @@ def main() -> int:
         return 2
     import numpy as np
 
+    t_all = time.perf_counter()
     card = gpu_line()
     log(f"card: {card}")
     nvcc_v = subprocess.run([build._nvcc(), "--version"], capture_output=True,
@@ -1134,6 +1212,23 @@ def main() -> int:
             qwen["nmse"] = max(qwen["nmse"], r["nmse"])
         del w
     torch.cuda.empty_cache()
+    log("K7 on Q8_0 expert stacks (load_weight of synthetic Q8_0 bytes: int8, flat f32 scales, "
+        "groups of 32, no mins) at Qwen3-30B-A3B's gate and down shapes:")
+    for wname, K, O in (("ffn_gate_exps", 2048, 768), ("ffn_down_exps", 768, 2048)):
+        raw = np.frombuffer(synth_quant_bytes(rng, 128 * O * K, GGMLType.Q8_0), np.uint8)
+        w = load_weight(raw, GGMLType.Q8_0, (128, O, K), transpose=True, device="cuda")
+        del raw
+        if not (qmm_expert.supported(w) and w.group == 32 and w.mins is None and not w.hier):
+            failures.append(f"K7 q8_0 {wname}: the stack's layout is {layout_of(w)}")
+        for R in (8, 64):
+            r = expert_phase(torch, timer, qmm_expert, f"K7 qwen3-moe q8_0 {wname}", w, R,
+                             failures, seed=9)
+            qwen["rows"][f"qwen3 {wname} q8_0 R={R}"] = {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "nmse")}
+            qwen["max_abs_err"] = max(qwen["max_abs_err"], r["max_abs_err"])
+            qwen["nmse"] = max(qwen["nmse"], r["nmse"])
+        del w
+    torch.cuda.empty_cache()
     log("B1-B4, the microbenchmark's probe kernels (8 rows of x, groups of 32; the JSON line "
         "takes the gate/up shape, B3 and B4 at their fastest tile):")
     bench_res = bench_phase(torch, timer, qmm_bench, "gateup", E, 2 * FF, failures)
@@ -1174,6 +1269,15 @@ def main() -> int:
     log("conformance sweep of every kernel (the reference's rows, f64 oracles):")
     conformance_phase(torch, conformance_tool, failures)
     torch.cuda.empty_cache()
+    log("storage-type sweep: every plane type at Qwen3-8B's ffn_down (12288 -> 4096) and fused "
+        "ffn_gateup (4096 -> 24576), synthetic bytes through load_weight, qmm at N = "
+        f"{list(SWEEP_ROWS)} against qmm_plain, each launch read by its kernel's name; "
+        f"{', '.join(SWEEP_TIMED)} timed at N = 1, 8:")
+    t0 = time.perf_counter()
+    sweep = type_sweep(torch, timer, qmm, weight, sorted(PLANE_TYPES, key=int), failures)
+    log(f"storage-type sweep: {len(PLANE_TYPES)} types in {time.perf_counter() - t0:.1f} s")
+    for tname, r in sweep.items():  # the timed types under their decode kernel's entry
+        res[r["kernel"]].setdefault("types", {})[tname] = r
     if failures:
         for f in failures:
             log(f"FAIL {f}")
@@ -1190,6 +1294,8 @@ def main() -> int:
     slots_keys = ("flash_attention/prefill", "flash_attention/decode")
     ring_keys = tuple(flash_attn.ring_launches)
     expert_key = "qmm_planes_expert"
+    full_keys = decode_keys + prefill_keys + paged_keys
+    int8_keys = ("qmm_planes/decode", "qmm_planes_prefill/wgmma") + paged_keys
 
     def reset_counts():
         for counter in counters:
@@ -1210,34 +1316,64 @@ def main() -> int:
                 failures.append(f"{path}: kernel {name} was launched {c} times")
         return counts
 
-    def against_plain(path, model, logits, gen_ids, prompt, decode_logits=0, **ctx_kw):
+    def against_plain(path, model, logits, gen_ids, prompt, decode_logits=0, near_ties=False,
+                      **ctx_kw):
         """The plain path (kernels=False) on the same model, prompt and
         memory, as the reference of the kernel path; with decode_logits = n
         also the logits of n teacher-forced decode steps (the greedy ids fed
-        to a kernel context and to the plain one), each within the limit."""
+        to a kernel context and to the plain one), each within the limit.
+
+        The greedy ids: by default the plain path's own greedy run must equal
+        the kernel path's. near_ties=True is for models whose ids vary from
+        step to step, where the two runs may part at a near-tie (the kernel
+        keeps q exact and scales in f32 up to 8 rows, the plain version
+        rounds W to bf16): every id of the kernel path's run is then held
+        teacher-forced, both contexts fed the same ids, and must be the plain
+        path's argmax at its step, or the parting of a near-tie: the plain
+        logit of the kernel's id within that step's largest difference
+        between the two paths' logits of the plain argmax."""
         ref_ctx = Context(model, kernels=False, graphs=False, **ctx_kw)
         ref_logits = ref_ctx.prefill(prompt, seq=0)
-        if decode_logits:
+        steps = len(gen_ids) if near_ties else decode_logits
+        held = None
+        if steps:
             kern = Context(model, graphs=False, **ctx_kw)
-            kern.prefill(prompt, seq=0)
-            errs = []
-            for t in gen_ids[:decode_logits]:
-                got, ref = kern.decode_one(t, seq=0), ref_ctx.decode_one(t, seq=0)
-                errs.append(float(np.mean((got - ref) ** 2) / (np.mean(ref ** 2) + 1e-30)))
+            lk, lr = kern.prefill(prompt, seq=0), ref_logits
+            errs, ties, wrong = [], [], []
+            for i, t in enumerate(gen_ids[:steps]):
+                if near_ties:
+                    diff = float(np.abs(lk - lr).max())
+                    gap = float(lr.max() - lr[t])
+                    if int(np.argmax(lk)) != t or gap > diff:
+                        wrong.append((i, t, int(np.argmax(lk)), int(np.argmax(lr)), gap, diff))
+                    elif int(np.argmax(lr)) != t:
+                        ties.append((i, round(gap, 5), round(diff, 5)))
+                lk, lr = kern.decode_one(t, seq=0), ref_ctx.decode_one(t, seq=0)
+                errs.append(float(np.mean((lk - lr) ** 2) / (np.mean(lr ** 2) + 1e-30)))
             del kern
             log(f"{path}: kernel vs plain path: logits of {len(errs)} teacher-forced decode "
                 f"steps, NMSE largest {max(errs):.3e} (limit {NMSE_LIMIT})")
             if not max(errs) < NMSE_LIMIT:
                 failures.append(f"{path}: decode logits NMSE {errs}")
+            if near_ties:
+                held = len(gen_ids) - len(wrong)
+                log(f"{path}: the kernel path's {len(gen_ids)} greedy ids held teacher-forced: "
+                    f"{held - len(ties)} the plain path's argmax, {len(ties)} near-ties (step, "
+                    f"plain top gap, largest logit difference) {ties}")
+                if wrong:
+                    failures.append(f"{path}: teacher-forced ids off the plain path's argmax "
+                                    f"beyond a near-tie (step, id, kernel argmax, plain argmax, "
+                                    f"gap, difference): {wrong[:4]}")
         ref_ids = ref_ctx.generate(prompt, max_new_tokens=len(gen_ids), seq=1)
         err = float(np.mean((logits - ref_logits) ** 2) / (np.mean(ref_logits ** 2) + 1e-30))
         agree = sum(int(a == b) for a, b in zip(gen_ids, ref_ids))
         log(f"{path}: kernel vs plain path: prefill last-token logits NMSE {err:.3e} "
             f"(limit {NMSE_LIMIT}); greedy ids agree {agree}/{len(ref_ids)} "
-            f"(argmax {int(np.argmax(logits))} vs {int(np.argmax(ref_logits))})")
+            f"(argmax {int(np.argmax(logits))} vs {int(np.argmax(ref_logits))})"
+            + (", each held teacher-forced" if near_ties else ""))
         if not err < NMSE_LIMIT:
             failures.append(f"{path}: logits NMSE {err}")
-        if agree != len(ref_ids) or len(gen_ids) != len(ref_ids):
+        if not near_ties and (agree != len(ref_ids) or len(gen_ids) != len(ref_ids)):
             failures.append(f"{path}: greedy ids agree {agree} of {len(ref_ids)}")
         return ref_logits
 
@@ -1246,10 +1382,10 @@ def main() -> int:
             failures.append(f"{path}: prefill logits shape {logits.shape}, finite "
                             f"{bool(np.isfinite(logits).all())}")
 
-    def drive(ctx, prompt, prompts512, vocab, batches, label):
+    def drive(ctx, prompt, prompts512, vocab, batches, label, n_gen=32):
         """One untimed ubatch (the caching allocator's first allocations and
         first launches belong to start-up), a timed prefill, the B=1 graph
-        captured untimed, 32 greedy tokens at B=1 with their own prefill,
+        captured untimed, n_gen greedy tokens at B=1 with their own prefill,
         then decode_steps_greedy over 512-token prefills at each batch
         size."""
         rates = {}
@@ -1261,7 +1397,7 @@ def main() -> int:
         rates[f"prefill_{len(prompt)}_tok_per_s"] = len(prompt) / (time.perf_counter() - t0)
         ctx.decode_loop(1).ready()  # the B=1 graph's capture is start-up, not decode
         n0, t_dec0 = ctx.perf.n_decode, ctx.perf.t_decode_ms
-        gen_ids = ctx.generate(prompt, max_new_tokens=32, seq=1)
+        gen_ids = ctx.generate(prompt, max_new_tokens=n_gen, seq=1)
         rates[f"decode_b1_d{len(prompt)}_tok_per_s"] = (ctx.perf.n_decode - n0) / (
             (ctx.perf.t_decode_ms - t_dec0) / 1e3)
         ctx.reset()
@@ -1921,10 +2057,11 @@ def main() -> int:
                     for m in ("regex", "jinja2"))
         + " (the Qwen2 pre-tokenizer needs regex; chat templates need jinja2)")
 
-    def server_round(model, label):
+    def server_round(model, label, n_predict=16, must_run=None):
         """llama-server (run_server, graphed, -np 4 --kv-quant) over the
         loaded model: one round of four concurrent greedy /completion
-        requests of 16 tokens, ids against Context.generate's."""
+        requests of n_predict tokens, ids against Context.generate's;
+        returns Context.generate's ids."""
         import threading
 
         from llama_cpp_tpu_torch.server.app import run_server
@@ -1934,7 +2071,7 @@ def main() -> int:
         ref_ctx = Context(model, n_ctx=4096, n_ubatch=512, quantized_kv=True)
         want = []
         for p in ids:
-            want.append(ref_ctx.generate(p, 16))
+            want.append(ref_ctx.generate(p, n_predict))
             ref_ctx.reset()
         del ref_ctx
         reset_counts()
@@ -1945,14 +2082,14 @@ def main() -> int:
         th.start()
         if not ready.wait(300):
             failures.append(f"{label}: the server did not start")
-            return
+            return want
         srv = box["srv"]
         url = f"http://127.0.0.1:{srv.port}"
         out = [None] * 4
 
         def ask(i):
             out[i] = http(url, "/completion", {
-                "prompt": SERVER_PROMPTS[i], "n_predict": 16, "temperature": 0,
+                "prompt": SERVER_PROMPTS[i], "n_predict": n_predict, "temperature": 0,
                 "ignore_eos": True, "return_tokens": True, "cache_prompt": False})
 
         try:
@@ -1965,18 +2102,19 @@ def main() -> int:
             wall = time.perf_counter() - t0
             agree = [sum(int(a == b) for a, b in zip(r["tokens"], w)) if r else 0
                      for r, w in zip(out, want)]
-            log(f"{label} ({card}): four concurrent 16-token requests (prompts of "
+            log(f"{label} ({card}): four concurrent {n_predict}-token requests (prompts of "
                 f"{[len(p) for p in ids]} tokens), graphed: ids equal to Context.generate's "
-                f"{agree} of 16 each, {wall:.3f} s with the graphs' capture "
+                f"{agree} of {n_predict} each, {wall:.3f} s with the graphs' capture "
                 f"({captured(srv.app.ctx._loops)})")
-            if agree != [16] * 4:
-                failures.append(f"{label}: served ids agree {agree} of 16")
+            if agree != [n_predict] * 4:
+                failures.append(f"{label}: served ids agree {agree} of {n_predict}")
         finally:
             srv.shutdown()
             th.join(timeout=60)
         if th.is_alive():
             failures.append(f"{label}: the server thread did not stop")
-        all_counts[label] = read_counts(label, decode_keys + prefill_keys + paged_keys)
+        all_counts[label] = read_counts(label, must_run or full_keys)
+        return want
 
     def tied_head_phase(model, label):
         """The tied head (the row-major Q6_K token_embd, which the qmm
@@ -1997,14 +2135,15 @@ def main() -> int:
             failures.append(f"{label}: the tied head launched a kernel: {before} -> {after}")
 
     def arch_path(label, make, n_layers, vocab, must_run, note, profile_qe=None,
-                  server=False):
+                  server=False, n_gen=32, full=True, want_layout=None, near_ties=False):
         """One family's model at full width, depth cut to n_layers: load,
-        drive (prefill 2048, 32 greedy tokens at B=1, decode_steps_greedy
-        at B=8), its kernel set, the B=1 profile, the plain path on the
-        prefill logits, 8 teacher-forced decode steps' logits and the greedy
-        ids, then the graph phase at B=8; the tied head's library route
-        where the model has no output.weight; with server=True one served
-        round."""
+        drive (prefill 2048, n_gen greedy tokens at B=1, decode_steps_greedy
+        at B=8), its kernel set, the plain path on the prefill logits, 8
+        teacher-forced decode steps' logits and the greedy ids; with full
+        also the B=1 profile, the graph phase at B=8 and the tied head's
+        library route where the model has no output.weight; with server=True
+        one served round. want_layout: the layout every quantized matmul
+        weight must have; near_ties: against_plain's rule for varied ids."""
         path = os.path.join(smoke_dir, f"{label}.gguf")
         t0 = time.perf_counter()
         make(path, n_layers=n_layers, seed=0)
@@ -2017,6 +2156,19 @@ def main() -> int:
             f"{t1 - t0:.1f} s, load_model {time.perf_counter() - t1:.1f} s, device memory "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB); window layers "
             f"{[i for i in range(cfg.n_layers) if cfg.is_swa_layer(i)]}")
+        mats = {**{f"layer 0 {k}": w for k, w in model.params["layers"][0].items()},
+                **{k: model.params[k] for k in ("output", "token_embd") if k in model.params}}
+        mats = {k: w for k, w in mats.items() if isinstance(w, qtensor.QuantTensor)}
+        log(f"{label} weights: " + "; ".join(
+            f"{k} {GGMLType(w.ggml_type).name} {layout_of(w)}"
+            f"{'' if w.transposed else ' row-major'}" for k, w in mats.items()))
+        if want_layout:
+            matmuls = [(f"layer {i} {k}", w) for i, lw in enumerate(model.params["layers"])
+                       for k, w in lw.items()] + [("output", model.params.get("output"))]
+            wrong = [f"{k}: {layout_of(w)}" for k, w in matmuls
+                     if isinstance(w, qtensor.QuantTensor) and layout_of(w) != want_layout]
+            if wrong:
+                failures.append(f"{label}: weights not {want_layout}: {wrong[:4]}")
         kw = dict(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True)
         ctx = Context(model, **kw)
         if isinstance(ctx.kv, ISWACache):
@@ -2026,23 +2178,92 @@ def main() -> int:
         prompt = [int(t) for t in prng.integers(3, vocab, 2048)]
         prompts512 = [[int(t) for t in prng.integers(3, vocab, 512)] for _ in range(8)]
         reset_counts()
-        logits, gen_ids, rates = drive(ctx, prompt, prompts512, vocab, (8,), label)
+        logits, gen_ids, rates = drive(ctx, prompt, prompts512, vocab, (8,), label, n_gen)
         all_counts[label] = read_counts(label, must_run)
-        profile_decode(torch, qmm, ctx, steps=8, qe=profile_qe)
+        if full:
+            profile_decode(torch, qmm, ctx, steps=8, qe=profile_qe)
         del ctx
         against_plain(label, model, logits, gen_ids, prompt, decode_logits=8,
-                      **{**kw, "n_seqs": 2})
+                      near_ties=near_ties, **{**kw, "n_seqs": 2})
         log(f"{label} rates ({n_layers}-layer smoke run, not a benchmark; {card}): "
             + json.dumps(rates))
-        graph_phase(label, model, kw, prompt, gen_ids, prompts512, (8,), must_run)
-        if "output" not in model.params:
-            tied_head_phase(model, label)
+        if full:
+            graph_phase(label, model, kw, prompt, gen_ids, prompts512, (8,), must_run)
+            if "output" not in model.params:
+                tied_head_phase(model, label)
         if server:
             server_round(model, f"{label} server")
         del model
         torch.cuda.empty_cache()
 
-    full_keys = decode_keys + prefill_keys + paged_keys
+    def path_quantize():
+        """llama-quantize on this machine: quantize_tool.main turns an F16
+        Qwen3-0.6B-shaped file (seeded values) into q8_0 and q4_0; each
+        result is loaded and held against the plain path (prefill logits,
+        8 teacher-forced decode steps, 32 greedy ids); on the Q8_0 file the
+        32 ids of generate_ondevice and of a served round equal
+        Context.generate's, with at least 4 distinct ids among them."""
+        src = os.path.join(smoke_dir, "qwen3-0.6b-f16.gguf")
+        t0 = time.perf_counter()
+        make_bench_arch_gguf(src, "qwen3", QUANT_LAYERS, 1024, 16, 8, 128, 3072, 151936,
+                             n_ctx=40960, rope_base=1e6, qk_norm=True, tie=True, ftype="f16")
+        log(f"path Q: Qwen3-0.6B shape (n_embd 1024, 16/8 heads of 128, n_ff 3072, vocab "
+            f"151936, tied head), depth cut 28 -> {QUANT_LAYERS}, F16 matrices of seeded values "
+            f"(fixture {time.perf_counter() - t0:.1f} s)")
+        kw = dict(n_ctx=4096, n_seqs=4, n_ubatch=512, quantized_kv=True)
+        prompt = [int(t) for t in prng.integers(3, 151936, 512)]
+        for ftype, want, keys in (
+                ("q8_0", GGMLType.Q8_0, int8_keys),
+                ("q4_0", GGMLType.Q4_0, ("qmm4_planes/decode", "qmm4_planes_prefill/wgmma")
+                 + paged_keys)):
+            label = f"path Q {ftype}"
+            dst = os.path.join(smoke_dir, f"qwen3-0.6b-{ftype}.gguf")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = quantize_tool.main([src, dst, ftype])
+            t1 = time.perf_counter()
+            log(f"{label}: quantize_tool.main exit {rc} in {t1 - t0:.1f} s: "
+                f"{out.getvalue().strip().splitlines()[-1]}")
+            if rc != 0:
+                failures.append(f"{label}: quantize_tool exited with {rc}")
+                continue
+            model = load_model(dst)
+            os.remove(dst)
+            types = {GGMLType(w.ggml_type).name for lw in model.params["layers"]
+                     for w in lw.values() if isinstance(w, qtensor.QuantTensor)}
+            log(f"{label}: load_model {time.perf_counter() - t1:.1f} s; layer weights {types}, "
+                f"layer 0 ffn_gateup {layout_of(model.params['layers'][0]['ffn_gateup'])}")
+            if types != {want.name}:
+                failures.append(f"{label}: layer weights {types}, not {want.name}")
+            ctx = Context(model, **kw)
+            reset_counts()
+            logits = ctx.prefill(prompt)
+            gen_ids = ctx.generate(prompt, max_new_tokens=32, seq=1)
+            check_logits(label, logits, 151936)
+            if ftype == "q8_0":
+                ctx.reset()
+                ids = ctx.generate_ondevice(prompt, max_new_tokens=32, chunk=32)
+                distinct = len(set(gen_ids))
+                log(f"{label}: 32 greedy ids, {distinct} distinct: {gen_ids}; generate_ondevice "
+                    f"equal {sum(int(a == b) for a, b in zip(ids, gen_ids))} of 32")
+                if ids != gen_ids or distinct < 4:
+                    failures.append(f"{label}: generate_ondevice ids {ids} against "
+                                    f"Context.generate's {gen_ids} ({distinct} distinct)")
+            all_counts[label] = read_counts(label, keys)
+            del ctx
+            against_plain(label, model, logits, gen_ids, prompt, decode_logits=8,
+                          near_ties=True, **{**kw, "n_seqs": 2})
+            if ftype == "q8_0":
+                served = server_round(model, f"{label} server", n_predict=32, must_run=int8_keys)
+                log(f"{label} server: distinct ids per request "
+                    f"{[len(set(w)) for w in served]}")
+                if min(len(set(w)) for w in served) < 4:
+                    failures.append(f"{label} server: fewer than 4 distinct ids in a request")
+            del model
+            torch.cuda.empty_cache()
+        os.remove(src)
+
     arch_path("qwen3-8b", make_bench_qwen3_gguf, QWEN3_LAYERS, 151936, full_keys,
               "Qwen3-8B shape (n_embd 4096, 32/8 heads of 128, n_ff 12288, vocab 151936, "
               "q/k norms, NEOX rope 1e6), Q4_K/Q6_K mix", server=True)
@@ -2054,6 +2275,22 @@ def main() -> int:
               full_keys + slots_keys + ring_keys,
               "Gemma-3-4B shape (n_embd 2560, 8/4 heads of 256, n_ff 10240, vocab 262208, "
               "window 1024 on five layers of six, GeGLU, post-norms, tied Q6_K head)")
+
+    # the storage types users download beside Q4_K_M, on the main path
+    arch_path("qwen3-8b-q8_0", functools.partial(make_bench_qwen3_gguf, ftype="q8_0"),
+              QWEN3_LAYERS, 151936, int8_keys,
+              "Qwen3-8B shape, every matrix Q8_0 (token_embd and output included; the Q8_0 "
+              "file of Qwen/Qwen3-8B-GGUF), F32 norms", want_layout="int8 flat g32",
+              near_ties=True)
+    arch_path("qwen3-8b-q5_k_m", functools.partial(make_bench_qwen3_gguf, ftype="q5_k_m"),
+              QWEN3_MIX_LAYERS, 151936, int8_keys,
+              "Qwen3-8B shape, Q5_K_M mix (Q5_K everywhere, Q6_K attn_v)", n_gen=16, full=False)
+    arch_path("qwen3-8b-q4_0", functools.partial(make_bench_qwen3_gguf, ftype="q4_0"),
+              QWEN3_MIX_LAYERS, 151936,
+              ("qmm4_planes/decode", "qmm4_planes_prefill/wgmma", "qmm_planes/decode")
+              + paged_keys,
+              "Qwen3-8B shape, Q4_0 (Q6_K output)", n_gen=16, full=False)
+    path_quantize()
     if failures:
         for f in failures:
             log(f"FAIL {f}")
@@ -2095,9 +2332,10 @@ def main() -> int:
                         "nmse": r["nmse"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **({k: r[k] for k in ("kernel", "tile", "rows") if k in r})})
+                        **({k: r[k] for k in ("kernel", "tile", "rows", "types") if k in r})})
     log("decode loop, graphed and eager, ms a step by path and B (4-layer smoke run, not a "
         f"benchmark; {card}): " + json.dumps(graph_rows))
+    log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s")
     log(f"card: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,7 @@
-"""GGUF file-format and ggml-dtype constants (the subset the llama main path
-reads: F32/F16/BF16 dense tensors and the Q4_K/Q6_K K-quants).
+"""GGUF file-format and ggml-dtype constants: every storage type the JAX
+package reads (dense floats and integers, the legacy 32-element quants, the
+K-quants, the IQ codebook, ternary and FP4 formats) and the file-type ids
+llama-quantize writes.
 
 Format parity (the numbers are the on-disk format): reference
 ggml/include/gguf.h:1-30, the dtype enum ggml/include/ggml.h:390-433 and the
@@ -84,13 +86,44 @@ class BlockLayout:
     type_size: int  # bytes per block
 
 
-# the storage types this package reads; others raise at load
+# elements and bytes per block of every storage type the package reads; the
+# byte sizes follow the packed C structs of reference ggml/src/ggml-common.h
 GGML_BLOCK_LAYOUT: dict[GGMLType, BlockLayout] = {
     GGMLType.F32: BlockLayout(1, 4),
     GGMLType.F16: BlockLayout(1, 2),
     GGMLType.BF16: BlockLayout(1, 2),
+    GGMLType.F64: BlockLayout(1, 8),
+    GGMLType.I8: BlockLayout(1, 1),
+    GGMLType.I16: BlockLayout(1, 2),
+    GGMLType.I32: BlockLayout(1, 4),
+    GGMLType.I64: BlockLayout(1, 8),
+    GGMLType.Q4_0: BlockLayout(32, 2 + 16),
+    GGMLType.Q4_1: BlockLayout(32, 2 + 2 + 16),
+    GGMLType.Q5_0: BlockLayout(32, 2 + 4 + 16),
+    GGMLType.Q5_1: BlockLayout(32, 2 + 2 + 4 + 16),
+    GGMLType.Q8_0: BlockLayout(32, 2 + 32),
+    GGMLType.Q8_1: BlockLayout(32, 2 + 2 + 32),
+    GGMLType.Q2_K: BlockLayout(QK_K, 16 + QK_K // 4 + 2 + 2),
+    GGMLType.Q3_K: BlockLayout(QK_K, QK_K // 8 + QK_K // 4 + 12 + 2),
     GGMLType.Q4_K: BlockLayout(QK_K, 2 + 2 + K_SCALE_SIZE + QK_K // 2),
+    GGMLType.Q5_K: BlockLayout(QK_K, 2 + 2 + K_SCALE_SIZE + QK_K // 8 + QK_K // 2),
     GGMLType.Q6_K: BlockLayout(QK_K, QK_K // 2 + QK_K // 4 + QK_K // 16 + 2),
+    GGMLType.Q8_K: BlockLayout(QK_K, 4 + QK_K + QK_K // 16 * 2),
+    GGMLType.IQ2_XXS: BlockLayout(QK_K, 2 + QK_K // 8 * 2),
+    GGMLType.IQ2_XS: BlockLayout(QK_K, 2 + QK_K // 8 * 2 + QK_K // 32),
+    GGMLType.IQ2_S: BlockLayout(QK_K, 2 + QK_K // 4 + QK_K // 16),
+    GGMLType.IQ3_XXS: BlockLayout(QK_K, 2 + 3 * QK_K // 8),
+    GGMLType.IQ3_S: BlockLayout(QK_K, 2 + QK_K // 4 + QK_K // 32 + QK_K // 8 + QK_K // 64),
+    GGMLType.IQ1_S: BlockLayout(QK_K, 2 + QK_K // 8 + QK_K // 16),
+    GGMLType.IQ1_M: BlockLayout(QK_K, QK_K // 8 + QK_K // 16 + QK_K // 32),
+    GGMLType.IQ4_NL: BlockLayout(32, 2 + 16),
+    GGMLType.IQ4_XS: BlockLayout(QK_K, 2 + 2 + QK_K // 64 + QK_K // 2),
+    GGMLType.TQ1_0: BlockLayout(QK_K, 2 + QK_K // 64 + (QK_K - 4 * QK_K // 64) // 5),
+    GGMLType.TQ2_0: BlockLayout(QK_K, 2 + QK_K // 4),
+    GGMLType.MXFP4: BlockLayout(32, 1 + 16),
+    GGMLType.NVFP4: BlockLayout(64, 4 + 32),
+    GGMLType.Q1_0: BlockLayout(128, 2 + 16),
+    GGMLType.Q2_0: BlockLayout(64, 2 + 16),
 }
 
 
@@ -175,3 +208,41 @@ class TokenType(enum.IntEnum):
     USER_DEFINED = 4
     UNUSED = 5
     BYTE = 6
+
+
+class FileType(enum.IntEnum):
+    """general.file_type values (reference include/llama.h llama_ftype)."""
+
+    ALL_F32 = 0
+    MOSTLY_F16 = 1
+    MOSTLY_Q4_0 = 2
+    MOSTLY_Q4_1 = 3
+    MOSTLY_Q8_0 = 7
+    MOSTLY_Q5_0 = 8
+    MOSTLY_Q5_1 = 9
+    MOSTLY_Q2_K = 10
+    MOSTLY_Q3_K_S = 11
+    MOSTLY_Q3_K_M = 12
+    MOSTLY_Q3_K_L = 13
+    MOSTLY_Q4_K_S = 14
+    MOSTLY_Q4_K_M = 15
+    MOSTLY_Q5_K_S = 16
+    MOSTLY_Q5_K_M = 17
+    MOSTLY_Q6_K = 18
+    MOSTLY_IQ2_XXS = 19
+    MOSTLY_IQ2_XS = 20
+    MOSTLY_Q2_K_S = 21
+    MOSTLY_IQ3_XS = 22
+    MOSTLY_IQ3_XXS = 23
+    MOSTLY_IQ1_S = 24
+    MOSTLY_IQ4_NL = 25
+    MOSTLY_IQ3_S = 26
+    MOSTLY_IQ3_M = 27
+    MOSTLY_IQ2_S = 28
+    MOSTLY_IQ2_M = 29
+    MOSTLY_IQ4_XS = 30
+    MOSTLY_IQ1_M = 31
+    MOSTLY_BF16 = 32
+    MOSTLY_TQ1_0 = 36
+    MOSTLY_TQ2_0 = 37
+    MOSTLY_MXFP4 = 38

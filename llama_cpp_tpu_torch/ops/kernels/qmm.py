@@ -1,9 +1,12 @@
 """Fused dequantize + matmul over block-scaled weight planes
 (csrc/qmm_decode.cu, csrc/qmm_prefill.cu), with its plain PyTorch version.
 
-Port of the TPU kernels qmm4_planes / qmm4_planes_prefill (packed 4-bit,
-Q4_K) and qmm_planes / qmm_planes_prefill (int8 planes, Q6_K) of
-llama_cpp_tpu/ops/pallas/qmm.py. The plain version is the JAX package's
+Port of the TPU kernels qmm4_planes / qmm4_planes_prefill (packed 4-bit
+planes: Q4_K, Q4_0, Q4_1, Q2_K, Q3_K, TQ2_0, IQ1_S) and qmm_planes /
+qmm_planes_prefill (int8 planes: Q6_K, Q8_0, Q5_0, Q5_1, Q5_K, IQ4_NL,
+IQ4_XS, MXFP4, the IQ2/IQ3 codebooks) of llama_cpp_tpu/ops/pallas/qmm.py,
+at groups of 16 or 32 with flat f32 or hierarchical scales, with or without
+mins. The plain version is the JAX package's
 dequant -> dot: W = bf16(q * scale + min) in f32 arithmetic, y = bf16(x) . W
 accumulated in f32. CUDA kernels compute it, by row count N:
   * N < PREFILL_MIN_N: the decode kernel of csrc/qmm_decode.cu: up to 8

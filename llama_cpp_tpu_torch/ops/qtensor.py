@@ -2,10 +2,17 @@
 matmul route.
 
 A weight W[out, in] is stored as q(int8) with per-group scales (+ mins),
-produced once at load by quant/repack.py. Matmul weights keep the JAX
-package's transposed layout: q [in, out], scales [in//g, out], with K-quant
-superblock factors d/dmin [in//256, out] (hierarchical scales) and 4-bit
-formats nibble-packed half-split into qp [in/2, out]. The route per call:
+produced once at load by quant/repack.py from any of the 21 plane types
+(the legacy 32-element quants, the K-quants, IQ4_NL/IQ4_XS, the IQ2/IQ3/
+IQ1_S codebooks, MXFP4, TQ2_0, Q8_K). Matmul weights keep the JAX package's
+transposed layout: q [in, out], scales [in//g, out]; for the six
+superblock types (Q2_K-Q6_K, IQ4_XS) at K a multiple of 512 the scales are
+hierarchical (int8 sub-scales with f32 d/dmin [in//256, out]); any plane
+whose values span at most 16 levels (Q4_0, Q4_1, Q2_K, Q3_K, Q4_K, TQ2_0,
+IQ1_S) is nibble-packed half-split into qp [in/2, out] with its offset
+folded into the mins. The dequant-only types (Q8_1, IQ1_M, TQ1_0, NVFP4,
+Q1_0, Q2_0), like the dense types, load as bf16 weights. The route per
+call:
   * rows >= XLA_PREFILL_MIN_N: dequantize, a slab of columns at a time, and
     a library product (the JAX package leaves these to XLA's dot of bf16
     operands into f32: on the card cuBLAS from bf16 operands with an f32
@@ -13,8 +20,8 @@ formats nibble-packed half-split into qp [in/2, out]. The route per call:
   * fewer rows, where the JAX package's dispatch runs its Pallas kernel:
     the qmm kernel (ops/kernels/qmm.py), which takes its plain version for a
     CPU tensor and raises on a CUDA tensor it cannot take;
-  * other layouts (row-major tables, untileable shapes): the same library
-    route, as the reference leaves them to XLA.
+  * other layouts (row-major tables, untileable shapes, dense weights): the
+    same library route, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -160,16 +167,26 @@ class QuantTensor:
 Weight = QuantTensor | torch.Tensor
 
 
+_T_ROWS = 256  # rows transposed at a time: a blocked copy, 4x numpy's strided one
+
+
 def _t(a: np.ndarray | None) -> np.ndarray | None:
-    return None if a is None else np.ascontiguousarray(np.swapaxes(a, -1, -2))
+    """Swap the last two axes into a new C-order array."""
+    if a is None:
+        return None
+    out = np.empty((*a.shape[:-2], a.shape[-1], a.shape[-2]), a.dtype)
+    for i in range(0, a.shape[-2], _T_ROWS):
+        out[..., i: i + _T_ROWS] = np.swapaxes(a[..., i: i + _T_ROWS, :], -1, -2)
+    return out
 
 
 def _pack_half_split(q: np.ndarray, off: int) -> np.ndarray:
     """[K, O] values in [0, 15] (after +off) -> [K/2, O] int8-viewed bytes,
-    row k in the low nibble and row k + K/2 in the high nibble."""
-    u = (q.astype(np.int16) + off).astype(np.uint8)
+    row k in the low nibble and row k + K/2 in the high nibble. The offset
+    is added in uint8 (mod 256), which leaves values in [0, 15] exact."""
+    u = q.view(np.uint8) + np.uint8(off & 0xFF)
     half = u.shape[0] // 2
-    return (u[:half] | (u[half:] << 4)).astype(np.uint8).view(np.int8)
+    return (u[:half] | (u[half:] << 4)).view(np.int8)
 
 
 def load_weight(

@@ -1,1 +1,1 @@
-"""Host-side dequantization and repacking of ggml quant blocks (numpy only)."""
+"""Host-side dequantization, repacking and quantization of ggml quant blocks (numpy only)."""

@@ -10,6 +10,8 @@ import numpy as np
 
 from .gguf.constants import GGML_BLOCK_LAYOUT, GGMLType, Keys, TokenType
 from .gguf.writer import GGUFWriter
+from .quant.quantize import quantize
+from .tools.quantize_tool import FTYPES, tensor_target_type
 
 
 def tiny_spm_vocab(n_tokens: int = 256) -> dict:
@@ -54,11 +56,39 @@ def tiny_spm_vocab(n_tokens: int = 256) -> dict:
     }
 
 
-# fp16 scale-field offsets inside a block, per type (layouts per reference
-# ggml/src/ggml-common.h)
+# scale fields inside a block, per type: (byte offset, kind), layouts per
+# reference ggml/src/ggml-common.h. Kinds: "f16" a half-precision scale (or
+# min), "f32" a single-precision one (Q8_K), "e8m0" MXFP4's exponent byte,
+# "ue4m3" NVFP4's four sub-block scale bytes, "iq1m" IQ1_M's half-precision
+# scale spread over the top nibbles of its four 16-bit scale words
 _SCALE_FIELDS = {
+    GGMLType.Q4_0: ((0, "f16"),),
+    GGMLType.Q4_1: ((0, "f16"), (2, "f16")),
+    GGMLType.Q5_0: ((0, "f16"),),
+    GGMLType.Q5_1: ((0, "f16"), (2, "f16")),
+    GGMLType.Q8_0: ((0, "f16"),),
+    GGMLType.Q8_1: ((0, "f16"), (2, "f16")),
+    GGMLType.Q2_K: ((80, "f16"), (82, "f16")),
+    GGMLType.Q3_K: ((108, "f16"),),
     GGMLType.Q4_K: ((0, "f16"), (2, "f16")),
+    GGMLType.Q5_K: ((0, "f16"), (2, "f16")),
     GGMLType.Q6_K: ((208, "f16"),),
+    GGMLType.Q8_K: ((0, "f32"),),
+    GGMLType.IQ2_XXS: ((0, "f16"),),
+    GGMLType.IQ2_XS: ((0, "f16"),),
+    GGMLType.IQ2_S: ((0, "f16"),),
+    GGMLType.IQ3_XXS: ((0, "f16"),),
+    GGMLType.IQ3_S: ((0, "f16"),),
+    GGMLType.IQ1_S: ((0, "f16"),),
+    GGMLType.IQ1_M: ((48, "iq1m"),),
+    GGMLType.IQ4_NL: ((0, "f16"),),
+    GGMLType.IQ4_XS: ((0, "f16"),),
+    GGMLType.TQ1_0: ((52, "f16"),),
+    GGMLType.TQ2_0: ((64, "f16"),),
+    GGMLType.MXFP4: ((0, "e8m0"),),
+    GGMLType.NVFP4: ((0, "ue4m3"),),
+    GGMLType.Q1_0: ((0, "f16"),),
+    GGMLType.Q2_0: ((0, "f16"),),
 }
 
 
@@ -70,9 +100,10 @@ def _rand_pool() -> np.ndarray:
 def synth_quant_bytes(rng, n_elements: int, ftype: GGMLType, offset: int = 0) -> bytes:
     """Random-but-valid packed quantized data without running a quantizer:
     payload bits come from a shared random pool (every bit pattern decodes
-    for these formats), read from `offset` on, the fp16 block scales are
-    overwritten with small sane values. Only for uses where the weight
-    values do not matter."""
+    for these formats), read from `offset` on, and each block's scale
+    fields are overwritten with one small sane scale (0.002-0.02; MXFP4's
+    exponent byte 2^-8, NVFP4's sub-block scales 2^-7, so no scale
+    overflows). Only for uses where the weight values do not matter."""
     pool = _rand_pool()
     if offset:
         pool = np.roll(pool, -offset)
@@ -82,8 +113,20 @@ def synth_quant_bytes(rng, n_elements: int, ftype: GGMLType, offset: int = 0) ->
     reps = -(-total // pool.size)
     buf = np.tile(pool, reps)[:total].reshape(nb, lay.type_size)
     scale = np.full(nb, rng.uniform(0.002, 0.02), np.float16)
-    for off, _kind in _SCALE_FIELDS[ftype]:
-        buf[:, off: off + 2] = scale.view(np.uint8).reshape(nb, 2)
+    for off, kind in _SCALE_FIELDS[ftype]:
+        if kind == "f16":
+            buf[:, off: off + 2] = scale.view(np.uint8).reshape(nb, 2)
+        elif kind == "f32":
+            buf[:, off: off + 4] = scale.astype(np.float32).view(np.uint8).reshape(nb, 4)
+        elif kind == "e8m0":
+            buf[:, off] = 120  # 2^(120 - 127) / 2
+        elif kind == "ue4m3":
+            buf[:, off: off + 4] = 1 << 3  # exponent 1, mantissa 0: 2^-6 / 2
+        else:  # iq1m: bits 12-15 of each of the four words hold a nibble of d
+            words = buf[:, off: off + 8].copy().view(np.uint16)
+            bits = scale.view(np.uint16)[:, None] >> (4 * np.arange(4, dtype=np.uint16))
+            words = (words & 0x0FFF) | ((bits & 0xF) << 12)
+            buf[:, off: off + 8] = words.view(np.uint8)
     if ftype == GGMLType.Q6_K:  # int8 scales field: keep moderate
         buf[:, 192:208] = buf[:, 192:208] % 31 + 1
     return buf.tobytes()
@@ -253,14 +296,22 @@ def make_bench_arch_gguf(
     attn_softcap: float = 0.0,
     final_softcap: float = 0.0,
     f32: bool = False,
+    ftype: str = "q4_k_m",
+    real_quant: bool = False,
     seed: int = 0,
 ) -> str:
     """A GGUF of one of the registry's decoder families (`arch`) with
-    synthetic packed weights in make_bench_llama_gguf's mix: Q4_K for
-    token_embd, attn_q/k/output and ffn_gate/up, Q6_K for attn_v, ffn_down
-    and output (with tie=True no output: the head is a Q6_K token_embd), F32
-    for norms, biases and the router. Each quantized tensor reads the random
-    pool from its own seeded offset, so no two tensors share their values.
+    synthetic packed weights. ftype "q4_k_m" is make_bench_llama_gguf's mix:
+    Q4_K for token_embd, attn_q/k/output and ffn_gate/up, Q6_K for attn_v,
+    ffn_down and output (with tie=True no output: the head is a Q6_K
+    token_embd). Any other file type of tools.quantize_tool.FTYPES ("q8_0",
+    "q5_k_m", "q5_0", "q4_0", "f16", ...) gives each matrix the type that
+    llama-quantize writes for it (tensor_target_type). Norms, biases and the
+    router are F32. Each quantized tensor reads the random pool from its own
+    seeded offset, so no two tensors share their values; real_quant=True
+    instead quantizes seeded f32 values (scale 1/sqrt(in)) with
+    quant.quantize, as llama-quantize would (F16/BF16 matrices always hold
+    such values).
     Options add the family's tensors: q/k/v biases (qwen2), per-head q/k
     norms (qwen3, gemma3), post-attention and post-FFN norms (gemma2/3);
     n_expert > 0 makes every layer MoE (an F32 router, stacked experts Q4_K
@@ -310,12 +361,21 @@ def make_bench_arch_gguf(
         arr = np.ascontiguousarray(arr, dtype=np.float32)
         w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
 
+    default = FTYPES[ftype][0]
+
     def emit_q(name, rows, cols, t, stack=()):
-        if f32:
-            emit_f(name, rng.standard_normal((*reversed(stack), rows, cols)) / np.sqrt(cols))
+        shape = (*reversed(stack), rows, cols)
+        if ftype != "q4_k_m":
+            t = tensor_target_type(name, shape, default, ftype)
+        if f32 or t == GGMLType.F32:
+            emit_f(name, rng.standard_normal(shape) / np.sqrt(cols))
             return
-        n = rows * cols * int(np.prod(stack, dtype=np.int64))
-        data = synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)))
+        if real_quant or t in (GGMLType.F16, GGMLType.BF16):
+            vals = (rng.standard_normal(shape) / np.sqrt(cols)).astype(np.float32)
+            data = quantize(vals, t).tobytes()
+        else:
+            n = rows * cols * int(np.prod(stack, dtype=np.int64))
+            data = synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)))
         w.add_tensor(name, data, (cols, rows, *stack), t)
 
     def norm_w(n):
@@ -363,27 +423,29 @@ def make_bench_arch_gguf(
 
 def make_bench_qwen3_gguf(path: str, n_layers: int = 36, n_embd: int = 4096, n_heads: int = 32,
                           n_kv_heads: int = 8, head_dim: int = 128, n_ff: int = 12288,
-                          vocab_size: int = 151936, n_ctx: int = 40960, seed: int = 0) -> str:
+                          vocab_size: int = 151936, n_ctx: int = 40960, ftype: str = "q4_k_m",
+                          seed: int = 0) -> str:
     """Qwen3-8B-shaped (by default; Qwen/Qwen3-8B config.json) dense GGUF:
     per-head q/k RMSNorm, NEOX rope at base 1e6, rms eps 1e-6, an untied
-    head."""
+    head; ftype as make_bench_arch_gguf's."""
     return make_bench_arch_gguf(path, "qwen3", n_layers, n_embd, n_heads, n_kv_heads,
                                 head_dim, n_ff, vocab_size, n_ctx, rope_base=1e6,
-                                qk_norm=True, seed=seed)
+                                qk_norm=True, ftype=ftype, seed=seed)
 
 
 def make_bench_qwen3moe_gguf(path: str, n_layers: int = 48, n_embd: int = 2048,
                              n_heads: int = 32, n_kv_heads: int = 4, head_dim: int = 128,
                              n_expert: int = 128, n_expert_used: int = 8, n_ff_exp: int = 768,
                              vocab_size: int = 151936, n_ctx: int = 40960,
-                             seed: int = 0) -> str:
+                             ftype: str = "q4_k_m", seed: int = 0) -> str:
     """Qwen3-30B-A3B-shaped (by default; Qwen/Qwen3-30B-A3B config.json)
     MoE GGUF: 128 experts of 768, top 8 with normalised weights, per-head
-    q/k RMSNorm, NEOX rope at base 1e6, an untied head."""
+    q/k RMSNorm, NEOX rope at base 1e6, an untied head; ftype as
+    make_bench_arch_gguf's."""
     return make_bench_arch_gguf(path, "qwen3moe", n_layers, n_embd, n_heads, n_kv_heads,
                                 head_dim, 6144, vocab_size, n_ctx, rope_base=1e6, qk_norm=True,
                                 n_expert=n_expert, n_expert_used=n_expert_used,
-                                n_ff_exp=n_ff_exp, seed=seed)
+                                n_ff_exp=n_ff_exp, ftype=ftype, seed=seed)
 
 
 def make_bench_gemma3_gguf(path: str, n_layers: int = 34, n_embd: int = 2560, n_heads: int = 8,

@@ -20,8 +20,9 @@ from llama_cpp_tpu_torch.ops.kernels import qmm_expert as tqe
 from llama_cpp_tpu_torch.runtime import decode_graph
 from llama_cpp_tpu_torch.runtime.context import Context
 from llama_cpp_tpu_torch.runtime.decode_graph import DeviceSampler
+from llama_cpp_tpu_torch.quant.repack import PLANE_TYPES
 from llama_cpp_tpu_torch.testing import (make_bench_llama_gguf, make_bench_moe_gguf,
-                                         synth_quant_bytes)
+                                         make_bench_qwen3_gguf, synth_quant_bytes)
 
 pytestmark = pytest.mark.gpu
 
@@ -72,6 +73,79 @@ def test_qmm_kernel_matches_plain(cuda_device, qtype, K, n):
     assert tqmm.launches[name] == before + 1
     assert got.shape == (n, O) and torch.isfinite(got).all()
     assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4
+
+
+PLANE_TYPE_LIST = sorted(PLANE_TYPES, key=int)
+
+
+@pytest.mark.parametrize("n", [1, 8, 64])
+@pytest.mark.parametrize("qtype", PLANE_TYPE_LIST, ids=[t.name.lower() for t in PLANE_TYPE_LIST])
+def test_qmm_kernel_on_every_plane_type(cuda_device, qtype, n):
+    """Every storage type with planes, as load_weight lays it out from
+    synthetic blocks (hierarchical for the six superblock types at K =
+    1024, nibble-packed where the values span 16 levels), through the
+    kernel its row count is routed to, against the plain version: NMSE <
+    1e-4 as above."""
+    O, K = 384, 1024
+    rng = np.random.default_rng(int(qtype) + n)
+    raw = np.frombuffer(synth_quant_bytes(rng, O * K, qtype), np.uint8)
+    w = tq.load_weight(raw, qtype, (O, K), transpose=True, device=cuda_device)
+    assert tqmm.dispatches(w) and tqmm.supported(w)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn((n, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    name = tqmm.kernel_name(w, n)
+    before = tqmm.launches[name]
+    got = tqmm.qmm(x, w)
+    torch.cuda.synchronize()
+    assert tqmm.launches[name] == before + 1
+    assert got.shape == (n, O) and torch.isfinite(got).all()
+    assert nmse(got, tqmm.qmm_plain(x, w)) < 1e-4
+
+
+@pytest.mark.parametrize("R", [1, 8, 64])
+def test_expert_kernel_on_q8_0_stacks(cuda_device, R):
+    """K7 on a Q8_0 expert stack (int8, flat f32 scales, groups of 32, no
+    mins) as the loader lays it out, against its plain version."""
+    E, O, K = 16, 256, 512
+    rng = np.random.default_rng(R)
+    raw = np.frombuffer(synth_quant_bytes(rng, E * O * K, GGMLType.Q8_0), np.uint8)
+    w = tq.load_weight(raw, GGMLType.Q8_0, (E, O, K), transpose=True, device=cuda_device)
+    assert tqe.supported(w) and w.group == 32 and w.mins is None
+    gen = torch.Generator(device=cuda_device).manual_seed(R)
+    x = torch.randn((R, K), generator=gen, device=cuda_device).to(torch.bfloat16)
+    ids = torch.randint(0, E, (R,), generator=gen, device=cuda_device, dtype=torch.int32)
+    before = tqe.launches["qmm_planes_expert"]
+    got = tqe.qmm_expert(x, ids, w)
+    torch.cuda.synchronize()
+    assert tqe.launches["qmm_planes_expert"] == before + 1
+    assert nmse(got, tqe.qmm_expert_plain(x, ids, w)) < 1e-4
+
+
+@pytest.mark.parametrize("ftype", ["q8_0", "q5_k_m", "q4_0"])
+def test_new_file_types_kernel_route_matches_plain_route(cuda_device, tmp_path, ftype):
+    """A small Qwen3 model at each new file type: prefill and greedy decode
+    through the kernels against Context(kernels=False); the products go
+    through the kernels of the file's planes (int8 for Q8_0 and Q5_K_M,
+    packed for Q4_0's layers)."""
+    path = make_bench_qwen3_gguf(str(tmp_path / "m.gguf"), n_layers=2, n_embd=512, n_heads=4,
+                                 n_kv_heads=2, head_dim=128, n_ff=1024, vocab_size=1024,
+                                 ftype=ftype)
+    model = load_model(path)
+    prompt = [int(t) for t in np.random.default_rng(2).integers(3, 1024, 200)]
+    for key in tqmm.launches:
+        tqmm.launches[key] = 0
+    ctx = Context(model, n_ctx=512, n_seqs=2, n_ubatch=128, quantized_kv=True)
+    got = ctx.prefill(prompt)
+    ids = ctx.generate(prompt, 8, seq=1)
+    packed = ftype == "q4_0"
+    assert tqmm.launches["qmm_planes/decode"] > 0
+    assert (tqmm.launches["qmm4_planes/decode"] > 0) == packed
+    assert (tqmm.launches["qmm4_planes_prefill/wgmma"] > 0) == packed
+    assert (tqmm.launches["qmm_planes_prefill/wgmma"] > 0) == (not packed)
+    ref_ctx = Context(model, n_ctx=512, n_seqs=2, n_ubatch=128, quantized_kv=True,
+                      kernels=False)
+    assert nmse(torch.from_numpy(got), torch.from_numpy(ref_ctx.prefill(prompt))) < 5e-3
+    assert ids == ref_ctx.generate(prompt, 8, seq=1)
 
 
 def synth_planes(device, packed: bool, group: int, hier: bool, mins: bool, K=512, O=256,

@@ -250,7 +250,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "            'tools.bench_tool', 'tools.perplexity', 'tools.results', 'tools.decode_wall',\n"
         "            'sampling.grammar', 'sampling.json_schema', 'server.app', 'server.scheduler',\n"
         "            'server.chat', 'server.chat_parser', 'server.peg', 'server.tool_calls',\n"
-        "            'server.webui'):\n"
+        "            'server.webui', 'quant.dequant', 'quant.repack', 'quant.quantize',\n"
+        "            'tools.quantize_tool'):\n"
         "    assert 'llama_cpp_tpu_torch.' + new in sys.modules, new\n"
         "assert 'aiohttp' not in sys.modules, 'a module of the port imported aiohttp'\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

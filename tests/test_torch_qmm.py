@@ -86,13 +86,22 @@ def test_pad_out_features_matches_jax():
                                   np.asarray(jw.dequant(jnp.float32)))
 
 
+# the storage types users download beside Q4_K_M, and their planes: Q8_0,
+# Q5_0 (int8, flat g32), Q5_1 (int8, flat g32, mins), Q5_K (int8, hier g32,
+# mins), Q4_0, Q4_1 (packed, flat g32, mins), IQ4_XS (int8, hier g32)
+NEW_TYPES = [GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K, GGMLType.Q4_0,
+             GGMLType.Q4_1, GGMLType.IQ4_XS]
+NEW_IDS = ["q8_0", "q5_0", "q5_1", "q5_k", "q4_0", "q4_1", "iq4_xs"]
+
+
 @pytest.mark.parametrize("n", [1, 8, 64])
-@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K], ids=["q4_k", "q6_k"])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, *NEW_TYPES],
+                         ids=["q4_k", "q6_k", *NEW_IDS])
 def test_qmm_plain_matches_jax_pallas(qtype, n):
     raw = raw_weight(qtype, seed=4)
     jw = jax_load_weight(raw, qtype, (O, K), prefer_quant=True, transpose=True)
     tw = tq.load_weight(raw, qtype, (O, K), prefer_quant=True, transpose=True)
-    assert tqmm.supported(tw)
+    assert tqmm.supported(tw) and tqmm.dispatches(tw)
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((n, K)).astype(np.float32) * 0.5).to(torch.bfloat16)
     ref = np.asarray(jax_qmm(jnp.asarray(x.float().numpy(), jnp.bfloat16), jw, interpret=True))
@@ -381,6 +390,29 @@ def test_decode_emulation_matches_jax_pallas(layout):
         got = decode_emulation(x[:n], w)
         assert got.shape == (n, 256)
         assert nmse(got.numpy(), ref[:n]) < 1e-4, n
+
+
+@pytest.mark.parametrize("qtype,layout", [
+    (GGMLType.Q5_K, "i32_hier_mins"), (GGMLType.Q8_0, "i32_flat"), (GGMLType.Q5_1, "i32_flat_mins"),
+    (GGMLType.Q4_0, "p32_flat_mins"), (GGMLType.IQ4_XS, "i32_hier")],
+    ids=["q5_k", "q8_0", "q5_1", "q4_0", "iq4_xs"])
+def test_decode_emulation_on_quantizer_planes_matches_jax_pallas(qtype, layout):
+    """The decode kernel's arithmetic on the planes load_weight makes from
+    the quantizer's bytes (Q5_K: int8 values 0..31 with hierarchical scales
+    and mins at g32, the layout no main path ran before), against the JAX
+    package's qmm in interpret mode at N = 1, 8 and 33; NMSE < 1e-4 as
+    above."""
+    raw = raw_weight(qtype, seed=18)
+    jw = jax_load_weight(raw, qtype, (O, K), prefer_quant=True, transpose=True)
+    w = tq.load_weight(raw, qtype, (O, K), prefer_quant=True, transpose=True)
+    packed, group, hier, mins = DECODE_LAYOUTS[layout]
+    assert (w.packed, w.group, w.hier, w.mins is not None) == (packed, group, hier, mins)
+    assert tqmm.supported(w) and tqmm.dispatches(w)
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal((33, K)).astype(np.float32)).to(torch.bfloat16)
+    ref = np.asarray(jax_qmm(jnp.asarray(x.float().numpy(), jnp.bfloat16), jw, interpret=True))
+    for n in (1, 8, 33):
+        assert nmse(decode_emulation(x[:n], w).numpy(), ref[:n]) < 1e-4, n
 
 
 @pytest.mark.parametrize("layout", list(DECODE_LAYOUTS))
