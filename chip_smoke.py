@@ -140,6 +140,22 @@ Phases, each of which fails the run:
        with at least 4 distinct ids each. Paths whose greedy ids vary hold
        each id teacher-forced against the plain path (against_plain's
        near_ties rule);
+     - path S, what llama-cli and llama-server had refused, on that Q8_0
+       model and path Q's files: speculative_generate with the n-gram
+       lookup and with a self-draft at n_draft 4 and 8 (each verify step's
+       attention kernel read from the counters: the decode kernel at 8
+       rows, the prefill kernel at 16), the 0.6B q4_0 drafting for its
+       q8_0 (acceptance strictly between 0 and 1) and the 0.6B for Qwen3-8B;
+       save_state/load_state and save_seq_state/load_seq_state bit for bit
+       on the pool and the slot table; context_shift on both, graphed
+       against eager, against the plain path and (one layer) a fresh
+       context; a seeded LoRA and control vector against the plain path,
+       the base products on K2/K4 only, scale 0 and removal bit for bit;
+       and, on the llama paths, llama-cli's --spec-ngram, --prompt-cache
+       (twice), -cnv, --lora/--control-vector and --no-quant (the file
+       loaded dense, against the quantized model's plain path), and
+       llama-server's --spec ngram round, slot save/erase/restore, /tools
+       over --mcp and a 600-token request through context shifts at -c 512;
      Launch counts include every graph replay (a graph adds its step's
      launches at each replay).
 The last two lines are the kernels JSON object and
@@ -157,6 +173,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -975,19 +992,25 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from llama_cpp_tpu_torch.gguf.constants import GGMLType
-        from llama_cpp_tpu_torch.models.loader import load_model
+        from llama_cpp_tpu_torch.models import adapters
+        from llama_cpp_tpu_torch.models.loader import Model, load_model
         from llama_cpp_tpu_torch.ops import qtensor
         from llama_cpp_tpu_torch.ops.kernels import (build, flash_attn, qmm, qmm_bench,
                                                      qmm_expert)
         from llama_cpp_tpu_torch.ops.qtensor import load_weight, pad_out_features
         from llama_cpp_tpu_torch.quant.repack import PLANE_TYPES
         from llama_cpp_tpu_torch.runtime.context import Context
+        from llama_cpp_tpu_torch.runtime import state as state_io
         from llama_cpp_tpu_torch.runtime.kv_cache import ISWACache
+        from llama_cpp_tpu_torch.runtime.speculative import (DraftModelSpeculator,
+                                                             NgramSpeculator,
+                                                             speculative_generate)
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
         from llama_cpp_tpu_torch.testing import (make_bench_arch_gguf, make_bench_gemma3_gguf,
                                                  make_bench_llama_gguf, make_bench_moe_gguf,
                                                  make_bench_qwen3_gguf, make_bench_qwen3moe_gguf,
+                                                 make_control_vector_gguf, make_lora_gguf,
                                                  synth_quant_bytes)
         from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
         from llama_cpp_tpu_torch.tools import bench_tool
@@ -1317,7 +1340,7 @@ def main() -> int:
         return counts
 
     def against_plain(path, model, logits, gen_ids, prompt, decode_logits=0, near_ties=False,
-                      **ctx_kw):
+                      ref_model=None, **ctx_kw):
         """The plain path (kernels=False) on the same model, prompt and
         memory, as the reference of the kernel path; with decode_logits = n
         also the logits of n teacher-forced decode steps (the greedy ids fed
@@ -1331,8 +1354,9 @@ def main() -> int:
         teacher-forced, both contexts fed the same ids, and must be the plain
         path's argmax at its step, or the parting of a near-tie: the plain
         logit of the kernel's id within that step's largest difference
-        between the two paths' logits of the plain argmax."""
-        ref_ctx = Context(model, kernels=False, graphs=False, **ctx_kw)
+        between the two paths' logits of the plain argmax. ref_model: the
+        model whose plain path is the reference (default: the same model)."""
+        ref_ctx = Context(ref_model or model, kernels=False, graphs=False, **ctx_kw)
         ref_logits = ref_ctx.prefill(prompt, seq=0)
         steps = len(gen_ids) if near_ties else decode_logits
         held = None
@@ -1381,6 +1405,53 @@ def main() -> int:
         if logits.shape != (vocab,) or not np.isfinite(logits).all():
             failures.append(f"{path}: prefill logits shape {logits.shape}, finite "
                             f"{bool(np.isfinite(logits).all())}")
+
+    def hold_ids(path, model, prompt, ids, ref_model=None, **ctx_kw):
+        """Greedy ids of a path whose choices may part from Context.generate's
+        at a near-tie (speculative verify steps run the kernels at N = 8 or
+        16 rows, the prompt cache prefills one row): each id held
+        teacher-forced against the plain path (kernels=False, on ref_model
+        when given), both fed the same ids: the plain argmax, or the parting
+        of a near-tie, the plain logit of the id within that step's largest
+        difference between the kernel path's logits (N = 1) and the plain
+        path's (against_plain's rule)."""
+        kern = Context(model, graphs=False, **ctx_kw)
+        plain = Context(ref_model or model, kernels=False, graphs=False, **ctx_kw)
+        lk, lp = kern.prefill(prompt), plain.prefill(prompt)
+        ties, wrong = [], []
+        for i, t in enumerate(ids):
+            diff, gap = float(np.abs(lk - lp).max()), float(lp.max() - lp[t])
+            if gap > diff:
+                wrong.append((i, t, int(np.argmax(lp)), round(gap, 5), round(diff, 5)))
+            elif int(np.argmax(lp)) != t:
+                ties.append((i, round(gap, 5), round(diff, 5)))
+            lk, lp = kern.decode_one(t), plain.decode_one(t)
+        log(f"{path}: {len(ids)} ids held teacher-forced against the plain path: "
+            f"{len(ids) - len(ties) - len(wrong)} its argmax, {len(ties)} near-ties (step, plain "
+            f"top gap, largest logit difference) {ties}")
+        if wrong:
+            failures.append(f"{path}: ids off the plain path's argmax beyond a near-tie (step, "
+                            f"id, plain argmax, gap, difference): {wrong[:4]}")
+
+    def lora_shapes(cfg):
+        """(out, in) of attn_q, attn_k, attn_v, ffn_gate and ffn_up."""
+        E, H, KV = cfg.n_embd, cfg.n_heads * cfg.head_dim_k, cfg.n_kv_heads * cfg.head_dim_k
+        return {"attn_q": (H, E), "attn_k": (KV, E), "attn_v": (KV, E), "ffn_gate": (cfg.n_ff, E),
+                "ffn_up": (cfg.n_ff, E)}
+
+    def cli_loop(ctx, logits, n, tok):
+        """llama-cli's sampling loop, greedy, from a prefill's logits -> the
+        ids it prints (an end-of-generation token ends it unprinted)."""
+        out = []
+        for _ in range(n):
+            t = int(np.argmax(logits))
+            if tok.is_eog(t):
+                break
+            out.append(t)
+            if ctx.seq_len[0] >= ctx.n_ctx - 1:
+                break
+            logits = ctx.decode_one(t)
+        return out
 
     def drive(ctx, prompt, prompts512, vocab, batches, label, n_gen=32):
         """One untimed ubatch (the caching allocator's first allocations and
@@ -1830,6 +1901,313 @@ def main() -> int:
             f"{chain_ms:.3f} ms a token on {logits.shape[0]} logits; the JSON grammar's mask "
             f"{grammar_ms:.1f} ms for its first token (host Python)")
 
+    def path_d_features(model, cli_ids, ref_gen, run_cli, prompt):
+        """llama-cli's features beyond plain decoding on the 4-layer llama
+        file, each run with its own load_model, greedy, each printed text
+        against the same setup driven in this process: --spec-ngram
+        --draft-max 8 against speculative_generate (its ids against
+        Context.generate's, held teacher-forced where they part);
+        --prompt-cache twice (the second run reuses the prefix; its text
+        against the cache file of the first run continued here); -cnv over
+        two turns of stdin against the CLI's chat loop; --lora and
+        --control-vector on seeded files against Context.generate over the
+        adapted model; --no-quant: the file loaded dense, its prefill logits
+        against the quantized model's plain path (NMSE 5e-3), 16 greedy ids
+        held teacher-forced against it, and the CLI's text against
+        Context.generate over the dense model."""
+        import shutil
+
+        tok = model.tokenizer
+        cli_kw = dict(n_ctx=2048, quantized_kv=True)
+
+        def pieces(ids):
+            return "".join(tok.piece(t) for t in ids if not tok.is_eog(t))
+
+        # --spec-ngram: the verify steps at 8 or 16 rows
+        reset_counts()
+        text, err = run_cli("--temp", "0", "--spec-ngram", "--draft-max", "8")
+        all_counts["llama-cli --spec-ngram"] = read_counts("path D --spec-ngram",
+                                                           decode_keys + paged_keys)
+        sids, stats = speculative_generate(
+            Context(model, **cli_kw), NgramSpeculator(), cli_ids, 32, n_draft=8,
+            sampler=SamplerChain.from_params(SamplingParams(temp=0.0), tok.vocab))
+        want = "".join(tok.piece(t) for t in sids)  # the stream prints every token
+        spec_lines = [ln for ln in err.splitlines() if ln.startswith("spec:")]
+        same = sum(int(a == b) for a, b in zip(sids, ref_gen))
+        log(f"path D: --spec-ngram --draft-max 8: {spec_lines}; text equal to "
+            f"speculative_generate's: {text == want}; its ids equal to Context.generate's "
+            f"{same} of {len(ref_gen)}")
+        if text != want:
+            failures.append(f"path D --spec-ngram: printed {text!r}, speculative_generate {want!r}")
+        if sids != ref_gen:
+            hold_ids("path D --spec-ngram", model, cli_ids, sids, **cli_kw)
+
+        # --prompt-cache, twice: the second run loads the first's file
+        cache = os.path.join(smoke_dir, "prompt.cache")
+        first, err1 = run_cli("--temp", "0", "--prompt-cache", cache)
+        shutil.copy(cache, cache + ".first")
+        second, err2 = run_cli("--temp", "0", "--prompt-cache", cache)
+        reused = [ln for ln in err2.splitlines() if ln.startswith("prompt cache: reused")]
+        ctx = Context(model, **cli_kw)
+        state_io.load_state(ctx, cache + ".first")
+        ctx.seq_rm(0, p0=len(cli_ids) - 1)
+        cont = cli_loop(ctx, ctx.prefill(cli_ids[-1:]), 32, tok)
+        del ctx
+        log(f"path D: --prompt-cache twice: {reused}, first text equal to Context.generate's "
+            f"{first == pieces(ref_gen) + chr(10)}, second equal to the first {second == first}, "
+            f"to the cache file continued here {second == pieces(cont) + chr(10)}")
+        if (not reused or "reused" in err1 or first != pieces(ref_gen) + "\n"
+                or second != pieces(cont) + "\n"):
+            failures.append(f"path D --prompt-cache: {reused}, {first!r}, {second!r}")
+        if cont != [t for t in ref_gen if not tok.is_eog(t)][: len(cont)]:
+            hold_ids("path D --prompt-cache", model, cli_ids, cont, **cli_kw)
+        for f in (cache, cache + ".first"):
+            os.remove(f)
+
+        # -cnv over two turns of stdin
+        turns = ["the cat is on the mat", "and that was the end of it"]
+        old_stdin = sys.stdin
+        sys.stdin = io.StringIO("\n".join(turns) + "\n\n")
+        try:
+            chat, _ = run_cli("--temp", "0", "-cnv", "-n", "16")
+        finally:
+            sys.stdin = old_stdin
+        from llama_cpp_tpu_torch.server.chat import apply_chat_template
+
+        ctx, history, want = Context(model, **cli_kw), [], ""
+        for user in turns:
+            history.append({"role": "user", "content": user})
+            ids = tok.encode(apply_chat_template(history, tok.vocab.chat_template, "", "", True),
+                             add_special=True, parse_special=True)
+            ctx.seq_rm(0)
+            reply = cli_loop(ctx, ctx.prefill(ids), 16, tok)
+            want += "> " + pieces(reply) + "\n"
+            history.append({"role": "assistant", "content": tok.decode(reply)})
+        want += "> "
+        del ctx
+        log(f"path D: -cnv, two turns on stdin: text equal to the chat loop here {chat == want} "
+            f"({chat[:60]!r})")
+        if chat != want:
+            failures.append(f"path D -cnv: printed {chat!r}, the chat loop {want!r}")
+
+        # --lora and --control-vector on seeded files
+        cfg = model.cfg
+        lora = make_lora_gguf(os.path.join(smoke_dir, "llama-lora.gguf"), cfg.n_layers,
+                              lora_shapes(cfg), rank=16, scale=0.02)
+        cvec = make_control_vector_gguf(os.path.join(smoke_dir, "llama-cvec.gguf"),
+                                        cfg.n_layers, cfg.n_embd, scale=0.1)
+        reset_counts()
+        steered, _ = run_cli("--temp", "0", "--lora", lora, "--control-vector", cvec)
+        all_counts["llama-cli --lora"] = read_counts("path D --lora --control-vector",
+                                                     decode_keys + paged_keys)
+        adapters.apply_lora(model, adapters.load_lora(lora))
+        adapters.apply_control_vector(model, adapters.load_control_vector(cvec, cfg.n_layers,
+                                                                          cfg.n_embd))
+        a_gen = Context(model, **cli_kw).generate(cli_ids, 32)
+        adapters.remove_lora(model)
+        adapters.remove_control_vector(model)
+        log(f"path D: --lora (rank 16 on attn_q, attn_k, attn_v, ffn_gate, ffn_up) "
+            f"--control-vector: text equal to Context.generate over the adapted model "
+            f"{steered == pieces(a_gen) + chr(10)}, different from the base text "
+            f"{steered != pieces(ref_gen) + chr(10)}")
+        if steered != pieces(a_gen) + "\n":
+            failures.append(f"path D --lora: printed {steered!r}, generate {pieces(a_gen)!r}")
+        for f in (lora, cvec):
+            os.remove(f)
+
+        # --no-quant: the file loaded dense
+        t0 = time.perf_counter()
+        dense = load_model(llama_path, prefer_quant=False)
+        torch.cuda.synchronize()
+        planes = [w for lw in dense.params["layers"] for w in lw.values()
+                  if isinstance(w, qtensor.QuantTensor)]
+        log(f"path D: load_model(prefer_quant=False): {time.perf_counter() - t0:.1f} s, every "
+            f"matrix bf16: {not planes}")
+        kw = dict(n_ctx=4096, n_seqs=2, n_ubatch=512, quantized_kv=True)
+        reset_counts()
+        d_ctx = Context(dense, **kw)
+        d_logits = d_ctx.prefill(prompt)
+        d_ids = d_ctx.generate(prompt, 16, seq=1)
+        all_counts["llama --no-quant"] = read_counts("path D --no-quant (dense)", paged_keys)
+        del d_ctx
+        ref = Context(model, kernels=False, graphs=False, **kw).prefill(prompt)
+        err = nmse(torch.from_numpy(d_logits), torch.from_numpy(ref))
+        log(f"path D: dense weights: prefill logits NMSE {err:.3e} against the quantized "
+            f"model's plain path (limit {NMSE_LIMIT})")
+        if not err < NMSE_LIMIT:
+            failures.append(f"path D --no-quant: logits NMSE {err}")
+        hold_ids("path D --no-quant", dense, prompt, d_ids, ref_model=model, **kw)
+        reset_counts()
+        dtext, _ = run_cli("--temp", "0", "--no-quant")
+        read_counts("path D llama-cli --no-quant", paged_keys)
+        d_gen = Context(dense, **cli_kw).generate(cli_ids, 32)
+        log(f"path D: llama-cli --no-quant: text equal to Context.generate over the dense "
+            f"model {dtext == pieces(d_gen) + chr(10)}")
+        if dtext != pieces(d_gen) + "\n":
+            failures.append(f"path D --no-quant: printed {dtext!r}, generate {pieces(d_gen)!r}")
+        del dense
+        torch.cuda.empty_cache()
+
+    def start_server(model, **kw):
+        """run_server over a loaded model in a thread on a free port ->
+        (server, thread), or None when it did not start."""
+        import threading
+
+        from llama_cpp_tpu_torch.server.app import run_server
+
+        box, ready = {}, threading.Event()
+        th = threading.Thread(target=run_server, args=(model,), daemon=True, kwargs=dict(
+            host="127.0.0.1", port=0, ready=lambda srv: (box.setdefault("srv", srv), ready.set()),
+            **kw))
+        th.start()
+        if not ready.wait(300):
+            return None
+        return box["srv"], th
+
+    def stop_server(label, srv, th):
+        srv.shutdown()
+        th.join(timeout=60)
+        if th.is_alive():
+            failures.append(f"{label}: the server thread did not stop")
+
+    MCP_STUB = "\n".join([
+        "import json, sys",
+        "for line in sys.stdin:",
+        "    msg = json.loads(line)",
+        "    m, mid = msg.get('method'), msg.get('id')",
+        "    if m == 'notifications/initialized':",
+        "        continue",
+        "    if m == 'initialize':",
+        "        res = {'protocolVersion': '2024-11-05', 'capabilities': {'tools': {}},",
+        "               'serverInfo': {'name': 'echo-mcp', 'version': '0.1'}}",
+        "    elif m == 'tools/list':",
+        "        res = {'tools': [{'name': 'echo', 'description': 'echo text back',",
+        "                          'inputSchema': {'type': 'object'}}]}",
+        "    elif m == 'tools/call':",
+        "        res = {'content': [{'type': 'text',",
+        "                            'text': 'echo: ' + msg['params']['arguments']['text']}]}",
+        "    else:",
+        "        out = {'jsonrpc': '2.0', 'id': mid, 'error': {'code': -32601, 'message': m}}",
+        "        sys.stdout.write(json.dumps(out) + '\\n'); sys.stdout.flush(); continue",
+        "    sys.stdout.write(json.dumps({'jsonrpc': '2.0', 'id': mid, 'result': res}) + '\\n')",
+        "    sys.stdout.flush()",
+        ""])
+
+    def path_f_features(model):
+        """llama-server's features beyond plain decoding on the 4-layer
+        llama: with --spec ngram (--draft-max 8, -np 4) one round of four
+        concurrent 32-token greedy requests, ids against Context.generate's
+        (held teacher-forced where they part); then at -c 512, -np 1, with
+        --mcp over a stub MCP server this script writes: POST /slots/0 save,
+        erase and restore, after which the repeated request's text equals its
+        text before the save; /tools and /tools/call; and a 600-token
+        request that finishes with all 600 tokens through context shifts."""
+        import threading
+
+        tok = model.tokenizer
+        ids = [tok.encode(p, add_special=True, parse_special=True) for p in SERVER_PROMPTS]
+        ref_ctx = Context(model, n_ctx=4096, n_ubatch=512, quantized_kv=True)
+        want = []
+        for p in ids:
+            want.append(ref_ctx.generate(p, 32))
+            ref_ctx.reset()
+        del ref_ctx
+        label = "path F --spec ngram"
+        reset_counts()
+        started = start_server(model, n_seqs=4, n_ctx=4096, n_ubatch=512, quantized_kv=True,
+                               spec="ngram", n_draft=8)
+        if started is None:
+            failures.append(f"{label}: the server did not start")
+            return
+        srv, th = started
+        url = f"http://127.0.0.1:{srv.port}"
+        out = [None] * 4
+
+        def ask(i):
+            out[i] = http(url, "/completion", {
+                "prompt": SERVER_PROMPTS[i], "n_predict": 32, "temperature": 0,
+                "ignore_eos": True, "return_tokens": True, "cache_prompt": False})
+
+        try:
+            threads = [threading.Thread(target=ask, args=(i,)) for i in range(4)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            m = dict(srv.app.sched.metrics)
+        finally:
+            stop_server(label, srv, th)
+        all_counts[label] = read_counts(label, decode_keys + prefill_keys + paged_keys)
+        agree = [sum(int(a == b) for a, b in zip(r["tokens"], w)) if r else 0
+                 for r, w in zip(out, want)]
+        log(f"{label} ({card}): four concurrent 32-token requests, ids equal to "
+            f"Context.generate's {agree} of 32 each; drafted {m['draft_tokens_total']}, accepted "
+            f"{m['draft_tokens_accepted']}; {wall:.3f} s")
+        for i, r in enumerate(out):
+            if r is None or len(r["tokens"]) != 32:
+                failures.append(f"{label}: request {i} answered {r}")
+            elif r["tokens"] != want[i]:
+                hold_ids(f"{label} request {i}", model, ids[i], r["tokens"], n_ctx=4096,
+                         n_ubatch=512, quantized_kv=True)
+
+        label = "path F slots, tools, context shift"
+        stub = os.path.join(smoke_dir, "mcp_stub.py")
+        with open(stub, "w", encoding="utf-8") as fh:
+            fh.write(MCP_STUB)
+        reset_counts()
+        started = start_server(model, n_seqs=1, n_ctx=512, n_ubatch=512, quantized_kv=True,
+                               mcp=[f"{sys.executable} {stub}"], slot_save_dir=smoke_dir)
+        if started is None:
+            failures.append(f"{label}: the server did not start")
+            return
+        srv, th = started
+        url = f"http://127.0.0.1:{srv.port}"
+        req = {"prompt": CLI_PROMPT, "n_predict": 16, "temperature": 0, "return_tokens": True}
+        try:
+            http(url, "/completion", req)
+            before = http(url, "/completion", req)  # reuses all but the prompt's last token
+            t0 = time.perf_counter()
+            saved = http(url, "/slots/0?action=save", {"filename": "slot0.bin"})
+            t1 = time.perf_counter()
+            erased = http(url, "/slots/0?action=erase", {})
+            emptied = int(srv.app.ctx.seq_len[0])
+            t2 = time.perf_counter()
+            restored = http(url, "/slots/0?action=restore", {"filename": "slot0.bin"})
+            t3 = time.perf_counter()
+            after = http(url, "/completion", req)
+            tools = http(url, "/tools")
+            called = http(url, "/tools/call", {"name": "echo", "arguments": {"text": "hi"}})
+            t4 = time.perf_counter()
+            long = http(url, "/completion", {"prompt": CLI_PROMPT, "n_predict": 600,
+                                             "temperature": 0, "ignore_eos": True,
+                                             "return_tokens": True})
+            long_s = time.perf_counter() - t4
+        finally:
+            stop_server(label, srv, th)
+        all_counts[label] = read_counts(label, decode_keys + paged_keys)
+        log(f"{label} ({card}): slot save {saved} in {(t1 - t0) * 1e3:.1f} ms, erase {erased} "
+            f"(seq_len after it {emptied}), restore {restored} in {(t3 - t2) * 1e3:.1f} ms; the "
+            f"repeated request's ids after the restore equal those before the save: "
+            f"{after['tokens'] == before['tokens']}")
+        if (after["tokens"] != before["tokens"] or emptied != 0 or not erased.get("erased")
+                or restored.get("n_restored", 0) <= len(tok.encode(CLI_PROMPT))):
+            failures.append(f"{label}: slot round trip: before {before['tokens']}, after "
+                            f"{after['tokens']}, {saved}, {erased}, {restored}")
+        log(f"{label}: /tools {[t['name'] for t in tools['tools']]}, /tools/call {called}")
+        if [t["name"] for t in tools["tools"]] != ["echo"] or called != {
+                "output": "echo: hi", "is_error": False}:
+            failures.append(f"{label}: /tools {tools}, /tools/call {called}")
+        n_long = long["usage"]["completion_tokens"]
+        log(f"{label}: a 600-token request at -c 512: {n_long} tokens, finish "
+            f"{long['choices'][0]['finish_reason']!r}, {len(set(long['tokens']))} distinct ids, "
+            f"{long_s:.2f} s ({card})")
+        if n_long != 600 or len(long["tokens"]) != 600 or max(long["tokens"]) >= V:
+            failures.append(f"{label}: the 600-token request ended after {n_long} tokens")
+        for f in (stub, os.path.join(smoke_dir, "slot0.bin")):
+            os.remove(f)
+
     smoke_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(smoke_dir, exist_ok=True)
     path = os.path.join(smoke_dir, f"llama8b-q4km-{SMOKE_LAYERS}l.gguf")
@@ -1965,8 +2343,10 @@ def main() -> int:
     if g_text != g_ref_text or not accepted or len(g_text) < 2:
         failures.append(f"path D: constrained text {g_text!r}, Context.generate behind the "
                         f"grammar {g_ref_text!r}, accepted {accepted}")
+    path_d_features(model, cli_ids, ref_gen, run_cli, prompt)
     path_e(model, llama_path, smoke_dir)
     path_f(model)
+    path_f_features(model)
     os.remove(llama_path)
     del model, lw0, tok
     torch.cuda.empty_cache()
@@ -2135,7 +2515,8 @@ def main() -> int:
             failures.append(f"{label}: the tied head launched a kernel: {before} -> {after}")
 
     def arch_path(label, make, n_layers, vocab, must_run, note, profile_qe=None,
-                  server=False, n_gen=32, full=True, want_layout=None, near_ties=False):
+                  server=False, n_gen=32, full=True, want_layout=None, near_ties=False,
+                  keep=False):
         """One family's model at full width, depth cut to n_layers: load,
         drive (prefill 2048, n_gen greedy tokens at B=1, decode_steps_greedy
         at B=8), its kernel set, the plain path on the prefill logits, 8
@@ -2143,7 +2524,8 @@ def main() -> int:
         also the B=1 profile, the graph phase at B=8 and the tied head's
         library route where the model has no output.weight; with server=True
         one served round. want_layout: the layout every quantized matmul
-        weight must have; near_ties: against_plain's rule for varied ids."""
+        weight must have; near_ties: against_plain's rule for varied ids;
+        keep: return the loaded model for a later path."""
         path = os.path.join(smoke_dir, f"{label}.gguf")
         t0 = time.perf_counter()
         make(path, n_layers=n_layers, seed=0)
@@ -2193,6 +2575,8 @@ def main() -> int:
                 tied_head_phase(model, label)
         if server:
             server_round(model, f"{label} server")
+        if keep:
+            return model
         del model
         torch.cuda.empty_cache()
 
@@ -2202,7 +2586,8 @@ def main() -> int:
         result is loaded and held against the plain path (prefill logits,
         8 teacher-forced decode steps, 32 greedy ids); on the Q8_0 file the
         32 ids of generate_ondevice and of a served round equal
-        Context.generate's, with at least 4 distinct ids among them."""
+        Context.generate's, with at least 4 distinct ids among them. Returns
+        the paths of the q8_0 and q4_0 files, kept for path S."""
         src = os.path.join(smoke_dir, "qwen3-0.6b-f16.gguf")
         t0 = time.perf_counter()
         make_bench_arch_gguf(src, "qwen3", QUANT_LAYERS, 1024, 16, 8, 128, 3072, 151936,
@@ -2229,7 +2614,6 @@ def main() -> int:
                 failures.append(f"{label}: quantize_tool exited with {rc}")
                 continue
             model = load_model(dst)
-            os.remove(dst)
             types = {GGMLType(w.ggml_type).name for lw in model.params["layers"]
                      for w in lw.values() if isinstance(w, qtensor.QuantTensor)}
             log(f"{label}: load_model {time.perf_counter() - t1:.1f} s; layer weights {types}, "
@@ -2263,6 +2647,320 @@ def main() -> int:
             del model
             torch.cuda.empty_cache()
         os.remove(src)
+        return [os.path.join(smoke_dir, f"qwen3-0.6b-{f}.gguf") for f in ("q8_0", "q4_0")]
+
+    def traced_decode(ctx, record):
+        """Wrap ctx.decode: each call's rows, padded bucket, wall ms and the
+        attention kernels it launched go to `record` (the verify steps of
+        speculative_generate; the call ends in a copy of the logits to the
+        host, so its wall time is the step's)."""
+        inner = ctx.decode
+
+        def decode(tokens, *a, **k):
+            before = dict(flash_attn.launches)
+            t0 = time.perf_counter()
+            out = inner(tokens, *a, **k)
+            T = np.atleast_2d(tokens).shape[1]
+            record.append({"T": T, "ms": (time.perf_counter() - t0) * 1e3, "kernels": {
+                key: flash_attn.launches[key] - before[key] for key in paged_keys}})
+            return out
+
+        ctx.decode = decode
+
+    def path_s(model, small_q8, small_q4):
+        """What llama-cli and llama-server had refused, on Qwen3-8B Q8_0 (the
+        4-layer model of the path above) and path Q's Qwen3-0.6B-shaped
+        files, Context(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True):
+        1. speculative_generate with NgramSpeculator over a prompt that
+           repeats a 64-token span (the model's own greedy continuation of a
+           random prefix, then a random stretch, then the span's first 40
+           tokens), 64 new tokens, at n_draft 4 and 8; random weights do not
+           copy, so the lookup may find nothing to draft; then the same with
+           the model drafting for itself (DraftModelSpeculator over a second
+           context of it), whose drafts fill every verify step: at n_draft 4
+           the verify rows bucket to 8 (32 rows a KV head: the paged
+           attention's decode kernel), at 8 to 16 (64 rows a KV head: its
+           prefill kernel), each verify step's kernels read from the launch
+           counters; the ids against Context.generate's, held
+           teacher-forced where they part; acceptance, tok/s beside plain
+           greedy, verify ms;
+        2. DraftModelSpeculator: the 0.6B q4_0 file drafting for its q8_0
+           (the same F16 values: an acceptance strictly between 0 and 1),
+           then the 0.6B q8_0 drafting for Qwen3-8B (unrelated weights:
+           constant rollback); ids held as in 1;
+        3. state: save_state after a 2048-token prefill, reset, load_state;
+           save_seq_state of seq 0 into seq 3: the first step's logits and 16
+           graphed greedy ids equal the run without the round trip, bit for
+           bit, and an eager context's after the load; on the pool and the
+           slot table; bytes and ms;
+        4. context shift (n_keep 64) at 2048 tokens on both memories: 8
+           graphed steps equal the eager ones, 8 teacher-forced steps within
+           NMSE 5e-3 of the plain path shifted alike, and on a 1-layer view of
+           the model (where K and V depend on token and position only)
+           within NMSE 5e-3 of a fresh context prefilled with the kept
+           tokens; ms;
+        5. a seeded rank-16 LoRA on attn_q/k/v, ffn_gate/up of every layer
+           and a seeded control vector: prefill logits within NMSE 5e-3 of
+           the plain path with the same adapters, the base products through
+           K2/K4 only, lora_scale 0 and remove_lora bit for bit the base's,
+           graphed steps equal to eager after each change; ms a step with and
+           without the LoRA."""
+        vocab = model.cfg.vocab_size
+        kw = dict(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True)
+        int8_qmm = ("qmm_planes/decode", "qmm_planes_prefill/wgmma")
+        srng = np.random.default_rng(17)
+
+        def toks(n):
+            return [int(t) for t in srng.integers(3, vocab, n)]
+
+        # the repeated span is the model's own greedy continuation of a
+        # random prefix: text the model copies, as prompt lookup expects
+        head = toks(256)
+        ctx = Context(model, **kw)
+        span = ctx.generate(head, 64)
+        prompt = head + span + toks(128) + span[:40]
+        prompt2k = toks(2048)
+        n_pre = -(-len(prompt) // ctx.n_ubatch)  # the prefill's ubatches
+
+        # 1. n-gram speculation, then the verify shapes through a self-draft
+        ctx.reset()
+        ctx.decode_loop(1).ready()
+        n0, t0 = ctx.perf.n_decode, ctx.perf.t_decode_ms
+        ref = ctx.generate(prompt, 64)
+        plain_tps = (ctx.perf.n_decode - n0) / ((ctx.perf.t_decode_ms - t0) / 1e3)
+        for name, make_spec in (("n-gram", NgramSpeculator),
+                                ("self-draft", lambda: DraftModelSpeculator(Context(model, **kw)))):
+            for n_draft, want_kernel in ((4, "flash_attention_paged/decode"),
+                                         (8, "flash_attention_paged/prefill")):
+                label = f"path S {name} n_draft {n_draft}"
+                ctx.reset()
+                record = []
+                traced_decode(ctx, record)
+                spec = make_spec()
+                reset_counts()
+                t0 = time.perf_counter()
+                ids, st = speculative_generate(ctx, spec, prompt, 64, n_draft=n_draft)
+                wall = time.perf_counter() - t0
+                del ctx.decode, spec
+                all_counts[label] = read_counts(label, int8_keys)
+                verify = [r for r in record[n_pre:] if r["T"] > 1]
+                big = [r for r in verify if r["T"] > 8]  # buckets of 16 rows
+                small = [r for r in verify if r["T"] <= 8]
+                spec_tps = (len(ids) - 1) / (wall - sum(r["ms"] for r in record[:n_pre]) / 1e3)
+                def rows(rs):  # verify steps: count, median ms, attention kernels launched
+                    ms = np.median([r["ms"] for r in rs]) if rs else float("nan")
+                    ks = sorted({k for r in rs for k, v in r["kernels"].items() if v})
+                    return f"{len(rs)}, median {ms:.3f} ms, kernels {ks}"
+
+                log(f"{label} ({card}): {st}, acceptance "
+                    f"{st['n_accept'] / max(st['n_draft'], 1):.3f}; {spec_tps:.1f} tok/s against "
+                    f"plain greedy (graphed) {plain_tps:.1f} tok/s; verify steps of 2-8 rows: "
+                    f"{rows(small)}; of 9-16 rows: {rows(big)}; ids equal to Context.generate's "
+                    f"{sum(int(a == b) for a, b in zip(ids, ref))} of 64")
+                want_rows = big if n_draft == 8 else small
+                other = ("flash_attention_paged/decode" if n_draft == 8
+                         else "flash_attention_paged/prefill")
+                if (not all(r["kernels"][want_kernel] > 0 for r in want_rows)
+                        or any(r["kernels"][other] for r in want_rows) or len(ids) != 64
+                        or (name == "self-draft" and not want_rows)):
+                    failures.append(f"{label}: verify steps "
+                                    f"{[(r['T'], r['kernels']) for r in verify][:6]}")
+                if ids != ref:
+                    hold_ids(label, model, prompt, ids, **{**kw, "n_seqs": 2})
+        del ctx
+
+        # 2. draft-model speculation
+        t06, d06 = load_model(small_q8), load_model(small_q4)
+        p06 = toks(512)
+        q4_keys = ("qmm4_planes/decode", "qmm4_planes_prefill/wgmma")
+        for label, target, draft, n_new, tprompt, between, keys in (
+                ("path S draft 0.6B q4_0 -> q8_0", t06, d06, 64, p06, True, int8_keys + q4_keys),
+                ("path S draft 0.6B q8_0 -> Qwen3-8B", model, t06, 32, prompt, False, int8_keys)):
+            tctx = Context(target, **kw)
+            ref = tctx.generate(tprompt, n_new)
+            tctx.reset()
+            reset_counts()
+            t0 = time.perf_counter()
+            ids, st = speculative_generate(tctx, DraftModelSpeculator(Context(draft, **kw)),
+                                           tprompt, n_new, n_draft=4)
+            wall = time.perf_counter() - t0
+            all_counts[label] = read_counts(label, keys)
+            acc = st["n_accept"] / max(st["n_draft"], 1)
+            log(f"{label} ({card}): {st}, acceptance {acc:.3f}; {n_new} tokens in {wall:.2f} s "
+                f"({(n_new - 1) / wall:.1f} tok/s with the prefill); ids equal to "
+                f"Context.generate's {sum(int(a == b) for a, b in zip(ids, ref))} of {n_new}")
+            if len(ids) != n_new or (between and not 0 < acc < 1):
+                failures.append(f"{label}: {len(ids)} ids, acceptance {acc}")
+            if ids != ref:
+                hold_ids(label, target, tprompt, ids, **{**kw, "n_seqs": 2})
+            del tctx
+        del t06, d06
+        torch.cuda.empty_cache()
+
+        # 3. state round trips
+        f = os.path.join(smoke_dir, "state.npz")
+        for paged in (True, False):
+            label = f"path S state ({'pool' if paged else 'slot table'})"
+            reset_counts()
+            c = Context(model, paged=paged, **kw)
+            c.prefill(prompt2k, seq=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = state_io.save_state(c, f)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            blob = state_io.save_seq_state(c, 0)
+            seq_save_ms = (time.perf_counter() - t0) * 1e3
+
+            def steps(ctx, seq):
+                lg = ctx.decode_step_multi(np.asarray([11]), np.asarray([seq]))
+                return lg, ctx.decode_steps_greedy(np.asarray([int(np.argmax(lg[0]))]),
+                                                   np.asarray([seq]), 16)
+
+            lg_ref, ids_ref = steps(c, 0)
+            c.reset()
+            t0 = time.perf_counter()
+            state_io.load_state(c, f)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            lg_w, ids_w = steps(c, 0)
+            t0 = time.perf_counter()
+            state_io.load_seq_state(c, 3, blob)
+            torch.cuda.synchronize()
+            seq_load_ms = (time.perf_counter() - t0) * 1e3
+            lg_s, ids_s = steps(c, 3)
+            e = Context(model, paged=paged, graphs=False, **kw)
+            state_io.load_state(e, f)
+            lg_e, ids_e = steps(e, 0)
+            del c, e
+            all_counts[label] = read_counts(label, int8_qmm + (paged_keys if paged else slots_keys))
+            same = [np.array_equal(lg_w, lg_ref), np.array_equal(ids_w, ids_ref),
+                    np.array_equal(lg_s, lg_ref), np.array_equal(ids_s, ids_ref),
+                    np.array_equal(ids_e, ids_ref)]
+            err_e = nmse(torch.from_numpy(lg_e), torch.from_numpy(lg_ref))
+            log(f"{label} ({card}): save_state {nbytes} bytes in {save_ms:.1f} ms, load_state "
+                f"{load_ms:.1f} ms; save_seq_state {len(blob)} bytes in {seq_save_ms:.1f} ms, "
+                f"load_seq_state into seq 3 {seq_load_ms:.1f} ms; bit for bit (whole logits, "
+                f"whole ids, seq logits, seq ids, eager ids): {same}; eager logits NMSE "
+                f"{err_e:.3e}")
+            if not all(same) or not err_e < NMSE_LIMIT:
+                failures.append(f"{label}: round trips {same}, eager NMSE {err_e}")
+        os.remove(f)
+
+        # 4. context shift
+        m1 = Model(replace(model.cfg, n_layers=1), {**model.params,
+                                                    "layers": model.params["layers"][:1]},
+                   model.device, tokenizer=model.tokenizer)
+        for paged in (True, False):
+            label = f"path S context shift ({'pool' if paged else 'slot table'})"
+            reset_counts()
+            g = Context(model, paged=paged, **kw)
+            e = Context(model, paged=paged, graphs=False, **kw)
+            p = Context(model, paged=paged, kernels=False, graphs=False, **{**kw, "n_seqs": 2})
+            for c in (g, e, p):
+                c.prefill(prompt2k, seq=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_disc = g.context_shift(0, n_keep=64)
+            torch.cuda.synchronize()
+            shift_ms = (time.perf_counter() - t0) * 1e3
+            e.context_shift(0, n_keep=64)
+            p.context_shift(0, n_keep=64)
+            ids_g = g.decode_steps_greedy(np.asarray([11]), np.asarray([0]), 8)
+            ids_e = e.decode_steps_greedy(np.asarray([11]), np.asarray([0]), 8)
+            e.seq_rm(0, p0=int(e.seq_len[0]) - 8)
+            errs = []
+            for t in [11] + [int(x) for x in ids_e[0][:7]]:
+                errs.append(nmse(torch.from_numpy(e.decode_one(t)),
+                                 torch.from_numpy(p.decode_one(t))))
+            del g, e, p
+            one = Context(m1, paged=paged, **kw)
+            one.prefill(prompt2k, seq=0)
+            one.context_shift(0, n_keep=64)
+            fresh = Context(m1, paged=paged, **kw)
+            fresh.prefill(prompt2k[:64] + prompt2k[64 + n_disc:], seq=0)
+            fresh_errs = []
+            for t in [11] + [int(x) for x in ids_e[0][:7]]:
+                fresh_errs.append(nmse(torch.from_numpy(one.decode_one(t)),
+                                       torch.from_numpy(fresh.decode_one(t))))
+            del one, fresh
+            all_counts[label] = read_counts(label, int8_qmm + (paged_keys if paged else slots_keys))
+            log(f"{label} ({card}): context_shift(n_keep=64) discarded {n_disc} in {shift_ms:.2f} "
+                f"ms; 8 graphed greedy steps equal to eager {np.array_equal(ids_g, ids_e)}; 8 "
+                f"teacher-forced steps against the plain path shifted alike, NMSE largest "
+                f"{max(errs):.3e}; 1-layer view against a fresh context of the kept tokens, NMSE "
+                f"largest {max(fresh_errs):.3e} (limit {NMSE_LIMIT})")
+            if (not np.array_equal(ids_g, ids_e) or not max(errs) < NMSE_LIMIT
+                    or not max(fresh_errs) < NMSE_LIMIT):
+                failures.append(f"{label}: graphed {ids_g} eager {ids_e}, NMSE {errs}, "
+                                f"fresh {fresh_errs}")
+        del m1
+
+        # 5. adapters
+        label = "path S adapters"
+        cfg = model.cfg
+        lora = make_lora_gguf(os.path.join(smoke_dir, "qwen-lora.gguf"), cfg.n_layers,
+                              lora_shapes(cfg), rank=16, scale=0.02)
+        cvec = make_control_vector_gguf(os.path.join(smoke_dir, "qwen-cvec.gguf"), cfg.n_layers,
+                                        cfg.n_embd, scale=0.1)
+        adapter = adapters.load_lora(lora)
+        p512 = prompt2k[:512]
+        akw = {**kw, "n_seqs": 2}
+        g = Context(model, **akw)
+        e = Context(model, graphs=False, **akw)
+
+        def run(ctx):
+            ctx.reset()
+            lg = ctx.prefill(p512)
+            return lg, ctx.decode_steps_greedy(np.asarray([int(np.argmax(lg))]),
+                                               np.asarray([0]), 8)
+
+        def step_ms(ctx):
+            ctx.reset()
+            ctx.prefill(p512)
+            ctx.decode_steps_greedy(np.asarray([5]), np.asarray([0]), 4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctx.decode_steps_greedy(np.asarray([5]), np.asarray([0]), 64)
+            return (time.perf_counter() - t0) * 1e3 / 64
+
+        base_lg, base_ids = run(g)
+        base_ms = step_ms(g)
+        adapters.apply_lora(model, adapter, scale=0.0)
+        zero_lg, _ = run(g)
+        adapters.apply_lora(model, adapter, scale=1.0)
+        reset_counts()
+        lora_lg, lora_ids = run(g)
+        all_counts[label] = read_counts(label, int8_keys)
+        lora_ms = step_ms(g)
+        _, lora_ids_e = run(e)
+        lora_plain = Context(model, kernels=False, graphs=False, **akw).prefill(p512)
+        adapters.apply_control_vector(model, adapters.load_control_vector(cvec, cfg.n_layers,
+                                                                          cfg.n_embd))
+        cv_lg, cv_ids = run(g)
+        _, cv_ids_e = run(e)
+        cv_plain = Context(model, kernels=False, graphs=False, **akw).prefill(p512)
+        adapters.remove_lora(model)
+        adapters.remove_control_vector(model)
+        back_lg, back_ids = run(g)
+        del g, e
+        err_l = nmse(torch.from_numpy(lora_lg), torch.from_numpy(lora_plain))
+        err_c = nmse(torch.from_numpy(cv_lg), torch.from_numpy(cv_plain))
+        moved = nmse(torch.from_numpy(lora_lg), torch.from_numpy(base_lg))
+        checks = {"scale 0 == base": np.array_equal(zero_lg, base_lg),
+                  "lora graphed == eager": np.array_equal(lora_ids, lora_ids_e),
+                  "cvec graphed == eager": np.array_equal(cv_ids, cv_ids_e),
+                  "removed == base": np.array_equal(back_lg, base_lg)
+                  and np.array_equal(back_ids, base_ids)}
+        log(f"{label} ({card}): rank-16 LoRA on 6 weights a layer folded onto attn_qkv and "
+            f"ffn_gateup: prefill logits NMSE {err_l:.3e} against the plain path with the "
+            f"adapter (it moves them by {moved:.3e}), with the control vector too {err_c:.3e} "
+            f"(limit {NMSE_LIMIT}); {checks}; graphed B=1 step {base_ms:.3f} ms, with the LoRA "
+            f"{lora_ms:.3f} ms")
+        if not all(checks.values()) or not err_l < NMSE_LIMIT or not err_c < NMSE_LIMIT:
+            failures.append(f"{label}: {checks}, NMSE {err_l}, {err_c}")
+        for f in (lora, cvec):
+            os.remove(f)
 
     arch_path("qwen3-8b", make_bench_qwen3_gguf, QWEN3_LAYERS, 151936, full_keys,
               "Qwen3-8B shape (n_embd 4096, 32/8 heads of 128, n_ff 12288, vocab 151936, "
@@ -2277,11 +2975,12 @@ def main() -> int:
               "window 1024 on five layers of six, GeGLU, post-norms, tied Q6_K head)")
 
     # the storage types users download beside Q4_K_M, on the main path
-    arch_path("qwen3-8b-q8_0", functools.partial(make_bench_qwen3_gguf, ftype="q8_0"),
-              QWEN3_LAYERS, 151936, int8_keys,
-              "Qwen3-8B shape, every matrix Q8_0 (token_embd and output included; the Q8_0 "
-              "file of Qwen/Qwen3-8B-GGUF), F32 norms", want_layout="int8 flat g32",
-              near_ties=True)
+    q8_model = arch_path(
+        "qwen3-8b-q8_0", functools.partial(make_bench_qwen3_gguf, ftype="q8_0"),
+        QWEN3_LAYERS, 151936, int8_keys,
+        "Qwen3-8B shape, every matrix Q8_0 (token_embd and output included; the Q8_0 "
+        "file of Qwen/Qwen3-8B-GGUF), F32 norms", want_layout="int8 flat g32",
+        near_ties=True, keep=True)
     arch_path("qwen3-8b-q5_k_m", functools.partial(make_bench_qwen3_gguf, ftype="q5_k_m"),
               QWEN3_MIX_LAYERS, 151936, int8_keys,
               "Qwen3-8B shape, Q5_K_M mix (Q5_K everywhere, Q6_K attn_v)", n_gen=16, full=False)
@@ -2290,7 +2989,12 @@ def main() -> int:
               ("qmm4_planes/decode", "qmm4_planes_prefill/wgmma", "qmm_planes/decode")
               + paged_keys,
               "Qwen3-8B shape, Q4_0 (Q6_K output)", n_gen=16, full=False)
-    path_quantize()
+    small = path_quantize()
+    path_s(q8_model, *small)
+    del q8_model
+    torch.cuda.empty_cache()
+    for f in small:
+        os.remove(f)
     if failures:
         for f in failures:
             log(f"FAIL {f}")

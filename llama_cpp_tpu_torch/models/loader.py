@@ -107,11 +107,16 @@ class Model:
         self.device = device
         self.tokenizer = tokenizer  # None when the file carries no vocab
         self.gguf = gguf  # the parsed file: metadata and tensor index
+        # raised whenever a weight is replaced in params (adapters): a
+        # context's captured decode loops read the tensors they were made over
+        self.version = 0
 
 
-def load_model(path: str, device="cuda") -> Model:
+def load_model(path: str, device="cuda", prefer_quant: bool = True) -> Model:
     """Load a GGUF model of one of the registry's architectures onto
-    `device` (bf16 activations)."""
+    `device` (bf16 activations). prefer_quant=False (--no-quant) loads every
+    matrix as a dense bf16 weight, whose products take the library route,
+    as the JAX package leaves them to XLA."""
     dev = resolve_device(device)
     f = read_gguf(path)
     cfg = apply_arch(ModelConfig.from_gguf(f.metadata), f.metadata)
@@ -140,7 +145,7 @@ def load_model(path: str, device="cuda") -> Model:
         transpose = not dense and key != "token_embd" and len(info.shape) >= 2
         target[key] = load_weight(
             np.asarray(info.data), info.dtype, info.shape,
-            prefer_quant=not dense,
+            prefer_quant=prefer_quant and not dense,
             dense_dtype=torch.float32 if dense else cfg.compute_dtype,
             transpose=transpose, device=dev)
 

@@ -324,11 +324,13 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             inputs: AttnInputs, kv: Memory,
             output_rows: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
     """tokens [B, T] -> logits [M or B*T, vocab] f32; writes the KV memory in
-    place."""
+    place. A control vector (params["cvec"]) is added to the residual after
+    each layer; LoRA-wrapped weights take their base's route in matmul."""
     cdtype = cfg.compute_dtype
     x = embed_lookup(params["token_embd"], tokens.long(), dtype=cdtype)  # [B, T, E]
     if cfg.embd_scale != 1.0:
         x = (x.float() * cfg.embd_scale).to(x.dtype)
+    cvec = params.get("cvec")  # [n_layers, n_embd] f32 residual directions
     for il, lw in enumerate(params["layers"]):
         h = norm(cfg, x, lw, "attn_norm")
         attn = attention_block(cfg, lw, h, inputs, kv, il, kernels=kernels)
@@ -343,6 +345,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
         if cfg.post_norms and "ffn_post_norm" in lw:
             ff = rms_norm(ff, lw["ffn_post_norm"], cfg.rms_eps)
         x = x + ff
+        if cvec is not None:  # control vector (build_cvec analog)
+            x = x + cvec[il].to(x.dtype)
     B, T, E = x.shape
     x = x.reshape(B * T, E)
     if output_rows is not None:

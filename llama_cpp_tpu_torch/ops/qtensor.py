@@ -21,7 +21,9 @@ call:
     the qmm kernel (ops/kernels/qmm.py), which takes its plain version for a
     CPU tensor and raises on a CUDA tensor it cannot take;
   * other layouts (row-major tables, untileable shapes, dense weights): the
-    same library route, as the reference leaves them to XLA.
+    same library route, as the reference leaves them to XLA;
+  * a LoraWeight: its base by the route above, plus the low-rank delta as
+    two library products of bf16 operands.
 """
 
 from __future__ import annotations
@@ -164,7 +166,21 @@ class QuantTensor:
         return w.reshape(q.shape).to(dtype)
 
 
-Weight = QuantTensor | torch.Tensor
+@dataclass
+class LoraWeight:
+    """A base weight and a low-rank delta applied at matmul time
+    (build_lora_mm analog, reference src/llama-graph.h:1018):
+    y = x @ base^T + scale * (x @ a^T) @ b^T with a [r, in], b [out, r] in
+    bf16. The base keeps its own route: a QuantTensor takes its qmm kernel
+    or the library product, a dense weight the library product."""
+
+    base: "QuantTensor | torch.Tensor"
+    a: torch.Tensor
+    b: torch.Tensor
+    scale: float  # adapter scale * alpha / rank
+
+
+Weight = QuantTensor | LoraWeight | torch.Tensor
 
 
 _T_ROWS = 256  # rows transposed at a time: a blocked copy, 4x numpy's strided one
@@ -249,6 +265,13 @@ def load_weight(
                 packed = True
         return QuantTensor(q=dev(q), scales=dev(sc), mins=dev(mn), group=g,
                            ggml_type=int(ggml_dtype), transposed=transpose, packed=packed)
+    if ggml_dtype in PLANE_TYPES and shape[-1] % 256 == 0:
+        # a dense weight of a plane type (prefer_quant=False): its row-major
+        # planes go to the device and are dequantized there, bit for bit the
+        # host's dequantize_tensor (f32 arithmetic, one cast), at the copy
+        # cost of the planes instead of f32 values
+        qt = load_weight(raw, ggml_dtype, shape, prefer_quant=True, device=device)
+        return qt.dequant(dense_dtype)
     # dense fallback always stays [out, in] (matmul uses w.T)
     w = dequantize_tensor(raw, ggml_dtype, shape)
     return torch.from_numpy(w).to(device=device, dtype=dense_dtype)
@@ -305,14 +328,26 @@ def matmul(x: torch.Tensor, w: Weight, dtype=None, kernels: bool = True) -> torc
     takes the plain dequant -> matmul route for every row count (the
     reference path a kernel run is held against)."""
     out_dtype = dtype or x.dtype
+    if isinstance(w, LoraWeight):
+        # the low-rank delta is the JAX package's plain XLA product: bf16
+        # operands, f32 sums, the rank-r intermediate rounded to bf16
+        y = matmul(x, w.base, dtype=torch.float32, kernels=kernels)
+        x2 = x.to(torch.bfloat16).reshape(-1, w.a.shape[1])
+        h = dot_f32(x2, w.a.t())
+        delta = dot_f32(h.to(torch.bfloat16), w.b.t())
+        return (y + w.scale * delta.reshape(y.shape)).to(out_dtype)
     if isinstance(w, QuantTensor):
         rows = x.numel() // w.in_features
         if kernels and rows < XLA_PREFILL_MIN_N and qmm_kernel.dispatches(w):
             return qmm_kernel.qmm(x.to(torch.bfloat16), w).to(out_dtype)
         mdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
         return _library_matmul(x, w, mdt).to(out_dtype)
-    xin = x.to(w.dtype) if w.dtype == torch.bfloat16 else x
-    return torch.matmul(xin.float(), w.float().t()).to(out_dtype)
+    if w.dtype == torch.bfloat16:
+        # a dense weight (--no-quant): the library product of bf16 operands
+        # into f32, where the JAX package leaves it to XLA's dot
+        y = dot_f32(x.to(torch.bfloat16).reshape(-1, w.shape[1]), w.t())
+        return y.reshape(*x.shape[:-1], w.shape[0]).to(out_dtype)
+    return torch.matmul(x.float(), w.float().t()).to(out_dtype)
 
 
 def embed_lookup(table: Weight, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:

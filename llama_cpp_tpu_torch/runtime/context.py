@@ -11,6 +11,8 @@ device (decode_steps_greedy, generate_ondevice). Every batched decode step,
 the server's one-step calls (decode_step_greedy, decode_step_multi)
 included, runs one step per (batch bucket, sampler) that is captured as a
 CUDA graph at first use and replayed once a step (runtime/decode_graph.py).
+context_shift slides a sequence down in place, and a captured loop is made
+again when the memory or the model's weights (adapters) change.
 """
 
 from __future__ import annotations
@@ -193,20 +195,21 @@ class Context:
 
     # ------------------------------------------------------------------
     def set_aux_capture(self, layer_ids) -> None:
-        """Capture of hidden features for a speculator: refused, the port has
-        no speculator yet (an empty capture is a no-op)."""
+        """Capture of hidden features for an EAGLE3 speculator: refused, the
+        port's speculators (runtime/speculative.py) draft from tokens only
+        (an empty capture is a no-op)."""
         if layer_ids:
-            raise NotImplementedError("set_aux_capture: speculative decoding (-md, "
-                                      "--spec-ngram) is not ported")
+            raise NotImplementedError("set_aux_capture: speculative decoding with an eagle3 "
+                                      "draft (feature capture) is not ported")
 
     def decode(self, tokens: np.ndarray, seq_idx: np.ndarray, positions: np.ndarray,
                output_rows: np.ndarray, aux: bool = False) -> np.ndarray:
         """Low-level ubatch step -> logits [M, vocab] (f32, host) for the flat
-        rows `output_rows` of the [B, T] token grid. aux=True (logits and a
-        speculator's features) is refused: the port has no speculator yet."""
+        rows `output_rows` of the [B, T] token grid. aux=True (logits and an
+        EAGLE3 speculator's features) is refused."""
         if aux:
-            raise NotImplementedError("decode(aux=True): speculative decoding (-md, "
-                                      "--spec-ngram) is not ported")
+            raise NotImplementedError("decode(aux=True): speculative decoding with an eagle3 "
+                                      "draft (feature capture) is not ported")
         tokens = np.atleast_2d(np.asarray(tokens))
         positions = np.atleast_2d(np.asarray(positions))
         seq_idx = np.asarray(seq_idx).reshape(-1)
@@ -260,8 +263,11 @@ class Context:
         """The on-device decode loop of a batch bucket and sampler (LOGITS:
         the step keeps its logits for the host), made at first use (its CUDA
         graph is captured at its first run on the card). Loops made over an
-        earlier KV memory are dropped."""
-        if any(loop.kv is not self.kv for loop in self._loops.values()):
+        earlier KV memory, or before the model's weights last changed
+        (adapters applied or removed), are dropped: their graphs read the old
+        tensors."""
+        if any(loop.kv is not self.kv or loop.weights != self.model.version
+               for loop in self._loops.values()):
             self._loops.clear()
         key = (batch, sampler)
         loop = self._loops.get(key)
@@ -353,6 +359,28 @@ class Context:
             if isinstance(self.kv, ISWACache):
                 self.kv.swa.seq_cp(dst, src)
         self.seq_len[dst] = self.seq_len[src]
+
+    def context_shift(self, seq: int = 0, n_keep: int = 0, n_discard: int | None = None) -> int:
+        """Discard positions [n_keep, n_keep + n_discard) of `seq` and slide
+        the rest down, re-rotating the cached K (reference server context
+        shift, tools/server/server-context.cpp:2916), in place: a captured
+        decode loop goes on reading the same tensors. The default discards
+        half of what lies past n_keep. Returns n_discard. The ISWA memory's
+        rings are refused, as the JAX package refuses them."""
+        if self.recurrent:
+            raise NotImplementedError("context shift needs an attention KV")
+        if not isinstance(self.kv, (KVCache, PagedKVCache)):
+            raise NotImplementedError("context shift needs the unified cache, not "
+                                      f"{type(self.kv).__name__}")
+        cur = int(self.seq_len[seq])
+        if n_discard is None:
+            n_discard = max((cur - n_keep) // 2, 1)
+        self.kv.shift_seq(self.cfg, seq, n_keep, n_discard)
+        self.seq_len[seq] = max(cur - n_discard, n_keep)
+        if self.alloc is not None:
+            self.alloc.trim(seq, int(self.seq_len[seq]))
+            self._sync_table()
+        return n_discard
 
     def memory_breakdown(self) -> dict:
         """Device-memory bytes of the model's tensors, of the KV memory's,

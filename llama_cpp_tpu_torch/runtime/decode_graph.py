@@ -99,6 +99,7 @@ class DecodeLoop:
         # inside another graph's capture (which a graph's release would end)
         self._ctx = weakref.ref(ctx)
         self.kv = ctx.kv  # the memory the graph writes; a new one needs a new loop
+        self.weights = ctx.model.version  # changed weights need a new loop too
         self.batch = batch
         self.sampler = sampler
         self.capture = capture

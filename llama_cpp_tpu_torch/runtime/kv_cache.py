@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .paged_kv import PagedKVCache, _quant_rows
+from .paged_kv import PagedKVCache, _quant_rows, _shift_rows
 
 
 @dataclass
@@ -146,8 +146,41 @@ class KVCache:
         for buf in bufs:
             buf[dst].copy_(buf[src])
 
+    def seq_add(self, seq: int, p0: int, p1: int, delta: int) -> None:
+        """Shift the position labels of [p0, p1) by delta (self-extend
+        support); a context shift goes through shift_seq, which also moves
+        the rows and re-rotates K."""
+        row = self.pos[seq]
+        mask = (row >= p0) & (row < p1)
+        row[mask] += delta
+
     def seq_len(self, seq: int) -> int:
         return int((self.pos[seq] >= 0).sum())
+
+    # -- context shift (reference build_rope_shift, llama-kv-cache.h:297) --
+    def shift_seq(self, cfg, seq: int, n_keep: int, n_discard: int) -> None:
+        """Drop positions [n_keep, n_keep + n_discard) of `seq`, slide the
+        rest down by n_discard slots and re-rotate the moved K rows by
+        -n_discard, in place (slot = position layout). An int8 cache
+        dequantizes K, rotates it in f32 and requantizes it; V rows move
+        with their scales (the JAX package's KVCache.shift_seq)."""
+        shifted = _shift_rows(self.pos[seq], n_keep, n_discard)
+        src = shifted.src
+        for il in range(len(self.k)):
+            k_new = self.k[il][seq][:, src]  # [H, S, Dk]
+            v_new = self.v[il][seq][:, src]
+            if self.quantized:
+                k_new = k_new.float() * self.k_scale[il][seq][:, src][..., None]
+            k_new = shifted.rotate(cfg, il, k_new)
+            if self.quantized:
+                k_q, k_s = _quant_rows(k_new)
+                self.k[il][seq] = k_q
+                self.k_scale[il][seq] = k_s
+                self.v_scale[il][seq] = self.v_scale[il][seq][:, src]
+            else:
+                self.k[il][seq] = k_new.to(self.k[il].dtype)
+            self.v[il][seq] = v_new
+        self.pos[seq] = shifted.new_pos
 
 
 @dataclass

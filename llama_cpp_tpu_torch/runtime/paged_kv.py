@@ -192,8 +192,83 @@ class PagedKVCache:
         pos2 = self.pos.view(self.n_pages, self.page)
         pos2[dst] = pos2[src]
 
+    def seq_add(self, seq: int, p0: int, p1: int, delta: int) -> None:
+        """Shift the position labels of [p0, p1) by delta (self-extend
+        support). The rows stay in their pages, so slot_of no longer
+        resolves shifted positions: a context shift goes through shift_seq,
+        which moves the rows."""
+        rows = self._seq_rows(seq)
+        vals = self.pos[rows]
+        mask = (vals >= p0) & (vals < p1)
+        self.pos[rows] = torch.where(mask, vals + delta, vals)
+
     def seq_len(self, seq: int) -> int:
         return int((self.pos[self._seq_rows(seq)] >= 0).sum())
+
+    # -- context shift (build_rope_shift analog) -------------------------
+    def shift_seq(self, cfg, seq: int, n_keep: int, n_discard: int) -> None:
+        """Drop positions [n_keep, n_keep + n_discard) of `seq`, slide the
+        rest down and re-rotate the moved K rows by -n_discard, in place.
+        Works on the sequence's position-ordered virtual rows; freeing the
+        pages past the new end is the caller's host-side job. An int8 pool
+        dequantizes K, rotates it in f32 and requantizes it; V rows move
+        with their scales (the JAX package's PagedKVCache.shift_seq)."""
+        rows = self._seq_rows(seq)
+        shifted = _shift_rows(self.pos[rows], n_keep, n_discard)
+        src_rows = rows[shifted.src]
+        for il in range(len(self.k)):
+            k_new = self.k[il][:, src_rows]  # [H, S, Dk]
+            v_new = self.v[il][:, src_rows]
+            if self.quantized:
+                k_new = k_new.float() * self.k_scale[il][:, src_rows][..., None]
+            k_new = shifted.rotate(cfg, il, k_new)
+            if self.quantized:
+                k_q, k_s = _quant_rows(k_new)
+                self.k[il][:, rows] = k_q
+                self.k_scale[il][:, rows] = k_s
+                self.v_scale[il][:, rows] = self.v_scale[il][:, src_rows]
+            else:
+                self.k[il][:, rows] = k_new.to(self.k[il].dtype)
+            self.v[il][:, rows] = v_new
+        self.pos[rows] = shifted.new_pos
+
+
+class ShiftedRows:
+    """The row map of a context shift over one sequence's S position-ordered
+    rows: row j takes row src[j]'s contents at new_pos[j] (-1: emptied),
+    its K rotated by delta[j] (-n_discard where it moved, else 0)."""
+
+    def __init__(self, src: torch.Tensor, new_pos: torch.Tensor, delta: torch.Tensor):
+        self.src = src
+        self.new_pos = new_pos
+        self.delta = delta
+
+    def rotate(self, cfg, il: int, k: torch.Tensor) -> torch.Tensor:
+        """K rows [H, S, D] re-rotated by delta with layer il's rope, zeroed
+        where the row is emptied."""
+        from ..models.transformer import _rope_params
+        from ..ops.rope import ROPE_TYPE_NONE, apply_rope
+
+        if cfg.rope_type != ROPE_TYPE_NONE:
+            k = apply_rope(k.transpose(0, 1), self.delta, _rope_params(cfg, il)).transpose(0, 1)
+        return torch.where((self.new_pos >= 0)[None, :, None], k, torch.zeros_like(k))
+
+
+def _shift_rows(old_pos: torch.Tensor, n_keep: int, n_discard: int) -> ShiftedRows:
+    """The shift of a sequence whose S position-ordered rows carry old_pos:
+    rows from n_keep on take the row n_discard further on (those past the
+    end are emptied), as the JAX package's shift_seq computes it."""
+    S = old_pos.shape[0]
+    virt = torch.arange(S, dtype=torch.int64, device=old_pos.device)
+    moved = virt >= n_keep
+    src = torch.where(moved, torch.clamp(virt + n_discard, max=S - 1), virt)
+    src_pos = old_pos[src]
+    empty = torch.full_like(old_pos, -1)
+    new_pos = torch.where(moved & (src_pos >= 0) & (virt + n_discard < S), src_pos - n_discard,
+                          torch.where(moved, empty, old_pos))
+    delta = torch.where(moved & (new_pos >= 0), torch.full_like(old_pos, -n_discard),
+                        torch.zeros_like(old_pos))
+    return ShiftedRows(src, new_pos, delta)
 
 
 class PageAllocator:
@@ -232,6 +307,9 @@ class PageAllocator:
             self.table[seq, self.count[seq]] = p
             self.count[seq] += 1
             self.dirty = True
+
+    def seq_pages(self, seq: int) -> np.ndarray:
+        return self.table[seq, : int(self.count[seq])].copy()
 
     def trim(self, seq: int, n_tokens: int) -> None:
         """Free pages beyond ceil(n_tokens / page)."""

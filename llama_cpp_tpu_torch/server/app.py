@@ -16,26 +16,35 @@ Requests take the JAX app's fields, and two of the reference server's
 that it ignores: `ignore_eos` and, on /completion, `return_tokens` (the
 generated ids in "tokens").
 
-Routes: /, /health, /props, /metrics, /v1/models, GET /slots, /tokenize,
-/detokenize, /completion, /v1/completions, /v1/chat/completions (stream
-and not, tools), /v1/messages, /v1/responses and /infill. Refused with 501
-and the module they need: /v1/embeddings and /rerank (Context.embed),
-POST /slots/{id} (runtime/state.py), /tools (server/mcp.py), and chat
-messages with image or audio parts (multimodal/mtmd.py).
+Routes: /, /health, /props, /metrics, /v1/models, GET /slots, POST
+/slots/{id}?action=save|restore|erase (a slot's KV as a state file in the
+slot directory, runtime/state.py), /tokenize, /detokenize, /completion,
+/v1/completions, /v1/chat/completions (stream and not, tools),
+/v1/messages, /v1/responses, /infill, and /tools and /tools/call (the
+tools of the MCP servers given with --mcp, server/mcp.py). With -md (a
+draft model of the same vocab) or --spec ngram each slot decodes
+speculatively, --draft-max tokens a verify step (server/scheduler.py).
+Refused with 501 and the module they need: /v1/embeddings and /rerank
+(Context.embed) and chat messages with image or audio parts
+(multimodal/mtmd.py); refused with exit code 2: --mmproj, the drafts that
+read the target's features (eagle3, dflash, gemma4-assistant), a second -m
+and parallel or multi-host serving.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import queue
 import sys
+import tempfile
 import time
 import uuid
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Iterator
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 from ..sampling.samplers import SamplingParams
 from .chat import apply_chat_template
@@ -49,10 +58,7 @@ NOT_PORTED_ROUTES = {
     "/v1/embeddings": "embeddings (Context.embed, runtime/context.py)",
     "/v1/rerank": "rerank (Context.embed, runtime/context.py)",
     "/rerank": "rerank (Context.embed, runtime/context.py)",
-    "/tools": "MCP tools (server/mcp.py)",
-    "/tools/call": "MCP tools (server/mcp.py)",
 }
-SLOT_ACTION_REFUSED = "slot save/restore/erase (runtime/state.py)"
 MEDIA_REFUSED = "image and audio chat parts (multimodal/mtmd.py, --mmproj)"
 
 
@@ -142,12 +148,15 @@ class _Pending:
 
 
 class ServerApp:
-    def __init__(self, scheduler: Scheduler, model_name: str = "model"):
+    def __init__(self, scheduler: Scheduler, model_name: str = "model",
+                 slot_save_dir: str | None = None):
         self.sched = scheduler
         self.model_name = model_name
         self.ctx = scheduler.ctx
         self.tok = scheduler.ctx.model.tokenizer
         self.t_start = time.time()
+        self.slot_save_dir = slot_save_dir or tempfile.gettempdir()
+        self.mcp = None  # McpManager, set by run_server when --mcp is given
         self.routes: dict[tuple[str, str], Callable[[dict], Response]] = {
             ("GET", "/"): self.webui,
             ("GET", "/index.html"): self.webui,
@@ -156,6 +165,8 @@ class ServerApp:
             ("GET", "/metrics"): self.metrics,
             ("GET", "/v1/models"): self.models,
             ("GET", "/slots"): self.slots,
+            ("GET", "/tools"): self.tools_list,
+            ("POST", "/tools/call"): self.tools_call,
             ("POST", "/tokenize"): self.tokenize,
             ("POST", "/detokenize"): self.detokenize,
             ("POST", "/completion"): self.completions,
@@ -166,14 +177,16 @@ class ServerApp:
             ("POST", "/infill"): self.infill,
         }
 
-    def handle(self, method: str, path: str, body: dict) -> Response:
+    def handle(self, method: str, path: str, body: dict,
+               query: dict[str, str] | None = None) -> Response:
         route = self.routes.get((method, path))
         if route is not None:
             return route(body)
         if path in NOT_PORTED_ROUTES:
             return _not_ported(NOT_PORTED_ROUTES[path])
         if method == "POST" and path.startswith("/slots/"):
-            return _not_ported(SLOT_ACTION_REFUSED)
+            return self.slot_action(path[len("/slots/"):], (query or {}).get("action", ""),
+                                    body)
         return json_response({"error": f"no route {method} {path}"}, status=404)
 
     # -- helpers ---------------------------------------------------------
@@ -320,6 +333,49 @@ class ServerApp:
                     for s in self.sched.slots]
 
         return json_response(self.sched.run_sync(snapshot))
+
+    def slot_action(self, sid: str, action: str, body: dict) -> Response:
+        """POST /slots/{id}?action=save|restore|erase: a slot's KV as a
+        per-sequence state file in the slot directory (reference
+        tools/server slot save/restore), on the scheduler thread."""
+        from ..runtime.state import load_seq_state, save_seq_state
+
+        try:
+            slot = int(sid)
+        except ValueError:
+            slot = -1
+        if not 0 <= slot < self.sched.n_slots:
+            return json_response({"error": "invalid slot id"}, status=400)
+        fname = os.path.basename(str(body.get("filename", f"slot{slot}.bin")))
+        path = os.path.join(self.slot_save_dir, fname)
+        if action == "save":
+            blob = self.sched.run_sync(lambda: save_seq_state(self.ctx, slot))
+            with open(path, "wb") as f:
+                f.write(blob)
+            return json_response({"id_slot": slot, "filename": fname, "n_written": len(blob)})
+        if action == "restore":
+            if not os.path.exists(path):
+                return json_response({"error": "file not found"}, status=404)
+            with open(path, "rb") as f:
+                blob = f.read()
+            n = self.sched.run_sync(lambda: load_seq_state(self.ctx, slot, blob))
+            return json_response({"id_slot": slot, "filename": fname, "n_restored": n})
+        if action == "erase":
+            self.sched.run_sync(lambda: self.ctx.seq_rm(slot))
+            return json_response({"id_slot": slot, "erased": True})
+        return json_response({"error": "unknown action"}, status=400)
+
+    def tools_list(self, body):
+        return json_response({"tools": self.mcp.definitions() if self.mcp is not None else []})
+
+    def tools_call(self, body):
+        if self.mcp is None:
+            return json_response({"error": "no tools configured"}, status=400)
+        try:
+            result = self.mcp.call(body.get("name", ""), body.get("arguments", {}))
+        except Exception as e:
+            return json_response({"error": str(e)}, status=400)
+        return json_response(result)
 
     def tokenize(self, body):
         ids = self.tok.encode(
@@ -596,7 +652,9 @@ class _Handler(BaseHTTPRequestHandler):
         self._serve("POST")
 
     def _serve(self, method: str) -> None:
-        path = urlsplit(self.path).path
+        url = urlsplit(self.path)
+        path = url.path
+        query = {k: v[-1] for k, v in parse_qs(url.query).items()}
         n = int(self.headers.get("Content-Length") or 0)
         raw = self.rfile.read(n) if n else b""
         try:
@@ -607,7 +665,7 @@ class _Handler(BaseHTTPRequestHandler):
             return self._write(json_response({"error": "the body is not a JSON object"},
                                              status=400))
         try:
-            resp = self.server.app.handle(method, path, body)
+            resp = self.server.app.handle(method, path, body, query)
         except Exception as e:  # a handler's fault answers 500; the server keeps serving
             log.exception("%s %s failed", method, path)
             resp = json_response({"error": f"{type(e).__name__}: {e}"}, status=500)
@@ -654,27 +712,75 @@ class LlamaServer(ThreadingHTTPServer):
     def close(self) -> None:
         self.server_close()
         self.app.sched.stop()
+        if self.app.mcp is not None:
+            self.app.mcp.shutdown()
+
+
+def spec_factory(ctx, draft_model=None, spec: str = ""):
+    """The scheduler's per-slot speculator factory (reference per-slot
+    drafting, server-context.cpp:3001), or None: with a draft model (a
+    loaded Model or a GGUF path) one draft Context of the target's geometry
+    holds one draft sequence per slot; with spec "ngram" each slot looks up
+    its own history. The draft's Context is made at the first slot's
+    launch, on the scheduler thread, the only thread that touches the card."""
+    from ..runtime.speculative import DraftModelSpeculator, NgramSpeculator
+
+    if draft_model is not None:
+        from ..models.loader import Model, load_model
+        from ..runtime.context import Context
+
+        if not isinstance(draft_model, Model):
+            draft_model = load_model(draft_model, device=ctx.device)
+        drafts = {}
+
+        def make(i):
+            if "ctx" not in drafts:
+                drafts["ctx"] = Context(draft_model, n_ctx=ctx.n_ctx, n_seqs=ctx.n_seqs,
+                                        device=ctx.device)
+            return DraftModelSpeculator(drafts["ctx"], seq=i)
+
+        return make
+    if spec == "ngram":
+        return lambda i: NgramSpeculator()
+    return None
 
 
 def run_server(model, host: str = "0.0.0.0", port: int = 8080, n_seqs: int = 4,
                device="cuda", ready: Callable[[LlamaServer], None] | None = None,
+               draft_model=None, spec: str = "", n_draft: int = 8,
+               mcp: list[str] | None = None, slot_save_dir: str | None = None,
                **ctx_kw) -> None:
     """Serve `model` (a loaded Model, or a GGUF path loaded onto `device`)
     until shutdown(): a Context of n_seqs sequences (ctx_kw: n_ctx,
     n_ubatch, quantized_kv, kv_total, graphs, ...), its scheduler thread and
-    the HTTP server. `ready(server)` is called once the socket is bound
+    the HTTP server. draft_model (a Model or a path) or spec="ngram" turn on
+    speculative decoding of n_draft tokens a step; mcp is a list of MCP
+    server commands whose tools /tools lists; slot_save_dir holds the
+    slots' state files. `ready(server)` is called once the socket is bound
     (port 0 takes a free port: server.port), before serving starts."""
     from ..models.loader import Model, load_model
     from ..runtime.context import Context
 
     if not isinstance(model, Model):
         model = load_model(model, device=device)
-    sched = Scheduler(Context(model, n_seqs=n_seqs, device=model.device, **ctx_kw))
+    ctx = Context(model, n_seqs=n_seqs, device=model.device, **ctx_kw)
+    sched = Scheduler(ctx, spec_factory=spec_factory(ctx, draft_model, spec), n_draft=n_draft)
+    mcp_mgr = None
+    if mcp:
+        from .mcp import McpManager
+
+        mcp_mgr = McpManager()
+        mcp_mgr.start(list(mcp))
     sched.start()
     try:
-        server = LlamaServer(ServerApp(sched, model_name=model.cfg.name or "model"), host, port)
+        app = ServerApp(sched, model_name=model.cfg.name or "model",
+                        slot_save_dir=slot_save_dir)
+        app.mcp = mcp_mgr
+        server = LlamaServer(app, host, port)
     except OSError:
         sched.stop()
+        if mcp_mgr is not None:
+            mcp_mgr.shutdown()
         raise
     try:
         if ready is not None:
@@ -687,11 +793,7 @@ def run_server(model, host: str = "0.0.0.0", port: int = 8080, n_seqs: int = 4,
 # flag -> (argparse dest, the module it needs); a value other than the
 # default is refused with exit code 2
 NOT_PORTED_FLAGS = {
-    "-md/--model-draft": ("model_draft", "speculative decoding (runtime/speculative.py)"),
-    "--spec": ("spec", "speculative decoding (runtime/speculative.py)"),
-    "--draft-max": ("draft_max", "speculative decoding (runtime/speculative.py)"),
     "--mmproj": ("mmproj", "multimodal input (multimodal/mtmd.py)"),
-    "--mcp": ("mcp", "MCP tools (server/mcp.py)"),
     "--tp": ("tp", "parallel serving (parallel/)"),
     "--dp": ("dp", "parallel serving (parallel/)"),
     "--pp": ("pp", "parallel serving (parallel/)"),
@@ -720,12 +822,15 @@ def build_parser():
                     help="int8-quantized KV cache (type_k/type_v q8_0 analog)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), or cpu for the plain PyTorch versions")
+    ap.add_argument("-md", "--model-draft", default=None,
+                    help="draft model for speculative decoding")
+    ap.add_argument("--spec", default="", choices=["", "ngram"],
+                    help="self-speculation mode (prompt-lookup ngram)")
+    ap.add_argument("--draft-max", type=int, default=8, help="max drafted tokens per step")
+    ap.add_argument("--mcp", action="append", default=[],
+                    help="MCP server command whose tools /tools lists (repeatable)")
     not_ported = ap.add_argument_group("not ported yet (refused with exit code 2)")
     not_ported.add_argument("--mmproj", default=None)
-    not_ported.add_argument("-md", "--model-draft", default=None)
-    not_ported.add_argument("--spec", default="", choices=["", "ngram"])
-    not_ported.add_argument("--draft-max", type=int, default=8)
-    not_ported.add_argument("--mcp", action="append", default=[])
     not_ported.add_argument("--tp", type=int, default=0)
     not_ported.add_argument("--dp", type=int, default=0)
     not_ported.add_argument("--pp", type=int, default=1)
@@ -753,6 +858,15 @@ def main(argv=None) -> int:
         print("llama-server: a second -m is not ported yet to the PyTorch/CUDA package "
               "(the multi-model router, server/router.py)", file=sys.stderr)
         return 2
+    if args.model_draft:
+        from ..runtime.speculative import refused_draft
+
+        arch = refused_draft(args.model_draft)
+        if arch:
+            print(f"llama-server: -md with a draft of arch {arch!r} is not ported yet to the "
+                  "PyTorch/CUDA package (its speculator reads the target's hidden features)",
+                  file=sys.stderr)
+            return 2
     path = args.model[0].split("=", 1)[-1]
     print(f"loading {path} ...", file=sys.stderr, flush=True)
 
@@ -762,7 +876,8 @@ def main(argv=None) -> int:
 
     run_server(path, host=args.host, port=args.port, ready=ready, n_seqs=args.parallel,
                device=args.device, n_ctx=args.ctx_size, kv_total=args.kv_total or None,
-               quantized_kv=args.kv_quant)
+               quantized_kv=args.kv_quant, draft_model=args.model_draft, spec=args.spec,
+               n_draft=args.draft_max, mcp=args.mcp)
     return 0
 
 

@@ -8,15 +8,20 @@ step + per-slot sampling/stop handling, and the deferred task queue
 thread-safe callbacks.
 
 A copy of the JAX package's server/scheduler.py over this package's Context,
-samplers and grammar. The scheduler thread is the only thread that touches
-the card: HTTP threads reach the Context through `run_sync`. On the card the
-batched decode step (`decode_step_greedy` when every slot is greedy,
+samplers, grammar and speculators. The scheduler thread is the only thread
+that touches the card: HTTP threads reach the Context through `run_sync`,
+and every draft Context, seq op and state call runs on it too. On the card
+the batched decode step (`decode_step_greedy` when every slot is greedy,
 `decode_step_multi` otherwise) replays the batch bucket's CUDA graph.
-Refused, not emulated, because the modules they need are not ported:
-speculative decoding (no drafting, every step is one token a slot),
-multimodal prompts (a task with `chunks` fails with a message naming mtmd)
-and context shift (a slot that reaches n_ctx finishes with "length", as
-the JAX scheduler does with enable_ctx_shift=False).
+With a spec_factory each slot drafts (n-gram lookup or a draft model) and
+all slots' [token | drafts] rows are verified in one batched decode, each
+slot keeping its longest accepted prefix (`_spec_step`). A slot that
+reaches n_ctx shifts its context (Context.context_shift: the older half
+past n_keep is dropped and the rest slides down) and goes on, unless
+enable_ctx_shift=False, when it finishes with "length". Multimodal prompts
+are refused, not emulated: a task with `chunks` fails with a message naming
+mtmd. The EAGLE3-style drafts that read the target's features are not
+ported (Context.set_aux_capture refuses them).
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ class Slot:
     prompt_pos: int = 0
     generated: list[int] = field(default_factory=list)
     cache_tokens: list[int] = field(default_factory=list)  # tokens in KV
+    speculator: Any = None  # per-slot drafter (spec_factory), or None
     text: str = ""
     sent_text_len: int = 0
     t_start: float = 0.0
@@ -101,12 +107,19 @@ class Slot:
 class Scheduler:
     """One inference thread owning the Context; HTTP threads post GenTasks."""
 
-    def __init__(self, ctx: Context, n_slots: int | None = None):
+    def __init__(self, ctx: Context, n_slots: int | None = None,
+                 enable_ctx_shift: bool = True,
+                 spec_factory: Callable[[int], Any] | None = None, n_draft: int = 8):
         self.ctx = ctx
+        self.enable_ctx_shift = enable_ctx_shift
         self.n_slots = n_slots or ctx.n_seqs
         if self.n_slots > ctx.n_seqs:
             raise ValueError(f"{self.n_slots} slots over a context of {ctx.n_seqs} sequences")
         self.slots = [Slot(i) for i in range(self.n_slots)]
+        # per-slot speculative drafting (reference update_slots drafts per
+        # slot inside the step loop, server-context.cpp:3001-3048)
+        self.spec_factory = spec_factory if not ctx.recurrent else None
+        self.n_draft = n_draft
         self.tasks: queue.Queue[GenTask] = queue.Queue()
         self.calls: queue.Queue = queue.Queue()  # sync calls into the sched thread
         self._stop = threading.Event()
@@ -116,6 +129,8 @@ class Scheduler:
             "tokens_predicted_total": 0,
             "tokens_prompt_total": 0,
             "tokens_prompt_cached_total": 0,
+            "draft_tokens_total": 0,
+            "draft_tokens_accepted": 0,
             "busy_slots": 0,
         }
 
@@ -156,6 +171,11 @@ class Scheduler:
                                      parse_special=True),
                 task.params.reasoning_budget))
         slot.grammar = None
+        slot.speculator = None
+        if self.spec_factory is not None:
+            slot.speculator = self.spec_factory(slot.idx)
+            if slot.speculator is not None and hasattr(slot.speculator, "reset"):
+                slot.speculator.reset()
         if task.grammar and tok is not None:
             try:
                 slot.grammar = GrammarSampler(
@@ -342,6 +362,8 @@ class Scheduler:
                 gen.remove(s)
         if not gen:
             return True
+        if any(s.speculator is not None for s in gen) and self._spec_step(gen):
+            return True
         toks = np.asarray([s.generated[-1] for s in gen])
         seqs = np.asarray([s.idx for s in gen])
         if all(self._device_greedy_ok(s) for s in gen):
@@ -389,6 +411,80 @@ class Scheduler:
         victim.cache_tokens = []
         self._finish(victim, "length")
 
+    def _spec_step(self, gen) -> bool:
+        """Speculative batched decode (reference server-context.cpp:3001-
+        3048): draft per slot, pack the [cur | drafted...] rows of all slots
+        into one batched decode (padding rows at position -1 of the first
+        slot's sequence, which write the memory's trash row), then per slot
+        accept the longest agreeing prefix and roll the rest back with a
+        suffix seq_rm. Returns False when no slot drafted (the caller takes
+        the plain step)."""
+        ctx = self.ctx
+        drafts: list[list[int]] = []
+        for s in gen:
+            d: list[int] = []
+            if s.speculator is not None:
+                hist = s.cache_tokens + [s.generated[-1]]
+                try:
+                    d = list(s.speculator.draft(hist, self.n_draft))
+                except Exception as e:  # drafting must never kill the step
+                    log.warning("draft failed: %s", e)
+                    d = []
+                room = ctx.n_ctx - int(ctx.seq_len[s.idx]) - 2
+                cap = s.task.max_tokens - len(s.generated) - 1
+                d = d[: max(0, min(len(d), room, cap))]
+            drafts.append(d)
+        T = 1 + max((len(d) for d in drafts), default=0)
+        if T == 1:
+            return False
+        B = len(gen)
+        Bb = 1
+        while Bb < B:
+            Bb *= 2
+        toks = np.zeros((Bb, T), np.int32)
+        pos = np.full((Bb, T), -1, np.int32)
+        seqs = np.full(Bb, gen[0].idx, np.int32)
+        for i, s in enumerate(gen):
+            row = [s.generated[-1]] + drafts[i]
+            p0 = int(ctx.seq_len[s.idx])
+            toks[i, : len(row)] = row
+            pos[i, : len(row)] = np.arange(p0, p0 + len(row))
+            seqs[i] = s.idx
+        try:
+            logits = ctx.decode(toks, seqs, pos, np.arange(Bb * T))
+        except KVCacheFull:
+            self._reclaim_victim(gen)
+            return True
+        logits = np.asarray(logits).reshape(Bb, T, -1)
+        ctx.perf.n_decode += B * T
+
+        for i, s in enumerate(gen):
+            d = drafts[i]
+            p0 = int(ctx.seq_len[s.idx])
+            s.cache_tokens.append(int(toks[i, 0]))
+            self.metrics["draft_tokens_total"] += len(d)
+            emit: list[int] = []
+            n_acc = 0
+            for j in range(len(d)):
+                t = self._sample_slot(s, logits[i, j])
+                emit.append(t)
+                if t != d[j]:
+                    break
+                n_acc += 1
+            else:
+                emit.append(self._sample_slot(s, logits[i, len(d)]))
+            # the KV is valid through p0 + n_acc (cur and the accepted drafts)
+            if n_acc < len(d):
+                ctx.seq_rm(s.idx, p0=p0 + n_acc + 1)
+            ctx.seq_len[s.idx] = p0 + n_acc + 1
+            s.cache_tokens.extend(d[:n_acc])
+            self.metrics["draft_tokens_accepted"] += n_acc
+            for t in emit:
+                self._process_token(s, int(t))
+                if s.state != SlotState.GENERATING:
+                    break
+        return True
+
     def _sample_slot(self, slot: Slot, logits: np.ndarray) -> int:
         lg = np.array(logits, dtype=np.float32)
         if slot.grammar is not None:
@@ -414,7 +510,7 @@ class Scheduler:
 
     def _process_token(self, slot: Slot, token: int):
         """Post-sampling bookkeeping for one emitted token: stop conditions,
-        streaming (reference process_token)."""
+        streaming, context shift (reference process_token)."""
         task = slot.task
         tok = self.ctx.model.tokenizer
         slot.generated.append(token)
@@ -442,8 +538,19 @@ class Scheduler:
             self._finish(slot, "length")
             return
         if int(self.ctx.seq_len[slot.idx]) + 1 >= self.ctx.n_ctx:
-            # no context shift (runtime/context.py context_shift is not
-            # ported): the slot ends where the context does
+            # context shift: drop the older half past n_keep and go on
+            # (reference server context shift, server-context.cpp:2916)
+            if self.enable_ctx_shift and not self.ctx.recurrent:
+                try:
+                    n_keep = min(getattr(slot.task, "n_keep", 0) or 0, self.ctx.n_ctx // 2)
+                    n_discard = self.ctx.context_shift(slot.idx, n_keep=n_keep)
+                    # keep cache_tokens position-aligned with the shifted KV
+                    # (reference server-context.cpp:2957-2970)
+                    slot.cache_tokens = (slot.cache_tokens[:n_keep]
+                                         + slot.cache_tokens[n_keep + n_discard:])
+                    return
+                except NotImplementedError:
+                    pass
             self._finish(slot, "length")
 
     def _delta(self, slot: Slot):

@@ -462,3 +462,54 @@ def make_bench_gemma3_gguf(path: str, n_layers: int = 34, n_embd: int = 2560, n_
                                 post_norms=True, tie=True, sliding_window=sliding_window,
                                 swa_pattern=swa_pattern, rope_base_swa=1e4,
                                 rope_linear_factor=8.0, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# adapter files (the JAX package's tests/test_adapters.py writers)
+# ---------------------------------------------------------------------------
+
+def write_lora_gguf(path: str, pairs: dict, alpha: float = 16.0) -> str:
+    """A LoRA adapter GGUF: pairs {GGUF base name: (A [r, in], B [out, r])},
+    F32 tensors "<base>.lora_a" and "<base>.lora_b"."""
+    w = GGUFWriter()
+    w.add("general.type", "adapter")
+    w.add("adapter.type", "lora")
+    w.add("adapter.lora.alpha", float(alpha))
+    for base, (a, b) in pairs.items():
+        w.add_tensor(base + ".lora_a", a.astype(np.float32).tobytes(),
+                     tuple(reversed(a.shape)), GGMLType.F32)
+        w.add_tensor(base + ".lora_b", b.astype(np.float32).tobytes(),
+                     tuple(reversed(b.shape)), GGMLType.F32)
+    w.write(path)
+    return path
+
+
+def make_lora_gguf(path: str, n_layers: int, shapes: dict, rank: int = 16,
+                   alpha: float = 16.0, scale: float = 0.05, seed: int = 0) -> str:
+    """A seeded LoRA adapter on every layer: shapes {projection: (out, in)}
+    (e.g. attn_q, ffn_up), A and B standard normal times `scale`, drawn
+    layer by layer in the order of `shapes`."""
+    rng = np.random.default_rng(seed)
+    pairs = {}
+    for il in range(n_layers):
+        for name, (out_d, in_d) in shapes.items():
+            a = rng.standard_normal((rank, in_d)).astype(np.float32) * scale
+            b = rng.standard_normal((out_d, rank)).astype(np.float32) * scale
+            pairs[f"blk.{il}.{name}.weight"] = (a, b)
+    return write_lora_gguf(path, pairs, alpha)
+
+
+def make_control_vector_gguf(path: str, n_layers: int, n_embd: int, scale: float = 0.5,
+                             seed: int = 3) -> str:
+    """A seeded control vector: F32 "direction.<il>" [n_embd] for il = 1 ..
+    n_layers (the reference numbers them from 1), standard normal times
+    `scale`."""
+    w = GGUFWriter()
+    w.add("general.type", "adapter")
+    w.add("adapter.type", "control_vector")
+    rng = np.random.default_rng(seed)
+    for il in range(1, n_layers + 1):
+        d = rng.standard_normal(n_embd).astype(np.float32) * scale
+        w.add_tensor(f"direction.{il}", d.tobytes(), (n_embd,), GGMLType.F32)
+    w.write(path)
+    return path

@@ -10,7 +10,8 @@ at KV depth d{N}, and a batched PP/TG/B grid with aggregate S t/s: the
 measurement axes of reference tools/llama-bench/llama-bench.cpp:322-362 and
 tools/batched-bench. Output: markdown or JSON. Runs on the card unless
 --device cpu is given (the plain PyTorch versions, which measure nothing of
-the card). --no-quant (dense weights) is not ported and exits with 2.
+the card). --no-quant loads dense bf16 weights (their products on the
+library route).
 """
 
 from __future__ import annotations
@@ -95,7 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-o", "--output", choices=("md", "json"), default="md")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), or cpu for the plain PyTorch versions")
-    ap.add_argument("--no-quant", action="store_true", help="not ported (exits with 2)")
+    ap.add_argument("--no-quant", action="store_true", help="dense bf16 weights")
     return ap
 
 
@@ -103,15 +104,10 @@ def main(argv=None) -> int:
     from .args import apply_env_and_preset
 
     args = apply_env_and_preset(build_parser(), argv)
-    if args.no_quant:
-        print("llama-bench: --no-quant is not ported yet to the PyTorch/CUDA package",
-              file=sys.stderr)
-        return 2
-
     from ..models.loader import load_model
     from ..runtime.context import Context
 
-    model = load_model(args.model, device=args.device)
+    model = load_model(args.model, device=args.device, prefer_quant=not args.no_quant)
     rows = []
     if args.batched:
         batches = [int(b) for b in args.batch_sizes.split(",")]

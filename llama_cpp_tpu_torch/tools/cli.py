@@ -1,34 +1,35 @@
-"""One-shot prompt completion from the command line (llama-cli analog,
+"""Prompt completion and chat from the command line (llama-cli analog,
 reference tools/cli; counterpart of the JAX package's tools/cli.py).
 
     python -m llama_cpp_tpu_torch.tools.cli -m m.gguf -p "..." -n 24 --temp 0
 
 Text in, text out: the prompt is tokenized with the model's vocab, prefilled,
 and tokens are sampled by the host sampler chain and printed piece by piece;
-the perf line goes to stderr. --grammar, --grammar-file and --json-schema
-constrain the sampling with a GBNF grammar (sampling/grammar.py), whose mask
-over the vocabulary is applied to each step's logits on the host. Runs on the
-card unless --device cpu is given. The flags whose modules are not part of
-the port yet (conversation, speculative decoding, prompt cache, multimodal,
-LoRA, control vectors, dense weights) are parsed and refused by name with
-exit code 2.
+the perf line goes to stderr. -cnv chats over stdin with the model's chat
+template (an empty line or the end of input ends it). --grammar,
+--grammar-file and --json-schema constrain the sampling with a GBNF grammar
+(sampling/grammar.py), whose mask over the vocabulary is applied to each
+step's logits on the host. --prompt-cache keeps the prompt's KV in a state
+file (runtime/state.py) and reuses its longest common prefix on the next
+run. -md (a draft model of the same vocab) or --spec-ngram (prompt lookup)
+decode speculatively, --draft-max tokens a verify step
+(runtime/speculative.py); the EAGLE3, DFlash and Gemma-4-assistant drafts
+are refused by their arch with exit code 2. --lora and --control-vector
+steer the model (models/adapters.py); --no-quant loads dense bf16 weights.
+Runs on the card unless --device cpu is given. Multimodal input (--mmproj,
+--image) is not part of the port yet: refused by name with exit code 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
 
 # flag -> its argparse dest; a value other than the default means it was given
-NOT_PORTED = {
-    "-cnv/--conversation": "conversation", "-md/--model-draft": "model_draft",
-    "--spec-ngram": "spec_ngram", "--prompt-cache": "prompt_cache", "--mmproj": "mmproj",
-    "--image": "image", "--lora": "lora", "--lora-scale": "lora_scale",
-    "--control-vector": "control_vector", "--control-vector-scale": "control_vector_scale",
-    "--no-quant": "no_quant", "--draft-max": "draft_max",
-}
+NOT_PORTED = {"--mmproj": "mmproj", "--image": "image"}
 
 
 class Constrained:
@@ -65,21 +66,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--grammar", default=None, help="GBNF grammar text")
     ap.add_argument("--grammar-file", default=None, help="GBNF grammar from a file")
     ap.add_argument("--json-schema", default=None, help="JSON schema, as a grammar")
+    ap.add_argument("-cnv", "--conversation", action="store_true",
+                    help="chat over stdin with the model's chat template")
+    ap.add_argument("-md", "--model-draft", default=None,
+                    help="draft model GGUF for speculative decoding")
+    ap.add_argument("--draft-max", type=int, default=8,
+                    help="tokens drafted per speculative step")
+    ap.add_argument("--spec-ngram", action="store_true",
+                    help="self-speculative n-gram (prompt lookup) drafting")
+    ap.add_argument("--prompt-cache", default=None,
+                    help="session file: reuse the cached prompt prefix")
+    ap.add_argument("--lora", default=None, help="LoRA adapter GGUF")
+    ap.add_argument("--lora-scale", type=float, default=1.0)
+    ap.add_argument("--control-vector", default=None)
+    ap.add_argument("--control-vector-scale", type=float, default=1.0)
+    ap.add_argument("--no-quant", action="store_true", help="dense bf16 weights")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), or cpu for the plain PyTorch versions")
     not_ported = ap.add_argument_group("not ported yet (refused with exit code 2)")
-    not_ported.add_argument("-cnv", "--conversation", action="store_true")
-    not_ported.add_argument("-md", "--model-draft", default=None)
-    not_ported.add_argument("--draft-max", type=int, default=None)
-    not_ported.add_argument("--spec-ngram", action="store_true")
-    not_ported.add_argument("--prompt-cache", default=None)
     not_ported.add_argument("--mmproj", default=None)
     not_ported.add_argument("--image", action="append", default=[])
-    not_ported.add_argument("--lora", default=None)
-    not_ported.add_argument("--lora-scale", type=float, default=None)
-    not_ported.add_argument("--control-vector", default=None)
-    not_ported.add_argument("--control-vector-scale", type=float, default=None)
-    not_ported.add_argument("--no-quant", action="store_true")
     return ap
 
 
@@ -97,12 +103,22 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
 
+    if args.model_draft:
+        from ..runtime.speculative import refused_draft
+
+        arch = refused_draft(args.model_draft)
+        if arch:
+            print(f"llama-cli: -md with a draft of arch {arch!r} is not ported yet to the "
+                  "PyTorch/CUDA package (its speculator reads the target's hidden features)",
+                  file=sys.stderr)
+            return 2
+
     from ..models.loader import load_model
     from ..runtime.context import Context
     from ..sampling.samplers import SamplerChain, SamplingParams
 
     print(f"loading {args.model} ...", file=sys.stderr, flush=True)
-    model = load_model(args.model, device=args.device)
+    model = load_model(args.model, device=args.device, prefer_quant=not args.no_quant)
     tok = model.tokenizer
     if tok is None:
         print("llama-cli: the model file carries no tokenizer", file=sys.stderr)
@@ -134,34 +150,120 @@ def main(argv=None) -> int:
                 if getattr(args, a) != getattr(defaults, a)}
     params = params.apply_gguf_defaults(model.gguf.metadata, explicit)
 
-    prompt = args.prompt
-    if args.file:
-        with open(args.file, encoding="utf-8") as fh:
-            prompt = fh.read()
-    if prompt is None:
-        print("need -p or -f", file=sys.stderr)
-        return 1
+    if args.lora:
+        from ..models.adapters import apply_lora, load_lora
 
-    ids = tok.encode(prompt, add_special=True, parse_special=True)
-    if args.verbose_prompt:
-        for t in ids:
-            print(f"{t:7d} -> {tok.piece(t)!r}", file=sys.stderr)
-    sampler = SamplerChain.from_params(params, tok.vocab)
-    if grammar:
-        from ..sampling.grammar import GrammarSampler
+        n = apply_lora(model, load_lora(args.lora), scale=args.lora_scale)
+        print(f"lora: applied {n} tensors from {args.lora}", file=sys.stderr)
+    if args.control_vector:
+        from ..models.adapters import apply_control_vector, load_control_vector
 
-        sampler = Constrained(sampler, GrammarSampler(grammar, tok))
+        cv = load_control_vector(args.control_vector, model.cfg.n_layers, model.cfg.n_embd)
+        apply_control_vector(model, cv, strength=args.control_vector_scale)
+        print(f"control vector: {args.control_vector}", file=sys.stderr)
 
-    def show(token: int) -> None:
-        if not tok.is_eog(token):
+    speculator = None
+    if args.model_draft:
+        from ..runtime.speculative import DraftModelSpeculator
+
+        dmodel = load_model(args.model_draft, device=args.device,
+                            prefer_quant=not args.no_quant)
+        speculator = DraftModelSpeculator(Context(dmodel, n_ctx=args.ctx_size,
+                                                  device=args.device))
+    elif args.spec_ngram:
+        from ..runtime.speculative import NgramSpeculator
+
+        speculator = NgramSpeculator()
+
+    def run_once(prompt_text: str) -> list[int]:
+        """One prompt from an empty sequence: its completion printed piece by
+        piece, the ids returned."""
+        ctx.seq_rm(0)
+        ids = tok.encode(prompt_text, add_special=True, parse_special=True)
+        if args.verbose_prompt:
+            for t in ids:
+                print(f"{t:7d} -> {tok.piece(t)!r}", file=sys.stderr)
+        logits = None
+        if args.prompt_cache:
+            from ..runtime.state import load_state, save_state
+
+            cached = []
+            if os.path.exists(args.prompt_cache):
+                try:
+                    cached = list(load_state(ctx, args.prompt_cache).get("tokens", []))
+                except ValueError as e:
+                    print(f"prompt cache ignored: {e}", file=sys.stderr)
+            n_match = 0
+            while (n_match < len(cached) and n_match < len(ids) - 1
+                   and cached[n_match] == ids[n_match]):
+                n_match += 1
+            ctx.seq_rm(0, p0=n_match)
+            if n_match:
+                print(f"prompt cache: reused {n_match}/{len(ids)} tokens", file=sys.stderr)
+            logits = ctx.prefill(ids[n_match:])
+            save_state(ctx, args.prompt_cache, extra={"tokens": list(ids)})
+        if speculator is not None and not grammar and logits is None:
+            from ..runtime.speculative import speculative_generate
+
+            speculator.reset()
+
+            def show_all(t: int) -> None:
+                sys.stdout.write(tok.piece(t))
+                sys.stdout.flush()
+
+            out, stats = speculative_generate(
+                ctx, speculator, ids, max_new_tokens=args.n_predict, n_draft=args.draft_max,
+                sampler=SamplerChain.from_params(params, tok.vocab), stream=show_all)
+            acc = stats["n_accept"] / max(stats["n_draft"], 1)
+            print(f"\nspec: drafted {stats['n_draft']} accepted {stats['n_accept']} "
+                  f"({acc:.0%})", file=sys.stderr)
+            return out
+        sampler = SamplerChain.from_params(params, tok.vocab)
+        if grammar:
+            from ..sampling.grammar import GrammarSampler
+
+            sampler = Constrained(sampler, GrammarSampler(grammar, tok))
+        if logits is None:
+            logits = ctx.prefill(ids)
+        out = []
+        for _ in range(args.n_predict):
+            token = sampler.sample(np.asarray(logits, dtype=np.float32))
+            if tok.is_eog(token):
+                break
             sys.stdout.write(tok.piece(token))
             sys.stdout.flush()
+            out.append(token)
+            if ctx.seq_len[0] >= ctx.n_ctx - 1:
+                break
+            logits = ctx.decode_one(token)
+        sys.stdout.write("\n")
+        return out
 
-    # the loop is Context.generate's; it stops at an end-of-generation token
-    # itself, and here one position short of the context as well
-    ctx.generate(ids, max_new_tokens=args.n_predict, sampler=sampler, stream=show,
-                 stop_fn=lambda _: ctx.seq_len[0] >= ctx.n_ctx - 1)
-    sys.stdout.write("\n")
+    if args.conversation:
+        from ..server.chat import apply_chat_template
+
+        history = []
+        print("== interactive chat (empty line to exit) ==", file=sys.stderr)
+        while True:
+            try:
+                user = input("> ")
+            except EOFError:
+                break
+            if not user.strip():
+                break
+            history.append({"role": "user", "content": user})
+            toks = run_once(apply_chat_template(history, tok.vocab.chat_template, "", "",
+                                                True))
+            history.append({"role": "assistant", "content": tok.decode(toks)})
+    else:
+        prompt = args.prompt
+        if args.file:
+            with open(args.file, encoding="utf-8") as fh:
+                prompt = fh.read()
+        if prompt is None:
+            print("need -p or -f (or -cnv)", file=sys.stderr)
+            return 1
+        run_once(prompt)
 
     s = ctx.perf.summary()
     print(f"\nperf: prompt {s['n_prefill']} tok @ {s['prefill_tok_per_s']:.1f} tok/s; "

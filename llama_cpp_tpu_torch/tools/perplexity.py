@@ -11,8 +11,8 @@ of each chunk (the first half is context burn-in), PPL = exp(mean nll). KL
 mode mirrors --kl-divergence-base. A ubatch of 512 rows runs the vocab head
 through the prefill GEMM (K4) on the card; from 1024 rows the product takes
 the library route, as the JAX package's does. Runs on the card unless
---device cpu is given; --no-quant (dense weights) is not ported and exits
-with 2.
+--device cpu is given; --no-quant loads dense bf16 weights (their products
+on the library route).
 """
 
 from __future__ import annotations
@@ -195,7 +195,7 @@ def build_parser():
     ap.add_argument("-f", "--file", required=True,
                     help="text corpus, or JSONL for --hellaswag/--winogrande")
     ap.add_argument("-c", "--n-ctx", type=int, default=512)
-    ap.add_argument("--no-quant", action="store_true", help="not ported (exits with 2)")
+    ap.add_argument("--no-quant", action="store_true", help="dense bf16 weights")
     ap.add_argument("--hellaswag", action="store_true",
                     help="JSONL: {context, endings[4], label}")
     ap.add_argument("--winogrande", action="store_true",
@@ -214,12 +214,7 @@ def main(argv=None) -> int:
     from .args import apply_env_and_preset
 
     args = apply_env_and_preset(build_parser(), argv)
-    if args.no_quant:
-        print("llama-perplexity: --no-quant is not ported yet to the PyTorch/CUDA package",
-              file=sys.stderr)
-        return 2
-
-    model = load_model(args.model, device=args.device)
+    model = load_model(args.model, device=args.device, prefer_quant=not args.no_quant)
     ctx = Context(model, n_ctx=args.n_ctx, n_seqs=1, device=args.device)
 
     def prog(i, n, cur):

@@ -34,6 +34,17 @@ KV = pytest.mark.parametrize("quantized", [False, True], ids=["bf16_kv", "int8_k
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small steps one at a time: under pytest-xdist's workers on a shared
+    CPU, torch's thread pool spends far more than the work on waking its
+    threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fixture_paths(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_model")
@@ -251,7 +262,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "            'sampling.grammar', 'sampling.json_schema', 'server.app', 'server.scheduler',\n"
         "            'server.chat', 'server.chat_parser', 'server.peg', 'server.tool_calls',\n"
         "            'server.webui', 'quant.dequant', 'quant.repack', 'quant.quantize',\n"
-        "            'tools.quantize_tool'):\n"
+        "            'tools.quantize_tool', 'runtime.state', 'runtime.speculative',\n"
+        "            'models.adapters', 'tools.export_lora', 'server.mcp'):\n"
         "    assert 'llama_cpp_tpu_torch.' + new in sys.modules, new\n"
         "assert 'aiohttp' not in sys.modules, 'a module of the port imported aiohttp'\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -4,7 +4,8 @@ package's ServerApp (aiohttp test client) on the same GGUF: the same
 content, finish reason and usage on every generation route, greedy; four
 concurrent greedy requests equal Context.generate; a pool too small for
 every slot finishes a victim with "length" and serves the rest; the
-routes and flags whose modules are not ported answer 501 or exit 2 and
+routes and flags whose modules are not ported (embeddings, rerank,
+multimodal input, parallel serving, the router) answer 501 or exit 2 and
 name the module; and the scheduler's one-step calls, decode_step_greedy
 and decode_step_multi through the decode loops, equal the eager ubatch
 step (Context.decode) at changing batch sizes with padding rows."""
@@ -262,9 +263,6 @@ REFUSED_ROUTES = {
     "embeddings": ("/v1/embeddings", {"input": "x"}, "Context.embed"),
     "rerank": ("/rerank", {"query": "x", "documents": ["y"]}, "Context.embed"),
     "v1_rerank": ("/v1/rerank", {"query": "x", "documents": ["y"]}, "Context.embed"),
-    "slot_save": ("/slots/0?action=save", {"filename": "s.bin"}, "runtime/state.py"),
-    "tools": ("/tools", None, "server/mcp.py"),
-    "tools_call": ("/tools/call", {"name": "x"}, "server/mcp.py"),
     "image_chat": ("/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "text", "text": "what is it"},
         {"type": "image_url", "image_url": {"url": "data:image/png;base64,AAAA"}}]}]},
@@ -294,9 +292,8 @@ def test_routes_of_the_front_end(port_server):
     assert port_server.request("/completion", "not an object")[0] == 400
 
 
-REFUSED_FLAGS = [["-md", "d.gguf"], ["--spec", "ngram"], ["--draft-max", "4"],
-                 ["--mmproj", "mm.gguf"], ["--mcp", "cmd"], ["--tp", "2"], ["--dp", "2"],
-                 ["--pp", "2"], ["--ep"], ["--coordinator", "h:1"], ["-m", "b.gguf"]]
+REFUSED_FLAGS = [["--mmproj", "mm.gguf"], ["--tp", "2"], ["--dp", "2"], ["--pp", "2"], ["--ep"],
+                 ["--coordinator", "h:1"], ["-m", "b.gguf"]]
 
 
 @pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=[f[0] for f in REFUSED_FLAGS])

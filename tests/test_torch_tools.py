@@ -1,7 +1,8 @@
 """The port's measurement tools against the JAX package's on the CPU:
 tools/perplexity.py (perplexity, KL divergence, continuation log-probs,
 multiple-choice and winogrande scoring, and its entry point),
-tools/bench_tool.py (llama-bench: markdown and JSON rows, the batched grid)
+tools/bench_tool.py (llama-bench: markdown and JSON rows, the batched grid;
+both entry points with --no-quant too)
 and tools/results.py (record, then check with no drift). Values agree to
 1e-3 relative: the two packages' logits differ by an NMSE under 1e-3.
 
@@ -19,6 +20,7 @@ import torch
 from llama_cpp_tpu.models.loader import load_model as jax_load_model
 from llama_cpp_tpu.runtime.context import Context as JaxContext
 from llama_cpp_tpu.testing import make_tiny_llama_gguf as jax_make_tiny
+from llama_cpp_tpu.tools import bench_tool as jbench
 from llama_cpp_tpu.tools import perplexity as jppl
 from llama_cpp_tpu.tools import results as jresults
 from llama_cpp_tpu_torch.models.loader import load_model
@@ -123,7 +125,15 @@ def test_perplexity_entry_point_matches_jax(q4k, tmp_path, capsys):
     assert out[-1].startswith("PPL = ") and len(out) == len(jout) >= 3
     ppl, jval = float(out[-1].split()[2]), float(jout[-1].split()[2])
     assert rel(ppl, jval) < 1e-3 and out[-1].split()[-2] == jout[-1].split()[-2]
-    assert perplexity.main(["-m", path, "-f", str(corpus), "--no-quant"]) == 2
+    # --no-quant: dense bf16 weights in both packages
+    assert perplexity.main(["-m", path, "-f", str(corpus), "-c", "128", "--no-quant",
+                            "--device", "cpu"]) == 0
+    dense = capsys.readouterr().out.strip().splitlines()
+    jppl.main(["-m", path, "-f", str(corpus), "-c", "128", "--no-quant"])
+    jdense = capsys.readouterr().out.strip().splitlines()
+    assert dense[-1].startswith("PPL = ") and len(dense) == len(jdense)
+    assert rel(float(dense[-1].split()[2]), float(jdense[-1].split()[2])) < 1e-3
+    assert float(dense[-1].split()[2]) != ppl
 
 
 def test_bench_tool_prints_markdown_and_json_rows(bench_gguf, capsys):
@@ -143,7 +153,13 @@ def test_bench_tool_prints_markdown_and_json_rows(bench_gguf, capsys):
     rows = json.loads(capsys.readouterr().out)["results"]
     assert [(r["PP"], r["TG"], r["B"]) for r in rows] == [(64, 8, 1), (64, 8, 2)]
     assert all(r["S_PP t/s"] > 0 and r["S_TG t/s"] > 0 for r in rows)
-    assert bench_tool.main(argv + ["--no-quant"]) == 2
+    # --no-quant: the JAX tool's rows (test names and counts) over dense weights
+    assert bench_tool.main(argv + ["--no-quant", "-o", "json"]) == 0
+    dense = json.loads(capsys.readouterr().out)["results"]
+    jbench.main(argv[:-2] + ["--no-quant", "-o", "json"])
+    jdense = json.loads(capsys.readouterr().out)["results"]
+    assert [r["test"] for r in dense] == [r["test"] for r in jdense] == ["pp64", "tg8"]
+    assert all(r["t/s"] > 0 for r in dense)
 
 
 def test_bench_tg_runs_the_on_device_loop(bench_gguf):
