@@ -24,14 +24,19 @@ Phases, each of which fails the run:
      an int8 and a bf16 pool, with heads of 32, 64 and 256, then both
      kernels forced at 16-512 rows and depths 2048 and 128 to read the
      route threshold; the
-     indexed-expert kernel at Mixtral-8x7B and Qwen3-30B-A3B expert shapes
-     (R = 8, 64 and 64 rows drawn from 16 experts),
+     indexed-expert kernel at Mixtral-8x7B, Qwen3-30B-A3B and DeepSeek-V3
+     expert shapes (R = 8, 64 and 64 rows drawn from 16 experts; V3's 256
+     experts of 7168 x 2048 at R = 8 and 64),
      the slot-table attention kernels at the same depths as the paged ones,
      and with 64-wide heads, and in ring mode at a Gemma-3-4B window layer
      (1792 slots, 4 KV heads of 256, window 1024, positions past the wrap:
      decode B=8 and a 512-row ubatch, each held call one ring launch; the
      ring decode beside the slot-table decode at that shape and a live depth
-     of 1024);
+     of 1024); the MLA instantiation of both (csrc/flash_attn_mla.cuh: one
+     KV head of K 640 and V 512) at G = 16 (DeepSeek-V2-Lite) and G = 128
+     (DeepSeek-V3) query heads, decode B = 1 and 8 at depth 2048 and the
+     ubatch 4 of 2048, int8 and bf16, and at K 576 (the conformance rows'
+     width), with its ptxas lines and shared memory;
      the microbenchmark's
      four probe kernels (stream probe, the two nibble unpacks, the tile sweep
      flat and tile by tile) at the gate/up and down shapes of an 8B llama,
@@ -44,7 +49,8 @@ Phases, each of which fails the run:
      then the conformance sweep (llama_cpp_tpu_torch.tools.conformance):
      every row of the JAX package's scripts/conformance.py through the
      port's kernel against its f64 oracle (NMSE < 5e-3), written to
-     build/conformance_h100.csv; a FAIL row fails the run unless
+     build/conformance_h100.csv (120 of 120 rows, the two MLA rows through
+     the MLA instantiation); a FAIL row fails the run unless
      KNOWN_FAULTS names it; then the storage-type sweep: every plane type
      of quant/repack.py at Qwen3-8B's ffn_down and fused ffn_gateup shapes
      from synthetic bytes through load_weight, qmm at N = 1, 8, 512 against
@@ -121,15 +127,27 @@ Phases, each of which fails the run:
        tokens at B=1, decode_steps_greedy at B=8, the B=1 profile, the plain
        path on the prefill logits (NMSE 5e-3), on 8 teacher-forced decode
        steps' logits and on the greedy ids, then the graph phase at B=8:
-       Qwen3-8B (depth 36 -> 4; K1-K5; then one round of four concurrent
+       Qwen3-8B (depth 36 -> 2; K1-K5; then one round of four concurrent
        16-token greedy /completion requests through run_server, graphed,
        ids against Context.generate), Qwen3-30B-A3B (48 -> 2, all 128
        experts; K1-K5 and K7 at R = 8 and 64) and Gemma-3-4B (34 -> 6, one
        period of its pattern: five window layers on ISWA rings of 1792
        slots through K6 in ring mode, one full layer on the pool through
        K5; the tied 262208-row head on the library route, timed);
+     - DeepSeek's Multi-head Latent Attention, Context as the families':
+       DeepSeek-V2-Lite (27 -> 4 layers: one dense, three MoE of 64
+       experts; the paged MLA decode kernel at B=1, its prefill kernel at
+       the ubatches; the graph phase at B=8, the B=1 profile, a served
+       round), then on that model the attn_k_b/attn_v_b file against the
+       attn_kv_b file (bit for bit), context_shift on the pool and the slot
+       table (K6's MLA instantiation) against the plain path shifted alike
+       and a sequence's state round trip (bit for bit); DeepSeek-V3 (61 ->
+       2 layers: one dense, one MoE of 256 experts; every attention on the
+       MLA prefill kernel, 128 rows at B=1); each with every matrix's route
+       on its path line and the plain path on the prefill logits, 8
+       teacher-forced steps and the ids (near_ties);
      - the storage types users download beside Q4_K_M: Qwen3-8B at Q8_0
-       (depth 36 -> 4, every matrix Q8_0: K2 and K4 over int8 flat-g32
+       (depth 36 -> 2, every matrix Q8_0: K2 and K4 over int8 flat-g32
        planes, no other qmm kernel; the families' whole treatment), at
        Q5_K_M and at Q4_0 (depth 2: prefill 2048, 16 greedy tokens, B=8,
        the plain path on the logits and the ids); then path Q, the port's
@@ -185,17 +203,16 @@ GRAMMAR_TOKENS = 6
 SERVER_PROMPTS = (CLI_PROMPT, "a long story: " + CLI_PROMPT * 4, "the mat was on the cat",
                   "and that was the end")  # the second takes the prefill kernels (>= 64 rows)
 MOE_LAYERS = 2  # experts are 97% of a Mixtral layer's bytes
-QWEN3_LAYERS = 4  # Qwen3-8B: 36 layers
+QWEN3_LAYERS = 2  # Qwen3-8B: 36 layers; 2 keep the whole call near 860 s beside DeepSeek
 QWEN3MOE_LAYERS = 2  # Qwen3-30B-A3B: 48 layers, all 128 experts each
 GEMMA3_LAYERS = 6  # Gemma-3-4B: 34 layers; one period of its pattern (five window, one full)
 QWEN3_MIX_LAYERS = 2  # Qwen3-8B at Q5_K_M and Q4_0
 QUANT_LAYERS = 2  # the F16 Qwen3-0.6B file llama-quantize turns into q8_0 and q4_0: 28 layers
+DS_LITE_LAYERS = 4  # DeepSeek-V2-Lite: 27 layers; one dense, three MoE
+DS_V3_LAYERS = 2  # DeepSeek-V3: 61 layers; one dense, one MoE of 256 experts (~14 GB)
 # conformance rows that fail for a fault open in ROADMAP.md queue 3:
 # (kernel, config); printed as "known fault" with their NMSE
 KNOWN_FAULTS: tuple[tuple[str, str], ...] = ()
-# conformance rows whose shapes the port's kernels do not take (K and V heads
-# that differ, ROADMAP.md queue 1, item 12): they must raise
-UNTAKEN_ROWS = (("flash_attn_paged", "mla-576"), ("flash_attn_paged", "mla-576-int8"))
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -223,6 +240,20 @@ def captured(loops) -> str:
     return ", ".join(f"({b}, {name(smp)}; {loop.graph_bytes / 2 ** 20:.1f})"
                      for (b, smp), loop in sorted(loops.items(),
                                                   key=lambda kv: (kv[0][0], str(kv[0][1]))))
+
+
+def ptxas_of(text: str, marker: str) -> list[str]:
+    """ptxas's register and spill lines of the entry functions whose mangled
+    name holds `marker`, each after its template arguments."""
+    out, entry = [], ""
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            entry = (name.split("ILi", 1)[1].split("EEEv")[0].replace("ELi", ",")
+                     .replace("ELb", ",") if marker in name else "")
+        elif entry and ("Used" in ln or "spill" in ln):
+            out.append(f"<{entry}> {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 def plane_bytes(w) -> int:
@@ -319,23 +350,24 @@ def held_phase(torch, qmm, label, weights, n_rows, failures):
     return worst
 
 
-def attn_case(torch, B, G, T, depth, page=512, Hkv=8, D=128, seed=0, kv_dtype=None):
+def attn_case(torch, B, G, T, depth, page=512, Hkv=8, D=128, seed=0, kv_dtype=None, Dv=None):
     """Random pool (int8 with row scales, or bf16 without) with each batch
     row's `depth` cached positions plus its T new rows at positions depth ..
-    depth+T-1."""
+    depth+T-1; V rows of Dv (default D)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    Dv = Dv or D
     n_tok = depth + T
     mp = -(-n_tok // page) + 1
     n_pages = B * mp + 1
     S_pool = n_pages * page
     if kv_dtype is torch.bfloat16:
         k = (torch.randn((Hkv, S_pool, D), generator=gen, device="cuda")).to(torch.bfloat16)
-        v = (torch.randn((Hkv, S_pool, D), generator=gen, device="cuda")).to(torch.bfloat16)
+        v = (torch.randn((Hkv, S_pool, Dv), generator=gen, device="cuda")).to(torch.bfloat16)
         ks = vs = None
     else:
         k = torch.randint(-127, 128, (Hkv, S_pool, D), generator=gen, device="cuda",
                           dtype=torch.int8)
-        v = torch.randint(-127, 128, (Hkv, S_pool, D), generator=gen, device="cuda",
+        v = torch.randint(-127, 128, (Hkv, S_pool, Dv), generator=gen, device="cuda",
                           dtype=torch.int8)
         ks = torch.rand((Hkv, S_pool), generator=gen, device="cuda") * 0.02 + 0.005
         vs = torch.rand((Hkv, S_pool), generator=gen, device="cuda") * 0.02 + 0.005
@@ -372,8 +404,9 @@ def attn_measure(torch, timer, fa, name, label, run, run_plain, q, kd, vd, cp, r
     import torch.nn.functional as F
 
     B, Hkv, R, D = q.shape
+    Dv = vd.shape[-1]
     sm = 1.0 / D ** 0.5
-    key = f"{name}/{fa.route(R)}"
+    key = f"{name}/{'mla ' if fa.is_mla(D, Dv) else ''}{fa.route(R)}"
     before, ring_before = dict(fa.launches), dict(fa.ring_launches)
     got = run(sm)
     torch.cuda.synchronize()
@@ -403,12 +436,13 @@ def attn_measure(torch, timer, fa, name, label, run, run_plain, q, kd, vd, cp, r
     if window:
         seen = seen & (cp > rp.min(dim=1).values[:, None] - window)
     kv_rows = int(seen.sum())
-    row_bytes = 2 * D * kv_elem + (8 if quantized else 0)
-    nbytes = q.numel() * 2 + kv_rows * (Hkv * row_bytes + 4) + q.numel() * 4
-    flops = 4.0 * D * Hkv * float(mask.sum())
+    row_bytes = (D + Dv) * kv_elem + (8 if quantized else 0)
+    nbytes = q.numel() * 2 + kv_rows * (Hkv * row_bytes + 4) + B * Hkv * R * Dv * 4
+    flops = 2.0 * (D + Dv) * Hkv * float(mask.sum())
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else "operations"
-    log(f"  {label:38s} [{key.split('/')[1]}] B={B} R={R} D={D} nmse={err:.2e} ms={ms:.4f} "
+    log(f"  {label:38s} [{key.split('/')[1]}] B={B} R={R} D={D}"
+        f"{f'/{Dv}' if Dv != D else ''} nmse={err:.2e} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
             "bound_by": bound_by, "max_abs_err": mae, "nmse": err}
@@ -436,20 +470,23 @@ def attn_phase(torch, timer, fa, label, case, failures):
         failures)
 
 
-def slots_case(torch, B, G, T, depth, n_seqs=8, S=5120, Hkv=8, D=128, seed=0, kv_dtype=None):
+def slots_case(torch, B, G, T, depth, n_seqs=8, S=5120, Hkv=8, D=128, seed=0, kv_dtype=None,
+               Dv=None):
     """Random slot-table cache (int8 with row scales, or bf16) of n_seqs
     sequences of S slots; batch row b reads sequence n_seqs - 1 - b, which
-    holds `depth` cached positions plus the T new rows."""
+    holds `depth` cached positions plus the T new rows; V rows of Dv
+    (default D)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    Dv = Dv or D
     n_tok = depth + T
     if kv_dtype is torch.bfloat16:
         k = torch.randn((n_seqs, Hkv, S, D), generator=gen, device="cuda").to(torch.bfloat16)
-        v = torch.randn((n_seqs, Hkv, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((n_seqs, Hkv, S, Dv), generator=gen, device="cuda").to(torch.bfloat16)
         ks = vs = None
     else:
         k = torch.randint(-127, 128, (n_seqs, Hkv, S, D), generator=gen, device="cuda",
                           dtype=torch.int8)
-        v = torch.randint(-127, 128, (n_seqs, Hkv, S, D), generator=gen, device="cuda",
+        v = torch.randint(-127, 128, (n_seqs, Hkv, S, Dv), generator=gen, device="cuda",
                           dtype=torch.int8)
         ks = torch.rand((n_seqs, Hkv, S), generator=gen, device="cuda") * 0.02 + 0.005
         vs = torch.rand((n_seqs, Hkv, S), generator=gen, device="cuda") * 0.02 + 0.005
@@ -834,13 +871,13 @@ def conformance_phase(torch, tool, failures):
             continue
         if r.status == "FAIL" and key in KNOWN_FAULTS:
             log(f"  known fault {r.kernel} {r.config}: NMSE {r.nmse} ({r.route})")
-        elif r.status == "raises" and key in UNTAKEN_ROWS:
-            log(f"  {r.kernel} {r.config}: {r.route}")
         else:
             failures.append(f"conformance {r.kernel} {r.config}: {r.status}, NMSE {r.nmse} "
                             f"({r.route})")
     counts = {s: sum(r.status == s for r in rows) for s in ("PASS", "FAIL", "raises")}
     worst = max((r for r in rows if r.nmse is not None), key=lambda r: r.nmse)
+    mla = [f"{r.config} {r.nmse:.3e} ({r.route})" for r in rows if r.config.startswith("mla-")]
+    log(f"  the MLA rows through the MLA instantiation: {mla}")
     log(f"conformance sweep: {len(rows)} rows, {counts['PASS']} PASS, {counts['FAIL']} FAIL, "
         f"{counts['raises']} raises (known faults: {list(KNOWN_FAULTS)}); largest NMSE "
         f"{worst.nmse:.3e} ({worst.kernel} {worst.config}); written to {path}")
@@ -1008,6 +1045,8 @@ def main() -> int:
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
         from llama_cpp_tpu_torch.testing import (make_bench_arch_gguf, make_bench_gemma3_gguf,
+                                                 make_bench_deepseek2_gguf,
+                                                 make_bench_deepseek_v3_gguf,
                                                  make_bench_llama_gguf, make_bench_moe_gguf,
                                                  make_bench_qwen3_gguf, make_bench_qwen3moe_gguf,
                                                  make_control_vector_gguf, make_lora_gguf,
@@ -1207,6 +1246,51 @@ def main() -> int:
         f"{ring_decode_ms:.4f} / {r['ms']:.4f} ms = {ring_decode_ms / r['ms']:.3f}x")
     del case
     torch.cuda.empty_cache()
+    log("K5/K6 MLA instantiation (csrc/flash_attn_mla.cuh; one KV head of K 640 and V 512, "
+        "DeepSeek's absorbed latent; G = 16 query heads: DeepSeek-V2-Lite, G = 128: "
+        "DeepSeek-V3; K 576 (no pad) at the conformance rows' width); NMSE limit "
+        f"{NMSE_LIMIT}; the library call is SDPA on the same bf16 K/V, timed only:")
+    mla_rows: dict[str, dict] = {}
+    for lay, name, phase, make in (("K5", "flash_attention_paged", attn_phase, attn_case),
+                                   ("K6", "flash_attention", slots_phase, slots_case)):
+        extra = {} if lay == "K5" else {"S": 4608}
+        cases = [(G, fam, dt, dname, B, T, depth, shape, 640)
+                 for G, fam in ((16, "v2-lite"), (128, "v3"))
+                 for dt, dname in ((None, "int8"), (torch.bfloat16, "bf16"))
+                 for B, T, depth, shape in ((1, 1, 2048, "decode B=1 d=2048"),
+                                            (8, 1, 2048, "decode B=8 d=2048"),
+                                            (1, 512, 1536, "prefill ubatch 4 of 2048"))]
+        cases += [(16, "v2-lite", None, "int8", B, T, depth, shape, 576)
+                  for B, T, depth, shape in ((1, 1, 2048, "decode B=1 d=2048"),
+                                             (1, 512, 1536, "prefill ubatch 4 of 2048"))]
+        for G, fam, dt, dname, B, T, depth, shape, Dk in cases:
+            row = f"{fam} G={G} Dk={Dk} {dname} {shape}"
+            r = phase(torch, timer, flash_attn, f"{lay} mla {row}",
+                      make(torch, B=B, G=G, T=T, depth=depth, Hkv=1, D=Dk, Dv=512, kv_dtype=dt,
+                           **extra), failures)
+            mla_rows.setdefault(f"{name}/mla {flash_attn.route(G * T)}", {})[row] = r
+            torch.cuda.empty_cache()
+    for key, main_row in (("flash_attention_paged/mla decode",
+                           "v2-lite G=16 Dk=640 int8 decode B=1 d=2048"),
+                          ("flash_attention_paged/mla prefill",
+                           "v3 G=128 Dk=640 int8 prefill ubatch 4 of 2048"),
+                          ("flash_attention/mla decode",
+                           "v2-lite G=16 Dk=640 int8 decode B=1 d=2048"),
+                          ("flash_attention/mla prefill",
+                           "v3 G=128 Dk=640 int8 prefill ubatch 4 of 2048")):
+        rows = mla_rows[key]
+        res[key] = {**rows[main_row], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                    "nmse": max(r["nmse"] for r in rows.values()),
+                    "rows": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "nmse")}
+                             for k, r in rows.items()}}
+    for src in ("flash_attn_paged.cu", "flash_attn.cu"):
+        log(f"MLA instantiations of {src}, ptxas (template <Dk, 16-row groups, bf16, paged>: "
+            "registers, spills): " + "; ".join(ptxas_of(build.BUILD_LOGS.get(src, ""), "fa_mla")))
+    log("MLA block shared memory (bytes; 64 rows / 16 rows, bf16 / int8): " + "; ".join(
+        f"Dk={dk} {'wide' if w else 'narrow'} {'bf16' if b else 'int8'} "
+        f"{flash_attn.mla_smem_bytes(dk, w, b)}" for dk in (576, 640) for w in (True, False)
+        for b in (True, False)))
     log("K7 indexed-expert product (Mixtral-8x7B: 8 experts; Qwen3-30B-A3B: 128 experts):")
     mix = []
     for wname, K, O, q4 in (("ffn_gate_exps", E, FF, True), ("ffn_up_exps", E, FF, True),
@@ -1235,6 +1319,19 @@ def main() -> int:
             qwen["nmse"] = max(qwen["nmse"], r["nmse"])
         del w
     torch.cuda.empty_cache()
+    log("K7 at DeepSeek-V3's expert stacks (256 experts; gate 7168 -> 2048 Q4_K-like, down "
+        "2048 -> 7168 Q6_K-like; R = 8: one token's top 8, R = 64: eight tokens'):")
+    for wname, K, O, q4 in (("ffn_gate_exps", 7168, 2048, True),
+                            ("ffn_down_exps", 2048, 7168, False)):
+        w = expert_stack(torch, qtensor, GGMLType, 256, K, O, q4, seed=11)
+        for R in (8, 64):
+            r = expert_phase(torch, timer, qmm_expert, f"K7 deepseek-v3 {wname}", w, R, failures)
+            qwen["rows"][f"deepseek-v3 {wname} E=256 R={R}"] = {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "nmse")}
+            qwen["max_abs_err"] = max(qwen["max_abs_err"], r["max_abs_err"])
+            qwen["nmse"] = max(qwen["nmse"], r["nmse"])
+        del w
+        torch.cuda.empty_cache()
     log("K7 on Q8_0 expert stacks (load_weight of synthetic Q8_0 bytes: int8, flat f32 scales, "
         "groups of 32, no mins) at Qwen3-30B-A3B's gate and down shapes:")
     for wname, K, O in (("ffn_gate_exps", 2048, 768), ("ffn_down_exps", 768, 2048)):
@@ -1306,6 +1403,8 @@ def main() -> int:
             log(f"FAIL {f}")
         return 1
 
+    log(f"phase 3 ends at {time.perf_counter() - t_all:.1f} s")
+
     # -- phase 4: the main paths ---------------------------------------------
     counters = (qmm.launches, flash_attn.launches, flash_attn.ring_launches, qmm_expert.launches,
                 qmm_bench.launches)
@@ -1330,7 +1429,7 @@ def main() -> int:
         path must have been launched, and no other kernel."""
         torch.cuda.synchronize()
         counts = {k: v for counter in counters for k, v in counter.items()}
-        log(f"{path} launches: {counts}")
+        log(f"{path} launches (at {time.perf_counter() - t_all:.1f} s): {counts}")
         for name in must_run:
             if counts[name] <= 0:
                 failures.append(f"{path}: kernel {name} was not launched")
@@ -2437,11 +2536,14 @@ def main() -> int:
                     for m in ("regex", "jinja2"))
         + " (the Qwen2 pre-tokenizer needs regex; chat templates need jinja2)")
 
-    def server_round(model, label, n_predict=16, must_run=None):
+    def server_round(model, label, n_predict=16, must_run=None, near_ties=False):
         """llama-server (run_server, graphed, -np 4 --kv-quant) over the
         loaded model: one round of four concurrent greedy /completion
-        requests of n_predict tokens, ids against Context.generate's;
-        returns Context.generate's ids."""
+        requests of n_predict tokens, ids against Context.generate's (with
+        near_ties, a request whose ids part from them has each id held
+        teacher-forced against the plain path, hold_ids' rule: the batched
+        steps run the kernels at other row counts and splits); returns
+        Context.generate's ids."""
         import threading
 
         from llama_cpp_tpu_torch.server.app import run_server
@@ -2486,7 +2588,8 @@ def main() -> int:
                 f"{[len(p) for p in ids]} tokens), graphed: ids equal to Context.generate's "
                 f"{agree} of {n_predict} each, {wall:.3f} s with the graphs' capture "
                 f"({captured(srv.app.ctx._loops)})")
-            if agree != [n_predict] * 4:
+            parted = [i for i, a in enumerate(agree) if a != n_predict]
+            if parted and (not near_ties or any(out[i] is None for i in parted)):
                 failures.append(f"{label}: served ids agree {agree} of {n_predict}")
         finally:
             srv.shutdown()
@@ -2494,6 +2597,10 @@ def main() -> int:
         if th.is_alive():
             failures.append(f"{label}: the server thread did not stop")
         all_counts[label] = read_counts(label, must_run or full_keys)
+        if near_ties:
+            for i in parted:
+                hold_ids(f"{label} request {i}", model, ids[i], out[i]["tokens"], n_ctx=4096,
+                         n_ubatch=512, quantized_kv=True)
         return want
 
     def tied_head_phase(model, label):
@@ -2514,9 +2621,36 @@ def main() -> int:
         if after != before:
             failures.append(f"{label}: the tied head launched a kernel: {before} -> {after}")
 
+    def weight_routes(model, layers) -> str:
+        """Each matrix of the given layers (and the head): its storage and
+        the route its products take: a qmm kernel (K1/K3 nibble planes, K2/K4
+        int8 planes, wherever the JAX package's dispatch sends it), K7 (an
+        expert stack the kernel takes), or the library route (dequantize, or
+        a dense bf16 weight, then torch's product), where the JAX package
+        leaves the product to XLA."""
+        out = []
+        for name, lw in [(f"layer {il}", model.params["layers"][il]) for il in layers] + [
+                ("head", {"output": model.params.get("output")})]:
+            for k, w in lw.items():
+                if isinstance(w, qtensor.QuantTensor):
+                    if w.q.dim() == 3:
+                        route = "K7" if qmm_expert.supported(w) else "library"
+                    elif qmm.dispatches(w):
+                        route = "K1/K3" if w.packed else "K2/K4"
+                    else:
+                        route = "library"
+                    what = f"{GGMLType(w.ggml_type).name} {tuple(w.q.shape)}"
+                elif isinstance(w, torch.Tensor) and w.dim() >= 2:
+                    route = ("einsum (absorbed MLA)" if k.startswith("mla_") else "library")
+                    what = f"dense {str(w.dtype).split('.')[-1]} {tuple(w.shape)}"
+                else:
+                    continue
+                out.append(f"{name} {k} {what} -> {route}")
+        return "; ".join(out)
+
     def arch_path(label, make, n_layers, vocab, must_run, note, profile_qe=None,
                   server=False, n_gen=32, full=True, want_layout=None, near_ties=False,
-                  keep=False):
+                  keep=False, routes=False):
         """One family's model at full width, depth cut to n_layers: load,
         drive (prefill 2048, n_gen greedy tokens at B=1, decode_steps_greedy
         at B=8), its kernel set, the plain path on the prefill logits, 8
@@ -2525,7 +2659,8 @@ def main() -> int:
         library route where the model has no output.weight; with server=True
         one served round. want_layout: the layout every quantized matmul
         weight must have; near_ties: against_plain's rule for varied ids;
-        keep: return the loaded model for a later path."""
+        keep: return the loaded model for a later path; routes: log every
+        matrix's route (weight_routes) of the first and last layers."""
         path = os.path.join(smoke_dir, f"{label}.gguf")
         t0 = time.perf_counter()
         make(path, n_layers=n_layers, seed=0)
@@ -2544,6 +2679,8 @@ def main() -> int:
         log(f"{label} weights: " + "; ".join(
             f"{k} {GGMLType(w.ggml_type).name} {layout_of(w)}"
             f"{'' if w.transposed else ' row-major'}" for k, w in mats.items()))
+        if routes:
+            log(f"{label} weight routes: " + weight_routes(model, sorted({0, n_layers - 1})))
         if want_layout:
             matmuls = [(f"layer {i} {k}", w) for i, lw in enumerate(model.params["layers"])
                        for k, w in lw.items()] + [("output", model.params.get("output"))]
@@ -2574,11 +2711,89 @@ def main() -> int:
             if "output" not in model.params:
                 tied_head_phase(model, label)
         if server:
-            server_round(model, f"{label} server")
+            server_round(model, f"{label} server", must_run=must_run, near_ties=near_ties)
         if keep:
             return model
         del model
         torch.cuda.empty_cache()
+
+    def mla_extras(model, label, must_pool, must_slots):
+        """DeepSeek-V2-Lite after its path, Context(n_ctx=4096, n_seqs=8,
+        n_ubatch=512, quantized_kv=True): (1) the same model shipped as
+        attn_k_b + attn_v_b (current llama.cpp files) against the attn_kv_b
+        file: mla_k_b / mla_v_b and the kernel path's prefill logits bit for
+        bit; (2) context_shift (n_keep 64) at 2048 tokens on the pool and on
+        the slot table (Context(paged=False): every attention through K6's
+        MLA instantiation): 8 graphed greedy steps equal to eager, 8
+        teacher-forced steps within NMSE 5e-3 of the plain path shifted
+        alike; (3) save_seq_state of seq 0 loaded into seq 3: the next step's
+        logits bit for bit."""
+        kw = dict(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True)
+        prompt2k = [int(t) for t in prng.integers(3, model.cfg.vocab_size, 2048)]
+        path = os.path.join(smoke_dir, f"{label}-split.gguf")
+        t0 = time.perf_counter()
+        make_bench_deepseek2_gguf(path, n_layers=model.cfg.n_layers, split_kv_b=True, seed=0)
+        t1 = time.perf_counter()
+        split = load_model(path)
+        t2 = time.perf_counter()
+        os.remove(path)
+        same_w = all(torch.equal(a[k], b[k]) for a, b in zip(model.params["layers"],
+                                                             split.params["layers"])
+                     for k in ("mla_k_b", "mla_v_b"))
+        same_lg = np.array_equal(Context(model, **kw).prefill(prompt2k),
+                                 Context(split, **kw).prefill(prompt2k))
+        del split
+        log(f"{label} attn_k_b/attn_v_b file (fixture {t1 - t0:.1f} s, load_model "
+            f"{t2 - t1:.1f} s): mla_k_b/mla_v_b equal {same_w}, prefill logits bit for bit "
+            f"{same_lg}")
+        if not (same_w and same_lg):
+            failures.append(f"{label}: the split file's weights {same_w}, logits {same_lg}")
+        for paged in (True, False):
+            lab = f"{label} context shift ({'pool' if paged else 'slot table'})"
+            reset_counts()
+            g = Context(model, paged=paged, **kw)
+            e = Context(model, paged=paged, graphs=False, **kw)
+            p = Context(model, paged=paged, kernels=False, graphs=False, **{**kw, "n_seqs": 2})
+            for c in (g, e, p):
+                c.prefill(prompt2k, seq=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_disc = g.context_shift(0, n_keep=64)
+            torch.cuda.synchronize()
+            shift_ms = (time.perf_counter() - t0) * 1e3
+            e.context_shift(0, n_keep=64)
+            p.context_shift(0, n_keep=64)
+            ids_g = g.decode_steps_greedy(np.asarray([11]), np.asarray([0]), 8)
+            ids_e = e.decode_steps_greedy(np.asarray([11]), np.asarray([0]), 8)
+            e.seq_rm(0, p0=int(e.seq_len[0]) - 8)
+            errs = [nmse(torch.from_numpy(e.decode_one(t)), torch.from_numpy(p.decode_one(t)))
+                    for t in [11] + [int(x) for x in ids_e[0][:7]]]
+            del g, e, p
+            all_counts[lab] = read_counts(lab, must_pool if paged else must_slots)
+            log(f"{lab} ({card}): context_shift(n_keep=64) discarded {n_disc} in "
+                f"{shift_ms:.2f} ms (K re-roped on its tail 64 dims); 8 graphed greedy steps "
+                f"equal to eager {np.array_equal(ids_g, ids_e)}; 8 teacher-forced steps "
+                f"against the plain path shifted alike, NMSE largest {max(errs):.3e} (limit "
+                f"{NMSE_LIMIT})")
+            if not np.array_equal(ids_g, ids_e) or not max(errs) < NMSE_LIMIT:
+                failures.append(f"{lab}: graphed {ids_g} eager {ids_e}, NMSE {errs}")
+        c = Context(model, **kw)
+        c.prefill(prompt2k, seq=0)
+        t0 = time.perf_counter()
+        blob = state_io.save_seq_state(c, 0)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ref = c.decode_one(11, seq=0)
+        t0 = time.perf_counter()
+        n = state_io.load_seq_state(c, 3, blob)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        same = np.array_equal(c.decode_one(11, seq=3), ref)
+        del c
+        log(f"{label} save_seq_state ({card}): {len(blob)} bytes in {save_ms:.1f} ms (one KV "
+            f"head of 640/512 a layer, int8 with scales), load_seq_state of {n} cells into seq 3 "
+            f"{load_ms:.1f} ms; the next step's logits bit for bit {same}")
+        if not same or n != len(prompt2k):
+            failures.append(f"{label}: seq state round trip {same}, {n} cells")
 
     def path_quantize():
         """llama-quantize on this machine: quantize_tool.main turns an F16
@@ -2669,7 +2884,7 @@ def main() -> int:
 
     def path_s(model, small_q8, small_q4):
         """What llama-cli and llama-server had refused, on Qwen3-8B Q8_0 (the
-        4-layer model of the path above) and path Q's Qwen3-0.6B-shaped
+        2-layer model of the path above) and path Q's Qwen3-0.6B-shaped
         files, Context(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True):
         1. speculative_generate with NgramSpeculator over a prompt that
            repeats a 64-token span (the model's own greedy continuation of a
@@ -2974,6 +3189,35 @@ def main() -> int:
               "Gemma-3-4B shape (n_embd 2560, 8/4 heads of 256, n_ff 10240, vocab 262208, "
               "window 1024 on five layers of six, GeGLU, post-norms, tied Q6_K head)")
 
+    # DeepSeek's Multi-head Latent Attention: K5/K6's MLA instantiation
+    mla_paged = ("flash_attention_paged/mla decode", "flash_attention_paged/mla prefill")
+    mla_slots = ("flash_attention/mla decode", "flash_attention/mla prefill")
+    qmm_keys = decode_keys + prefill_keys
+    ds_model = arch_path(
+        "deepseek-v2-lite", make_bench_deepseek2_gguf, DS_LITE_LAYERS, 102400,
+        qmm_keys + mla_paged + (expert_key,),
+        "DeepSeek-V2-Lite shape (deepseek-ai/DeepSeek-V2-Lite config.json: n_embd 2048, 16 "
+        "heads, no q-LoRA, kv_lora 512, qk_nope 128, qk_rope 64, v 128, 64 routed experts of "
+        "1408 top 6 by softmax, 2 shared, vocab 102400, YaRN factor 40, mscale 0.707; depth "
+        f"27 -> {DS_LITE_LAYERS}: layer 0 dense (n_ff 10944), the rest MoE), Q4_K_M mix, F32 "
+        "where rows are not a multiple of 256 (dense ffn_down, expert down); the absorbed "
+        "cache: one KV head of K 640 (512 + 64 pad + 64) and V 512",
+        profile_qe=qmm_expert, server=True, near_ties=True, keep=True, routes=True)
+    mla_extras(ds_model, "deepseek-v2-lite", qmm_keys + mla_paged + (expert_key,),
+               qmm_keys + mla_slots + (expert_key,))
+    del ds_model
+    torch.cuda.empty_cache()
+    arch_path(
+        "deepseek-v3", functools.partial(make_bench_deepseek_v3_gguf, n_dense=1),
+        DS_V3_LAYERS, 129280, qmm_keys + ("flash_attention_paged/mla prefill", expert_key),
+        "DeepSeek-V3 shape (deepseek-ai/DeepSeek-V3 config.json: n_embd 7168, 128 heads, "
+        "q-LoRA 1536, kv_lora 512, qk_nope 128, qk_rope 64, v 128, 256 routed experts of 2048 "
+        "top 8 by sigmoid with exp_probs_b, normalised, scaled by 2.5, one shared, vocab 129280, "
+        f"YaRN factor 40; depth 61 -> {DS_V3_LAYERS}: one dense layer of 18432 (the file has "
+        "three) and one MoE layer; group-limited routing (n_group 8, topk_group 4) is not read, "
+        "as in the JAX package), Q4_K_M mix; 128 query rows a KV head at B=1: every attention "
+        "on the MLA prefill kernel", full=False, near_ties=True, routes=True)
+
     # the storage types users download beside Q4_K_M, on the main path
     q8_model = arch_path(
         "qwen3-8b-q8_0", functools.partial(make_bench_qwen3_gguf, ftype="q8_0"),
@@ -3015,12 +3259,15 @@ def main() -> int:
     }
     source_of = {**{k: "flash_attn_paged.cu" for k in paged_keys},
                  **{k: "flash_attn.cu" for k in slots_keys},
+                 **{k: "flash_attn_mla.cuh" for k in mla_paged + mla_slots},
                  "qmm_planes_expert": "qmm_expert.cu", **{k: "qmm_prefill.cu" for k in prefill_keys},
                  **{k: "qmm_decode.cu" for k in decode_keys},
                  **{name: "qmm_bench.cu" for name in qmm_bench.launches}}
     # launches: from the path that is the kernel's own (the llama path on the
     # pool, the slot-table path, the Mixtral path, the microbenchmark)
     path_of = {**{k: "llama slots" for k in slots_keys}, "qmm_planes_expert": "mixtral",
+               **{k: "deepseek-v2-lite" for k in mla_paged},
+               **{k: "deepseek-v2-lite context shift (slot table)" for k in mla_slots},
                **{name: "bench_qmm" for name in qmm_bench.launches}}
     kernels = []
     for name, r in res.items():

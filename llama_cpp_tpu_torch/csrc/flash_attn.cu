@@ -13,7 +13,11 @@
 // about 2 * D + 8 bytes per row and head, bf16: 4 * D); the prefill ubatch
 // by its bf16 tensor-core operations (4 D flops per visible query-key pair).
 
+// The MLA instantiation over the slot table (DeepSeek-V2/V3: one KV head, K rows
+// of 576 or 640, V rows of 512) is flash_attn_mla.cuh with the same layout.
+
 #include "flash_attn_common.cuh"
+#include "flash_attn_mla.cuh"
 
 // q [B, Hkv, R, D] bf16, D = 32, 64, 128 or 256; k, v [n_seqs, Hkv, S, D] int8 with
 // ks, vs [n_seqs, Hkv, S] f32 row scales, or bf16 with ks = vs = null; pos
@@ -40,4 +44,25 @@ extern "C" int fa_slots_launch(const void* q, const void* k, const void* v, cons
                      static_cast<float*>(part_ml), static_cast<int*>(counters), B, Hkv, R,
                      fa::Layout{S, 0, 0, n_seqs, ring}, sm_scale, window, softcap, splits};
   return fa::launch<false>(p, D, prefill, bf16_kv, stream);
+}
+
+// The MLA instantiation (flash_attn_mla.cuh) over the slot table: q [B, 1,
+// R, Dk] bf16, Dk = 576 or 640; k [n_seqs, 1, S, Dk] and v [n_seqs, 1, S,
+// 512], int8 with row scales or bf16; out [B, 1, R, 512] f32; the other
+// arguments as fa_slots_launch, without window, softcap, sinks or ring.
+extern "C" int fa_slots_mla_launch(const void* q, const void* k, const void* v, const void* ks,
+                                   const void* vs, const void* pos, const void* row_pos,
+                                   const void* seq_idx, void* part_acc, void* part_ml,
+                                   void* counters, void* out, int B, int Hkv, int R, long long S,
+                                   int n_seqs, int Dk, int Dv, float sm_scale, int prefill,
+                                   int splits, int bf16_kv, void* stream) {
+  if (n_seqs <= 0) return (int)cudaErrorInvalidValue;
+  const fa::Params p{static_cast<const __nv_bfloat16*>(q), k, v,
+                     static_cast<const float*>(ks), static_cast<const float*>(vs),
+                     static_cast<const int*>(pos), static_cast<const int*>(row_pos),
+                     static_cast<const int*>(seq_idx), nullptr, static_cast<float*>(out),
+                     static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+                     static_cast<int*>(counters), B, Hkv, R, fa::Layout{S, 0, 0, n_seqs, 0},
+                     sm_scale, 0, 0.f, splits};
+  return fa::launch_mla<false>(p, Dk, Dv, prefill, bf16_kv, stream);
 }

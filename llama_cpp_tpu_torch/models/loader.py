@@ -69,6 +69,17 @@ LAYER_TENSORS = {
     "ffn_up_shexp.weight": "ffn_up_shexp",
     "ffn_down_shexp.weight": "ffn_down_shexp",
     "ffn_gate_inp_shexp.weight": "ffn_gate_inp_shexp",
+    # DeepSeek-2 Multi-head Latent Attention (reference src/models/deepseek2.cpp
+    # load_arch_tensors); attn_k_b / attn_v_b are the decompression shipped
+    # split, as current llama.cpp DeepSeek files ship it
+    "attn_q_a.weight": "attn_q_a",
+    "attn_q_a_norm.weight": "attn_q_a_norm",
+    "attn_q_b.weight": "attn_q_b",
+    "attn_kv_a_mqa.weight": "attn_kv_a_mqa",
+    "attn_kv_a_norm.weight": "attn_kv_a_norm",
+    "attn_kv_b.weight": "attn_kv_b",
+    "attn_k_b.weight": "attn_k_b",
+    "attn_v_b.weight": "attn_v_b",
 }
 
 GLOBAL_TENSORS = {
@@ -82,6 +93,7 @@ GLOBAL_TENSORS = {
 # (the router ffn_gate_inp is not a dense key: an F32 router lands as a dense
 # compute-dtype [out, in] weight through the storage-type route)
 _DENSE_KEYS = {"attn_norm", "attn_q_norm", "attn_k_norm", "attn_post_norm", "ffn_norm",
+               "attn_q_a_norm", "attn_kv_a_norm",
                "ffn_post_norm", "output_norm", "rope_factors", "attn_q_bias", "attn_k_bias",
                "attn_v_bias", "attn_sinks", "ffn_gate_inp_bias", "exp_probs_b",
                "ffn_gate_exps_bias", "ffn_up_exps_bias", "ffn_down_exps_bias"}
@@ -150,6 +162,8 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True) -> Model:
             transpose=transpose, device=dev)
 
     stand_ins = {"ffn_down": ("ffn_down_exps",)}  # an MoE layer's experts
+    if cfg.extra.get("kv_lora_rank") and any("attn_kv_a_mqa" not in lw for lw in layers):
+        raise ValueError("model load incomplete: an MLA layer without attn_kv_a_mqa")
     missing = [f"layer {i} missing {k}" for i, lw in enumerate(layers)
                for k in ("attn_norm", "attn_output", "ffn_norm", "ffn_down")
                if k not in lw and not any(a in lw for a in stand_ins.get(k, ()))]
@@ -157,8 +171,14 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True) -> Model:
         raise ValueError(f"model load incomplete: {missing[:4]}")
     for lw in layers:
         _fold_scalar_scales(lw)
+    if cfg.extra.get("kv_lora_rank"):
+        for lw in layers:
+            _fuse_presplit_mla_kv(lw, cfg)
     for lw in layers:
         _fuse_projections(lw)
+    if cfg.extra.get("mla_absorb"):
+        for lw in layers:
+            _split_mla_kv_b(lw, cfg)
     if "rope_factors" in params:
         cfg.extra["rope_factors_arr"] = params["rope_factors"].float().cpu().numpy()
     # vocab-head O padding: 128256-style widths have no wide multiple-of-128
@@ -188,6 +208,53 @@ def _fold_scalar_scales(lw: dict) -> None:
                                    mins=None if w.mins is None else w.mins * s)
         else:
             lw[base] = w * s
+
+
+def _file_order_f32(w: Weight) -> torch.Tensor:
+    """A weight's values in f32 in the file's (numpy) orientation: quantized
+    planes dequantized (transposed ones turned back), dense ones as they
+    are."""
+    if isinstance(w, QuantTensor):
+        d = w.dequant(torch.float32)
+        return d.transpose(-1, -2) if w.transposed else d
+    return w.float()
+
+
+def _fuse_presplit_mla_kv(lw: dict, cfg: ModelConfig) -> None:
+    """The MLA decompression shipped split, attn_k_b [H, C, nope] and
+    attn_v_b [H, Dv, C] (file order; ggml {nope, C, H} and {C, Dv, H}),
+    reassembled into the fused attn_kv_b [H * (nope + Dv), C]: head h's rows
+    are k_b[h]^T then v_b[h] (the JAX package's loader.py:646-667). The
+    fused weight is dense in the compute dtype, from the f32 values, so
+    every MLA path downstream is shared."""
+    if "attn_k_b" not in lw or "attn_kv_b" in lw:
+        return
+    kb = _file_order_f32(lw.pop("attn_k_b"))
+    vb = _file_order_f32(lw.pop("attn_v_b"))
+    C = kb.shape[1]
+    fused = torch.cat([kb.transpose(1, 2), vb], dim=1)  # [H, nope + Dv, C]
+    lw["attn_kv_b"] = fused.reshape(-1, C).to(cfg.compute_dtype)
+
+
+def _split_mla_kv_b(lw: dict, cfg: ModelConfig) -> None:
+    """attn_kv_b [H * (nope + Dv), C] -> the absorbed path's dense operands
+    mla_k_b [C, H, nope] (W_UK, folded into q) and mla_v_b [C, H, Dv] (W_UV,
+    applied to the latent attention output) (the JAX package's
+    loader.py:670-690). A quantized weight is dequantized to bf16; a dense
+    one keeps its dtype."""
+    w = lw.pop("attn_kv_b", None)
+    if w is None:
+        return
+    nope = cfg.head_dim_k - cfg.rope_dims
+    if isinstance(w, QuantTensor):
+        dq = w.dequant(torch.bfloat16)
+        if not w.transposed:
+            dq = dq.t()
+    else:
+        dq = w.t()
+    dq = dq.reshape(dq.shape[0], cfg.n_heads, nope + cfg.head_dim_v)
+    lw["mla_k_b"] = dq[:, :, :nope].contiguous()
+    lw["mla_v_b"] = dq[:, :, nope:].contiguous()
 
 
 def _concat_weights(ws: list) -> Weight | None:

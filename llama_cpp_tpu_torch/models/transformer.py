@@ -1,7 +1,8 @@
 """Pre-norm decoder transformer forward pass shared by the registry's
-families (llama, mistral, qwen2/3, qwen2moe/3moe, gemma/2/3), dense or
-mixture-of-experts, on the paged KV pool, the slot-table cache or the
-interleaved sliding-window memory (ISWACache).
+families (llama, mistral, qwen2/3, qwen2moe/3moe, gemma/2/3, and deepseek2
+with its Multi-head Latent Attention), dense or mixture-of-experts, on the
+paged KV pool, the slot-table cache or the interleaved sliding-window
+memory (ISWACache).
 
 Analog of reference llm_graph_context build_attn / build_ffn / build_moe_ffn
 (src/llama-graph.h:1048-1143, src/llama-graph.cpp:1955-2075) and the llama,
@@ -13,6 +14,8 @@ promotes what it is added to, as in the JAX package).
 
 from __future__ import annotations
 
+import math
+from dataclasses import replace
 from typing import Any, NamedTuple
 
 import torch
@@ -111,53 +114,134 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     seq_flat = inputs.seq_idx.repeat_interleave(T)
     kv.write_layer(il, seq_flat, inputs.positions.reshape(-1),
                    k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv))
-    kvc, li = kv.layer_view(il)
-
     scale = cfg.attn_scale or (1.0 / float(Dk) ** 0.5)
     window = cfg.sliding_window if cfg.is_swa_layer(il) else 0
-    sinks = lw.get("attn_sinks")  # [H] attention-sink logits
+    out = _attend(cfg, q, kv, il, inputs, Hkv, Dv, scale, window, lw.get("attn_sinks"),
+                  kernels).to(x.dtype)
+    return matmul(out, lw["attn_output"], kernels=kernels)
+
+
+def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: AttnInputs,
+            Hkv: int, Dv: int, scale: float, window: int, sinks, kernels: bool) -> torch.Tensor:
+    """q [B, T, H, Dk] over layer il's cached K/V (Hkv heads, V rows of Dv)
+    -> [B, T, H * Dv]: the attention kernel where the JAX package runs its
+    own (f32 out), else gather + einsum in the compute dtype."""
+    B, T, H, Dk = q.shape
+    kvc, li = kv.layer_view(il)
     # the kernel path needs a card, as the JAX package's needs a TPU; where
     # the JAX package would run its kernel, the port's runs or raises
     paged = isinstance(kvc, PagedKVCache)
     n_slots = kvc.max_pages * kvc.page if paged else kvc.n_slots
-    use_flash = (kernels and x.device.type == "cuda"
+    use_flash = (kernels and q.device.type == "cuda"
                  and fa_kernel.dispatches(Dk, Dv, n_slots, T * (H // Hkv)))
     if use_flash:
         # the slot-table kernel takes the cache and seq_idx as they are: no
         # per-step gather of the sequences' cache rows; a ring visits every
         # tile (its slot order is not position order)
         mha = fa_kernel.mha_flash_paged if paged else fa_kernel.mha_flash
-        out = mha(q.to(torch.bfloat16), kvc, li, inputs.seq_idx, inputs.positions,
-                  sm_scale=scale, window=window, softcap=cfg.attn_logit_softcap,
-                  sinks=None if sinks is None else sinks.float()).to(x.dtype)
+        return mha(q.to(torch.bfloat16), kvc, li, inputs.seq_idx, inputs.positions,
+                   sm_scale=scale, window=window, softcap=cfg.attn_logit_softcap,
+                   sinks=None if sinks is None else sinks.float())
+    if paged:
+        k_seq, v_seq, slot_pos = kvc.gather_seq(li, inputs.seq_idx)
     else:
-        if paged:
-            k_seq, v_seq, slot_pos = kvc.gather_seq(li, inputs.seq_idx)
-        else:
-            k_seq, v_seq = kvc.read(li, inputs.seq_idx)  # [B, Hkv, S, D]
-            slot_pos = kvc.pos[inputs.seq_idx.long()]  # [B, S]
-        pos = inputs.positions.long()
-        slot_pos = slot_pos.long()
-        mask = (slot_pos >= 0)[:, None, :] & (slot_pos[:, None, :] <= pos[:, :, None])
-        if window > 0:
-            mask = mask & (slot_pos[:, None, :] > pos[:, :, None] - window)
-        groups = H // Hkv
+        k_seq, v_seq = kvc.read(li, inputs.seq_idx)  # [B, Hkv, S, D]
+        slot_pos = kvc.pos[inputs.seq_idx.long()]  # [B, S]
+    pos = inputs.positions.long()
+    slot_pos = slot_pos.long()
+    mask = (slot_pos >= 0)[:, None, :] & (slot_pos[:, None, :] <= pos[:, :, None])
+    if window > 0:
+        mask = mask & (slot_pos[:, None, :] > pos[:, :, None] - window)
+    groups = H // Hkv
+    mdt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    qg = q.reshape(B, T, Hkv, groups, Dk).to(mdt).float()
+    scores = torch.einsum("btkgd,bksd->bkgts", qg, k_seq.to(mdt).float()) * scale
+    if cfg.attn_logit_softcap:
+        cap = cfg.attn_logit_softcap
+        scores = torch.tanh(scores / cap) * cap
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    if sinks is not None:
+        sink_col = sinks.float().reshape(1, Hkv, groups, 1, 1).expand(*scores.shape[:-1], 1)
+        probs = torch.softmax(torch.cat([scores, sink_col], dim=-1), dim=-1)[..., :-1]
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
+    out = torch.einsum("bkgts,bksd->btkgd", probs.to(mdt).float(), v_seq.to(mdt).float())
+    return out.reshape(B, T, H * Dv)
+
+
+def mla_kq_scale(cfg: ModelConfig) -> float:
+    """DeepSeek's YaRN-corrected attention scale mscale^2 / sqrt(Dk)
+    (reference deepseek2.cpp:26-28), Dk the naive head's (qk_nope + qk_rope),
+    not the absorbed cache's; 1 / sqrt(Dk) without YaRN."""
+    mscale = 1.0
+    if cfg.rope_ext_factor > 0.0 and cfg.rope_freq_scale != 1.0:
+        log_mul = cfg.extra.get("yarn_log_mul", 0.0)
+        ln = math.log(1.0 / cfg.rope_freq_scale)
+        mscale = cfg.rope_attn_factor * (1.0 + 0.1 * ln) * (1.0 + 0.1 * log_mul * ln)
+    return mscale * mscale / float(cfg.head_dim_k) ** 0.5
+
+
+def mla_attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
+                        inputs: AttnInputs, kv: Memory, il: int,
+                        kernels: bool = True) -> torch.Tensor:
+    """DeepSeek-2 Multi-head Latent Attention (reference
+    src/models/deepseek2.cpp; the JAX package's transformer.py:510-784): q
+    from the q-LoRA (attn_q_a, its norm, attn_q_b) or the lite attn_q; the
+    shared latent kv_pe = x @ attn_kv_a_mqa, its first kv_lora_rank dims
+    rms-normed into c_kv, rope on the tail n_rot dims (q_pe, k_pe) only.
+    With mla_k_b/mla_v_b (the loader's split of attn_kv_b) the absorbed
+    path: one cached KV head K = [c_kv | 0-pad | k_pe], V = c_kv, q =
+    [q_nope @ W_UK | 0 | q_pe], and W_UV applied to the latent output;
+    without them the naive expansion of attn_kv_b into H heads of K and V."""
+    B, T = x.shape[:2]
+    H = cfg.n_heads
+    Dk, Dv = cfg.head_dim_k, cfg.head_dim_v
+    n_rot = cfg.rope_dims
+    nope = Dk - n_rot
+    C = cfg.extra["kv_lora_rank"]
+    if "attn_q_a" in lw:
+        qr = rms_norm(matmul(x, lw["attn_q_a"], kernels=kernels), lw.get("attn_q_a_norm"),
+                      cfg.rms_eps)
+        q = matmul(qr, lw["attn_q_b"], kernels=kernels)
+    else:
+        q = matmul(x, lw["attn_q"], kernels=kernels)
+    q = q.reshape(B, T, H, Dk)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    kv_pe = matmul(x, lw["attn_kv_a_mqa"], kernels=kernels)  # [B, T, C + n_rot]
+    c_kv = rms_norm(kv_pe[..., :C], lw.get("attn_kv_a_norm"), cfg.rms_eps)
+    k_pe = kv_pe[..., C:].reshape(B, T, 1, n_rot)
+    if cfg.rope_type != ROPE_TYPE_NONE:
+        rp = replace(_rope_params(cfg, il), n_dims=n_rot)
+        q_pe = apply_rope(q_pe, inputs.positions, rp)
+        k_pe = apply_rope(k_pe, inputs.positions, rp)
+    scale = mla_kq_scale(cfg)
+    seq_flat = inputs.seq_idx.repeat_interleave(T)
+    if "mla_k_b" in lw:
         mdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
-        qg = q.reshape(B, T, Hkv, groups, Dk).to(mdt).float()
-        scores = torch.einsum("btkgd,bksd->bkgts", qg, k_seq.to(mdt).float()) * scale
-        if cfg.attn_logit_softcap:
-            cap = cfg.attn_logit_softcap
-            scores = torch.tanh(scores / cap) * cap
-        scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
-        if sinks is not None:
-            sink_col = sinks.float().reshape(1, Hkv, groups, 1, 1).expand(
-                *scores.shape[:-1], 1)
-            probs = torch.softmax(torch.cat([scores, sink_col], dim=-1), dim=-1)[..., :-1]
-        else:
-            probs = torch.softmax(scores, dim=-1)
-        probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
-        out = torch.einsum("bkgts,bksd->btkgd", probs.to(mdt).float(), v_seq.to(mdt).float())
+        pad = cfg.extra.get("mla_pad", 0)
+        q_abs = torch.einsum("bthn,chn->bthc", q_nope.to(mdt).float(),
+                             lw["mla_k_b"].to(mdt).float()).to(x.dtype)
+        zq = q_abs.new_zeros((B, T, H, pad))
+        qf = torch.cat([q_abs, zq, q_pe.to(x.dtype)], dim=-1)  # [B, T, H, C + pad + n_rot]
+        kf = torch.cat([c_kv[:, :, None, :].to(x.dtype), zq[:, :, :1], k_pe.to(x.dtype)],
+                       dim=-1)  # [B, T, 1, C + pad + n_rot]
+        Dc = qf.shape[-1]
+        kv.write_layer(il, seq_flat, inputs.positions.reshape(-1), kf.reshape(B * T, 1, Dc),
+                       c_kv.to(x.dtype).reshape(B * T, 1, C))
+        out_lat = _attend(cfg, qf, kv, il, inputs, 1, C, scale, 0, None, kernels)
+        out = torch.einsum("bthc,chd->bthd", out_lat.reshape(B, T, H, C).to(mdt).float(),
+                           lw["mla_v_b"].to(mdt).float())
         out = out.reshape(B, T, H * Dv).to(x.dtype)
+    else:
+        kv_dec = matmul(c_kv, lw["attn_kv_b"], kernels=kernels).reshape(B, T, H, nope + Dv)
+        v = kv_dec[..., nope:]
+        qf = torch.cat([q_nope, q_pe.to(q_nope.dtype)], dim=-1)
+        kf = torch.cat([kv_dec[..., :nope], k_pe.to(kv_dec.dtype).expand(B, T, H, n_rot)],
+                       dim=-1)
+        kv.write_layer(il, seq_flat, inputs.positions.reshape(-1), kf.reshape(B * T, H, Dk),
+                       v.reshape(B * T, H, Dv))
+        out = _attend(cfg, qf, kv, il, inputs, H, Dv, scale, 0, None, kernels).to(x.dtype)
     return matmul(out, lw["attn_output"], kernels=kernels)
 
 
@@ -333,7 +417,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     cvec = params.get("cvec")  # [n_layers, n_embd] f32 residual directions
     for il, lw in enumerate(params["layers"]):
         h = norm(cfg, x, lw, "attn_norm")
-        attn = attention_block(cfg, lw, h, inputs, kv, il, kernels=kernels)
+        blk = mla_attention_block if "attn_kv_a_mqa" in lw else attention_block
+        attn = blk(cfg, lw, h, inputs, kv, il, kernels=kernels)
         if cfg.post_norms and "attn_post_norm" in lw:
             attn = rms_norm(attn, lw["attn_post_norm"], cfg.rms_eps)
         x = x + attn

@@ -32,6 +32,16 @@ counters per CUDA kernel: "flash_attention_paged/prefill",
 (the window rings of an ISWA memory) are counted again in ring_launches,
 "flash_attention/prefill ring" and "flash_attention/decode ring". Head dims 32, 64, 128 and 256 (K and V alike):
 every head dim of this kind that the JAX package sends to its kernel.
+
+Multi-head Latent Attention (DeepSeek-V2/V3's absorbed cache: one KV head,
+K rows of 576 or 640, V rows of 512; MLA_DIMS) takes an instantiation of its
+own in each layout (csrc/flash_attn_mla.cuh), on the same route rule: from
+PREFILL_MIN_ROWS rows a 64-row block and one split, below it 16-row blocks
+(64-row above 16 rows) with the live tiles split over blocks and merged in
+the same launch. Its launches are counted as "flash_attention_paged/mla
+prefill", ".../mla decode", "flash_attention/mla prefill" and ".../mla
+decode". Window, softcap, sinks and rings are refused at these dims: MLA
+uses none of them.
 """
 
 from __future__ import annotations
@@ -49,9 +59,10 @@ _DECODE_ROWS = 8  # query rows per decode block
 _MIN_BLOCKS = 132  # decode: one block per SM on 132 SMs before splitting KV
 _MAX_SPLITS = 64  # the decode kernel's bound on KV splits
 _LANES = 128  # the TPU lane width the JAX package's dispatch tests against
+MLA_DIMS = ((576, 512), (640, 512))  # (Dk, Dv) of the MLA instantiation, one KV head
 
-launches = {f"{name}/{route}": 0 for name in ("flash_attention_paged", "flash_attention")
-            for route in ("prefill", "decode")}
+launches = {f"{name}/{mla}{route}": 0 for name in ("flash_attention_paged", "flash_attention")
+            for mla in ("", "mla ") for route in ("prefill", "decode")}
 ring_launches = {f"flash_attention/{route} ring": 0 for route in ("prefill", "decode")}
 
 
@@ -66,12 +77,21 @@ def dispatches(head_dim_k: int, head_dim_v: int, n_slots: int, rows: int) -> boo
     return min(head_dim_k, head_dim_v) >= 128 or rows >= 16
 
 
-def supported(head_dim_k: int, head_dim_v: int, page: int, kv_dtype: torch.dtype) -> bool:
+def is_mla(head_dim_k: int, head_dim_v: int) -> bool:
+    """Whether (Dk, Dv) is one of the MLA instantiation's pairs."""
+    return (head_dim_k, head_dim_v) in MLA_DIMS
+
+
+def supported(head_dim_k: int, head_dim_v: int, page: int, kv_dtype: torch.dtype,
+              n_kv_heads: int = 1) -> bool:
     """Whether the kernels take this attention: K and V heads alike of 32,
-    64, 128 or 256, an int8 or bf16 memory, pages (or a slot table) of whole
-    tiles."""
-    return (head_dim_k in HEAD_DIMS and head_dim_v == head_dim_k and page % _TILE == 0
-            and kv_dtype in (torch.int8, torch.bfloat16))
+    64, 128 or 256, or an MLA pair of MLA_DIMS over one KV head; an int8 or
+    bf16 memory, pages (or a slot table) of whole tiles."""
+    if page % _TILE or kv_dtype not in (torch.int8, torch.bfloat16):
+        return False
+    if is_mla(head_dim_k, head_dim_v):
+        return n_kv_heads == 1
+    return head_dim_k in HEAD_DIMS and head_dim_v == head_dim_k
 
 
 def _softmax_pv(s, mask, vv, v_scale, sinks):
@@ -147,11 +167,36 @@ def _lib(paged: bool):
     return fn
 
 
+def _mla_lib(paged: bool):
+    """fa_paged_mla_launch / fa_slots_mla_launch: 12 pointers, B, Hkv, R, the
+    rows of the memory, the layout's ints, Dk, Dv, sm_scale, the route, the
+    splits and the memory type."""
+    if paged:
+        fn = build.library("flash_attn_paged.cu").fa_paged_mla_launch
+        lay = [ctypes.c_int] * 2  # MP, page
+    else:
+        fn = build.library("flash_attn.cu").fa_slots_mla_launch
+        lay = [ctypes.c_int]  # n_seqs
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_longlong] + lay
+                       + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def smem_bytes(head_dim: int, prefill: bool, bf16_kv: bool) -> int:
     """Dynamic shared memory of one block of the prefill or decode kernel
     (read from the built library)."""
     return int(build.library("flash_attn_paged.cu").fa_smem_bytes(
         int(head_dim), int(prefill), int(bf16_kv)))
+
+
+def mla_smem_bytes(head_dim_k: int, wide: bool, bf16_kv: bool) -> int:
+    """Dynamic shared memory of one MLA block, 64 rows (wide) or 16 (read
+    from the built library)."""
+    return int(build.library("flash_attn_paged.cu").fa_mla_smem_bytes(
+        int(head_dim_k), int(wide), int(bf16_kv)))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -176,6 +221,12 @@ def decode_splits(B: int, Hkv: int, R: int, max_tiles: int) -> int:
     return max(1, min(max_tiles, _MAX_SPLITS, -(-_MIN_BLOCKS // groups)))
 
 
+def mla_splits(B: int, Hkv: int, max_tiles: int) -> int:
+    """KV splits of the MLA decode route, whose one block holds every row of
+    a (batch row, KV head): decode_splits' rule over B * Hkv row groups."""
+    return decode_splits(B, Hkv, 1, max_tiles)
+
+
 # The decode kernel's scratch per (device, stream): the splits' partial sums
 # and the row groups' counters, zero between launches (the last block of a
 # row group resets its own), so launches on one stream, which run in order,
@@ -186,9 +237,12 @@ _SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 def _launch(paged: bool, q, k, v, ks, vs, pos, row_pos, index, sinks, lay: tuple,
             max_tiles: int, sm_scale: float, window: int, softcap: float,
             ring: bool = False) -> torch.Tensor:
-    """Allocate the output, pick the kernel and its splits, launch, count.
-    lay: (S_pool, MP, page) of the pool or (S, n_seqs) of a slot table."""
+    """Allocate the output, pick the kernel (the MLA instantiation at an MLA
+    pair) and its splits, launch, count. lay: (S_pool, MP, page) of the pool
+    or (S, n_seqs) of a slot table."""
     B, Hkv, R, D = q.shape
+    Dv = v.shape[-1]
+    mla = is_mla(D, Dv)
     dev = q.device
     for t in (q, k, v, ks, vs, pos):  # read 16 bytes at a time
         if t is not None and t.data_ptr() % 16:
@@ -196,30 +250,45 @@ def _launch(paged: bool, q, k, v, ks, vs, pos, row_pos, index, sinks, lay: tuple
                              "labels must be 16-byte aligned")
     kind = route(R)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    splits = 1 if kind == "prefill" else decode_splits(B, Hkv, R, max_tiles)
+    if kind == "prefill":
+        splits = 1
+    else:
+        splits = mla_splits(B, Hkv, max_tiles) if mla else decode_splits(B, Hkv, R, max_tiles)
     part = counters = None
-    if splits > 1:
+    if splits > 1:  # an MLA block holds all R rows, the decode kernel's 8
         n_rows = B * Hkv * R
-        part, counters = scratch.grow(_SCRATCH, dev, stream, splits * n_rows * (D + 2),
-                                      B * Hkv * -(-R // _DECODE_ROWS))
-    out = torch.empty((B, Hkv, R, D), dtype=torch.float32, device=dev)
-    quantized = ks is not None
+        part, counters = scratch.grow(_SCRATCH, dev, stream, splits * n_rows * (Dv + 2),
+                                      B * Hkv * (1 if mla else -(-R // _DECODE_ROWS)))
+    out = torch.empty((B, Hkv, R, Dv), dtype=torch.float32, device=dev)
     ptr = [None if t is None else t.data_ptr() for t in (q, k, v, ks, vs, pos, row_pos,
-                                                         index, sinks)]
+                                                         index)]
     part_acc = part_ml = None
     if part is not None:
         part_acc = part.data_ptr()
-        part_ml = part_acc + 4 * splits * B * Hkv * R * D
-    err = _lib(paged)(*ptr, part_acc, part_ml, None if counters is None else counters.data_ptr(),
-                      out.data_ptr(), B, Hkv, R, *lay, D, float(sm_scale), int(window),
-                      float(softcap), *(() if paged else (int(ring),)),
-                      int(kind == "prefill"), splits, int(not quantized), stream)
+        part_ml = part_acc + 4 * splits * B * Hkv * R * Dv
+    tail = (part_acc, part_ml, None if counters is None else counters.data_ptr(),
+            out.data_ptr(), B, Hkv, R, *lay)
+    prefill, bf16 = int(kind == "prefill"), int(ks is None)
+    if mla:
+        err = _mla_lib(paged)(*ptr, *tail, D, Dv, float(sm_scale), prefill, splits, bf16,
+                              stream)
+    else:
+        err = _lib(paged)(*ptr, None if sinks is None else sinks.data_ptr(), *tail, D,
+                          float(sm_scale), int(window), float(softcap),
+                          *(() if paged else (int(ring),)), prefill, splits, bf16, stream)
     name = "flash_attention_paged" if paged else "flash_attention"
-    build.check(err, "fa_paged_launch" if paged else "fa_slots_launch")
-    launches[f"{name}/{kind}"] += 1
+    build.check(err, ("fa_paged" if paged else "fa_slots") + ("_mla" if mla else "")
+                + "_launch")
+    launches[f"{name}/{'mla ' if mla else ''}{kind}"] += 1
     if ring:
         ring_launches[f"{name}/{kind} ring"] += 1
     return out
+
+
+def _refuse_mla_options(name: str, window: int, softcap: float, sinks, ring: bool = False):
+    if window or softcap or sinks is not None or ring:
+        raise ValueError(f"{name}: the MLA instantiation takes no window, softcap, sinks or "
+                         f"ring (MLA uses none)")
 
 
 def flash_attention_paged(q, k, v, row_pos, pos, table_b, k_scale=None, v_scale=None,
@@ -232,14 +301,17 @@ def flash_attention_paged(q, k, v, row_pos, pos, table_b, k_scale=None, v_scale=
                                            sinks, sm_scale=sm_scale, window=window,
                                            softcap=softcap, page=page)
     B, Hkv, R, D = q.shape
+    Dv = v.shape[-1]
     S_pool = k.shape[1]
     MP = table_b.shape[1]
     dev = q.device
-    if dev.type != "cuda" or not supported(D, v.shape[-1], page, k.dtype):
+    if dev.type != "cuda" or not supported(D, Dv, page, k.dtype, Hkv):
         raise ValueError(f"flash_attention_paged: needs CUDA tensors, an int8 or bf16 pool, "
-                         f"K and V head dims alike in {HEAD_DIMS} and a page multiple of "
-                         f"{_TILE} (got {dev}, {k.dtype}, D={D}, Dv={v.shape[-1]}, "
-                         f"page={page})")
+                         f"K and V head dims alike in {HEAD_DIMS} or an MLA pair of {MLA_DIMS} "
+                         f"over one KV head, and a page multiple of {_TILE} (got {dev}, "
+                         f"{k.dtype}, D={D}, Dv={Dv}, Hkv={Hkv}, page={page})")
+    if is_mla(D, Dv):
+        _refuse_mla_options("flash_attention_paged", window, softcap, sinks)
     quantized = k.dtype == torch.int8
     if quantized != (k_scale is not None and v_scale is not None):
         raise ValueError("flash_attention_paged: an int8 pool needs its row scales, a bf16 "
@@ -248,7 +320,7 @@ def flash_attention_paged(q, k, v, row_pos, pos, table_b, k_scale=None, v_scale=
         raise ValueError("flash_attention_paged: pool rows must be whole pages")
     _check(q, "q", torch.bfloat16, (B, Hkv, R, D), dev)
     _check(k, "k", k.dtype, (Hkv, S_pool, D), dev)
-    _check(v, "v", k.dtype, (Hkv, S_pool, D), dev)
+    _check(v, "v", k.dtype, (Hkv, S_pool, Dv), dev)
     if quantized:
         _check(k_scale, "k_scale", torch.float32, (Hkv, S_pool), dev)
         _check(v_scale, "v_scale", torch.float32, (Hkv, S_pool), dev)
@@ -330,19 +402,23 @@ def flash_attention(q, k, v, row_pos, col_pos, seq_idx, k_scale=None, v_scale=No
                                      sinks, sm_scale=sm_scale, window=window,
                                      softcap=softcap, ring=ring)
     B, Hkv, R, D = q.shape
+    Dv = v.shape[-1]
     n_seqs, _, S, _ = k.shape
     dev = q.device
-    if dev.type != "cuda" or not supported(D, v.shape[-1], S, k.dtype):
+    if dev.type != "cuda" or not supported(D, Dv, S, k.dtype, Hkv):
         raise ValueError(f"flash_attention: needs CUDA tensors, an int8 or bf16 cache, K and V "
-                         f"head dims alike in {HEAD_DIMS} and slots a multiple of {_TILE} "
-                         f"(got {dev}, {k.dtype}, D={D}, Dv={v.shape[-1]}, S={S})")
+                         f"head dims alike in {HEAD_DIMS} or an MLA pair of {MLA_DIMS} over "
+                         f"one KV head, and slots a multiple of {_TILE} (got {dev}, {k.dtype}, "
+                         f"D={D}, Dv={Dv}, Hkv={Hkv}, S={S})")
+    if is_mla(D, Dv):
+        _refuse_mla_options("flash_attention", window, softcap, sinks, ring)
     quantized = k.dtype == torch.int8
     if quantized != (k_scale is not None and v_scale is not None):
         raise ValueError("flash_attention: an int8 cache needs its row scales, a bf16 cache "
                          "takes none")
     _check(q, "q", torch.bfloat16, (B, Hkv, R, D), dev)
     _check(k, "k", k.dtype, (n_seqs, Hkv, S, D), dev)
-    _check(v, "v", k.dtype, (n_seqs, Hkv, S, D), dev)
+    _check(v, "v", k.dtype, (n_seqs, Hkv, S, Dv), dev)
     if quantized:
         _check(k_scale, "k_scale", torch.float32, (n_seqs, Hkv, S), dev)
         _check(v_scale, "v_scale", torch.float32, (n_seqs, Hkv, S), dev)

@@ -251,6 +251,16 @@ def load_weight(
         q = q.reshape(shape)
         sc = sc.reshape(*shape[:-1], shape[-1] // g)
         mn = None if mn is None else mn.reshape(*shape[:-1], shape[-1] // g)
+        if transpose and q.ndim == 3 and torch.device(device).type == "cuda":
+            # expert stacks (never packed): the planes go up as they are and
+            # swap their last two axes on the card, the same bytes as _t's
+            # in a fraction of the host's time (DeepSeek-V3's 256 x 2048 x
+            # 7168 stacks)
+            def dev_t(a):
+                return None if a is None else dev(a).transpose(-1, -2).contiguous()
+
+            return QuantTensor(q=dev_t(q), scales=dev_t(sc), mins=dev_t(mn), group=g,
+                               ggml_type=int(ggml_dtype), transposed=True)
         if transpose:
             q, sc, mn = _t(q), _t(sc), _t(mn)
         packed = False

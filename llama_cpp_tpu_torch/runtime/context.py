@@ -139,11 +139,17 @@ class Context:
         n_layers = cfg.n_layers
         if iswa:  # the pool (if any) holds the full layers only
             n_layers = max(sum(not cfg.is_swa_layer(i) for i in range(cfg.n_layers)), 1)
+        # an absorbed-MLA memory holds one KV head of the latent (registry
+        # _mla_absorb_extras), any other the config's heads (the JAX
+        # package's runtime/context.py:199-200)
+        heads = cfg.extra.get("cache_n_kv_heads", cfg.n_kv_heads)
+        dk = cfg.extra.get("cache_head_dim_k", cfg.head_dim_k)
+        dv = cfg.extra.get("cache_head_dim_v", cfg.head_dim_v)
         pool = None
         if self.paged:
             pool = PagedKVCache.create(
                 n_layers, self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
-                cfg.n_kv_heads, cfg.head_dim_k, cfg.head_dim_v, dtype=cfg.compute_dtype,
+                heads, dk, dv, dtype=cfg.compute_dtype,
                 quantized=self._kv_quant, page=self.page, device=self.device)
         if iswa:
             # a window layer's ring holds the window plus the largest ubatch
@@ -155,9 +161,8 @@ class Context:
         if pool is not None:
             return pool
         return KVCache.create(
-            n_layers, self.n_seqs, self.n_slots, cfg.n_kv_heads, cfg.head_dim_k,
-            cfg.head_dim_v, dtype=cfg.compute_dtype, quantized=self._kv_quant,
-            device=self.device)
+            n_layers, self.n_seqs, self.n_slots, heads, dk, dv, dtype=cfg.compute_dtype,
+            quantized=self._kv_quant, device=self.device)
 
     def _pool(self) -> PagedKVCache | None:
         """The page pool: the memory itself, or the ISWA memory's full tier."""

@@ -19,7 +19,7 @@ JAX package rebuilds them functionally.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -245,12 +245,22 @@ class ShiftedRows:
 
     def rotate(self, cfg, il: int, k: torch.Tensor) -> torch.Tensor:
         """K rows [H, S, D] re-rotated by delta with layer il's rope, zeroed
-        where the row is emptied."""
+        where the row is emptied. An MLA memory (naive or absorbed) ropes
+        only the tail rope_dims of each row, its k_pe (the JAX package's
+        runtime/kv_cache.py:229-241); any other the leading rope_dims."""
         from ..models.transformer import _rope_params
         from ..ops.rope import ROPE_TYPE_NONE, apply_rope
 
         if cfg.rope_type != ROPE_TYPE_NONE:
-            k = apply_rope(k.transpose(0, 1), self.delta, _rope_params(cfg, il)).transpose(0, 1)
+            rp = _rope_params(cfg, il)
+            x = k.transpose(0, 1)  # [S, H, D]
+            if "kv_lora_rank" in cfg.extra:
+                n_rot = cfg.rope_dims
+                tail = apply_rope(x[..., -n_rot:], self.delta, replace(rp, n_dims=n_rot))
+                x = torch.cat([x[..., :-n_rot], tail.to(x.dtype)], dim=-1)
+            else:
+                x = apply_rope(x, self.delta, rp)
+            k = x.transpose(0, 1)
         return torch.where((self.new_pos >= 0)[None, :, None], k, torch.zeros_like(k))
 
 

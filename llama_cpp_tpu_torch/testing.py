@@ -7,6 +7,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from .gguf.constants import GGML_BLOCK_LAYOUT, GGMLType, Keys, TokenType
 from .gguf.writer import GGUFWriter
@@ -462,6 +463,190 @@ def make_bench_gemma3_gguf(path: str, n_layers: int = 34, n_embd: int = 2560, n_
                                 post_norms=True, tie=True, sliding_window=sliding_window,
                                 swa_pattern=swa_pattern, rope_base_swa=1e4,
                                 rope_linear_factor=8.0, seed=seed)
+
+
+def make_bench_deepseek2_gguf(
+    path: str,
+    n_layers: int = 27,
+    n_embd: int = 2048,
+    n_heads: int = 16,
+    q_lora_rank: int = 0,
+    kv_lora_rank: int = 512,
+    qk_nope: int = 128,
+    qk_rope: int = 64,
+    v_dim: int = 128,
+    n_ff: int = 10944,
+    n_dense: int = 1,
+    n_expert: int = 64,
+    n_expert_used: int = 6,
+    n_ff_exp: int = 1408,
+    n_expert_shared: int = 2,
+    gating: str = "softmax",
+    weights_norm: bool = False,
+    weights_scale: float = 1.0,
+    vocab_size: int = 102400,
+    n_ctx: int = 163840,
+    yarn_factor: float = 40.0,
+    yarn_orig_ctx: int = 4096,
+    mscale_all_dim: float = 0.707,
+    split_kv_b: bool = False,
+    f32: bool = False,
+    seed: int = 0,
+) -> str:
+    """A deepseek2 GGUF (DeepSeek-V2-Lite's widths by default:
+    deepseek-ai/DeepSeek-V2-Lite config.json) with synthetic weights, at any
+    depth: q from a q-LoRA (q_lora_rank > 0, V3) or a plain attn_q (lite);
+    the MLA latent attn_kv_a_mqa [kv_lora + qk_rope, n_embd] with its norm
+    and the decompression attn_kv_b [n_heads (qk_nope + v_dim), kv_lora],
+    or with split_kv_b=True instead attn_k_b [n_heads, kv_lora, qk_nope]
+    and attn_v_b [n_heads, v_dim, kv_lora] holding the same values (as
+    current llama.cpp files ship it); n_dense leading dense layers (ffn
+    n_ff), then MoE layers of n_expert routed experts of n_ff_exp, top
+    n_expert_used, and n_expert_shared shared experts in one FFN of
+    n_expert_shared * n_ff_exp; gating "sigmoid" adds the selection bias
+    exp_probs_b (V3); the YaRN keys as the converter writes them
+    (yarn_log_mul = 0.1 * mscale_all_dim).
+
+    Storage types are llama-quantize's Q4_K_M mix as make_bench_arch_gguf
+    writes it: Q4_K, Q6_K for ffn_down, the shared and routed experts' down
+    and output; a matrix whose rows are not a multiple of 256 takes the
+    tool's fallback type, F32 (tools/quantize_tool.tensor_target_type:
+    V2-Lite's dense ffn_down of 10944, its experts' down of 1408, attn_k_b's
+    rows of qk_nope). With split_kv_b, attn_v_b holds attn_kv_b's Q4_K rows
+    byte for byte and attn_k_b the f32 values the port dequantizes attn_kv_b
+    to, so both files load to the same model. f32=True writes every matrix
+    as F32 random values (scale 1/sqrt(in))."""
+    from .ops.qtensor import load_weight
+
+    rng = np.random.default_rng(seed)
+    arch = "deepseek2"
+    P = arch + "."
+    w = GGUFWriter()
+    w.add(Keys.General.ARCHITECTURE, arch)
+    w.add(Keys.General.NAME, "bench-deepseek2-synthetic")
+    for key, val in (("block_count", n_layers), ("context_length", n_ctx),
+                     ("embedding_length", n_embd), ("feed_forward_length", n_ff),
+                     ("attention.head_count", n_heads), ("attention.head_count_kv", 1),
+                     ("attention.key_length", kv_lora_rank + qk_rope),
+                     ("attention.value_length", kv_lora_rank),
+                     ("attention.key_length_mla", qk_nope + qk_rope),
+                     ("attention.value_length_mla", v_dim),
+                     ("attention.kv_lora_rank", kv_lora_rank),
+                     ("rope.dimension_count", qk_rope), ("vocab_size", vocab_size),
+                     ("leading_dense_block_count", n_dense), ("expert_count", n_expert),
+                     ("expert_used_count", n_expert_used),
+                     ("expert_feed_forward_length", n_ff_exp),
+                     ("expert_shared_count", n_expert_shared),
+                     ("expert_gating_func", 2 if gating == "sigmoid" else 1),
+                     ("rope.scaling.original_context_length", yarn_orig_ctx)):
+        w.add(P + key, np.uint32(val))
+    if q_lora_rank:
+        w.add(P + "attention.q_lora_rank", np.uint32(q_lora_rank))
+    w.add(P + "attention.layer_norm_rms_epsilon", 1e-6)
+    w.add(P + "rope.freq_base", 10000.0)
+    w.add(P + "rope.scaling.type", "yarn")
+    w.add(P + "rope.scaling.factor", float(yarn_factor))
+    w.add(P + "rope.scaling.yarn_log_mul", float(0.1 * mscale_all_dim))
+    w.add(P + "expert_weights_norm", bool(weights_norm))
+    w.add(P + "expert_weights_scale", float(weights_scale))
+    _add_bench_vocab(w, vocab_size)
+
+    q4, q6 = GGMLType.Q4_K, GGMLType.Q6_K
+
+    def emit_f(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+
+    def qbytes(rows, cols, t, stack=()):
+        n = rows * cols * int(np.prod(stack, dtype=np.int64))
+        return synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)))
+
+    def emit_q(name, rows, cols, t, stack=()):
+        if f32 or cols % 256:
+            vals = rng.standard_normal((*stack, rows, cols), dtype=np.float32)
+            emit_f(name, vals * np.float32(1.0 / np.sqrt(cols)))
+            return
+        w.add_tensor(name, qbytes(rows, cols, t, stack), (cols, rows, *reversed(stack)), t)
+
+    def norm_w(n):
+        return 1.0 + 0.1 * rng.standard_normal(n)
+
+    def emit_kv_b(b):
+        rows, C = n_heads * (qk_nope + v_dim), kv_lora_rank
+        if f32 or C % 256:
+            kv_b = rng.standard_normal((rows, C), dtype=np.float32) * np.float32(1 / np.sqrt(C))
+            if not split_kv_b:
+                emit_f(b + "attn_kv_b.weight", kv_b)
+                return
+            heads = kv_b.reshape(n_heads, qk_nope + v_dim, C)
+            emit_f(b + "attn_k_b.weight", heads[:, :qk_nope].transpose(0, 2, 1))
+            emit_f(b + "attn_v_b.weight", heads[:, qk_nope:])
+            return
+        data = qbytes(rows, C, q4)
+        if not split_kv_b:
+            w.add_tensor(b + "attn_kv_b.weight", data, (C, rows), q4)
+            return
+        # the same model split: V rows byte for byte, K as the f32 values the
+        # loader dequantizes attn_kv_b's planes to
+        row_bytes = C // 256 * GGML_BLOCK_LAYOUT[q4].type_size
+        blocks = np.frombuffer(data, np.uint8).reshape(n_heads, qk_nope + v_dim, row_bytes)
+        planes = load_weight(np.frombuffer(data, np.uint8), q4, (rows, C), transpose=True)
+        wk = planes.dequant(torch.float32).reshape(C, n_heads, qk_nope + v_dim)
+        emit_f(b + "attn_k_b.weight", wk[:, :, :qk_nope].permute(1, 0, 2).numpy())
+        w.add_tensor(b + "attn_v_b.weight", blocks[:, qk_nope:].tobytes(), (C, v_dim, n_heads),
+                     q4)
+
+    emit_q("token_embd.weight", vocab_size, n_embd, q4)
+    emit_f("output_norm.weight", norm_w(n_embd))
+    emit_q("output.weight", vocab_size, n_embd, q6)
+    Dq = n_heads * (qk_nope + qk_rope)
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        emit_f(b + "attn_norm.weight", norm_w(n_embd))
+        if q_lora_rank:
+            emit_q(b + "attn_q_a.weight", q_lora_rank, n_embd, q4)
+            emit_f(b + "attn_q_a_norm.weight", norm_w(q_lora_rank))
+            emit_q(b + "attn_q_b.weight", Dq, q_lora_rank, q4)
+        else:
+            emit_q(b + "attn_q.weight", Dq, n_embd, q4)
+        emit_q(b + "attn_kv_a_mqa.weight", kv_lora_rank + qk_rope, n_embd, q4)
+        emit_f(b + "attn_kv_a_norm.weight", norm_w(kv_lora_rank))
+        emit_kv_b(b)
+        emit_q(b + "attn_output.weight", n_embd, n_heads * v_dim, q4)
+        emit_f(b + "ffn_norm.weight", norm_w(n_embd))
+        if i < n_dense:
+            emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
+            emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
+            emit_q(b + "ffn_down.weight", n_embd, n_ff, q6)
+            continue
+        emit_f(b + "ffn_gate_inp.weight", rng.standard_normal((n_expert, n_embd)) * 0.02)
+        if gating == "sigmoid":
+            emit_f(b + "exp_probs_b.bias", 0.05 * rng.standard_normal(n_expert))
+        emit_q(b + "ffn_gate_exps.weight", n_ff_exp, n_embd, q4, (n_expert,))
+        emit_q(b + "ffn_up_exps.weight", n_ff_exp, n_embd, q4, (n_expert,))
+        emit_q(b + "ffn_down_exps.weight", n_embd, n_ff_exp, q6, (n_expert,))
+        if n_expert_shared:
+            ff_sh = n_expert_shared * n_ff_exp
+            emit_q(b + "ffn_gate_shexp.weight", ff_sh, n_embd, q4)
+            emit_q(b + "ffn_up_shexp.weight", ff_sh, n_embd, q4)
+            emit_q(b + "ffn_down_shexp.weight", n_embd, ff_sh, q6)
+    w.write(path)
+    return path
+
+
+def make_bench_deepseek_v3_gguf(path: str, n_layers: int = 61, n_dense: int = 3,
+                                seed: int = 0, **kw) -> str:
+    """DeepSeek-V3-shaped (deepseek-ai/DeepSeek-V3 config.json) deepseek2
+    GGUF: n_embd 7168, 128 heads, q-LoRA 1536, kv_lora 512, qk_nope 128,
+    qk_rope 64, v 128, three leading dense layers of 18432, 256 routed
+    experts of 2048 (top 8, sigmoid with the selection bias, weights
+    normalised and scaled by 2.5) and one shared, vocab 129280, YaRN factor
+    40 (mscale_all_dim 1.0); make_bench_deepseek2_gguf's storage types."""
+    return make_bench_deepseek2_gguf(
+        path, n_layers=n_layers, n_embd=7168, n_heads=128, q_lora_rank=1536, n_ff=18432,
+        n_dense=n_dense, n_expert=256, n_expert_used=8, n_ff_exp=2048, n_expert_shared=1,
+        gating="sigmoid", weights_norm=True, weights_scale=2.5, vocab_size=129280,
+        mscale_all_dim=1.0, seed=seed, **kw)
 
 
 # ---------------------------------------------------------------------------

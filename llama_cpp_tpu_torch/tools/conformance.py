@@ -11,9 +11,10 @@ route names; the rows are written to docs/conformance_h100.csv (or --out):
 the reference's columns (kernel, config, backend, nmse, pass) plus the
 card (nvidia-smi name and power limit) and the route. With --device cpu
 each row goes through the kernel's plain PyTorch version instead, and the
-CSV is written only where --out says. A row whose shape the port's kernels
-do not take (K and V heads that differ: the MLA rows) is written as
-`raises` with the error's text; any other error is a FAIL. The data are
+CSV is written only where --out says. The two MLA rows (one KV head, K
+rows of 576, V rows of 512) go through the MLA instantiation. A row whose
+shape the port's kernels do not take would be written as `raises` with the
+error's text; any other error is a FAIL. The data are
 the reference's: the same seeds, drawn in the same order. Exit code 1 if a
 row fails.
 """
@@ -140,9 +141,10 @@ def _attention(device, paged: bool, q, k, v, row_pos, cols, index, ks, vs, sinks
     name = "flash_attention_paged" if paged else "flash_attention"
     D, Dv = q.shape[-1], v.shape[-1]
     kv_dtype = torch.int8 if k.dtype == np.int8 else torch.bfloat16
-    if not fa.supported(D, Dv, page if paged else k.shape[2], kv_dtype):
+    if not fa.supported(D, Dv, page if paged else k.shape[2], kv_dtype, q.shape[1]):
         raise Unsupported(f"{name}: the kernels take K and V head dims alike in "
-                          f"{fa.HEAD_DIMS}, got Dk={D}, Dv={Dv}")
+                          f"{fa.HEAD_DIMS} or an MLA pair of {fa.MLA_DIMS} over one KV head, "
+                          f"got Dk={D}, Dv={Dv}")
 
     def t(a, dtype=None):
         return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -154,7 +156,8 @@ def _attention(device, paged: bool, q, k, v, row_pos, cols, index, ks, vs, sinks
     fn = fa.flash_attention_paged if paged else fa.flash_attention
     if paged:
         kw["page"] = page
-    route = f"{name}/{fa.route(q.shape[2])}" if device.type == "cuda" else f"{name}_plain"
+    mla = "mla " if fa.is_mla(D, Dv) else ""
+    route = f"{name}/{mla}{fa.route(q.shape[2])}" if device.type == "cuda" else f"{name}_plain"
     return _launched(fa.launches, route, device, lambda: fn(*args, **kw)), route
 
 

@@ -85,7 +85,8 @@ def fixtures(tmp_path_factory):
 
 
 def test_supported_archs():
-    assert supported_archs() == sorted(["llama", *ARCHS])
+    """The families here, llama, and deepseek2 (tests/test_torch_deepseek2.py)."""
+    assert supported_archs() == sorted(["llama", "deepseek2", *ARCHS])
 
 
 def test_other_arch_raises_naming_it(tmp_path):

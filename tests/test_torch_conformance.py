@@ -19,9 +19,9 @@ from llama_cpp_tpu_torch.tools import conformance
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "docs", "conformance.csv")) as _f:
     REFERENCE_ROWS = [(r["kernel"], r["config"]) for r in csv.DictReader(_f)]
-# K and V heads that differ (576/512): the port's attention kernels do not
-# take them yet
-UNTAKEN = {"mla-576", "mla-576-int8"}
+# K and V heads that differ (576/512, one KV head): the MLA instantiation of
+# the paged kernel takes them
+MLA_ROWS = {"mla-576", "mla-576-int8"}
 
 
 @pytest.fixture(scope="module")
@@ -45,10 +45,8 @@ def test_every_reference_row_is_a_row_of_the_sweep():
                          ids=[f"{k}-{c}" for k, c in conformance.configs()])
 def test_row_holds_through_the_plain_version(swept, kernel, config):
     r = swept[(kernel, config)]
-    if config in UNTAKEN:
-        assert r.status == "raises" and r.nmse is None
-        assert "flash_attention_paged" in r.route and "head dims" in r.route
-        return
+    if config in MLA_ROWS:
+        assert r.route == "flash_attention_paged_plain"
     assert r.status == "PASS", r
     assert r.nmse < conformance.NMSE_LIMIT
     assert r.route.endswith("_plain")
@@ -59,9 +57,9 @@ def test_csv_has_the_reference_columns_and_the_route(swept):
     rows = list(csv.DictReader(text.splitlines()))
     assert list(rows[0]) == ["kernel", "config", "backend", "nmse", "pass", "device", "route"]
     assert len(rows) == 120 and {r["backend"] for r in rows} == {"cpu"}
-    assert {r["pass"] for r in rows} == {"PASS", "raises"}
-    mla = [r for r in rows if r["config"] in UNTAKEN]
-    assert len(mla) == 2 and all(r["nmse"] == "" and "Dk=576" in r["route"] for r in mla)
+    assert {r["pass"] for r in rows} == {"PASS"}
+    mla = [r for r in rows if r["config"] in MLA_ROWS]
+    assert len(mla) == 2 and all(float(r["nmse"]) < conformance.NMSE_LIMIT for r in mla)
 
 
 def test_entry_point_needs_a_card_unless_told_the_cpu():

@@ -926,14 +926,15 @@ def test_qmm4_variant_plan_matches_the_card(cuda_device):
 def test_conformance_sweep_on_the_card(cuda_device):
     """Every row of the reference's sweep through the port's kernel, one
     launch of its route's kernel each, within NMSE 5e-3 of the f64 oracle;
-    only the MLA rows (K and V heads that differ) raise."""
+    the MLA rows (K and V heads that differ) through the MLA instantiation."""
     from llama_cpp_tpu_torch.tools import conformance
 
     rows = conformance.run(cuda_device)
     assert len(rows) == 120
-    bad = [r for r in rows if r.status != "PASS" and r.config not in ("mla-576", "mla-576-int8")]
+    bad = [r for r in rows if r.status != "PASS"]
     assert not bad, bad
-    assert all(r.status == "raises" for r in rows if r.config.startswith("mla-576"))
+    assert all(r.route == "flash_attention_paged/mla decode" for r in rows
+               if r.config.startswith("mla-576"))
 
 
 @pytest.mark.parametrize("to,tk", [(128, 256), (256, 1024), (512, 2048), (512, 512),
@@ -1340,3 +1341,161 @@ def test_family_kernels_match_plain_and_graphs_match_eager(family_models, family
         assert all(n > 0 for n in tfa.ring_launches.values())
     else:
         assert sum(tqe.launches.values()) > 0
+
+
+# -- the MLA instantiation: one KV head, K rows of 576 or 640, V rows of 512 -----
+
+def mla_memory(device, paged, Dk, bf16, fills, n_rows, seed=0):
+    """A one-head memory of K rows of Dk and V rows of 512 (int8 with row
+    scales, or bf16): the pool [1, n_rows, D] with its position labels, or a
+    slot table [len(fills), 1, n_rows, D]; sequence s holds positions 0 ..
+    fills[s] - 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lead = (1,) if paged else (len(fills), 1)
+    shape_k, shape_v = (*lead, n_rows, Dk), (*lead, n_rows, 512)
+    if bf16:
+        k = (torch.randn(shape_k, generator=gen, device=device) * 0.5).to(torch.bfloat16)
+        v = torch.randn(shape_v, generator=gen, device=device).to(torch.bfloat16)
+        ks = vs = None
+    else:
+        k = torch.randint(-127, 128, shape_k, generator=gen, device=device, dtype=torch.int8)
+        v = torch.randint(-127, 128, shape_v, generator=gen, device=device, dtype=torch.int8)
+        ks = torch.rand(shape_k[:-1], generator=gen, device=device) * 0.004 + 0.001
+        vs = torch.rand(shape_v[:-1], generator=gen, device=device) * 0.02 + 0.005
+    return k, v, ks, vs, gen
+
+
+def mla_paged_case(device, Dk=640, G=16, T=1, bf16=False, page=256, depths=(700, 300, 40)):
+    B = len(depths)
+    mp = max(-(-(d + T) // page) for d in depths) + 1
+    n_pages = B * mp + 1
+    k, v, ks, vs, gen = mla_memory(device, True, Dk, bf16, depths, n_pages * page)
+    pos = torch.full((n_pages * page,), -1, dtype=torch.int32)
+    table = torch.full((B, mp), n_pages - 1, dtype=torch.int32)
+    for b, dep in enumerate(depths):
+        n = dep + T
+        for j in range(-(-n // page)):
+            pid = b * mp + j
+            table[b, j] = pid
+            cnt = min(page, n - j * page)
+            pos[pid * page: pid * page + cnt] = torch.arange(j * page, j * page + cnt,
+                                                             dtype=torch.int32)
+    q = (torch.randn((B, 1, G * T, Dk), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+    row_pos = torch.stack([(dep + torch.arange(T, dtype=torch.int32)).repeat(G)
+                           for dep in depths]).to(device)
+    row_pos[-1, -1] = -1  # a padding row
+    return (q, k, v, row_pos, pos.to(device), table.to(device), ks, vs), dict(page=page)
+
+
+def mla_slot_case(device, Dk=640, G=16, T=1, bf16=False, S=1024, fills=(300, 129, 40, 700)):
+    k, v, ks, vs, gen = mla_memory(device, False, Dk, bf16, fills, S)
+    pos = torch.full((len(fills), S), -1, dtype=torch.int32)
+    for s, f in enumerate(fills):
+        pos[s, :f] = torch.arange(f, dtype=torch.int32)
+    picks = (3, 0, 3)
+    seq_idx = torch.tensor(picks, dtype=torch.int32, device=device)
+    q = (torch.randn((3, 1, G * T, Dk), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+    row_pos = torch.stack([(fills[s] - T + torch.arange(T, dtype=torch.int32)).repeat(G)
+                           for s in picks]).to(device)
+    row_pos[-1, -1] = -1
+    return (q, k, v, row_pos, pos.to(device), seq_idx, ks, vs), {}
+
+
+MLA_ROWS = {"decode16": (16, 1), "decode48": (16, 3), "prefill128": (16, 8),
+            "v3_decode128": (128, 1)}  # (G, T)
+
+
+def mla_held(paged, args, kw, Dk):
+    fn = tfa.flash_attention_paged if paged else tfa.flash_attention
+    plain = tfa.flash_attention_paged_plain if paged else tfa.flash_attention_plain
+    name = "flash_attention_paged" if paged else "flash_attention"
+    key = f"{name}/mla {tfa.route(args[0].shape[2])}"
+    sm = 3.0 / np.sqrt(Dk)
+    before = dict(tfa.launches)
+    got = fn(*args, sm_scale=sm, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == {**before, key: before[key] + 1}
+    ref = plain(*args, sm_scale=sm, **kw)
+    valid = args[3] >= 0
+    g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
+    assert got.shape[-1] == 512 and torch.isfinite(got).all()
+    assert (got.transpose(1, 2)[~valid] == 0).all()
+    assert nmse(g, r) < 1e-5
+    return got
+
+
+@pytest.mark.parametrize("rows", list(MLA_ROWS), ids=list(MLA_ROWS))
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+@pytest.mark.parametrize("Dk", [576, 640], ids=["dk576", "dk640"])
+@pytest.mark.parametrize("paged", [True, False], ids=["pool", "slots"])
+def test_mla_kernel_matches_plain(cuda_device, paged, Dk, bf16, rows):
+    """Each MLA instantiation (pool and slot table, Dk 576 and 640, int8 and
+    bf16, the 16-row and 64-row decode blocks and the prefill route) against
+    its plain version, one launch of its route's kernel; NMSE < 1e-5 (p *
+    v_scale rounded to bf16 against the plain version's f32)."""
+    G, T = MLA_ROWS[rows]
+    make = mla_paged_case if paged else mla_slot_case
+    args, kw = make(cuda_device, Dk=Dk, G=G, T=T, bf16=bf16)
+    mla_held(paged, args, kw, Dk)
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["pool", "slots"])
+def test_mla_decode_splits_merge_and_repeat(cuda_device, monkeypatch, paged):
+    """The decode route's split merge (the last block's, counters reset)
+    gives the same bits on a second launch and agrees with one split."""
+    make = mla_paged_case if paged else mla_slot_case
+    args, kw = make(cuda_device, G=16, T=1, bf16=False)
+    first = mla_held(paged, args, kw, 640)
+    again = mla_held(paged, args, kw, 640)
+    assert torch.equal(first, again)
+    monkeypatch.setattr(tfa, "mla_splits", lambda *a: 1)
+    one = mla_held(paged, args, kw, 640)
+    assert nmse(first, one) < 1e-5
+
+
+def test_mla_raises_on_what_it_does_not_take(cuda_device):
+    args, kw = mla_paged_case(cuda_device)
+    for extra in (dict(window=64), dict(softcap=2.0)):
+        with pytest.raises(ValueError, match="MLA"):
+            tfa.flash_attention_paged(*args, sm_scale=0.05, **kw, **extra)
+    sinks = torch.zeros((1, args[0].shape[2]), device=cuda_device)
+    with pytest.raises(ValueError, match="MLA"):
+        tfa.flash_attention_paged(*args, sinks, sm_scale=0.05, **kw)
+    q, k, v = args[:3]
+    two = (q.expand(-1, 2, -1, -1).contiguous(), k.expand(2, -1, -1).contiguous(),
+           v.expand(2, -1, -1).contiguous())
+    with pytest.raises(ValueError, match="one KV head"):  # two KV heads
+        tfa.flash_attention_paged(*two, *args[3:], sm_scale=0.05, **kw)
+    with pytest.raises(ValueError):  # V rows of 448
+        tfa.flash_attention_paged(q, k, v[..., :448].contiguous(), *args[3:], sm_scale=0.05,
+                                  **kw)
+    sargs, _ = mla_slot_case(cuda_device)
+    with pytest.raises(ValueError, match="MLA"):
+        tfa.flash_attention(*sargs, sm_scale=0.05, ring=True)
+
+
+def test_mla_shared_memory_budget(cuda_device):
+    """Every MLA block fits the card's 227 KB beside its static memory."""
+    for Dk in (576, 640):
+        for wide in (True, False):
+            for bf16 in (True, False):
+                b = tfa.mla_smem_bytes(Dk, wide, bf16)
+                assert 0 < b + 2048 <= 232448, (Dk, wide, bf16, b)
+    assert tfa.mla_smem_bytes(512, True, True) == -1
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=["q4_k", "q6_k", "q8_0"])
+def test_expert_stack_loads_on_the_card_as_on_the_host(cuda_device, qtype):
+    """An expert stack's planes transposed on the card are the host's bytes."""
+    rng = np.random.default_rng(3)
+    shape = (4, 384, 512)
+    raw = np.frombuffer(synth_quant_bytes(rng, int(np.prod(shape)), qtype), np.uint8)
+    card = tq.load_weight(raw, qtype, shape, transpose=True, device=cuda_device)
+    host = tq.load_weight(raw, qtype, shape, transpose=True, device="cpu")
+    assert card.transposed and card.q.shape == (4, 512, 384) and card.group == host.group
+    for name in ("q", "scales", "mins"):
+        a, b = getattr(card, name), getattr(host, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.is_contiguous() and torch.equal(a.cpu(), b), name
