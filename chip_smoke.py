@@ -146,6 +146,19 @@ Phases, each of which fails the run:
        MLA prefill kernel, 128 rows at B=1); each with every matrix's route
        on its path line and the plain path on the prefill logits, 8
        teacher-forced steps and the ids (near_ties);
+     - the dense-decoder families that differ from llama only in block
+       variants, Context as the families': StarCoder2-7B (depth 32 -> 2:
+       LayerNorm with biases, biased q/k/v and output, a non-gated GELU FFN
+       of 18432 with biases, 36 query heads on 4 KV heads, so K5 at G = 9;
+       the Qwen3-8B path's whole treatment with near_ties, a served round
+       included) and Command-R v01 (40 -> 2: one LayerNorm feeding a
+       parallel residual, 64 KV heads of 128, the tied 256000-row head on
+       the library route; 16 greedy tokens, the graph phase); then every
+       other entry of testing.FAMILY_LAYOUTS at 2 layers of n_embd 1024 with
+       heads of 128: a 160-token prefill and 16 greedy tokens, every kernel
+       its matrices and memory route to read from the counters and no other
+       (an ALiBi entry launches no K5/K6), the plain path on the logits and
+       each id held teacher-forced;
      - the storage types users download beside Q4_K_M: Qwen3-8B at Q8_0
        (depth 36 -> 2, every matrix Q8_0: K2 and K4 over int8 flat-g32
        planes, no other qmm kernel; the families' whole treatment), at
@@ -210,6 +223,19 @@ QWEN3_MIX_LAYERS = 2  # Qwen3-8B at Q5_K_M and Q4_0
 QUANT_LAYERS = 2  # the F16 Qwen3-0.6B file llama-quantize turns into q8_0 and q4_0: 28 layers
 DS_LITE_LAYERS = 4  # DeepSeek-V2-Lite: 27 layers; one dense, three MoE
 DS_V3_LAYERS = 2  # DeepSeek-V3: 61 layers; one dense, one MoE of 256 experts (~14 GB)
+STARCODER2_LAYERS = 2  # StarCoder2-7B: 32 layers
+COMMAND_R_LAYERS = 2  # Command-R v01: 40 layers
+# the other dense-decoder families: narrow, heads of 128, 2 layers
+FAMILY_SHAPE = dict(n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
+                    vocab_size=2048, n_ctx=4096)
+FAMILY_PROMPT = 160  # tokens: 320 rows a KV head, the prefill kernels' route
+# synthetic block scales of the StarCoder2-7B and family files, divided by
+# 256 (Q4_K weights of about 1/sqrt(4608) at most, logits of unit spread):
+# at the default scale (weights up to about 19) a biased model's attention is
+# near one-hot, and there the kernels' bf16 rounding of q and P (the JAX
+# package's kernels' too) and the plain path's f32 (the residual that a bias
+# promotes to f32) pick other keys; the default is logged below
+FAMILY_SYNTH_SCALE = 1.0 / 256
 # conformance rows that fail for a fault open in ROADMAP.md queue 3:
 # (kernel, config); printed as "known fault" with their NMSE
 KNOWN_FAULTS: tuple[tuple[str, str], ...] = ()
@@ -1044,7 +1070,10 @@ def main() -> int:
                                                              speculative_generate)
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
-        from llama_cpp_tpu_torch.testing import (make_bench_arch_gguf, make_bench_gemma3_gguf,
+        from llama_cpp_tpu_torch.testing import (FAMILY_LAYOUTS, make_bench_arch_gguf,
+                                                 make_bench_command_r_gguf,
+                                                 make_bench_gemma3_gguf,
+                                                 make_bench_starcoder2_gguf,
                                                  make_bench_deepseek2_gguf,
                                                  make_bench_deepseek_v3_gguf,
                                                  make_bench_llama_gguf, make_bench_moe_gguf,
@@ -2717,6 +2746,59 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
+    def family_path(arch, layout, synth_scale=FAMILY_SYNTH_SCALE):
+        """One dense-decoder family of the registry at FAMILY_SHAPE (heads of
+        128; its tensors and metadata as testing.FAMILY_LAYOUTS writes them),
+        Q4_K_M mix: a FAMILY_PROMPT-token prefill and 16 greedy tokens
+        (Context.generate on the B=1 graph) with the counters read: every
+        qmm kernel its matrices route to (decode and ubatch), K7 for an
+        expert stack, K5 on the pool and, on an ISWA memory, K6 in ring mode
+        on the window layers; no other kernel, so an ALiBi entry launches no
+        K5/K6. Then the plain path on the prefill logits and each id held
+        teacher-forced (near_ties)."""
+        label = f"family {arch}"
+        path = os.path.join(smoke_dir, f"family-{arch}.gguf")
+        make_bench_arch_gguf(path, arch, **{**FAMILY_SHAPE, **layout}, synth_scale=synth_scale,
+                             seed=0)
+        model = load_model(path)
+        os.remove(path)
+        cfg = model.cfg
+        must = set()
+        head = model.params.get("output")  # one row a prefill: the decode kernel only
+        mats = [(w, True) for lw in model.params["layers"] for w in lw.values()] + [
+            (head, False)]
+        for w, ubatch in mats:
+            if not isinstance(w, qtensor.QuantTensor):
+                continue
+            if w.q.dim() == 3 and qmm_expert.supported(w):
+                must.add(expert_key)
+            elif w.q.dim() == 2 and qmm.dispatches(w):
+                i = 0 if w.packed else 1
+                must.update((decode_keys[i],) + ((prefill_keys[i],) if ubatch else ()))
+        if not cfg.alibi_bias:
+            must.update(paged_keys)
+            if cfg.sliding_window:
+                must.update(slots_keys + ring_keys)
+        vocab = cfg.vocab_size
+        ctx_kw = dict(n_ctx=1024, n_seqs=2, n_ubatch=512, quantized_kv=True)
+        prompt = [int(t) for t in prng.integers(3, vocab, FAMILY_PROMPT)]
+        reset_counts()
+        ctx = Context(model, **ctx_kw)
+        logits = ctx.prefill(prompt, seq=0)
+        gen_ids = ctx.generate(prompt, max_new_tokens=16, seq=1)
+        del ctx
+        all_counts[label] = read_counts(label, sorted(must))
+        check_logits(label, logits, vocab)
+        attn = {k: all_counts[label][k] for k in paged_keys + slots_keys + ring_keys}
+        log(f"{label} ({card}): {FAMILY_SHAPE['n_layers']} layers, n_embd "
+            f"{FAMILY_SHAPE['n_embd']}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV heads of "
+            f"{cfg.head_dim_k}; LayerNorm {not cfg.use_rms_norm}, glu {cfg.glu}, act "
+            f"{cfg.act}, parallel {cfg.parallel_residual}, norm_after {cfg.norm_after}, ALiBi "
+            f"{cfg.alibi_bias}, NoPE layers {cfg.extra.get('no_rope_layers', ())}, learned "
+            f"positions {'pos_embd' in model.params}; attention launches {attn}")
+        against_plain(label, model, logits, gen_ids, prompt, near_ties=True, **ctx_kw)
+        del model
+
     def mla_extras(model, label, must_pool, must_slots):
         """DeepSeek-V2-Lite after its path, Context(n_ctx=4096, n_seqs=8,
         n_ubatch=512, quantized_kv=True): (1) the same model shipped as
@@ -3188,6 +3270,45 @@ def main() -> int:
               full_keys + slots_keys + ring_keys,
               "Gemma-3-4B shape (n_embd 2560, 8/4 heads of 256, n_ff 10240, vocab 262208, "
               "window 1024 on five layers of six, GeGLU, post-norms, tied Q6_K head)")
+
+    # the dense-decoder families that differ from llama only in block variants
+    arch_path(
+        "starcoder2-7b",
+        functools.partial(make_bench_starcoder2_gguf, synth_scale=FAMILY_SYNTH_SCALE),
+        STARCODER2_LAYERS, 49152, full_keys,
+        "StarCoder2-7B shape (bigcode/starcoder2-7b config.json: n_embd 4608, 36 heads on 4 KV "
+        "heads of 128 (G = 9), a non-gated GELU FFN of 18432, biases throughout, LayerNorm eps "
+        "1e-5, NEOX rope 1e6, vocab 49152; depth 32 -> "
+        f"{STARCODER2_LAYERS}), Q4_K_M mix, an untied Q6_K head, synthetic block scales / 256",
+        server=True, near_ties=True, routes=True)
+    arch_path(
+        "command-r", make_bench_command_r_gguf, COMMAND_R_LAYERS, 256000, full_keys,
+        "Command-R v01 shape (CohereForAI/c4ai-command-r-v01 config.json: n_embd 8192, 64 heads "
+        "and 64 KV heads of 128, a SwiGLU FFN of 22528, one LayerNorm without bias feeding a "
+        "parallel residual, logit scale 0.0625, NORM rope 8e6, vocab 256000, tied; depth 40 -> "
+        f"{COMMAND_R_LAYERS}), Q4_K_M mix, the tied Q6_K token_embd on the library route",
+        n_gen=16, near_ties=True, routes=True)
+    t0 = time.perf_counter()
+    for arch, layout in FAMILY_LAYOUTS.items():
+        if arch not in ("starcoder2", "command-r"):
+            family_path(arch, layout)
+    torch.cuda.empty_cache()
+    # the default synthetic scale on a narrow StarCoder2: logged, not held
+    path = os.path.join(smoke_dir, "family-starcoder2-scale1.gguf")
+    make_bench_arch_gguf(path, "starcoder2", **FAMILY_SHAPE, **FAMILY_LAYOUTS["starcoder2"],
+                         seed=0)
+    sc_model = load_model(path)
+    os.remove(path)
+    sc_prompt = [int(t) for t in prng.integers(3, FAMILY_SHAPE["vocab_size"], FAMILY_PROMPT)]
+    sc_kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=512, quantized_kv=True)
+    sc_err = nmse(torch.from_numpy(Context(sc_model, **sc_kw).prefill(sc_prompt)),
+                  torch.from_numpy(Context(sc_model, kernels=False, **sc_kw).prefill(sc_prompt)))
+    del sc_model
+    log(f"family starcoder2 at the default synthetic scale (n_embd 1024; {card}): kernel path "
+        f"against the plain path, prefill logits NMSE {sc_err:.3e} (logged, not held: near "
+        "one-hot attention, bf16 q and P in the kernels against the plain path's f32)")
+    log(f"the other {len(FAMILY_LAYOUTS) - 2} dense-decoder families: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # DeepSeek's Multi-head Latent Attention: K5/K6's MLA instantiation
     mla_paged = ("flash_attention_paged/mla decode", "flash_attention_paged/mla prefill")

@@ -2,7 +2,9 @@
 
 Analog of reference src/llama-hparams.h + load_arch_hparams (src/models/
 llama.cpp:3-33); the subset of the JAX package's ModelConfig that the
-decoder families of the port's registry (models/registry.py) read. from_gguf
+decoder families of the port's registry (models/registry.py) read, with
+the block variants of the shared decoder (LayerNorm, the non-gated FFN,
+parallel and norm-after residuals, residual scales, ALiBi). from_gguf
 reads the metadata; the registry's entry for the architecture then sets
 that family's flags.
 """
@@ -34,6 +36,8 @@ class ModelConfig:
     n_ctx_train: int = 0
 
     rms_eps: float = 1e-5
+    norm_eps: float = 1e-5  # LayerNorm's epsilon
+    use_rms_norm: bool = True  # False: LayerNorm (with bias where the file has one)
 
     rope_type: int = ROPE_TYPE_NORM
     rope_dims: int = 0
@@ -46,6 +50,7 @@ class ModelConfig:
     rope_orig_ctx: int = 0
 
     act: str = "silu"
+    glu: bool = True  # gated FFN (SwiGLU/GeGLU); False: down(act(up(x)))
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
     logit_scale: float = 1.0
@@ -54,6 +59,11 @@ class ModelConfig:
 
     qk_norm: bool = False  # qwen3/gemma3 per-head rmsnorm on q/k before rope
     post_norms: bool = False  # gemma2/3: post-attention/post-ffn norms
+    parallel_residual: bool = False  # gptneox/phi2: x + attn(n(x)) + ffn(n(x))
+    shared_parallel_norm: bool = False  # phi2/command-r: one norm feeds both branches
+    norm_after: bool = False  # olmo2: x + norm(attn(x)), no pre-norm
+    residual_scale: float = 1.0  # granite/minicpm: each branch scaled before its add
+    alibi_bias: float = 0.0  # bloom/mpt max_alibi_bias (0 = rope or none)
 
     sliding_window: int = 0
     swa_pattern: int = 0  # every Nth layer is full-attention (gemma3: 6)
@@ -68,7 +78,12 @@ class ModelConfig:
     n_ff_exp: int = 0
     n_expert_shared: int = 0
 
+    tie_embeddings: bool = False
     compute_dtype: torch.dtype = torch.bfloat16
+    # per-family keys the decoder reads: no_rope_layers (NoPE layer ids),
+    # qk_norm_full (q/k RMSNorm over the whole projection), qk_norm_after_rope,
+    # weightless_norm (LayerNorm without tensors), clamp_kqv, rope_freq_base_swa
+    # and the MLA keys (models/registry.py)
     extra: dict[str, Any] = field(default_factory=dict)
 
     def is_swa_layer(self, il: int) -> bool:
@@ -115,6 +130,7 @@ class ModelConfig:
             n_ff=int(g(K.FEED_FORWARD_LENGTH, 0)),
             n_ctx_train=int(g(K.CONTEXT_LENGTH, 0)),
             rms_eps=float(g(K.ATTN_LAYERNORM_RMS_EPS, 1e-5)),
+            norm_eps=float(g(K.ATTN_LAYERNORM_EPS, 1e-5)),
             rope_dims=int(g(K.ROPE_DIMENSION_COUNT, head_k)),
             rope_freq_base=float(g(K.ROPE_FREQ_BASE, 10000.0)),
             sliding_window=int(g(K.ATTN_SLIDING_WINDOW, 0)),

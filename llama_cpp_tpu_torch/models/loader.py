@@ -29,13 +29,17 @@ log = logging.getLogger(__name__)
 # names that the registry's families carry)
 LAYER_TENSORS = {
     "attn_norm.weight": "attn_norm",
+    "attn_norm.bias": "attn_norm_bias",
     "attn_q.weight": "attn_q",
     "attn_k.weight": "attn_k",
     "attn_v.weight": "attn_v",
+    "attn_qkv.weight": "attn_qkv",  # fused in the file (gpt2, falcon, phi3, ...)
+    "attn_qkv.bias": "attn_qkv_bias",
     "attn_output.weight": "attn_output",
     "attn_q.bias": "attn_q_bias",
     "attn_k.bias": "attn_k_bias",
     "attn_v.bias": "attn_v_bias",
+    "attn_output.bias": "attn_output_bias",
     "attn_q_norm.weight": "attn_q_norm",
     "attn_k_norm.weight": "attn_k_norm",
     "attn_post_norm.weight": "attn_post_norm",
@@ -50,9 +54,13 @@ LAYER_TENSORS = {
     "ffn_up.scale": "ffn_up.__scale",
     "ffn_down.scale": "ffn_down.__scale",
     "ffn_norm.weight": "ffn_norm",
+    "ffn_norm.bias": "ffn_norm_bias",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    "ffn_gate.bias": "ffn_gate_bias",
+    "ffn_up.bias": "ffn_up_bias",
+    "ffn_down.bias": "ffn_down_bias",
     "ffn_post_norm.weight": "ffn_post_norm",
     "post_ffw_norm.weight": "ffn_post_norm",
     # mixture of experts: router, stacked experts, shared experts
@@ -84,19 +92,29 @@ LAYER_TENSORS = {
 
 GLOBAL_TENSORS = {
     "token_embd.weight": "token_embd",
+    "position_embd.weight": "pos_embd",  # learned absolute positions (gpt2, starcoder)
+    "token_embd_norm.weight": "token_embd_norm",  # bloom's embedding LayerNorm
+    "token_embd_norm.bias": "token_embd_norm_bias",
     "output_norm.weight": "output_norm",
+    "output_norm.bias": "output_norm_bias",
     "output.weight": "output",
+    "output.bias": "output_bias",
     "rope_freqs.weight": "rope_factors",
 }
 
 # 1-D tensors stay dense fp32; everything else follows its storage type
 # (the router ffn_gate_inp is not a dense key: an F32 router lands as a dense
 # compute-dtype [out, in] weight through the storage-type route)
-_DENSE_KEYS = {"attn_norm", "attn_q_norm", "attn_k_norm", "attn_post_norm", "ffn_norm",
-               "attn_q_a_norm", "attn_kv_a_norm",
-               "ffn_post_norm", "output_norm", "rope_factors", "attn_q_bias", "attn_k_bias",
-               "attn_v_bias", "attn_sinks", "ffn_gate_inp_bias", "exp_probs_b",
+_DENSE_KEYS = {"attn_norm", "attn_norm_bias", "attn_q_norm", "attn_k_norm", "attn_post_norm",
+               "ffn_norm", "ffn_norm_bias", "attn_q_a_norm", "attn_kv_a_norm",
+               "ffn_post_norm", "output_norm", "output_norm_bias", "rope_factors",
+               "attn_q_bias", "attn_k_bias", "attn_v_bias", "attn_qkv_bias",
+               "attn_output_bias", "ffn_gate_bias", "ffn_up_bias", "ffn_down_bias",
+               "output_bias", "token_embd_norm", "token_embd_norm_bias",
+               "attn_sinks", "ffn_gate_inp_bias", "exp_probs_b",
                "ffn_gate_exps_bias", "ffn_up_exps_bias", "ffn_down_exps_bias"}
+# gather tables: row-major, not transposed planes
+_ROW_TABLES = ("token_embd", "pos_embd")
 
 
 def resolve_device(device) -> torch.device:
@@ -124,14 +142,18 @@ class Model:
         self.version = 0
 
 
-def load_model(path: str, device="cuda", prefer_quant: bool = True) -> Model:
+def load_model(path: str, device="cuda", prefer_quant: bool = True,
+               dense_dtype: torch.dtype = torch.bfloat16) -> Model:
     """Load a GGUF model of one of the registry's architectures onto
-    `device` (bf16 activations). prefer_quant=False (--no-quant) loads every
-    matrix as a dense bf16 weight, whose products take the library route,
-    as the JAX package leaves them to XLA."""
+    `device`. prefer_quant=False (--no-quant) loads every matrix as a dense
+    weight, whose products take the library route, as the JAX package
+    leaves them to XLA. dense_dtype is the activations' and the dense
+    matrices' dtype (torch.float32 for exact comparisons), as the JAX
+    package's load_model takes it."""
     dev = resolve_device(device)
     f = read_gguf(path)
     cfg = apply_arch(ModelConfig.from_gguf(f.metadata), f.metadata)
+    cfg.compute_dtype = dense_dtype
     tokenizer = None
     try:
         tokenizer = Tokenizer.from_gguf(f.metadata)
@@ -154,7 +176,7 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True) -> Model:
         dense = key in _DENSE_KEYS or len(info.shape) == 1
         # matmul weights store transposed planes; the embedding table stays
         # row-major for the row gather
-        transpose = not dense and key != "token_embd" and len(info.shape) >= 2
+        transpose = not dense and key not in _ROW_TABLES and len(info.shape) >= 2
         target[key] = load_weight(
             np.asarray(info.data), info.dtype, info.shape,
             prefer_quant=prefer_quant and not dense,
@@ -165,7 +187,7 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True) -> Model:
     if cfg.extra.get("kv_lora_rank") and any("attn_kv_a_mqa" not in lw for lw in layers):
         raise ValueError("model load incomplete: an MLA layer without attn_kv_a_mqa")
     missing = [f"layer {i} missing {k}" for i, lw in enumerate(layers)
-               for k in ("attn_norm", "attn_output", "ffn_norm", "ffn_down")
+               for k in required_layer_tensors(cfg)
                if k not in lw and not any(a in lw for a in stand_ins.get(k, ()))]
     if missing:
         raise ValueError(f"model load incomplete: {missing[:4]}")
@@ -188,6 +210,22 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True) -> Model:
             and hw.q.shape[1] % 1024 and hw.q.shape[1] >= 16384):
         params["output"] = pad_out_features(hw)
     return Model(cfg, params, dev, tokenizer=tokenizer, gguf=f)
+
+
+def required_layer_tensors(cfg: ModelConfig) -> tuple[str, ...]:
+    """The tensors every layer of the family must carry (the JAX package's
+    loader.py:539-548): a weightless norm carries no norm tensors, a shared
+    parallel norm (phi2, command-r) is attn_norm alone, norm-after blocks
+    carry post-norms instead of pre-norms."""
+    if cfg.extra.get("weightless_norm"):
+        norms: tuple[str, ...] = ()
+    elif cfg.shared_parallel_norm:
+        norms = ("attn_norm",)
+    elif cfg.norm_after:
+        norms = ("attn_post_norm", "ffn_post_norm")
+    else:
+        norms = ("attn_norm", "ffn_norm")
+    return norms + ("attn_output", "ffn_down")
 
 
 def _fold_scalar_scales(lw: dict) -> None:
@@ -297,9 +335,10 @@ def _fuse_projections(lw: dict) -> None:
     llama_tensor_get_type, src/llama-quant.cpp:424): then q+k fuse and v
     stays standalone. Biases follow the JAX package's rule: projections fuse
     only when all of them or none carry a bias (the fused bias is
-    attn_qkv_bias or attn_qk_bias)."""
+    attn_qkv_bias or attn_qk_bias), and gate/up only when neither does; a
+    file's own attn_qkv stays as it is."""
     names = ("attn_q", "attn_k", "attn_v")
-    if all(k in lw for k in names):
+    if all(k in lw for k in names) and "attn_qkv" not in lw:
         fused = _concat_weights([lw[k] for k in names])
         biased = [f"{k}_bias" in lw for k in names]
         if fused is not None and (all(biased) or not any(biased)):
@@ -316,7 +355,8 @@ def _fuse_projections(lw: dict) -> None:
                 if all(biased):
                     lw["attn_qk_bias"] = torch.cat([lw.pop(f"{k}_bias") for k in names[:2]])
                 del lw["attn_q"], lw["attn_k"]
-    if all(k in lw for k in ("ffn_gate", "ffn_up")):
+    if (all(k in lw for k in ("ffn_gate", "ffn_up"))
+            and "ffn_gate_bias" not in lw and "ffn_up_bias" not in lw):
         fused = _concat_weights([lw["ffn_gate"], lw["ffn_up"]])
         if fused is not None:
             lw["ffn_gateup"] = fused

@@ -5,15 +5,17 @@ src/llama-arch.h LLM_ARCH_* and the per-arch classes of src/models/*.cpp),
 for the entries whose graph is the port's shared decoder: each entry takes
 the config read from the metadata and the metadata itself, and sets that
 family's flags. Any other architecture raises NotImplementedError, among
-them deepseek32 (DeepSeek's sparse attention needs the DSA memory) and
-deepseek2-ocr (it comes with the multimodal path).
+them deepseek32 (DeepSeek's sparse attention needs the DSA memory),
+deepseek2-ocr (it comes with the multimodal path), llama4 (interleaved MoE
+with the gate on the expert input), gpt-oss (the clamped oai GLU and a
+tensor remap), chatglm (a tensor remap) and phimoe (sparsemixer routing).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
-from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NORM
+from ..ops.rope import ROPE_TYPE_NEOX, ROPE_TYPE_NONE, ROPE_TYPE_NORM
 from .config import ModelConfig
 
 ArchTweak = Callable[[ModelConfig, dict[str, Any]], ModelConfig]
@@ -146,3 +148,290 @@ def _deepseek2(cfg: ModelConfig, md) -> ModelConfig:
     )
     _mla_absorb_extras(c)
     return c
+
+
+# -- the dense-decoder families that differ only in block variants ---------
+# (the JAX package's registry.py entries of the same names, its line given)
+
+
+def _no_rope_from(md, key: str) -> tuple[int, ...] | None:
+    """Layer ids whose flag in the per-layer array md[key] is 0 (NoPE)."""
+    flags = md.get(key)
+    if flags is None:
+        return None
+    return tuple(i for i, use in enumerate(flags) if not int(use))
+
+
+@register("phi3")  # 351
+def _phi3(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX)
+
+
+@register("stablelm")  # 356
+def _stablelm(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False)
+
+
+@register("starcoder2")  # 361
+def _starcoder2(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="gelu", glu=False)
+
+
+@register("smollm3")  # 367
+def _smollm3(cfg: ModelConfig, md) -> ModelConfig:
+    """Every fourth layer runs without positional encoding (NoPE)."""
+    skip = _no_rope_from(md, "smollm3.no_rope_layers")
+    if skip is not None:
+        cfg.extra["no_rope_layers"] = skip
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("granite")  # 377
+def _granite(cfg: ModelConfig, md) -> ModelConfig:
+    """muP scales: embedding, attention, residual (both halves) and logits."""
+    a = cfg.arch
+    return cfg.with_(
+        rope_type=ROPE_TYPE_NORM,
+        embd_scale=float(md.get(f"{a}.embedding_scale", 1.0)),
+        attn_scale=float(md.get(f"{a}.attention.scale", 0.0)),
+        residual_scale=float(md.get(f"{a}.residual_scale", 1.0)),
+        logit_scale=float(md.get(f"{a}.logit_scale", 1.0)))
+
+
+@register("olmo2")  # 389
+def _olmo2(cfg: ModelConfig, md) -> ModelConfig:
+    """Norm-after blocks and q/k RMSNorm over the whole projection."""
+    cfg.extra["qk_norm_full"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, norm_after=True, qk_norm=True)
+
+
+@register("glm4")  # 397
+def _glm4(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, post_norms=True)
+
+
+@register("nemotron")  # 402
+def _nemotron(cfg: ModelConfig, md) -> ModelConfig:
+    # layernorm1p weights arrive +1-folded from the converter
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="relu2", glu=False)
+
+
+@register("gpt2")  # 479
+def _gpt2(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False, act="gelu", glu=False,
+                     tie_embeddings=True)
+
+
+@register("gptneox")  # 485
+def _gptneox(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="gelu", glu=False,
+                     parallel_residual=bool(md.get("gptneox.use_parallel_residual", True)))
+
+
+@register("phi2")  # 493
+def _phi2(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="gelu", glu=False,
+                     parallel_residual=True, shared_parallel_norm=True)
+
+
+@register("bloom")  # 501
+def _bloom(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False, act="gelu", glu=False,
+                     alibi_bias=8.0)
+
+
+@register("mpt")  # 509
+def _mpt(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False, act="gelu", glu=False,
+                     alibi_bias=float(md.get("mpt.attention.max_alibi_bias", 8.0)))
+
+
+@register("command-r")  # 517
+def _command_r(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, use_rms_norm=False, parallel_residual=True,
+                     shared_parallel_norm=True,
+                     logit_scale=float(md.get("command-r.logit_scale", 1.0)))
+
+
+@register("olmoe")  # 526
+def _olmoe(cfg: ModelConfig, md) -> ModelConfig:
+    """Whole-projection q/k RMSNorm and top-k-normalised experts."""
+    cfg.extra["qk_norm_full"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True,
+                     expert_weights_norm=bool(md.get("olmoe.expert_weights_norm", True)))
+
+
+@register("falcon")  # 534
+def _falcon(cfg: ModelConfig, md) -> ModelConfig:
+    """The new decoder: parallel residual on two norms, a fused QKV."""
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="gelu", glu=False,
+                     parallel_residual=True)
+
+
+@register("internlm2")  # 718
+def _internlm2(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("orion")  # 724
+def _orion(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False)
+
+
+@register("xverse")  # 730
+def _xverse(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("baichuan")  # 736
+def _baichuan(cfg: ModelConfig, md) -> ModelConfig:
+    # the 7B graph; the reference's 13B ALiBi variant is not keyed (as in
+    # the JAX package)
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("exaone")  # 743
+def _exaone(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX)
+
+
+@register("minicpm")  # 759
+def _minicpm(cfg: ModelConfig, md) -> ModelConfig:
+    """muP defaults: embedding 12, residual 1.4 / sqrt(L), logits 256 / E."""
+    a = cfg.arch
+    return cfg.with_(
+        rope_type=ROPE_TYPE_NORM,
+        embd_scale=float(md.get(f"{a}.embedding_scale", 12.0)),
+        residual_scale=float(md.get(f"{a}.residual_scale", 1.4 / (cfg.n_layers ** 0.5))),
+        logit_scale=float(md.get(f"{a}.logit_scale", 256.0 / max(cfg.n_embd, 1))),
+        tie_embeddings=True)
+
+
+@register("jais")  # 775
+def _jais(cfg: ModelConfig, md) -> ModelConfig:
+    """LayerNorm blocks, ALiBi, a gated SwiGLU FFN with biases."""
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False,
+                     alibi_bias=float(md.get("jais.attention.max_alibi_bias", 8.0)),
+                     tie_embeddings=True)
+
+
+@register("arcee")  # 786
+def _arcee(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, act="relu2", glu=False)
+
+
+@register("cohere2")  # 913
+def _cohere2(cfg: ModelConfig, md) -> ModelConfig:
+    """Command-R7B: command-r's parallel residual on ISWA, rope on the
+    window layers only (the full layers are NoPE)."""
+    c = cfg.with_(
+        rope_type=ROPE_TYPE_NORM, use_rms_norm=False, parallel_residual=True,
+        shared_parallel_norm=True, logit_scale=float(md.get("cohere2.logit_scale", 1.0)),
+        sliding_window=int(md.get("cohere2.attention.sliding_window", 0)),
+        swa_pattern=int(md.get("cohere2.attention.sliding_window_pattern", 4)),
+        tie_embeddings=True)
+    if c.sliding_window > 0:
+        c.extra["no_rope_layers"] = tuple(il for il in range(c.n_layers)
+                                          if not c.is_swa_layer(il))
+    return c
+
+
+@register("olmo")  # 932
+def _olmo(cfg: ModelConfig, md) -> ModelConfig:
+    """Non-parametric LayerNorm (no norm tensors) and optionally clamped q/k/v."""
+    cfg.extra["weightless_norm"] = True
+    clamp = md.get("olmo.attention.clamp_kqv")
+    if clamp:
+        cfg.extra["clamp_kqv"] = float(clamp)
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, use_rms_norm=False)
+
+
+@register("exaone4")  # 943
+def _exaone4(cfg: ModelConfig, md) -> ModelConfig:
+    """Norm-after blocks, per-head q/k RMSNorm before rope, ISWA with rope
+    on the window layers only."""
+    c = cfg.with_(
+        rope_type=ROPE_TYPE_NEOX, norm_after=True, qk_norm=True,
+        sliding_window=int(md.get("exaone4.attention.sliding_window", 0)),
+        swa_pattern=int(md.get("exaone4.attention.sliding_window_pattern", 4)))
+    if c.sliding_window > 0:
+        c.extra["no_rope_layers"] = tuple(il for il in range(c.n_layers)
+                                          if not c.is_swa_layer(il))
+    return c
+
+
+@register("seed_oss")  # 960
+def _seed_oss(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX,
+                     attn_scale=float(md.get("seed_oss.attention.scale", 0.0)))
+
+
+@register("hunyuan-dense")  # 970
+def _hunyuan_dense(cfg: ModelConfig, md) -> ModelConfig:
+    """Per-head q/k RMSNorm after rope."""
+    cfg.extra["qk_norm_after_rope"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True)
+
+
+@register("ernie4_5")  # 978
+def _ernie4_5(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("ernie4_5-moe")  # 984
+def _ernie4_5_moe(cfg: ModelConfig, md) -> ModelConfig:
+    """Softmax top-k with normalised weights; dense layers carry plain FFN
+    tensors, shared experts the *_shexp ones."""
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, expert_weights_norm=True)
+
+
+@register("dbrx")  # 992
+def _dbrx(cfg: ModelConfig, md) -> ModelConfig:
+    """LayerNorm, a fused clamped QKV, softmax MoE with normalised weights."""
+    clamp = md.get("dbrx.attention.clamp_kqv")
+    if clamp:
+        cfg.extra["clamp_kqv"] = float(clamp)
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, expert_weights_norm=True)
+
+
+@register("granitemoe")  # 1003
+def _granitemoe(cfg: ModelConfig, md) -> ModelConfig:
+    return _granite(cfg, md).with_(expert_weights_norm=True)
+
+
+@register("qwen")  # 1102
+def _qwen(cfg: ModelConfig, md) -> ModelConfig:
+    """Qwen v1: a fused QKV with bias."""
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX)
+
+
+@register("codeshell")  # 1118
+def _codeshell(cfg: ModelConfig, md) -> ModelConfig:
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="gelu", glu=False)
+
+
+@register("refact")  # 1126
+def _refact(cfg: ModelConfig, md) -> ModelConfig:
+    """ALiBi (max bias 8), no rope, SiLU-GLU, RMS norms."""
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, alibi_bias=8.0)
+
+
+@register("plamo")  # 1133
+def _plamo(cfg: ModelConfig, md) -> ModelConfig:
+    """Parallel residual on the shared attn_norm."""
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, parallel_residual=True,
+                     shared_parallel_norm=True)
+
+
+@register("mistral3")  # 1231
+def _mistral3(cfg: ModelConfig, md) -> ModelConfig:
+    # the attention-temperature scaling is not applied, as in the JAX package
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("starcoder")  # 1706
+def _starcoder(cfg: ModelConfig, md) -> ModelConfig:
+    """gpt-bigcode: learned positions, LayerNorm blocks, a fused biased QKV
+    (MQA), a GELU FFN with biases; the head falls back to token_embd."""
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False, act="gelu", glu=False,
+                     tie_embeddings=True)

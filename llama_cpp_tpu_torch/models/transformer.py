@@ -1,8 +1,10 @@
-"""Pre-norm decoder transformer forward pass shared by the registry's
-families (llama, mistral, qwen2/3, qwen2moe/3moe, gemma/2/3, and deepseek2
-with its Multi-head Latent Attention), dense or mixture-of-experts, on the
-paged KV pool, the slot-table cache or the interleaved sliding-window
-memory (ISWACache).
+"""Decoder transformer forward pass shared by the registry's families
+(llama, mistral, qwen2/3, qwen2moe/3moe, gemma/2/3, deepseek2 with its
+Multi-head Latent Attention, and the families that differ from them only in
+block variants: LayerNorm with biases, the non-gated FFN, parallel and
+norm-after residuals, residual scales, ALiBi, NoPE layers, learned
+positions), dense or mixture-of-experts, on the paged KV pool, the
+slot-table cache or the interleaved sliding-window memory (ISWACache).
 
 Analog of reference llm_graph_context build_attn / build_ffn / build_moe_ffn
 (src/llama-graph.h:1048-1143, src/llama-graph.cpp:1955-2075) and the llama,
@@ -21,7 +23,7 @@ from typing import Any, NamedTuple
 import torch
 
 # silu stays importable from this module, where the llama graph kept it
-from ..ops.basic import ACTIVATIONS, rms_norm, silu  # noqa: F401
+from ..ops.basic import ACTIVATIONS, layer_norm, rms_norm, silu  # noqa: F401
 from ..ops.kernels import flash_attn as fa_kernel
 from ..ops.kernels import qmm_expert as expert_kernel
 from ..ops.qtensor import QuantTensor, Weight, dot_f32, embed_lookup, matmul
@@ -44,7 +46,24 @@ Memory = PagedKVCache | KVCache | ISWACache
 
 
 def norm(cfg: ModelConfig, x: torch.Tensor, w: dict[str, Weight], key: str) -> torch.Tensor:
-    return rms_norm(x, w.get(key), cfg.rms_eps)
+    """RMSNorm or LayerNorm (with key + "_bias" where the file has one) per
+    cfg.use_rms_norm; a weightless norm is the one whose tensors are absent
+    (the JAX package's transformer.py:63-67)."""
+    if cfg.use_rms_norm:
+        return rms_norm(x, w.get(key), cfg.rms_eps)
+    return layer_norm(x, w.get(key), w.get(key + "_bias"), cfg.norm_eps)
+
+
+def alibi_slopes(n_heads: int, max_bias: float, device=None) -> torch.Tensor:
+    """ggml soft_max_ext's ALiBi slope of each head [H] f32 (the JAX
+    package's transformer.py:70-80): powers of m0 over the largest power of
+    two of heads, odd powers of m1 for the rest. Made on `device` in f64
+    (no host copy, so a decode step that adds them can be captured)."""
+    n2 = 1 << (n_heads.bit_length() - 1)
+    m0 = 2.0 ** (-max_bias / n2)
+    m1 = 2.0 ** (-(max_bias / 2.0) / n2)
+    h = torch.arange(n_heads, dtype=torch.float64, device=device)
+    return torch.where(h < n2, m0 ** (h + 1), m1 ** (2 * (h - n2) + 1)).float()
 
 
 def _add_bias(y: torch.Tensor, lw: dict[str, Weight], key: str) -> torch.Tensor:
@@ -97,16 +116,28 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
         k = _add_bias(matmul(x, lw["attn_k"], kernels=kernels), lw, "attn_k_bias")
         v = _add_bias(matmul(x, lw["attn_v"], kernels=kernels), lw, "attn_v_bias")
 
+    clamp = cfg.extra.get("clamp_kqv", 0.0)
+    if clamp:  # olmo/dbrx: the projected q, k, v clamped
+        q, k, v = (torch.clamp(t, -clamp, clamp) for t in (q, k, v))
+    full_norm = cfg.qk_norm and cfg.extra.get("qk_norm_full", False)
+    if full_norm:  # olmo2/olmoe: RMSNorm over the whole projection
+        q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
+        k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
     q = q.reshape(B, T, H, Dk)
     k = k.reshape(B, T, Hkv, Dk)
     v = v.reshape(B, T, Hkv, Dv)
-    if cfg.qk_norm:  # per-head RMSNorm over [head_dim], before rope
+    after_rope = cfg.extra.get("qk_norm_after_rope", False)
+    if cfg.qk_norm and not full_norm and not after_rope:  # per head, before rope
         q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
         k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
-    if cfg.rope_type != ROPE_TYPE_NONE:
+    roped = cfg.rope_type != ROPE_TYPE_NONE and il not in cfg.extra.get("no_rope_layers", ())
+    if roped:
         rp = _rope_params(cfg, il)
         q = apply_rope(q, inputs.positions, rp)
         k = apply_rope(k, inputs.positions, rp)
+    if cfg.qk_norm and after_rope and roped:  # hunyuan: per head, after rope
+        q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
+        k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
 
     # position-addressed write of the [B, T] token grid (SET_ROWS analog);
     # the ISWA memory's sub-caches each write their position labels on
@@ -116,9 +147,11 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
                    k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv))
     scale = cfg.attn_scale or (1.0 / float(Dk) ** 0.5)
     window = cfg.sliding_window if cfg.is_swa_layer(il) else 0
-    out = _attend(cfg, q, kv, il, inputs, Hkv, Dv, scale, window, lw.get("attn_sinks"),
-                  kernels).to(x.dtype)
-    return matmul(out, lw["attn_output"], kernels=kernels)
+    # the einsum path's operands follow the block input's dtype, as in the
+    # JAX package: a q that a bias made f32 is rounded to bf16 there
+    out = _attend(cfg, q.to(x.dtype), kv, il, inputs, Hkv, Dv, scale, window,
+                  lw.get("attn_sinks"), kernels).to(x.dtype)
+    return _add_bias(matmul(out, lw["attn_output"], kernels=kernels), lw, "attn_output_bias")
 
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: AttnInputs,
@@ -132,7 +165,9 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: Attn
     # the JAX package would run its kernel, the port's runs or raises
     paged = isinstance(kvc, PagedKVCache)
     n_slots = kvc.max_pages * kvc.page if paged else kvc.n_slots
-    use_flash = (kernels and q.device.type == "cuda"
+    # ALiBi layers take the einsum path, as the JAX package keeps them from
+    # its kernels (transformer.py:375-378): the kernels know no slopes
+    use_flash = (kernels and q.device.type == "cuda" and cfg.alibi_bias == 0.0
                  and fa_kernel.dispatches(Dk, Dv, n_slots, T * (H // Hkv)))
     if use_flash:
         # the slot-table kernel takes the cache and seq_idx as they are: no
@@ -156,6 +191,10 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: Attn
     mdt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
     qg = q.reshape(B, T, Hkv, groups, Dk).to(mdt).float()
     scores = torch.einsum("btkgd,bksd->bkgts", qg, k_seq.to(mdt).float()) * scale
+    if cfg.alibi_bias > 0.0:  # slope * (key position - query position), <= 0 when causal
+        slopes = alibi_slopes(H, cfg.alibi_bias, q.device).reshape(1, Hkv, groups, 1, 1)
+        delta = (slot_pos[:, None, :] - pos[:, :, None]).float()  # [B, T, S]
+        scores = scores + slopes * delta[:, None, None]
     if cfg.attn_logit_softcap:
         cap = cfg.attn_logit_softcap
         scores = torch.tanh(scores / cap) * cap
@@ -247,16 +286,22 @@ def mla_attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor
 
 def ffn_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
               kernels: bool = True) -> torch.Tensor:
-    """Gated FFN (SwiGLU, GeGLU): act(gate) * up in the activation dtype."""
+    """Gated FFN (SwiGLU, GeGLU): act(gate) * up in the activation dtype; or,
+    with cfg.glu off, act(up) (GELU, ReLU^2); each projection plus its bias
+    where the file has one (the JAX package's transformer.py:807-826)."""
     act = ACTIVATIONS[cfg.act]
     if "ffn_gateup" in lw:  # load-time fused gate|up projection
         gu = matmul(x, lw["ffn_gateup"], kernels=kernels)
         half = gu.shape[-1] // 2
         h = act(gu[..., :half]) * gu[..., half:]
     else:
-        h = (act(matmul(x, lw["ffn_gate"], kernels=kernels))
-             * matmul(x, lw["ffn_up"], kernels=kernels))
-    return matmul(h, lw["ffn_down"], kernels=kernels)
+        up = _add_bias(matmul(x, lw["ffn_up"], kernels=kernels), lw, "ffn_up_bias")
+        if cfg.glu:
+            gate = _add_bias(matmul(x, lw["ffn_gate"], kernels=kernels), lw, "ffn_gate_bias")
+            h = act(gate) * up
+        else:
+            h = act(up)
+    return _add_bias(matmul(h, lw["ffn_down"], kernels=kernels), lw, "ffn_down_bias")
 
 
 def _route(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor, kernels: bool):
@@ -414,22 +459,41 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_lookup(params["token_embd"], tokens.long(), dtype=cdtype)  # [B, T, E]
     if cfg.embd_scale != 1.0:
         x = (x.float() * cfg.embd_scale).to(x.dtype)
+    if "pos_embd" in params:  # learned absolute positions; a pad row reads row 0
+        x = x + embed_lookup(params["pos_embd"], inputs.positions.long().clamp_min(0),
+                             dtype=cdtype)
+    if "token_embd_norm" in params:  # bloom's embedding LayerNorm
+        x = layer_norm(x, params["token_embd_norm"], params.get("token_embd_norm_bias"),
+                       cfg.norm_eps)
     cvec = params.get("cvec")  # [n_layers, n_embd] f32 residual directions
+    post = cfg.post_norms or cfg.norm_after
+    rscale = cfg.residual_scale
     for il, lw in enumerate(params["layers"]):
-        h = norm(cfg, x, lw, "attn_norm")
+        # norm-after blocks (olmo2): the mixer sees the raw residual stream
+        # and its output is normalised before the add
+        h = x if cfg.norm_after else norm(cfg, x, lw, "attn_norm")
         blk = mla_attention_block if "attn_kv_a_mqa" in lw else attention_block
         attn = blk(cfg, lw, h, inputs, kv, il, kernels=kernels)
-        if cfg.post_norms and "attn_post_norm" in lw:
+        if post and "attn_post_norm" in lw:
             attn = rms_norm(attn, lw["attn_post_norm"], cfg.rms_eps)
-        x = x + attn
-        h = norm(cfg, x, lw, "ffn_norm")
-        if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
-            ff = moe_block(cfg, lw, h, kernels=kernels)
+        if cfg.parallel_residual:
+            # x + attn(norm1(x)) + ffn(norm2(x)); phi2 and command-r share one norm
+            h2 = h if cfg.shared_parallel_norm else norm(cfg, x, lw, "ffn_norm")
+            if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
+                ff = moe_block(cfg, lw, h2, kernels=kernels)
+            else:
+                ff = ffn_block(cfg, lw, h2, kernels=kernels)
+            x = x + attn + ff
         else:
-            ff = ffn_block(cfg, lw, h, kernels=kernels)
-        if cfg.post_norms and "ffn_post_norm" in lw:
-            ff = rms_norm(ff, lw["ffn_post_norm"], cfg.rms_eps)
-        x = x + ff
+            x = x + (attn * rscale if rscale != 1.0 else attn)
+            h = x if cfg.norm_after else norm(cfg, x, lw, "ffn_norm")
+            if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
+                ff = moe_block(cfg, lw, h, kernels=kernels)
+            else:
+                ff = ffn_block(cfg, lw, h, kernels=kernels)
+            if post and "ffn_post_norm" in lw:
+                ff = rms_norm(ff, lw["ffn_post_norm"], cfg.rms_eps)
+            x = x + (ff * rscale if rscale != 1.0 else ff)
         if cvec is not None:  # control vector (build_cvec analog)
             x = x + cvec[il].to(x.dtype)
     B, T, E = x.shape
@@ -441,6 +505,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     if out_w is None:
         out_w = params["token_embd"]
     logits = matmul(x, out_w, dtype=torch.float32, kernels=kernels)
+    if "output_bias" in params:
+        logits = logits + params["output_bias"].float()
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap:

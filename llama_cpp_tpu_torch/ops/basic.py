@@ -1,5 +1,5 @@
-"""Elementwise and normalization building blocks. Parity: ggml RMS_NORM and
-GLU ops (reference ggml/include/ggml.h:482-631); the casts follow the JAX
+"""Elementwise and normalization building blocks. Parity: ggml RMS_NORM,
+NORM and GLU ops (reference ggml/include/ggml.h:482-631); the casts follow the JAX
 package (f32 arithmetic, result in the input's dtype)."""
 
 from __future__ import annotations
@@ -17,6 +17,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, eps: float) -> torch.
     return y.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor | None, bias: torch.Tensor | None,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis (biased variance) in f32, cast back; no
+    weight or bias is the non-parametric norm."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x.float()).to(x.dtype)
 
@@ -31,4 +46,14 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return silu(gate) * up
 
 
-ACTIVATIONS = {"silu": silu, "gelu": gelu}
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0)
+
+
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU (nemotron, arcee) in the input's dtype."""
+    r = torch.clamp_min(x, 0)
+    return r * r
+
+
+ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": relu, "relu2": relu2}

@@ -98,13 +98,15 @@ def _rand_pool() -> np.ndarray:
     return np.random.default_rng(1234).integers(0, 256, size=1 << 24, dtype=np.uint8)
 
 
-def synth_quant_bytes(rng, n_elements: int, ftype: GGMLType, offset: int = 0) -> bytes:
+def synth_quant_bytes(rng, n_elements: int, ftype: GGMLType, offset: int = 0,
+                      scale_mult: float = 1.0) -> bytes:
     """Random-but-valid packed quantized data without running a quantizer:
     payload bits come from a shared random pool (every bit pattern decodes
     for these formats), read from `offset` on, and each block's scale
-    fields are overwritten with one small sane scale (0.002-0.02; MXFP4's
-    exponent byte 2^-8, NVFP4's sub-block scales 2^-7, so no scale
-    overflows). Only for uses where the weight values do not matter."""
+    fields are overwritten with one small sane scale (0.002-0.02, times
+    scale_mult for the half- and single-precision scales; MXFP4's exponent
+    byte 2^-8, NVFP4's sub-block scales 2^-7, so no scale overflows). Only
+    for uses where the weight values do not matter."""
     pool = _rand_pool()
     if offset:
         pool = np.roll(pool, -offset)
@@ -113,7 +115,7 @@ def synth_quant_bytes(rng, n_elements: int, ftype: GGMLType, offset: int = 0) ->
     total = nb * lay.type_size
     reps = -(-total // pool.size)
     buf = np.tile(pool, reps)[:total].reshape(nb, lay.type_size)
-    scale = np.full(nb, rng.uniform(0.002, 0.02), np.float16)
+    scale = np.full(nb, rng.uniform(0.002, 0.02) * scale_mult, np.float16)
     for off, kind in _SCALE_FIELDS[ftype]:
         if kind == "f16":
             buf[:, off: off + 2] = scale.view(np.uint8).reshape(nb, 2)
@@ -154,7 +156,11 @@ def _bench_llama_writer(name: str, n_layers: int, n_embd: int, n_heads: int, n_k
 
 
 def _add_bench_vocab(w: GGUFWriter, vocab_size: int) -> None:
+    """tiny_spm_vocab padded with word pieces to vocab_size, or cut to it
+    where the model's vocab is smaller than the tiny vocab."""
     vocab = tiny_spm_vocab(min(vocab_size, 512))
+    for key in (Keys.Tokenizer.TOKENS, Keys.Tokenizer.TOKEN_TYPE):
+        vocab[key] = vocab[key][:vocab_size]
     vocab[Keys.Tokenizer.TOKENS] = (
         vocab[Keys.Tokenizer.TOKENS]
         + [f"▁tk{i}" for i in range(vocab_size - len(vocab[Keys.Tokenizer.TOKENS]))])
@@ -296,6 +302,20 @@ def make_bench_arch_gguf(
     rope_linear_factor: float = 0.0,
     attn_softcap: float = 0.0,
     final_softcap: float = 0.0,
+    pre_norms: str = "both",
+    weightless: bool = False,
+    norm_bias: bool = False,
+    norm_eps: float = 0.0,
+    glu: bool = True,
+    ffn_bias: bool = False,
+    attn_out_bias: bool = False,
+    fused_qkv: bool = False,
+    qk_norm_full: bool = False,
+    output_bias: bool = False,
+    n_positions: int = 0,
+    embd_norm: bool = False,
+    metadata: dict | None = None,
+    synth_scale: float = 1.0,
     f32: bool = False,
     ftype: str = "q4_k_m",
     real_quant: bool = False,
@@ -320,7 +340,27 @@ def make_bench_arch_gguf(
     adds a sigmoid-gated shared expert (qwen2moe); the sliding window, its
     pattern and its rope base, linear rope scaling and the softcaps go to
     the metadata. f32=True writes every matrix as F32 random values (scale
-    1/sqrt(in)) instead, for exact comparisons."""
+    1/sqrt(in)) instead, for exact comparisons.
+
+    The block variants of the dense-decoder families, each written as the
+    JAX package's converter writes it: pre_norms "attn" keeps attn_norm
+    alone (a shared parallel norm: phi2, command-r), "none" writes no
+    pre-norms (norm-after blocks, with post_norms: olmo2, exaone4);
+    weightless writes no norm tensor at all (olmo); norm_bias adds the
+    LayerNorms' biases (attn_norm, ffn_norm, output_norm); norm_eps writes
+    attention.layer_norm_epsilon; glu=False drops ffn_gate (GELU or ReLU^2
+    on ffn_up); ffn_bias adds ffn_up/ffn_down (and ffn_gate) biases,
+    attn_out_bias attn_output's; fused_qkv writes one attn_qkv [q + 2 kv,
+    n_embd] (Q4_K in q4_k_m; with qkv_bias one attn_qkv.bias) instead of
+    attn_q/k/v; qk_norm_full makes the q/k norms as wide as the projections
+    (olmo2, olmoe); output_bias adds output.bias; n_positions > 0 writes a
+    learned position table position_embd [n_positions, n_embd] (F32, as
+    llama-quantize leaves it); embd_norm writes token_embd_norm
+    with its bias (bloom); metadata adds keys under the arch's prefix
+    (ALiBi bias, muP scales, no_rope_layers, clamp_kqv, ...); synth_scale
+    multiplies the synthetic blocks' scales (every quantized weight by the
+    same factor). Left at their defaults they write nothing, so the default
+    files stay byte for byte what they were."""
     rng = np.random.default_rng(seed)
     w = GGUFWriter()
     w.add(Keys.General.ARCHITECTURE, arch)
@@ -354,6 +394,10 @@ def make_bench_arch_gguf(
         w.add(P + "attn_logit_softcapping", float(attn_softcap))
     if final_softcap:
         w.add(P + "final_logit_softcapping", float(final_softcap))
+    if norm_eps:
+        w.add(P + "attention.layer_norm_epsilon", float(norm_eps))
+    for key, val in (metadata or {}).items():
+        w.add(P + key, val)
     _add_bench_vocab(w, vocab_size)
 
     q4, q6 = GGMLType.Q4_K, GGMLType.Q6_K
@@ -376,34 +420,60 @@ def make_bench_arch_gguf(
             data = quantize(vals, t).tobytes()
         else:
             n = rows * cols * int(np.prod(stack, dtype=np.int64))
-            data = synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)))
+            data = synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)),
+                                     scale_mult=synth_scale)
         w.add_tensor(name, data, (cols, rows, *stack), t)
 
     def norm_w(n):
         return 1.0 + 0.1 * rng.standard_normal(n)
 
+    def bias(name, n):
+        emit_f(name, 0.1 * rng.standard_normal(n))
+
+    def emit_norm(name, n):  # a norm's weight, and its bias for a LayerNorm
+        if not weightless:
+            emit_f(name + ".weight", norm_w(n))
+            if norm_bias:
+                bias(name + ".bias", n)
+
     emit_q("token_embd.weight", vocab_size, n_embd, q6 if tie else q4)
-    emit_f("output_norm.weight", norm_w(n_embd))
+    if n_positions:  # llama-quantize leaves position embeddings unquantized
+        emit_f("position_embd.weight", rng.standard_normal((n_positions, n_embd)) * 0.1)
+    if embd_norm:
+        emit_f("token_embd_norm.weight", norm_w(n_embd))
+        bias("token_embd_norm.bias", n_embd)
+    emit_norm("output_norm", n_embd)
     if not tie:
         emit_q("output.weight", vocab_size, n_embd, q6)
+        if output_bias:
+            bias("output.bias", vocab_size)
     q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
     for i in range(n_layers):
         b = f"blk.{i}."
-        emit_f(b + "attn_norm.weight", norm_w(n_embd))
-        emit_q(b + "attn_q.weight", q_dim, n_embd, q4)
-        emit_q(b + "attn_k.weight", kv_dim, n_embd, q4)
-        emit_q(b + "attn_v.weight", kv_dim, n_embd, q6)
+        if pre_norms != "none":
+            emit_norm(b + "attn_norm", n_embd)
+        if fused_qkv:
+            emit_q(b + "attn_qkv.weight", q_dim + 2 * kv_dim, n_embd, q4)
+        else:
+            emit_q(b + "attn_q.weight", q_dim, n_embd, q4)
+            emit_q(b + "attn_k.weight", kv_dim, n_embd, q4)
+            emit_q(b + "attn_v.weight", kv_dim, n_embd, q6)
         emit_q(b + "attn_output.weight", n_embd, q_dim, q4)
-        if qkv_bias:
+        if qkv_bias and fused_qkv:
+            bias(b + "attn_qkv.bias", q_dim + 2 * kv_dim)
+        elif qkv_bias:
             for name, n in (("attn_q", q_dim), ("attn_k", kv_dim), ("attn_v", kv_dim)):
                 emit_f(b + name + ".bias", 0.1 * rng.standard_normal(n))
+        if attn_out_bias:
+            bias(b + "attn_output.bias", n_embd)
         if qk_norm:
-            emit_f(b + "attn_q_norm.weight", norm_w(head_dim))
-            emit_f(b + "attn_k_norm.weight", norm_w(head_dim))
+            emit_f(b + "attn_q_norm.weight", norm_w(q_dim if qk_norm_full else head_dim))
+            emit_f(b + "attn_k_norm.weight", norm_w(kv_dim if qk_norm_full else head_dim))
         if post_norms:
             emit_f(b + "post_attention_norm.weight", norm_w(n_embd))
             emit_f(b + "post_ffw_norm.weight", norm_w(n_embd))
-        emit_f(b + "ffn_norm.weight", norm_w(n_embd))
+        if pre_norms == "both":
+            emit_norm(b + "ffn_norm", n_embd)
         if n_expert:
             emit_f(b + "ffn_gate_inp.weight", rng.standard_normal((n_expert, n_embd)) * 0.02)
             emit_q(b + "ffn_gate_exps.weight", n_ff_exp, n_embd, q4, (n_expert,))
@@ -415,11 +485,108 @@ def make_bench_arch_gguf(
                 emit_q(b + "ffn_up_shexp.weight", shared_expert_ff, n_embd, q4)
                 emit_q(b + "ffn_down_shexp.weight", n_embd, shared_expert_ff, q6)
         else:
-            emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
+            if glu:
+                emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
             emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
             emit_q(b + "ffn_down.weight", n_embd, n_ff, q6)
+            if ffn_bias:
+                for name, n in [("ffn_gate", n_ff)] * glu + [("ffn_up", n_ff),
+                                                             ("ffn_down", n_embd)]:
+                    bias(b + name + ".bias", n)
     w.write(path)
     return path
+
+
+_LN = dict(norm_bias=True, norm_eps=1e-5)  # LayerNorm with biases
+_GPT = dict(qkv_bias=True, attn_out_bias=True, ffn_bias=True)  # biases throughout
+_MOE = dict(n_expert=8, n_expert_used=2, n_ff_exp=256)
+_GRANITE = {"embedding_scale": 6.0, "residual_scale": 0.5, "attention.scale": 0.05,
+            "logit_scale": 0.5}
+# the dense-decoder families that differ from llama only in block variants:
+# each with the make_bench_arch_gguf options that write its tensors and
+# metadata as the JAX package's converter (or llama.cpp's) lays them out. The
+# sliding windows are 32 (cohere2 and exaone4 at 2 layers: one window layer,
+# one full); the learned position tables hold 1024 rows.
+FAMILY_LAYOUTS: dict[str, dict] = {
+    "phi3": dict(fused_qkv=True),
+    "stablelm": dict(**_LN),
+    "starcoder2": dict(**_LN, glu=False, **_GPT, rope_base=1e6),
+    "smollm3": dict(metadata={"no_rope_layers": [1, 0]}),
+    "granite": dict(metadata=_GRANITE),
+    "olmo2": dict(pre_norms="none", post_norms=True, qk_norm=True, qk_norm_full=True),
+    "glm4": dict(post_norms=True, qkv_bias=True),
+    "nemotron": dict(**_LN, glu=False),
+    "gpt2": dict(**_LN, glu=False, fused_qkv=True, **_GPT, tie=True, n_positions=1024),
+    "gptneox": dict(**_LN, glu=False, fused_qkv=True, **_GPT,
+                    metadata={"use_parallel_residual": True}),
+    "phi2": dict(**_LN, glu=False, pre_norms="attn", fused_qkv=True, **_GPT, output_bias=True),
+    "bloom": dict(**_LN, glu=False, embd_norm=True, fused_qkv=True, **_GPT, tie=True),
+    "mpt": dict(norm_eps=1e-5, glu=False, fused_qkv=True,
+                metadata={"attention.max_alibi_bias": 8.0}),
+    "command-r": dict(norm_eps=1e-5, pre_norms="attn", tie=True,
+                      metadata={"logit_scale": 0.0625}),
+    "olmoe": dict(qk_norm=True, qk_norm_full=True, **_MOE),
+    "falcon": dict(**_LN, glu=False, fused_qkv=True),
+    "internlm2": dict(),
+    "orion": dict(**_LN),
+    "xverse": dict(),
+    "baichuan": dict(),
+    "exaone": dict(),
+    "minicpm": dict(tie=True),
+    "jais": dict(**_LN, fused_qkv=True, **_GPT, tie=True,
+                 metadata={"attention.max_alibi_bias": 8.0}),
+    "arcee": dict(glu=False),
+    "cohere2": dict(norm_eps=1e-5, pre_norms="attn", tie=True, sliding_window=32,
+                    swa_pattern=2, metadata={"logit_scale": 0.25}),
+    "olmo": dict(weightless=True, norm_eps=1e-5, metadata={"attention.clamp_kqv": 0.5}),
+    "exaone4": dict(pre_norms="none", post_norms=True, qk_norm=True, sliding_window=32,
+                    swa_pattern=2),
+    "seed_oss": dict(qkv_bias=True, metadata={"attention.scale": 0.1}),
+    "hunyuan-dense": dict(qk_norm=True),
+    "ernie4_5": dict(),
+    "ernie4_5-moe": dict(**_MOE),
+    "dbrx": dict(norm_eps=1e-5, fused_qkv=True, **_MOE, metadata={"attention.clamp_kqv": 8.0}),
+    "granitemoe": dict(**_MOE, metadata=_GRANITE),
+    "qwen": dict(fused_qkv=True, qkv_bias=True),
+    "codeshell": dict(**_LN, glu=False, fused_qkv=True, **_GPT),
+    "refact": dict(),
+    "plamo": dict(pre_norms="attn"),
+    "mistral3": dict(),
+    "starcoder": dict(**_LN, glu=False, fused_qkv=True, **_GPT, tie=True, n_kv_heads=1,
+                      n_positions=1024),
+}
+
+
+def make_bench_starcoder2_gguf(path: str, n_layers: int = 32, n_embd: int = 4608,
+                               n_heads: int = 36, n_kv_heads: int = 4, head_dim: int = 128,
+                               n_ff: int = 18432, vocab_size: int = 49152, n_ctx: int = 16384,
+                               ftype: str = "q4_k_m", synth_scale: float = 1.0,
+                               seed: int = 0) -> str:
+    """StarCoder2-7B-shaped (by default; bigcode/starcoder2-7b config.json)
+    GGUF: LayerNorm with biases (eps 1e-5), q/k/v and output projections
+    with biases, a non-gated GELU FFN of 18432 with biases, NEOX rope at
+    base 1e6, 36 query heads on 4 KV heads of 128, an untied head; the
+    config's sliding window of 4096 is not written, as neither llama.cpp's
+    starcoder2 graph nor the JAX package reads one. ftype and synth_scale
+    as make_bench_arch_gguf's."""
+    return make_bench_arch_gguf(path, "starcoder2", n_layers, n_embd, n_heads, n_kv_heads,
+                                head_dim, n_ff, vocab_size, n_ctx, ftype=ftype,
+                                synth_scale=synth_scale, seed=seed,
+                                **FAMILY_LAYOUTS["starcoder2"])
+
+
+def make_bench_command_r_gguf(path: str, n_layers: int = 40, n_embd: int = 8192,
+                              n_heads: int = 64, n_kv_heads: int = 64, head_dim: int = 128,
+                              n_ff: int = 22528, vocab_size: int = 256000, n_ctx: int = 131072,
+                              ftype: str = "q4_k_m", seed: int = 0) -> str:
+    """Command-R v01-shaped (by default; CohereForAI/c4ai-command-r-v01
+    config.json) GGUF: LayerNorm without bias (eps 1e-5) shared by the
+    attention and the SwiGLU FFN of 22528 in a parallel residual, 64 heads
+    and 64 KV heads of 128, NORM rope at base 8e6, logit scale 0.0625, a
+    tied head (a Q6_K token_embd). ftype as make_bench_arch_gguf's."""
+    return make_bench_arch_gguf(path, "command-r", n_layers, n_embd, n_heads, n_kv_heads,
+                                head_dim, n_ff, vocab_size, n_ctx, rope_base=8e6, ftype=ftype,
+                                seed=seed, **FAMILY_LAYOUTS["command-r"])
 
 
 def make_bench_qwen3_gguf(path: str, n_layers: int = 36, n_embd: int = 4096, n_heads: int = 32,

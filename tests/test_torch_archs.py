@@ -85,13 +85,16 @@ def fixtures(tmp_path_factory):
 
 
 def test_supported_archs():
-    """The families here, llama, and deepseek2 (tests/test_torch_deepseek2.py)."""
-    assert supported_archs() == sorted(["llama", "deepseek2", *ARCHS])
+    """The families here, llama, deepseek2 (tests/test_torch_deepseek2.py)
+    and the dense-decoder families of tests/test_torch_families.py."""
+    from test_torch_families import ARCHS as FAMILIES
+
+    assert supported_archs() == sorted(["llama", "deepseek2", *ARCHS, *FAMILIES])
 
 
 def test_other_arch_raises_naming_it(tmp_path):
-    path = make_bench_arch_gguf(str(tmp_path / "phi3.gguf"), "phi3", **SHAPE)
-    with pytest.raises(NotImplementedError, match="'phi3'"):
+    path = make_bench_arch_gguf(str(tmp_path / "llama4.gguf"), "llama4", **SHAPE)
+    with pytest.raises(NotImplementedError, match="'llama4'"):
         load_model(path, device="cpu")
 
 

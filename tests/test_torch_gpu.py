@@ -1499,3 +1499,129 @@ def test_expert_stack_loads_on_the_card_as_on_the_host(cuda_device, qtype):
         assert (a is None) == (b is None)
         if a is not None:
             assert a.is_contiguous() and torch.equal(a.cpu(), b), name
+
+
+# -- the dense-decoder families: LayerNorm, biases, non-gated FFN, parallel and
+# norm-after residuals, NoPE, ALiBi, learned positions ----------------------
+
+@pytest.mark.parametrize("T", [1, 3, 8], ids=["decode", "decode_r27", "prefill_r72"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8_pool", "bf16_pool"])
+def test_paged_attention_kernel_nine_rows_a_kv_head(cuda_device, T, bf16):
+    """G = 9 query heads a KV head (StarCoder2-7B's 36 on 4), not a power of
+    two: 9, 27 rows on the decode kernel, 72 on the prefill kernel."""
+    args, _, page = paged_case(cuda_device, G=9, T=T, bf16=bf16)
+    kw = dict(sm_scale=1.0 / np.sqrt(128), page=page)
+    key = f"flash_attention_paged/{tfa.route(args[0].shape[2])}"
+    before = tfa.launches[key]
+    got = tfa.flash_attention_paged(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches[key] == before + 1
+    ref = tfa.flash_attention_paged_plain(*args, **kw)
+    valid = args[3] >= 0
+    g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
+    assert torch.isfinite(g).all() and nmse(g, r) < 1e-5
+
+
+@pytest.mark.parametrize("T", [1, 8], ids=["decode", "prefill_r72"])
+def test_slot_attention_kernel_nine_rows_a_kv_head(cuda_device, T):
+    args, _ = slot_case(cuda_device, G=9, T=T)
+    kw = dict(sm_scale=1.0 / np.sqrt(128))
+    got = tfa.flash_attention(*args, **kw)
+    ref = tfa.flash_attention_plain(*args, **kw)
+    valid = args[3] >= 0
+    g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
+    assert torch.isfinite(g).all() and nmse(g, r) < 1e-5
+
+
+FAMILY_SHAPE = dict(n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
+                    vocab_size=1024, n_ctx=1024)
+# entry -> what it carries through the kernels
+FAMILY_CASES = {
+    "starcoder2": "LayerNorm with biases, biased q/k/v/output, non-gated GELU with biases",
+    "nemotron": "LayerNorm, non-gated ReLU^2",
+    "command-r": "parallel residual on one weight-only LayerNorm, logit scale, tied head",
+    "gptneox": "parallel residual on two LayerNorms, file-fused biased QKV",
+    "olmo2": "norm-after blocks, whole-projection q/k RMSNorm",
+    "smollm3": "a NoPE layer",
+    "bloom": "ALiBi, the embedding LayerNorm: no attention kernel",
+    "gpt2": "learned positions, no rope",
+    "cohere2": "ISWA rings with NoPE full layers and a parallel residual",
+}
+
+
+@pytest.fixture(scope="module")
+def dense_families(tmp_path_factory):
+    """The entries of FAMILY_CASES at FAMILY_SHAPE, synthetic block scales
+    divided by 256: at the default scale a biased model's attention is near
+    one-hot, and the kernels' bf16 q and P (the JAX package's kernels' too)
+    against the plain path's f32 pick other keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run `python -m pytest --noconftest -m gpu "
+                    "tests/test_torch_gpu.py` on the card")
+    from llama_cpp_tpu_torch.testing import FAMILY_LAYOUTS, make_bench_arch_gguf
+
+    d = tmp_path_factory.mktemp("dense_families")
+    return {arch: load_model(make_bench_arch_gguf(
+        str(d / f"{arch}.gguf"), arch, synth_scale=1.0 / 256,
+        **{**FAMILY_SHAPE, **FAMILY_LAYOUTS[arch]})) for arch in FAMILY_CASES}
+
+
+def _zero_counts():
+    for counter in (tqmm.launches, tfa.launches, tfa.ring_launches):
+        for key in counter:
+            counter[key] = 0
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CASES))
+def test_dense_family_kernels_match_plain_and_graphs_match_eager(dense_families, arch):
+    """The kernel path against Context(kernels=False) on a 300-token prefill
+    (NMSE < 5e-3), the qmm kernels launched at both routes; attention on K5
+    (K6 in ring mode on the window layers) except ALiBi's, which launches
+    neither; then decode_steps_greedy at B=4 graphed against eager: equal
+    ids."""
+    model = dense_families[arch]
+    p = [int(t) for t in np.random.default_rng(6).integers(3, 1024, 300)]
+    kw = dict(n_ctx=1024, n_seqs=4, n_ubatch=128, quantized_kv=True)
+    _zero_counts()
+    got = Context(model, **kw).prefill(p)
+    ref = Context(model, kernels=False, **kw).prefill(p)
+    assert np.isfinite(got).all()
+    assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+    assert tqmm.launches["qmm4_planes_prefill/wgmma"] > 0
+    if model.cfg.alibi_bias:
+        assert sum(tfa.launches.values()) == 0
+    else:
+        assert tfa.launches["flash_attention_paged/prefill"] > 0
+    assert (sum(tfa.ring_launches.values()) > 0) == (model.cfg.sliding_window > 0)
+    runs = []
+    for graphs in (True, False):
+        ctx, firsts = prefilled(model, 4, graphs)
+        runs.append(ctx.decode_steps_greedy(firsts, np.arange(4), 12))
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert tqmm.launches["qmm4_planes/decode"] > 0
+    if model.cfg.alibi_bias:
+        assert sum(tfa.launches.values()) == 0
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["pool", "slots"])
+def test_nope_context_shift_matches_plain(dense_families, paged):
+    """smollm3 (layer 1 NoPE): context_shift on the kernel path against the
+    plain path shifted alike (each layer's K re-roped, as the JAX package's
+    shift_seq does): 6 teacher-forced steps within NMSE 5e-3, and graphed
+    greedy steps equal to eager after the shift."""
+    model = dense_families["smollm3"]
+    p = [int(t) for t in np.random.default_rng(7).integers(3, 1024, 400)]
+    kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=128, quantized_kv=True, paged=paged)
+    ctxs = [Context(model, **kw), Context(model, graphs=False, **kw),
+            Context(model, kernels=False, **kw)]
+    for c in ctxs:
+        c.prefill(p)
+        assert c.context_shift(0, n_keep=32, n_discard=128) == 128
+    g, e, plain = ctxs
+    ids_g = g.decode_steps_greedy(np.asarray([11]), np.asarray([0]), 6)
+    ids_e = e.decode_steps_greedy(np.asarray([11]), np.asarray([0]), 6)
+    np.testing.assert_array_equal(ids_g, ids_e)
+    e.seq_rm(0, p0=int(e.seq_len[0]) - 6)
+    for t in [11] + [int(x) for x in ids_e[0][:5]]:
+        assert nmse(torch.from_numpy(e.decode_one(t)),
+                    torch.from_numpy(plain.decode_one(t))) < 5e-3
