@@ -26,7 +26,10 @@ Phases, each of which fails the run:
      route threshold; the
      indexed-expert kernel at Mixtral-8x7B, Qwen3-30B-A3B and DeepSeek-V3
      expert shapes (R = 8, 64 and 64 rows drawn from 16 experts; V3's 256
-     experts of 7168 x 2048 at R = 8 and 64),
+     experts of 7168 x 2048 at R = 8 and 64; gpt-oss-20B's MXFP4 stacks of
+     32 x 2880 x 2880 at R = 4 and 32, 2880 being 45 stages of 64 rows and
+     22 column tiles of 128 and a half; Llama-4-Scout's 16 x 5120 x 8192
+     gate and 16 x 8192 x 5120 down stacks at R = 1 and 8),
      the slot-table attention kernels at the same depths as the paged ones,
      and with 64-wide heads, and in ring mode at a Gemma-3-4B window layer
      (1792 slots, 4 KV heads of 256, window 1024, positions past the wrap:
@@ -61,7 +64,7 @@ Phases, each of which fails the run:
      the plain path (Context(kernels=False)) on the prefill's last-token
      logits and greedy ids:
      - a Llama-3-8B-shaped Q4_K_M model (random weights from a seed, full
-       width, depth cut to 4 layers), load_model, a Context with a paged
+       width, depth cut to 2 layers), load_model, a Context with a paged
        int8 KV pool, a 2048-token prefill, 32 greedy tokens at B=1 and
        decode_steps_greedy at B=8 and B=32 over 512-token prefills;
      - the same model and prompt with one ubatch of 2048 rows, whose
@@ -82,7 +85,7 @@ Phases, each of which fails the run:
        (llama_cpp_tpu_torch.tools.bench_qmm) with every case at full width,
        the 4096 x 128256 vocab head included;
      - path D, the command-line tool (llama_cpp_tpu_torch.tools.cli) on the
-       4-layer llama file, text in and text out: greedy, held against
+       2-layer llama file, text in and text out: greedy, held against
        Context.generate on the encoded prompt, sampled under a seed twice,
        and constrained by a GBNF grammar (--grammar), held against
        Context.generate with the same chain behind the same grammar;
@@ -135,7 +138,7 @@ Phases, each of which fails the run:
        slots through K6 in ring mode, one full layer on the pool through
        K5; the tied 262208-row head on the library route, timed);
      - DeepSeek's Multi-head Latent Attention, Context as the families':
-       DeepSeek-V2-Lite (27 -> 4 layers: one dense, three MoE of 64
+       DeepSeek-V2-Lite (27 -> 2 layers: one dense, one MoE of 64
        experts; the paged MLA decode kernel at B=1, its prefill kernel at
        the ubatches; the graph phase at B=8, the B=1 profile, a served
        round), then on that model the attn_k_b/attn_v_b file against the
@@ -151,14 +154,29 @@ Phases, each of which fails the run:
        LayerNorm with biases, biased q/k/v and output, a non-gated GELU FFN
        of 18432 with biases, 36 query heads on 4 KV heads, so K5 at G = 9;
        the Qwen3-8B path's whole treatment with near_ties, a served round
-       included) and Command-R v01 (40 -> 2: one LayerNorm feeding a
+       included) and Command-R v01 (40 -> 1: one LayerNorm feeding a
        parallel residual, 64 KV heads of 128, the tied 256000-row head on
        the library route; 16 greedy tokens, the graph phase); then every
        other entry of testing.FAMILY_LAYOUTS at 2 layers of n_embd 1024 with
        heads of 128: a 160-token prefill and 16 greedy tokens, every kernel
        its matrices and memory route to read from the counters and no other
        (an ALiBi entry launches no K5/K6), the plain path on the logits and
-       each id held teacher-forced;
+       each id held teacher-forced; the MoE families of
+       testing.MOE_FAMILY_LAYOUTS (the clamped oai GLU, sparsemixer, the gate
+       on the expert input, dense FFNs beside experts, arctic's branch,
+       GroveMoE's chunk experts, shared experts, selection biases, per-layer
+       window patterns) among them, K7 launched at their decode steps;
+     - the MoE families at full width, Context as the families': gpt-oss-20B
+       (depth 24 -> 4: two window layers of 128 on ISWA rings through K6 in
+       ring mode and two full layers on the pool through K5, both with sinks
+       at the prefill ubatches; 32 MXFP4 experts of 2880 with biases and the
+       clamped GLU, top 4, on K7; every dense product and the head on the
+       library route, where the JAX package leaves them to XLA, timed at N =
+       1; YaRN factor 32) and Llama-4-Scout-17B-16E (48 -> 4: K1-K5, K5 at G
+       = 5, layer 3 NoPE, 16 experts of 8192 top 1 with the gate on the
+       expert input on K7 at B = 1 and 8, a shared expert), each with the
+       Qwen3-8B path's whole treatment with near_ties and a served round;
+       a narrow gpt-oss at the default synthetic scale (logged);
      - the storage types users download beside Q4_K_M: Qwen3-8B at Q8_0
        (depth 36 -> 2, every matrix Q8_0: K2 and K4 over int8 flat-g32
        planes, no other qmm kernel; the families' whole treatment), at
@@ -170,7 +188,10 @@ Phases, each of which fails the run:
        served round of four 32-token requests against Context.generate,
        with at least 4 distinct ids each. Paths whose greedy ids vary hold
        each id teacher-forced against the plain path (against_plain's
-       near_ties rule);
+       near_ties rule; on a model with experts the plain path's routers
+       are held to the kernel path's choice where the two part and the
+       router inputs agree within the limit, testing.RouteHold, and every
+       teacher-forced step's logits stay within the limit);
      - path S, what llama-cli and llama-server had refused, on that Q8_0
        model and path Q's files: speculative_generate with the n-gram
        lookup and with a self-draft at n_draft 4 and 8 (each verify step's
@@ -209,7 +230,7 @@ from dataclasses import replace
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 NMSE_LIMIT = 5e-3  # the reference's conformance threshold
-SMOKE_LAYERS = 4
+SMOKE_LAYERS = 2  # Llama-3-8B: 32 layers; 4 until the MoE families kept the call near 930 s
 CLI_PROMPT = "the cat is on the mat and that was the end of it"
 CLI_GRAMMAR = 'root ::= (" w" [0-9]+)+'  # the fixture's word pieces, " w0" ... " w127999"
 GRAMMAR_TOKENS = 6
@@ -221,10 +242,12 @@ QWEN3MOE_LAYERS = 2  # Qwen3-30B-A3B: 48 layers, all 128 experts each
 GEMMA3_LAYERS = 6  # Gemma-3-4B: 34 layers; one period of its pattern (five window, one full)
 QWEN3_MIX_LAYERS = 2  # Qwen3-8B at Q5_K_M and Q4_0
 QUANT_LAYERS = 2  # the F16 Qwen3-0.6B file llama-quantize turns into q8_0 and q4_0: 28 layers
-DS_LITE_LAYERS = 4  # DeepSeek-V2-Lite: 27 layers; one dense, three MoE
+DS_LITE_LAYERS = 2  # DeepSeek-V2-Lite: 27 layers; one dense, one MoE
 DS_V3_LAYERS = 2  # DeepSeek-V3: 61 layers; one dense, one MoE of 256 experts (~14 GB)
 STARCODER2_LAYERS = 2  # StarCoder2-7B: 32 layers
-COMMAND_R_LAYERS = 2  # Command-R v01: 40 layers
+COMMAND_R_LAYERS = 1  # Command-R v01: 40 layers
+GPT_OSS_LAYERS = 4  # gpt-oss-20B: 24 layers; two window layers and two full
+SCOUT_LAYERS = 4  # Llama-4-Scout-17B-16E: 48 layers; layer 3 NoPE
 # the other dense-decoder families: narrow, heads of 128, 2 layers
 FAMILY_SHAPE = dict(n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
                     vocab_size=2048, n_ctx=4096)
@@ -1070,16 +1093,19 @@ def main() -> int:
                                                              speculative_generate)
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
-        from llama_cpp_tpu_torch.testing import (FAMILY_LAYOUTS, make_bench_arch_gguf,
+        from llama_cpp_tpu_torch.testing import (FAMILY_LAYOUTS, MOE_FAMILY_LAYOUTS,
+                                                 make_bench_arch_gguf,
                                                  make_bench_command_r_gguf,
                                                  make_bench_gemma3_gguf,
+                                                 make_bench_gpt_oss_gguf,
+                                                 make_bench_llama4_gguf,
                                                  make_bench_starcoder2_gguf,
                                                  make_bench_deepseek2_gguf,
                                                  make_bench_deepseek_v3_gguf,
                                                  make_bench_llama_gguf, make_bench_moe_gguf,
                                                  make_bench_qwen3_gguf, make_bench_qwen3moe_gguf,
                                                  make_control_vector_gguf, make_lora_gguf,
-                                                 synth_quant_bytes)
+                                                 RouteHold, synth_quant_bytes)
         from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
         from llama_cpp_tpu_torch.tools import bench_tool
         from llama_cpp_tpu_torch.tools import cli as cli_tool
@@ -1378,6 +1404,38 @@ def main() -> int:
             qwen["nmse"] = max(qwen["nmse"], r["nmse"])
         del w
     torch.cuda.empty_cache()
+    log("K7 at the MoE families' widths: gpt-oss-20B's MXFP4 stacks (32 experts of 2880 x "
+        "2880: 45 stages of 64 rows, 22 column tiles of 128 and one of 64; load_weight of "
+        "synthetic MXFP4 bytes: int8 flat-g32 planes, no mins) at R = 4 (a decode token's top "
+        "4) and 32; Llama-4-Scout's gate (5120 -> 8192, Q4_K-like) and down (8192 -> 5120, "
+        "Q6_K-like) stacks of 16 experts at R = 1 (top 1) and 8:")
+    for wname in ("ffn_gate_exps", "ffn_down_exps"):
+        raw = np.frombuffer(synth_quant_bytes(rng, 32 * 2880 * 2880, GGMLType.MXFP4), np.uint8)
+        w = load_weight(raw, GGMLType.MXFP4, (32, 2880, 2880), transpose=True, device="cuda")
+        del raw
+        if not (qmm_expert.supported(w) and w.group == 32 and w.mins is None and not w.hier):
+            failures.append(f"K7 gpt-oss {wname}: the stack's layout is {layout_of(w)}")
+        for R in (4, 32):
+            r = expert_phase(torch, timer, qmm_expert, f"K7 gpt-oss {wname}", w, R, failures,
+                             seed=13)
+            qwen["rows"][f"gpt-oss {wname} mxfp4 R={R}"] = {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "nmse")}
+            qwen["max_abs_err"] = max(qwen["max_abs_err"], r["max_abs_err"])
+            qwen["nmse"] = max(qwen["nmse"], r["nmse"])
+        del w
+    torch.cuda.empty_cache()
+    for wname, K, O, q4 in (("ffn_gate_exps", 5120, 8192, True),
+                            ("ffn_down_exps", 8192, 5120, False)):
+        w = expert_stack(torch, qtensor, GGMLType, 16, K, O, q4, seed=17)
+        for R in (1, 8):
+            r = expert_phase(torch, timer, qmm_expert, f"K7 llama4-scout {wname}", w, R,
+                             failures)
+            qwen["rows"][f"llama4-scout {wname} R={R}"] = {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "nmse")}
+            qwen["max_abs_err"] = max(qwen["max_abs_err"], r["max_abs_err"])
+            qwen["nmse"] = max(qwen["nmse"], r["nmse"])
+        del w
+        torch.cuda.empty_cache()
     log("B1-B4, the microbenchmark's probe kernels (8 rows of x, groups of 32; the JSON line "
         "takes the gate/up shape, B3 and B4 at their fastest tile):")
     bench_res = bench_phase(torch, timer, qmm_bench, "gateup", E, 2 * FF, failures)
@@ -1482,8 +1540,12 @@ def main() -> int:
         teacher-forced, both contexts fed the same ids, and must be the plain
         path's argmax at its step, or the parting of a near-tie: the plain
         logit of the kernel's id within that step's largest difference
-        between the two paths' logits of the plain argmax. ref_model: the
-        model whose plain path is the reference (default: the same model)."""
+        between the two paths' logits of the plain argmax. With near_ties on a
+        model with experts the plain path's routers are held to the kernel
+        path's choice where the two part at a router's near-tie whose input
+        agrees within the limit (testing.RouteHold), as the ids are; every
+        step's logits stay within the limit. ref_model: the model whose plain
+        path is the reference (default: the same model)."""
         ref_ctx = Context(ref_model or model, kernels=False, graphs=False, **ctx_kw)
         ref_logits = ref_ctx.prefill(prompt, seq=0)
         steps = len(gen_ids) if near_ties else decode_logits
@@ -1491,7 +1553,8 @@ def main() -> int:
         if steps:
             kern = Context(model, graphs=False, **ctx_kw)
             lk, lr = kern.prefill(prompt, seq=0), ref_logits
-            errs, ties, wrong = [], [], []
+            errs, ties, wrong, holds, parted = [], [], [], [], []
+            hold = RouteHold(NMSE_LIMIT) if near_ties and model.cfg.n_expert else None
             for i, t in enumerate(gen_ids[:steps]):
                 if near_ties:
                     diff = float(np.abs(lk - lr).max())
@@ -1500,13 +1563,25 @@ def main() -> int:
                         wrong.append((i, t, int(np.argmax(lk)), int(np.argmax(lr)), gap, diff))
                     elif int(np.argmax(lr)) != t:
                         ties.append((i, round(gap, 5), round(diff, 5)))
-                lk, lr = kern.decode_one(t, seq=0), ref_ctx.decode_one(t, seq=0)
+                with hold.record() if hold else contextlib.nullcontext():
+                    lk = kern.decode_one(t, seq=0)
+                with hold.hold() if hold else contextlib.nullcontext():
+                    lr = ref_ctx.decode_one(t, seq=0)
                 errs.append(float(np.mean((lk - lr) ** 2) / (np.mean(lr ** 2) + 1e-30)))
+                if hold and hold.held:
+                    holds.append((i, [h[:3] + tuple(round(v, 6) for v in h[3:])
+                                      for h in hold.held]))
+                if not errs[-1] < NMSE_LIMIT:
+                    parted.append((i, errs[-1], hold.parted if hold else None))
             del kern
             log(f"{path}: kernel vs plain path: logits of {len(errs)} teacher-forced decode "
-                f"steps, NMSE largest {max(errs):.3e} (limit {NMSE_LIMIT})")
-            if not max(errs) < NMSE_LIMIT:
-                failures.append(f"{path}: decode logits NMSE {errs}")
+                f"steps, NMSE largest {max(errs):.3e} (limit {NMSE_LIMIT})"
+                + (f"; plain routers held to the kernel path's choice at near-ties (step, "
+                   f"[(router call, row, experts, plain gap, largest score difference, input "
+                   f"NMSE)]): {holds}" if hold else ""))
+            if parted:
+                failures.append(f"{path}: decode logits NMSE past the limit (step, NMSE, routers "
+                                f"parted beyond a near-tie): {parted[:4]}; every step: {errs}")
             if near_ties:
                 held = len(gen_ids) - len(wrong)
                 log(f"{path}: the kernel path's {len(gen_ids)} greedy ids held teacher-forced: "
@@ -1546,17 +1621,23 @@ def main() -> int:
         kern = Context(model, graphs=False, **ctx_kw)
         plain = Context(ref_model or model, kernels=False, graphs=False, **ctx_kw)
         lk, lp = kern.prefill(prompt), plain.prefill(prompt)
-        ties, wrong = [], []
+        ties, wrong, n_held = [], [], 0
+        hold = RouteHold(NMSE_LIMIT) if model.cfg.n_expert else None
         for i, t in enumerate(ids):
             diff, gap = float(np.abs(lk - lp).max()), float(lp.max() - lp[t])
             if gap > diff:
                 wrong.append((i, t, int(np.argmax(lp)), round(gap, 5), round(diff, 5)))
             elif int(np.argmax(lp)) != t:
                 ties.append((i, round(gap, 5), round(diff, 5)))
-            lk, lp = kern.decode_one(t), plain.decode_one(t)
+            with hold.record() if hold else contextlib.nullcontext():
+                lk = kern.decode_one(t)
+            with hold.hold() if hold else contextlib.nullcontext():
+                lp = plain.decode_one(t)
+            n_held += len(hold.held) if hold else 0
         log(f"{path}: {len(ids)} ids held teacher-forced against the plain path: "
             f"{len(ids) - len(ties) - len(wrong)} its argmax, {len(ties)} near-ties (step, plain "
-            f"top gap, largest logit difference) {ties}")
+            f"top gap, largest logit difference) {ties}"
+            + (f"; plain routers held at {n_held} near-ties (RouteHold)" if hold else ""))
         if wrong:
             failures.append(f"{path}: ids off the plain path's argmax beyond a near-tie (step, "
                             f"id, plain argmax, gap, difference): {wrong[:4]}")
@@ -1767,7 +1848,7 @@ def main() -> int:
         return out.getvalue()
 
     def path_e(model, path, out_dir):
-        """The measurement tools on the 4-layer llama file: llama-bench
+        """The measurement tools on the 2-layer llama file: llama-bench
         (pp512 and tg32 through generate_ondevice, then the batched grid at
         B = 1 and 8), llama-perplexity on a seeded text of the fixture's
         vocabulary (2 chunks of 512; the head through K4 at 512 rows), its
@@ -2030,7 +2111,7 @@ def main() -> int:
             f"{grammar_ms:.1f} ms for its first token (host Python)")
 
     def path_d_features(model, cli_ids, ref_gen, run_cli, prompt):
-        """llama-cli's features beyond plain decoding on the 4-layer llama
+        """llama-cli's features beyond plain decoding on the 2-layer llama
         file, each run with its own load_model, greedy, each printed text
         against the same setup driven in this process: --spec-ngram
         --draft-max 8 against speculative_generate (its ids against
@@ -2222,7 +2303,7 @@ def main() -> int:
         ""])
 
     def path_f_features(model):
-        """llama-server's features beyond plain decoding on the 4-layer
+        """llama-server's features beyond plain decoding on the 2-layer
         llama: with --spec ngram (--draft-max 8, -np 4) one round of four
         concurrent 32-token greedy requests, ids against Context.generate's
         (held teacher-forced where they part); then at -c 512, -np 1, with
@@ -2369,7 +2450,7 @@ def main() -> int:
     del ctx
     against_plain("llama paged", model, logits, gen_ids, prompt,
                   **{**paged_kw, "n_seqs": 2, "kv_total": 8192})
-    log("llama paged rates (4-layer smoke run, not a benchmark; "
+    log(f"llama paged rates ({SMOKE_LAYERS}-layer smoke run, not a benchmark; "
         f"{card}): " + json.dumps(rates))
     gctx = graph_phase("llama paged", model, paged_kw, prompt, gen_ids, prompts512, (8, 32),
                        decode_keys + prefill_keys + paged_keys, server_steps=(1, 4, 8))
@@ -2416,7 +2497,7 @@ def main() -> int:
     if not err < NMSE_LIMIT:
         failures.append(f"llama slots vs paged: logits NMSE {err}")
     against_plain("llama slots", model, s_logits, s_ids, prompt, **{**slots_kw, "n_seqs": 2})
-    log(f"llama slots rates (4-layer smoke run, not a benchmark; {card}): " + json.dumps(rates))
+    log(f"llama slots rates ({SMOKE_LAYERS}-layer smoke run, not a benchmark; {card}): " + json.dumps(rates))
     graph_phase("llama slots", model, slots_kw, prompt, s_ids, prompts512[:8], (8,),
                 decode_keys + prefill_keys + slots_keys)
 
@@ -2650,6 +2731,41 @@ def main() -> int:
         if after != before:
             failures.append(f"{label}: the tied head launched a kernel: {before} -> {after}")
 
+    def library_route_phase(model, label):
+        """The products that the JAX package leaves to XLA (every matrix its
+        dispatch refuses, the head included, and the dense router) on the
+        port's library route, each timed at N=1 (a B=1 decode step's rows)
+        beside the byte bound of its planes: their sum over the layers is
+        what the library route costs a step; no kernel may launch."""
+        before = {k: v for c in counters for k, v in c.items()}
+        total = bound = 0.0
+        parts = []
+        mats = [(f"layer {il} {k}", w) for il, lw in enumerate(model.params["layers"])
+                for k, w in lw.items()] + [("head", model.params.get("output"))]
+        for name, w in mats:
+            if isinstance(w, qtensor.QuantTensor):
+                if w.q.dim() != 2 or qmm.dispatches(w):
+                    continue
+                k_in, nbytes = w.in_features, plane_bytes(w)
+                what = f"{GGMLType(w.ggml_type).name} {tuple(w.q.shape)}"
+            elif isinstance(w, torch.Tensor) and w.dim() == 2 and not name.endswith("_bias"):
+                k_in, nbytes = w.shape[1], w.numel() * w.element_size()
+                what = f"dense {tuple(w.shape)}"
+            else:
+                continue
+            x = torch.randn((1, k_in), device="cuda").to(torch.bfloat16)
+            ms = timer(lambda: qtensor.matmul(x, w, dtype=torch.float32), reps=5)
+            total += ms
+            bound += nbytes / HBM_BYTES_PER_S * 1e3
+            if name.startswith("layer 0 ") or name == "head":
+                parts.append(f"{name} {what} {ms:.4f} ms")
+        log(f"{label} library route at N=1 ({card}): {total:.4f} ms a step over every layer and "
+            f"the head, byte bound {bound:.4f} ms; " + "; ".join(parts))
+        after = {k: v for c in counters for k, v in c.items()}
+        if after != before:
+            failures.append(f"{label}: the library route launched a kernel: {before} -> {after}")
+        return total
+
     def weight_routes(model, layers) -> str:
         """Each matrix of the given layers (and the head): its storage and
         the route its products take: a qmm kernel (K1/K3 nibble planes, K2/K4
@@ -2679,17 +2795,18 @@ def main() -> int:
 
     def arch_path(label, make, n_layers, vocab, must_run, note, profile_qe=None,
                   server=False, n_gen=32, full=True, want_layout=None, near_ties=False,
-                  keep=False, routes=False):
+                  keep=False, routes=False, library=False, batch=8):
         """One family's model at full width, depth cut to n_layers: load,
         drive (prefill 2048, n_gen greedy tokens at B=1, decode_steps_greedy
-        at B=8), its kernel set, the plain path on the prefill logits, 8
+        at B=batch), its kernel set, the plain path on the prefill logits, 8
         teacher-forced decode steps' logits and the greedy ids; with full
-        also the B=1 profile, the graph phase at B=8 and the tied head's
+        also the B=1 profile, the graph phase at B=batch and the tied head's
         library route where the model has no output.weight; with server=True
         one served round. want_layout: the layout every quantized matmul
         weight must have; near_ties: against_plain's rule for varied ids;
         keep: return the loaded model for a later path; routes: log every
-        matrix's route (weight_routes) of the first and last layers."""
+        matrix's route (weight_routes) of the first and last layers;
+        library: time the library route's products (library_route_phase)."""
         path = os.path.join(smoke_dir, f"{label}.gguf")
         t0 = time.perf_counter()
         make(path, n_layers=n_layers, seed=0)
@@ -2726,7 +2843,7 @@ def main() -> int:
         prompt = [int(t) for t in prng.integers(3, vocab, 2048)]
         prompts512 = [[int(t) for t in prng.integers(3, vocab, 512)] for _ in range(8)]
         reset_counts()
-        logits, gen_ids, rates = drive(ctx, prompt, prompts512, vocab, (8,), label, n_gen)
+        logits, gen_ids, rates = drive(ctx, prompt, prompts512, vocab, (batch,), label, n_gen)
         all_counts[label] = read_counts(label, must_run)
         if full:
             profile_decode(torch, qmm, ctx, steps=8, qe=profile_qe)
@@ -2734,11 +2851,14 @@ def main() -> int:
         against_plain(label, model, logits, gen_ids, prompt, decode_logits=8,
                       near_ties=near_ties, **{**kw, "n_seqs": 2})
         log(f"{label} rates ({n_layers}-layer smoke run, not a benchmark; {card}): "
-            + json.dumps(rates))
+            + json.dumps(rates) + f"; held against the plain path at "
+            f"{time.perf_counter() - t_all:.1f} s")
         if full:
-            graph_phase(label, model, kw, prompt, gen_ids, prompts512, (8,), must_run)
+            graph_phase(label, model, kw, prompt, gen_ids, prompts512, (batch,), must_run)
             if "output" not in model.params:
                 tied_head_phase(model, label)
+        if library:
+            library_route_phase(model, label)
         if server:
             server_round(model, f"{label} server", must_run=must_run, near_ties=near_ties)
         if keep:
@@ -2777,7 +2897,7 @@ def main() -> int:
                 must.update((decode_keys[i],) + ((prefill_keys[i],) if ubatch else ()))
         if not cfg.alibi_bias:
             must.update(paged_keys)
-            if cfg.sliding_window:
+            if cfg.sliding_window and cfg.swa_pattern:  # ISWA: the window layers on rings
                 must.update(slots_keys + ring_keys)
         vocab = cfg.vocab_size
         ctx_kw = dict(n_ctx=1024, n_seqs=2, n_ubatch=512, quantized_kv=True)
@@ -3290,25 +3410,69 @@ def main() -> int:
         n_gen=16, near_ties=True, routes=True)
     t0 = time.perf_counter()
     for arch, layout in FAMILY_LAYOUTS.items():
-        if arch not in ("starcoder2", "command-r"):
+        if arch not in ("starcoder2", "command-r", "gpt-oss", "llama4"):
             family_path(arch, layout)
     torch.cuda.empty_cache()
-    # the default synthetic scale on a narrow StarCoder2: logged, not held
-    path = os.path.join(smoke_dir, "family-starcoder2-scale1.gguf")
-    make_bench_arch_gguf(path, "starcoder2", **FAMILY_SHAPE, **FAMILY_LAYOUTS["starcoder2"],
-                         seed=0)
-    sc_model = load_model(path)
-    os.remove(path)
-    sc_prompt = [int(t) for t in prng.integers(3, FAMILY_SHAPE["vocab_size"], FAMILY_PROMPT)]
-    sc_kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=512, quantized_kv=True)
-    sc_err = nmse(torch.from_numpy(Context(sc_model, **sc_kw).prefill(sc_prompt)),
-                  torch.from_numpy(Context(sc_model, kernels=False, **sc_kw).prefill(sc_prompt)))
-    del sc_model
-    log(f"family starcoder2 at the default synthetic scale (n_embd 1024; {card}): kernel path "
-        f"against the plain path, prefill logits NMSE {sc_err:.3e} (logged, not held: near "
-        "one-hot attention, bf16 q and P in the kernels against the plain path's f32)")
-    log(f"the other {len(FAMILY_LAYOUTS) - 2} dense-decoder families: "
+
+    def default_scale(arch):
+        """The default synthetic scale on a narrow file of a biased family:
+        logged, not held."""
+        path = os.path.join(smoke_dir, f"family-{arch}-scale1.gguf")
+        make_bench_arch_gguf(path, arch, **{**FAMILY_SHAPE, **FAMILY_LAYOUTS[arch]}, seed=0)
+        sc_model = load_model(path)
+        os.remove(path)
+        sc_prompt = [int(t) for t in prng.integers(3, FAMILY_SHAPE["vocab_size"],
+                                                   FAMILY_PROMPT)]
+        sc_kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=512, quantized_kv=True)
+        sc_err = nmse(torch.from_numpy(Context(sc_model, **sc_kw).prefill(sc_prompt)),
+                      torch.from_numpy(Context(sc_model, kernels=False,
+                                               **sc_kw).prefill(sc_prompt)))
+        del sc_model
+        log(f"family {arch} at the default synthetic scale (n_embd 1024; {card}): kernel path "
+            f"against the plain path, prefill logits NMSE {sc_err:.3e} (logged, not held: near "
+            "one-hot attention, bf16 q and P in the kernels against the plain path's f32)")
+
+    default_scale("starcoder2")
+    log(f"the other {len(FAMILY_LAYOUTS) - 4} families (dense and MoE): "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # the MoE families at full width: gpt-oss-20B (K7 at 2880, its 64-wide
+    # last column tile; sinks on K5 and in K6's ring mode at prefill) and
+    # Llama-4-Scout (K1-K5, K5 at G = 5, K7 at top 1)
+    gpt_oss_keys = (expert_key, "flash_attention_paged/prefill", "flash_attention/prefill",
+                    "flash_attention/prefill ring")
+    arch_path(
+        "gpt-oss-20b",
+        functools.partial(make_bench_gpt_oss_gguf, synth_scale=FAMILY_SYNTH_SCALE),
+        GPT_OSS_LAYERS, 201088, gpt_oss_keys,
+        "gpt-oss-20B shape (openai/gpt-oss-20b config.json: n_embd 2880, 64 query heads on 8 "
+        "KV heads of 64 with sinks, q/k/v and output biases, window 128 on even layers and "
+        "full attention on odd ones, NEOX rope 150000 (freq_base_swa the same) with YaRN "
+        "factor 32 from 4096, 32 experts of 2880 top 4 (softmax over the top 4 of the biased "
+        "router's logits), expert biases, the clamped oai GLU, vocab 201088; depth 24 -> "
+        f"{GPT_OSS_LAYERS}), experts MXFP4, every other matrix Q8_0: K % 256 != 0 or O % 128 "
+        "!= 0, so every dense product and the head take the library route, as the JAX "
+        "package leaves them to XLA; attention at 8 rows a KV head a decode token takes the "
+        "einsum path, as the JAX package's; B = 4 (16 pairs: K7's gather route; at 8 the "
+        "per-expert route); synthetic block scales / 256",
+        profile_qe=qmm_expert, server=True, near_ties=True, routes=True, library=True,
+        batch=4)
+    default_scale("gpt-oss")
+    arch_path(
+        "llama4-scout",
+        functools.partial(make_bench_llama4_gguf, synth_scale=FAMILY_SYNTH_SCALE),
+        SCOUT_LAYERS, 202048, full_keys + (expert_key,),
+        "Llama-4-Scout-17B-16E shape (meta-llama/Llama-4-Scout-17B-16E config.json, text "
+        "config: n_embd 5120, 40 heads on 8 KV heads of 128 (G = 5), NORM rope 500000 with "
+        "layer 3 NoPE, the weightless q/k norm after rope, 16 experts of 8192 top 1 by sigmoid "
+        "with the gate on the expert input, an ungated shared expert of 8192, vocab 202048; "
+        f"depth 48 -> {SCOUT_LAYERS}), Q4_K_M mix; synthetic block scales / 256",
+        profile_qe=qmm_expert, server=True, near_ties=True, routes=True)
+    for key, row in res["qmm_planes_expert"]["rows"].items():
+        path = next((p for p in ("gpt-oss-20b", "llama4-scout") if key.startswith(p[:6])), None)
+        if path is not None:  # the model path's own launches, graph replays included
+            row["launches"] = all_counts[path][expert_key] + all_counts[f"{path} graphs"][
+                expert_key]
 
     # DeepSeek's Multi-head Latent Attention: K5/K6's MLA instantiation
     mla_paged = ("flash_attention_paged/mla decode", "flash_attention_paged/mla prefill")
@@ -3405,7 +3569,7 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **({k: r[k] for k in ("kernel", "tile", "rows", "types") if k in r})})
-    log("decode loop, graphed and eager, ms a step by path and B (4-layer smoke run, not a "
+    log("decode loop, graphed and eager, ms a step by path and B (smoke runs, not a "
         f"benchmark; {card}): " + json.dumps(graph_rows))
     log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s")
     log(f"card: {gpu_line()}")

@@ -10,7 +10,9 @@
 // [0, E), where
 //   W[e][k, o] = q[e, k, o] * scales[e, k/g, o] + mins[e, k/g, o]   (mins or 0)
 // over int8 planes q [E, K, O] with flat f32 scales (and mins) [E, K/g, O],
-// g = 16 or 32. The TPU kernel rounds q * scale to bf16 before its dot; this
+// g = 16 or 32, K a multiple of the 64-row stage and O of 64 (the last column
+// tile half full where O % 128 = 64: its TMA boxes read zeros past O and its
+// columns there are never stored). The TPU kernel rounds q * scale to bf16 before its dot; this
 // kernel keeps q exact and scales each group's f32 sum once (an NMSE near
 // 1e-6 from the plain version, ops/kernels/qmm_expert.py).
 //
@@ -242,7 +244,7 @@ qmm_expert_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x;
   const int wid = tid >> 5, wlane = tid & 31;
 
-  const int col_tiles = O / kBN;
+  const int col_tiles = (O + kBN - 1) / kBN;  // the last one half full where O % 128 = 64
   const int k_units = K / kRows;
   const uint32_t stage_bytes = kPlaneBytes + kChunks * kBN * 4 * (MINS ? 2 : 1);
   const int n0 = wlane >> 3, ch = wlane & 7;  // a producer lane's x chunks: rows n0, n0 + 4
@@ -408,7 +410,9 @@ qmm_expert_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int nr = gsize[w.gi];
       const float* eb = ebuf + b * kEpiFloats;
       float* dst = splits > 1 ? part + (size_t)w.sp * R * O : out;
-      for (int r = 0; r < nr; ++r) {
+      // a lane's 4 columns lie wholly before O or wholly past it (O % 64 = 0)
+      const bool live = w.o_blk + 4 * lane < O;
+      for (int r = 0; r < nr && live; ++r) {
         const int j = r & 1;
         const int kk = k + (r >> 1);  // the slice thread with t = r / 2
         const float* e0 = eb + kk + (kk >> 5);
@@ -428,7 +432,7 @@ qmm_expert_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (!__shfl_sync(0xffffffffu, last, 0)) continue;
       __threadfence();
       const size_t stride = (size_t)R * O;
-      for (int r = 0; r < nr; ++r) {
+      for (int r = 0; r < nr && live; ++r) {
         const size_t off = (size_t)members[w.gi][r] * O + w.o_blk + 4 * lane;
         float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int sp = 0; sp < splits; sp += 4) {
@@ -633,10 +637,11 @@ extern "C" int qmm_expert_split_count(int col_tiles, int n_groups, int k_units, 
 
 // Encode the stack's tensor maps into maps_out (3 x 128 bytes): q [E*K, O]
 // int8 in 128 x 64 boxes (128-byte swizzle), scales and mins [E*K/g, O] f32
-// in 128 x 64/g boxes (mn null: no mins). Returns 0, or cudaErrorInvalidValue.
+// in 128 x 64/g boxes (mn null: no mins); a box past O's end reads zeros
+// there. Returns 0, or cudaErrorInvalidValue.
 extern "C" int qmm_expert_encode(const void* q, const void* sc, const void* mn, int E, int K,
                                  int O, int group, void* maps_out) {
-  if ((group != 16 && group != 32) || O % kBN != 0 || K % 256 != 0 ||
+  if ((group != 16 && group != 32) || O % 64 != 0 || K % kRows != 0 ||
       (long long)E * K >= (1ll << 31)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -656,8 +661,8 @@ extern "C" int qmm_expert_encode(const void* q, const void* sc, const void* mn, 
 
 // maps: from qmm_expert_encode; x [R, K] bf16 (16-byte aligned); ids [R]
 // int32 (clamped to [0, E)); part [max_splits, R, O] f32 scratch (max_splits
-// > 1); counters [2 + O/128 * R] int32, zero, left zero; out [R, O] f32. group is
-// 16 or 32 (mins: the maps hold mins), K a multiple of 256, O of 128, 1 <= R
+// > 1); counters [2 + ceil(O/128) * R] int32, zero, left zero; out [R, O] f32. group is
+// 16 or 32 (mins: the maps hold mins), K a multiple of 64, O of 64, 1 <= R
 // <= 512, E < 32768; slots from qmm_expert_slots; grid, 1 to slots blocks
 // (any count works: units past the grid are fetched); hint_splits, the
 // kernel's split at R groups where the rows may pick distinct experts (R <=
@@ -667,7 +672,7 @@ extern "C" int qmm_expert_launch(const void* maps, const void* x, const void* id
                                  int mins, int slots, int max_splits, int grid, int hint_splits,
                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 0 || R > kMaxRows || E <= 0 || E > 32767 || O % kBN != 0 || K % 256 != 0 || slots <= 0 ||
+  if (R <= 0 || R > kMaxRows || E <= 0 || E > 32767 || O % 64 != 0 || K % kRows != 0 || slots <= 0 ||
       max_splits <= 0 || max_splits > kMaxSplits || grid <= 0 || hint_splits < 0 ||
       hint_splits > max_splits || (hint_splits > 0 && (K / kRows) % hint_splits != 0) ||
       (group != 16 && group != 32) ||

@@ -4,7 +4,8 @@ Analog of reference src/llama-hparams.h + load_arch_hparams (src/models/
 llama.cpp:3-33); the subset of the JAX package's ModelConfig that the
 decoder families of the port's registry (models/registry.py) read, with
 the block variants of the shared decoder (LayerNorm, the non-gated FFN,
-parallel and norm-after residuals, residual scales, ALiBi). from_gguf
+parallel and norm-after residuals, residual scales, ALiBi) and its MoE
+variants (gatings, the clamped oai GLU). from_gguf
 reads the metadata; the registry's entry for the architecture then sets
 that family's flags.
 """
@@ -71,28 +72,44 @@ class ModelConfig:
     n_expert: int = 0
     n_expert_used: int = 0
     # router probability function: softmax | sigmoid | softmax_weight (top-k
-    # on the logits, then softmax over the selected k)
+    # on the logits, then softmax over the selected k: gpt-oss) |
+    # sqrt_softplus | sparsemixer (phimoe's two masked-argmax picks)
     expert_gating: str = "softmax"
+    moe_act: str = ""  # "" -> act (gated); "swiglu_oai" -> gpt-oss's clamped GLU
     expert_weights_norm: bool = False
     expert_weights_scale: float = 1.0
     n_ff_exp: int = 0
     n_expert_shared: int = 0
+    # llama4's interleave step, held as the JAX config holds it; neither package
+    # reads it: which layers carry experts is the file's
+    moe_every: int = 1
 
     tie_embeddings: bool = False
     compute_dtype: torch.dtype = torch.bfloat16
     # per-family keys the decoder reads: no_rope_layers (NoPE layer ids),
     # qk_norm_full (q/k RMSNorm over the whole projection), qk_norm_after_rope,
-    # weightless_norm (LayerNorm without tensors), clamp_kqv, rope_freq_base_swa
-    # and the MLA keys (models/registry.py)
+    # weightless_norm (LayerNorm without tensors), clamp_kqv, rope_freq_base_swa,
+    # is_swa_layers / swa_first_global (which layers attend over the window),
+    # the MoE keys (moe_weight_before, router_jitter, router_raw_input,
+    # dense_moe_scale, n_group_experts, expert_group_scale, n_chunk_expert),
+    # tensor_remap (the loader's) and the MLA keys (models/registry.py)
     extra: dict[str, Any] = field(default_factory=dict)
 
     def is_swa_layer(self, il: int) -> bool:
-        """Whether layer il attends over the sliding window: every layer when
-        there is a window and no pattern, else all but every swa_pattern-th."""
+        """Whether layer il attends over the sliding window: as the per-layer
+        array is_swa_layers says where the family has one (mimo2, step35),
+        else every layer when there is a window and no pattern, else all but
+        every swa_pattern-th (the first of each period with swa_first_global:
+        cohere2moe)."""
         if self.sliding_window <= 0:
             return False
+        arr = self.extra.get("is_swa_layers")
+        if arr is not None:
+            return bool(arr[il])
         if self.swa_pattern <= 0:
             return True
+        if self.extra.get("swa_first_global"):
+            return il % self.swa_pattern != 0
         return (il + 1) % self.swa_pattern != 0
 
     @classmethod

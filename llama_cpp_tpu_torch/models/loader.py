@@ -44,6 +44,7 @@ LAYER_TENSORS = {
     "attn_k_norm.weight": "attn_k_norm",
     "attn_post_norm.weight": "attn_post_norm",
     "post_attention_norm.weight": "attn_post_norm",
+    "attn_out_norm.weight": "attn_post_norm",  # grok's attention output norm
     "attn_sinks.weight": "attn_sinks",
     # per-tensor scalar scales (folded into the weight at load)
     "attn_q.scale": "attn_q.__scale",
@@ -63,10 +64,16 @@ LAYER_TENSORS = {
     "ffn_down.bias": "ffn_down_bias",
     "ffn_post_norm.weight": "ffn_post_norm",
     "post_ffw_norm.weight": "ffn_post_norm",
-    # mixture of experts: router, stacked experts, shared experts
+    # mixture of experts: router, stacked experts, shared experts, arctic's
+    # MoE-branch norm, GroveMoE's chunk experts
     "ffn_gate_inp.weight": "ffn_gate_inp",
     "ffn_gate_inp.bias": "ffn_gate_inp_bias",
     "exp_probs_b.bias": "exp_probs_b",
+    "exp_probs_b": "exp_probs_b",
+    "ffn_norm_exps.weight": "ffn_norm_exps",
+    "ffn_gate_chexps.weight": "ffn_gate_chexps",
+    "ffn_up_chexps.weight": "ffn_up_chexps",
+    "ffn_down_chexps.weight": "ffn_down_chexps",
     "ffn_gate_exps.weight": "ffn_gate_exps",
     "ffn_up_exps.weight": "ffn_up_exps",
     "ffn_down_exps.weight": "ffn_down_exps",
@@ -173,6 +180,9 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
                 target = layers[int(il)]
         if key is None or target is None:
             continue
+        # a family's own name for a role (gpt-oss stores its pre-FFN norm as
+        # attn_post_norm; chatglm and plamo3 their fused gate|up as ffn_up)
+        key = cfg.extra.get("tensor_remap", {}).get(key, key)
         dense = key in _DENSE_KEYS or len(info.shape) == 1
         # matmul weights store transposed planes; the embedding table stays
         # row-major for the row gather

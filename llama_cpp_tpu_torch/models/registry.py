@@ -6,9 +6,9 @@ for the entries whose graph is the port's shared decoder: each entry takes
 the config read from the metadata and the metadata itself, and sets that
 family's flags. Any other architecture raises NotImplementedError, among
 them deepseek32 (DeepSeek's sparse attention needs the DSA memory),
-deepseek2-ocr (it comes with the multimodal path), llama4 (interleaved MoE
-with the gate on the expert input), gpt-oss (the clamped oai GLU and a
-tensor remap), chatglm (a tensor remap) and phimoe (sparsemixer routing).
+deepseek2-ocr (it comes with the multimodal path), afmoe and laguna
+(attention output gates), minimax-m3 (its block-sparse attention), lfm2moe
+(the hybrid memory) and the encoder MoE entries.
 """
 
 from __future__ import annotations
@@ -435,3 +435,288 @@ def _starcoder(cfg: ModelConfig, md) -> ModelConfig:
     (MQA), a GELU FFN with biases; the head falls back to token_embd."""
     return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False, act="gelu", glu=False,
                      tie_embeddings=True)
+
+
+# -- the mixture-of-experts families on the shared decoder -------------------
+# (the JAX package's registry.py entries of the same names, its line given)
+
+
+def _gating(md, key: str, default: int) -> str:
+    """The metadata's expert_gating_func (1 softmax, 2 sigmoid); a missing
+    or unknown value takes the default's."""
+    names = {1: "softmax", 2: "sigmoid"}
+    return names.get(int(md.get(key, default) or default), names[default])
+
+
+def _swa_base(cfg: ModelConfig, md, a: str) -> None:
+    """The window layers' rope base, where the file sets one."""
+    swa_base = md.get(f"{a}.rope.freq_base_swa")
+    if swa_base:
+        cfg.extra["rope_freq_base_swa"] = float(swa_base)
+
+
+def _swa_pattern_extra(cfg: ModelConfig, md, a: str, scalar_is_array: bool = False
+                       ) -> ModelConfig:
+    """The window pattern as a scalar period or a per-layer array
+    (is_swa_layers), and the window layers' rope base (the JAX package's
+    registry.py:1444). With scalar_is_array (mimo2, step35) a scalar key
+    broadcasts to every layer: any nonzero scalar makes every layer a window
+    layer."""
+    pat = md.get(f"{a}.attention.sliding_window_pattern", 4)
+    if isinstance(pat, (list, tuple)) or hasattr(pat, "__len__"):
+        cfg.extra["is_swa_layers"] = tuple(bool(int(v)) for v in pat)
+        pat_i = 0
+    elif scalar_is_array:
+        cfg.extra["is_swa_layers"] = tuple([bool(int(pat))] * cfg.n_layers)
+        pat_i = 0
+    else:
+        pat_i = int(pat)
+    _swa_base(cfg, md, a)
+    return cfg.with_(sliding_window=int(md.get(f"{a}.attention.sliding_window", 0)),
+                     swa_pattern=pat_i)
+
+
+@register("llama4")  # 53
+def _llama4(cfg: ModelConfig, md) -> ModelConfig:
+    """Llama 4: sigmoid routing whose gate weight scales the expert input, an
+    always-on shared expert, NoPE layers, and the weightless q/k norm after
+    rope on the rope layers."""
+    skip = _no_rope_from(md, "llama4.no_rope_layers")
+    if skip is not None:
+        cfg.extra["no_rope_layers"] = skip
+    cfg.extra.update(moe_weight_before=True, qk_norm_after_rope=True)
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, qk_norm=bool(md.get("llama4.use_qk_norm", False)),
+                     expert_gating="sigmoid", n_expert_shared=1,
+                     moe_every=int(md.get("llama4.interleave_moe_layer_step", 1)))
+
+
+@register("deepseek")  # 749
+def _deepseek(cfg: ModelConfig, md) -> ModelConfig:
+    """DeepSeek V1: softmax routing, scaled weights, shared experts, dense
+    lead layers."""
+    return cfg.with_(rope_type=ROPE_TYPE_NORM,
+                     expert_weights_scale=float(md.get("deepseek.expert_weights_scale", 1.0)))
+
+
+@register("dots1")  # 1010
+def _dots1(cfg: ModelConfig, md) -> ModelConfig:
+    """dots.llm1: DeepSeek-V3-style routing (sigmoid, selection bias,
+    normalised weights) with per-head q/k norms."""
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True,
+                     expert_gating="sigmoid"
+                     if int(md.get("dots1.expert_gating_func", 2)) == 2 else "softmax",
+                     expert_weights_norm=bool(md.get("dots1.expert_weights_norm", True)),
+                     expert_weights_scale=float(md.get("dots1.expert_weights_scale", 1.0)))
+
+
+@register("glm4moe")  # 1024
+def _glm4moe(cfg: ModelConfig, md) -> ModelConfig:
+    """GLM-4.5: partial NEOX rope, optional q/k norms, sigmoid routing with a
+    selection bias, a shared expert and dense lead layers."""
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX,
+                     qk_norm=bool(md.get("glm4moe.attention.use_qk_norm", False)),
+                     expert_gating="sigmoid",
+                     expert_weights_norm=bool(md.get("glm4moe.expert_weights_norm", True)),
+                     expert_weights_scale=float(md.get("glm4moe.expert_weights_scale", 1.0)))
+
+
+@register("phimoe")  # 1038
+def _phimoe(cfg: ModelConfig, md) -> ModelConfig:
+    """PhiMoE: LayerNorm blocks with biases and the sparsemixer router."""
+    cfg.extra["router_jitter"] = float(md.get("phimoe.router_jitter", 0.01))
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, expert_gating="sparsemixer")
+
+
+@register("gpt-oss")  # 1074
+def _gpt_oss(cfg: ModelConfig, md) -> ModelConfig:
+    """gpt-oss: window and full layers in turn, attention sinks, q/k/v and
+    output biases, a biased router taking the top k of its logits then a
+    softmax over them, the clamped oai GLU on biased experts; the file stores
+    the pre-FFN norm as attn_post_norm."""
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX,
+                  swa_pattern=int(md.get("gpt-oss.attention.sliding_window_pattern", 2)),
+                  expert_gating="softmax_weight", moe_act="swiglu_oai",
+                  expert_weights_norm=False)
+    _swa_base(c, md, "gpt-oss")
+    c.extra["tensor_remap"] = {"attn_post_norm": "ffn_norm"}
+    return c
+
+
+@register("chatglm")  # 1109
+def _chatglm(cfg: ModelConfig, md) -> ModelConfig:
+    """ChatGLM: a fused QKV with bias; its one ffn_up holds gate|up."""
+    cfg.extra["tensor_remap"] = {"ffn_up": "ffn_gateup"}
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("grok")  # 1141
+def _grok(cfg: ModelConfig, md) -> ModelConfig:
+    """Grok-1: GELU experts (plus a dense FFN, the sum scaled by sqrt(2)/2),
+    attention logits scaled inside a 30.0 tanh softcap, embedding and logit
+    scales, post-norms on both halves."""
+    a = cfg.arch
+    cfg.extra["dense_moe_scale"] = 0.7071067811865476
+    return cfg.with_(
+        rope_type=ROPE_TYPE_NEOX, act="gelu", expert_weights_norm=True,
+        embd_scale=float(md.get(f"{a}.embedding_scale", 78.38367176906169)),
+        logit_scale=float(md.get(f"{a}.logit_scale", 0.5773502691896257)),
+        attn_scale=float(md.get(f"{a}.attention.output_scale", 0.08838834764831845)),
+        attn_logit_softcap=float(md.get(f"{a}.attn_logit_softcapping", 30.0)),
+        final_logit_softcap=float(md.get(f"{a}.final_logit_softcapping", 0.0)),
+        post_norms=True)
+
+
+@register("arctic")  # 1163
+def _arctic(cfg: ModelConfig, md) -> ModelConfig:
+    """Snowflake Arctic: a dense FFN plus an MoE branch on its own norm of
+    the layer input (ffn_norm_exps)."""
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, expert_weights_norm=True)
+
+
+@register("bailingmoe")  # 1204
+def _bailingmoe(cfg: ModelConfig, md) -> ModelConfig:
+    """Ling: softmax routing, shared experts, dense lead layers."""
+    a = cfg.arch
+    return cfg.with_(rope_type=ROPE_TYPE_NORM,
+                     expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", False)),
+                     expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+                     n_expert_shared=int(md.get(f"{a}.expert_shared_count", 0)))
+
+
+@register("smallthinker")  # 1218
+def _smallthinker(cfg: ModelConfig, md) -> ModelConfig:
+    """SmallThinker: ReLU experts, the router fed the raw residual stream."""
+    cfg.extra["router_raw_input"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, act="relu", expert_weights_norm=True,
+                     expert_gating=_gating(md, f"{cfg.arch}.expert_gating_func", 1))
+
+
+@register("mellum")  # 1253
+def _mellum(cfg: ModelConfig, md) -> ModelConfig:
+    """Mellum: per-head q/k norms, normalised MoE, an optional window
+    pattern with its own rope base."""
+    a = cfg.arch
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, expert_weights_norm=True,
+                  sliding_window=int(md.get(f"{a}.attention.sliding_window", 0)),
+                  swa_pattern=int(md.get(f"{a}.attention.sliding_window_pattern", 4)))
+    _swa_base(c, md, a)
+    return c
+
+
+@register("minimax-m2")  # 1277
+def _minimax_m2(cfg: ModelConfig, md) -> ModelConfig:
+    """MiniMax-M2: q/k RMSNorm over the whole projection, routing with a
+    selection bias."""
+    a = cfg.arch
+    cfg.extra["qk_norm_full"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True,
+                     expert_gating=_gating(md, f"{a}.expert_gating_func", 2),
+                     expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", True)),
+                     expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)))
+
+
+@register("hunyuan-moe")  # 1294
+def _hunyuan_moe(cfg: ModelConfig, md) -> ModelConfig:
+    """HunYuan-MoE: per-head q/k norms after rope, normalised MoE and a
+    shared expert."""
+    cfg.extra["qk_norm_after_rope"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, expert_weights_norm=True,
+                     n_expert_shared=max(1, int(md.get(f"{cfg.arch}.expert_shared_count", 1))))
+
+
+@register("exaone-moe")  # 1308
+def _exaone_moe(cfg: ModelConfig, md) -> ModelConfig:
+    """EXAONE-MoE: per-head q/k norms, ISWA (window 128, period 4) with rope
+    on the window layers only, MoE with a shared expert."""
+    a = cfg.arch
+    c = cfg.with_(
+        rope_type=ROPE_TYPE_NEOX, qk_norm=True,
+        sliding_window=int(md.get(f"{a}.attention.sliding_window", 128)),
+        swa_pattern=int(md.get(f"{a}.attention.sliding_window_pattern", 4)),
+        n_expert_shared=int(md.get(f"{a}.expert_shared_count", 0)),
+        expert_gating=_gating(md, f"{a}.expert_gating_func", 1),
+        expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", False)),
+        expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)))
+    c.extra["no_rope_layers"] = tuple(il for il in range(c.n_layers) if not c.is_swa_layer(il))
+    _swa_base(c, md, a)
+    return c
+
+
+@register("cohere2moe")  # 1335
+def _cohere2moe(cfg: ModelConfig, md) -> ModelConfig:
+    """Command-A MoE: cohere2's parallel residual on ISWA with rope on the
+    window layers only, the first layer of each period global, RMSNorm where
+    the metadata has its epsilon (else LayerNorm), MoE and shared experts."""
+    a = cfg.arch
+    cfg.extra["swa_first_global"] = True
+    c = cfg.with_(
+        rope_type=ROPE_TYPE_NORM, use_rms_norm=f"{a}.attention.layer_norm_rms_epsilon" in md,
+        parallel_residual=True, shared_parallel_norm=True,
+        logit_scale=float(md.get(f"{a}.logit_scale", 1.0)),
+        sliding_window=int(md.get(f"{a}.attention.sliding_window", 0)),
+        swa_pattern=int(md.get(f"{a}.attention.sliding_window_pattern", 4)),
+        expert_gating=_gating(md, f"{a}.expert_gating_func", 2),
+        expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", False)),
+        expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+        n_expert_shared=int(md.get(f"{a}.expert_shared_count", 0)),
+        tie_embeddings=True)
+    if c.sliding_window > 0:
+        c.extra["no_rope_layers"] = tuple(il for il in range(c.n_layers)
+                                          if not c.is_swa_layer(il))
+    return c
+
+
+@register("bailingmoe2")  # 1470
+def _bailingmoe2(cfg: ModelConfig, md) -> ModelConfig:
+    """Ling/Ring 2.0: per-head q/k norms, dense lead layers, MoE with a
+    selection bias and a shared expert."""
+    a = cfg.arch
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True,
+                     expert_gating=_gating(md, f"{a}.expert_gating_func", 1),
+                     expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", False)),
+                     expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+                     n_expert_shared=int(md.get(f"{a}.expert_shared_count", 0)))
+
+
+@register("step35")  # 1488
+def _step35(cfg: ModelConfig, md) -> ModelConfig:
+    """Step-3.5: sigmoid-routed MoE with a shared expert, the window pattern
+    per layer with its own rope base."""
+    a = cfg.arch
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX,
+                  expert_gating=_gating(md, f"{a}.expert_gating_func", 2),
+                  expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", False)),
+                  expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+                  n_expert_shared=int(md.get(f"{a}.expert_shared_count", 0)))
+    return _swa_pattern_extra(c, md, a, scalar_is_array=True)
+
+
+@register("mimo2")  # 1506
+def _mimo2(cfg: ModelConfig, md) -> ModelConfig:
+    """MiMo-2: sigmoid-routed normalised MoE, the window pattern per layer,
+    attention sinks."""
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, expert_gating="sigmoid",
+                  expert_weights_norm=True)
+    return _swa_pattern_extra(c, md, cfg.arch, scalar_is_array=True)
+
+
+@register("grovemoe")  # 1519
+def _grovemoe(cfg: ModelConfig, md) -> ModelConfig:
+    """GroveMoE: softmax MoE plus per-group chunk experts on the mix's
+    output, scaled by expert_group_scale; per-head q/k norms."""
+    a = cfg.arch
+    cfg.extra.update(n_group_experts=int(md.get(f"{a}.experts_per_group", 1)),
+                     expert_group_scale=float(md.get(f"{a}.expert_group_scale", 0.05)))
+    n_exp = int(md.get(f"{a}.expert_count", 0) or 0)
+    if n_exp:
+        cfg.extra["n_chunk_expert"] = max(1, n_exp // max(1, cfg.extra["n_group_experts"]))
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True)
+
+
+@register("plamo3")  # 1619
+def _plamo3(cfg: ModelConfig, md) -> ModelConfig:
+    """PLaMo-3: a fused QKV, per-head q/k norms, post-norms on both halves,
+    one ffn_up holding gate|up, an optional window with its own rope base."""
+    cfg.extra["tensor_remap"] = {"ffn_up": "ffn_gateup"}
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, post_norms=True)
+    return _swa_pattern_extra(c, md, cfg.arch)

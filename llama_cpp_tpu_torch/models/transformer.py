@@ -1,10 +1,13 @@
 """Decoder transformer forward pass shared by the registry's families
 (llama, mistral, qwen2/3, qwen2moe/3moe, gemma/2/3, deepseek2 with its
-Multi-head Latent Attention, and the families that differ from them only in
+Multi-head Latent Attention, the families that differ from them only in
 block variants: LayerNorm with biases, the non-gated FFN, parallel and
 norm-after residuals, residual scales, ALiBi, NoPE layers, learned
-positions), dense or mixture-of-experts, on the paged KV pool, the
-slot-table cache or the interleaved sliding-window memory (ISWACache).
+positions; and the MoE families: gpt-oss's clamped GLU, llama4's gate on
+the expert input, sparsemixer and sqrt_softplus routing, dense FFNs beside
+the experts, arctic's MoE branch, GroveMoE's chunk experts), dense or
+mixture-of-experts, on the paged KV pool, the slot-table cache or the
+interleaved sliding-window memory (ISWACache).
 
 Analog of reference llm_graph_context build_attn / build_ffn / build_moe_ffn
 (src/llama-graph.h:1048-1143, src/llama-graph.cpp:1955-2075) and the llama,
@@ -304,28 +307,87 @@ def ffn_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     return _add_bias(matmul(h, lw["ffn_down"], kernels=kernels), lw, "ffn_down_bias")
 
 
-def _route(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor, kernels: bool):
+def swiglu_oai(g: torch.Tensor, u: torch.Tensor, alpha: float = 1.702,
+               limit: float = 7.0) -> torch.Tensor:
+    """gpt-oss's clamped GLU (reference ggml swiglu_oai; the JAX package's
+    transformer.py:831-836): min(g, L) * sigmoid(alpha * min(g, L)) *
+    (clamp(u, -L, L) + 1)."""
+    g = torch.clamp(g, max=limit)
+    u = torch.clamp(u, -limit, limit)
+    return g * torch.sigmoid(alpha * g) * (u + 1.0)
+
+
+def _glu(cfg: ModelConfig, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """An expert's hidden from its gate and up products (biases added)."""
+    return swiglu_oai(g, u) if cfg.moe_act == "swiglu_oai" else ACTIVATIONS[cfg.act](g) * u
+
+
+def _sparsemixer_route(logits: torch.Tensor, eps: float):
+    """PhiMoE's sparsemixer at inference (the JAX package's
+    transformer.py:1073-1093): two masked-argmax picks, the second over the
+    logits with the first's expert masked out; each pick's weight is the
+    softmax, at the picked expert, over the experts within the jitter of the
+    best. -> (topi [..., 2], topw [..., 2] f32), neither normalised nor
+    scaled."""
+
+    def pick(scores):
+        mx = scores.max(dim=-1, keepdim=True).values
+        factor = torch.maximum(logits.abs(), mx)
+        masked = torch.where((mx - scores) / factor > 2 * eps,
+                             torch.full_like(scores, float("-inf")), scores)
+        idx = torch.argmax(scores, dim=-1)  # the first maximum, as jnp.argmax
+        wgt = torch.gather(torch.softmax(masked, dim=-1), -1, idx[..., None])[..., 0]
+        return idx, wgt
+
+    i1, w1 = pick(logits)
+    first = torch.nn.functional.one_hot(i1, logits.shape[-1]).bool()
+    i2, w2 = pick(logits.masked_fill(first, float("-inf")))
+    return torch.stack([i1, i2], dim=-1), torch.stack([w1, w2], dim=-1).float()
+
+
+def _top_k(sel: torch.Tensor, k: int) -> torch.Tensor:
+    """The k largest indices in descending order; a stable sort takes the
+    lower index first on a tie, as jax.lax.top_k does (torch.topk promises
+    no order)."""
+    return torch.sort(sel, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+# An observer of the top-k routers, for checks that hold two paths' choices
+# together (testing.RouteHold): called as route_hook(router input, f32
+# selection scores, topi) at every top-k choice, it returns the expert ids to
+# take (topi itself, or others). None in normal use.
+route_hook = None
+
+
+def _route(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor, kernels: bool,
+           router_x: torch.Tensor | None = None):
     """Router -> (topi [..., k] expert ids, topw [..., k] f32 mix weights):
-    logits (+bias) -> gating -> optional selection bias -> top-k -> weight
-    post-processing (softmax over the k / norm / scale)."""
-    logits = matmul(x, lw["ffn_gate_inp"], dtype=torch.float32, kernels=kernels)
+    logits (+bias) of x (or of router_x: smallthinker routes on the raw
+    residual stream) -> gating -> optional selection bias -> top-k
+    (route_hook) -> weight post-processing (softmax over the k / norm /
+    scale); sparsemixer picks and weighs on its own."""
+    x_in = x if router_x is None else router_x
+    logits = matmul(x_in, lw["ffn_gate_inp"], dtype=torch.float32, kernels=kernels)
     if "ffn_gate_inp_bias" in lw:
         logits = logits + lw["ffn_gate_inp_bias"].float()
     gating = cfg.expert_gating
+    if gating == "sparsemixer":
+        return _sparsemixer_route(logits, cfg.extra.get("router_jitter", 0.01))
     if gating == "softmax":
         probs = torch.softmax(logits, dim=-1)
     elif gating == "sigmoid":
         probs = torch.sigmoid(logits)
     elif gating == "softmax_weight":
         probs = logits  # softmax over the selected k below
+    elif gating == "sqrt_softplus":
+        probs = torch.sqrt(torch.logaddexp(logits, torch.zeros_like(logits)))
     else:
         raise NotImplementedError(f"expert gating {gating!r} is not ported")
     # an expert-selection bias moves the top-k choice only, not the weights
     sel = probs + lw["exp_probs_b"].float() if "exp_probs_b" in lw else probs
-    # a stable descending sort takes the lower index first on a tie, as
-    # jax.lax.top_k does (torch.topk promises no order)
-    topi = torch.sort(sel, dim=-1, descending=True, stable=True).indices[
-        ..., : cfg.n_expert_used]
+    topi = _top_k(sel, cfg.n_expert_used)
+    if route_hook is not None:
+        topi = route_hook(x_in, sel, topi)
     topw = torch.gather(probs, -1, topi)
     if gating == "softmax_weight":
         topw = torch.softmax(topw, dim=-1)
@@ -369,9 +431,15 @@ def _expert_bias(lw, name: str, idx: torch.Tensor):
     return lw[name].float()[idx] if name in lw else 0.0
 
 
-def _moe_gather(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
+EXPERT_KEYS = ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
+CHUNK_KEYS = ("ffn_gate_chexps", "ffn_up_chexps", "ffn_down_chexps")  # GroveMoE
+
+
+def _moe_gather(cfg, lw, x, topi, topw, kernels: bool, keys=EXPERT_KEYS) -> torch.Tensor:
     """Per-token gathered expert FFN for decode shapes, y = sum_j w_j *
-    FFN_{e_j}(x): only the selected experts' planes are read."""
+    FFN_{e_j}(x): only the selected experts' planes are read. With
+    moe_weight_before (llama4) the gate weight scales each (token, slot)
+    row's input in f32 instead, and the outputs sum unweighted."""
     lead, E = x.shape[:-1], x.shape[-1]
     k = topi.shape[-1]
     xf = x.reshape(-1, E)
@@ -379,18 +447,24 @@ def _moe_gather(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
     idx = topi.reshape(N * k).long()
     tw = topw.reshape(N, k)
     mdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    gate_key, up_key, down_key = keys
 
     def emm(key, h):  # h [N*k, a] -> [N*k, b] f32
         return (_moe_expert_mm(lw[key], h, idx, mdt, kernels)
                 + _expert_bias(lw, key + "_bias", idx))
 
-    xk = xf.repeat_interleave(k, dim=0)  # row n*k + j = token n
-    h = ACTIVATIONS[cfg.act](emm("ffn_gate_exps", xk)) * emm("ffn_up_exps", xk)
-    y = emm("ffn_down_exps", h).reshape(N, k, E)
-    return (y * tw[:, :, None]).sum(dim=1).reshape(*lead, E)
+    before = cfg.extra.get("moe_weight_before", False)
+    if before:
+        xk = (xf[:, None].float() * tw[:, :, None]).to(xf.dtype).reshape(N * k, E)
+    else:
+        xk = xf.repeat_interleave(k, dim=0)  # row n*k + j = token n
+    h = _glu(cfg, emm(gate_key, xk), emm(up_key, xk))
+    y = emm(down_key, h).reshape(N, k, E)
+    return (y if before else y * tw[:, :, None]).sum(dim=1).reshape(*lead, E)
 
 
-def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
+def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool, keys=EXPERT_KEYS,
+                n_expert: int | None = None) -> torch.Tensor:
     """Per-expert dispatch for prefill-sized token counts: each expert's
     three GEMMs over every token, each (token, slot) pair taking the rows of
     the expert it chose, mixed by gate weight in slot order. Where the JAX
@@ -400,7 +474,9 @@ def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
     the choice applied on the device: no segment size comes to the host, so
     a decode step can be captured in a CUDA graph. A pair's row is the same
     product as in a segment of its expert's tokens; the GEMMs take
-    n_expert / top_k times the rows a segment would."""
+    n_expert / top_k times the rows a segment would. With moe_weight_before
+    a token's input to expert e is scaled by its weight for e (0 where it did
+    not choose e), as each pair's row is in the JAX package's segments."""
     lead, E = x.shape[:-1], x.shape[-1]
     k = topi.shape[-1]
     xf = x.reshape(-1, E)
@@ -408,36 +484,47 @@ def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool) -> torch.Tensor:
     tw = topw.reshape(N, k)
     chosen = topi.reshape(N, k)
     mdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    before = cfg.extra.get("moe_weight_before", False)
     xs = xf.to(mdt)
-    act = ACTIVATIONS[cfg.act]
+    gate_key, up_key, down_key = keys
     y = torch.zeros((N, k, E), dtype=torch.float32, device=x.device)
-    for e in range(cfg.n_expert):
+    for e in range(n_expert or cfg.n_expert):
         sel = slice(e, e + 1)
+        mine = chosen == e  # [N, k]
 
         def emm(key, h):  # h [N, a] -> [N, b] f32
             wd = _dequant_experts(lw[key], sel, mdt)[0]
             bias = lw[key + "_bias"].float()[sel] if key + "_bias" in lw else 0.0
             return dot_f32(h.to(mdt), wd) + bias
 
-        h = act(emm("ffn_gate_exps", xs)) * emm("ffn_up_exps", xs)
-        y = torch.where((chosen == e)[:, :, None], emm("ffn_down_exps", h)[:, None, :], y)
-    return (y * tw[:, :, None]).sum(dim=1).reshape(*lead, E)
+        xe = xs
+        if before:
+            xe = (xs.float() * (tw * mine).sum(dim=-1, keepdim=True)).to(mdt)
+        h = _glu(cfg, emm(gate_key, xe), emm(up_key, xe))
+        y = torch.where(mine[:, :, None], emm(down_key, h)[:, None, :], y)
+    out = y.sum(dim=1) if before else (y * tw[:, :, None]).sum(dim=1)
+    return out.reshape(*lead, E)
+
+
+def _experts(cfg, lw, x, topi, topw, kernels: bool, keys=EXPERT_KEYS,
+             n_expert: int | None = None) -> torch.Tensor:
+    """The routed mix on the gather route when tokens * top_k < n_expert
+    (decode: the indexed-expert kernel on the card), else on the per-expert
+    route -> f32."""
+    n_tok = x.numel() // x.shape[-1]
+    if n_tok * topi.shape[-1] < (n_expert or cfg.n_expert):
+        return _moe_gather(cfg, lw, x, topi, topw, kernels, keys)
+    return _moe_ragged(cfg, lw, x, topi, topw, kernels, keys, n_expert)
 
 
 def moe_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
-              kernels: bool = True) -> torch.Tensor:
-    """Mixture-of-experts FFN (build_moe_ffn analog): router, then the
-    gather route when tokens * top_k < n_expert (decode: the indexed-expert
-    kernel on the card) or the per-expert route, plus shared experts.
-    Gatings softmax, sigmoid and softmax_weight; sparsemixer, sqrt_softplus,
-    gate-before-expert weighting, the clamped oai glu and expert parallelism
-    are not ported."""
-    topi, topw = _route(cfg, lw, x, kernels)
-    n_tok = x.numel() // x.shape[-1]
-    if n_tok * cfg.n_expert_used < cfg.n_expert:
-        out = _moe_gather(cfg, lw, x, topi, topw, kernels)
-    else:
-        out = _moe_ragged(cfg, lw, x, topi, topw, kernels)
+              kernels: bool = True, router_x: torch.Tensor | None = None) -> torch.Tensor:
+    """Mixture-of-experts FFN (build_moe_ffn analog): router (on router_x
+    where given), then the gather route when tokens * top_k < n_expert
+    (decode: the indexed-expert kernel on the card) or the per-expert route,
+    plus shared experts. Expert parallelism is not ported."""
+    topi, topw = _route(cfg, lw, x, kernels, router_x)
+    out = _experts(cfg, lw, x, topi, topw, kernels)
     if cfg.n_expert_shared > 0 and "ffn_gate_shexp" in lw:
         h = (ACTIVATIONS[cfg.act](matmul(x, lw["ffn_gate_shexp"], kernels=kernels))
              * matmul(x, lw["ffn_up_shexp"], kernels=kernels))
@@ -447,6 +534,58 @@ def moe_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
                                            kernels=kernels))
         out = out + sh
     return out.to(x.dtype)
+
+
+def grovemoe_ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor,
+                 kernels: bool = True) -> torch.Tensor:
+    """GroveMoE's adjugate experts (reference src/models/grovemoe.cpp; the
+    JAX package's transformer.py:1145-1173): the router's top k drive the
+    main expert mix and a second mix of per-group chunk experts over the main
+    mix's output: main + expert_group_scale * chunk(main) -> f32. Each mix
+    takes the gather route at decode shapes, the per-expert one above."""
+    n_group = max(1, int(cfg.extra.get("n_group_experts", 1)))
+    group_scale = float(cfg.extra.get("expert_group_scale", 0.05))
+    n_chunk = int(cfg.extra.get("n_chunk_expert", max(1, cfg.n_expert // n_group)))
+    k = cfg.n_expert_used
+    probs = torch.softmax(matmul(h, lw["ffn_gate_inp"], dtype=torch.float32, kernels=kernels),
+                          dim=-1)
+    topi = _top_k(probs, k)
+    topw = torch.gather(probs, -1, topi)
+    topw = topw / torch.clamp(topw.sum(dim=-1, keepdim=True), min=1e-9)
+    topw = topw * cfg.expert_weights_scale
+    main = _experts(cfg, lw, h, topi, topw, kernels).to(h.dtype)
+    chunk_i = torch.div(topi, n_group, rounding_mode="floor")[..., : min(k, n_chunk)]
+    cw = torch.gather(probs, -1, chunk_i)
+    cw = cw / torch.clamp(cw.sum(dim=-1, keepdim=True), min=1e-9)
+    cw = cw * cfg.expert_weights_scale
+    chunk = _experts(cfg, lw, main, chunk_i, cw, kernels, CHUNK_KEYS, n_chunk)
+    return main.float() + group_scale * chunk
+
+
+def _ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor, x_in: torch.Tensor,
+         kernels: bool) -> torch.Tensor:
+    """A layer's FFN half on its normed input h (x_in: the layer's input):
+    the dense FFN, or the MoE branches of the JAX package's decoder loop
+    (transformer.py:1390-1415): arctic's dense FFN plus experts on their own
+    norm of the layer input, GroveMoE's chunk experts, the router on the raw
+    residual (smallthinker), and a dense FFN summed with the experts (scaled
+    by dense_moe_scale: grok) where the layer has both."""
+    if cfg.n_expert <= 0 or "ffn_gate_exps" not in lw:
+        return ffn_block(cfg, lw, h, kernels=kernels)
+    if "ffn_norm_exps" in lw:
+        moe_in = rms_norm(x_in, lw["ffn_norm_exps"], cfg.rms_eps)
+        return ffn_block(cfg, lw, h, kernels=kernels).float() + moe_block(cfg, lw, moe_in,
+                                                                           kernels=kernels)
+    if "ffn_up_chexps" in lw:
+        return grovemoe_ffn(cfg, lw, h, kernels=kernels)
+    rx = x_in if cfg.extra.get("router_raw_input") else None
+    ff = moe_block(cfg, lw, h, kernels=kernels, router_x=rx)
+    if "ffn_gate" in lw or "ffn_gateup" in lw:
+        ff = ff + ffn_block(cfg, lw, h, kernels=kernels)
+        ds = cfg.extra.get("dense_moe_scale", 1.0)
+        if ds != 1.0:
+            ff = ff * ds
+    return ff
 
 
 def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
@@ -469,6 +608,7 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     post = cfg.post_norms or cfg.norm_after
     rscale = cfg.residual_scale
     for il, lw in enumerate(params["layers"]):
+        x_in = x  # the layer input (arctic's MoE branch, smallthinker's router)
         # norm-after blocks (olmo2): the mixer sees the raw residual stream
         # and its output is normalised before the add
         h = x if cfg.norm_after else norm(cfg, x, lw, "attn_norm")
@@ -480,17 +620,14 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             # x + attn(norm1(x)) + ffn(norm2(x)); phi2 and command-r share one norm
             h2 = h if cfg.shared_parallel_norm else norm(cfg, x, lw, "ffn_norm")
             if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
-                ff = moe_block(cfg, lw, h2, kernels=kernels)
+                ff = moe_block(cfg, lw, h2, kernels=kernels).to(x.dtype)  # cohere2moe
             else:
                 ff = ffn_block(cfg, lw, h2, kernels=kernels)
             x = x + attn + ff
         else:
             x = x + (attn * rscale if rscale != 1.0 else attn)
             h = x if cfg.norm_after else norm(cfg, x, lw, "ffn_norm")
-            if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
-                ff = moe_block(cfg, lw, h, kernels=kernels)
-            else:
-                ff = ffn_block(cfg, lw, h, kernels=kernels)
+            ff = _ffn(cfg, lw, h, x_in, kernels)
             if post and "ffn_post_norm" in lw:
                 ff = rms_norm(ff, lw["ffn_post_norm"], cfg.rms_eps)
             x = x + (ff * rscale if rscale != 1.0 else ff)

@@ -15,6 +15,10 @@ and mins) read once. The kernel groups the rows that share an expert itself
 (up to 8 a pass, expert_groups) and feeds (column tile, group, K range) units
 to a persistent grid, splitting K by split_count; the wrapper takes the plain
 version for a CPU tensor and launches the kernel for a CUDA tensor.
+
+Widths: K a multiple of the 64-row stage, O of 64 (gpt-oss's 2880 is 45
+stages and 22 column tiles of 128 plus one of 64): a last column tile half
+past O reads zeros there and stores no column at or past O.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from . import build, scratch
 
 _COLS = 128  # output columns per block
 _STAGE_ROWS = 64  # plane rows a stage; K splits fall on multiples of it
+_O_STEP = 64  # O's unit: the last column tile may be half full
 _GROUP_ROWS = 8  # rows of one expert in one pass (the MMA's n8 slot)
 _MAX_SPLITS = 16
 MAX_ROWS = 512  # the kernel's group table
@@ -38,12 +43,24 @@ launches = {"qmm_planes_expert": 0}
 def supported(w) -> bool:
     """Whether the kernel takes this weight: a 3-D stack of transposed int8
     planes [E, K, O] with flat f32 scales, groups of 16 or 32, K a multiple
-    of 256 and O of 128 (never nibble-packed, never per-256 superblocks)."""
+    of the 64-row stage and O of 64 (never nibble-packed, never per-256
+    superblocks)."""
     if not w.transposed or w.q.dim() != 3 or w.packed or w.hier:
         return False
     if w.group not in (16, 32):
         return False
-    return w.q.shape[1] % 256 == 0 and w.q.shape[2] % _COLS == 0
+    return takes_widths(w.q.shape[1], w.q.shape[2])
+
+
+def takes_widths(K: int, O: int) -> bool:
+    """Whether the kernel takes a stack of K rows and O columns: K a multiple
+    of the 64-row stage and O of 64."""
+    return K % _STAGE_ROWS == 0 and O % _O_STEP == 0
+
+
+def col_tiles(O: int) -> int:
+    """Column tiles of 128 over O, the last one half full where O % 128 = 64."""
+    return -(-O // _COLS)
 
 
 def qmm_expert_plain(x: torch.Tensor, ids: torch.Tensor, w) -> torch.Tensor:
@@ -112,7 +129,7 @@ def max_splits(R: int, K: int, O: int, slots: int) -> int:
     the largest split_count over every possible group count (ceil(R/8) to
     R), so the partial-sum scratch [max_splits, R, O] always suffices."""
     lo = -(-R // _GROUP_ROWS)
-    return max(split_count(O // _COLS, n, K // _STAGE_ROWS, slots) for n in range(lo, R + 1))
+    return max(split_count(col_tiles(O), n, K // _STAGE_ROWS, slots) for n in range(lo, R + 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,8 +144,8 @@ def distinct_plan(R: int, E: int, K: int, O: int, slots: int) -> tuple[int, int]
     that split before it has grouped the rows; splits is 0 where R > E (no
     such guess)."""
     groups = min(R, E)
-    s = split_count(O // _COLS, groups, K // _STAGE_ROWS, slots)
-    return min(O // _COLS * groups * s, slots), (s if R <= E else 0)
+    s = split_count(col_tiles(O), groups, K // _STAGE_ROWS, slots)
+    return min(col_tiles(O) * groups * s, slots), (s if R <= E else 0)
 
 
 def _lib():
@@ -193,7 +210,7 @@ def qmm_expert(x: torch.Tensor, ids: torch.Tensor, w) -> torch.Tensor:
         return qmm_expert_plain(x, ids, w)
     if x.device.type != "cuda" or not supported(w):
         raise ValueError(f"qmm_expert: needs CUDA tensors and a 3-D stack of transposed int8 "
-                         f"planes with flat scales, K % 256 == 0, O % 128 == 0 (got {x.device}, "
+                         f"planes with flat scales, K % 64 == 0, O % 64 == 0 (got {x.device}, "
                          f"packed={w.packed}, hier={w.hier}, group={w.group}, "
                          f"shape={tuple(w.q.shape)})")
     E, K, O = w.q.shape
@@ -226,7 +243,7 @@ def qmm_expert(x: torch.Tensor, ids: torch.Tensor, w) -> torch.Tensor:
     s_max = max_splits(R, K, O, n_slots)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     part, counters = scratch.grow(_SCRATCH, x.device, stream,
-                                  s_max * R * O if s_max > 1 else 0, 2 + (O // _COLS) * R)
+                                  s_max * R * O if s_max > 1 else 0, 2 + col_tiles(O) * R)
     grid, hint = distinct_plan(R, E, K, O, n_slots)
     out = torch.empty((R, O), dtype=torch.float32, device=x.device)
     err = _lib().qmm_expert_launch(_maps(w), x.data_ptr(), ids.data_ptr(), part.data_ptr(),

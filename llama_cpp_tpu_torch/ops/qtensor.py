@@ -35,9 +35,11 @@ import torch
 import torch.nn.functional as F
 
 from ..gguf.constants import GGMLType
+from ..quant import device_planes
 from ..quant.dequant import dequantize_tensor
 from ..quant.repack import HIER_TYPES, PLANE_TYPES, extract_planes, extract_planes_hier
 from .kernels import qmm as qmm_kernel
+from .kernels import qmm_expert as expert_kernel
 
 # at or above this many activation rows the JAX package routes quantized
 # matmuls to XLA's dequant -> dot (qmm.py XLA_PREFILL_MIN_N); the port does
@@ -183,26 +185,18 @@ class LoraWeight:
 Weight = QuantTensor | LoraWeight | torch.Tensor
 
 
-_T_ROWS = 256  # rows transposed at a time: a blocked copy, 4x numpy's strided one
+def _t(a: torch.Tensor | None) -> torch.Tensor | None:
+    """Swap the last two axes into a new contiguous tensor, on a's device."""
+    return None if a is None else a.transpose(-1, -2).contiguous()
 
 
-def _t(a: np.ndarray | None) -> np.ndarray | None:
-    """Swap the last two axes into a new C-order array."""
-    if a is None:
-        return None
-    out = np.empty((*a.shape[:-2], a.shape[-1], a.shape[-2]), a.dtype)
-    for i in range(0, a.shape[-2], _T_ROWS):
-        out[..., i: i + _T_ROWS] = np.swapaxes(a[..., i: i + _T_ROWS, :], -1, -2)
-    return out
-
-
-def _pack_half_split(q: np.ndarray, off: int) -> np.ndarray:
+def _pack_half_split(q: torch.Tensor, off: int) -> torch.Tensor:
     """[K, O] values in [0, 15] (after +off) -> [K/2, O] int8-viewed bytes,
     row k in the low nibble and row k + K/2 in the high nibble. The offset
     is added in uint8 (mod 256), which leaves values in [0, 15] exact."""
-    u = q.view(np.uint8) + np.uint8(off & 0xFF)
+    u = q.view(torch.uint8) + (off & 0xFF)
     half = u.shape[0] // 2
-    return (u[:half] | (u[half:] << 4)).view(np.int8)
+    return (u[:half] | (u[half:] << 4)).view(torch.int8)
 
 
 def load_weight(
@@ -216,8 +210,10 @@ def load_weight(
 ) -> Weight:
     """GGUF raw bytes -> weight on `device` (planes or dense).
 
-    Extraction runs on the host in numpy; each plane is copied host->device
-    once. transpose=True stores planes in the matmul layout."""
+    Extraction runs on the host in numpy (for the expert stacks of the usual
+    types on the card, there: quant/device_planes.py); the planes go to the
+    device as the file lays them out, and transpose=True swaps them into
+    the matmul layout (and packs nibbles) there."""
     n = int(np.prod(shape))
 
     def dev(a):
@@ -227,11 +223,11 @@ def load_weight(
             and shape[-1] % 512 == 0 and ggml_dtype in HIER_TYPES):
         q, sub, d, subm, dm, g = extract_planes_hier(raw, ggml_dtype, n)
         O, K = shape
-        q = _t(q.reshape(O, K))
-        sub = _t(sub.reshape(O, K // g))
-        d = _t(d.reshape(O, K // 256))
-        subm = None if subm is None else _t(subm.reshape(O, K // g))
-        dm = None if dm is None else _t(dm.reshape(O, K // 256))
+        q = _t(dev(q.reshape(O, K)))
+        sub = _t(dev(sub.reshape(O, K // g)))
+        d = _t(dev(d.reshape(O, K // 256)))
+        subm = None if subm is None else _t(dev(subm.reshape(O, K // g)))
+        dm = None if dm is None else _t(dev(dm.reshape(O, K // 256)))
         packed = False
         lo, hi = int(q.min()), int(q.max())
         if hi - lo <= 15 and q.shape[0] % 2 == 0 and (lo >= 0 or subm is None):
@@ -240,27 +236,32 @@ def load_weight(
             if off:
                 # fold the value offset into the (absent) mins in the
                 # factored domain: min_eff = sub * (-off*d)
-                subm = sub.copy()
-                dm = (-float(off) * d).astype(np.float32)
+                subm = sub.clone()
+                dm = -float(off) * d
             packed = True
-        return QuantTensor(q=dev(q), scales=dev(sub), mins=dev(subm), group=g,
+        return QuantTensor(q=q, scales=sub, mins=subm, group=g,
                            ggml_type=int(ggml_dtype), transposed=True, packed=packed,
-                           d=dev(d), dmin=dev(dm), sgroup=256)
-    if prefer_quant and ggml_dtype in PLANE_TYPES and shape[-1] % 256 == 0:
+                           d=d, dmin=dm, sgroup=256)
+    # the JAX package keeps planes for rows a multiple of 256; a transposed
+    # expert stack of a flat type also at the other widths the indexed-expert
+    # kernel takes (gpt-oss's MXFP4 stacks of 2880), where the JAX loader
+    # falls back to dense bf16: the same values (its plain product rounds
+    # q * scale to bf16 as the dense load rounds the dequantized weight)
+    stack64 = (len(shape) == 3 and transpose
+               and expert_kernel.takes_widths(shape[-1], shape[-2]))
+    if prefer_quant and ggml_dtype in PLANE_TYPES and (shape[-1] % 256 == 0 or stack64):
+        if (transpose and len(shape) == 3 and torch.device(device).type == "cuda"
+                and ggml_dtype in device_planes.DEVICE_PLANE_TYPES):
+            # expert stacks of the usual types: the raw blocks go up and are
+            # cut into planes on the card, the same values as the host's
+            # extraction (which took most of a large MoE file's load)
+            q, sc, mn, g = device_planes.expert_stack(raw, ggml_dtype, shape, device)
+            return QuantTensor(q=q, scales=sc, mins=mn, group=g, ggml_type=int(ggml_dtype),
+                               transposed=True)
         q, sc, mn, g = extract_planes(raw, ggml_dtype, n)
-        q = q.reshape(shape)
-        sc = sc.reshape(*shape[:-1], shape[-1] // g)
-        mn = None if mn is None else mn.reshape(*shape[:-1], shape[-1] // g)
-        if transpose and q.ndim == 3 and torch.device(device).type == "cuda":
-            # expert stacks (never packed): the planes go up as they are and
-            # swap their last two axes on the card, the same bytes as _t's
-            # in a fraction of the host's time (DeepSeek-V3's 256 x 2048 x
-            # 7168 stacks)
-            def dev_t(a):
-                return None if a is None else dev(a).transpose(-1, -2).contiguous()
-
-            return QuantTensor(q=dev_t(q), scales=dev_t(sc), mins=dev_t(mn), group=g,
-                               ggml_type=int(ggml_dtype), transposed=True)
+        q = dev(q.reshape(shape))
+        sc = dev(sc.reshape(*shape[:-1], shape[-1] // g))
+        mn = None if mn is None else dev(mn.reshape(*shape[:-1], shape[-1] // g))
         if transpose:
             q, sc, mn = _t(q), _t(sc), _t(mn)
         packed = False
@@ -270,10 +271,9 @@ def load_weight(
                 off = -lo if lo < 0 or hi > 15 else 0
                 q = _pack_half_split(q, off)
                 if off:
-                    base = mn if mn is not None else 0.0
-                    mn = (base - off * sc.astype(np.float32)).astype(np.float32)
+                    mn = (mn if mn is not None else 0.0) - off * sc
                 packed = True
-        return QuantTensor(q=dev(q), scales=dev(sc), mins=dev(mn), group=g,
+        return QuantTensor(q=q, scales=sc, mins=mn, group=g,
                            ggml_type=int(ggml_dtype), transposed=transpose, packed=packed)
     if ggml_dtype in PLANE_TYPES and shape[-1] % 256 == 0:
         # a dense weight of a plane type (prefer_quant=False): its row-major

@@ -226,10 +226,18 @@ def planes_iq4_xs(raw, n):
     return q.reshape(-1), scales.reshape(-1), None, 32
 
 
+# the MXFP4 values of a byte's low and high nibble as one int16 (low byte the
+# low nibble's): one table lookup a byte
+_FP4_PAIR = np.stack([D.KVALUES_FP4[np.arange(256) & 0xF],
+                      D.KVALUES_FP4[np.arange(256) >> 4]], axis=1).astype(np.int8).view(
+                          np.int16).reshape(256)
+
+
 def planes_mxfp4(raw, n):
     b = D._blocks(raw, GGMLType.MXFP4, n)
     d = D._e8m0_half(b[:, 0:1])
-    q = D.KVALUES_FP4[_nibble_bytes(b[:, 1:17])]
+    pairs = _FP4_PAIR[np.ascontiguousarray(b[:, 1:17])].view(np.int8).reshape(-1, 16, 2)
+    q = np.ascontiguousarray(pairs.transpose(0, 2, 1))  # the low nibbles, then the high
     return q.reshape(-1), _expand(d), None, 32
 
 

@@ -4,6 +4,7 @@ same as the JAX package's fixtures for the same arguments."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -316,6 +317,19 @@ def make_bench_arch_gguf(
     embd_norm: bool = False,
     metadata: dict | None = None,
     synth_scale: float = 1.0,
+    sinks: bool = False,
+    ffn_norm_name: str = "ffn_norm",
+    fused_gateup: bool = False,
+    router_bias: bool = False,
+    expert_bias: bool = False,
+    exp_probs_b: bool = False,
+    shared_gate_inp: bool = True,
+    n_dense_lead: int = 0,
+    dense_ffn: bool = False,
+    moe_norm: bool = False,
+    chunk_experts: int = 0,
+    matrix_type: str = "",
+    expert_type: str = "",
     f32: bool = False,
     ftype: str = "q4_k_m",
     real_quant: bool = False,
@@ -359,8 +373,23 @@ def make_bench_arch_gguf(
     with its bias (bloom); metadata adds keys under the arch's prefix
     (ALiBi bias, muP scales, no_rope_layers, clamp_kqv, ...); synth_scale
     multiplies the synthetic blocks' scales (every quantized weight by the
-    same factor). Left at their defaults they write nothing, so the default
-    files stay byte for byte what they were."""
+    same factor).
+
+    The MoE families' tensors: sinks adds attn_sinks [n_heads] (gpt-oss,
+    mimo2); ffn_norm_name is the file's name for the pre-FFN norm (gpt-oss:
+    post_attention_norm); fused_gateup writes one ffn_up of 2 * n_ff rows
+    holding gate|up (chatglm, plamo3); router_bias adds ffn_gate_inp.bias,
+    expert_bias the three expert stacks' biases [n_expert, out], exp_probs_b
+    the selection bias exp_probs_b.bias [n_expert]; shared_gate_inp=False
+    leaves the shared expert ungated (no ffn_gate_inp_shexp); the first
+    n_dense_lead layers carry a dense FFN of n_ff instead of experts;
+    dense_ffn adds a dense FFN of n_ff beside the experts (grok, arctic),
+    moe_norm arctic's ffn_norm_exps; chunk_experts > 0 adds GroveMoE's
+    chunk-expert stacks ffn_*_chexps of that many experts of n_ff_exp.
+    matrix_type gives every quantized matrix that type and expert_type the
+    expert stacks theirs (gpt-oss: "q8_0" and "mxfp4"), whatever ftype
+    says. Left at their defaults they write nothing, so the default files
+    stay byte for byte what they were."""
     rng = np.random.default_rng(seed)
     w = GGUFWriter()
     w.add(Keys.General.ARCHITECTURE, arch)
@@ -410,7 +439,11 @@ def make_bench_arch_gguf(
 
     def emit_q(name, rows, cols, t, stack=()):
         shape = (*reversed(stack), rows, cols)
-        if ftype != "q4_k_m":
+        if expert_type and "_exps" in name:
+            t = GGMLType[expert_type.upper()]
+        elif matrix_type:
+            t = GGMLType[matrix_type.upper()]
+        elif ftype != "q4_k_m":
             t = tensor_target_type(name, shape, default, ftype)
         if f32 or t == GGMLType.F32:
             emit_f(name, rng.standard_normal(shape) / np.sqrt(cols))
@@ -466,6 +499,8 @@ def make_bench_arch_gguf(
                 emit_f(b + name + ".bias", 0.1 * rng.standard_normal(n))
         if attn_out_bias:
             bias(b + "attn_output.bias", n_embd)
+        if sinks:
+            emit_f(b + "attn_sinks.weight", rng.standard_normal(n_heads))
         if qk_norm:
             emit_f(b + "attn_q_norm.weight", norm_w(q_dim if qk_norm_full else head_dim))
             emit_f(b + "attn_k_norm.weight", norm_w(kv_dim if qk_norm_full else head_dim))
@@ -473,21 +508,40 @@ def make_bench_arch_gguf(
             emit_f(b + "post_attention_norm.weight", norm_w(n_embd))
             emit_f(b + "post_ffw_norm.weight", norm_w(n_embd))
         if pre_norms == "both":
-            emit_norm(b + "ffn_norm", n_embd)
-        if n_expert:
+            emit_norm(b + ffn_norm_name, n_embd)
+        moe = n_expert and i >= n_dense_lead
+        if moe:
+            if moe_norm:
+                emit_f(b + "ffn_norm_exps.weight", norm_w(n_embd))
             emit_f(b + "ffn_gate_inp.weight", rng.standard_normal((n_expert, n_embd)) * 0.02)
+            if router_bias:
+                bias(b + "ffn_gate_inp.bias", n_expert)
+            if exp_probs_b:
+                bias(b + "exp_probs_b.bias", n_expert)
             emit_q(b + "ffn_gate_exps.weight", n_ff_exp, n_embd, q4, (n_expert,))
             emit_q(b + "ffn_up_exps.weight", n_ff_exp, n_embd, q4, (n_expert,))
             emit_q(b + "ffn_down_exps.weight", n_embd, n_ff_exp, q6, (n_expert,))
+            if expert_bias:
+                for name, n in (("gate", n_ff_exp), ("up", n_ff_exp), ("down", n_embd)):
+                    emit_f(b + f"ffn_{name}_exps.bias", 0.1 * rng.standard_normal((n_expert, n)))
             if shared_expert_ff:
-                emit_f(b + "ffn_gate_inp_shexp.weight", rng.standard_normal((1, n_embd)) * 0.02)
+                if shared_gate_inp:
+                    emit_f(b + "ffn_gate_inp_shexp.weight",
+                           rng.standard_normal((1, n_embd)) * 0.02)
                 emit_q(b + "ffn_gate_shexp.weight", shared_expert_ff, n_embd, q4)
                 emit_q(b + "ffn_up_shexp.weight", shared_expert_ff, n_embd, q4)
                 emit_q(b + "ffn_down_shexp.weight", n_embd, shared_expert_ff, q6)
-        else:
-            if glu:
-                emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
-            emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
+            if chunk_experts:
+                emit_q(b + "ffn_gate_chexps.weight", n_ff_exp, n_embd, q4, (chunk_experts,))
+                emit_q(b + "ffn_up_chexps.weight", n_ff_exp, n_embd, q4, (chunk_experts,))
+                emit_q(b + "ffn_down_chexps.weight", n_embd, n_ff_exp, q6, (chunk_experts,))
+        if not moe or dense_ffn:
+            if fused_gateup:
+                emit_q(b + "ffn_up.weight", 2 * n_ff, n_embd, q4)
+            else:
+                if glu:
+                    emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
+                emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
             emit_q(b + "ffn_down.weight", n_embd, n_ff, q6)
             if ffn_bias:
                 for name, n in [("ffn_gate", n_ff)] * glu + [("ffn_up", n_ff),
@@ -555,6 +609,104 @@ FAMILY_LAYOUTS: dict[str, dict] = {
     "starcoder": dict(**_LN, glu=False, fused_qkv=True, **_GPT, tie=True, n_kv_heads=1,
                       n_positions=1024),
 }
+
+
+# the mixture-of-experts families on the shared decoder, each with the options
+# that write its tensors and metadata as llama.cpp lays them out: 8 experts
+# of 256, top 2 (llama4 top 1), shared experts of 256, one dense lead layer
+# where the family has them, windows of 16 (one window layer of two)
+_SHARED = dict(shared_expert_ff=256, shared_gate_inp=False)
+MOE_FAMILY_LAYOUTS: dict[str, dict] = {
+    "gpt-oss": dict(qkv_bias=True, attn_out_bias=True, sinks=True,
+                    ffn_norm_name="post_attention_norm", **_MOE, router_bias=True,
+                    expert_bias=True, sliding_window=16, rope_base=150000.0,
+                    rope_base_swa=150000.0, rms_eps=1e-5, matrix_type="q8_0",
+                    expert_type="mxfp4",
+                    metadata={"rope.scaling.type": "yarn", "rope.scaling.factor": 32.0,
+                              "rope.scaling.original_context_length": np.uint32(4096)}),
+    "llama4": dict(n_expert=8, n_expert_used=1, n_ff_exp=256, **_SHARED, rope_base=500000.0,
+                   rms_eps=1e-5, metadata={"no_rope_layers": [1, 0], "use_qk_norm": True,
+                                           "interleave_moe_layer_step": np.uint32(1)}),
+    "phimoe": dict(**_LN, qkv_bias=True, attn_out_bias=True, output_bias=True, **_MOE),
+    "deepseek": dict(**_MOE, **_SHARED, n_dense_lead=1,
+                     metadata={"expert_weights_scale": 1.0}),
+    "grok": dict(**_MOE, dense_ffn=True, post_norms=True),
+    "arctic": dict(**_MOE, dense_ffn=True, moe_norm=True),
+    "grovemoe": dict(qk_norm=True, **_MOE, chunk_experts=4,
+                     metadata={"experts_per_group": np.uint32(2), "expert_group_scale": 0.05}),
+    "smallthinker": dict(**_MOE),
+    "chatglm": dict(fused_qkv=True, qkv_bias=True, fused_gateup=True),
+    "glm4moe": dict(qkv_bias=True, **_MOE, **_SHARED, exp_probs_b=True, n_dense_lead=1),
+    "dots1": dict(qk_norm=True, **_MOE, **_SHARED, exp_probs_b=True, n_dense_lead=1),
+    "bailingmoe": dict(fused_qkv=True, **_MOE, **_SHARED, n_dense_lead=1),
+    "bailingmoe2": dict(qk_norm=True, fused_qkv=True, **_MOE, **_SHARED, exp_probs_b=True,
+                        n_dense_lead=1, metadata={"expert_gating_func": np.uint32(2)}),
+    "hunyuan-moe": dict(qk_norm=True, **_MOE, **_SHARED),
+    "exaone-moe": dict(qk_norm=True, **_MOE, **_SHARED, n_dense_lead=1, sliding_window=16,
+                       swa_pattern=2),
+    "cohere2moe": dict(norm_eps=1e-5, pre_norms="attn", tie=True, sliding_window=16,
+                       swa_pattern=2, **_MOE, **_SHARED, metadata={"logit_scale": 0.25}),
+    "mellum": dict(qk_norm=True, **_MOE, sliding_window=16, swa_pattern=2,
+                   rope_base_swa=10000.0),
+    "mimo2": dict(qk_norm=True, sinks=True, **_MOE, sliding_window=16,
+                  metadata={"attention.sliding_window_pattern": [1, 0]}),
+    "minimax-m2": dict(qk_norm=True, qk_norm_full=True, **_MOE, exp_probs_b=True),
+    "step35": dict(**_MOE, **_SHARED, sliding_window=16,
+                   metadata={"attention.sliding_window_pattern": [0, 1],
+                             "rope.freq_base_swa": 10000.0}),
+    "plamo3": dict(fused_qkv=True, qk_norm=True, post_norms=True, fused_gateup=True,
+                   sliding_window=16, swa_pattern=2),
+}
+FAMILY_LAYOUTS.update(MOE_FAMILY_LAYOUTS)
+
+
+def make_bench_gpt_oss_gguf(path: str, n_layers: int = 24, n_embd: int = 2880,
+                            n_heads: int = 64, n_kv_heads: int = 8, head_dim: int = 64,
+                            n_expert: int = 32, n_expert_used: int = 4, n_ff_exp: int = 2880,
+                            vocab_size: int = 201088, n_ctx: int = 131072,
+                            sliding_window: int = 128, synth_scale: float = 1.0,
+                            f32: bool = False, seed: int = 0) -> str:
+    """gpt-oss-20B-shaped (by default; openai/gpt-oss-20b config.json) GGUF:
+    2880 wide, 64 query heads on 8 KV heads of 64 with sinks and q/k/v and
+    output biases, window layers of 128 and full layers in turn, NEOX rope
+    at base 150000 (the window layers' base the same) with YaRN factor 32
+    from 4096, 32 experts of 2880 (top 4 of the router's biased logits, then
+    a softmax) with biases and the clamped oai GLU, vocab 201088, an untied
+    head; experts MXFP4, every other matrix Q8_0 (a block of 32 divides
+    2880), norms, biases, sinks and router F32; the pre-FFN norm stored as
+    post_attention_norm, as llama.cpp writes it."""
+    layout = {**MOE_FAMILY_LAYOUTS["gpt-oss"], "n_expert": n_expert,
+              "n_expert_used": n_expert_used, "n_ff_exp": n_ff_exp,
+              "sliding_window": sliding_window}
+    return make_bench_arch_gguf(path, "gpt-oss", n_layers, n_embd, n_heads, n_kv_heads,
+                                head_dim, n_ff_exp, vocab_size, n_ctx, synth_scale=synth_scale,
+                                f32=f32, seed=seed, **layout)
+
+
+def make_bench_llama4_gguf(path: str, n_layers: int = 48, n_embd: int = 5120,
+                           n_heads: int = 40, n_kv_heads: int = 8, head_dim: int = 128,
+                           n_ff: int = 16384, n_expert: int = 16, n_expert_used: int = 1,
+                           n_ff_exp: int = 8192, vocab_size: int = 202048,
+                           n_ctx: int = 10485760, ftype: str = "q4_k_m",
+                           synth_scale: float = 1.0, f32: bool = False, seed: int = 0) -> str:
+    """Llama-4-Scout-17B-16E-shaped (by default; the text config of
+    meta-llama/Llama-4-Scout-17B-16E config.json) GGUF: 5120 wide, 40 heads
+    on 8 KV heads of 128, NORM rope at base 500000 with every fourth layer
+    NoPE (no_rope_layers), the weightless q/k norm after rope (use_qk_norm),
+    16 experts of 8192 on every layer (interleave step 1), top 1 by sigmoid
+    with the gate on the expert input, an ungated shared expert of 8192,
+    vocab 202048, an untied head; the Q4_K_M mix of make_bench_arch_gguf
+    (ftype). The config's llama3 rope scaling (factor 16 from 8192) and
+    attention temperature tuning are not written: the JAX package's llama4
+    graph reads neither."""
+    layout = {**MOE_FAMILY_LAYOUTS["llama4"], "n_expert": n_expert,
+              "n_expert_used": n_expert_used, "n_ff_exp": n_ff_exp,
+              "shared_expert_ff": n_ff_exp,
+              "metadata": {**MOE_FAMILY_LAYOUTS["llama4"]["metadata"], "no_rope_layers": [
+                  int((i + 1) % 4 != 0) for i in range(n_layers)]}}
+    return make_bench_arch_gguf(path, "llama4", n_layers, n_embd, n_heads, n_kv_heads,
+                                head_dim, n_ff, vocab_size, n_ctx, ftype=ftype,
+                                synth_scale=synth_scale, f32=f32, seed=seed, **layout)
 
 
 def make_bench_starcoder2_gguf(path: str, n_layers: int = 32, n_embd: int = 4608,
@@ -865,3 +1017,83 @@ def make_control_vector_gguf(path: str, n_layers: int, n_embd: int, scale: float
         w.add_tensor(f"direction.{il}", d.tobytes(), (n_embd,), GGMLType.F32)
     w.write(path)
     return path
+
+
+class RouteHold:
+    """Holds a reference path's top-k expert choices to a path under test's
+    where the two part at a near-tie, as teacher forcing holds the ids:
+    enter record() while the path under test runs a step, then hold() while
+    the reference runs the same step (models/transformer.py route_hook).
+
+    At each router call and row where the two choices part, the reference
+    takes the other path's experts if its router input is within nmse_limit
+    of the other path's. Each path's choice is the top k of its own scores,
+    so a parting's gap (the reference's k-th largest score less its score of
+    an expert only the other path chose) is at most twice the largest score
+    difference, and the input bound is what keeps that difference small: a
+    fault upstream that moves the router input past the limit is not held,
+    nor can the step's own error widen the rule. A row not held keeps the
+    reference's choice, and the step's logits show it. held and parted list
+    the rows: (router call, row, experts only the path under test chose,
+    largest gap, largest score difference, input NMSE)."""
+
+    def __init__(self, nmse_limit: float):
+        self.nmse_limit = nmse_limit
+        self.calls, self.held, self.parted = [], [], []
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _hooked(hook):
+        from .models import transformer
+
+        transformer.route_hook = hook
+        try:
+            yield
+        finally:
+            transformer.route_hook = None
+
+    @staticmethod
+    def _rows(x, sel, topi):
+        return (x.float().reshape(-1, x.shape[-1]).cpu(), sel.float().reshape(
+            -1, sel.shape[-1]).cpu(), topi.reshape(-1, topi.shape[-1]).cpu())
+
+    def record(self):
+        self.calls, self.held, self.parted = [], [], []
+
+        def hook(x, sel, topi):
+            self.calls.append(self._rows(x, sel, topi))
+            return topi
+
+        return self._hooked(hook)
+
+    def hold(self):
+        calls = iter(range(len(self.calls)))
+
+        def hook(x, sel, topi):
+            j = next(calls, None)
+            if j is None:
+                raise RuntimeError("RouteHold: the reference routed more often than the path "
+                                   "under test")
+            xk, sk, ik = self.calls[j]
+            xr, sr, ir = self._rows(x, sel, topi)
+            if ik.shape != ir.shape:
+                raise RuntimeError(f"RouteHold: router call {j} chose {tuple(ir.shape)} "
+                                   f"against {tuple(ik.shape)}")
+            out = ir.clone()
+            for r in range(ir.shape[0]):
+                only = sorted(set(ik[r].tolist()) - set(ir[r].tolist()))
+                if not only:
+                    continue
+                diff = float((sk[r] - sr[r]).abs().max())
+                kth = float(torch.sort(sr[r]).values[-ir.shape[1]])
+                gap = max(kth - float(sr[r, e]) for e in only)
+                err = float(((xk[r] - xr[r]) ** 2).mean() / ((xr[r] ** 2).mean() + 1e-30))
+                row = (j, r, only, gap, diff, err)
+                if err < self.nmse_limit:
+                    out[r] = ik[r]
+                    self.held.append(row)
+                else:
+                    self.parted.append(row)
+            return out.reshape(topi.shape).to(topi.device)
+
+        return self._hooked(hook)

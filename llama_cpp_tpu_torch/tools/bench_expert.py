@@ -3,8 +3,13 @@ the expert shapes that chip_smoke.py holds: a Mixtral-8x7B layer's three
 products at R=2 (8 experts, Q4_K-like gate/up with mins at groups of 32,
 Q6_K-like down at 16) and the Qwen3-30B-A3B gate and down stacks (128
 experts, 2048 x 768) at R = 8 and 64 distinct experts and at 64 rows drawn
-from 16 experts. Random planes from the smoke's seeds; CUDA events around
-each launch with the L2 flushed before it (utils/timing.py).
+from 16 experts; DeepSeek-V3's (256 experts, 7168 x 2048 and 2048 x 7168)
+at R = 8; gpt-oss-20B's (32 experts of 2880 x 2880, groups of 32, no
+mins) at R = 4 and 32 and Llama-4-Scout's (16 experts, 5120 x 8192 and
+8192 x 5120) at R = 1 and 8, each where the checkout's kernel takes the
+stack (`supported`; a tree before 64-wide steps skips gpt-oss's). Random
+planes from the smoke's seeds; CUDA events around each launch with the L2
+flushed before it (utils/timing.py).
 
     python -m llama_cpp_tpu_torch.tools.bench_expert [--reps 20] [--rounds 2]
 
@@ -44,13 +49,14 @@ def main(argv=None) -> int:
         return 2
     timer = Timer()
 
-    def stack(E, K, O, q4, seed):
+    def stack(E, K, O, q4, seed, g=None, mins=None):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        g = 32 if q4 else 16
+        g = g or (32 if q4 else 16)
         lo, hi = (0, 16) if q4 else (-32, 32)
         q = torch.randint(lo, hi, (E, K, O), generator=gen, device="cuda", dtype=torch.int8)
         sc = torch.rand((E, K // g, O), generator=gen, device="cuda") * 0.02 + 0.001
-        mn = -(torch.rand((E, K // g, O), generator=gen, device="cuda") * 0.1) if q4 else None
+        with_mins = q4 if mins is None else mins
+        mn = -(torch.rand((E, K // g, O), generator=gen, device="cuda") * 0.1) if with_mins else None
         return QuantTensor(q=q, scales=sc, mins=mn, group=g,
                            ggml_type=int(GGMLType.Q4_K if q4 else GGMLType.Q6_K),
                            transposed=True)
@@ -81,6 +87,18 @@ def main(argv=None) -> int:
         for R, pool in ((8, None), (64, None), (64, 16)):
             rows[f"qwen3 {name} R={R}" + (" shared" if pool else "")] = row(w, R, pool)
         del w
+    for label, E, K, O, q4, kw, rs in (
+            ("deepseek-v3 gate", 256, 7168, 2048, True, {}, (8,)),
+            ("deepseek-v3 down", 256, 2048, 7168, False, {}, (8,)),
+            ("gpt-oss gate", 32, 2880, 2880, False, {"g": 32, "mins": False}, (4, 32)),
+            ("scout gate", 16, 5120, 8192, True, {}, (1, 8)),
+            ("scout down", 16, 8192, 5120, False, {}, (1, 8))):
+        w = stack(E, K, O, q4, seed=11, **kw)
+        if qmm_expert.supported(w):
+            for R in rs:
+                rows[f"{label} R={R}"] = row(w, R)
+        del w
+        torch.cuda.empty_cache()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]

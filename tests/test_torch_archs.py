@@ -85,16 +85,21 @@ def fixtures(tmp_path_factory):
 
 
 def test_supported_archs():
-    """The families here, llama, deepseek2 (tests/test_torch_deepseek2.py)
-    and the dense-decoder families of tests/test_torch_families.py."""
+    """The families here, llama, deepseek2 (tests/test_torch_deepseek2.py),
+    the dense-decoder families of tests/test_torch_families.py and the MoE
+    families of tests/test_torch_moe_families.py."""
     from test_torch_families import ARCHS as FAMILIES
+    from test_torch_moe_families import ARCHS as MOE_FAMILIES
 
-    assert supported_archs() == sorted(["llama", "deepseek2", *ARCHS, *FAMILIES])
+    assert supported_archs() == sorted(["llama", "deepseek2", *ARCHS, *FAMILIES,
+                                        *MOE_FAMILIES])
 
 
 def test_other_arch_raises_naming_it(tmp_path):
-    path = make_bench_arch_gguf(str(tmp_path / "llama4.gguf"), "llama4", **SHAPE)
-    with pytest.raises(NotImplementedError, match="'llama4'"):
+    """afmoe (attention output gates) is not ported: loading its file raises
+    naming it."""
+    path = make_bench_arch_gguf(str(tmp_path / "afmoe.gguf"), "afmoe", **SHAPE)
+    with pytest.raises(NotImplementedError, match="'afmoe'"):
         load_model(path, device="cpu")
 
 

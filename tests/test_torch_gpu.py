@@ -121,6 +121,28 @@ def test_expert_kernel_on_q8_0_stacks(cuda_device, R):
     assert nmse(got, tqe.qmm_expert_plain(x, ids, w)) < 1e-4
 
 
+@pytest.mark.parametrize("t, shape", [(GGMLType.Q4_K, (9, 512, 2048)),
+                                      (GGMLType.Q6_K, (9, 2048, 512)),
+                                      (GGMLType.Q8_0, (9, 192, 2880)),
+                                      (GGMLType.MXFP4, (9, 2880, 2880))],
+                         ids=["q4_k", "q6_k", "q8_0", "mxfp4"])
+def test_expert_stacks_cut_on_the_card_equal_the_host_planes(cuda_device, monkeypatch, t,
+                                                             shape):
+    """load_weight cuts a transposed expert stack's planes on the card
+    (quant/device_planes.py), four experts a pass here: the same planes,
+    scales and mins as the host's extraction."""
+    from llama_cpp_tpu_torch.quant import device_planes
+
+    monkeypatch.setattr(device_planes, "CHUNK_ELEMENTS", 4 * shape[1] * shape[2])
+    raw = np.frombuffer(synth_quant_bytes(np.random.default_rng(int(t)), int(np.prod(shape)), t),
+                        np.uint8)
+    w = tq.load_weight(raw, t, shape, transpose=True, device=cuda_device)
+    ref = tq.load_weight(raw, t, shape, transpose=True)
+    assert w.q.is_cuda and w.group == ref.group and (w.mins is None) == (ref.mins is None)
+    assert torch.equal(w.q.cpu(), ref.q) and torch.equal(w.scales.cpu(), ref.scales)
+    assert w.mins is None or torch.equal(w.mins.cpu(), ref.mins)
+
+
 @pytest.mark.parametrize("ftype", ["q8_0", "q5_k_m", "q4_0"])
 def test_new_file_types_kernel_route_matches_plain_route(cuda_device, tmp_path, ftype):
     """A small Qwen3 model at each new file type: prefill and greedy decode
@@ -1625,3 +1647,100 @@ def test_nope_context_shift_matches_plain(dense_families, paged):
     for t in [11] + [int(x) for x in ids_e[0][:5]]:
         assert nmse(torch.from_numpy(e.decode_one(t)),
                     torch.from_numpy(plain.decode_one(t))) < 5e-3
+
+
+# -- the MoE families: K7 at gpt-oss's and Llama-4-Scout's widths, and the
+# families' kernel path ----------------------------------------------------
+
+# (E, K, O, group, mins, R, pick): gpt-oss's MXFP4-like stacks (2880 = 45
+# stages of 64 rows and 22 column tiles of 128 plus one of 64; groups of 32,
+# no mins) at a decode token's 4 experts and at 32 rows; Scout's gate/up
+# (Q4_K-like, 5120 -> 8192) and down (Q6_K-like, 8192 -> 5120) at top 1 and
+# 8 rows; a half column tile with a split K; and Mixtral's gate at R = 2, an
+# old shape, held to the same limit
+EXPERT_WIDTHS = {
+    "gpt_oss_r4": (32, 2880, 2880, 32, False, 4, "distinct"),
+    "gpt_oss_r32": (32, 2880, 2880, 32, False, 32, "random"),
+    "scout_gate_r1": (16, 5120, 8192, 32, True, 1, "distinct"),
+    "scout_gate_r8": (16, 5120, 8192, 32, True, 8, "random"),
+    "scout_down_r1": (16, 8192, 5120, 16, False, 1, "distinct"),
+    "scout_down_r8": (16, 8192, 5120, 16, False, 8, "random"),
+    "half_tile_split": (4, 8192, 320, 16, True, 3, "random"),
+    "mixtral_gate_r2": (8, 4096, 14336, 32, True, 2, "distinct"),
+}
+
+
+@pytest.mark.parametrize("case", list(EXPERT_WIDTHS))
+def test_expert_kernel_at_the_moe_family_widths(cuda_device, case):
+    """K7 against its plain version at NMSE < 1e-5, one launch a call; the
+    columns of a half column tile past O are never stored (the output's
+    last row and the next row's first columns agree with the plain
+    version)."""
+    E, K, O, g, mins, R, pick = EXPERT_WIDTHS[case]
+    x, ids, w = expert_case(cuda_device, E, K, O, R, g, mins, pick)
+    assert tqe.supported(w)
+    before = tqe.launches["qmm_planes_expert"]
+    got = tqe.qmm_expert(x, ids, w)
+    torch.cuda.synchronize()
+    assert tqe.launches["qmm_planes_expert"] == before + 1
+    assert got.shape == (R, O) and torch.isfinite(got).all()
+    assert nmse(got, tqe.qmm_expert_plain(x, ids, w)) < 1e-5
+
+
+def test_expert_kernel_on_mxfp4_stacks_at_gpt_oss_width(cuda_device):
+    """gpt-oss's expert stack as the loader lays out MXFP4 (int8 flat-g32
+    planes, no mins) from synthetic bytes, 32 x 2880 x 2880: K7 takes it and
+    agrees with the plain version at a decode token's 4 experts."""
+    rng = np.random.default_rng(4)
+    shape = (32, 2880, 2880)
+    raw = np.frombuffer(synth_quant_bytes(rng, int(np.prod(shape)), GGMLType.MXFP4), np.uint8)
+    w = tq.load_weight(raw, GGMLType.MXFP4, shape, transpose=True, device=cuda_device)
+    assert tqe.supported(w) and w.group == 32 and w.mins is None and not w.hier
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((4, 2880), generator=gen, device=cuda_device).to(torch.bfloat16)
+    ids = torch.tensor([31, 0, 17, 5], dtype=torch.int32, device=cuda_device)
+    got = tqe.qmm_expert(x, ids, w)
+    assert nmse(got, tqe.qmm_expert_plain(x, ids, w)) < 1e-5
+
+
+MOE_FAMILY_CASES = {
+    "gpt-oss": "MXFP4 experts with biases and the clamped GLU, sinks, window layers on rings",
+    "llama4": "the gate on the expert input at top 1, a shared expert, a NoPE layer",
+    "grovemoe": "chunk experts on the mix's output",
+}
+
+
+@pytest.fixture(scope="module")
+def moe_families(tmp_path_factory):
+    """The entries of MOE_FAMILY_CASES at FAMILY_SHAPE, synthetic block
+    scales divided by 256, as dense_families'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run `python -m pytest --noconftest -m gpu "
+                    "tests/test_torch_gpu.py` on the card")
+    from llama_cpp_tpu_torch.testing import FAMILY_LAYOUTS, make_bench_arch_gguf
+
+    d = tmp_path_factory.mktemp("moe_families")
+    return {arch: load_model(make_bench_arch_gguf(
+        str(d / f"{arch}.gguf"), arch, synth_scale=1.0 / 256,
+        **{**FAMILY_SHAPE, **FAMILY_LAYOUTS[arch]})) for arch in MOE_FAMILY_CASES}
+
+
+@pytest.mark.parametrize("arch", list(MOE_FAMILY_CASES))
+def test_moe_family_kernels_match_plain_and_graphs_match_eager(moe_families, arch):
+    """The kernel path against Context(kernels=False) on a 300-token prefill
+    (NMSE < 5e-3), then decode_steps_greedy at B=1 graphed against eager
+    (equal ids) with K7 launched at the decode steps."""
+    model = moe_families[arch]
+    p = [int(t) for t in np.random.default_rng(6).integers(3, 1024, 300)]
+    kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=128, quantized_kv=True)
+    got = Context(model, **kw).prefill(p)
+    ref = Context(model, kernels=False, **kw).prefill(p)
+    assert np.isfinite(got).all()
+    assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+    before = tqe.launches["qmm_planes_expert"]
+    runs = []
+    for graphs in (True, False):
+        ctx, firsts = prefilled(model, 1, graphs)
+        runs.append(ctx.decode_steps_greedy(firsts, np.arange(1), 12))
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert tqe.launches["qmm_planes_expert"] > before

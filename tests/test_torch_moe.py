@@ -13,7 +13,10 @@ its accelerator the JAX package never runs its indexed-expert kernel
 (models/transformer.py _moe_expert_mm): it gathers and dequantizes in bf16
 arithmetic, and so does the port's CPU route; the kernel's plain version
 (f32 product, one cast) is held against that route to NMSE < 5e-3, the two
-differing by where W is rounded to bf16."""
+differing by where W is rounded to bf16. The router hook (route_hook) and
+testing.RouteHold, which holds a reference path's expert choice to a path
+under test's at a near-tie whose router inputs agree, are held on a
+four-expert router: a near-tie is held, a fault upstream is not."""
 
 import numpy as np
 import pytest
@@ -35,7 +38,7 @@ from llama_cpp_tpu_torch.models.loader import Model, load_model
 from llama_cpp_tpu_torch.ops.kernels import qmm_expert as tqe
 from llama_cpp_tpu_torch.ops.qtensor import QuantTensor, pad_out_features
 from llama_cpp_tpu_torch.runtime.context import Context
-from llama_cpp_tpu_torch.testing import make_bench_moe_gguf
+from llama_cpp_tpu_torch.testing import RouteHold, make_bench_moe_gguf
 
 SHAPE = dict(n_layers=2, n_embd=512, n_heads=4, n_kv_heads=2, n_ff=1024, n_expert=8,
              n_expert_used=2, vocab_size=512, seed=0)
@@ -206,10 +209,79 @@ def test_top_k_takes_the_lower_index_on_a_tie():
     np.testing.assert_allclose(topw.numpy(), 0.25)
 
 
+def _router_case():
+    """A top-1 router over 4 experts whose scores are the first 4 input
+    features (softmax_weight: the selection scores are the logits)."""
+    cfg = ttf.ModelConfig(arch="llama", n_expert=4, n_expert_used=1,
+                          expert_gating="softmax_weight")
+    lw = {"ffn_gate_inp": torch.eye(4, 8)}
+    return cfg, lw
+
+
+def test_route_hook_picks_the_experts_and_their_weights():
+    """route_hook's ids are taken in place of the top k, and weighed as the
+    gating weighs a choice (here a softmax over the k chosen logits)."""
+    cfg, lw = _router_case()
+    cfg = cfg.with_(n_expert_used=2)
+    x = torch.tensor([[4.0, 3.0, 2.0, 1.0, 0, 0, 0, 0]])
+    ttf.route_hook = lambda x_in, sel, topi: torch.tensor([[2, 3]])
+    try:
+        topi, topw = ttf._route(cfg, lw, x, False)
+    finally:
+        ttf.route_hook = None
+    np.testing.assert_array_equal(topi.numpy(), [[2, 3]])
+    np.testing.assert_allclose(topw.numpy(), torch.softmax(torch.tensor([[2.0, 1.0]]),
+                                                           -1).numpy(), rtol=1e-6)
+    assert ttf._route(cfg, lw, x, False)[0].tolist() == [[0, 1]]
+
+
+@pytest.mark.parametrize("case, kern_x, held", [
+    # the two paths' inputs agree (NMSE 1.6e-7) and part at a near-tie: held
+    ("near_tie", [1.0, 0.998, 0, 0, 5, 5, 5, 5], True),
+    # a fault upstream moves a routed feature (input NMSE 6.3e-3, past the
+    # limit): the same parting is not held, though its gap (0.002) lies
+    # within twice the score difference (0.802)
+    ("input_fault", [1.0, 0.2, 0, 0, 5, 5, 5, 5], False),
+    # a fault in unrouted features only (input NMSE 2.0): not held
+    ("unrouted_fault", [1.0, 0.998, 0, 0, 5, -5, 5, -5], False),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_route_hold_holds_a_near_tie_and_no_fault(case, kern_x, held):
+    """testing.RouteHold: the reference's router takes the path under test's
+    experts where the two part and the router inputs agree within the limit;
+    otherwise it keeps its own choice, and the parting is listed."""
+    cfg, lw = _router_case()
+    ref_x = torch.tensor([[1.0, 1.002, 0, 0, 5, 5, 5, 5]])
+    hold = RouteHold(5e-3)
+    with hold.record():
+        kern = ttf._route(cfg, lw, torch.tensor([kern_x]), False)[0]
+    with hold.hold():
+        ref = ttf._route(cfg, lw, ref_x, False)[0]
+    assert ttf.route_hook is None
+    assert kern.tolist() == [[0]] and ref.tolist() == ([[0]] if held else [[1]])
+    assert len(hold.held) == int(held) and len(hold.parted) == int(not held)
+    (j, r, only, gap, diff, err), = hold.held or hold.parted
+    assert (j, r, only) == (0, 0, [0]) and gap <= 2 * diff
+    assert (err < 5e-3) == held
+
+
+def test_route_hold_leaves_agreeing_choices():
+    cfg, lw = _router_case()
+    x = torch.tensor([[1.0, 2.0, 0, 0, 5, 5, 5, 5]])
+    hold = RouteHold(5e-3)
+    with hold.record():
+        ttf._route(cfg, lw, x, False)
+    with hold.hold():
+        assert ttf._route(cfg, lw, x * 1.01, False)[0].tolist() == [[1]]
+    assert hold.held == [] and hold.parted == []
+
+
 def test_unported_gating_raises(models):
+    """Every gating of the JAX package is ported (sparsemixer and
+    sqrt_softplus since the MoE families); a name outside them raises
+    naming itself."""
     model, _ = models
-    cfg = model.cfg.with_(expert_gating="sparsemixer")
-    with pytest.raises(NotImplementedError, match="sparsemixer"):
+    cfg = model.cfg.with_(expert_gating="group_limited_sigmoid")
+    with pytest.raises(NotImplementedError, match="group_limited_sigmoid"):
         ttf.moe_block(cfg, model.params["layers"][0], torch.zeros((1, 1, 512),
                                                                   dtype=torch.bfloat16))
 

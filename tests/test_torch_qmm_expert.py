@@ -69,9 +69,13 @@ def test_expert_product_is_the_per_row_dense_product():
 @pytest.mark.parametrize("change,ok", [
     ({}, True), ({"packed": True}, False), ({"transposed": False}, False),
     ({"group": 64}, False), ({"hier": True}, False), ({"two_d": True}, False),
-    ({"K": 128}, False), ({"O": 64}, False)],
-    ids=["stack", "packed", "row_major", "group64", "hier", "2d", "k128", "o64"])
+    ({"K": 128}, True), ({"O": 64}, True), ({"K": 96}, False), ({"O": 96}, False),
+    ({"K": 2880, "O": 2880}, True)],
+    ids=["stack", "packed", "row_major", "group64", "hier", "2d", "k128", "o64", "k96", "o96",
+         "k2880_o2880"])
 def test_supported_names_what_the_kernel_takes(change, ok):
+    """K in 64-row stages and O in 64-column steps (gpt-oss: 2880 = 45 stages,
+    22 column tiles and a half)."""
     K, O, g = change.get("K", 256), change.get("O", 128), change.get("group", 32)
     q = torch.zeros((2, K, O), dtype=torch.int8)
     sc = torch.ones((2, max(K // g, 1), O))
@@ -86,9 +90,9 @@ def test_supported_names_what_the_kernel_takes(change, ok):
 
 def test_split_count_divides_k_into_64_row_units():
     for K, O, R in [(4096, 14336, 2), (14336, 4096, 2), (2048, 768, 64), (768, 2048, 8),
-                    (256, 128, 1)]:
+                    (256, 128, 1), (2880, 2880, 4), (2880, 2880, 32), (320, 192, 3)]:
         for n_groups in range(-(-R // 8), R + 1):
-            s = tqe.split_count(O // 128, n_groups, K // 64, SLOTS)
+            s = tqe.split_count(tqe.col_tiles(O), n_groups, K // 64, SLOTS)
             assert 1 <= s <= 16 and K % (s * 64) == 0 and s * 64 <= K
 
 
@@ -104,7 +108,9 @@ def expert_emulation(x: torch.Tensor, ids, w, slots: int = SLOTS) -> torch.Tenso
     """The CUDA kernel's arithmetic in plain PyTorch, in f32 where the
     card's step is f32 (the order of the sums inside one MMA is not
     modelled). The rows go in the kernel's expert groups (up to 8 rows of
-    one expert a pass), K in its splits. Each int8 weight reaches the tensor
+    one expert a pass), K in its splits of 64-row stages, O in column tiles
+    of 128: a last tile half past O reads zeros there (the TMA box's fill)
+    and its columns past O are dropped. Each int8 weight reaches the tensor
     cores exact and biased, as the two nibbles of q + 128: 128 + lo and 2048
     + 16 hi (bf16 128.0 and 2048.0 with the nibble in the mantissa), two
     MMAs into one f32 sum of 2304 + q a 16-row slab. Each scale group's sum
@@ -115,8 +121,17 @@ def expert_emulation(x: torch.Tensor, ids, w, slots: int = SLOTS) -> torch.Tenso
     E, _, O = w.q.shape
     g = w.group
     groups = tqe.expert_groups([int(i) for i in ids], E)
-    splits = tqe.split_count(O // 128, len(groups), K // 64, slots)
+    tiles = tqe.col_tiles(O)
+    splits = tqe.split_count(tiles, len(groups), K // 64, slots)
     xb = x.to(torch.bfloat16).float()
+    Op = tiles * 128  # the column tiles' extent: zeros past O
+
+    def pad(t):
+        return None if t is None else torch.nn.functional.pad(t, (0, Op - O))
+
+    w = QuantTensor(q=pad(w.q), scales=pad(w.scales), mins=pad(w.mins), group=g,
+                    ggml_type=w.ggml_type, transposed=True)
+    O_out, O = O, Op
     u = w.q.int() & 0xFF  # the byte, unsigned
     lo = (128 + (u & 0xF)).float()
     hi = (2048 + 16 * ((u >> 4) ^ 8)).float()
@@ -147,7 +162,7 @@ def expert_emulation(x: torch.Tensor, ids, w, slots: int = SLOTS) -> torch.Tenso
                                                             xsum.expand(n, O), acc))
             total = total + acc
         out[list(rows)] = total
-    return out
+    return out[:, :O_out]  # the epilogue stores no column at or past O
 
 
 # (E, K, O, ids): one row; 4, 8 and 9 rows of one expert beside others; 128
@@ -158,6 +173,8 @@ EMULATION_CASES = {
     "eight_of_one": (4, 256, 128, [1] * 8 + [3]),
     "nine_of_one": (4, 256, 128, [0, 3, 3, 3, 1, 3, 3, 3, 3, 3, 3]),
     "experts_128": (128, 256, 128, None),
+    # gpt-oss's stacks: K = O = 2880, 45 stages, 22 column tiles and a half
+    "gpt_oss_2880": (4, 2880, 2880, [3, 0, 2, 1]),
 }
 
 
@@ -243,22 +260,28 @@ def test_expert_groups_cover_every_row_once(seed):
 
 @pytest.mark.parametrize("shape,n_groups,want", [
     ("mixtral_gateup", 2, 4), ("mixtral_down", 2, 4), ("qwen3_gate_r8", 8, 4),
-    ("qwen3_down_r8", 8, 1), ("qwen3_gate_r64", 64, 2), ("qwen3_down_r64_shared", 16, 1)])
+    ("qwen3_down_r8", 8, 1), ("qwen3_gate_r64", 64, 2), ("qwen3_down_r64_shared", 16, 1),
+    ("gpt_oss_r4", 4, 3), ("gpt_oss_r32", 32, 1)])
 def test_split_count_at_the_main_shapes(shape, n_groups, want):
     """K is split only where the (column tile x group) pairs fill less than
     45% of 264 slots, leave a partial second wave or units of 64 stages and
     more: four ways at Mixtral's gate/up (224 pairs of 64 stages; two would
     leave 1.7 waves) and its down (64 pairs of 224 stages), two at Qwen3's
-    gate with 64 groups (384 pairs: 1.45 waves unsplit), not at its down."""
+    gate with 64 groups (384 pairs: 1.45 waves unsplit), not at its down;
+    gpt-oss's 2880 x 2880 (23 column tiles, the last half full, of 45
+    stages): three ways at a decode token's 4 experts (92 pairs), none at 32
+    rows (736 pairs)."""
     K, O = {"mixtral_gateup": (4096, 14336), "mixtral_down": (14336, 4096),
             "qwen3_gate_r8": (2048, 768), "qwen3_down_r8": (768, 2048),
-            "qwen3_down_r64_shared": (768, 2048), "qwen3_gate_r64": (2048, 768)}[shape]
-    assert tqe.split_count(O // 128, n_groups, K // 64, SLOTS) == want
+            "qwen3_down_r64_shared": (768, 2048), "qwen3_gate_r64": (2048, 768),
+            "gpt_oss_r4": (2880, 2880), "gpt_oss_r32": (2880, 2880)}[shape]
+    assert tqe.split_count(tqe.col_tiles(O), n_groups, K // 64, SLOTS) == want
 
 
 @pytest.mark.parametrize("R,E,K,O,grid,splits", [
     (2, 8, 4096, 14336, 264, 4), (8, 128, 768, 2048, 128, 1), (8, 128, 2048, 768, 192, 4),
-    (64, 128, 768, 2048, 264, 1), (1, 8, 256, 128, 4, 4), (9, 4, 256, 128, 16, 0)])
+    (64, 128, 768, 2048, 264, 1), (1, 8, 256, 128, 4, 4), (9, 4, 256, 128, 16, 0),
+    (4, 32, 2880, 2880, 264, 3), (1, 16, 5120, 8192, 256, 4)])
 def test_distinct_plan_sizes_the_grid_to_the_units(R, E, K, O, grid, splits):
     """One block a unit where the rows' distinct experts give fewer units
     than the card holds (Qwen3's down at R=8: 16 column tiles x 8; its
@@ -272,11 +295,12 @@ def test_distinct_plan_sizes_the_grid_to_the_units(R, E, K, O, grid, splits):
 
 
 @pytest.mark.parametrize("R,K,O", [(1, 256, 128), (2, 4096, 14336), (2, 14336, 4096),
-                                   (8, 2048, 768), (64, 768, 2048), (512, 2048, 768)])
+                                   (8, 2048, 768), (64, 768, 2048), (512, 2048, 768),
+                                   (4, 2880, 2880), (32, 2880, 2880), (8, 8192, 5120)])
 def test_max_splits_bounds_every_group_count(R, K, O):
     """The scratch the wrapper sizes by max_splits holds the kernel's split
     at any ids of R rows (ceil(R/8) to R groups)."""
     s_max = tqe.max_splits(R, K, O, SLOTS)
     assert 1 <= s_max <= 16
     for n in range(-(-R // 8), R + 1):
-        assert tqe.split_count(O // 128, n, K // 64, SLOTS) <= s_max
+        assert tqe.split_count(tqe.col_tiles(O), n, K // 64, SLOTS) <= s_max

@@ -1,8 +1,10 @@
 """Every GGUF storage type the JAX package reads, in the PyTorch port,
 against the JAX package bit for bit: dequantization (the 27 block types of
 its _DEQUANT, F64 and the integer types), flat and hierarchical plane
-extraction (its numpy path), load_weight's planes, flags and dequantized
-weight (transposed and row-major; the dequant-only types as dense bf16),
+extraction (its numpy path; the card's cutter of expert stacks,
+quant/device_planes.py, run here against the host planes), load_weight's
+planes, flags and dequantized weight (transposed and row-major; the
+dequant-only types as dense bf16),
 and the quantizers' bytes with and without importance weights. Then the
 indexed-expert product's plain version on Q8_0 stacks against the JAX
 kernel in interpret mode, and the tiny llama model at Q8_0, Q4_0 and Q5_K_M
@@ -119,6 +121,30 @@ def test_extract_planes_matches_jax(monkeypatch, t, chunk):
         if a is not None:
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("experts_a_pass", [2, 5], ids=["chunked", "whole"])
+@pytest.mark.parametrize("t, shape", [(GGMLType.Q4_K, (5, 256, 512)),
+                                      (GGMLType.Q6_K, (5, 192, 512)),
+                                      (GGMLType.Q8_0, (5, 128, 2880)),
+                                      (GGMLType.MXFP4, (5, 192, 2880))],
+                         ids=["q4_k", "q6_k", "q8_0", "mxfp4"])
+def test_device_expert_stack_equals_the_host_planes(monkeypatch, t, shape, experts_a_pass):
+    """quant/device_planes.expert_stack (the card's route for transposed
+    expert stacks, run here on the CPU) gives load_weight's host planes,
+    scales and mins in the [E, K, O] layout bit for bit, whole or a few
+    experts a pass."""
+    from llama_cpp_tpu_torch.quant import device_planes
+
+    assert device_planes.DEVICE_PLANE_TYPES <= set(R._PLANES)
+    monkeypatch.setattr(device_planes, "CHUNK_ELEMENTS", experts_a_pass * shape[1] * shape[2])
+    raw = np.frombuffer(synth_quant_bytes(np.random.default_rng(int(t)), int(np.prod(shape)), t),
+                        np.uint8)
+    ref = tq.load_weight(raw, t, shape, transpose=True)
+    q, sc, mn, g = device_planes.expert_stack(raw, t, shape, "cpu")
+    assert g == ref.group and (mn is None) == (ref.mins is None)
+    assert torch.equal(q, ref.q) and torch.equal(sc, ref.scales)
+    assert mn is None or torch.equal(mn, ref.mins)
 
 
 @pytest.mark.parametrize("chunk", [R.CHUNK, 2048], ids=["whole", "chunked"])
