@@ -18,10 +18,15 @@ Phases, each of which fails the run:
      rate; the wgmma prefill GEMM (K3, K4) held, untimed, at every
      main-path shape (the 8B and TinyLlama layers) and 64, 65, 200, 512 and
      1023 rows, timed at 64-1023 rows, beside its registers and spills;
+     K1-K4 at the hybrid families' widths (Nemotron-H-8B's ssm_in of 18560
+     columns, 145 tiles of 128, its ssm_out and relu^2 FFN; Qwen3-Next's
+     ssm_in, attn_qk, attn_gate, ssm_out and shared-expert down), held at
+     1-1023 rows and timed at N = 1, 8, 512;
      the attention kernels (a prefill kernel from PREFILL_MIN_ROWS rows a
      KV head, a decode kernel below it; each held call must launch its
      route's kernel once) at decode B = 1, 8, 32 and at a prefill ubatch, on
-     an int8 and a bf16 pool, with heads of 32, 64 and 256, then both
+     an int8 and a bf16 pool, with heads of 32, 64 and 256 (and
+     Qwen3-Next's 2 KV heads of 256 at G = 8), then both
      kernels forced at 16-512 rows and depths 2048 and 128 to read the
      route threshold; the
      indexed-expert kernel at Mixtral-8x7B, Qwen3-30B-A3B and DeepSeek-V3
@@ -29,7 +34,9 @@ Phases, each of which fails the run:
      experts of 7168 x 2048 at R = 8 and 64; gpt-oss-20B's MXFP4 stacks of
      32 x 2880 x 2880 at R = 4 and 32, 2880 being 45 stages of 64 rows and
      22 column tiles of 128 and a half; Llama-4-Scout's 16 x 5120 x 8192
-     gate and 16 x 8192 x 5120 down stacks at R = 1 and 8),
+     gate and 16 x 8192 x 5120 down stacks at R = 1 and 8; Qwen3-Next's
+     512 x 2048 x 512 gate and 512 x 512 x 2048 down stacks at R = 10 and
+     80),
      the slot-table attention kernels at the same depths as the paged ones,
      and with 64-wide heads, and in ring mode at a Gemma-3-4B window layer
      (1792 slots, 4 KV heads of 256, window 1024, positions past the wrap:
@@ -167,16 +174,27 @@ Phases, each of which fails the run:
        GroveMoE's chunk experts, shared experts, selection biases, per-layer
        window patterns) among them, K7 launched at their decode steps;
      - the MoE families at full width, Context as the families': gpt-oss-20B
-       (depth 24 -> 4: two window layers of 128 on ISWA rings through K6 in
-       ring mode and two full layers on the pool through K5, both with sinks
+       (depth 24 -> 2: a window layer of 128 on an ISWA ring through K6 in
+       ring mode and a full layer on the pool through K5, both with sinks
        at the prefill ubatches; 32 MXFP4 experts of 2880 with biases and the
        clamped GLU, top 4, on K7; every dense product and the head on the
        library route, where the JAX package leaves them to XLA, timed at N =
-       1; YaRN factor 32) and Llama-4-Scout-17B-16E (48 -> 4: K1-K5, K5 at G
-       = 5, layer 3 NoPE, 16 experts of 8192 top 1 with the gate on the
+       1; YaRN factor 32) and Llama-4-Scout-17B-16E (48 -> 2: K1-K5, K5 at G
+       = 5, 16 experts of 8192 top 1 with the gate on the
        expert input on K7 at B = 1 and 8, a shared expert), each with the
        Qwen3-8B path's whole treatment with near_ties and a served round;
        a narrow gpt-oss at the default synthetic scale (logged);
+     - the recurrent and hybrid memories at full width, Context as the
+       families' (a HybridMemory: the recurrent state beside the pool;
+       ubatches and decode batches at their exact shapes, a graph a batch
+       size): Qwen3-Next-80B-A3B (depth 48 -> 4: three gated-DeltaNet
+       layers and a gated attention layer, K5 at 2 KV heads of 256 and G =
+       8; 512 experts of 512, top 10, on K7 at B = 1 and 8) and
+       Nemotron-H-8B (the first 8 of its 52 blocks: four Mamba-2, three
+       relu^2 FFN blocks, NoPE attention at 7; K1-K5), each with the
+       Qwen3-8B path's whole treatment with near_ties and a served round;
+       then the 12 other recurrent and hybrid entries as the dense
+       families' narrow paths, on F32 values (K5 where their heads take it);
      - the storage types users download beside Q4_K_M: Qwen3-8B at Q8_0
        (depth 36 -> 2, every matrix Q8_0: K2 and K4 over int8 flat-g32
        planes, no other qmm kernel; the families' whole treatment), at
@@ -246,12 +264,18 @@ DS_LITE_LAYERS = 2  # DeepSeek-V2-Lite: 27 layers; one dense, one MoE
 DS_V3_LAYERS = 2  # DeepSeek-V3: 61 layers; one dense, one MoE of 256 experts (~14 GB)
 STARCODER2_LAYERS = 2  # StarCoder2-7B: 32 layers
 COMMAND_R_LAYERS = 1  # Command-R v01: 40 layers
-GPT_OSS_LAYERS = 4  # gpt-oss-20B: 24 layers; two window layers and two full
-SCOUT_LAYERS = 4  # Llama-4-Scout-17B-16E: 48 layers; layer 3 NoPE
+GPT_OSS_LAYERS = 2  # gpt-oss-20B: 24 layers; a window layer and a full one
+SCOUT_LAYERS = 2  # Llama-4-Scout-17B-16E: 48 layers; its NoPE layers run in llama4's narrow path
+QWEN3NEXT_LAYERS = 4  # Qwen3-Next-80B-A3B: 48 layers; three DeltaNet layers, one attention
+NEMOTRON_H_LAYERS = 8  # Nemotron-H-8B: 52 blocks; M-M-M-M*: four Mamba-2, three FFN, one attention
 # the other dense-decoder families: narrow, heads of 128, 2 layers
 FAMILY_SHAPE = dict(n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
                     vocab_size=2048, n_ctx=4096)
 FAMILY_PROMPT = 160  # tokens: 320 rows a KV head, the prefill kernels' route
+# the recurrent and hybrid families' narrow files: FAMILY_SHAPE's widths,
+# their blocks from testing.HYBRID_LAYOUTS
+HYBRID_SHAPE = dict(n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
+                    vocab_size=2048, n_ctx=4096)
 # synthetic block scales of the StarCoder2-7B and family files, divided by
 # 256 (Q4_K weights of about 1/sqrt(4608) at most, logits of unit spread):
 # at the default scale (weights up to about 19) a biased model's attention is
@@ -1078,7 +1102,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from llama_cpp_tpu_torch.gguf.constants import GGMLType
-        from llama_cpp_tpu_torch.models import adapters
+        from llama_cpp_tpu_torch.models import adapters, mamba
+        from llama_cpp_tpu_torch.models.transformer import first_attention_layer
         from llama_cpp_tpu_torch.models.loader import Model, load_model
         from llama_cpp_tpu_torch.ops import qtensor
         from llama_cpp_tpu_torch.ops.kernels import (build, flash_attn, qmm, qmm_bench,
@@ -1088,22 +1113,26 @@ def main() -> int:
         from llama_cpp_tpu_torch.runtime.context import Context
         from llama_cpp_tpu_torch.runtime import state as state_io
         from llama_cpp_tpu_torch.runtime.kv_cache import ISWACache
+        from llama_cpp_tpu_torch.runtime.memory import RecurrentState
         from llama_cpp_tpu_torch.runtime.speculative import (DraftModelSpeculator,
                                                              NgramSpeculator,
                                                              speculative_generate)
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
-        from llama_cpp_tpu_torch.testing import (FAMILY_LAYOUTS, MOE_FAMILY_LAYOUTS,
-                                                 make_bench_arch_gguf,
+        from llama_cpp_tpu_torch.testing import (FAMILY_LAYOUTS, HYBRID_LAYOUTS,
+                                                 MOE_FAMILY_LAYOUTS, make_bench_arch_gguf,
                                                  make_bench_command_r_gguf,
                                                  make_bench_gemma3_gguf,
                                                  make_bench_gpt_oss_gguf,
+                                                 make_bench_hybrid_gguf,
                                                  make_bench_llama4_gguf,
                                                  make_bench_starcoder2_gguf,
                                                  make_bench_deepseek2_gguf,
                                                  make_bench_deepseek_v3_gguf,
                                                  make_bench_llama_gguf, make_bench_moe_gguf,
+                                                 make_bench_nemotron_h_gguf,
                                                  make_bench_qwen3_gguf, make_bench_qwen3moe_gguf,
+                                                 make_bench_qwen3next_gguf,
                                                  make_control_vector_gguf, make_lora_gguf,
                                                  RouteHold, synth_quant_bytes)
         from llama_cpp_tpu_torch.tools import bench_qmm as bench_qmm_tool
@@ -1181,12 +1210,43 @@ def main() -> int:
         worst = held_phase(torch, qmm, "K1/K2 decode", ws, DECODE_ROWS, failures)
         r[32]["max_abs_err"] = max(r[32]["max_abs_err"], worst["max_abs_err"])
         r[32]["nmse"] = max(r[32]["nmse"], worst["nmse"])
+    res_rows: dict[str, dict] = {}  # rows of the hybrid families' widths, by JSON entry
     log("K3, K4 wgmma GEMM at every main-path shape and ragged ubatch (held, not timed):")
     held = held_phase(torch, qmm, "K3/K4 wgmma", q4 + q6 + tiny, (64, 65, 200, 512, 1023),
                       failures)
     for r in (q4p[512], q6p[512]):
         r["max_abs_err"] = max(r["max_abs_err"], held["max_abs_err"])
         r["nmse"] = max(r["nmse"], held["nmse"])
+    log("K1-K4 at the hybrid families' widths (Nemotron-H-8B: ssm_in 4096 -> 18560, 145 "
+        "column tiles of 128; ssm_out 8192 -> 4096; ffn_up 4096 -> 21504; ffn_down 21504 -> 4096 "
+        "Q6_K. Qwen3-Next-80B-A3B: ssm_in 2048 -> 12288; attn_qk 2048 -> 4608; attn_gate 2048 -> "
+        "4096; ssm_out 4096 -> 2048; the shared expert's down 512 -> 2048 Q6_K), each launch "
+        "held, the layer sums timed at N = 1, 8, 512:")
+    hybrid_w = {
+        "nemotron-h": ([("ssm_in", weight(GGMLType.Q4_K, 18560, 4096)),
+                        ("ssm_out", weight(GGMLType.Q4_K, 4096, 8192)),
+                        ("ffn_up", weight(GGMLType.Q4_K, 21504, 4096))],
+                       [("ffn_down", weight(GGMLType.Q6_K, 4096, 21504))]),
+        "qwen3-next": ([("ssm_in", weight(GGMLType.Q4_K, 12288, 2048)),
+                        ("attn_qk", weight(GGMLType.Q4_K, 4608, 2048)),
+                        ("attn_gate", weight(GGMLType.Q4_K, 4096, 2048)),
+                        ("ssm_out", weight(GGMLType.Q4_K, 2048, 4096))],
+                       [("shexp down", weight(GGMLType.Q6_K, 2048, 512))])}
+    for fam, (w4, w6) in hybrid_w.items():
+        for keys, ws in (("qmm4_planes", w4), ("qmm_planes", w6)):
+            held_phase(torch, qmm, f"{fam} {keys}", ws, DECODE_ROWS + (64, 65, 200, 512, 1023),
+                       failures)
+            for kind, rows in (("decode", (1, 8)), ("prefill/wgmma", (512,))):
+                key = keys + ("/decode" if kind == "decode" else "_prefill/wgmma")
+                r = qmm_phase(torch, timer, qmm, f"{fam} {key}", ws, rows, failures)
+                for n in rows:
+                    res_rows.setdefault(key, {})[f"{fam} layer N={n}"] = {
+                        f: r[n][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "nmse")}
+                    log(f"  {fam} {key} layer sum N={n} ({card}): {r[n]['ms']:.4f} ms, bound "
+                        f"{r[n]['bound_ms']:.4f} ({r[n]['bound_by']}), library "
+                        f"{r[n]['library_ms']:.4f}, plain {r[n]['plain_ms']:.4f}")
+    del hybrid_w
     regs = [ln.strip() for ln in build.BUILD_LOGS.get("qmm_prefill.cu", "").splitlines()
             if "Used" in ln or "spill" in ln]
     log("wgmma kernel (4 instantiations, then the split sum), ptxas: " + "; ".join(regs))
@@ -1203,6 +1263,9 @@ def main() -> int:
            "qmm_planes_prefill/wgmma": {**q6p[512], "max_abs_err": max(
                q6p[512]["max_abs_err"], hp[512]["max_abs_err"]), "head_512": {
                k: hp[512][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "nmse")}}}
+    for key, rows in res_rows.items():
+        res[key].setdefault("rows", {}).update(rows)
+        res[key]["nmse"] = max(res[key]["nmse"], max(r["nmse"] for r in rows.values()))
     res["flash_attention_paged/decode"] = attn_phase(
         torch, timer, flash_attn, "K5 decode B=1 d=2048",
         attn_case(torch, B=1, G=4, T=1, depth=2048), failures)
@@ -1222,6 +1285,19 @@ def main() -> int:
                attn_case(torch, B=8, G=16, T=1, depth=512, D=64), failures)
     attn_phase(torch, timer, flash_attn, "K5 heads of 64, ubatch 188 rows x 8",
                attn_case(torch, B=1, G=8, T=188, depth=512, D=64, Hkv=4), failures)
+    log("K5 at Qwen3-Next-80B-A3B's attention (2 KV heads of 256, G = 8, int8 pool):")
+    for kind, shape, case in (
+            ("decode", "decode B=1 d=2048", dict(B=1, T=1, depth=2048)),
+            ("decode", "decode B=8 d=512", dict(B=8, T=1, depth=512)),
+            ("prefill", "prefill ubatch 4 of 2048", dict(B=1, T=512, depth=1536))):
+        r = attn_phase(torch, timer, flash_attn, f"K5 qwen3-next G=8 D=256 {shape}",
+                       attn_case(torch, G=8, Hkv=2, D=256, **case), failures)
+        entry = res[f"flash_attention_paged/{kind}"]
+        entry.setdefault("rows", {})[f"qwen3-next G=8 D=256 {shape}"] = {
+            k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "nmse")}
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+        entry["nmse"] = max(entry["nmse"], r["nmse"])
+    torch.cuda.empty_cache()
     log("route threshold: each kernel forced at R rows (G=4; int8 pool, heads of 128, B=1, "
         f"8 KV heads; PREFILL_MIN_ROWS = {flash_attn.PREFILL_MIN_ROWS}):")
     keep = flash_attn.PREFILL_MIN_ROWS
@@ -1436,6 +1512,20 @@ def main() -> int:
             qwen["nmse"] = max(qwen["nmse"], r["nmse"])
         del w
         torch.cuda.empty_cache()
+    log("K7 at Qwen3-Next-80B-A3B's expert stacks (512 experts of 512: gate 2048 -> 512 "
+        "Q4_K-like, down 512 -> 2048 Q6_K-like) at R = 10 (a decode token's top 10) and 80 "
+        "(eight tokens'), both on the gather route (pairs below 512):")
+    for wname, K, O, q4 in (("ffn_gate_exps", 2048, 512, True),
+                            ("ffn_down_exps", 512, 2048, False)):
+        w = expert_stack(torch, qtensor, GGMLType, 512, K, O, q4, seed=19)
+        for R in (10, 80):
+            r = expert_phase(torch, timer, qmm_expert, f"K7 qwen3-next {wname}", w, R, failures)
+            qwen["rows"][f"qwen3-next {wname} E=512 R={R}"] = {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "nmse")}
+            qwen["max_abs_err"] = max(qwen["max_abs_err"], r["max_abs_err"])
+            qwen["nmse"] = max(qwen["nmse"], r["nmse"])
+        del w
+        torch.cuda.empty_cache()
     log("B1-B4, the microbenchmark's probe kernels (8 rows of x, groups of 32; the JSON line "
         "takes the gate/up shape, B3 and B4 at their fastest tile):")
     bench_res = bench_phase(torch, timer, qmm_bench, "gateup", E, 2 * FF, failures)
@@ -1543,18 +1633,33 @@ def main() -> int:
         between the two paths' logits of the plain argmax. With near_ties on a
         model with experts the plain path's routers are held to the kernel
         path's choice where the two part at a router's near-tie whose input
-        agrees within the limit (testing.RouteHold), as the ids are; every
-        step's logits stay within the limit. ref_model: the model whose plain
-        path is the reference (default: the same model)."""
+        agrees within the limit (testing.RouteHold), as the ids are, at the
+        prefill (a fresh kernel context's, whose logits are then the ones
+        held) and at each step; every step's logits stay within the limit.
+        ref_model: the model whose plain path is the reference (default: the
+        same model)."""
         ref_ctx = Context(ref_model or model, kernels=False, graphs=False, **ctx_kw)
-        ref_logits = ref_ctx.prefill(prompt, seq=0)
         steps = len(gen_ids) if near_ties else decode_logits
         held = None
-        if steps:
+        hold = RouteHold(NMSE_LIMIT) if near_ties and model.cfg.n_expert else None
+        if not steps:
+            ref_logits = ref_ctx.prefill(prompt, seq=0)
+        else:
             kern = Context(model, graphs=False, **ctx_kw)
-            lk, lr = kern.prefill(prompt, seq=0), ref_logits
+            with hold.record() if hold else contextlib.nullcontext():
+                lk = kern.prefill(prompt, seq=0)
+            with hold.hold() if hold else contextlib.nullcontext():
+                ref_logits = ref_ctx.prefill(prompt, seq=0)
+            if hold:
+                log(f"{path}: a fresh kernel prefill against the path's own, logits NMSE "
+                    f"{nmse(torch.from_numpy(lk), torch.from_numpy(logits)):.3e}; plain routers "
+                    f"held to it at the prefill (router call, row, experts, plain gap, largest "
+                    f"score difference, input NMSE): "
+                    f"{[h[:3] + tuple(round(v, 6) for v in h[3:]) for h in hold.held]}"
+                    + (f"; parted {hold.parted[:4]}" if hold.parted else ""))
+                logits = lk  # the kernel prefill whose routes the plain path took
+            lr = ref_logits
             errs, ties, wrong, holds, parted = [], [], [], [], []
-            hold = RouteHold(NMSE_LIMIT) if near_ties and model.cfg.n_expert else None
             for i, t in enumerate(gen_ids[:steps]):
                 if near_ties:
                     diff = float(np.abs(lk - lr).max())
@@ -2766,6 +2871,36 @@ def main() -> int:
             failures.append(f"{label}: the library route launched a kernel: {before} -> {after}")
         return total
 
+    def mixer_phase(model, label, il=0, T=512):
+        """Layer il's recurrent mixer over one T-token ubatch of one
+        sequence from a zero state, outside any counted path: the host ms of
+        a synchronised call (the DeltaNet's step loop is T eager steps), the
+        best of three after a warm-up, and the device memory the call adds
+        at its peak (the Mamba-2 scan's [T, H, P, S] f32 states)."""
+        cfg, lw = model.cfg, model.params["layers"][il]
+        ex = cfg.extra
+        mixer = mamba.mixer_of(cfg, lw)
+        rs = RecurrentState.create(cfg.n_layers, 1, ex["ssm_d_conv"], ex["ssm_d_inner"],
+                                   ex["ssm_d_state"], conv_channels=ex.get("ssm_conv_dim"),
+                                   device="cuda")
+        h = torch.randn((1, T, cfg.n_embd), device="cuda").to(torch.bfloat16)
+        sidx = torch.zeros(1, dtype=torch.int32, device="cuda")
+        mixer(cfg, lw, h, rs, sidx, il)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            mixer(cfg, lw, h, rs, sidx, il)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"{label} layer {il} {mixer.__name__} over a {T}-token ubatch ({card}): "
+            f"{min(ms):.1f} ms (runs {[round(m, 1) for m in ms]}), {peak / 2 ** 30:.2f} GiB of "
+            "device memory at its peak beyond the model's")
+        del rs, h
+
     def weight_routes(model, layers) -> str:
         """Each matrix of the given layers (and the head): its storage and
         the route its products take: a qmm kernel (K1/K3 nibble planes, K2/K4
@@ -2866,20 +3001,27 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
-    def family_path(arch, layout, synth_scale=FAMILY_SYNTH_SCALE):
+    def family_path(arch, layout, synth_scale=FAMILY_SYNTH_SCALE, hybrid=False):
         """One dense-decoder family of the registry at FAMILY_SHAPE (heads of
         128; its tensors and metadata as testing.FAMILY_LAYOUTS writes them),
-        Q4_K_M mix: a FAMILY_PROMPT-token prefill and 16 greedy tokens
-        (Context.generate on the B=1 graph) with the counters read: every
-        qmm kernel its matrices route to (decode and ubatch), K7 for an
-        expert stack, K5 on the pool and, on an ISWA memory, K6 in ring mode
-        on the window layers; no other kernel, so an ALiBi entry launches no
-        K5/K6. Then the plain path on the prefill logits and each id held
-        teacher-forced (near_ties)."""
+        Q4_K_M mix, or with hybrid one recurrent or hybrid family at
+        HYBRID_SHAPE (its blocks as testing.HYBRID_LAYOUTS writes them, every
+        matrix F32 values, so its products take the library route): a
+        FAMILY_PROMPT-token prefill and 16 greedy tokens (Context.generate
+        on the B=1 graph) with the counters read: every qmm kernel its
+        matrices route to (decode and ubatch), K7 for an expert stack, K5 on
+        the pool where its attention layers' heads dispatch to it and, on an
+        ISWA memory, K6 in ring mode on the window layers; no other kernel,
+        so an ALiBi entry launches no K5/K6, nor a recurrent stack. Then the
+        plain path on the prefill logits and each id held teacher-forced
+        (near_ties)."""
         label = f"family {arch}"
         path = os.path.join(smoke_dir, f"family-{arch}.gguf")
-        make_bench_arch_gguf(path, arch, **{**FAMILY_SHAPE, **layout}, synth_scale=synth_scale,
-                             seed=0)
+        if hybrid:  # f32 values: synthetic blocks leave several small hybrids ill-conditioned
+            make_bench_hybrid_gguf(path, arch, **{**HYBRID_SHAPE, **layout}, f32=True, seed=0)
+        else:
+            make_bench_arch_gguf(path, arch, **{**FAMILY_SHAPE, **layout},
+                                 synth_scale=synth_scale, seed=0)
         model = load_model(path)
         os.remove(path)
         cfg = model.cfg
@@ -2895,27 +3037,35 @@ def main() -> int:
             elif w.q.dim() == 2 and qmm.dispatches(w):
                 i = 0 if w.packed else 1
                 must.update((decode_keys[i],) + ((prefill_keys[i],) if ubatch else ()))
-        if not cfg.alibi_bias:
-            must.update(paged_keys)
+        ctx_kw = dict(n_ctx=1024, n_seqs=2, n_ubatch=512, quantized_kv=True)
+        ctx = Context(model, **ctx_kw)
+        attends = first_attention_layer(cfg, model.params["layers"])
+        if not cfg.alibi_bias and "attn_output" in model.params["layers"][attends]:
+            G = cfg.n_heads // cfg.n_kv_heads
+            must.update(f"flash_attention_paged/{flash_attn.route(rows)}"
+                        for rows in (FAMILY_PROMPT * G, G)
+                        if flash_attn.dispatches(cfg.head_dim_k, cfg.head_dim_v, ctx.n_slots,
+                                                 rows))
             if cfg.sliding_window and cfg.swa_pattern:  # ISWA: the window layers on rings
                 must.update(slots_keys + ring_keys)
         vocab = cfg.vocab_size
-        ctx_kw = dict(n_ctx=1024, n_seqs=2, n_ubatch=512, quantized_kv=True)
         prompt = [int(t) for t in prng.integers(3, vocab, FAMILY_PROMPT)]
         reset_counts()
-        ctx = Context(model, **ctx_kw)
         logits = ctx.prefill(prompt, seq=0)
         gen_ids = ctx.generate(prompt, max_new_tokens=16, seq=1)
         del ctx
         all_counts[label] = read_counts(label, sorted(must))
         check_logits(label, logits, vocab)
         attn = {k: all_counts[label][k] for k in paged_keys + slots_keys + ring_keys}
-        log(f"{label} ({card}): {FAMILY_SHAPE['n_layers']} layers, n_embd "
-            f"{FAMILY_SHAPE['n_embd']}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV heads of "
+        mixers = [getattr(mamba.mixer_of(cfg, lw), "__name__", "-")
+                  for lw in model.params["layers"]]
+        log(f"{label} ({card}): {cfg.n_layers} layers, n_embd "
+            f"{cfg.n_embd}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV heads of "
             f"{cfg.head_dim_k}; LayerNorm {not cfg.use_rms_norm}, glu {cfg.glu}, act "
             f"{cfg.act}, parallel {cfg.parallel_residual}, norm_after {cfg.norm_after}, ALiBi "
             f"{cfg.alibi_bias}, NoPE layers {cfg.extra.get('no_rope_layers', ())}, learned "
-            f"positions {'pos_embd' in model.params}; attention launches {attn}")
+            f"positions {'pos_embd' in model.params}; memory "
+            f"{cfg.extra.get('memory', 'attn')}, mixers {mixers}; attention launches {attn}")
         against_plain(label, model, logits, gen_ids, prompt, near_ties=True, **ctx_kw)
         del model
 
@@ -3410,7 +3560,7 @@ def main() -> int:
         n_gen=16, near_ties=True, routes=True)
     t0 = time.perf_counter()
     for arch, layout in FAMILY_LAYOUTS.items():
-        if arch not in ("starcoder2", "command-r", "gpt-oss", "llama4"):
+        if arch not in ("starcoder2", "command-r", "gpt-oss"):
             family_path(arch, layout)
     torch.cuda.empty_cache()
 
@@ -3433,7 +3583,7 @@ def main() -> int:
             "one-hot attention, bf16 q and P in the kernels against the plain path's f32)")
 
     default_scale("starcoder2")
-    log(f"the other {len(FAMILY_LAYOUTS) - 4} families (dense and MoE): "
+    log(f"the other {len(FAMILY_LAYOUTS) - 3} families (dense and MoE): "
         f"{time.perf_counter() - t0:.1f} s")
 
     # the MoE families at full width: gpt-oss-20B (K7 at 2880, its 64-wide
@@ -3464,12 +3614,53 @@ def main() -> int:
         SCOUT_LAYERS, 202048, full_keys + (expert_key,),
         "Llama-4-Scout-17B-16E shape (meta-llama/Llama-4-Scout-17B-16E config.json, text "
         "config: n_embd 5120, 40 heads on 8 KV heads of 128 (G = 5), NORM rope 500000 with "
-        "layer 3 NoPE, the weightless q/k norm after rope, 16 experts of 8192 top 1 by sigmoid "
+        "every fourth layer NoPE (none of the first two), the weightless q/k norm after rope, "
+        "16 experts of 8192 top 1 by sigmoid "
         "with the gate on the expert input, an ungated shared expert of 8192, vocab 202048; "
         f"depth 48 -> {SCOUT_LAYERS}), Q4_K_M mix; synthetic block scales / 256",
         profile_qe=qmm_expert, server=True, near_ties=True, routes=True)
+
+    # the recurrent and hybrid memories at full width: Qwen3-Next-80B-A3B
+    # (gated DeltaNet, gated attention, 512 experts: K7 at top 10) and
+    # Nemotron-H-8B (Mamba-2, NoPE attention, relu^2 FFN blocks)
+    t0 = time.perf_counter()
+    model = arch_path(
+        "qwen3-next-80b-a3b",
+        functools.partial(make_bench_qwen3next_gguf, synth_scale=FAMILY_SYNTH_SCALE),
+        QWEN3NEXT_LAYERS, 151936, full_keys + (expert_key,),
+        "Qwen3-Next-80B-A3B shape (Qwen/Qwen3-Next-80B-A3B-Instruct config.json: n_embd 2048; "
+        "layers 0-2 gated DeltaNet (16 key heads, 32 value heads of 128, conv 4), layer 3 gated "
+        "full attention (16 query heads on 2 KV heads of 256, NEOX rope over 64 dims at 1e7, "
+        "per-head q/k norms, a sigmoid output gate); 512 experts of 512, top 10, softmax "
+        "normalised, a sigmoid-gated shared expert of 512; vocab 151936; depth 48 -> "
+        f"{QWEN3NEXT_LAYERS}), Q4_K_M mix; the recurrent state beside the pool (HybridMemory), "
+        "exact-shape ubatches and decode batches; synthetic block scales / 256",
+        profile_qe=qmm_expert, server=True, near_ties=True, routes=True, keep=True)
+    mixer_phase(model, "qwen3-next-80b-a3b")
+    del model
+    torch.cuda.empty_cache()
+    model = arch_path(
+        "nemotron-h-8b",
+        functools.partial(make_bench_nemotron_h_gguf, synth_scale=FAMILY_SYNTH_SCALE),
+        NEMOTRON_H_LAYERS, 131072, full_keys,
+        "Nemotron-H-8B shape (nvidia/Nemotron-H-8B-Base-8K config.json: n_embd 4096; the first "
+        f"{NEMOTRON_H_LAYERS} blocks of hybrid_override_pattern M-M-M-M*-...: Mamba-2 at 0, 2, "
+        "4, 6 (128 heads of 64, 8 groups, state 128, conv 4), relu^2 FFN blocks of 21504 at 1, "
+        "3, 5, NoPE attention at 7 (32 heads on 8 KV heads of 128); vocab 131072; 52 blocks), "
+        "Q4_K_M mix; synthetic block scales / 256",
+        server=True, near_ties=True, routes=True, keep=True)
+    mixer_phase(model, "nemotron-h-8b")
+    del model
+    torch.cuda.empty_cache()
+    for arch, layout in HYBRID_LAYOUTS.items():
+        if arch not in ("qwen3next", "nemotron_h"):
+            family_path(arch, layout, hybrid=True)
+    torch.cuda.empty_cache()
+    log(f"the hybrid paths, the {len(HYBRID_LAYOUTS) - 2} narrow ones included: "
+        f"{time.perf_counter() - t0:.1f} s")
     for key, row in res["qmm_planes_expert"]["rows"].items():
-        path = next((p for p in ("gpt-oss-20b", "llama4-scout") if key.startswith(p[:6])), None)
+        path = next((p for p in ("gpt-oss-20b", "llama4-scout", "qwen3-next-80b-a3b")
+                     if key.startswith(p[:6])), None)
         if path is not None:  # the model path's own launches, graph replays included
             row["launches"] = all_counts[path][expert_key] + all_counts[f"{path} graphs"][
                 expert_key]

@@ -7,10 +7,12 @@ weights are numpy arrays, quantized weights are objects with the JAX
 QuantTensor's fields (q, scales, mins, d, dmin as numpy arrays; group,
 ggml_type, transposed, packed, out_dim, sgroup); stacked expert weights are
 such objects with 3-D planes, the router a dense array; every key of a
-layer (biases, q/k norms, post-norms included) comes across as it is.
-kv_cache_from_jax does the same for a slot-table KVCache and iswa_from_jax
-for an ISWACache on slot tables, so a test can continue a JAX prefill in
-the port. Nothing of JAX is imported.
+layer (biases, q/k norms, post-norms, the recurrent mixers' ssm_*,
+shortconv_* and attn_gate included) comes across as it is.
+kv_cache_from_jax does the same for a slot-table KVCache, iswa_from_jax
+for an ISWACache on slot tables and recurrent_from_jax for a
+RecurrentState, so a test can continue a JAX prefill in the port. Nothing
+of JAX is imported.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ..ops.qtensor import QuantTensor
 from ..runtime.kv_cache import ISWACache, KVCache
+from ..runtime.memory import RecurrentState
 
 
 def _tensor(a, device) -> torch.Tensor | None:
@@ -80,3 +83,9 @@ def iswa_from_jax(jkv, device="cpu") -> ISWACache:
     return ISWACache(full=kv_cache_from_jax(jkv.full, device),
                      swa=kv_cache_from_jax(jkv.swa, device), is_swa=tuple(jkv.is_swa),
                      full_idx=tuple(jkv.full_idx), swa_idx=tuple(jkv.swa_idx))
+
+
+def recurrent_from_jax(jrs, device="cpu") -> RecurrentState:
+    """The JAX package's RecurrentState (conv [L, n_seqs, d_conv - 1, C],
+    ssm [L, n_seqs, d_state, d_inner] as numpy arrays) -> the port's."""
+    return RecurrentState(conv=_tensor(jrs.conv, device), ssm=_tensor(jrs.ssm, device))

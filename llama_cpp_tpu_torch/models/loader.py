@@ -95,6 +95,37 @@ LAYER_TENSORS = {
     "attn_kv_b.weight": "attn_kv_b",
     "attn_k_b.weight": "attn_k_b",
     "attn_v_b.weight": "attn_v_b",
+    # the recurrent mixers (reference src/llama-arch.cpp LLM_TENSOR_SSM_*,
+    # LLM_TENSOR_SHORTCONV_*): Mamba-1/2, the gated DeltaNet's beta/alpha
+    # (fused ssm_ba: qwen3next; separate: qwen35), LFM2's short conv, and
+    # the gated attention's output gate
+    "ssm_in.weight": "ssm_in",
+    "ssm_conv1d.weight": "ssm_conv1d",
+    "ssm_conv1d.bias": "ssm_conv1d_bias",
+    "ssm_x.weight": "ssm_x",
+    "ssm_dt.weight": "ssm_dt",
+    "ssm_dt.bias": "ssm_dt_bias",
+    "ssm_a": "ssm_a",
+    "ssm_d": "ssm_d",
+    "ssm_out.weight": "ssm_out",
+    "ssm_dt_norm.weight": "ssm_dt_norm",
+    "ssm_b_norm.weight": "ssm_b_norm",
+    "ssm_c_norm.weight": "ssm_c_norm",
+    "ssm_norm.weight": "ssm_norm",
+    "ssm_ba.weight": "ssm_ba",
+    "ssm_beta.weight": "ssm_beta",
+    "ssm_alpha.weight": "ssm_alpha",
+    "ssm_conv1d_q.weight": "ssm_conv1d_q",  # KDA (kimi-linear): a conv each of q, k, v
+    "ssm_conv1d_k.weight": "ssm_conv1d_k",
+    "ssm_conv1d_v.weight": "ssm_conv1d_v",
+    "ssm_f_a.weight": "ssm_f_a",
+    "ssm_f_b.weight": "ssm_f_b",
+    "ssm_g_a.weight": "ssm_g_a",
+    "ssm_g_b.weight": "ssm_g_b",
+    "shortconv.conv.weight": "shortconv_conv",
+    "shortconv.in_proj.weight": "shortconv_in",
+    "shortconv.out_proj.weight": "shortconv_out",
+    "attn_gate.weight": "attn_gate",
 }
 
 GLOBAL_TENSORS = {
@@ -119,7 +150,9 @@ _DENSE_KEYS = {"attn_norm", "attn_norm_bias", "attn_q_norm", "attn_k_norm", "att
                "attn_output_bias", "ffn_gate_bias", "ffn_up_bias", "ffn_down_bias",
                "output_bias", "token_embd_norm", "token_embd_norm_bias",
                "attn_sinks", "ffn_gate_inp_bias", "exp_probs_b",
-               "ffn_gate_exps_bias", "ffn_up_exps_bias", "ffn_down_exps_bias"}
+               "ffn_gate_exps_bias", "ffn_up_exps_bias", "ffn_down_exps_bias",
+               "ssm_conv1d", "ssm_conv1d_bias", "ssm_dt_bias", "ssm_a", "ssm_d",
+               "ssm_dt_norm", "ssm_b_norm", "ssm_c_norm", "ssm_norm"}
 # gather tables: row-major, not transposed planes
 _ROW_TABLES = ("token_embd", "pos_embd")
 
@@ -194,11 +227,17 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
             transpose=transpose, device=dev)
 
     stand_ins = {"ffn_down": ("ffn_down_exps",)}  # an MoE layer's experts
-    if cfg.extra.get("kv_lora_rank") and any("attn_kv_a_mqa" not in lw for lw in layers):
+    if cfg.extra.get("kv_lora_rank") and any("attn_kv_a_mqa" not in lw and "ssm_f_a" not in lw
+                                             for lw in layers):
         raise ValueError("model load incomplete: an MLA layer without attn_kv_a_mqa")
     missing = [f"layer {i} missing {k}" for i, lw in enumerate(layers)
                for k in required_layer_tensors(cfg)
                if k not in lw and not any(a in lw for a in stand_ins.get(k, ()))]
+    if cfg.extra.get("memory") == "hybrid":
+        missing += [f"layer {i} has neither attention nor a recurrent mixer nor an FFN"
+                    for i, lw in enumerate(layers)
+                    if not any(k in lw for k in ("ssm_in", "attn_output", "shortconv_in",
+                                                 "ffn_up", "ssm_beta", "ffn_gate_exps"))]
     if missing:
         raise ValueError(f"model load incomplete: {missing[:4]}")
     for lw in layers:
@@ -206,8 +245,11 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
     if cfg.extra.get("kv_lora_rank"):
         for lw in layers:
             _fuse_presplit_mla_kv(lw, cfg)
-    for lw in layers:
-        _fuse_projections(lw)
+    # qwen35's wq holds per-head [q | gate] pairs at twice the width: a fused
+    # q|k|v would be split at the wrong columns, so its projections stay apart
+    if not cfg.extra.get("q_gate_interleaved"):
+        for lw in layers:
+            _fuse_projections(lw)
     if cfg.extra.get("mla_absorb"):
         for lw in layers:
             _split_mla_kv_b(lw, cfg)
@@ -224,9 +266,15 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
 
 def required_layer_tensors(cfg: ModelConfig) -> tuple[str, ...]:
     """The tensors every layer of the family must carry (the JAX package's
-    loader.py:539-548): a weightless norm carries no norm tensors, a shared
-    parallel norm (phi2, command-r) is attn_norm alone, norm-after blocks
-    carry post-norms instead of pre-norms."""
+    loader.py:536-548): a recurrent stack's SSM projections; a hybrid's
+    attn_norm alone (its mixer or FFN is checked a layer); a weightless norm
+    carries no norm tensors, a shared parallel norm (phi2, command-r) is
+    attn_norm alone, norm-after blocks carry post-norms instead of
+    pre-norms."""
+    if cfg.extra.get("memory") == "recurrent":
+        return ("attn_norm", "ssm_in", "ssm_out")
+    if cfg.extra.get("memory") == "hybrid":
+        return ("attn_norm",)
     if cfg.extra.get("weightless_norm"):
         norms: tuple[str, ...] = ()
     elif cfg.shared_parallel_norm:

@@ -4,11 +4,14 @@ Port of the JAX package's models/registry.py (analog of reference
 src/llama-arch.h LLM_ARCH_* and the per-arch classes of src/models/*.cpp),
 for the entries whose graph is the port's shared decoder: each entry takes
 the config read from the metadata and the metadata itself, and sets that
-family's flags. Any other architecture raises NotImplementedError, among
-them deepseek32 (DeepSeek's sparse attention needs the DSA memory),
-deepseek2-ocr (it comes with the multimodal path), afmoe and laguna
-(attention output gates), minimax-m3 (its block-sparse attention), lfm2moe
-(the hybrid memory) and the encoder MoE entries.
+family's flags; the recurrent and hybrid entries (mamba, mamba2, jamba,
+qwen3next, qwen35, qwen35moe, lfm2, lfm2moe, nemotron_h, nemotron_h_moe,
+falcon-h1, granitehybrid, plamo2, kimi-linear) also name their memory and
+its geometry. Any other architecture raises NotImplementedError, among them
+deepseek32 (DeepSeek's sparse attention needs the DSA memory),
+deepseek2-ocr (it comes with the multimodal path), afmoe and laguna (their
+softplus attention gates), minimax-m3 (its block-sparse attention), the
+RWKV entries (their own forward) and the encoder entries.
 """
 
 from __future__ import annotations
@@ -720,3 +723,206 @@ def _plamo3(cfg: ModelConfig, md) -> ModelConfig:
     cfg.extra["tensor_remap"] = {"ffn_up": "ffn_gateup"}
     c = cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, post_norms=True)
     return _swa_pattern_extra(c, md, cfg.arch)
+
+
+# -- the recurrent and hybrid families ----------------------------------------
+# (the JAX package's registry.py entries of the same names, its line given):
+# extra["memory"] is "recurrent" (the RecurrentState alone, the mamba
+# forward) or "hybrid" (a HybridMemory: the recurrent state beside a KV
+# memory on the page pool); the ssm_* extras size the state and the mixers
+
+
+def _ssm2_extras(cfg: ModelConfig, md, a: str, memory: str, d_inner_default: int,
+                 dt_rank_default: int, conv_dim: str = "x") -> None:
+    """The Mamba-2 / DeltaNet geometry of the metadata: conv window, inner
+    width, state size, heads (time_step_rank), groups, and the conv's
+    channels: x|B|C for Mamba-2, q|k|v for the DeltaNet ("qkv")."""
+    d_inner = int(md.get(f"{a}.ssm.inner_size", d_inner_default))
+    d_state = int(md.get(f"{a}.ssm.state_size", 128))
+    n_group = int(md.get(f"{a}.ssm.group_count", 1))
+    cfg.extra.update(
+        memory=memory, ssm_version=2,
+        ssm_d_conv=int(md.get(f"{a}.ssm.conv_kernel", 4)),
+        ssm_d_inner=d_inner, ssm_d_state=d_state,
+        ssm_dt_rank=int(md.get(f"{a}.ssm.time_step_rank", dt_rank_default)),
+        ssm_n_group=n_group,
+        ssm_conv_dim=(d_inner + 2 * n_group * d_state if conv_dim == "x"
+                      else 2 * n_group * d_state + d_inner))
+
+
+def _ssm1_extras(cfg: ModelConfig, md, a: str, memory: str) -> None:
+    cfg.extra.update(
+        memory=memory,
+        ssm_d_conv=int(md.get(f"{a}.ssm.conv_kernel", 4)),
+        ssm_d_inner=int(md.get(f"{a}.ssm.inner_size", 2 * cfg.n_embd)),
+        ssm_d_state=int(md.get(f"{a}.ssm.state_size", 16)),
+        ssm_dt_rank=int(md.get(f"{a}.ssm.time_step_rank", -(cfg.n_embd // -16))))
+
+
+@register("mamba")  # 542
+def _mamba(cfg: ModelConfig, md) -> ModelConfig:
+    """Mamba-1 / FalconMamba: a pure SSM stack on the recurrent state."""
+    _ssm1_extras(cfg, md, cfg.arch, "recurrent")
+    cfg.extra["ssm_dt_b_c_rms"] = bool(md.get(f"{cfg.arch}.ssm.dt_b_c_rms", False))
+    return cfg
+
+
+@register("mamba2")  # 558
+def _mamba2(cfg: ModelConfig, md) -> ModelConfig:
+    """Mamba-2: the fused zxBCdt projection, a scalar decay a head, grouped
+    B/C, the gated grouped RMSNorm."""
+    d_inner = int(md.get(f"{cfg.arch}.ssm.inner_size", 2 * cfg.n_embd))
+    _ssm2_extras(cfg, md, cfg.arch, "recurrent", 2 * cfg.n_embd, d_inner // 64)
+    return cfg
+
+
+@register("jamba")  # 653
+def _jamba(cfg: ModelConfig, md) -> ModelConfig:
+    """Jamba: Mamba-1 and attention layers (no rope) in turn, MoE FFNs."""
+    _ssm1_extras(cfg, md, cfg.arch, "hybrid")
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, expert_weights_norm=False)
+
+
+@register("qwen3next")  # 668
+def _qwen3next(cfg: ModelConfig, md) -> ModelConfig:
+    """Qwen3-Next: gated DeltaNet layers and gated full-attention layers
+    (partial rope), the qwen3moe MoE with a sigmoid-gated shared expert."""
+    _ssm2_extras(cfg, md, cfg.arch, "hybrid", 0, 1, conv_dim="qkv")
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, expert_weights_norm=True,
+                     n_expert_shared=1)
+
+
+@register("lfm2")  # 690
+def _lfm2(cfg: ModelConfig, md) -> ModelConfig:
+    """LFM2: short-conv mixer layers and full-attention layers (per-head q/k
+    norms); the final norm is stored under the token_embd_norm name."""
+    L = int(md.get(f"{cfg.arch}.shortconv.l_cache", 3))
+    cfg.extra.update(memory="hybrid", shortconv_l=L, ssm_d_conv=L, ssm_d_inner=cfg.n_embd,
+                     ssm_d_state=1, ssm_conv_dim=cfg.n_embd,
+                     tensor_remap={"token_embd_norm": "output_norm"})
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, tie_embeddings=True)
+
+
+@register("lfm2moe")  # 707
+def _lfm2moe(cfg: ModelConfig, md) -> ModelConfig:
+    c = _lfm2(cfg, md)
+    return c.with_(
+        expert_gating="sigmoid" if int(md.get("lfm2moe.expert_gating_func", 2)) == 2
+        else "softmax",
+        expert_weights_norm=bool(md.get("lfm2moe.expert_weights_norm", True)),
+        expert_weights_scale=float(md.get("lfm2moe.expert_weights_scale", 1.0)))
+
+
+@register("nemotron_h")  # 844
+def _nemotron_h(cfg: ModelConfig, md) -> ModelConfig:
+    """Nemotron-H: each layer is one block, Mamba-2, NoPE attention or a
+    relu^2 FFN, on a shared norm."""
+    a = cfg.arch
+    d_inner = int(md.get(f"{a}.ssm.inner_size", 2 * cfg.n_embd))
+    _ssm2_extras(cfg, md, a, "hybrid", 2 * cfg.n_embd, d_inner // 64)
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, act="relu2", glu=False,
+                     attn_scale=float(md.get(f"{a}.attention.scale", 0.0)))
+
+
+@register("nemotron_h_moe")  # 1809
+def _nemotron_h_moe(cfg: ModelConfig, md) -> ModelConfig:
+    """Nemotron-H-MoE: the nemotron_h graph, its FFN blocks on experts where
+    the file has them."""
+    md2 = {k.replace("nemotron_h_moe.", "nemotron_h."): v for k, v in md.items()}
+    return _nemotron_h(cfg.with_(arch="nemotron_h"), md2).with_(arch=cfg.arch)
+
+
+@register("falcon-h1")  # 864
+def _falcon_h1(cfg: ModelConfig, md) -> ModelConfig:
+    """Falcon-H1: every layer runs attention and a Mamba-2 SSM in parallel on
+    the same normed input and sums them."""
+    a = cfg.arch
+    d_inner = int(md.get(f"{a}.ssm.inner_size", 2 * cfg.n_embd))
+    _ssm2_extras(cfg, md, a, "hybrid", 2 * cfg.n_embd, d_inner // 64)
+    cfg.extra["dual_mixer"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX)
+
+
+@register("granitehybrid")  # 884
+def _granitehybrid(cfg: ModelConfig, md) -> ModelConfig:
+    """Granite-4.0-H: Mamba-2 or attention a layer (NoPE unless
+    rope.finetuned), Granite's multipliers, MoE with a shared FFN."""
+    a = cfg.arch
+    d_inner = int(md.get(f"{a}.ssm.inner_size", 2 * cfg.n_embd))
+    _ssm2_extras(cfg, md, a, "hybrid", 2 * cfg.n_embd, d_inner // 64)
+    if not bool(md.get(f"{a}.rope.finetuned", False)):
+        cfg.extra["no_rope_layers"] = tuple(range(cfg.n_layers))
+    return cfg.with_(
+        rope_type=ROPE_TYPE_NORM,
+        embd_scale=float(md.get(f"{a}.embedding_scale", 1.0)),
+        attn_scale=float(md.get(f"{a}.attention.scale", 0.0)),
+        residual_scale=float(md.get(f"{a}.residual_scale", 1.0)),
+        logit_scale=float(md.get(f"{a}.logit_scale", 1.0)),
+        expert_weights_norm=True)
+
+
+@register("plamo2")  # 1597
+def _plamo2(cfg: ModelConfig, md) -> ModelConfig:
+    """PLaMo-2: its own Mamba mixer (plamo2_layer) and attention layers in
+    turn (a fused qkv, q/k norms with a weight a head), post-norms on both
+    halves, one ffn_up holding gate|up."""
+    a = cfg.arch
+    d_inner = int(md.get(f"{a}.ssm.inner_size", 2 * cfg.n_embd))
+    cfg.extra.update(
+        memory="hybrid", plamo2=True,
+        ssm_d_conv=int(md.get(f"{a}.ssm.conv_kernel", 4)),
+        ssm_d_inner=d_inner,
+        ssm_d_state=int(md.get(f"{a}.ssm.state_size", 64)),
+        ssm_dt_rank=int(md.get(f"{a}.ssm.time_step_rank", d_inner // 64)),
+        ssm_n_group=0, ssm_conv_dim=d_inner,
+        tensor_remap={"ffn_up": "ffn_gateup"})
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, post_norms=True)
+
+
+@register("kimi-linear")  # 1997
+def _kimi_linear(cfg: ModelConfig, md) -> ModelConfig:
+    """Kimi-Linear: KDA layers (kda_layer) and rope-free MLA layers on the
+    naive expansion of the latent, sigmoid-routed MoE with shared experts
+    after leading dense layers."""
+    a = cfg.arch
+    kda_dh = int(md.get(f"{a}.kda.head_dim", 128))
+    d_inner = cfg.n_heads * kda_dh
+    cfg.extra.update(
+        kv_lora_rank=int(md.get(f"{a}.attention.kv_lora_rank", 512)),
+        q_lora_rank=int(md.get(f"{a}.attention.q_lora_rank", 0) or 0),
+        memory="hybrid", kda_head_dim=kda_dh,
+        ssm_d_conv=int(md.get(f"{a}.ssm.conv_kernel", 4)),
+        ssm_d_state=kda_dh, ssm_d_inner=d_inner,
+        ssm_conv_dim=3 * d_inner)  # the q, k and v windows side by side
+    return cfg.with_(
+        rope_type=ROPE_TYPE_NONE,
+        n_kv_heads=cfg.n_heads,  # the naive expansion's heads
+        head_dim_k=int(md.get(f"{a}.attention.key_length_mla", cfg.head_dim_k)),
+        head_dim_v=int(md.get(f"{a}.attention.value_length_mla", cfg.head_dim_v)),
+        expert_gating=_gating(md, f"{a}.expert_gating_func", 2),
+        expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", True)),
+        expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+        n_expert_shared=int(md.get(f"{a}.expert_shared_count", 1) or 1))
+
+
+def _qwen35_common(cfg: ModelConfig, md, a: str) -> ModelConfig:  # 1907
+    """Qwen3.5: the qwen3next hybrid with separate beta/alpha projections, a
+    flat q|k|v and a z gate in the DeltaNet, per-head [q | gate] pairs in
+    wq and interleaved M-RoPE (a text row's position on every stream)."""
+    _ssm2_extras(cfg, md, a, "hybrid", 0, 1, conv_dim="qkv")
+    sec = md.get(f"{a}.rope.dimension_sections", [24, 20, 20, 0])
+    if hasattr(sec, "tolist"):
+        sec = sec.tolist()
+    cfg.extra.update(mrope_sections=tuple(int(x) for x in sec), imrope=True,
+                     q_gate_interleaved=True)
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True)
+
+
+@register("qwen35")  # 1929
+def _qwen35(cfg: ModelConfig, md) -> ModelConfig:
+    return _qwen35_common(cfg, md, cfg.arch)
+
+
+@register("qwen35moe")  # 1938
+def _qwen35moe(cfg: ModelConfig, md) -> ModelConfig:
+    return _qwen35_common(cfg, md, cfg.arch).with_(expert_weights_norm=True, n_expert_shared=1)

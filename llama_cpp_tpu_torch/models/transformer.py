@@ -5,9 +5,12 @@ block variants: LayerNorm with biases, the non-gated FFN, parallel and
 norm-after residuals, residual scales, ALiBi, NoPE layers, learned
 positions; and the MoE families: gpt-oss's clamped GLU, llama4's gate on
 the expert input, sparsemixer and sqrt_softplus routing, dense FFNs beside
-the experts, arctic's MoE branch, GroveMoE's chunk experts), dense or
-mixture-of-experts, on the paged KV pool, the slot-table cache or the
-interleaved sliding-window memory (ISWACache).
+the experts, arctic's MoE branch, GroveMoE's chunk experts; and the hybrid
+families, whose layers are recurrent mixers of models/mamba.py on the
+recurrent state, attention blocks (gated: qwen3next's attn_gate, qwen35's
+[q | gate] wq and interleaved M-RoPE) or Nemotron-H's FFN blocks), dense or
+mixture-of-experts, on the paged KV pool, the slot-table cache, the
+interleaved sliding-window memory (ISWACache) or a HybridMemory.
 
 Analog of reference llm_graph_context build_attn / build_ffn / build_moe_ffn
 (src/llama-graph.h:1048-1143, src/llama-graph.cpp:1955-2075) and the llama,
@@ -30,9 +33,11 @@ from ..ops.basic import ACTIVATIONS, layer_norm, rms_norm, silu  # noqa: F401
 from ..ops.kernels import flash_attn as fa_kernel
 from ..ops.kernels import qmm_expert as expert_kernel
 from ..ops.qtensor import QuantTensor, Weight, dot_f32, embed_lookup, matmul
-from ..ops.rope import ROPE_TYPE_NONE, RopeParams, apply_rope
+from ..ops.rope import ROPE_TYPE_NONE, RopeParams, apply_mrope, apply_rope
 from ..runtime.kv_cache import ISWACache, KVCache
+from ..runtime.memory import HybridMemory
 from ..runtime.paged_kv import PagedKVCache
+from . import mamba
 from .config import ModelConfig
 
 
@@ -45,7 +50,7 @@ class AttnInputs(NamedTuple):
     positions: torch.Tensor  # [B, T] rope/causal position (< 0 = pad)
 
 
-Memory = PagedKVCache | KVCache | ISWACache
+Memory = PagedKVCache | KVCache | ISWACache | HybridMemory
 
 
 def norm(cfg: ModelConfig, x: torch.Tensor, w: dict[str, Weight], key: str) -> torch.Tensor:
@@ -95,11 +100,15 @@ def _rope_params(cfg: ModelConfig, il: int) -> RopeParams:
 
 def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
                     inputs: AttnInputs, kv: Memory, il: int,
-                    kernels: bool = True) -> torch.Tensor:
+                    kernels: bool = True, update_pos: bool | None = None) -> torch.Tensor:
     """Plain GQA attention over the paged pool, the slot-table cache or the
     ISWA memory's sub-cache of layer il (its full layers on the pool or a
     slot table, its SWA layers on a ring); writes this step's K/V rows in
-    place. kernels=False takes the gather + einsum path everywhere."""
+    place, and the position labels where update_pos says (by default on
+    the memory's first layer). kernels=False takes the gather + einsum path
+    everywhere. Gated attention: qwen35's wq emits per-head [q | gate] pairs
+    (q_gate_interleaved), qwen3next's gate is its own projection attn_gate;
+    either gate's sigmoid scales the attention output before attn_output."""
     B, T = x.shape[:2]
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     Dk, Dv = cfg.head_dim_k, cfg.head_dim_v
@@ -119,6 +128,12 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
         k = _add_bias(matmul(x, lw["attn_k"], kernels=kernels), lw, "attn_k_bias")
         v = _add_bias(matmul(x, lw["attn_v"], kernels=kernels), lw, "attn_v_bias")
 
+    gate_q = None
+    if cfg.extra.get("q_gate_interleaved") and q.shape[-1] == 2 * H * Dk:
+        qg = q.reshape(B, T, H, 2 * Dk)
+        q = qg[..., :Dk].reshape(B, T, H * Dk)
+        gate_q = qg[..., Dk:].reshape(B, T, H * Dk)
+
     clamp = cfg.extra.get("clamp_kqv", 0.0)
     if clamp:  # olmo/dbrx: the projected q, k, v clamped
         q, k, v = (torch.clamp(t, -clamp, clamp) for t in (q, k, v))
@@ -136,8 +151,16 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     roped = cfg.rope_type != ROPE_TYPE_NONE and il not in cfg.extra.get("no_rope_layers", ())
     if roped:
         rp = _rope_params(cfg, il)
-        q = apply_rope(q, inputs.positions, rp)
-        k = apply_rope(k, inputs.positions, rp)
+        sections = cfg.extra.get("mrope_sections")
+        if sections:
+            # interleaved M-RoPE (qwen35's imrope): a text row's position
+            # drives the three t/h/w streams
+            pos3 = inputs.positions[None].expand(3, *inputs.positions.shape)
+            q = apply_mrope(q, pos3, sections, rp)
+            k = apply_mrope(k, pos3, sections, rp)
+        else:
+            q = apply_rope(q, inputs.positions, rp)
+            k = apply_rope(k, inputs.positions, rp)
     if cfg.qk_norm and after_rope and roped:  # hunyuan: per head, after rope
         q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
         k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
@@ -147,13 +170,21 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     # their own first layer
     seq_flat = inputs.seq_idx.repeat_interleave(T)
     kv.write_layer(il, seq_flat, inputs.positions.reshape(-1),
-                   k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv))
+                   k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv), update_pos=update_pos)
     scale = cfg.attn_scale or (1.0 / float(Dk) ** 0.5)
     window = cfg.sliding_window if cfg.is_swa_layer(il) else 0
     # the einsum path's operands follow the block input's dtype, as in the
     # JAX package: a q that a bias made f32 is rounded to bf16 there
     out = _attend(cfg, q.to(x.dtype), kv, il, inputs, Hkv, Dv, scale, window,
                   lw.get("attn_sinks"), kernels).to(x.dtype)
+    if gate_q is not None:
+        out = out * torch.sigmoid(gate_q.float()).to(out.dtype)
+    if "attn_gate" in lw:  # per element, or per head when it is n_heads wide
+        g = torch.sigmoid(matmul(x, lw["attn_gate"], dtype=torch.float32, kernels=kernels))
+        if g.shape[-1] == H and H * Dv != H:
+            out = (out.reshape(B, T, H, Dv) * g[..., None].to(out.dtype)).reshape(B, T, H * Dv)
+        else:
+            out = out * g.to(out.dtype)
     return _add_bias(matmul(out, lw["attn_output"], kernels=kernels), lw, "attn_output_bias")
 
 
@@ -226,7 +257,7 @@ def mla_kq_scale(cfg: ModelConfig) -> float:
 
 def mla_attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
                         inputs: AttnInputs, kv: Memory, il: int,
-                        kernels: bool = True) -> torch.Tensor:
+                        kernels: bool = True, update_pos: bool | None = None) -> torch.Tensor:
     """DeepSeek-2 Multi-head Latent Attention (reference
     src/models/deepseek2.cpp; the JAX package's transformer.py:510-784): q
     from the q-LoRA (attn_q_a, its norm, attn_q_b) or the lite attn_q; the
@@ -270,7 +301,7 @@ def mla_attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor
                        dim=-1)  # [B, T, 1, C + pad + n_rot]
         Dc = qf.shape[-1]
         kv.write_layer(il, seq_flat, inputs.positions.reshape(-1), kf.reshape(B * T, 1, Dc),
-                       c_kv.to(x.dtype).reshape(B * T, 1, C))
+                       c_kv.to(x.dtype).reshape(B * T, 1, C), update_pos=update_pos)
         out_lat = _attend(cfg, qf, kv, il, inputs, 1, C, scale, 0, None, kernels)
         out = torch.einsum("bthc,chd->bthd", out_lat.reshape(B, T, H, C).to(mdt).float(),
                            lw["mla_v_b"].to(mdt).float())
@@ -282,7 +313,7 @@ def mla_attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor
         kf = torch.cat([kv_dec[..., :nope], k_pe.to(kv_dec.dtype).expand(B, T, H, n_rot)],
                        dim=-1)
         kv.write_layer(il, seq_flat, inputs.positions.reshape(-1), kf.reshape(B * T, H, Dk),
-                       v.reshape(B * T, H, Dv))
+                       v.reshape(B * T, H, Dv), update_pos=update_pos)
         out = _attend(cfg, qf, kv, il, inputs, H, Dv, scale, 0, None, kernels).to(x.dtype)
     return matmul(out, lw["attn_output"], kernels=kernels)
 
@@ -463,20 +494,28 @@ def _moe_gather(cfg, lw, x, topi, topw, kernels: bool, keys=EXPERT_KEYS) -> torc
     return (y if before else y * tw[:, :, None]).sum(dim=1).reshape(*lead, E)
 
 
+# weights a chunk of the per-expert route dequantizes at once: one Mixtral
+# expert (4096 x 14336) alone, 64 of Qwen3-Next's 2048 x 512
+RAGGED_CHUNK_WEIGHTS = 1 << 26
+
+
 def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool, keys=EXPERT_KEYS,
                 n_expert: int | None = None) -> torch.Tensor:
     """Per-expert dispatch for prefill-sized token counts: each expert's
     three GEMMs over every token, each (token, slot) pair taking the rows of
     the expert it chose, mixed by gate weight in slot order. Where the JAX
     package leaves the segment GEMMs to XLA's ragged_dot over tokens sorted
-    by expert, this visits every expert, dequantizing one expert at a time
-    (all eight of a Mixtral layer would be 2.8 GB) around torch.matmul, with
-    the choice applied on the device: no segment size comes to the host, so
-    a decode step can be captured in a CUDA graph. A pair's row is the same
-    product as in a segment of its expert's tokens; the GEMMs take
-    n_expert / top_k times the rows a segment would. With moe_weight_before
-    a token's input to expert e is scaled by its weight for e (0 where it did
-    not choose e), as each pair's row is in the JAX package's segments."""
+    by expert, this visits every expert, dequantizing a chunk of experts at
+    a time (at most RAGGED_CHUNK_WEIGHTS weights a projection: all eight of
+    a Mixtral layer would be 2.8 GB, so it takes one; 512 small experts take
+    eight chunks of 64, not 512 rounds of launches) around batched
+    products, with the choice applied on the device: no segment size comes
+    to the host, so a decode step can be captured in a CUDA graph. A pair's
+    row is the same product as in a segment of its expert's tokens; the
+    GEMMs take n_expert / top_k times the rows a segment would. With
+    moe_weight_before a token's input to expert e is scaled by its weight
+    for e (0 where it did not choose e), as each pair's row is in the JAX
+    package's segments."""
     lead, E = x.shape[:-1], x.shape[-1]
     k = topi.shape[-1]
     xf = x.reshape(-1, E)
@@ -487,21 +526,30 @@ def _moe_ragged(cfg, lw, x, topi, topw, kernels: bool, keys=EXPERT_KEYS,
     before = cfg.extra.get("moe_weight_before", False)
     xs = xf.to(mdt)
     gate_key, up_key, down_key = keys
+    n_exp = n_expert or cfg.n_expert
+    w0 = lw[gate_key]
+    per_expert = (w0.q if isinstance(w0, QuantTensor) else w0)[0].numel()
+    chunk = max(1, min(n_exp, RAGGED_CHUNK_WEIGHTS // per_expert))
+    rows = torch.arange(N, device=x.device)[:, None]
     y = torch.zeros((N, k, E), dtype=torch.float32, device=x.device)
-    for e in range(n_expert or cfg.n_expert):
-        sel = slice(e, e + 1)
-        mine = chosen == e  # [N, k]
+    for e0 in range(0, n_exp, chunk):
+        sel = slice(e0, min(e0 + chunk, n_exp))
+        C = sel.stop - e0
+        local = chosen - e0  # [N, k]: the chosen expert's place in the chunk
 
-        def emm(key, h):  # h [N, a] -> [N, b] f32
-            wd = _dequant_experts(lw[key], sel, mdt)[0]
-            bias = lw[key + "_bias"].float()[sel] if key + "_bias" in lw else 0.0
-            return dot_f32(h.to(mdt), wd) + bias
+        def emm(key, h):  # h [1 or C, N, a] -> [C, N, b] f32
+            wd = _dequant_experts(lw[key], sel, mdt)  # [C, a, b]
+            bias = lw[key + "_bias"].float()[sel][:, None, :] if key + "_bias" in lw else 0.0
+            return dot_f32(h.to(mdt).expand(C, -1, -1), wd) + bias
 
-        xe = xs
-        if before:
-            xe = (xs.float() * (tw * mine).sum(dim=-1, keepdim=True)).to(mdt)
+        xe = xs[None]
+        if before:  # each expert's input scaled by the token's weight for it
+            ids = torch.arange(e0, sel.stop, device=x.device)[:, None, None]
+            w_e = (tw[None] * (chosen[None] == ids)).sum(dim=-1, keepdim=True)  # [C, N, 1]
+            xe = (xs.float()[None] * w_e).to(mdt)
         h = _glu(cfg, emm(gate_key, xe), emm(up_key, xe))
-        y = torch.where(mine[:, :, None], emm(down_key, h)[:, None, :], y)
+        picked = emm(down_key, h)[local.clamp(0, C - 1), rows]  # [N, k, E]
+        y = torch.where(((local >= 0) & (local < C))[:, :, None], picked, y)
     out = y.sum(dim=1) if before else (y * tw[:, :, None]).sum(dim=1)
     return out.reshape(*lead, E)
 
@@ -588,12 +636,45 @@ def _ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor, x_in: torch.T
     return ff
 
 
+def first_attention_layer(cfg: ModelConfig, layers: list[dict[str, Weight]]) -> int:
+    """The layer whose attention writes the position labels: the first that
+    attends (an SSM mixer, Falcon-H1's, may attend beside it; KDA's
+    attn_output is its mixer's own), 0 when none does. The JAX package
+    takes the first layer that is no recurrent mixer (transformer.py
+    :1253-1254), which on Nemotron-H's pattern M-M-... is an FFN block, so
+    its attention layers never label their rows; the two agree wherever an
+    attention layer comes before any FFN block."""
+    attends = (None,) + mamba.SSM_MIXERS
+    return next((i for i, lw in enumerate(layers)
+                 if "attn_output" in lw and mamba.mixer_of(cfg, lw) in attends), 0)
+
+
+def _mixer_less_ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor,
+                    kernels: bool) -> torch.Tensor:
+    """Nemotron-H's FFN block (reference nemotron-h.cpp build_ffn_layer):
+    the dense FFN on the block norm, or the experts with an ungated shared
+    expert (up -> act -> down) beside them (the JAX package's
+    transformer.py:1268-1290)."""
+    if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
+        ff = moe_block(cfg, lw, h, kernels=kernels)
+        if "ffn_up_shexp" in lw and "ffn_gate_shexp" not in lw:
+            hsh = ACTIVATIONS[cfg.act](matmul(h, lw["ffn_up_shexp"], kernels=kernels))
+            ff = ff + matmul(hsh, lw["ffn_down_shexp"], kernels=kernels).to(ff.dtype)
+        return ff.to(h.dtype)
+    return ffn_block(cfg, lw, h, kernels=kernels)
+
+
 def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             inputs: AttnInputs, kv: Memory,
             output_rows: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
-    """tokens [B, T] -> logits [M or B*T, vocab] f32; writes the KV memory in
+    """tokens [B, T] -> logits [M or B*T, vocab] f32; writes the memory in
     place. A control vector (params["cvec"]) is added to the residual after
-    each layer; LoRA-wrapped weights take their base's route in matmul."""
+    each layer; LoRA-wrapped weights take their base's route in matmul.
+    On a HybridMemory each layer is what its weights say (the JAX package's
+    decoder loop, transformer.py:1252-1371): a recurrent mixer on the
+    recurrent state (Falcon-H1's with attention beside it, the two summed),
+    an attention block on the KV part, or Nemotron-H's mixer-less FFN block;
+    a mixer-only block has no FFN half."""
     cdtype = cfg.compute_dtype
     x = embed_lookup(params["token_embd"], tokens.long(), dtype=cdtype)  # [B, T, E]
     if cfg.embd_scale != 1.0:
@@ -607,13 +688,36 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     cvec = params.get("cvec")  # [n_layers, n_embd] f32 residual directions
     post = cfg.post_norms or cfg.norm_after
     rscale = cfg.residual_scale
-    for il, lw in enumerate(params["layers"]):
+    layers = params["layers"]
+    akv = kv.kv if isinstance(kv, HybridMemory) else kv
+    first_attn = first_attention_layer(cfg, layers)
+    for il, lw in enumerate(layers):
         x_in = x  # the layer input (arctic's MoE branch, smallthinker's router)
         # norm-after blocks (olmo2): the mixer sees the raw residual stream
         # and its output is normalised before the add
         h = x if cfg.norm_after else norm(cfg, x, lw, "attn_norm")
-        blk = mla_attention_block if "attn_kv_a_mqa" in lw else attention_block
-        attn = blk(cfg, lw, h, inputs, kv, il, kernels=kernels)
+        mixer = mamba.mixer_of(cfg, lw)
+        # ISWA sub-caches label their positions on their own first layers
+        up = None if isinstance(akv, ISWACache) else il == first_attn
+        if mixer is None and "attn_output" not in lw:  # Nemotron-H's FFN block
+            ff = _mixer_less_ffn(cfg, lw, h, kernels)
+            x = x + (ff * rscale if rscale != 1.0 else ff)
+            if cvec is not None:
+                x = x + cvec[il].to(x.dtype)
+            continue
+        if mixer is not None:
+            attn, new_conv, s_last = mixer(cfg, lw, h, kv.rs, inputs.seq_idx, il, kernels)
+            attn = attn.to(x.dtype)
+            kv.rs.put(il, inputs.seq_idx, new_conv, s_last)
+            if mixer in mamba.SSM_MIXERS and "attn_output" in lw:
+                # Falcon-H1: attention in parallel with the SSM on the same
+                # normed input, the two summed
+                attn2 = attention_block(cfg, lw, h, inputs, akv, il, kernels=kernels,
+                                        update_pos=up)
+                attn = attn + attn2.to(attn.dtype)
+        else:
+            blk = mla_attention_block if "attn_kv_a_mqa" in lw else attention_block
+            attn = blk(cfg, lw, h, inputs, akv, il, kernels=kernels, update_pos=up)
         if post and "attn_post_norm" in lw:
             attn = rms_norm(attn, lw["attn_post_norm"], cfg.rms_eps)
         if cfg.parallel_residual:
@@ -626,6 +730,11 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             x = x + attn + ff
         else:
             x = x + (attn * rscale if rscale != 1.0 else attn)
+            if not any(k in lw for k in ("ffn_up", "ffn_gateup", "ffn_gate_exps")):
+                # a mixer-only block (Nemotron-H's M and A blocks)
+                if cvec is not None:
+                    x = x + cvec[il].to(x.dtype)
+                continue
             h = x if cfg.norm_after else norm(cfg, x, lw, "ffn_norm")
             ff = _ffn(cfg, lw, h, x_in, kernels)
             if post and "ffn_post_norm" in lw:

@@ -308,12 +308,15 @@ def pad_out_features(qt: QuantTensor, multiple: int = 4096) -> QuantTensor:
 
 
 def dot_f32(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
-    """x [N, K] . wd [K, O] -> f32, both in one dtype: the reference's
+    """x [N, K] . wd [K, O] (or a batch: [C, N, K] . [C, K, O]) -> f32, both
+    in one dtype: the reference's
     jnp.dot(..., preferred_element_type=f32). bf16 operands on the card go
     to cuBLAS with an f32 output, so the sums and any split-K partials stay
     f32 whatever allow_bf16_reduced_precision_reduction says; otherwise (the
     CPU, or f32 operands) the f32 product."""
     if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        if x.dim() == 3:  # a batch of products [C, N, K] . [C, K, O]
+            return torch.bmm(x, wd, out_dtype=torch.float32)
         return torch.mm(x, wd, out_dtype=torch.float32)
     return torch.matmul(x.float(), wd.float())
 

@@ -114,3 +114,56 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, p: RopeParams) -> torch
     if n_dims < head_dim:
         rotated = torch.cat([rotated, xf[..., n_dims:]], dim=-1)
     return rotated.to(x.dtype)
+
+
+# (sections, half, device) -> [half] position stream of each frequency pair
+_SEL: dict[tuple, torch.Tensor] = {}
+
+
+def _imrope_sel(sections: tuple[int, ...], half: int, device: torch.device) -> torch.Tensor:
+    """The position stream of each frequency pair, made on `device` once (a
+    decode step copies nothing from the host)."""
+    key = (tuple(sections), half, str(device))
+    hit = _SEL.get(key)
+    if hit is None:
+        sel = []
+        for s in range(half):
+            if s % 3 == 1 and s < 3 * sections[1]:
+                sel.append(1)
+            elif s % 3 == 2 and s < 3 * sections[2]:
+                sel.append(2)
+            elif s % 3 == 0 and s < 3 * sections[0]:
+                sel.append(0)
+            else:
+                sel.append(3)
+        hit = _SEL[key] = torch.tensor(sel, dtype=torch.long, device=device)
+    return hit
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections: tuple[int, ...],
+                p: RopeParams) -> torch.Tensor:
+    """Interleaved multimodal rope (GGML_ROPE_TYPE_IMROPE: qwen3vl, qwen35;
+    the JAX package's ops/rope.py:114 with interleaved=True): each frequency
+    pair takes its angle from one of the t/h/w position streams positions3
+    [3, ..., seq]: pair s from h when s % 3 == 1 (s < 3 * sections[1]), w
+    when s % 3 == 2, t when s % 3 == 0, else a 4th stream, which is zero for
+    text rows (llama-graph.cpp:138), so such pairs stay unrotated; NEOX
+    (half-split) rotation. x [..., seq, n_heads, head_dim]."""
+    head_dim = x.shape[-1]
+    n_dims = p.n_dims or head_dim
+    half = n_dims // 2
+    inv_freq, mscale = _freqs(p, head_dim, x.device)
+    zero = positions3.new_zeros((4 - positions3.shape[0],) + tuple(positions3.shape[1:]))
+    ang = torch.cat([positions3, zero], dim=0)[..., None].float() * inv_freq  # [4, ..., half]
+    sel = _imrope_sel(sections, half, x.device)
+    angles = torch.gather(ang.movedim(0, -1), -1,
+                          sel.expand(*ang.shape[1:])[..., None])[..., 0]  # [..., seq, half]
+    cos = (torch.cos(angles) * mscale)[..., None, :]
+    sin = (torch.sin(angles) * mscale)[..., None, :]
+    xf = x.float()
+    x0 = xf[..., :half]
+    x1 = xf[..., half:n_dims]
+    rotated = torch.cat([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    if n_dims < head_dim:
+        rotated = torch.cat([rotated, xf[..., n_dims:]], dim=-1)
+    return rotated.to(x.dtype)

@@ -1,16 +1,19 @@
 """Inference context: the llama_context analog, on the paged KV pool or the
-slot-table cache.
+slot-table cache, or a recurrent state.
 
 Owns the KV memory (the pool with its host-side page allocator, or with
 paged=False a KVCache of n_slots per sequence; for an interleaved
 sliding-window model an ISWACache whose full layers take that memory and
-whose window layers take rings), the batch bucketing policy
-(padding rows carry negative positions and write to the memory's trash
-row), and the generation loops: through a host sampler chain, or on the
-device (decode_steps_greedy, generate_ondevice). Every batched decode step,
-the server's one-step calls (decode_step_greedy, decode_step_multi)
-included, runs one step per (batch bucket, sampler) that is captured as a
-CUDA graph at first use and replayed once a step (runtime/decode_graph.py).
+whose window layers take rings; for a recurrent stack a RecurrentState, for
+a hybrid a HybridMemory of that memory and a RecurrentState), the batch
+bucketing policy (padding rows carry negative positions and write to the
+memory's trash row; a recurrent state has none, so its ubatches and decode
+batches run at their exact shapes), and the generation loops: through a
+host sampler chain, or on the device (decode_steps_greedy,
+generate_ondevice). Every batched decode step, the server's one-step calls
+(decode_step_greedy, decode_step_multi) included, runs one step per (batch
+bucket, sampler) that is captured as a CUDA graph at first use and replayed
+once a step (runtime/decode_graph.py).
 context_shift slides a sequence down in place, and a captured loop is made
 again when the memory or the model's weights (adapters) change.
 """
@@ -24,11 +27,13 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from ..models import mamba
 from ..models.loader import Model, resolve_device
 from ..models.transformer import AttnInputs, forward
 from ..sampling.samplers import SamplerChain, SamplingParams
 from .decode_graph import GREEDY, LOGITS, DecodeLoop, DeviceSampler
 from .kv_cache import ISWACache, KVCache
+from .memory import HybridMemory, RecurrentState
 from .paged_kv import PageAllocator, PagedKVCache
 
 
@@ -72,9 +77,8 @@ def _nbytes(obj) -> int:
 
 
 class Context:
-    # members the JAX package's server scheduler reads: the port has no
-    # recurrent memory and no speculator, so no layer's features are captured
-    recurrent = False
+    # a member the JAX package's server scheduler reads: the port's
+    # speculators draft from tokens, so no layer's features are captured
     aux_layers: tuple[int, ...] = ()
 
     def __init__(
@@ -102,6 +106,9 @@ class Context:
             raise ValueError(f"model is on {model.device}, context asked for {self.device}")
         self.model = model
         self.cfg = model.cfg
+        # a recurrent or hybrid memory's state cannot absorb padding: its
+        # ubatches and decode batches run at their exact shapes
+        self.recurrent = self.cfg.extra.get("memory") in ("recurrent", "hybrid")
         self.n_ctx = n_ctx
         self.n_seqs = n_seqs
         self.n_ubatch = n_ubatch
@@ -114,7 +121,9 @@ class Context:
         headroom = min(max(n_ubatch, 8), 2048)
         want = n_ctx + 1 + headroom
         self.n_slots = 256 if want <= 256 else -(-want // 512) * 512
-        self.paged = paged
+        # a recurrent stack has no KV to page (a hybrid's attention layers
+        # take the pool, as in the JAX package)
+        self.paged = paged = paged and self.cfg.extra.get("memory") != "recurrent"
         self.alloc = None
         if paged:
             # 512-row pages keep the attention kernel's page walk short;
@@ -133,8 +142,31 @@ class Context:
         if self.prefill_buckets[-1] < n_ubatch:
             self.prefill_buckets.append(n_ubatch)
 
-    def _make_memory(self) -> PagedKVCache | KVCache | ISWACache:
+    def _recurrent_state(self) -> RecurrentState:
+        ex = self.cfg.extra
+        return RecurrentState.create(self.cfg.n_layers, self.n_seqs, ex["ssm_d_conv"],
+                                     ex["ssm_d_inner"], ex["ssm_d_state"],
+                                     conv_channels=ex.get("ssm_conv_dim"), device=self.device)
+
+    def _make_memory(self) -> PagedKVCache | KVCache | ISWACache | RecurrentState | HybridMemory:
         cfg = self.cfg
+        kind = cfg.extra.get("memory")
+        if kind == "recurrent":  # the JAX package's runtime/context.py:262-266
+            return self._recurrent_state()
+        if kind == "hybrid":
+            # the attention layers on the pool (or a slot table), every layer's
+            # recurrent state beside (runtime/context.py:267-282)
+            rs = self._recurrent_state()
+            if self.paged:
+                kvc = PagedKVCache.create(
+                    cfg.n_layers, self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
+                    cfg.n_kv_heads, cfg.head_dim_k, cfg.head_dim_v, dtype=cfg.compute_dtype,
+                    quantized=self._kv_quant, page=self.page, device=self.device)
+            else:
+                kvc = KVCache.create(cfg.n_layers, self.n_seqs, self.n_slots, cfg.n_kv_heads,
+                                     cfg.head_dim_k, cfg.head_dim_v, dtype=cfg.compute_dtype,
+                                     quantized=self._kv_quant, device=self.device)
+            return HybridMemory(kv=kvc, rs=rs)
         iswa = cfg.sliding_window > 0 and cfg.swa_pattern > 0
         n_layers = cfg.n_layers
         if iswa:  # the pool (if any) holds the full layers only
@@ -165,8 +197,13 @@ class Context:
             quantized=self._kv_quant, device=self.device)
 
     def _pool(self) -> PagedKVCache | None:
-        """The page pool: the memory itself, or the ISWA memory's full tier."""
-        kv = self.kv.full if isinstance(self.kv, ISWACache) else self.kv
+        """The page pool: the memory itself, the ISWA memory's full tier or
+        the hybrid memory's attention part."""
+        kv = self.kv
+        if isinstance(kv, ISWACache):
+            kv = kv.full
+        elif isinstance(kv, HybridMemory):
+            kv = kv.kv
         return kv if isinstance(kv, PagedKVCache) else None
 
     # ------------------------------------------------------------------
@@ -195,8 +232,9 @@ class Context:
 
     def _forward(self, toks, sidx, pos, out_rows) -> torch.Tensor:
         inputs = AttnInputs(seq_idx=sidx, positions=pos)
-        return forward(self.model.params, self.cfg, toks, inputs, self.kv, out_rows,
-                       kernels=self.kernels)
+        fwd = mamba.forward if isinstance(self.kv, RecurrentState) else forward
+        return fwd(self.model.params, self.cfg, toks, inputs, self.kv, out_rows,
+                   kernels=self.kernels)
 
     # ------------------------------------------------------------------
     def set_aux_capture(self, layer_ids) -> None:
@@ -219,9 +257,12 @@ class Context:
         positions = np.atleast_2d(np.asarray(positions))
         seq_idx = np.asarray(seq_idx).reshape(-1)
         B, T = tokens.shape
-        Tb = _bucket(T, self.prefill_buckets) if T > 1 else 1
-        Bb = B if T > 1 else _bucket(B, [1, 2, 4, 8, 16, 32, 64, self.n_seqs])
-        Bb = min(max(Bb, B), self.n_seqs)
+        if self.recurrent:  # no padded rows or tokens (llama-batch.h:108's split_equal)
+            Tb, Bb = T, B
+        else:
+            Tb = _bucket(T, self.prefill_buckets) if T > 1 else 1
+            Bb = B if T > 1 else _bucket(B, [1, 2, 4, 8, 16, 32, 64, self.n_seqs])
+            Bb = min(max(Bb, B), self.n_seqs)
 
         toks = np.zeros((Bb, Tb), np.int32)
         pos = np.full((Bb, Tb), -1, np.int32)
@@ -262,6 +303,11 @@ class Context:
         return logits[0]
 
     def _batch_bucket(self, B: int) -> int:
+        """The decode loop a batch of B rows runs on: the next bucket, whose
+        padding rows write the KV's trash row; a recurrent memory has no
+        trash state, so its loops run at the exact B."""
+        if self.recurrent:
+            return B
         return min(max(_bucket(B, [1, 2, 4, 8, 16, 32, 64, self.n_seqs]), B), self.n_seqs)
 
     def decode_loop(self, batch: int, sampler: DeviceSampler | None = GREEDY) -> DecodeLoop:
@@ -354,7 +400,8 @@ class Context:
             self.kv.seq_cp(dst, src)
         else:
             # page-granular copy: dst gets fresh pages mirroring src's (and
-            # an ISWA memory's window rings their rows)
+            # an ISWA memory's window rings their rows, a hybrid memory's
+            # recurrent state its row)
             self.alloc.trim(dst, 0)
             self.alloc.ensure(dst, int(self.alloc.count[src]) * self.page)
             self._sync_table()
@@ -363,6 +410,8 @@ class Context:
             self._pool().copy_pages(src_p, dst_p)
             if isinstance(self.kv, ISWACache):
                 self.kv.swa.seq_cp(dst, src)
+            elif isinstance(self.kv, HybridMemory):
+                self.kv.rs.seq_cp(dst, src)
         self.seq_len[dst] = self.seq_len[src]
 
     def context_shift(self, seq: int = 0, n_keep: int = 0, n_discard: int | None = None) -> int:
@@ -371,9 +420,11 @@ class Context:
         shift, tools/server/server-context.cpp:2916), in place: a captured
         decode loop goes on reading the same tensors. The default discards
         half of what lies past n_keep. Returns n_discard. The ISWA memory's
-        rings are refused, as the JAX package refuses them."""
+        rings and the recurrent and hybrid memories are refused, as the JAX
+        package refuses them: a recurrent state cannot drop tokens."""
         if self.recurrent:
-            raise NotImplementedError("context shift needs an attention KV")
+            raise NotImplementedError("context shift needs an attention KV, not a recurrent "
+                                      f"state ({type(self.kv).__name__})")
         if not isinstance(self.kv, (KVCache, PagedKVCache)):
             raise NotImplementedError("context shift needs the unified cache, not "
                                       f"{type(self.kv).__name__}")

@@ -11,6 +11,10 @@ graph n times is the scan of n steps, and the host copies the ids once a
 chunk. The KV memory is written in place, which is the effect the JAX
 package's runtime/decode_window.py gets under XLA.
 
+A recurrent or hybrid memory has no trash state row, so its loops run at
+the exact batch (Context._batch_bucket) and no padding row ever reads or
+writes a live sequence's state.
+
 A loop of sampler LOGITS is the server's step (`Context.decode_step_multi`):
 it keeps the [bucket, vocab] f32 logits, the graph's own output buffer, for
 the host's sampler chain and grammar, and advances nothing; the host copies
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import flash_attn, qmm, qmm_bench, qmm_expert, scratch
+from .memory import HybridMemory, RecurrentState
 
 CAPACITY = 256  # steps of ids a loop holds on the device between copies
 PAD_POS = -(1 << 20)  # a padding row's position: negative for every step
@@ -133,20 +138,30 @@ class DecodeLoop:
     def ready(self) -> None:
         """Capture the step on the card if it is not captured yet. Warm-up
         steps run on the capture stream with every row a padding row (their
-        writes go to the memory's trash row); the buffers are reset after."""
+        KV writes go to the memory's trash row; a recurrent state, which has
+        no trash row, is saved before them and put back after); the buffers
+        are reset after."""
         if not self.capture or self.graph is not None:
             return
         dev = self.tok.device
         gc.collect()  # release unreachable graphs now, not during the capture
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(device=dev)
+        rs = self.kv.rs if isinstance(self.kv, HybridMemory) else self.kv
+        if not isinstance(rs, RecurrentState):
+            rs = None
         try:
             self.pos.fill_(PAD_POS)
+            saved = None if rs is None else (rs.conv.clone(), rs.ssm.clone())
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 for _ in range(WARMUP_STEPS):
                     self.step()
             torch.cuda.current_stream(dev).wait_stream(stream)
+            if saved is not None:
+                rs.conv.copy_(saved[0])
+                rs.ssm.copy_(saved[1])
+                del saved
             if self.sampler is not LOGITS and not self.sampler.greedy:
                 graph.register_generator_state(self.generator)
             before = _counts()

@@ -12,8 +12,10 @@ patterns.
 - Per-sequence blobs (save_seq_state / load_seq_state) keep the JAX
   package's layout: the sequence's rows in position order, "positions"
   [n], "k"/"v" [L, H, n, D] and for an int8 memory "k_scale"/"v_scale"
-  [L, H, n] (ISWA memories: "full_" and "swa_" prefixed). A blob written by
-  either package loads into the other.
+  [L, H, n] (ISWA memories: "full_" and "swa_" prefixed); a recurrent
+  state's "rs_conv" [L, d_conv - 1, C] and "rs_ssm" [L, d_state, d_inner]
+  (a hybrid memory's attention rows "kv_" prefixed beside them). A blob
+  written by either package loads into the other.
 - Whole-context files (save_state / load_state) hold this package's own
   tensors under the names memory_tensors gives, in its order, and the
   header's "layout" names that layout. The JAX package's whole-context
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from .kv_cache import ISWACache, KVCache
+from .memory import HybridMemory, RecurrentState
 from .paged_kv import PagedKVCache
 
 STATE_MAGIC = "tpu-llm-state"
@@ -91,10 +94,17 @@ def memory_tensors(kv) -> list[tuple[str, torch.Tensor]]:
     """The tensors of a KV memory, named, in the order a state file holds
     them: k.<il> for every layer, v.<il>, then for an int8 memory
     k_scale.<il> and v_scale.<il>, then pos, and the pool's page table;
-    an ISWA memory's full tier under "full." and its rings under "swa."."""
+    an ISWA memory's full tier under "full." and its rings under "swa.";
+    a recurrent state's conv and ssm; a hybrid memory's attention part
+    under "kv." and its recurrent state under "rs."."""
     if isinstance(kv, ISWACache):
         return ([("full." + n, t) for n, t in memory_tensors(kv.full)]
                 + [("swa." + n, t) for n, t in memory_tensors(kv.swa)])
+    if isinstance(kv, RecurrentState):
+        return [("conv", kv.conv), ("ssm", kv.ssm)]
+    if isinstance(kv, HybridMemory):
+        return ([("kv." + n, t) for n, t in memory_tensors(kv.kv)]
+                + [("rs." + n, t) for n, t in memory_tensors(kv.rs)])
     out = [(f"k.{i}", t) for i, t in enumerate(kv.k)]
     out += [(f"v.{i}", t) for i, t in enumerate(kv.v)]
     if kv.quantized:
@@ -287,13 +297,28 @@ def _paged_inject(ctx, kvc: PagedKVCache, seq: int, z, prefix: str) -> int:
     return int(positions.size)
 
 
+def _rs_extract(rs: RecurrentState, seq: int, prefix: str) -> dict:
+    return {prefix + "conv": _pack(rs.conv[:, seq]), prefix + "ssm": _pack(rs.ssm[:, seq])}
+
+
+def _rs_inject(rs: RecurrentState, seq: int, z, prefix: str) -> int:
+    rs.conv[:, seq] = _unpack(z[prefix + "conv"], rs.conv)
+    rs.ssm[:, seq] = _unpack(z[prefix + "ssm"], rs.ssm)
+    return 1
+
+
 def _seq_parts(kv) -> list[tuple[object, str]]:
     """-> [(sub-memory, npz key prefix)]: the per-type state writers of the
-    reference (src/llama-kv-cache*.cpp)."""
+    reference (src/llama-kv-cache*.cpp, llama-memory-recurrent.cpp,
+    llama-memory-hybrid.cpp)."""
     if isinstance(kv, (PagedKVCache, KVCache)):
         return [(kv, "")]
     if isinstance(kv, ISWACache):
         return [(kv.full, "full_"), (kv.swa, "swa_")]
+    if isinstance(kv, RecurrentState):
+        return [(kv, "rs_")]
+    if isinstance(kv, HybridMemory):
+        return [(kv.kv, "kv_"), (kv.rs, "rs_")]
     raise ValueError(f"per-sequence state unsupported for {type(kv).__name__}")
 
 
@@ -302,7 +327,9 @@ def save_seq_state(ctx, seq: int) -> bytes:
     independent of the source context's geometry."""
     arrays: dict = {}
     for sub, prefix in _seq_parts(ctx.kv):
-        if isinstance(sub, PagedKVCache):
+        if isinstance(sub, RecurrentState):
+            arrays.update(_rs_extract(sub, seq, prefix))
+        elif isinstance(sub, PagedKVCache):
             arrays.update(_paged_extract(ctx, sub, seq, prefix))
         else:
             arrays.update(_kv_extract(sub, seq, prefix))
@@ -313,7 +340,8 @@ def save_seq_state(ctx, seq: int) -> bytes:
 
 def load_seq_state(ctx, seq: int, blob: bytes) -> int:
     """Scatter a saved sequence into `seq` of this context, in place.
-    Returns the number of restored cells."""
+    Returns the number of restored cells (attention rows, or 1 for a
+    recurrent state alone)."""
     z = np.load(io.BytesIO(blob))
     header = _header(z)
     if header.get("magic") != STATE_MAGIC:
@@ -329,7 +357,9 @@ def load_seq_state(ctx, seq: int, blob: bytes) -> int:
     ctx.seq_rm(seq)
     n = 0
     for sub, prefix in _seq_parts(ctx.kv):
-        if isinstance(sub, PagedKVCache):
+        if isinstance(sub, RecurrentState):
+            n = max(n, _rs_inject(sub, seq, z, prefix))
+        elif isinstance(sub, PagedKVCache):
             n = max(n, _paged_inject(ctx, sub, seq, z, prefix))
         else:
             n = max(n, _kv_inject(sub, seq, z, prefix))

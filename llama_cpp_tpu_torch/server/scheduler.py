@@ -191,7 +191,9 @@ class Scheduler:
         # KV already holds; re-decode only the divergent tail (at least the
         # final token, whose logits we need)
         n_keep = 0
-        if task.cache_prompt:
+        # a recurrent state holds no positions to keep a prefix of (seq_rm
+        # with p0 > 0 raises): its prompt is decoded whole
+        if task.cache_prompt and not self.ctx.recurrent:
             limit = min(len(slot.cache_tokens), len(task.prompt_ids) - 1)
             while n_keep < limit and slot.cache_tokens[n_keep] == task.prompt_ids[n_keep]:
                 n_keep += 1

@@ -660,6 +660,358 @@ MOE_FAMILY_LAYOUTS: dict[str, dict] = {
 FAMILY_LAYOUTS.update(MOE_FAMILY_LAYOUTS)
 
 
+# the recurrent and hybrid families: the mixer a family's "S" layers carry
+_MIXER = {"mamba": "mamba1", "jamba": "mamba1", "mamba2": "mamba2", "nemotron_h": "mamba2",
+          "nemotron_h_moe": "mamba2", "falcon-h1": "mamba2", "granitehybrid": "mamba2",
+          "qwen3next": "delta", "qwen35": "delta_flat", "qwen35moe": "delta_flat",
+          "lfm2": "shortconv", "lfm2moe": "shortconv", "plamo2": "plamo2",
+          "kimi-linear": "kda"}
+
+
+def make_bench_hybrid_gguf(
+    path: str,
+    arch: str,
+    pattern: str,
+    n_embd: int,
+    vocab_size: int,
+    n_heads: int = 4,
+    n_kv_heads: int = 2,
+    head_dim: int = 64,
+    rope_dims: int = 0,
+    n_ff: int = 512,
+    d_inner: int = 512,
+    d_state: int = 16,
+    n_group: int = 1,
+    ssm_heads: int = 8,
+    dt_rank: int = 16,
+    d_conv: int = 4,
+    kv_lora_rank: int = 64,
+    mla_nope: int = 32,
+    n_expert: int = 0,
+    n_expert_used: int = 0,
+    n_ff_exp: int = 0,
+    shared_expert_ff: int = 0,
+    n_ctx: int = 4096,
+    rope_base: float = 10000.0,
+    rms_eps: float = 1e-6,
+    metadata: dict | None = None,
+    synth_scale: float = 1.0,
+    f32: bool = False,
+    seed: int = 0,
+) -> str:
+    """A GGUF of one of the registry's recurrent or hybrid families (`arch`),
+    one block a character of `pattern`: "S" the family's recurrent mixer,
+    "A" attention, "H" both in parallel (Falcon-H1), "F" an FFN block
+    (Nemotron-H). Every layer but Nemotron-H's and the pure recurrent
+    stacks' (mamba, mamba2) carries an FFN half: experts
+    (a router, stacks of n_ff_exp, a sigmoid-gated shared expert of
+    shared_expert_ff) when n_expert > 0, else a gated FFN of n_ff (Nemotron-H
+    and its F blocks: relu^2 on ffn_up alone). The mixers' tensors, as
+    llama.cpp's converter lays them out:
+      mamba1 (mamba, jamba): ssm_in [2 d_inner, E], ssm_conv1d [d_inner,
+        d_conv] and its bias, ssm_x [dt_rank + 2 d_state, d_inner], ssm_dt
+        [d_inner, dt_rank] and its bias, ssm_a [d_inner, d_state], ssm_d,
+        ssm_out;
+      mamba2 (mamba2, nemotron_h, falcon-h1, granitehybrid): ssm_in [2
+        d_inner + 2 n_group d_state + ssm_heads, E], the conv over x|B|C,
+        ssm_dt.bias, ssm_a and ssm_d [ssm_heads, 1], ssm_norm [n_group,
+        d_inner / n_group], ssm_out;
+      delta (qwen3next): the per-key-head interleaved qkvz ssm_in and ssm_ba
+        (n_group key heads of d_state, ssm_heads value heads of d_inner /
+        ssm_heads), the conv over q|k|v, ssm_dt.bias, ssm_a [ssm_heads],
+        ssm_norm [head], ssm_out; its attention gate attn_gate [n_heads
+        head_dim, E];
+      delta_flat (qwen35, qwen35moe): attn_qkv and attn_gate (z), ssm_beta
+        and ssm_alpha [ssm_heads, E]; its wq [2 n_heads head_dim, E] holds
+        per-head [q | gate] pairs;
+      shortconv (lfm2, lfm2moe): shortconv.in_proj [3E, E], shortconv.conv
+        [E, d_conv], shortconv.out_proj; the final norm stored as
+        token_embd_norm and the head tied;
+      plamo2: ssm_in [2 d_inner, E] (per head [z | x]), the conv over x,
+        ssm_x [2 d_state + dt_rank, d_inner], ssm_dt [ssm_heads, dt_rank]
+        and its bias, ssm_a and ssm_d [ssm_heads], the dt/B/C norms,
+        ssm_out; its attention one attn_qkv with q/k norms of a weight a
+        head [heads, head_dim], post-norms on both halves, one ffn_up of 2
+        n_ff holding gate|up, the head tied;
+      kda (kimi-linear): attn_q/k/v [n_heads d_state, E] (one type, so the
+        loader fuses them), a conv each ssm_conv1d_q/k/v [n_heads d_state,
+        1, d_conv], ssm_f_a/ssm_g_a [d_state, E] and ssm_f_b/ssm_g_b
+        [n_heads d_state, d_state], ssm_beta [n_heads, E], ssm_a
+        [n_heads, 1], ssm_dt.bias, ssm_norm [d_state], attn_output; its
+        attention rope-free MLA on the naive expansion: attn_q [n_heads
+        (mla_nope + rope_dims), E], attn_kv_a_mqa [kv_lora_rank + rope_dims,
+        E] and its norm, attn_kv_b [n_heads (mla_nope + head_dim),
+        kv_lora_rank], V heads of head_dim.
+    Per-head q/k norms for qwen3next, qwen35 and lfm2. ssm_a is negative
+    (-exp of a normal draw), as a trained model's is. Matrices are written
+    in the Q4_K_M mix of make_bench_arch_gguf (synthetic blocks, their
+    scales times synth_scale), any whose rows are not a multiple of 256 as
+    F32; f32=True writes every matrix F32 (normal values, scale 1/sqrt(in)).
+    metadata adds keys under the arch's prefix."""
+    rng = np.random.default_rng(seed)
+    mixer = _MIXER[arch]
+    nemotron = arch.startswith("nemotron_h")
+    ffn_half = not nemotron and arch not in ("mamba", "mamba2")
+    w = GGUFWriter()
+    w.add(Keys.General.ARCHITECTURE, arch)
+    w.add(Keys.General.NAME, f"bench-{arch}-synthetic")
+    P = arch + "."
+    for key, val in (("block_count", len(pattern)), ("context_length", n_ctx),
+                     ("embedding_length", n_embd), ("feed_forward_length", n_ff),
+                     ("attention.head_count", n_heads), ("attention.head_count_kv", n_kv_heads),
+                     ("attention.key_length", head_dim), ("attention.value_length", head_dim),
+                     ("rope.dimension_count", rope_dims or head_dim), ("vocab_size", vocab_size),
+                     ("ssm.conv_kernel", d_conv), ("ssm.inner_size", d_inner),
+                     ("ssm.state_size", d_state),
+                     ("ssm.time_step_rank", dt_rank if mixer == "mamba1" else ssm_heads),
+                     ("ssm.group_count", 0 if mixer == "plamo2" else n_group)):
+        w.add(P + key, np.uint32(val))
+    if mixer == "shortconv":
+        w.add(P + "shortconv.l_cache", np.uint32(d_conv))
+    if mixer == "kda":
+        for key, val in (("attention.kv_lora_rank", kv_lora_rank),
+                         ("attention.key_length_mla", mla_nope + rope_dims),
+                         ("attention.value_length_mla", head_dim), ("kda.head_dim", d_state)):
+            w.add(P + key, np.uint32(val))
+    w.add(P + "attention.layer_norm_rms_epsilon", float(rms_eps))
+    w.add(P + "rope.freq_base", float(rope_base))
+    if n_expert:
+        w.add(P + "expert_count", np.uint32(n_expert))
+        w.add(P + "expert_used_count", np.uint32(n_expert_used))
+        w.add(P + "expert_feed_forward_length", np.uint32(n_ff_exp))
+    if shared_expert_ff:
+        w.add(P + "expert_shared_count", np.uint32(1))
+        w.add(P + "expert_shared_feed_forward_length", np.uint32(shared_expert_ff))
+    for key, val in (metadata or {}).items():
+        w.add(P + key, val)
+    _add_bench_vocab(w, vocab_size)
+
+    def emit_f(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+
+    def emit_q(name, rows, cols, t, stack=()):
+        if f32 or cols % GGML_BLOCK_LAYOUT[t].block_size:
+            emit_f(name, rng.standard_normal((*reversed(stack), rows, cols)) / np.sqrt(cols))
+            return
+        n = rows * cols * int(np.prod(stack, dtype=np.int64))
+        data = synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)),
+                                 scale_mult=synth_scale)
+        w.add_tensor(name, data, (cols, rows, *stack), t)
+
+    def norm_w(*shape):
+        return 1.0 + 0.1 * rng.standard_normal(shape)
+
+    q4, q6 = GGMLType.Q4_K, GGMLType.Q6_K
+    E = n_embd
+    tied = mixer in ("shortconv", "plamo2")
+    emit_q("token_embd.weight", vocab_size, E, q6 if tied else q4)
+    emit_f(("token_embd_norm" if mixer == "shortconv" else "output_norm") + ".weight",
+           norm_w(E))
+    if not tied:
+        emit_q("output.weight", vocab_size, E, q6)
+    q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
+
+    def attention(b):
+        if mixer == "kda":  # rope-free MLA, the naive expansion
+            emit_q(b + "attn_q.weight", n_heads * (mla_nope + rope_dims), E, q4)
+            emit_q(b + "attn_kv_a_mqa.weight", kv_lora_rank + rope_dims, E, q4)
+            emit_f(b + "attn_kv_a_norm.weight", norm_w(kv_lora_rank))
+            emit_q(b + "attn_kv_b.weight", n_heads * (mla_nope + head_dim), kv_lora_rank, q4)
+            emit_q(b + "attn_output.weight", E, n_heads * head_dim, q4)
+            return
+        if mixer == "plamo2":
+            emit_q(b + "attn_qkv.weight", q_dim + 2 * kv_dim, E, q4)
+            emit_f(b + "attn_q_norm.weight", norm_w(n_heads, head_dim))
+            emit_f(b + "attn_k_norm.weight", norm_w(n_kv_heads, head_dim))
+        else:
+            emit_q(b + "attn_q.weight", 2 * q_dim if mixer == "delta_flat" else q_dim, E, q4)
+            emit_q(b + "attn_k.weight", kv_dim, E, q4)
+            emit_q(b + "attn_v.weight", kv_dim, E, q6)
+        emit_q(b + "attn_output.weight", E, q_dim, q4)
+        if mixer == "delta":
+            emit_q(b + "attn_gate.weight", q_dim, E, q4)
+        if mixer in ("delta", "delta_flat", "shortconv"):
+            emit_f(b + "attn_q_norm.weight", norm_w(head_dim))
+            emit_f(b + "attn_k_norm.weight", norm_w(head_dim))
+
+    def recurrent(b):
+        if mixer == "mamba1":
+            emit_q(b + "ssm_in.weight", 2 * d_inner, E, q4)
+            emit_f(b + "ssm_conv1d.weight", 0.4 * rng.standard_normal((d_inner, d_conv)))
+            emit_f(b + "ssm_conv1d.bias", 0.02 * rng.standard_normal(d_inner))
+            emit_q(b + "ssm_x.weight", dt_rank + 2 * d_state, d_inner, q4)
+            emit_q(b + "ssm_dt.weight", d_inner, dt_rank, q4)
+            emit_f(b + "ssm_dt.bias", 0.3 * rng.standard_normal(d_inner))
+            emit_f(b + "ssm_a", -np.exp(0.5 * rng.standard_normal((d_inner, d_state))))
+            emit_f(b + "ssm_d", 0.3 * rng.standard_normal(d_inner))
+            emit_q(b + "ssm_out.weight", E, d_inner, q4)
+        elif mixer == "mamba2":
+            conv_dim = d_inner + 2 * n_group * d_state
+            emit_q(b + "ssm_in.weight", d_inner + conv_dim + ssm_heads, E, q4)
+            emit_f(b + "ssm_conv1d.weight", 0.4 * rng.standard_normal((conv_dim, d_conv)))
+            emit_f(b + "ssm_conv1d.bias", 0.02 * rng.standard_normal(conv_dim))
+            emit_f(b + "ssm_dt.bias", 0.3 * rng.standard_normal(ssm_heads))
+            emit_f(b + "ssm_a", -np.exp(0.5 * rng.standard_normal((ssm_heads, 1))))
+            emit_f(b + "ssm_d", 0.3 * rng.standard_normal((ssm_heads, 1)))
+            emit_f(b + "ssm_norm.weight", norm_w(n_group, d_inner // n_group))
+            emit_q(b + "ssm_out.weight", E, d_inner, q4)
+        elif mixer in ("delta", "delta_flat"):
+            key_dim, Dv = n_group * d_state, d_inner // ssm_heads
+            if mixer == "delta":
+                emit_q(b + "ssm_in.weight", 2 * key_dim + 2 * d_inner, E, q4)
+                emit_q(b + "ssm_ba.weight", 2 * ssm_heads, E, q4)
+            else:
+                emit_q(b + "attn_qkv.weight", 2 * key_dim + d_inner, E, q4)
+                emit_q(b + "attn_gate.weight", d_inner, E, q4)
+                emit_q(b + "ssm_beta.weight", ssm_heads, E, q4)
+                emit_q(b + "ssm_alpha.weight", ssm_heads, E, q4)
+            emit_f(b + "ssm_conv1d.weight",
+                   0.4 * rng.standard_normal((2 * key_dim + d_inner, d_conv)))
+            emit_f(b + "ssm_dt.bias", 0.3 * rng.standard_normal(ssm_heads))
+            emit_f(b + "ssm_a", -np.exp(0.5 * rng.standard_normal(ssm_heads)))
+            emit_f(b + "ssm_norm.weight", norm_w(Dv))
+            emit_q(b + "ssm_out.weight", E, d_inner, q4)
+        elif mixer == "kda":
+            di = n_heads * d_state
+            for name in ("attn_q", "attn_k", "attn_v"):
+                emit_q(b + name + ".weight", di, E, q4)
+            for name in ("ssm_conv1d_q", "ssm_conv1d_k", "ssm_conv1d_v"):
+                emit_f(b + name + ".weight", 0.4 * rng.standard_normal((di, 1, d_conv)))
+            for name in ("ssm_f", "ssm_g"):
+                emit_q(b + name + "_a.weight", d_state, E, q4)
+                emit_q(b + name + "_b.weight", di, d_state, q4)
+            emit_q(b + "ssm_beta.weight", n_heads, E, q4)
+            emit_f(b + "ssm_a", -np.exp(0.5 * rng.standard_normal((n_heads, 1))))
+            emit_f(b + "ssm_dt.bias", 0.3 * rng.standard_normal(di))
+            emit_f(b + "ssm_norm.weight", norm_w(d_state))
+            emit_q(b + "attn_output.weight", E, di, q4)
+        elif mixer == "plamo2":
+            emit_q(b + "ssm_in.weight", 2 * d_inner, E, q4)
+            emit_f(b + "ssm_conv1d.weight", 0.4 * rng.standard_normal((d_inner, d_conv)))
+            emit_q(b + "ssm_x.weight", 2 * d_state + dt_rank, d_inner, q4)
+            emit_q(b + "ssm_dt.weight", ssm_heads, dt_rank, q4)
+            emit_f(b + "ssm_dt.bias", 0.3 * rng.standard_normal(ssm_heads))
+            emit_f(b + "ssm_a", -np.exp(0.5 * rng.standard_normal(ssm_heads)))
+            emit_f(b + "ssm_d", 0.3 * rng.standard_normal(ssm_heads))
+            for name, n in (("ssm_dt_norm", dt_rank), ("ssm_b_norm", d_state),
+                            ("ssm_c_norm", d_state)):
+                emit_f(b + name + ".weight", norm_w(n))
+            emit_q(b + "ssm_out.weight", E, d_inner, q4)
+        else:  # shortconv
+            emit_q(b + "shortconv.in_proj.weight", 3 * E, E, q4)
+            emit_f(b + "shortconv.conv.weight", 0.4 * rng.standard_normal((E, d_conv)))
+            emit_q(b + "shortconv.out_proj.weight", E, E, q4)
+
+    def ffn(b):
+        if n_expert:
+            emit_f(b + "ffn_gate_inp.weight", rng.standard_normal((n_expert, E)) * 0.02)
+            emit_q(b + "ffn_gate_exps.weight", n_ff_exp, E, q4, (n_expert,))
+            emit_q(b + "ffn_up_exps.weight", n_ff_exp, E, q4, (n_expert,))
+            emit_q(b + "ffn_down_exps.weight", E, n_ff_exp, q6, (n_expert,))
+            if shared_expert_ff:
+                emit_f(b + "ffn_gate_inp_shexp.weight", rng.standard_normal((1, E)) * 0.02)
+                emit_q(b + "ffn_gate_shexp.weight", shared_expert_ff, E, q4)
+                emit_q(b + "ffn_up_shexp.weight", shared_expert_ff, E, q4)
+                emit_q(b + "ffn_down_shexp.weight", E, shared_expert_ff, q6)
+            return
+        if mixer == "plamo2":  # one ffn_up holding gate|up
+            emit_q(b + "ffn_up.weight", 2 * n_ff, E, q4)
+        else:
+            if not nemotron:
+                emit_q(b + "ffn_gate.weight", n_ff, E, q4)
+            emit_q(b + "ffn_up.weight", n_ff, E, q4)
+        emit_q(b + "ffn_down.weight", E, n_ff, q6)
+
+    for i, kind in enumerate(pattern):
+        b = f"blk.{i}."
+        emit_f(b + "attn_norm.weight", norm_w(E))
+        if kind in "SH":
+            recurrent(b)
+        if kind in "AH":
+            attention(b)
+        if mixer == "plamo2":
+            emit_f(b + "attn_post_norm.weight", norm_w(E))
+            emit_f(b + "ffn_post_norm.weight", norm_w(E))
+        if ffn_half:
+            emit_f(b + "ffn_norm.weight", norm_w(E))
+        if ffn_half or kind == "F":
+            ffn(b)
+    w.write(path)
+    return path
+
+
+# the recurrent and hybrid families at a small size (make_bench_hybrid_gguf's
+# options): the pattern of blocks and what each family's file carries
+HYBRID_LAYOUTS: dict[str, dict] = {
+    "mamba": dict(pattern="SS"),
+    "mamba2": dict(pattern="SS", d_state=32, n_group=2),
+    "jamba": dict(pattern="SA", n_expert=4, n_expert_used=2, n_ff_exp=256),
+    "qwen3next": dict(pattern="SSSA", n_expert=8, n_expert_used=4, n_ff_exp=256,
+                      shared_expert_ff=256, d_inner=512, d_state=32, n_group=4, ssm_heads=8,
+                      rope_dims=32),
+    "qwen35": dict(pattern="SA", d_inner=512, d_state=32, n_group=4, ssm_heads=8,
+                   metadata={"rope.dimension_sections": np.asarray([3, 3, 2, 0], np.uint32)}),
+    "qwen35moe": dict(pattern="SA", n_expert=8, n_expert_used=2, n_ff_exp=256,
+                      shared_expert_ff=256, d_inner=512, d_state=32, n_group=4, ssm_heads=8,
+                      metadata={"rope.dimension_sections": np.asarray([3, 3, 2, 0],
+                                                                      np.uint32)}),
+    "lfm2": dict(pattern="SA", d_conv=3),
+    "lfm2moe": dict(pattern="SA", d_conv=3, n_expert=8, n_expert_used=2, n_ff_exp=256),
+    # an attention block before the first FFN block, where the JAX package
+    # labels the KV positions too (models/transformer.py first_attention_layer)
+    "nemotron_h": dict(pattern="SAFSF", d_state=32, n_group=2),
+    "nemotron_h_moe": dict(pattern="SAF", d_state=32, n_group=2, n_expert=4,
+                           n_expert_used=2, n_ff_exp=256),
+    "falcon-h1": dict(pattern="HH", d_state=32, n_group=2),
+    "granitehybrid": dict(pattern="SA", d_state=32, n_group=2, metadata=_GRANITE),
+    "plamo2": dict(pattern="SA", d_state=16, ssm_heads=8, dt_rank=16),
+    "kimi-linear": dict(pattern="SA", d_state=32, rope_dims=16, kv_lora_rank=64, mla_nope=32,
+                        n_expert=4, n_expert_used=2, n_ff_exp=256, shared_expert_ff=256),
+}
+
+
+def make_bench_qwen3next_gguf(path: str, n_layers: int = 48, synth_scale: float = 1.0,
+                              seed: int = 0) -> str:
+    """Qwen3-Next-80B-A3B-shaped GGUF (Qwen/Qwen3-Next-80B-A3B-Instruct
+    config.json): n_embd 2048; three gated-DeltaNet layers to each gated
+    full-attention layer (full_attention_interval 4); attention 16 query
+    heads on 2 KV heads of 256, NEOX rope over 64 dims at base 1e7, per-head
+    q/k norms, an output gate; DeltaNet 16 key heads and 32 value heads of
+    128, conv kernel 4 (ssm.inner_size 4096, state_size 128, group_count 16,
+    time_step_rank 32); 512 experts of 512, top 10, softmax with normalised
+    weights, one sigmoid-gated shared expert of 512; vocab 151936; the
+    Q4_K_M mix; rms eps 1e-6."""
+    return make_bench_hybrid_gguf(
+        path, "qwen3next", ("SSSA" * -(-n_layers // 4))[:n_layers], 2048, 151936,
+        n_heads=16, n_kv_heads=2, head_dim=256, rope_dims=64, n_ff=5120, d_inner=4096,
+        d_state=128, n_group=16, ssm_heads=32, n_expert=512, n_expert_used=10, n_ff_exp=512,
+        shared_expert_ff=512, n_ctx=262144, rope_base=1e7, synth_scale=synth_scale, seed=seed)
+
+
+# the first eight blocks of Nemotron-H-8B's hybrid_override_pattern
+# ("M-M-M-M*-..."): Mamba-2 M, FFN -, attention *
+NEMOTRON_H_8B_PATTERN = "M-M-M-M*"
+
+
+def make_bench_nemotron_h_gguf(path: str, n_layers: int = 8, synth_scale: float = 1.0,
+                               seed: int = 0) -> str:
+    """Nemotron-H-8B-shaped GGUF (nvidia/Nemotron-H-8B-Base-8K config.json),
+    the first n_layers (at most 8) blocks of its 52-block pattern: Mamba-2
+    at 0, 2, 4, 6, relu^2 FFN blocks of 21504 at 1, 3, 5, NoPE attention at
+    7; n_embd 4096; Mamba-2 128 heads of 64 (d_inner 8192), 8 groups, state
+    128, conv 4; attention 32 heads on 8 KV heads of 128; vocab 131072; rms
+    eps 1e-5; the Q4_K_M mix."""
+    if n_layers > len(NEMOTRON_H_8B_PATTERN):
+        raise ValueError(f"the pattern is written out for {len(NEMOTRON_H_8B_PATTERN)} blocks")
+    pattern = NEMOTRON_H_8B_PATTERN[:n_layers].replace("M", "S").replace("-", "F") \
+        .replace("*", "A")
+    return make_bench_hybrid_gguf(
+        path, "nemotron_h", pattern, 4096, 131072, n_heads=32, n_kv_heads=8, head_dim=128,
+        n_ff=21504, d_inner=8192, d_state=128, n_group=8, ssm_heads=128, n_ctx=8192,
+        rms_eps=1e-5, synth_scale=synth_scale, seed=seed)
+
+
 def make_bench_gpt_oss_gguf(path: str, n_layers: int = 24, n_embd: int = 2880,
                             n_heads: int = 64, n_kv_heads: int = 8, head_dim: int = 64,
                             n_expert: int = 32, n_expert_used: int = 4, n_ff_exp: int = 2880,

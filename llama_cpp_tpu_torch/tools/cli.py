@@ -163,7 +163,12 @@ def main(argv=None) -> int:
         print(f"control vector: {args.control_vector}", file=sys.stderr)
 
     speculator = None
-    if args.model_draft:
+    if ctx.recurrent and (args.model_draft or args.spec_ngram):
+        # verifying drafts rolls the memory back past rejected tokens, which
+        # a recurrent state cannot do (the server drops speculation alike)
+        print("speculative decoding: off, a recurrent state cannot be rolled back",
+              file=sys.stderr)
+    elif args.model_draft:
         from ..runtime.speculative import DraftModelSpeculator
 
         dmodel = load_model(args.model_draft, device=args.device,
@@ -197,7 +202,10 @@ def main(argv=None) -> int:
             while (n_match < len(cached) and n_match < len(ids) - 1
                    and cached[n_match] == ids[n_match]):
                 n_match += 1
-            ctx.seq_rm(0, p0=n_match)
+            if ctx.recurrent and n_match < len(cached):
+                n_match = 0  # a recurrent state holds all its tokens or none
+            if not (ctx.recurrent and n_match):  # a state of exactly the match stays
+                ctx.seq_rm(0, p0=n_match)
             if n_match:
                 print(f"prompt cache: reused {n_match}/{len(ids)} tokens", file=sys.stderr)
             logits = ctx.prefill(ids[n_match:])

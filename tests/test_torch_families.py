@@ -11,7 +11,9 @@ weight keys and the block flags equal the JAX load_model's; f32 prefill
 logits of every row allclose to the JAX forward's at 1e-4; 8 greedy ids (f32)
 equal the JAX Context.generate's. One entry a mechanism also on its Q4_K /
 Q6_K file, NMSE < 1e-3. Every architecture of the JAX registry that the
-port does not register raises NotImplementedError naming itself."""
+port does not register raises NotImplementedError naming itself. The MoE
+families are tests/test_torch_moe_families.py's, the recurrent and hybrid
+ones (mamba, qwen3next, nemotron_h, ...) tests/test_torch_hybrid.py's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,14 +27,16 @@ from llama_cpp_tpu_torch.models.config import ModelConfig
 from llama_cpp_tpu_torch.models.loader import load_model
 from llama_cpp_tpu_torch.models.registry import apply_arch, supported_archs
 from llama_cpp_tpu_torch.runtime.context import Context
-from llama_cpp_tpu_torch.testing import (FAMILY_LAYOUTS, MOE_FAMILY_LAYOUTS,
+from llama_cpp_tpu_torch.testing import (FAMILY_LAYOUTS, HYBRID_LAYOUTS, MOE_FAMILY_LAYOUTS,
                                          make_bench_arch_gguf)
 
 SHAPE = dict(n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, head_dim=64, n_ff=512,
              vocab_size=256, n_ctx=256)
 # each registered dense-decoder entry with its family's tensors and metadata
-# (the MoE families' are tests/test_torch_moe_families.py's)
-ARCHS = {a: lay for a, lay in FAMILY_LAYOUTS.items() if a not in MOE_FAMILY_LAYOUTS}
+# (the MoE families' are tests/test_torch_moe_families.py's, the recurrent
+# and hybrid families' tests/test_torch_hybrid.py's)
+ARCHS = {a: lay for a, lay in FAMILY_LAYOUTS.items()
+         if a not in MOE_FAMILY_LAYOUTS and a not in HYBRID_LAYOUTS}
 # one entry a mechanism, also on its Q4_K/Q6_K file
 QUANTIZED = ("starcoder2", "command-r", "gptneox", "olmo2", "bloom", "gpt2", "smollm3",
              "granite", "olmo", "hunyuan-dense", "olmoe", "cohere2", "nemotron")
