@@ -194,7 +194,9 @@ Phases, each of which fails the run:
        relu^2 FFN blocks, NoPE attention at 7; K1-K5), each with the
        Qwen3-8B path's whole treatment with near_ties and a served round;
        then the 12 other recurrent and hybrid entries as the dense
-       families' narrow paths, on F32 values (K5 where their heads take it);
+       families' narrow paths, on the Q4_K_M mix (K5 where their heads take
+       it), lfm2 and lfm2moe on F32 values beside a reading of their Q4_K_M
+       files against an f32 path;
      - the storage types users download beside Q4_K_M: Qwen3-8B at Q8_0
        (depth 36 -> 2, every matrix Q8_0: K2 and K4 over int8 flat-g32
        planes, no other qmm kernel; the families' whole treatment), at
@@ -272,10 +274,11 @@ NEMOTRON_H_LAYERS = 8  # Nemotron-H-8B: 52 blocks; M-M-M-M*: four Mamba-2, three
 FAMILY_SHAPE = dict(n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
                     vocab_size=2048, n_ctx=4096)
 FAMILY_PROMPT = 160  # tokens: 320 rows a KV head, the prefill kernels' route
-# the recurrent and hybrid families' narrow files: FAMILY_SHAPE's widths,
-# their blocks from testing.HYBRID_LAYOUTS
-HYBRID_SHAPE = dict(n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
-                    vocab_size=2048, n_ctx=4096)
+# the narrow hybrids whose synthetic Q4_K_M blocks are ill-conditioned: the
+# kernel and the plain path part by more than the limit, each about as far
+# from an f32 path as the other (logged by f32_reading); their narrow paths
+# run on F32 values
+F32_FAMILIES = ("lfm2", "lfm2moe")
 # synthetic block scales of the StarCoder2-7B and family files, divided by
 # 256 (Q4_K weights of about 1/sqrt(4608) at most, logits of unit spread):
 # at the default scale (weights up to about 19) a biased model's attention is
@@ -1651,12 +1654,18 @@ def main() -> int:
             with hold.hold() if hold else contextlib.nullcontext():
                 ref_logits = ref_ctx.prefill(prompt, seq=0)
             if hold:
+                own = nmse(torch.from_numpy(lk), torch.from_numpy(logits))
                 log(f"{path}: a fresh kernel prefill against the path's own, logits NMSE "
-                    f"{nmse(torch.from_numpy(lk), torch.from_numpy(logits)):.3e}; plain routers "
+                    f"{own:.3e} (limit {NMSE_LIMIT}); plain routers "
                     f"held to it at the prefill (router call, row, experts, plain gap, largest "
                     f"score difference, input NMSE): "
                     f"{[h[:3] + tuple(round(v, 6) for v in h[3:]) for h in hold.held]}"
                     + (f"; parted {hold.parted[:4]}" if hold.parted else ""))
+                # the path's own prefill stays held: the same kernels on the
+                # same prompt, through the fresh context, to the plain path
+                if not own < NMSE_LIMIT:
+                    failures.append(f"{path}: the path's own prefill logits NMSE {own} against "
+                                    f"a fresh kernel context's")
                 logits = lk  # the kernel prefill whose routes the plain path took
             lr = ref_logits
             errs, ties, wrong, holds, parted = [], [], [], [], []
@@ -3001,12 +3010,61 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
-    def family_path(arch, layout, synth_scale=FAMILY_SYNTH_SCALE, hybrid=False):
-        """One dense-decoder family of the registry at FAMILY_SHAPE (heads of
-        128; its tensors and metadata as testing.FAMILY_LAYOUTS writes them),
-        Q4_K_M mix, or with hybrid one recurrent or hybrid family at
-        HYBRID_SHAPE (its blocks as testing.HYBRID_LAYOUTS writes them, every
-        matrix F32 values, so its products take the library route): a
+    def family_file(path, arch, layout, synth_scale=FAMILY_SYNTH_SCALE, f32=False):
+        """A narrow file of `arch` at FAMILY_SHAPE's widths: a recurrent or
+        hybrid family's blocks as testing.HYBRID_LAYOUTS writes them, any
+        other family's as testing.FAMILY_LAYOUTS does; the Q4_K_M mix, or
+        with f32 every matrix F32 values (their products take the library
+        route)."""
+        if arch in HYBRID_LAYOUTS:  # the pattern sets the depth
+            shape = {k: v for k, v in FAMILY_SHAPE.items() if k != "n_layers"}
+            make_bench_hybrid_gguf(path, arch, **{**shape, **layout}, synth_scale=synth_scale,
+                                   f32=f32, seed=0)
+        else:
+            make_bench_arch_gguf(path, arch, **{**FAMILY_SHAPE, **layout},
+                                 synth_scale=synth_scale, seed=0)
+
+    def f32_reading(arch, layout):
+        """The conditioning of an F32_FAMILIES entry's Q4_K_M file, a reading
+        with no limit: the kernel path's and the plain path's logits (the
+        same quantized model) each against an f32 path (the same file loaded
+        dense in f32, f32 KV) on a FAMILY_PROMPT-token prefill and 8 steps
+        teacher-forced with the f32 path's greedy ids. A failure only where
+        a path's logits are not finite."""
+        label = f"family {arch} Q4_K_M"
+        path = os.path.join(smoke_dir, f"family-{arch}-q4.gguf")
+        family_file(path, arch, layout)
+        models = {"kernel": load_model(path), "f32": load_model(
+            path, prefer_quant=False, dense_dtype=torch.float32)}
+        os.remove(path)
+        models["plain"] = models["kernel"]
+        kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=512, graphs=False)
+        ctxs = {"kernel": Context(models["kernel"], quantized_kv=True, **kw),
+                "plain": Context(models["plain"], quantized_kv=True, kernels=False, **kw),
+                "f32": Context(models["f32"], kernels=False, **kw)}
+        prompt = [int(t) for t in prng.integers(3, models["f32"].cfg.vocab_size, FAMILY_PROMPT)]
+        lg = {k: c.prefill(prompt, seq=0) for k, c in ctxs.items()}
+        errs = {k: [nmse(torch.from_numpy(lg[k]), torch.from_numpy(lg["f32"]))]
+                for k in ("kernel", "plain")}
+        between = [nmse(torch.from_numpy(lg["kernel"]), torch.from_numpy(lg["plain"]))]
+        for _ in range(8):
+            t = int(np.argmax(lg["f32"]))
+            lg = {k: c.decode_one(t, seq=0) for k, c in ctxs.items()}
+            for k in errs:
+                errs[k].append(nmse(torch.from_numpy(lg[k]), torch.from_numpy(lg["f32"])))
+            between.append(nmse(torch.from_numpy(lg["kernel"]), torch.from_numpy(lg["plain"])))
+            if not all(np.isfinite(v).all() for v in lg.values()):
+                failures.append(f"{label}: logits not finite")
+        log(f"{label} ({card}): logits NMSE against the f32 path, prefill then 8 teacher-forced "
+            f"steps: kernel path {[f'{e:.3e}' for e in errs['kernel']]}, plain path "
+            f"{[f'{e:.3e}' for e in errs['plain']]}; kernel against plain "
+            f"{[f'{e:.3e}' for e in between]} (the families' limit {NMSE_LIMIT})")
+        del ctxs, models
+        torch.cuda.empty_cache()
+
+    def family_path(arch, layout, synth_scale=FAMILY_SYNTH_SCALE):
+        """One family of the registry, narrow (family_file; the Q4_K_M mix,
+        F32 values for F32_FAMILIES): a
         FAMILY_PROMPT-token prefill and 16 greedy tokens (Context.generate
         on the B=1 graph) with the counters read: every qmm kernel its
         matrices route to (decode and ubatch), K7 for an expert stack, K5 on
@@ -3017,11 +3075,7 @@ def main() -> int:
         (near_ties)."""
         label = f"family {arch}"
         path = os.path.join(smoke_dir, f"family-{arch}.gguf")
-        if hybrid:  # f32 values: synthetic blocks leave several small hybrids ill-conditioned
-            make_bench_hybrid_gguf(path, arch, **{**HYBRID_SHAPE, **layout}, f32=True, seed=0)
-        else:
-            make_bench_arch_gguf(path, arch, **{**FAMILY_SHAPE, **layout},
-                                 synth_scale=synth_scale, seed=0)
+        family_file(path, arch, layout, synth_scale, f32=arch in F32_FAMILIES)
         model = load_model(path)
         os.remove(path)
         cfg = model.cfg
@@ -3654,7 +3708,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for arch, layout in HYBRID_LAYOUTS.items():
         if arch not in ("qwen3next", "nemotron_h"):
-            family_path(arch, layout, hybrid=True)
+            family_path(arch, layout)
+            if arch in F32_FAMILIES:
+                f32_reading(arch, layout)
     torch.cuda.empty_cache()
     log(f"the hybrid paths, the {len(HYBRID_LAYOUTS) - 2} narrow ones included: "
         f"{time.perf_counter() - t0:.1f} s")

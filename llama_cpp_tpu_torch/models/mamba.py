@@ -434,10 +434,9 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, inpu
     no padding rows."""
     x = embed_lookup(params["token_embd"], tokens.long(), dtype=torch.float32)
     seq_idx = inputs.seq_idx
-    layer_fn = mamba2_layer if cfg.extra.get("ssm_version", 1) == 2 else mamba1_layer
     for il, lw in enumerate(params["layers"]):
         h = rms_norm(x, lw["attn_norm"], cfg.rms_eps)
-        out, new_conv, s_last = layer_fn(cfg, lw, h, mem, seq_idx, il, kernels)
+        out, new_conv, s_last = mixer_of(cfg, lw)(cfg, lw, h, mem, seq_idx, il, kernels)
         x = x + out
         mem.put(il, seq_idx, new_conv, s_last)
     B, T, E = x.shape
