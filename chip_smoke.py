@@ -20,8 +20,9 @@ Phases, each of which fails the run:
      1023 rows, timed at 64-1023 rows, beside its registers and spills;
      K1-K4 at the hybrid families' widths (Nemotron-H-8B's ssm_in of 18560
      columns, 145 tiles of 128, its ssm_out and relu^2 FFN; Qwen3-Next's
-     ssm_in, attn_qk, attn_gate, ssm_out and shared-expert down), held at
-     1-1023 rows and timed at N = 1, 8, 512;
+     ssm_in, attn_qk, attn_gate, ssm_out and shared-expert down) and at
+     BGE-M3's layer (1024 wide, FFN 4096), held at 1-1023 rows and timed at
+     N = 1, 8, 512;
      the attention kernels (a prefill kernel from PREFILL_MIN_ROWS rows a
      KV head, a decode kernel below it; each held call must launch its
      route's kernel once) at decode B = 1, 8, 32 and at a prefill ubatch, on
@@ -144,6 +145,21 @@ Phases, each of which fails the run:
        period of its pattern: five window layers on ISWA rings of 1792
        slots through K6 in ring mode, one full layer on the pool through
        K5; the tied 262208-row head on the library route, timed);
+     - embeddings and rerank: Qwen3-Embedding-8B (Qwen3-8B's stack, the
+       qwen3-8b path's 2-layer model) through Context.embed(pooling="last")
+       at 512 tokens (a 512-row forward over a 520-slot table: the prefill
+       GEMM, the einsum attention, as the JAX package's flash_supported
+       wants slots in 128s); BGE-M3 (BAAI/bge-m3 in GGUF as bert, full
+       width and depth, 24 layers) through Context.embed at 7, 512 and 1000
+       tokens (K3/K4 at the 512-row buckets, no kernel at 1024 rows), each
+       pooling and the unpooled rows against the plain path, the ms of an
+       embed, a profile of the 512-token one, and a served round
+       (/v1/embeddings of 4 inputs, /v1/rerank of 8 documents) against
+       Context.embed computed directly; then the 10
+       other embedding entries at 2 layers of n_embd 1024 on the Q4_K_M
+       mix, each held against the plain path with its launches read
+       (t5encoder through Context.encode at 7 tokens, the decode kernel,
+       and 200, the prefill GEMM);
      - DeepSeek's Multi-head Latent Attention, Context as the families':
        DeepSeek-V2-Lite (27 -> 2 layers: one dense, one MoE of 64
        experts; the paged MLA decode kernel at B=1, its prefill kernel at
@@ -270,6 +286,10 @@ GPT_OSS_LAYERS = 2  # gpt-oss-20B: 24 layers; a window layer and a full one
 SCOUT_LAYERS = 2  # Llama-4-Scout-17B-16E: 48 layers; its NoPE layers run in llama4's narrow path
 QWEN3NEXT_LAYERS = 4  # Qwen3-Next-80B-A3B: 48 layers; three DeltaNet layers, one attention
 NEMOTRON_H_LAYERS = 8  # Nemotron-H-8B: 52 blocks; M-M-M-M*: four Mamba-2, three FFN, one attention
+BGE_M3_LAYERS = 24  # BAAI/bge-m3: 24 layers, run at full depth
+# the embedding entries other than bert: narrow, heads of 128, 2 layers
+EMBED_SHAPE = dict(n_layers=2, n_embd=1024, n_heads=8, n_ff=2048, vocab_size=2048)
+EMBED_POOLINGS = ("mean", "cls", "last", "none")
 # the other dense-decoder families: narrow, heads of 128, 2 layers
 FAMILY_SHAPE = dict(n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
                     vocab_size=2048, n_ctx=4096)
@@ -1122,7 +1142,9 @@ def main() -> int:
                                                              speculative_generate)
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
-        from llama_cpp_tpu_torch.testing import (FAMILY_LAYOUTS, HYBRID_LAYOUTS,
+        from llama_cpp_tpu_torch.testing import (EMBEDDING_ARCHS, FAMILY_LAYOUTS,
+                                                 HYBRID_LAYOUTS, make_bench_bge_m3_gguf,
+                                                 make_bench_embedding_gguf,
                                                  MOE_FAMILY_LAYOUTS, make_bench_arch_gguf,
                                                  make_bench_command_r_gguf,
                                                  make_bench_gemma3_gguf,
@@ -1223,8 +1245,10 @@ def main() -> int:
     log("K1-K4 at the hybrid families' widths (Nemotron-H-8B: ssm_in 4096 -> 18560, 145 "
         "column tiles of 128; ssm_out 8192 -> 4096; ffn_up 4096 -> 21504; ffn_down 21504 -> 4096 "
         "Q6_K. Qwen3-Next-80B-A3B: ssm_in 2048 -> 12288; attn_qk 2048 -> 4608; attn_gate 2048 -> "
-        "4096; ssm_out 4096 -> 2048; the shared expert's down 512 -> 2048 Q6_K), each launch "
-        "held, the layer sums timed at N = 1, 8, 512:")
+        "4096; ssm_out 4096 -> 2048; the shared expert's down 512 -> 2048 Q6_K) and BGE-M3's "
+        "(attn_qk 1024 -> 2048, attn_output 1024 -> 1024, ffn_up 1024 -> 4096; attn_v 1024 -> "
+        "1024 and ffn_down 4096 -> 1024 Q6_K), each launch held, the layer sums timed at N = 1, "
+        "8, 512:")
     hybrid_w = {
         "nemotron-h": ([("ssm_in", weight(GGMLType.Q4_K, 18560, 4096)),
                         ("ssm_out", weight(GGMLType.Q4_K, 4096, 8192)),
@@ -1234,7 +1258,12 @@ def main() -> int:
                         ("attn_qk", weight(GGMLType.Q4_K, 4608, 2048)),
                         ("attn_gate", weight(GGMLType.Q4_K, 4096, 2048)),
                         ("ssm_out", weight(GGMLType.Q4_K, 2048, 4096))],
-                       [("shexp down", weight(GGMLType.Q6_K, 2048, 512))])}
+                       [("shexp down", weight(GGMLType.Q6_K, 2048, 512))]),
+        "bge-m3": ([("attn_qk", weight(GGMLType.Q4_K, 2048, 1024)),
+                    ("attn_output", weight(GGMLType.Q4_K, 1024, 1024)),
+                    ("ffn_up", weight(GGMLType.Q4_K, 4096, 1024))],
+                   [("attn_v", weight(GGMLType.Q6_K, 1024, 1024)),
+                    ("ffn_down", weight(GGMLType.Q6_K, 1024, 4096))])}
     for fam, (w4, w6) in hybrid_w.items():
         for keys, ws in (("qmm4_planes", w4), ("qmm_planes", w6)):
             held_phase(torch, qmm, f"{fam} {keys}", ws, DECODE_ROWS + (64, 65, 200, 512, 1023),
@@ -3583,9 +3612,265 @@ def main() -> int:
         for f in (lora, cvec):
             os.remove(f)
 
-    arch_path("qwen3-8b", make_bench_qwen3_gguf, QWEN3_LAYERS, 151936, full_keys,
-              "Qwen3-8B shape (n_embd 4096, 32/8 heads of 128, n_ff 12288, vocab 151936, "
-              "q/k norms, NEOX rope 1e6), Q4_K/Q6_K mix", server=True)
+    def embed_against_plain(label, model, toks, ctx_kw, poolings=EMBED_POOLINGS):
+        """Context.embed on the kernel path against Context(kernels=False) on
+        the same model and tokens: each pooling (the unpooled rows among
+        them) within the limit, finite. -> {pooling: NMSE}."""
+        kern, plain = Context(model, **ctx_kw), Context(model, kernels=False, **ctx_kw)
+        errs = {}
+        for pooling in poolings:
+            got, ref = kern.embed(toks, pooling=pooling), plain.embed(toks, pooling=pooling)
+            if not np.isfinite(got).all():
+                failures.append(f"{label}: embedding ({pooling}) not finite")
+            errs[pooling] = nmse(torch.from_numpy(got), torch.from_numpy(ref))
+        bad = {k: v for k, v in errs.items() if not v < NMSE_LIMIT}
+        if bad:
+            failures.append(f"{label}: kernel against plain path, embeddings NMSE past "
+                            f"{NMSE_LIMIT}: {bad}")
+        return errs
+
+    def embed_keys(layers, rows):
+        """The qmm kernels the matrices of `layers` route to at `rows` rows
+        (below 64 the decode kernel, 64-1023 the prefill GEMM, from 1024 the
+        library route), where the JAX package's dispatch sends them."""
+        keys = set()
+        for lw in layers:
+            for w in lw.values():
+                if (isinstance(w, qtensor.QuantTensor) and w.q.dim() == 2
+                        and qmm.dispatches(w) and rows < qtensor.XLA_PREFILL_MIN_N):
+                    keys.add((decode_keys if rows < 64 else prefill_keys)[0 if w.packed else 1])
+        return sorted(keys)
+
+    def timed_embed(ctx, toks, runs=5):
+        """Median host ms of Context.embed (it ends in a copy to the host)
+        after one warm-up call."""
+        ctx.embed(toks)
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            ctx.embed(toks)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    def profile_embed(label, ctx, toks, wall_ms):
+        """One Context.embed of toks under torch.profiler: device ms and
+        launches, the device's busy share of wall_ms (the embed's median
+        without the profiler), and the six kernels with the most device
+        time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ctx.embed(toks)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        if dev_ms <= 0:
+            log(f"{label} profile: device time not measured (the profiler saw no kernels)")
+            return
+        log(f"{label} profile of a {len(toks)}-token embed ({card}): {dev_ms:.3f} ms device over "
+            f"{sum(e.count for e in dev)} launches, busy share {dev_ms / wall_ms:.3f} of "
+            f"{wall_ms:.3f} ms wall; most device time: " + "; ".join(
+                f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:60]}"
+                for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]))
+
+    def bge_m3_path():
+        """BGE-M3 (bert in GGUF) at full width and depth: Context.embed at 7,
+        512 and 1000 tokens (buckets of 512, 512 and 1024 rows: K3/K4 at the
+        first two, the library route at 1024, launching no kernel), each
+        pooling against the plain path, the ms of an embed and a profile of
+        the 512-token one, then a served
+        round of /v1/embeddings and /v1/rerank against Context.embed
+        computed directly."""
+        label = "bge-m3"
+        t_start = time.perf_counter()
+        path = os.path.join(smoke_dir, "bge-m3.gguf")
+        make_bench_bge_m3_gguf(path, n_layers=BGE_M3_LAYERS, synth_scale=FAMILY_SYNTH_SCALE,
+                               seed=0)
+        t1 = time.perf_counter()
+        model = load_model(path)
+        torch.cuda.synchronize()
+        os.remove(path)
+        cfg = model.cfg
+        log(f"{label}: BAAI/bge-m3 shape (XLM-RoBERTa-large in GGUF as bert: n_embd "
+            f"{cfg.n_embd}, {cfg.n_heads} heads of {cfg.head_dim_k}, n_ff {cfg.n_ff}, "
+            f"{cfg.n_layers} post-norm LayerNorm layers (eps {cfg.norm_eps}), GELU, biases "
+            f"throughout, {model.params['pos_embd'].shape[0]} positions, "
+            f"{model.params['token_types'].shape[0]} token type, vocab {cfg.vocab_size}), "
+            f"Q4_K_M mix, synthetic block scales / 256, random weights (seed 0), full depth "
+            f"(fixture {t1 - t_start:.1f} s, load_model {time.perf_counter() - t1:.1f} s, "
+            f"device memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+        log(f"{label} weight routes: " + weight_routes(model, [0]))
+        ctx_kw = dict(n_ctx=2048, n_seqs=1, n_ubatch=512)
+        ctx = Context(model, **ctx_kw)
+        toks = {n: [int(t) for t in prng.integers(3, cfg.vocab_size, n)] for n in (7, 512, 1000)}
+        must = embed_keys(model.params["layers"], 512)
+        reset_counts()
+        rows = {n: ctx.embed(toks[n], pooling="none") for n in (7, 512)}
+        all_counts[label] = read_counts(label, must)
+        reset_counts()
+        rows[1000] = ctx.embed(toks[1000], pooling="none")
+        all_counts[f"{label} 1024 rows"] = read_counts(f"{label} 1024 rows", ())
+        for n, h in rows.items():
+            if h.shape != (n, cfg.n_embd) or not np.isfinite(h).all():
+                failures.append(f"{label}: {n}-token rows {h.shape}, finite "
+                                f"{bool(np.isfinite(h).all())}")
+        ms = {n: timed_embed(ctx, toks[n]) for n in (7, 512, 1000)}
+        log(f"{label} ({card}): Context.embed ms (median of 5, host clock, one forward of the "
+            f"bucket) " + ", ".join(f"{n} tokens {m:.3f} ({n / m * 1e3:,.0f} tok/s)"
+                                    for n, m in ms.items()))
+        profile_embed(label, ctx, toks[512], ms[512])
+        errs = {n: embed_against_plain(f"{label} {n} tokens", model, toks[n], ctx_kw)
+                for n in (7, 512, 1000)}
+        log(f"{label}: kernel against plain path, NMSE by tokens and pooling (limit "
+            f"{NMSE_LIMIT}): " + json.dumps({n: {k: f"{v:.3e}" for k, v in e.items()}
+                                             for n, e in errs.items()}))
+        # a served round: /v1/embeddings of 4 inputs, /v1/rerank of 8 documents
+        started = start_server(model, **ctx_kw)
+        if started is None:
+            failures.append(f"{label} server: did not start")
+            return model
+        srv, th = started
+        url = f"http://127.0.0.1:{srv.port}"
+        inputs = ["the cat is on the mat", "a long story: " + CLI_PROMPT * 3, "of it", "w7"]
+        docs = [CLI_PROMPT, "the mat was on the cat", "that was the end", "it is in the house",
+                "a dog and a cat", "the end of it", "on and on", "w12 w13 w14"]
+        query = "where is the cat"
+        reset_counts()
+        t0 = time.perf_counter()
+        emb = http(url, "/v1/embeddings", {"input": inputs})
+        t_emb = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rr = http(url, "/v1/rerank", {"query": query, "documents": docs})
+        t_rr = time.perf_counter() - t0
+        stop_server(f"{label} server", srv, th)
+        all_counts[f"{label} server"] = read_counts(f"{label} server", must)
+
+        def unit(text):
+            v = ctx.embed(model.tokenizer.encode(text, add_special=True)[: ctx.n_ctx - 1])
+            return v / (np.linalg.norm(v) + 1e-12)
+
+        direct = [unit(t) for t in inputs]
+        d_emb = max(float(np.abs(np.asarray(d["embedding"]) - v).max())
+                    for d, v in zip(emb["data"], direct))
+        qv = unit(query)
+        scores = [float(qv @ unit(d)) for d in docs]
+        order = sorted(range(len(docs)), key=lambda i: -scores[i])
+        got_order = [r["index"] for r in rr["results"]]
+        d_rr = max(abs(r["relevance_score"] - scores[r["index"]]) for r in rr["results"])
+        log(f"{label} server ({card}): /v1/embeddings of {len(inputs)} inputs {t_emb:.3f} s, "
+            f"largest difference to Context.embed {d_emb:.3e}; /v1/rerank of {len(docs)} "
+            f"documents {t_rr:.3f} s, order {got_order} (direct {order}), largest score "
+            f"difference {d_rr:.3e}")
+        if [d["index"] for d in emb["data"]] != list(range(len(inputs))) or not d_emb < 1e-6:
+            failures.append(f"{label} server: embeddings differ from Context.embed by {d_emb}")
+        if got_order != order or not d_rr < 1e-6:
+            failures.append(f"{label} server: rerank {got_order} against {order}, scores "
+                            f"{d_rr}")
+        log(f"{label}: {time.perf_counter() - t_start:.1f} s")
+        return model
+
+    def embedding_decoder_path(model, label, note):
+        """An embedding model on the shared decoder at the loaded model's
+        widths: Context.embed(pooling="last") of 512 tokens, one 512-row
+        forward over a throwaway slot table of 520 slots, with its kernels
+        read and held against the plain path. 520 is no multiple of 128, so
+        the JAX package's flash_supported keeps that attention from its
+        kernel, and the port's _attend takes the einsum path too."""
+        t_start = time.perf_counter()
+        cfg = model.cfg
+        ctx_kw = dict(n_ctx=4096, n_seqs=1, n_ubatch=512)
+        ctx = Context(model, **ctx_kw)
+        toks = [int(t) for t in prng.integers(3, cfg.vocab_size, 512)]
+        G = cfg.n_heads // cfg.n_kv_heads
+        flash = flash_attn.dispatches(cfg.head_dim_k, cfg.head_dim_v, 520, 512 * G)
+        must = embed_keys(model.params["layers"], 512) + (
+            ["flash_attention/prefill"] if flash else [])
+        reset_counts()
+        vec = ctx.embed(toks, pooling="last")
+        all_counts[label] = read_counts(label, must)
+        if vec.shape != (cfg.n_embd,) or not np.isfinite(vec).all():
+            failures.append(f"{label}: last-token vector {vec.shape}")
+        ms = timed_embed(ctx, toks, runs=3)
+        errs = embed_against_plain(label, model, toks, ctx_kw, ("last", "none"))
+        log(f"{label} ({card}): {note}; Context.embed(pooling='last') of 512 tokens {ms:.3f} ms "
+            f"({512 / ms * 1e3:,.0f} tok/s); slot table 520 slots: attention kernel dispatch "
+            f"{flash}; kernel against plain path NMSE "
+            f"{ {k: f'{v:.3e}' for k, v in errs.items()} }; {time.perf_counter() - t_start:.1f} s")
+
+    def embedding_family_path(arch):
+        """One embedding entry at EMBED_SHAPE's widths (2 layers of n_embd
+        1024) on the Q4_K_M mix: embed of FAMILY_PROMPT tokens (a 512-row
+        bucket: the prefill GEMM) with its kernels read, no attention kernel
+        (the encoders' attention is plain; gemma-embedding is non-causal;
+        the slot table of 520 slots takes none), held against the plain
+        path; t5encoder through Context.encode at 7 tokens (an 8-row bucket:
+        the decode kernel) and 200 (256 rows: the prefill GEMM)."""
+        label = f"embedding {arch}"
+        path = os.path.join(smoke_dir, f"embedding-{arch}.gguf")
+        make_bench_embedding_gguf(path, arch, **EMBED_SHAPE, synth_scale=FAMILY_SYNTH_SCALE,
+                                  seed=0)
+        model = load_model(path)
+        os.remove(path)
+        cfg = model.cfg
+        ctx_kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=512)
+        ctx = Context(model, **ctx_kw)
+        vocab = cfg.vocab_size
+        if cfg.extra.get("t5_encoder_only"):
+            errs = {}
+            for n in (7, 200):
+                toks = [int(t) for t in prng.integers(3, vocab, n)]
+                reset_counts()
+                got = ctx.encode(toks)
+                key = f"{label} {n} tokens"
+                all_counts[key] = read_counts(key, embed_keys(model.params["enc_layers"],
+                                                              8 if n == 7 else 256))
+                ref = Context(model, kernels=False, **ctx_kw).encode(toks)
+                errs[n] = nmse(torch.from_numpy(got), torch.from_numpy(ref))
+                if not errs[n] < NMSE_LIMIT or not np.isfinite(got).all():
+                    failures.append(f"{label}: encode of {n} tokens NMSE {errs[n]}")
+        else:
+            toks = [int(t) for t in prng.integers(3, vocab, FAMILY_PROMPT)]
+            reset_counts()
+            rows = ctx.embed(toks, pooling="none")
+            all_counts[label] = read_counts(label, embed_keys(model.params["layers"], 512))
+            if rows.shape != (FAMILY_PROMPT, cfg.n_embd):
+                failures.append(f"{label}: rows {rows.shape}")
+            errs = embed_against_plain(label, model, toks, ctx_kw, ("mean", "none"))
+        launched = {k: v for k, v in all_counts.get(label, all_counts.get(
+            f"{label} 200 tokens", {})).items() if v}
+        log(f"{label} ({card}): {cfg.n_layers} layers, n_embd {cfg.n_embd}, {cfg.n_heads} "
+            f"heads on {cfg.n_kv_heads}, encoder {bool(cfg.extra.get('encoder'))}, pre-norm "
+            f"{bool(cfg.extra.get('pre_norm_encoder'))}, non-causal "
+            f"{bool(cfg.extra.get('non_causal'))}, ALiBi {cfg.alibi_bias}, window "
+            f"{cfg.sliding_window}, experts {cfg.n_expert}; launches {launched}; kernel "
+            f"against plain path NMSE {({k: f'{v:.3e}' for k, v in errs.items()})}")
+        del ctx, model
+        torch.cuda.empty_cache()
+
+    qwen3_model = arch_path(
+        "qwen3-8b", make_bench_qwen3_gguf, QWEN3_LAYERS, 151936, full_keys,
+        "Qwen3-8B shape (n_embd 4096, 32/8 heads of 128, n_ff 12288, vocab 151936, "
+        "q/k norms, NEOX rope 1e6), Q4_K/Q6_K mix", server=True, keep=True)
+    # the embedding path: Qwen3-Embedding-8B is Qwen3-8B's stack (the loaded
+    # 2-layer model; its head is never read), then BGE-M3 at full depth and
+    # the other embedding entries narrow
+    t0 = time.perf_counter()
+    embedding_decoder_path(
+        qwen3_model, "qwen3-embedding-8b",
+        "Qwen/Qwen3-Embedding-8B: Qwen3-8B's stack (the qwen3-8b path's 2-layer model) with "
+        "last-token pooling")
+    del qwen3_model
+    torch.cuda.empty_cache()
+    bge_model = bge_m3_path()
+    del bge_model
+    torch.cuda.empty_cache()
+    for arch in EMBEDDING_ARCHS:
+        if arch != "bert":
+            embedding_family_path(arch)
+    log(f"the embedding paths (Qwen3-Embedding, BGE-M3, {len(EMBEDDING_ARCHS) - 1} narrow "
+        f"entries): {time.perf_counter() - t0:.1f} s")
     arch_path("qwen3-30b-a3b", make_bench_qwen3moe_gguf, QWEN3MOE_LAYERS, 151936,
               full_keys + (expert_key,),
               "Qwen3-30B-A3B shape (n_embd 2048, 32/4 heads of 128, 128 experts of 768, top 8, "

@@ -8,7 +8,9 @@ QuantTensor's fields (q, scales, mins, d, dmin as numpy arrays; group,
 ggml_type, transposed, packed, out_dim, sgroup); stacked expert weights are
 such objects with 3-D planes, the router a dense array; every key of a
 layer (biases, q/k norms, post-norms, the recurrent mixers' ssm_*,
-shortconv_* and attn_gate included) comes across as it is.
+shortconv_* and attn_gate included) comes across as it is; an encoder's
+token_types, T5's enc_layers (attn_rel_b among their keys) and
+nomic-bert-moe's expert stacks too.
 kv_cache_from_jax does the same for a slot-table KVCache, iswa_from_jax
 for an ISWACache on slot tables and recurrent_from_jax for a
 RecurrentState, so a test can continue a JAX prefill in the port. Nothing
@@ -52,8 +54,8 @@ def params_from_jax(jparams: dict[str, Any], device="cpu") -> dict[str, Any]:
     """JAX `Model.params` (arrays as numpy) -> the port's params on `device`."""
     out: dict[str, Any] = {}
     for key, val in jparams.items():
-        if key == "layers":
-            out["layers"] = [{k: _weight(w, device) for k, w in lw.items()} for lw in val]
+        if key in ("layers", "enc_layers"):  # decoder blocks; T5's encoder blocks
+            out[key] = [{k: _weight(w, device) for k, w in lw.items()} for lw in val]
         else:
             out[key] = _weight(val, device)
     return out

@@ -1,5 +1,7 @@
-"""Model loader for the registry's decoder families: GGUF file ->
-(ModelConfig, weights on the device).
+"""Model loader for the registry's families, decoders and encoders: GGUF
+file -> (ModelConfig, weights on the device), and the family's graph
+(Model.forward_fn). T5's encoder blocks (enc.blk.N.*) land in
+params["enc_layers"].
 
 Analog of reference llama_model_loader + llama_model::load_tensors
 (src/llama-model-loader.cpp; src/models/llama.cpp:35-94). Weights are read
@@ -126,6 +128,30 @@ LAYER_TENSORS = {
     "shortconv.in_proj.weight": "shortconv_in",
     "shortconv.out_proj.weight": "shortconv_out",
     "attn_gate.weight": "attn_gate",
+    # the BERT family's post-norms (reference src/llama-arch.cpp:422-431),
+    # jina-v2's second LayerNorm and its full-width q/k LayerNorms' biases
+    "attn_output_norm.weight": "attn_output_norm",
+    "attn_output_norm.bias": "attn_output_norm_bias",
+    "layer_output_norm.weight": "layer_output_norm",
+    "layer_output_norm.bias": "layer_output_norm_bias",
+    "attn_norm_2.weight": "attn_norm_2",
+    "attn_norm_2.bias": "attn_norm_2_bias",
+    "attn_q_norm.bias": "attn_q_norm_bias",
+    "attn_k_norm.bias": "attn_k_norm_bias",
+}
+
+# T5's encoder blocks, enc.blk.N.* (reference llama-arch.cpp LLM_TENSOR_ENC_*)
+T5_LAYER_TENSORS = {
+    "attn_q.weight": "attn_q",
+    "attn_k.weight": "attn_k",
+    "attn_v.weight": "attn_v",
+    "attn_o.weight": "attn_output",
+    "attn_rel_b.weight": "attn_rel_b",
+    "attn_norm.weight": "attn_norm",
+    "ffn_gate.weight": "ffn_gate",
+    "ffn_up.weight": "ffn_up",
+    "ffn_down.weight": "ffn_down",
+    "ffn_norm.weight": "ffn_norm",
 }
 
 GLOBAL_TENSORS = {
@@ -138,6 +164,13 @@ GLOBAL_TENSORS = {
     "output.weight": "output",
     "output.bias": "output_bias",
     "rope_freqs.weight": "rope_factors",
+    "enc.output_norm.weight": "enc_output_norm",  # neo-bert's, T5 encoder's final norm
+    "token_types.weight": "token_types",  # the BERT family's token-type rows
+    # the rank head (loaded, not read: the server's rerank scores embedding cosine)
+    "cls.weight": "cls",
+    "cls.bias": "cls_bias",
+    "cls.output.weight": "cls_out",
+    "cls.output.bias": "cls_out_bias",
 }
 
 # 1-D tensors stay dense fp32; everything else follows its storage type
@@ -152,7 +185,10 @@ _DENSE_KEYS = {"attn_norm", "attn_norm_bias", "attn_q_norm", "attn_k_norm", "att
                "attn_sinks", "ffn_gate_inp_bias", "exp_probs_b",
                "ffn_gate_exps_bias", "ffn_up_exps_bias", "ffn_down_exps_bias",
                "ssm_conv1d", "ssm_conv1d_bias", "ssm_dt_bias", "ssm_a", "ssm_d",
-               "ssm_dt_norm", "ssm_b_norm", "ssm_c_norm", "ssm_norm"}
+               "ssm_dt_norm", "ssm_b_norm", "ssm_c_norm", "ssm_norm",
+               "attn_output_norm", "attn_output_norm_bias", "layer_output_norm",
+               "layer_output_norm_bias", "attn_norm_2", "attn_norm_2_bias", "token_types",
+               "cls_bias", "cls_out_bias", "attn_rel_b"}
 # gather tables: row-major, not transposed planes
 _ROW_TABLES = ("token_embd", "pos_embd")
 
@@ -181,6 +217,29 @@ class Model:
         # context's captured decode loops read the tensors they were made over
         self.version = 0
 
+    @property
+    def forward_fn(self):
+        """The family's graph (the JAX package's loader.py:338-352): the BERT
+        family's encoder, T5's encoder alone (no return_hidden, as in the
+        JAX package), the pure-recurrent forward, or the shared decoder."""
+        if self.cfg.extra.get("encoder"):
+            from . import bert
+
+            return bert.forward
+        if self.cfg.extra.get("t5_encoder_only"):
+            from . import t5
+
+            def enc_only(params, cfg, tokens, inputs, kv, output_rows=None, kernels=True):
+                return t5.t5_encode(params, cfg, tokens, kernels=kernels)
+            return enc_only
+        if self.cfg.extra.get("memory") == "recurrent":
+            from . import mamba
+
+            return mamba.forward
+        from . import transformer
+
+        return transformer.forward
+
 
 def load_model(path: str, device="cuda", prefer_quant: bool = True,
                dense_dtype: torch.dtype = torch.bfloat16) -> Model:
@@ -202,6 +261,9 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
 
     layers: list[dict[str, Weight]] = [dict() for _ in range(cfg.n_layers)]
     params: dict[str, Any] = {"layers": layers}
+    if cfg.extra.get("t5"):  # the encoder's blocks beside the (empty) decoder list
+        params["enc_layers"] = [dict() for _ in range(cfg.extra.get("enc_n_layers",
+                                                                    cfg.n_layers))]
     for name, info in f.tensors.items():
         key = target = None
         if name in GLOBAL_TENSORS:
@@ -211,6 +273,11 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
             key = LAYER_TENSORS.get(suffix)
             if key is not None and int(il) < cfg.n_layers:
                 target = layers[int(il)]
+        elif name.startswith("enc.blk.") and "enc_layers" in params:
+            _, _, il, suffix = name.split(".", 3)
+            key = T5_LAYER_TENSORS.get(suffix)
+            if key is not None and int(il) < len(params["enc_layers"]):
+                target = params["enc_layers"][int(il)]
         if key is None or target is None:
             continue
         # a family's own name for a role (gpt-oss stores its pre-FFN norm as
@@ -226,7 +293,10 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
             dense_dtype=torch.float32 if dense else cfg.compute_dtype,
             transpose=transpose, device=dev)
 
-    stand_ins = {"ffn_down": ("ffn_down_exps",)}  # an MoE layer's experts
+    if cfg.extra.get("t5_encoder_only"):  # the encoder's blocks are the ones that run
+        layers = params["enc_layers"]
+    # an MoE layer's experts; a file-fused gate|up
+    stand_ins = {"ffn_down": ("ffn_down_exps",), "ffn_up": ("ffn_gateup", "ffn_up_exps")}
     if cfg.extra.get("kv_lora_rank") and any("attn_kv_a_mqa" not in lw and "ssm_f_a" not in lw
                                              for lw in layers):
         raise ValueError("model load incomplete: an MLA layer without attn_kv_a_mqa")
@@ -266,11 +336,18 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
 
 def required_layer_tensors(cfg: ModelConfig) -> tuple[str, ...]:
     """The tensors every layer of the family must carry (the JAX package's
-    loader.py:536-548): a recurrent stack's SSM projections; a hybrid's
-    attn_norm alone (its mixer or FFN is checked a layer); a weightless norm
-    carries no norm tensors, a shared parallel norm (phi2, command-r) is
-    attn_norm alone, norm-after blocks carry post-norms instead of
-    pre-norms."""
+    loader.py:524-548): none for T5's encoder; a pre-norm encoder's FFN norm
+    and up projection, a post-norm encoder's attention output norm and up
+    projection; a recurrent stack's SSM projections; a hybrid's attn_norm
+    alone (its mixer or FFN is checked a layer); a weightless norm carries
+    no norm tensors, a shared parallel norm (phi2, command-r) is attn_norm
+    alone, norm-after blocks carry post-norms instead of pre-norms."""
+    if cfg.extra.get("t5_encoder_only"):
+        return ()
+    if cfg.extra.get("pre_norm_encoder"):
+        return ("ffn_norm", "ffn_up")
+    if cfg.extra.get("encoder"):
+        return ("attn_output_norm", "ffn_up")
     if cfg.extra.get("memory") == "recurrent":
         return ("attn_norm", "ssm_in", "ssm_out")
     if cfg.extra.get("memory") == "hybrid":

@@ -426,9 +426,10 @@ def mixer_of(cfg: ModelConfig, lw) -> Callable | None:
 
 def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, inputs,
             mem: RecurrentState, output_rows: torch.Tensor | None = None,
-            kernels: bool = True) -> torch.Tensor:
+            kernels: bool = True, return_hidden: bool = False) -> torch.Tensor:
     """The pure-recurrent stack (mamba, mamba2): tokens [B, T] -> logits [M
-    or B*T, vocab] f32; the state is written in place. The residual stream
+    or B*T, vocab] f32, or with return_hidden the hidden rows after
+    output_norm (f32); the state is written in place. The residual stream
     is f32, as in the JAX package. Each row's tokens must be consecutive
     (split_equal's ubatch contract, reference src/llama-batch.h:108), with
     no padding rows."""
@@ -444,6 +445,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor, inpu
     if output_rows is not None:
         x = x[output_rows]
     x = rms_norm(x, params["output_norm"], cfg.rms_eps)
+    if return_hidden:
+        return x
     out_w = params.get("output")
     if out_w is None:
         out_w = params["token_embd"]

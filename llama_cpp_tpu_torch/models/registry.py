@@ -7,11 +7,15 @@ the config read from the metadata and the metadata itself, and sets that
 family's flags; the recurrent and hybrid entries (mamba, mamba2, jamba,
 qwen3next, qwen35, qwen35moe, lfm2, lfm2moe, nemotron_h, nemotron_h_moe,
 falcon-h1, granitehybrid, plamo2, kimi-linear) also name their memory and
-its geometry. Any other architecture raises NotImplementedError, among them
-deepseek32 (DeepSeek's sparse attention needs the DSA memory),
-deepseek2-ocr (it comes with the multimodal path), afmoe and laguna (their
-softplus attention gates), minimax-m3 (its block-sparse attention), the
-RWKV entries (their own forward) and the encoder entries.
+its geometry; the encoders (bert, modern-bert, nomic-bert, nomic-bert-moe,
+neo-bert, eurobert, jina-bert-v2, jina-bert-v3: models/bert.py; t5encoder:
+models/t5.py) set the extras their forward reads, and gemma-embedding and
+llama-embed run the shared decoder for Context.embed. Any other
+architecture raises NotImplementedError, among them deepseek32 (DeepSeek's
+sparse attention needs the DSA memory), deepseek2-ocr (it comes with the
+multimodal path), afmoe and laguna (their softplus attention gates),
+minimax-m3 (its block-sparse attention), the RWKV entries (their own
+forward) and t5 (the encoder-decoder's cross-attention flow).
 """
 
 from __future__ import annotations
@@ -926,3 +930,119 @@ def _qwen35(cfg: ModelConfig, md) -> ModelConfig:
 @register("qwen35moe")  # 1938
 def _qwen35moe(cfg: ModelConfig, md) -> ModelConfig:
     return _qwen35_common(cfg, md, cfg.arch).with_(expert_weights_norm=True, n_expert_shared=1)
+
+
+# -- the encoders and the embedding entries (the JAX package's
+# registry.py:579-615, 1064-1075, 1246-1250, 1417-1445, 1536-1575,
+# 1862-1875): models/bert.py's forward for the BERT family, models/t5.py's
+# encoder for t5encoder, the shared decoder for gemma-embedding and
+# llama-embed; their pooling is Context.embed's
+
+@register("bert")  # 579
+def _bert(cfg: ModelConfig, md) -> ModelConfig:
+    """Post-norm bidirectional blocks, learned positions, token types
+    (reference src/models/bert.cpp)."""
+    cfg.extra["encoder"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False, act="gelu", glu=False)
+
+
+@register("modern-bert")  # 587
+def _modern_bert(cfg: ModelConfig, md) -> ModelConfig:
+    """Pre-norm encoder, fused qkv, fused gate|up FFN, symmetric local
+    windows with a global layer every Nth (il % N == 0) and a local rope
+    base (reference src/models/modern-bert.cpp)."""
+    a = cfg.arch
+    cfg.extra.update(encoder=True, pre_norm_encoder=True, swa_first_global=True)
+    swa_base = md.get(f"{a}.rope.freq_base_swa")
+    if swa_base:
+        cfg.extra["rope_freq_base_swa"] = float(swa_base)
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False,
+                     sliding_window=int(md.get(f"{a}.attention.sliding_window", 0)),
+                     swa_pattern=int(md.get(f"{a}.attention.sliding_window_pattern", 3)))
+
+
+@register("nomic-bert")  # 605
+def _nomic_bert(cfg: ModelConfig, md) -> ModelConfig:
+    """NEOX rope and a gated SiLU FFN (bert.cpp:138, 209-213)."""
+    cfg.extra["encoder"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="silu", glu=True)
+
+
+@register("t5encoder")  # 1064
+def _t5encoder(cfg: ModelConfig, md) -> ModelConfig:
+    """T5's encoder alone (reference src/models/t5.cpp, encoder graph):
+    relative position buckets, attention scale 1."""
+    cfg.extra.update(
+        t5=True, t5_encoder_only=True,
+        rel_buckets=int(md.get("t5encoder.attention.relative_buckets_count", 32)),
+        enc_n_layers=cfg.n_layers)
+    return cfg.with_(rope_type=ROPE_TYPE_NONE)
+
+
+@register("llama-embed")  # 1246
+def _llama_embed(cfg: ModelConfig, md) -> ModelConfig:
+    """The llama graph instantiated for embeddings (reference
+    src/models/llama-embed.cpp)."""
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("neo-bert")  # 1417
+def _neo_bert(cfg: ModelConfig, md) -> ModelConfig:
+    """Pre-norm RMS encoder, NORM rope, fused gate|up SwiGLU FFN,
+    enc.output_norm (reference src/models/neo-bert.cpp)."""
+    cfg.extra.update(encoder=True, pre_norm_encoder=True)
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, act="silu")
+
+
+@register("eurobert")  # 1426
+def _eurobert(cfg: ModelConfig, md) -> ModelConfig:
+    """Pre-norm RMS encoder with a gated SiLU FFN and NEOX rope (reference
+    src/models/eurobert.cpp)."""
+    cfg.extra.update(encoder=True, pre_norm_encoder=True)
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, act="silu")
+
+
+@register("nomic-bert-moe")  # 1434
+def _nomic_bert_moe(cfg: ModelConfig, md) -> ModelConfig:
+    """nomic-embed-text-v2 (reference src/models/nomic-bert-moe.cpp): the
+    nomic encoder with gate-less GELU experts on the layers that carry
+    them, softmax top-k with raw weights."""
+    cfg.extra["encoder"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="gelu", glu=False)
+
+
+@register("gemma-embedding")  # 1536
+def _gemma_embedding(cfg: ModelConfig, md) -> ModelConfig:
+    """EmbeddingGemma (reference src/models/gemma-embedding.cpp): the gemma3
+    stack run bidirectionally with symmetric sliding windows."""
+    a = cfg.arch
+    cfg.extra.update(non_causal=True)
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, act="gelu", embd_scale=float(cfg.n_embd) ** 0.5,
+                  post_norms=True, qk_norm=True, tie_embeddings=True,
+                  sliding_window=int(md.get(f"{a}.attention.sliding_window", 0)),
+                  swa_pattern=int(md.get(f"{a}.attention.sliding_window_pattern", 6)),
+                  attn_scale=1.0 / (float(cfg.head_dim_k) ** 0.5))
+    swa_base = md.get(f"{a}.rope.freq_base_swa")
+    if swa_base:
+        c.extra["rope_freq_base_swa"] = float(swa_base)
+    return c
+
+
+@register("jina-bert-v3")  # 1560
+def _jina_bert_v3(cfg: ModelConfig, md) -> ModelConfig:
+    """jina-embeddings-v3 (reference src/models/jina-bert-v3.cpp): post-norm
+    encoder with NEOX rope and a GLU FFN; its attn_out_norm is the
+    encoder's attn_output_norm."""
+    cfg.extra["encoder"] = True
+    cfg.extra["tensor_remap"] = {"attn_post_norm": "attn_output_norm",
+                                 "ffn_post_norm": "layer_output_norm"}
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="gelu")
+
+
+@register("jina-bert-v2")  # 1862
+def _jina_bert_v2(cfg: ModelConfig, md) -> ModelConfig:
+    """jina-embeddings v2 (reference src/models/jina-bert-v2.cpp): symmetric
+    ALiBi at max bias 8, optional full-width q/k LayerNorm, a GEGLU FFN."""
+    cfg.extra["encoder"] = True
+    return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False, act="gelu", glu=False,
+                     alibi_bias=8.0)

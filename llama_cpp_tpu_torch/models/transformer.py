@@ -199,9 +199,12 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: Attn
     # the JAX package would run its kernel, the port's runs or raises
     paged = isinstance(kvc, PagedKVCache)
     n_slots = kvc.max_pages * kvc.page if paged else kvc.n_slots
-    # ALiBi layers take the einsum path, as the JAX package keeps them from
-    # its kernels (transformer.py:375-378): the kernels know no slopes
+    # ALiBi and non-causal layers take the einsum path, as the JAX package
+    # keeps them from its kernels (transformer.py:375-378): the kernels know
+    # no slopes and mask causally
+    non_causal = cfg.extra.get("non_causal", False)
     use_flash = (kernels and q.device.type == "cuda" and cfg.alibi_bias == 0.0
+                 and not non_causal
                  and fa_kernel.dispatches(Dk, Dv, n_slots, T * (H // Hkv)))
     if use_flash:
         # the slot-table kernel takes the cache and seq_idx as they are: no
@@ -218,8 +221,12 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: Attn
         slot_pos = kvc.pos[inputs.seq_idx.long()]  # [B, S]
     pos = inputs.positions.long()
     slot_pos = slot_pos.long()
-    mask = (slot_pos >= 0)[:, None, :] & (slot_pos[:, None, :] <= pos[:, :, None])
-    if window > 0:
+    mask = (slot_pos >= 0)[:, None, :]
+    if not non_causal:  # a non-causal layer (gemma-embedding) sees every valid slot
+        mask = mask & (slot_pos[:, None, :] <= pos[:, :, None])
+    if window > 0 and non_causal:  # the symmetric window: |p1 - p0| <= window / 2
+        mask = mask & ((slot_pos[:, None, :] - pos[:, :, None]).abs() <= window // 2)
+    elif window > 0:
         mask = mask & (slot_pos[:, None, :] > pos[:, :, None] - window)
     groups = H // Hkv
     mdt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
@@ -666,10 +673,13 @@ def _mixer_less_ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor,
 
 def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             inputs: AttnInputs, kv: Memory,
-            output_rows: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
-    """tokens [B, T] -> logits [M or B*T, vocab] f32; writes the memory in
-    place. A control vector (params["cvec"]) is added to the residual after
-    each layer; LoRA-wrapped weights take their base's route in matmul.
+            output_rows: torch.Tensor | None = None, kernels: bool = True,
+            return_hidden: bool = False) -> torch.Tensor:
+    """tokens [B, T] -> logits [M or B*T, vocab] f32, or with return_hidden
+    the hidden rows after output_norm in the compute dtype (Context.embed);
+    writes the memory in place. A control vector (params["cvec"]) is added
+    to the residual after each layer; LoRA-wrapped weights take their base's
+    route in matmul.
     On a HybridMemory each layer is what its weights say (the JAX package's
     decoder loop, transformer.py:1252-1371): a recurrent mixer on the
     recurrent state (Falcon-H1's with attention beside it, the two summed),
@@ -747,6 +757,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     if output_rows is not None:
         x = x[output_rows]
     x = norm(cfg, x, params, "output_norm")
+    if return_hidden:
+        return x
     out_w = params.get("output")
     if out_w is None:
         out_w = params["token_embd"]

@@ -15,7 +15,10 @@ generate_ondevice). Every batched decode step, the server's one-step calls
 bucket, sampler) that is captured as a CUDA graph at first use and replayed
 once a step (runtime/decode_graph.py).
 context_shift slides a sequence down in place, and a captured loop is made
-again when the memory or the model's weights (adapters) change.
+again when the memory or the model's weights (adapters) change. embed pools
+the final hidden rows of one forward over a throwaway memory (encoders,
+embedding decoders); encode runs T5's encoder. The family's graph is the
+model's forward_fn.
 """
 
 from __future__ import annotations
@@ -27,9 +30,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from ..models import mamba
 from ..models.loader import Model, resolve_device
-from ..models.transformer import AttnInputs, forward
+from ..models.transformer import AttnInputs
 from ..sampling.samplers import SamplerChain, SamplingParams
 from .decode_graph import GREEDY, LOGITS, DecodeLoop, DeviceSampler
 from .kv_cache import ISWACache, KVCache
@@ -142,32 +144,40 @@ class Context:
         if self.prefill_buckets[-1] < n_ubatch:
             self.prefill_buckets.append(n_ubatch)
 
-    def _recurrent_state(self) -> RecurrentState:
+    def _recurrent_state(self, n_seqs: int) -> RecurrentState:
         ex = self.cfg.extra
-        return RecurrentState.create(self.cfg.n_layers, self.n_seqs, ex["ssm_d_conv"],
+        return RecurrentState.create(self.cfg.n_layers, n_seqs, ex["ssm_d_conv"],
                                      ex["ssm_d_inner"], ex["ssm_d_state"],
                                      conv_channels=ex.get("ssm_conv_dim"), device=self.device)
 
-    def _make_memory(self) -> PagedKVCache | KVCache | ISWACache | RecurrentState | HybridMemory:
+    def _make_memory(self, n_seqs: int | None = None, n_slots: int | None = None
+                     ) -> PagedKVCache | KVCache | ISWACache | RecurrentState | HybridMemory:
+        """The context's memory, or with n_slots a throwaway one of n_seqs
+        sequences on slot tables of n_slots (Context.embed's; the JAX
+        package's runtime/context.py:194-215)."""
         cfg = self.cfg
         kind = cfg.extra.get("memory")
+        paged = self.paged and n_slots is None
+        n_seqs = n_seqs or self.n_seqs
+        n_slots = n_slots or self.n_slots
         if kind == "recurrent":  # the JAX package's runtime/context.py:262-266
-            return self._recurrent_state()
+            return self._recurrent_state(n_seqs)
         if kind == "hybrid":
             # the attention layers on the pool (or a slot table), every layer's
             # recurrent state beside (runtime/context.py:267-282)
-            rs = self._recurrent_state()
-            if self.paged:
+            rs = self._recurrent_state(n_seqs)
+            if paged:
                 kvc = PagedKVCache.create(
-                    cfg.n_layers, self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
+                    cfg.n_layers, n_seqs, self.alloc.n_pages, self.alloc.max_pages,
                     cfg.n_kv_heads, cfg.head_dim_k, cfg.head_dim_v, dtype=cfg.compute_dtype,
                     quantized=self._kv_quant, page=self.page, device=self.device)
             else:
-                kvc = KVCache.create(cfg.n_layers, self.n_seqs, self.n_slots, cfg.n_kv_heads,
+                kvc = KVCache.create(cfg.n_layers, n_seqs, n_slots, cfg.n_kv_heads,
                                      cfg.head_dim_k, cfg.head_dim_v, dtype=cfg.compute_dtype,
                                      quantized=self._kv_quant, device=self.device)
             return HybridMemory(kv=kvc, rs=rs)
-        iswa = cfg.sliding_window > 0 and cfg.swa_pattern > 0
+        # an encoder's window (ModernBERT) is its own forward's mask: no rings
+        iswa = cfg.sliding_window > 0 and cfg.swa_pattern > 0 and not cfg.extra.get("encoder")
         n_layers = cfg.n_layers
         if iswa:  # the pool (if any) holds the full layers only
             n_layers = max(sum(not cfg.is_swa_layer(i) for i in range(cfg.n_layers)), 1)
@@ -178,22 +188,23 @@ class Context:
         dk = cfg.extra.get("cache_head_dim_k", cfg.head_dim_k)
         dv = cfg.extra.get("cache_head_dim_v", cfg.head_dim_v)
         pool = None
-        if self.paged:
+        if paged:
             pool = PagedKVCache.create(
-                n_layers, self.n_seqs, self.alloc.n_pages, self.alloc.max_pages,
+                n_layers, n_seqs, self.alloc.n_pages, self.alloc.max_pages,
                 heads, dk, dv, dtype=cfg.compute_dtype,
                 quantized=self._kv_quant, page=self.page, device=self.device)
         if iswa:
             # a window layer's ring holds the window plus the largest ubatch
-            # in flight (the JAX package's runtime/context.py:284-311)
+            # in flight (the JAX package's runtime/context.py:284-311), at most
+            # the slot table's slots
             ring = -(-(cfg.sliding_window + self.n_ubatch + 1) // 256) * 256
-            return ISWACache.build(cfg, self.n_seqs, self.n_slots, min(ring, self.n_slots),
+            return ISWACache.build(cfg, n_seqs, n_slots, min(ring, n_slots),
                                    dtype=cfg.compute_dtype, quantized=self._kv_quant,
                                    device=self.device, full=pool)
         if pool is not None:
             return pool
         return KVCache.create(
-            n_layers, self.n_seqs, self.n_slots, heads, dk, dv, dtype=cfg.compute_dtype,
+            n_layers, n_seqs, n_slots, heads, dk, dv, dtype=cfg.compute_dtype,
             quantized=self._kv_quant, device=self.device)
 
     def _pool(self) -> PagedKVCache | None:
@@ -232,9 +243,55 @@ class Context:
 
     def _forward(self, toks, sidx, pos, out_rows) -> torch.Tensor:
         inputs = AttnInputs(seq_idx=sidx, positions=pos)
-        fwd = mamba.forward if isinstance(self.kv, RecurrentState) else forward
-        return fwd(self.model.params, self.cfg, toks, inputs, self.kv, out_rows,
-                   kernels=self.kernels)
+        return self.model.forward_fn(self.model.params, self.cfg, toks, inputs, self.kv,
+                                     out_rows, kernels=self.kernels)
+
+    # -- embeddings (llama_encode + pooling) -------------------------------
+    def embed(self, prompt: list[int], seq: int = 0, pooling: str = "mean") -> np.ndarray:
+        """A sequence's embedding from its final hidden rows (the JAX
+        package's runtime/context.py:820-864): one forward of the bucket
+        max(bucket(n), ceil(n / 512) * 512) rows over a throwaway memory of
+        bucket + 8 slots (the serving memory is not touched), the padding
+        rows (position -1) dropped, then pooled: "mean", "cls" (the first
+        row), "last", or anything else for the rows [n, E] unpooled. f32 on
+        the host. A model whose forward has no hidden output (t5encoder's:
+        Context.encode) raises TypeError, as in the JAX package."""
+        n = len(prompt)
+        Tb = max(_bucket(n, self.prefill_buckets), -(-n // 512) * 512)
+        kv = self._make_memory(n_seqs=1, n_slots=Tb + 8)
+        toks = np.zeros((1, Tb), np.int32)
+        toks[0, :n] = prompt
+        pos = np.full((1, Tb), -1, np.int32)
+        pos[0, :n] = np.arange(n)
+        inputs = AttnInputs(seq_idx=self._tensor(np.zeros(1, np.int32)),
+                            positions=self._tensor(pos))
+        hidden = self.model.forward_fn(self.model.params, self.cfg, self._tensor(toks), inputs,
+                                       kv, kernels=self.kernels, return_hidden=True)
+        h = hidden.float()[:n].cpu().numpy()  # the padding rows dropped
+        if pooling == "mean":
+            return h.mean(axis=0)
+        if pooling == "last":
+            return h[-1]
+        if pooling == "cls":
+            return h[0]
+        return h
+
+    def encode(self, prompt: list[int], seq: int = 0) -> np.ndarray:
+        """T5's encoder over the prompt (llama_encode; the JAX package's
+        runtime/context.py:590-615): the prefill bucket of its length, pad
+        keys masked by `valid`, the rows of the prompt -> [n, E] f32 on the
+        host. The decoder that would read it (t5) is not ported."""
+        from ..models import t5
+
+        n = len(prompt)
+        Tb = _bucket(n, self.prefill_buckets)
+        toks = np.zeros((1, Tb), np.int32)
+        toks[0, :n] = prompt
+        valid = np.zeros((1, Tb), bool)
+        valid[0, :n] = True
+        out = t5.t5_encode(self.model.params, self.cfg, self._tensor(toks), self._tensor(valid),
+                           kernels=self.kernels)[0]
+        return out[:n].float().cpu().numpy()  # the padded rows saw pad tokens
 
     # ------------------------------------------------------------------
     def set_aux_capture(self, layer_ids) -> None:

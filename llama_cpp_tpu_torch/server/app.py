@@ -20,15 +20,17 @@ Routes: /, /health, /props, /metrics, /v1/models, GET /slots, POST
 /slots/{id}?action=save|restore|erase (a slot's KV as a state file in the
 slot directory, runtime/state.py), /tokenize, /detokenize, /completion,
 /v1/completions, /v1/chat/completions (stream and not, tools),
-/v1/messages, /v1/responses, /infill, and /tools and /tools/call (the
-tools of the MCP servers given with --mcp, server/mcp.py). With -md (a
+/v1/messages, /v1/responses, /infill, /v1/embeddings (L2-normalised
+Context.embed vectors of one input or a list), /v1/rerank and /rerank (the
+documents by the cosine of their embedding with the query's, as the JAX
+app scores them, not by the file's rank head), and /tools and /tools/call
+(the tools of the MCP servers given with --mcp, server/mcp.py). With -md (a
 draft model of the same vocab) or --spec ngram each slot decodes
 speculatively, --draft-max tokens a verify step (server/scheduler.py).
-Refused with 501 and the module they need: /v1/embeddings and /rerank
-(Context.embed) and chat messages with image or audio parts
-(multimodal/mtmd.py); refused with exit code 2: --mmproj, the drafts that
-read the target's features (eagle3, dflash, gemma4-assistant), a second -m
-and parallel or multi-host serving.
+Refused with 501 and the module they need: chat messages with image or
+audio parts (multimodal/mtmd.py); refused with exit code 2: --mmproj, the
+drafts that read the target's features (eagle3, dflash, gemma4-assistant),
+a second -m and parallel or multi-host serving.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Iterator
 from urllib.parse import parse_qs, urlsplit
 
+import numpy as np
+
 from ..sampling.samplers import SamplingParams
 from .chat import apply_chat_template
 from .chat_parser import StreamingChatParser, detect_format
@@ -53,12 +57,6 @@ from .scheduler import GenTask, Scheduler
 
 log = logging.getLogger("server")
 
-# route -> the module it needs; answered with 501 Not Implemented
-NOT_PORTED_ROUTES = {
-    "/v1/embeddings": "embeddings (Context.embed, runtime/context.py)",
-    "/v1/rerank": "rerank (Context.embed, runtime/context.py)",
-    "/rerank": "rerank (Context.embed, runtime/context.py)",
-}
 MEDIA_REFUSED = "image and audio chat parts (multimodal/mtmd.py, --mmproj)"
 
 
@@ -175,6 +173,9 @@ class ServerApp:
             ("POST", "/v1/messages"): self.anthropic_messages,
             ("POST", "/v1/responses"): self.responses,
             ("POST", "/infill"): self.infill,
+            ("POST", "/v1/embeddings"): self.embeddings,
+            ("POST", "/v1/rerank"): self.rerank,
+            ("POST", "/rerank"): self.rerank,
         }
 
     def handle(self, method: str, path: str, body: dict,
@@ -182,8 +183,6 @@ class ServerApp:
         route = self.routes.get((method, path))
         if route is not None:
             return route(body)
-        if path in NOT_PORTED_ROUTES:
-            return _not_ported(NOT_PORTED_ROUTES[path])
         if method == "POST" and path.startswith("/slots/"):
             return self.slot_action(path[len("/slots/"):], (query or {}).get("action", ""),
                                     body)
@@ -387,6 +386,36 @@ class ServerApp:
 
     def detokenize(self, body):
         return json_response({"content": self.tok.decode(body.get("tokens", []))})
+
+    def _unit_embedding(self, text: str) -> np.ndarray:
+        """Context.embed of a text's ids (cut to n_ctx - 1), on the scheduler
+        thread, L2-normalised (the JAX app's +1e-12)."""
+        ids = self.tok.encode(text, add_special=True)[: self.ctx.n_ctx - 1]
+        vec = self.sched.run_sync(lambda: self.ctx.embed(ids))
+        return vec / (np.linalg.norm(vec) + 1e-12)
+
+    def embeddings(self, body):
+        inputs = body.get("input", "")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        data = [{"object": "embedding", "index": i,
+                 "embedding": [float(x) for x in self._unit_embedding(text)]}
+                for i, text in enumerate(inputs)]
+        return json_response({"object": "list", "data": data, "model": self.model_name,
+                              "usage": {"prompt_tokens": 0, "total_tokens": 0}})
+
+    def rerank(self, body):
+        """Query-document relevance (reference /v1/rerank): the cosine of the
+        normalised embeddings, highest first, then the first top_n."""
+        docs = body.get("documents", [])
+        top_n = int(body.get("top_n", len(docs)))
+        qv = self._unit_embedding(body.get("query", ""))
+        results = [{"index": i, "relevance_score": float(qv @ self._unit_embedding(d))}
+                   for i, d in enumerate(docs)]
+        results.sort(key=lambda r: -r["relevance_score"])
+        return json_response({"model": self.model_name, "object": "list",
+                              "results": results[:top_n],
+                              "usage": {"prompt_tokens": 0, "total_tokens": 0}})
 
     def completions(self, body):
         prompt = body.get("prompt", "")
@@ -807,7 +836,12 @@ NOT_PORTED_FLAGS = {
 def build_parser():
     import argparse
 
-    ap = argparse.ArgumentParser("llama-server (CUDA)")
+    ap = argparse.ArgumentParser(
+        "llama-server (CUDA)",
+        description="OpenAI- and Anthropic-compatible server over the continuous-batching "
+        "scheduler: completions, chat, messages, responses, infill, tokenize, embeddings "
+        "(/v1/embeddings) and rerank (/v1/rerank, /rerank); chat parts with images or audio "
+        "are refused with 501.")
     ap.add_argument("-m", "--model", action="append", required=True,
                     help="model path, or name=path (one model: the multi-model router "
                     "is not ported)")

@@ -1449,3 +1449,252 @@ class RouteHold:
             return out.reshape(topi.shape).to(topi.device)
 
         return self._hooked(hook)
+
+
+# -- the encoders and embedding models ------------------------------------
+# Each BERT-family entry's tensors as llama.cpp's converter lays them out:
+# n_types token-type rows, a learned position table of n_positions rows, the
+# embedding LayerNorm ("ln": with its bias, "w": weight only), q/k/v apart or
+# fused (with biases where the family has them), jina-v2's full-width q/k
+# LayerNorms and attn_norm_2, the FFN ("plain": an activation of up;
+# "gated": gate and up apart; "fused": one ffn_up of 2 * n_ff holding
+# gate|up), the pre-norm blocks (attn_norm from layer 1 on where the
+# family's layer 0 has none) and the final norm.
+_BERT_POST = dict(n_types=2, embd_norm="ln", post_norm=True)
+ENCODER_LAYOUTS: dict[str, dict] = {
+    # BAAI/bge-m3 (XLM-RoBERTa): one token type, 8194 positions, biases throughout
+    "bert": dict(_BERT_POST, n_types=1, n_positions=8194, qkv_bias=True, out_bias=True,
+                 ffn="plain", ffn_bias=True),
+    "modern-bert": dict(embd_norm="w", fused_qkv=True, ffn="fused", pre_norm=True,
+                        first_attn_norm=1, final="output_norm",
+                        metadata={"attention.sliding_window": np.uint32(128),
+                                  "attention.sliding_window_pattern": np.uint32(3),
+                                  "rope.freq_base_swa": 10000.0}, rope_base=160000.0),
+    "nomic-bert": dict(_BERT_POST, fused_qkv=True, ffn="gated"),
+    "nomic-bert-moe": dict(_BERT_POST, fused_qkv=True, qkv_bias=True, out_bias=True,
+                           ffn="plain", ffn_bias=True, n_expert=8, n_expert_used=2,
+                           moe_every=2),
+    "neo-bert": dict(fused_qkv=True, ffn="fused", pre_norm=True, final="enc.output_norm"),
+    "eurobert": dict(ffn="gated", pre_norm=True, final="output_norm"),
+    "jina-bert-v2": dict(_BERT_POST, qkv_bias=True, out_bias=True, qk_norm_full=True,
+                         attn_norm_2=True, ffn="fused", down_bias=True),
+    "jina-bert-v3": dict(_BERT_POST, fused_qkv=True, qkv_bias=True, out_bias=True,
+                         ffn="plain", ffn_bias=True),
+}
+
+
+def make_bench_encoder_gguf(path: str, arch: str, n_layers: int, n_embd: int, n_heads: int,
+                            n_ff: int, vocab_size: int, n_ctx: int = 512,
+                            norm_eps: float = 1e-5, rope_base: float = 10000.0,
+                            f32: bool = False, synth_scale: float = 1.0, seed: int = 0,
+                            n_types: int = 0, n_positions: int = 0, embd_norm: str = "",
+                            fused_qkv: bool = False, qkv_bias: bool = False,
+                            out_bias: bool = False, qk_norm_full: bool = False,
+                            attn_norm_2: bool = False, post_norm: bool = False,
+                            pre_norm: bool = False, first_attn_norm: int = 0, ffn: str = "plain",
+                            ffn_bias: bool = False, down_bias: bool = False,
+                            n_expert: int = 0, n_expert_used: int = 0, moe_every: int = 0,
+                            final: str = "", metadata: dict | None = None) -> str:
+    """A GGUF of one of the BERT-family encoders (`arch`, the options of
+    ENCODER_LAYOUTS[arch]) with synthetic packed weights in the Q4_K_M mix
+    (Q4_K matrices and token_embd, Q6_K attn_v, ffn_down and the expert down
+    stacks; norms, biases, token types, positions and the router F32), or
+    with f32 every matrix as F32 values (scale 1/sqrt(in)). nomic-bert-moe's
+    every moe_every-th layer (il % moe_every == moe_every - 1) carries
+    n_expert gate-less experts of n_ff instead of its dense FFN."""
+    rng = np.random.default_rng(seed)
+    head_dim = n_embd // n_heads
+    w = GGUFWriter()
+    w.add(Keys.General.ARCHITECTURE, arch)
+    w.add(Keys.General.NAME, f"bench-{arch}-synthetic")
+    P = arch + "."
+    for key, val in (("block_count", n_layers), ("context_length", n_ctx),
+                     ("embedding_length", n_embd), ("feed_forward_length", n_ff),
+                     ("attention.head_count", n_heads), ("attention.head_count_kv", n_heads),
+                     ("rope.dimension_count", head_dim), ("vocab_size", vocab_size)):
+        w.add(P + key, np.uint32(val))
+    w.add(P + "attention.layer_norm_epsilon", float(norm_eps))
+    w.add(P + "attention.layer_norm_rms_epsilon", float(norm_eps))
+    w.add(P + "attention.causal", False)
+    w.add(P + "rope.freq_base", float(rope_base))
+    if n_expert:
+        w.add(P + "expert_count", np.uint32(n_expert))
+        w.add(P + "expert_used_count", np.uint32(n_expert_used))
+        w.add(P + "moe_every_n_layers", np.uint32(moe_every))
+    for key, val in (metadata or {}).items():
+        w.add(P + key, val)
+    _add_bench_vocab(w, vocab_size)
+
+    q4, q6 = GGMLType.Q4_K, GGMLType.Q6_K
+
+    def emit_f(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+
+    def emit_q(name, rows, cols, t, stack=()):
+        shape = (*reversed(stack), rows, cols)
+        if f32:
+            emit_f(name, rng.standard_normal(shape) / np.sqrt(cols))
+            return
+        n = rows * cols * int(np.prod(stack, dtype=np.int64))
+        data = synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)),
+                                 scale_mult=synth_scale)
+        w.add_tensor(name, data, (cols, rows, *stack), t)
+
+    def norm(name, n, bias=True):
+        emit_f(name + ".weight", 1.0 + 0.1 * rng.standard_normal(n))
+        if bias:
+            emit_f(name + ".bias", 0.1 * rng.standard_normal(n))
+
+    def bias(name, n):
+        emit_f(name, 0.1 * rng.standard_normal(n))
+
+    E, F, D = n_embd, n_ff, n_heads * head_dim
+    emit_q("token_embd.weight", vocab_size, E, q4)
+    if n_types:
+        emit_f("token_types.weight", 0.1 * rng.standard_normal((n_types, E)))
+    if n_positions:
+        emit_f("position_embd.weight", 0.1 * rng.standard_normal((n_positions, E)))
+    if embd_norm:
+        norm("token_embd_norm", E, bias=embd_norm == "ln")
+    if final:
+        norm(final, E, bias=False)
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        if pre_norm and i >= first_attn_norm:
+            norm(b + "attn_norm", E, bias=False)
+        if fused_qkv:
+            emit_q(b + "attn_qkv.weight", 3 * D, E, q4)
+            if qkv_bias:
+                bias(b + "attn_qkv.bias", 3 * D)
+        else:
+            for name, t in (("attn_q", q4), ("attn_k", q4), ("attn_v", q6)):
+                emit_q(b + name + ".weight", D, E, t)
+                if qkv_bias:
+                    bias(b + name + ".bias", D)
+        if qk_norm_full:
+            norm(b + "attn_q_norm", D)
+            norm(b + "attn_k_norm", D)
+        emit_q(b + "attn_output.weight", E, D, q4)
+        if out_bias:
+            bias(b + "attn_output.bias", E)
+        if post_norm:
+            norm(b + "attn_output_norm", E)
+        if attn_norm_2:
+            norm(b + "attn_norm_2", E)
+        if pre_norm:
+            norm(b + "ffn_norm", E, bias=False)
+        if moe_every and i % moe_every == moe_every - 1:
+            emit_f(b + "ffn_gate_inp.weight", rng.standard_normal((n_expert, E)) * 0.02)
+            emit_q(b + "ffn_up_exps.weight", F, E, q4, (n_expert,))
+            emit_q(b + "ffn_down_exps.weight", E, F, q6, (n_expert,))
+        else:
+            if ffn == "gated":
+                emit_q(b + "ffn_gate.weight", F, E, q4)
+            emit_q(b + "ffn_up.weight", F * (2 if ffn == "fused" else 1), E, q4)
+            if ffn_bias:
+                bias(b + "ffn_up.bias", F)
+            emit_q(b + "ffn_down.weight", E, F, q6)
+            if ffn_bias or down_bias:
+                bias(b + "ffn_down.bias", E)
+        if post_norm:
+            norm(b + "layer_output_norm", E)
+    w.write(path)
+    return path
+
+
+def make_bench_bge_m3_gguf(path: str, n_layers: int = 24, n_embd: int = 1024,
+                           n_heads: int = 16, n_ff: int = 4096, vocab_size: int = 250002,
+                           synth_scale: float = 1.0, f32: bool = False, seed: int = 0) -> str:
+    """BGE-M3-shaped (by default; BAAI/bge-m3 config.json, XLM-RoBERTa-large in
+    GGUF as bert) encoder: 24 post-norm LayerNorm layers of 1024, 16 heads of
+    64, a GELU FFN of 4096 with biases throughout, 8194 learned positions, one
+    token type, LayerNorm eps 1e-5, vocab 250002; the Q4_K_M mix."""
+    return make_bench_encoder_gguf(path, "bert", n_layers, n_embd, n_heads, n_ff, vocab_size,
+                                   n_ctx=8192, f32=f32, synth_scale=synth_scale, seed=seed,
+                                   **ENCODER_LAYOUTS["bert"])
+
+
+def make_bench_t5encoder_gguf(path: str, n_layers: int, n_embd: int, n_heads: int, n_ff: int,
+                              vocab_size: int, n_buckets: int = 32, f32: bool = False,
+                              synth_scale: float = 1.0, seed: int = 0) -> str:
+    """A t5encoder GGUF (flan-T5's encoder: enc.blk.N.* with RMSNorm blocks, a
+    relative-position bias table attn_rel_b [n_buckets, n_heads] on layer 0,
+    the gated GELU FFN, enc.output_norm; rms eps 1e-6) with synthetic
+    weights in the Q4_K_M mix, or F32 values with f32."""
+    rng = np.random.default_rng(seed)
+    head_dim = n_embd // n_heads
+    w = GGUFWriter()
+    w.add(Keys.General.ARCHITECTURE, "t5encoder")
+    w.add(Keys.General.NAME, "bench-t5encoder-synthetic")
+    P = "t5encoder."
+    for key, val in (("block_count", n_layers), ("context_length", 512),
+                     ("embedding_length", n_embd), ("feed_forward_length", n_ff),
+                     ("attention.head_count", n_heads), ("attention.head_count_kv", n_heads),
+                     ("attention.key_length", head_dim), ("attention.value_length", head_dim),
+                     ("attention.relative_buckets_count", n_buckets),
+                     ("vocab_size", vocab_size)):
+        w.add(P + key, np.uint32(val))
+    w.add(P + "attention.layer_norm_rms_epsilon", 1e-6)
+    _add_bench_vocab(w, vocab_size)
+    q4, q6 = GGMLType.Q4_K, GGMLType.Q6_K
+
+    def emit_f(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+
+    def emit_q(name, rows, cols, t):
+        if f32:
+            emit_f(name, rng.standard_normal((rows, cols)) / np.sqrt(cols))
+            return
+        data = synth_quant_bytes(rng, rows * cols, t, offset=int(rng.integers(1, 1 << 24)),
+                                 scale_mult=synth_scale)
+        w.add_tensor(name, data, (cols, rows), t)
+
+    E, F, D = n_embd, n_ff, n_heads * head_dim
+    emit_q("token_embd.weight", vocab_size, E, q4)
+    emit_f("enc.output_norm.weight", 1.0 + 0.1 * rng.standard_normal(E))
+    for i in range(n_layers):
+        b = f"enc.blk.{i}."
+        emit_f(b + "attn_norm.weight", 1.0 + 0.1 * rng.standard_normal(E))
+        for name, t in (("attn_q", q4), ("attn_k", q4), ("attn_v", q6)):
+            emit_q(b + name + ".weight", D, E, t)
+        emit_q(b + "attn_o.weight", E, D, q4)
+        if i == 0:
+            emit_f(b + "attn_rel_b.weight", 0.5 * rng.standard_normal((n_buckets, n_heads)))
+        emit_f(b + "ffn_norm.weight", 1.0 + 0.1 * rng.standard_normal(E))
+        emit_q(b + "ffn_gate.weight", F, E, q4)
+        emit_q(b + "ffn_up.weight", F, E, q4)
+        emit_q(b + "ffn_down.weight", E, F, q6)
+    w.write(path)
+    return path
+
+
+# the embedding entries on the shared decoder: EmbeddingGemma (gemma3's
+# blocks, bidirectional, symmetric windows of 128 on one layer of two) and
+# llama-embed
+EMBEDDING_DECODERS: dict[str, dict] = {
+    "gemma-embedding": dict(qk_norm=True, post_norms=True, tie=True, sliding_window=128,
+                            swa_pattern=2, rope_base=1e6, rope_base_swa=1e4),
+    "llama-embed": dict(),
+}
+EMBEDDING_ARCHS = (*ENCODER_LAYOUTS, "t5encoder", *EMBEDDING_DECODERS)
+
+
+def make_bench_embedding_gguf(path: str, arch: str, n_layers: int, n_embd: int, n_heads: int,
+                              n_ff: int, vocab_size: int, f32: bool = False,
+                              synth_scale: float = 1.0, seed: int = 0, **options) -> str:
+    """A GGUF of any entry of EMBEDDING_ARCHS in its layout (options override
+    it): the BERT family's through make_bench_encoder_gguf, t5encoder's
+    through make_bench_t5encoder_gguf, the embedding decoders' through
+    make_bench_arch_gguf (half as many KV heads as heads)."""
+    kw = dict(f32=f32, synth_scale=synth_scale, seed=seed)
+    if arch in ENCODER_LAYOUTS:
+        return make_bench_encoder_gguf(path, arch, n_layers, n_embd, n_heads, n_ff, vocab_size,
+                                       **kw, **{**ENCODER_LAYOUTS[arch], **options})
+    if arch == "t5encoder":
+        return make_bench_t5encoder_gguf(path, n_layers, n_embd, n_heads, n_ff, vocab_size,
+                                         **kw, **options)
+    return make_bench_arch_gguf(path, arch, n_layers, n_embd, n_heads, n_heads // 2,
+                                n_embd // n_heads, n_ff, vocab_size, **kw,
+                                **{**EMBEDDING_DECODERS[arch], **options})

@@ -1744,3 +1744,81 @@ def test_moe_family_kernels_match_plain_and_graphs_match_eager(moe_families, arc
         runs.append(ctx.decode_steps_greedy(firsts, np.arange(1), 12))
     np.testing.assert_array_equal(runs[0], runs[1])
     assert tqe.launches["qmm_planes_expert"] > before
+
+
+# embedding entries -> what their embed (or encode) takes on the card
+EMBEDDING_CASES = {
+    "bert": "post-norm LayerNorm encoder with biases: K3/K4 at the 512-row bucket",
+    "modern-bert": "pre-norm encoder, layer 0 without attn_norm, local windows",
+    "gemma-embedding": "non-causal gemma3 blocks on F32 values: no attention kernel",
+    "llama-embed": "the llama decoder over a 520-slot table: the einsum attention",
+    "t5encoder": "T5's encoder: K1/K2 at 7 tokens, K3/K4 at 200",
+}
+# entries whose narrow Q4_K_M file here is ill-conditioned on this prompt:
+# rounding only its block scales to bf16, as the prefill GEMM does, turns one
+# of the 160 rows of the plain path itself into another, so their values are
+# F32 (their products on the library route); chip_smoke.py holds
+# gemma-embedding's Q4_K_M file on the kernels (another file and prompt)
+EMBEDDING_F32 = ("gemma-embedding",)
+
+
+@pytest.fixture(scope="module")
+def embedding_models(tmp_path_factory):
+    """The entries of EMBEDDING_CASES at n_embd 1024, 2 layers, heads of 128,
+    the Q4_K_M mix with synthetic block scales / 256 (F32 values for
+    EMBEDDING_F32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run `python -m pytest --noconftest -m gpu "
+                    "tests/test_torch_gpu.py` on the card")
+    from llama_cpp_tpu_torch.testing import make_bench_embedding_gguf
+
+    d = tmp_path_factory.mktemp("embedding_models")
+    return {arch: load_model(make_bench_embedding_gguf(
+        str(d / f"{arch}.gguf"), arch, n_layers=2, n_embd=1024, n_heads=8, n_ff=2048,
+        vocab_size=1024, synth_scale=1.0 / 256, f32=arch in EMBEDDING_F32))
+        for arch in EMBEDDING_CASES}
+
+
+@pytest.mark.parametrize("arch", list(EMBEDDING_CASES))
+def test_embedding_kernels_match_plain(embedding_models, arch):
+    """Context.embed of 160 tokens (a 512-row bucket) or Context.encode of
+    7 and 200 tokens on the kernel path against Context(kernels=False)
+    (NMSE < 5e-3): the qmm kernels of the bucket's row count launched (none
+    on F32 values), no attention kernel (the encoders' attention is plain, gemma-embedding's is
+    non-causal, a 520-slot table is no multiple of 128)."""
+    model = embedding_models[arch]
+    kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=512)
+    rng = np.random.default_rng(8)
+    _zero_counts()
+    if arch == "t5encoder":
+        for n, key in ((7, "qmm4_planes/decode"), (200, "qmm4_planes_prefill/wgmma")):
+            toks = [int(t) for t in rng.integers(3, 1024, n)]
+            before = tqmm.launches[key]
+            got = Context(model, **kw).encode(toks)
+            assert tqmm.launches[key] > before
+            ref = Context(model, kernels=False, **kw).encode(toks)
+            assert np.isfinite(got).all()
+            assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+    else:
+        toks = [int(t) for t in rng.integers(3, 1024, 160)]
+        got = Context(model, **kw).embed(toks, pooling="none")
+        quantized = arch not in EMBEDDING_F32
+        assert (tqmm.launches["qmm4_planes_prefill/wgmma"] > 0) == quantized
+        assert (tqmm.launches["qmm_planes_prefill/wgmma"] > 0) == quantized
+        assert tqmm.launches["qmm4_planes/decode"] == tqmm.launches["qmm_planes/decode"] == 0
+        ref = Context(model, kernels=False, **kw).embed(toks, pooling="none")
+        assert np.isfinite(got).all()
+        assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+    assert sum(tfa.launches.values()) == 0
+
+
+def test_embedding_bucket_of_1024_rows_takes_the_library_route(embedding_models):
+    """600 tokens bucket to 1024 rows: every product on the library route,
+    as the JAX package's XLA_PREFILL_MIN_N leaves it to XLA; no kernel."""
+    model = embedding_models["bert"]
+    toks = [int(t) for t in np.random.default_rng(9).integers(3, 1024, 600)]
+    _zero_counts()
+    got = Context(model, n_ctx=1024, n_seqs=1).embed(toks)
+    assert sum(tqmm.launches.values()) == 0 and sum(tfa.launches.values()) == 0
+    ref = Context(model, kernels=False, n_ctx=1024, n_seqs=1).embed(toks)
+    assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3

@@ -4,9 +4,9 @@ package's ServerApp (aiohttp test client) on the same GGUF: the same
 content, finish reason and usage on every generation route, greedy; four
 concurrent greedy requests equal Context.generate; a pool too small for
 every slot finishes a victim with "length" and serves the rest; the
-routes and flags whose modules are not ported (embeddings, rerank,
-multimodal input, parallel serving, the router) answer 501 or exit 2 and
-name the module; and the scheduler's one-step calls, decode_step_greedy
+routes and flags whose modules are not ported (multimodal input, parallel
+serving, the router) answer 501 or exit 2 and name the module (the
+embedding routes: tests/test_torch_encoders.py); and the scheduler's one-step calls, decode_step_greedy
 and decode_step_multi through the decode loops, equal the eager ubatch
 step (Context.decode) at changing batch sizes with padding rows."""
 
@@ -260,9 +260,6 @@ def test_a_full_pool_finishes_a_victim_with_length(model):
 
 
 REFUSED_ROUTES = {
-    "embeddings": ("/v1/embeddings", {"input": "x"}, "Context.embed"),
-    "rerank": ("/rerank", {"query": "x", "documents": ["y"]}, "Context.embed"),
-    "v1_rerank": ("/v1/rerank", {"query": "x", "documents": ["y"]}, "Context.embed"),
     "image_chat": ("/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "text", "text": "what is it"},
         {"type": "image_url", "image_url": {"url": "data:image/png;base64,AAAA"}}]}]},
