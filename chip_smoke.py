@@ -47,7 +47,9 @@ Phases, each of which fails the run:
      KV head of K 640 and V 512) at G = 16 (DeepSeek-V2-Lite) and G = 128
      (DeepSeek-V3) query heads, decode B = 1 and 8 at depth 2048 and the
      ubatch 4 of 2048, int8 and bf16, and at K 576 (the conformance rows'
-     width), with its ptxas lines and shared memory;
+     width), and its (384, 256) pair at MiniCPM3-4B's G = 40 (decode B = 1
+     at depth 2048 and the ubatch, int8 and bf16), with its ptxas lines and
+     shared memory;
      the microbenchmark's
      four probe kernels (stream probe, the two nibble unpacks, the tile sweep
      flat and tile by tile) at the gate/up and down shapes of an 8B llama,
@@ -168,12 +170,12 @@ Phases, each of which fails the run:
        attn_kv_b file (bit for bit), context_shift on the pool and the slot
        table (K6's MLA instantiation) against the plain path shifted alike
        and a sequence's state round trip (bit for bit); DeepSeek-V3 (61 ->
-       2 layers: one dense, one MoE of 256 experts; every attention on the
+       1 layer: one MoE of 256 experts; every attention on the
        MLA prefill kernel, 128 rows at B=1); each with every matrix's route
        on its path line and the plain path on the prefill logits, 8
        teacher-forced steps and the ids (near_ties);
      - the dense-decoder families that differ from llama only in block
-       variants, Context as the families': StarCoder2-7B (depth 32 -> 2:
+       variants, Context as the families': StarCoder2-7B (depth 32 -> 1:
        LayerNorm with biases, biased q/k/v and output, a non-gated GELU FFN
        of 18432 with biases, 36 query heads on 4 KV heads, so K5 at G = 9;
        the Qwen3-8B path's whole treatment with near_ties, a served round
@@ -195,7 +197,7 @@ Phases, each of which fails the run:
        at the prefill ubatches; 32 MXFP4 experts of 2880 with biases and the
        clamped GLU, top 4, on K7; every dense product and the head on the
        library route, where the JAX package leaves them to XLA, timed at N =
-       1; YaRN factor 32) and Llama-4-Scout-17B-16E (48 -> 2: K1-K5, K5 at G
+       1; YaRN factor 32) and Llama-4-Scout-17B-16E (48 -> 1: K1-K5, K5 at G
        = 5, 16 experts of 8192 top 1 with the gate on the
        expert input on K7 at B = 1 and 8, a shared expert), each with the
        Qwen3-8B path's whole treatment with near_ties and a served round;
@@ -213,6 +215,20 @@ Phases, each of which fails the run:
        families' narrow paths, on the Q4_K_M mix (K5 where their heads take
        it), lfm2 and lfm2moe on F32 values beside a reading of their Q4_K_M
        files against an f32 path;
+     - RWKV on the recurrent memory (models/rwkv.py, the RecurrentState
+       alone): RWKV-7 World 2.9B (depth 32 -> 4, so the value residual
+       crosses layers; K1-K4 on its projections, the wkv7 step loop plain)
+       with the Qwen3-8B path's whole treatment with near_ties, a served
+       round and a state round trip (whole file and sequence blob, bit for
+       bit); rwkv6, rwkv6qwen2 and arwkv7 narrow (heads of 64);
+     - MLA at MHA width: MiniCPM3-4B (depth 62 -> 2: every attention on K5's
+       MLA instantiation at (384, 256), the tied 73448-row head on the
+       library route) with the same treatment, then on the slot table int8
+       and the pool and the slot table bf16 (K6's or K5's MLA launches at
+       prefill and decode read from the counters, each held to the plain
+       path); plm, mistral4 and the other last decoder families (hy_v3,
+       apertus, bitnet, talkie, chameleon, jais2, maincoder, pangu-embedded,
+       deci) narrow;
      - the storage types users download beside Q4_K_M: Qwen3-8B at Q8_0
        (depth 36 -> 2, every matrix Q8_0: K2 and K4 over int8 flat-g32
        planes, no other qmm kernel; the families' whole treatment), at
@@ -279,14 +295,20 @@ GEMMA3_LAYERS = 6  # Gemma-3-4B: 34 layers; one period of its pattern (five wind
 QWEN3_MIX_LAYERS = 2  # Qwen3-8B at Q5_K_M and Q4_0
 QUANT_LAYERS = 2  # the F16 Qwen3-0.6B file llama-quantize turns into q8_0 and q4_0: 28 layers
 DS_LITE_LAYERS = 2  # DeepSeek-V2-Lite: 27 layers; one dense, one MoE
-DS_V3_LAYERS = 2  # DeepSeek-V3: 61 layers; one dense, one MoE of 256 experts (~14 GB)
-STARCODER2_LAYERS = 2  # StarCoder2-7B: 32 layers
+DS_V3_LAYERS = 1  # DeepSeek-V3: 61 layers; one MoE layer of 256 experts (~14 GB; 2 until PR 20)
+STARCODER2_LAYERS = 1  # StarCoder2-7B: 32 layers (2 until PR 20)
 COMMAND_R_LAYERS = 1  # Command-R v01: 40 layers
 GPT_OSS_LAYERS = 2  # gpt-oss-20B: 24 layers; a window layer and a full one
-SCOUT_LAYERS = 2  # Llama-4-Scout-17B-16E: 48 layers; its NoPE layers run in llama4's narrow path
+SCOUT_LAYERS = 1  # Llama-4-Scout-17B-16E: 48 (2 until PR 20); its NoPE layers: llama4's narrow path
 QWEN3NEXT_LAYERS = 4  # Qwen3-Next-80B-A3B: 48 layers; three DeltaNet layers, one attention
 NEMOTRON_H_LAYERS = 8  # Nemotron-H-8B: 52 blocks; M-M-M-M*: four Mamba-2, three FFN, one attention
 BGE_M3_LAYERS = 24  # BAAI/bge-m3: 24 layers, run at full depth
+RWKV7_LAYERS = 4  # RWKV-7 World 2.9B: 32 layers; 4 carry v_first across layers
+MINICPM3_LAYERS = 2  # MiniCPM3-4B: 62 layers
+# the narrow RWKV entries: FAMILY_SHAPE's widths with heads of 64 and LoRA
+# ranks of 32 (64 for RWKV-7's gate)
+RWKV_SHAPE = dict(n_layers=2, n_embd=1024, head_size=64, n_ff=2048, vocab_size=2048,
+                  lora=(32, 32, 32, 64))
 # the embedding entries other than bert: narrow, heads of 128, 2 layers
 EMBED_SHAPE = dict(n_layers=2, n_embd=1024, n_heads=8, n_ff=2048, vocab_size=2048)
 EMBED_POOLINGS = ("mean", "cls", "last", "none")
@@ -1143,7 +1165,9 @@ def main() -> int:
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
         from llama_cpp_tpu_torch.testing import (EMBEDDING_ARCHS, FAMILY_LAYOUTS,
-                                                 HYBRID_LAYOUTS, make_bench_bge_m3_gguf,
+                                                 HYBRID_LAYOUTS, LATE_FAMILY_LAYOUTS,
+                                                 MLA_FAMILY_LAYOUTS, RWKV_ARCHS,
+                                                 make_bench_rwkv_gguf, make_bench_bge_m3_gguf,
                                                  make_bench_embedding_gguf,
                                                  MOE_FAMILY_LAYOUTS, make_bench_arch_gguf,
                                                  make_bench_command_r_gguf,
@@ -1411,25 +1435,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("K5/K6 MLA instantiation (csrc/flash_attn_mla.cuh; one KV head of K 640 and V 512, "
         "DeepSeek's absorbed latent; G = 16 query heads: DeepSeek-V2-Lite, G = 128: "
-        "DeepSeek-V3; K 576 (no pad) at the conformance rows' width); NMSE limit "
+        "DeepSeek-V3; K 576 (no pad) at the conformance rows' width; K 384 and V 256, "
+        "MiniCPM3-4B's latent of 256 + 32 rope dims padded, at its G = 40, whose 40 decode rows "
+        "fill 40 of a 64-row block); NMSE limit "
         f"{NMSE_LIMIT}; the library call is SDPA on the same bf16 K/V, timed only:")
     mla_rows: dict[str, dict] = {}
     for lay, name, phase, make in (("K5", "flash_attention_paged", attn_phase, attn_case),
                                    ("K6", "flash_attention", slots_phase, slots_case)):
         extra = {} if lay == "K5" else {"S": 4608}
-        cases = [(G, fam, dt, dname, B, T, depth, shape, 640)
+        cases = [(G, fam, dt, dname, B, T, depth, shape, 640, 512)
                  for G, fam in ((16, "v2-lite"), (128, "v3"))
                  for dt, dname in ((None, "int8"), (torch.bfloat16, "bf16"))
                  for B, T, depth, shape in ((1, 1, 2048, "decode B=1 d=2048"),
                                             (8, 1, 2048, "decode B=8 d=2048"),
                                             (1, 512, 1536, "prefill ubatch 4 of 2048"))]
-        cases += [(16, "v2-lite", None, "int8", B, T, depth, shape, 576)
+        cases += [(16, "v2-lite", None, "int8", B, T, depth, shape, 576, 512)
                   for B, T, depth, shape in ((1, 1, 2048, "decode B=1 d=2048"),
                                              (1, 512, 1536, "prefill ubatch 4 of 2048"))]
-        for G, fam, dt, dname, B, T, depth, shape, Dk in cases:
+        cases += [(40, "minicpm3", dt, dname, B, T, depth, shape, 384, 256)
+                  for dt, dname in ((None, "int8"), (torch.bfloat16, "bf16"))
+                  for B, T, depth, shape in ((1, 1, 2048, "decode B=1 d=2048"),
+                                             (1, 512, 1536, "prefill ubatch 4 of 2048"))]
+        for G, fam, dt, dname, B, T, depth, shape, Dk, Dv in cases:
             row = f"{fam} G={G} Dk={Dk} {dname} {shape}"
             r = phase(torch, timer, flash_attn, f"{lay} mla {row}",
-                      make(torch, B=B, G=G, T=T, depth=depth, Hkv=1, D=Dk, Dv=512, kv_dtype=dt,
+                      make(torch, B=B, G=G, T=T, depth=depth, Hkv=1, D=Dk, Dv=Dv, kv_dtype=dt,
                            **extra), failures)
             mla_rows.setdefault(f"{name}/mla {flash_attn.route(G * T)}", {})[row] = r
             torch.cuda.empty_cache()
@@ -1451,9 +1481,9 @@ def main() -> int:
         log(f"MLA instantiations of {src}, ptxas (template <Dk, 16-row groups, bf16, paged>: "
             "registers, spills): " + "; ".join(ptxas_of(build.BUILD_LOGS.get(src, ""), "fa_mla")))
     log("MLA block shared memory (bytes; 64 rows / 16 rows, bf16 / int8): " + "; ".join(
-        f"Dk={dk} {'wide' if w else 'narrow'} {'bf16' if b else 'int8'} "
-        f"{flash_attn.mla_smem_bytes(dk, w, b)}" for dk in (576, 640) for w in (True, False)
-        for b in (True, False)))
+        f"Dk={dk} Dv={dv} {'wide' if w else 'narrow'} {'bf16' if b else 'int8'} "
+        f"{flash_attn.mla_smem_bytes(dk, w, b, dv)}" for dk, dv in flash_attn.MLA_DIMS
+        for w in (True, False) for b in (True, False)))
     log("K7 indexed-expert product (Mixtral-8x7B: 8 experts; Qwen3-30B-A3B: 128 experts):")
     mix = []
     for wname, K, O, q4 in (("ffn_gate_exps", E, FF, True), ("ffn_up_exps", E, FF, True),
@@ -3049,6 +3079,15 @@ def main() -> int:
             shape = {k: v for k, v in FAMILY_SHAPE.items() if k != "n_layers"}
             make_bench_hybrid_gguf(path, arch, **{**shape, **layout}, synth_scale=synth_scale,
                                    f32=f32, seed=0)
+        elif arch in RWKV_ARCHS:  # 16 heads of 64; rwkv6qwen2's key/value on 8 of them
+            make_bench_rwkv_gguf(path, arch, **RWKV_SHAPE, **layout, synth_scale=synth_scale,
+                                 f32=f32, seed=0)
+        elif arch in MLA_FAMILY_LAYOUTS:
+            make_bench_deepseek2_gguf(
+                path, arch=arch, n_layers=FAMILY_SHAPE["n_layers"], n_embd=FAMILY_SHAPE["n_embd"],
+                n_heads=FAMILY_SHAPE["n_heads"], n_ff=FAMILY_SHAPE["n_ff"],
+                vocab_size=FAMILY_SHAPE["vocab_size"], n_ctx=FAMILY_SHAPE["n_ctx"],
+                **layout, synth_scale=synth_scale, f32=f32, seed=0)
         else:
             make_bench_arch_gguf(path, arch, **{**FAMILY_SHAPE, **layout},
                                  synth_scale=synth_scale, seed=0)
@@ -3123,7 +3162,10 @@ def main() -> int:
         ctx_kw = dict(n_ctx=1024, n_seqs=2, n_ubatch=512, quantized_kv=True)
         ctx = Context(model, **ctx_kw)
         attends = first_attention_layer(cfg, model.params["layers"])
-        if not cfg.alibi_bias and "attn_output" in model.params["layers"][attends]:
+        if cfg.extra.get("mla_absorb"):  # one KV head of the absorbed latent
+            must.update(f"flash_attention_paged/mla {flash_attn.route(rows)}"
+                        for rows in (FAMILY_PROMPT * cfg.n_heads, cfg.n_heads))
+        elif not cfg.alibi_bias and "attn_output" in model.params["layers"][attends]:
             G = cfg.n_heads // cfg.n_kv_heads
             must.update(f"flash_attention_paged/{flash_attn.route(rows)}"
                         for rows in (FAMILY_PROMPT * G, G)
@@ -3139,7 +3181,8 @@ def main() -> int:
         del ctx
         all_counts[label] = read_counts(label, sorted(must))
         check_logits(label, logits, vocab)
-        attn = {k: all_counts[label][k] for k in paged_keys + slots_keys + ring_keys}
+        attn = {k: all_counts[label][k] for k in flash_attn.launches.keys() | ring_keys
+                if all_counts[label][k]}
         mixers = [getattr(mamba.mixer_of(cfg, lw), "__name__", "-")
                   for lw in model.params["layers"]]
         log(f"{label} ({card}): {cfg.n_layers} layers, n_embd "
@@ -3229,6 +3272,63 @@ def main() -> int:
             f"{load_ms:.1f} ms; the next step's logits bit for bit {same}")
         if not same or n != len(prompt2k):
             failures.append(f"{label}: seq state round trip {same}, {n} cells")
+
+    def rwkv_state_phase(model, label):
+        """An RWKV model's RecurrentState through the state files, Context
+        as arch_path's: a 1024-token prefill of seq 0, save_state into a
+        fresh context and save_seq_state into seq 1 of a third; the next
+        step's logits bit for bit in both."""
+        kw = dict(n_ctx=4096, n_seqs=2, n_ubatch=512)
+        prompt = [int(t) for t in prng.integers(3, model.cfg.vocab_size, 1024)]
+        c = Context(model, **kw)
+        c.prefill(prompt, seq=0)
+        path = os.path.join(smoke_dir, f"{label}.state")
+        t0 = time.perf_counter()
+        n_bytes = state_io.save_state(c, path)
+        blob = state_io.save_seq_state(c, 0)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        fresh, other = Context(model, **kw), Context(model, **kw)
+        state_io.load_state(fresh, path)
+        os.remove(path)
+        state_io.load_seq_state(other, 1, blob)
+        ref = c.decode_one(11, seq=0)
+        same = (np.array_equal(fresh.decode_one(11, seq=0), ref),
+                np.array_equal(other.decode_one(11, seq=1), ref))
+        del c, fresh, other
+        log(f"{label} state files ({card}): whole context {n_bytes} bytes, sequence blob "
+            f"{len(blob)} bytes, both written in {save_ms:.1f} ms; the next step's logits bit "
+            f"for bit (whole file, sequence blob into seq 1) {same}")
+        if not all(same):
+            failures.append(f"{label}: state round trip bit for bit {same}")
+
+    def minicpm3_memories(model, label, qmm_keys_):
+        """MiniCPM3 on the three other memories (the slot table int8, the
+        pool and the slot table bf16): a 1024-token prefill and 16 greedy
+        tokens on the B=1 graph, K5's or K6's MLA instantiation at (384,
+        256) read from the counters at prefill and decode and no other
+        attention kernel, held against the plain path on the same memory
+        (8 teacher-forced steps, each id held: near_ties)."""
+        cfg = model.cfg
+        dims = (cfg.extra["cache_head_dim_k"], cfg.extra["cache_head_dim_v"])
+        if dims != (384, 256) or not flash_attn.is_mla(*dims):
+            failures.append(f"{label}: absorbed cache dims {dims}, not (384, 256)")
+        prompt = [int(t) for t in prng.integers(3, cfg.vocab_size, 1024)]
+        for paged, quant in ((False, True), (True, False), (False, False)):
+            lab = (f"{label} {'pool' if paged else 'slot table'} "
+                   f"{'int8' if quant else 'bf16'}")
+            kw = dict(n_ctx=4096, n_seqs=2, n_ubatch=512, quantized_kv=quant, paged=paged)
+            must = qmm_keys_ + (mla_paged if paged else mla_slots)
+            ctx = Context(model, **kw)
+            reset_counts()
+            logits = ctx.prefill(prompt, seq=0)
+            gen_ids = ctx.generate(prompt, max_new_tokens=16, seq=1)
+            del ctx
+            all_counts[lab] = read_counts(lab, must)
+            check_logits(lab, logits, cfg.vocab_size)
+            log(f"{lab}: MLA launches at (Dk, Dv) = {dims}: "
+                f"{ {k: all_counts[lab][k] for k in must if 'mla' in k} }")
+            against_plain(lab, model, logits, gen_ids, prompt, decode_logits=8,
+                          near_ties=True, **kw)
 
     def path_quantize():
         """llama-quantize on this machine: quantize_tool.main turns an F16
@@ -3953,7 +4053,7 @@ def main() -> int:
         SCOUT_LAYERS, 202048, full_keys + (expert_key,),
         "Llama-4-Scout-17B-16E shape (meta-llama/Llama-4-Scout-17B-16E config.json, text "
         "config: n_embd 5120, 40 heads on 8 KV heads of 128 (G = 5), NORM rope 500000 with "
-        "every fourth layer NoPE (none of the first two), the weightless q/k norm after rope, "
+        "every fourth layer NoPE (not the first), the weightless q/k norm after rope, "
         "16 experts of 8192 top 1 by sigmoid "
         "with the gate on the expert input, an ungated shared expert of 8192, vocab 202048; "
         f"depth 48 -> {SCOUT_LAYERS}), Q4_K_M mix; synthetic block scales / 256",
@@ -3999,6 +4099,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"the hybrid paths, the {len(HYBRID_LAYOUTS) - 2} narrow ones included: "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # RWKV on the recurrent memory: RWKV-7 World 2.9B at full width (its own
+    # forward, models/rwkv.py; K1-K4 on its projections), then the other
+    # three RWKV entries narrow
+    t0 = time.perf_counter()
+    model = arch_path(
+        "rwkv7-2.9b",
+        functools.partial(make_bench_rwkv_gguf, arch="rwkv7", synth_scale=FAMILY_SYNTH_SCALE),
+        RWKV7_LAYERS, 65536, decode_keys + prefill_keys,
+        "RWKV-7 World 2.9B shape (BlinkDL RWKV-x070-World-2.9B: n_embd 2560, 40 heads of 64, "
+        "channel mix 10240, vocab 65536, LoRA ranks 96 decay, 96 in-context learning rate, 64 "
+        f"value residual, 320 gate; depth 32 -> {RWKV7_LAYERS}, so v_first crosses layers), "
+        "Q4_K_M mix as llama-quantize writes an RWKV file (Q4_K projections, Q6_K channel-mix "
+        "value and head, the LoRA factors and mixing vectors F32); the RecurrentState alone "
+        "(2 token-shift rows of 2560 and a 64 x 2560 f32 wkv plane a layer and a sequence), "
+        "exact-shape ubatches and decode batches; synthetic block scales / 256",
+        server=True, near_ties=True, routes=True, keep=True)
+    rwkv_state_phase(model, "rwkv7-2.9b")
+    del model
+    torch.cuda.empty_cache()
+    for arch in RWKV_ARCHS:
+        if arch != "rwkv7":
+            family_path(arch, {"n_kv_heads": 8} if arch == "rwkv6qwen2" else {})
+    torch.cuda.empty_cache()
+    log(f"the RWKV paths (RWKV-7 2.9B and 3 narrow entries): {time.perf_counter() - t0:.1f} s")
     for key, row in res["qmm_planes_expert"]["rows"].items():
         path = next((p for p in ("gpt-oss-20b", "llama4-scout", "qwen3-next-80b-a3b")
                      if key.startswith(p[:6])), None)
@@ -4025,15 +4150,45 @@ def main() -> int:
     del ds_model
     torch.cuda.empty_cache()
     arch_path(
-        "deepseek-v3", functools.partial(make_bench_deepseek_v3_gguf, n_dense=1),
+        "deepseek-v3", functools.partial(make_bench_deepseek_v3_gguf, n_dense=0),
         DS_V3_LAYERS, 129280, qmm_keys + ("flash_attention_paged/mla prefill", expert_key),
         "DeepSeek-V3 shape (deepseek-ai/DeepSeek-V3 config.json: n_embd 7168, 128 heads, "
         "q-LoRA 1536, kv_lora 512, qk_nope 128, qk_rope 64, v 128, 256 routed experts of 2048 "
         "top 8 by sigmoid with exp_probs_b, normalised, scaled by 2.5, one shared, vocab 129280, "
-        f"YaRN factor 40; depth 61 -> {DS_V3_LAYERS}: one dense layer of 18432 (the file has "
-        "three) and one MoE layer; group-limited routing (n_group 8, topk_group 4) is not read, "
+        f"YaRN factor 40; depth 61 -> {DS_V3_LAYERS}: one MoE layer (the file's first three are "
+        "dense layers of 18432); group-limited routing (n_group 8, topk_group 4) is not read, "
         "as in the JAX package), Q4_K_M mix; 128 query rows a KV head at B=1: every attention "
         "on the MLA prefill kernel", full=False, near_ties=True, routes=True)
+
+    # MLA at MHA width: MiniCPM3-4B's absorbed row (384, 256) through K5/K6's
+    # second MLA pair, on the pool and the slot table, int8 and bf16
+    t0 = time.perf_counter()
+    model = arch_path(
+        "minicpm3-4b",
+        functools.partial(make_bench_deepseek2_gguf, arch="minicpm3", n_embd=2560, n_heads=40,
+                          q_lora_rank=768, kv_lora_rank=256, qk_nope=64, qk_rope=32, v_dim=64,
+                          n_ff=6400, n_expert=0, vocab_size=73448, n_ctx=32768, tie=True,
+                          synth_scale=FAMILY_SYNTH_SCALE),
+        MINICPM3_LAYERS, 73448, qmm_keys + mla_paged,
+        "MiniCPM3-4B shape (openbmb/MiniCPM3-4B config.json: n_embd 2560, 40 heads, q-LoRA 768, "
+        "kv_lora 256, qk_nope 64, qk_rope 32, v 64, a SwiGLU FFN of 6400, vocab 73448, tied; "
+        "embedding x 12, residual x 1.4 / sqrt(62), logits x 256 / 2560; depth 62 -> "
+        f"{MINICPM3_LAYERS}), Q4_K_M mix, F32 where rows are not a multiple of 256; the "
+        "absorbed cache: one KV head of K 384 (256 + 96 pad + 32) and V 256, G = 40 query rows "
+        "a token; the tied Q6_K head of 73448 rows (no multiple of 64) row-major on the library "
+        "route, as the JAX package leaves it to XLA; synthetic block scales / 256",
+        server=True, near_ties=True, routes=True, keep=True)
+    minicpm3_memories(model, "minicpm3-4b", qmm_keys)
+    del model
+    torch.cuda.empty_cache()
+    for arch, layout in MLA_FAMILY_LAYOUTS.items():
+        if arch != "minicpm3":
+            family_path(arch, layout)
+    for arch, layout in LATE_FAMILY_LAYOUTS.items():
+        family_path(arch, layout)
+    torch.cuda.empty_cache()
+    log(f"MiniCPM3-4B and the slice's {len(MLA_FAMILY_LAYOUTS) + len(LATE_FAMILY_LAYOUTS) - 1} "
+        f"narrow decoder entries: {time.perf_counter() - t0:.1f} s")
 
     # the storage types users download beside Q4_K_M, on the main path
     q8_model = arch_path(

@@ -13,8 +13,9 @@
 // about 2 * D + 8 bytes per row and head, bf16: 4 * D); the prefill ubatch
 // by its bf16 tensor-core operations (4 D flops per visible query-key pair).
 
-// The MLA instantiation over the slot table (DeepSeek-V2/V3: one KV head, K rows
-// of 576 or 640, V rows of 512) is flash_attn_mla.cuh with the same layout.
+// The MLA instantiation over the slot table (one KV head; K rows of 576 or
+// 640 and V rows of 512: DeepSeek-V2/V3, PLM; K rows of 384 and V rows of
+// 256: MiniCPM3) is flash_attn_mla.cuh with the same layout.
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_mla.cuh"
@@ -47,8 +48,9 @@ extern "C" int fa_slots_launch(const void* q, const void* k, const void* v, cons
 }
 
 // The MLA instantiation (flash_attn_mla.cuh) over the slot table: q [B, 1,
-// R, Dk] bf16, Dk = 576 or 640; k [n_seqs, 1, S, Dk] and v [n_seqs, 1, S,
-// 512], int8 with row scales or bf16; out [B, 1, R, 512] f32; the other
+// R, Dk] bf16, (Dk, Dv) = (576 | 640, 512) or (384, 256); k [n_seqs, 1, S,
+// Dk] and v [n_seqs, 1, S, Dv], int8 with row scales or bf16; out [B, 1, R,
+// Dv] f32; the other
 // arguments as fa_slots_launch, without window, softcap, sinks or ring.
 extern "C" int fa_slots_mla_launch(const void* q, const void* k, const void* v, const void* ks,
                                    const void* vs, const void* pos, const void* row_pos,

@@ -1,9 +1,10 @@
 // Multi-head Latent Attention over an int8 or bf16 KV memory, for Hopper:
 // the instantiation of the two attention kernels (the paged pool,
 // flash_attn_paged.cu, and the slot table, flash_attn.cu) at unequal K/V
-// head dims with one KV head, as DeepSeek-V2/V3's absorbed MLA caches it:
-// K rows of Dk = 576 or 640 ([c_kv | pad | k_pe]) and V rows of Dv = 512
-// (c_kv). The function is flash_attn_common.cuh's without window, softcap
+// head dims with one KV head, as an absorbed MLA cache holds it: K rows of
+// [c_kv | pad | k_pe] and V rows of c_kv, at (Dk, Dv) = (576 | 640, 512)
+// (DeepSeek-V2/V3, PLM) or (384, 256) (MiniCPM3: kv_lora_rank 256, 32 rope
+// dims, padded to 384). The function is flash_attn_common.cuh's without window, softcap
 // or sinks (MLA uses none; the launch refuses them): s = (q . k) * k_scale *
 // sm_scale, causal mask from positions, softmax(s) * v_scale * v, rows with
 // nothing visible 0. Its arithmetic is the same too: bf16 q times k (int8
@@ -18,8 +19,9 @@
 //    cp.async stages (int8: raw stages turned into one bf16 tile in shared
 //    memory); the Q tile stays in shared memory for the whole walk.
 //  * Warp w owns 16 query rows (rows 16 (w % NW)) and half of Dv (columns
-//    256 (w / NW)): 128 f32 accumulators a thread. The two warps of a row
-//    group both compute S = Q K^T over the whole Dk from the shared Q and K
+//    Dv / 2 (w / NW)): Dv / 4 f32 accumulators a thread (128 at Dv = 512).
+//    The two warps of a row group both compute S = Q K^T over the whole Dk
+//    from the shared Q and K
 //    (S is recomputed, 1.56x the tensor-core work at Dk = 640, rather than
 //    shared through shared memory with a barrier per sub-tile), so each
 //    holds its rows' softmax state itself. mma.sync m16n8k16: S as two n8
@@ -33,10 +35,12 @@
 //    row tile merges the splits in order (an atomic counter it resets), in
 //    one launch; the prefill route runs one split and walks the last row
 //    tiles first.
-// What bounds it on an H100: at decode the live K/V bytes (bf16: (Dk + 512)
-// * 2 bytes a KV row; int8: Dk + 512 + 8); at a prefill ubatch the
-// tensor-core operations (2 (Dk + 512) a visible query-key pair), which
-// mma.sync with the recomputed S does not reach.
+// What bounds it on an H100: at decode the live K/V bytes (bf16: (Dk + Dv)
+// * 2 bytes a KV row; int8: Dk + Dv + 8); at a prefill ubatch the
+// tensor-core operations (2 (Dk + Dv) a visible query-key pair), which
+// mma.sync with the recomputed S does not reach. Rows past R (MiniCPM3's 40
+// heads at one token fill 40 of a 64-row block) are read as zeros and never
+// written.
 
 #pragma once
 
@@ -44,21 +48,19 @@
 
 namespace fa {
 
-constexpr int kMlaDv = 512;    // V head dim (the latent c_kv)
-constexpr int kMlaKv = 16;     // KV rows a sub-tile (one k16 step of P V)
-constexpr int kMlaHalf = 256;  // V columns a warp owns
+constexpr int kMlaKv = 16;  // KV rows a sub-tile (one k16 step of P V)
 
 // Shared memory of an MLA block (16-byte aligned offsets): the Q tile [16 NW
 // rows][Dk + 8] bf16 (rows padded by 16 bytes: ldmatrix without bank
 // conflicts), a ring of NS stages and, over int8, the bf16 tile the warps
-// read. A bf16 tile: K [16][Dk + 8], V [16][512 + 8], then 16 k scales, 16
-// v scales and 16 positions. A raw int8 stage: K [16][Dk], V [16][512]
+// read. A bf16 tile: K [16][Dk + 8], V [16][Dv + 8], then 16 k scales, 16
+// v scales and 16 positions. A raw int8 stage: K [16][Dk], V [16][Dv]
 // contiguous, then the same three rows. After the walk the Q tile holds the
 // last block's merge: the splits' weights [kMaxSplits][rows], M and L.
-template <int DK, int NW, bool BF16>
+template <int DK, int DV, int NW, bool BF16>
 struct MlaSmem {
   static constexpr int QS = DK + 8;
-  static constexpr int VS = kMlaDv + 8;
+  static constexpr int VS = DV + 8;
   static constexpr int kRows = 16 * NW;
   static constexpr int kThreads = 64 * NW;
   static constexpr int NS = 3;
@@ -67,7 +69,7 @@ struct MlaSmem {
   static constexpr int st_side = st_v + kMlaKv * VS * 2;
   static constexpr int kTileB = st_side + 3 * kMlaKv * 4;
   static constexpr int rw_v = kMlaKv * DK;
-  static constexpr int rw_side = rw_v + kMlaKv * kMlaDv;
+  static constexpr int rw_side = rw_v + kMlaKv * DV;
   static constexpr int kRawB = rw_side + 3 * kMlaKv * 4;
   static constexpr int kStage = BF16 ? kTileB : kRawB;
   static constexpr int q = 0;
@@ -81,10 +83,12 @@ struct MlaSmem {
   static_assert(QS * 2 % 16 == 0 && VS * 2 % 16 == 0 && kStage % 16 == 0, "16-byte rows");
 };
 
-template <int DK, int NW, bool BF16, bool PAGED>
-__global__ void __launch_bounds__(MlaSmem<DK, NW, BF16>::kThreads, 1)
+template <int DK, int DV, int NW, bool BF16, bool PAGED>
+__global__ void __launch_bounds__(MlaSmem<DK, DV, NW, BF16>::kThreads, 1)
 fa_mla(const __grid_constant__ Params p) {
-  using L = MlaSmem<DK, NW, BF16>;
+  using L = MlaSmem<DK, DV, NW, BF16>;
+  constexpr int kMlaDv = DV;        // V head dim (the latent c_kv)
+  constexpr int kMlaHalf = DV / 2;  // V columns a warp owns
   constexpr int QS = L::QS;
   constexpr int VS = L::VS;
   constexpr int NS = L::NS;
@@ -102,7 +106,7 @@ fa_mla(const __grid_constant__ Params p) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int rw = warp % NW;  // query rows 16 rw .. 16 rw + 15 of the block
-  const int dh = warp / NW;  // V columns 256 dh .. 256 dh + 255
+  const int dh = warp / NW;  // V columns Dv/2 dh .. Dv/2 (dh + 1) - 1
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int split = blockIdx.x;
@@ -214,7 +218,7 @@ fa_mla(const __grid_constant__ Params p) {
   }
   float m[2] = {-INFINITY, -INFINITY};  // running max (log2 domain)
   float l[2] = {0.f, 0.f};              // this thread's share of the row sums
-  float acc[NO][4];                     // O: columns 256 dh + 8 j + 2 t4 (+1)
+  float acc[NO][4];                     // O: columns Dv/2 dh + 8 j + 2 t4 (+1)
 #pragma unroll
   for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   const uint32_t q_base = smem_u32(smem + L::q) + rw * 16 * QS * 2;
@@ -293,7 +297,7 @@ fa_mla(const __grid_constant__ Params p) {
       pa[2 * nt] = pack_bf16(pv[0], pv[1]);
       pa[2 * nt + 1] = pack_bf16(pv[2], pv[3]);
     }
-    // O [16 x 256] += P [16 x 16] V [16 x 256], V by ldmatrix.trans
+    // O [16 x Dv/2] += P [16 x 16] V [16 x Dv/2], V by ldmatrix.trans
 #pragma unroll
     for (int jj = 0; jj < NO / 2; ++jj) {
       uint32_t vb[4];
@@ -417,11 +421,11 @@ fa_mla(const __grid_constant__ Params p) {
   if (tid == 0) p.counters[cidx] = 0;  // ready for the next launch
 }
 
-template <int DK, int NW, bool BF16, bool PAGED>
+template <int DK, int DV, int NW, bool BF16, bool PAGED>
 cudaError_t run_mla(const Params& p, cudaStream_t st) {
-  using L = MlaSmem<DK, NW, BF16>;
+  using L = MlaSmem<DK, DV, NW, BF16>;
   static unsigned long long ready = 0;
-  auto* kern = fa_mla<DK, NW, BF16, PAGED>;
+  auto* kern = fa_mla<DK, DV, NW, BF16, PAGED>;
   cudaError_t err = allow_smem(kern, L::bytes, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.splits, (p.R + L::kRows - 1) / L::kRows, p.B * p.Hkv);
@@ -429,25 +433,32 @@ cudaError_t run_mla(const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int DK, bool PAGED>
+template <int DK, int DV, bool PAGED>
 cudaError_t run_mla_dk(const Params& p, bool wide, int bf16_kv, cudaStream_t st) {
   if (wide) {
-    return bf16_kv ? run_mla<DK, 4, true, PAGED>(p, st) : run_mla<DK, 4, false, PAGED>(p, st);
+    return bf16_kv ? run_mla<DK, DV, 4, true, PAGED>(p, st)
+                   : run_mla<DK, DV, 4, false, PAGED>(p, st);
   }
-  return bf16_kv ? run_mla<DK, 1, true, PAGED>(p, st) : run_mla<DK, 1, false, PAGED>(p, st);
+  return bf16_kv ? run_mla<DK, DV, 1, true, PAGED>(p, st)
+                 : run_mla<DK, DV, 1, false, PAGED>(p, st);
 }
 
-// Launch the MLA kernel at (Dk, Dv) = (576 | 640, 512) with one KV head:
+// the (Dk, Dv) pairs of the instantiation
+inline bool mla_pair(int Dk, int Dv) {
+  return (Dv == 512 && (Dk == 576 || Dk == 640)) || (Dv == 256 && Dk == 384);
+}
+
+// Launch the MLA kernel at (Dk, Dv) = (576 | 640, 512) or (384, 256) with one KV head:
 // prefill != 0 takes the prefill route (64-row blocks, one split); else the
 // decode route over `splits` (1-64) blocks a row tile, 16-row blocks up to 16
 // rows and 64-row blocks above, with the merge scratch of fa_slots_launch
-// (part_acc [splits, B, Hkv, R, 512], part_ml [2, splits, B, Hkv, R],
+// (part_acc [splits, B, Hkv, R, Dv], part_ml [2, splits, B, Hkv, R],
 // counters [B * Hkv * row tiles]) when splits > 1. No window, softcap or
 // sinks. Returns cudaGetLastError().
 template <bool PAGED>
 int launch_mla(const Params& p, int Dk, int Dv, int prefill, int bf16_kv, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.B <= 0 || p.R <= 0 || p.Hkv != 1 || Dv != kMlaDv || (Dk != 576 && Dk != 640) ||
+  if (p.B <= 0 || p.R <= 0 || p.Hkv != 1 || !mla_pair(Dk, Dv) ||
       p.lay.S % kTile != 0 || (bf16_kv == 0) != (p.ks != nullptr && p.vs != nullptr) ||
       p.window != 0 || p.softcap != 0.f || p.sinks != nullptr || p.splits <= 0 ||
       p.splits > kMaxSplits || (prefill && p.splits != 1) ||
@@ -455,20 +466,30 @@ int launch_mla(const Params& p, int Dk, int Dv, int prefill, int bf16_kv, void* 
     return (int)cudaErrorInvalidValue;
   }
   const bool wide = prefill || p.R > 16;
-  const cudaError_t err = Dk == 576 ? run_mla_dk<576, PAGED>(p, wide, bf16_kv, st)
-                                    : run_mla_dk<640, PAGED>(p, wide, bf16_kv, st);
+  cudaError_t err;
+  if (Dk == 384) {
+    err = run_mla_dk<384, 256, PAGED>(p, wide, bf16_kv, st);
+  } else if (Dk == 576) {
+    err = run_mla_dk<576, 512, PAGED>(p, wide, bf16_kv, st);
+  } else {
+    err = run_mla_dk<640, 512, PAGED>(p, wide, bf16_kv, st);
+  }
   return (int)err;
 }
 
-// dynamic shared memory of an MLA block (wide: 64 rows, else 16)
-inline int mla_smem_bytes(int Dk, int wide, int bf16_kv) {
-#define FA_MLA_SMEM(DD)                                                                  \
-  if (Dk == DD) {                                                                        \
-    if (wide) return bf16_kv ? MlaSmem<DD, 4, true>::bytes : MlaSmem<DD, 4, false>::bytes; \
-    return bf16_kv ? MlaSmem<DD, 1, true>::bytes : MlaSmem<DD, 1, false>::bytes;         \
+// dynamic shared memory of an MLA block (wide: 64 rows, else 16); -1 for a
+// pair the kernel does not take
+inline int mla_smem_bytes(int Dk, int Dv, int wide, int bf16_kv) {
+#define FA_MLA_SMEM(DD, VV)                                                       \
+  if (Dk == DD && Dv == VV) {                                                     \
+    if (wide) {                                                                   \
+      return bf16_kv ? MlaSmem<DD, VV, 4, true>::bytes : MlaSmem<DD, VV, 4, false>::bytes; \
+    }                                                                             \
+    return bf16_kv ? MlaSmem<DD, VV, 1, true>::bytes : MlaSmem<DD, VV, 1, false>::bytes;   \
   }
-  FA_MLA_SMEM(576)
-  FA_MLA_SMEM(640)
+  FA_MLA_SMEM(384, 256)
+  FA_MLA_SMEM(576, 512)
+  FA_MLA_SMEM(640, 512)
 #undef FA_MLA_SMEM
   return -1;
 }

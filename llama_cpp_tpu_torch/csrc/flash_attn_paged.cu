@@ -11,8 +11,9 @@
 // about 2 * D + 8 bytes per KV row and head, bf16: 4 * D); the prefill
 // ubatch (R = 4 * 512 rows per head) by its bf16 tensor-core operations.
 
-// The MLA instantiation over the pool (DeepSeek-V2/V3: one KV head, K rows
-// of 576 or 640, V rows of 512) is flash_attn_mla.cuh with the same layout.
+// The MLA instantiation over the pool (one KV head; K rows of 576 or 640
+// and V rows of 512: DeepSeek-V2/V3, PLM; K rows of 384 and V rows of 256:
+// MiniCPM3) is flash_attn_mla.cuh with the same layout.
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_mla.cuh"
@@ -42,8 +43,9 @@ extern "C" int fa_paged_launch(const void* q, const void* k, const void* v, cons
 }
 
 // The MLA instantiation (flash_attn_mla.cuh) over the pool: q [B, 1, R,
-// Dk] bf16, Dk = 576 or 640; k [1, S_pool, Dk] and v [1, S_pool, 512], int8
-// with row scales or bf16; out [B, 1, R, 512] f32; the other arguments as
+// Dk] bf16, (Dk, Dv) = (576 | 640, 512) or (384, 256); k [1, S_pool, Dk]
+// and v [1, S_pool, Dv], int8 with row scales or bf16; out [B, 1, R, Dv]
+// f32; the other arguments as
 // fa_paged_launch, without window, softcap or sinks.
 extern "C" int fa_paged_mla_launch(const void* q, const void* k, const void* v, const void* ks,
                                    const void* vs, const void* pos, const void* row_pos,
@@ -63,11 +65,11 @@ extern "C" int fa_paged_mla_launch(const void* q, const void* k, const void* v, 
   return fa::launch_mla<true>(p, Dk, Dv, prefill, bf16_kv, stream);
 }
 
-// Dynamic shared memory of one MLA block at K head dim Dk (wide: the 64-row
-// block, else the 16-row one) over an int8 or bf16 memory; -1 for a Dk the
+// Dynamic shared memory of one MLA block at (Dk, Dv) (wide: the 64-row
+// block, else the 16-row one) over an int8 or bf16 memory; -1 for a pair the
 // kernel does not take.
-extern "C" int fa_mla_smem_bytes(int Dk, int wide, int bf16_kv) {
-  return fa::mla_smem_bytes(Dk, wide, bf16_kv);
+extern "C" int fa_mla_smem_bytes(int Dk, int Dv, int wide, int bf16_kv) {
+  return fa::mla_smem_bytes(Dk, Dv, wide, bf16_kv);
 }
 
 // Dynamic shared memory of one block of the prefill (prefill != 0) or

@@ -8,8 +8,9 @@ QuantTensor's fields (q, scales, mins, d, dmin as numpy arrays; group,
 ggml_type, transposed, packed, out_dim, sgroup); stacked expert weights are
 such objects with 3-D planes, the router a dense array; every key of a
 layer (biases, q/k norms, post-norms, the recurrent mixers' ssm_*,
-shortconv_* and attn_gate included) comes across as it is; an encoder's
-token_types, T5's enc_layers (attn_rel_b among their keys) and
+shortconv_* and attn_gate, RWKV's time_mix_* and channel_mix_*, bitnet's
+sub-norms and talkie's layer_out_scale included) comes across as it is; an
+encoder's token_types, T5's enc_layers (attn_rel_b among their keys) and
 nomic-bert-moe's expert stacks too.
 kv_cache_from_jax does the same for a slot-table KVCache, iswa_from_jax
 for an ISWACache on slot tables and recurrent_from_jax for a

@@ -138,6 +138,23 @@ LAYER_TENSORS = {
     "attn_norm_2.bias": "attn_norm_2_bias",
     "attn_q_norm.bias": "attn_q_norm_bias",
     "attn_k_norm.bias": "attn_k_norm_bias",
+    # bitnet's sub-norms before attn_output and ffn_down; talkie's per-layer
+    # scale of its embedding skip
+    "attn_sub_norm.weight": "attn_sub_norm",
+    "ffn_sub_norm.weight": "ffn_sub_norm",
+    "layer_output_scale.weight": "layer_out_scale",
+    # RWKV-6 and RWKV-7 (reference src/llama-arch.cpp LLM_TENSOR_TIME_MIX_*,
+    # LLM_TENSOR_CHANNEL_MIX_*), with the qrwkv hybrids' biases
+    **{f"time_mix_{n}.weight": f"time_mix_{n}" for n in (
+        "w1", "w2", "lerp_x", "lerp_w", "lerp_k", "lerp_v", "lerp_r", "lerp_g", "lerp_fused",
+        "first", "decay", "decay_w1", "decay_w2", "key", "value", "receptance", "gate", "ln",
+        "output", "w0", "a0", "a1", "a2", "v0", "v1", "v2", "g1", "g2", "k_k", "k_a", "r_k")},
+    "time_mix_key.bias": "time_mix_key_bias",
+    "time_mix_value.bias": "time_mix_value_bias",
+    "time_mix_receptance.bias": "time_mix_receptance_bias",
+    "time_mix_ln.bias": "time_mix_ln_bias",
+    **{f"channel_mix_{n}.weight": f"channel_mix_{n}" for n in (
+        "lerp_k", "lerp_r", "key", "value", "receptance")},
 }
 
 # T5's encoder blocks, enc.blk.N.* (reference llama-arch.cpp LLM_TENSOR_ENC_*)
@@ -188,7 +205,14 @@ _DENSE_KEYS = {"attn_norm", "attn_norm_bias", "attn_q_norm", "attn_k_norm", "att
                "ssm_dt_norm", "ssm_b_norm", "ssm_c_norm", "ssm_norm",
                "attn_output_norm", "attn_output_norm_bias", "layer_output_norm",
                "layer_output_norm_bias", "attn_norm_2", "attn_norm_2_bias", "token_types",
-               "cls_bias", "cls_out_bias", "attn_rel_b"}
+               "cls_bias", "cls_out_bias", "attn_rel_b", "attn_sub_norm", "ffn_sub_norm",
+               "layer_out_scale",
+               # RWKV's mixing vectors, bonus, decay and group norm, and RWKV-6's
+               # [5, E, r] decay LoRA, read by einsum (the JAX package's list)
+               "time_mix_lerp_x", "time_mix_lerp_w", "time_mix_lerp_k", "time_mix_lerp_v",
+               "time_mix_lerp_r", "time_mix_lerp_g", "time_mix_lerp_fused", "time_mix_first",
+               "time_mix_decay", "time_mix_ln", "time_mix_ln_bias", "time_mix_w2",
+               "channel_mix_lerp_k", "channel_mix_lerp_r"}
 # gather tables: row-major, not transposed planes
 _ROW_TABLES = ("token_embd", "pos_embd")
 
@@ -219,9 +243,10 @@ class Model:
 
     @property
     def forward_fn(self):
-        """The family's graph (the JAX package's loader.py:338-352): the BERT
+        """The family's graph (the JAX package's loader.py:338-378): the BERT
         family's encoder, T5's encoder alone (no return_hidden, as in the
-        JAX package), the pure-recurrent forward, or the shared decoder."""
+        JAX package), RWKV's forward, the pure-recurrent forward, or the
+        shared decoder. RWKV is asked first: its memory is recurrent too."""
         if self.cfg.extra.get("encoder"):
             from . import bert
 
@@ -232,6 +257,10 @@ class Model:
             def enc_only(params, cfg, tokens, inputs, kv, output_rows=None, kernels=True):
                 return t5.t5_encode(params, cfg, tokens, kernels=kernels)
             return enc_only
+        if self.cfg.extra.get("rwkv"):
+            from . import rwkv
+
+            return rwkv.forward
         if self.cfg.extra.get("memory") == "recurrent":
             from . import mamba
 
@@ -339,7 +368,9 @@ def required_layer_tensors(cfg: ModelConfig) -> tuple[str, ...]:
     loader.py:524-548): none for T5's encoder; a pre-norm encoder's FFN norm
     and up projection, a post-norm encoder's attention output norm and up
     projection; a recurrent stack's SSM projections; a hybrid's attn_norm
-    alone (its mixer or FFN is checked a layer); a weightless norm carries
+    alone (its mixer or FFN is checked a layer); RWKV's time mix and its
+    channel mix or, on the qwen2-FFN hybrids, ffn_up; per-layer head arrays
+    (deci) allow partial blocks, so none; a weightless norm carries
     no norm tensors, a shared parallel norm (phi2, command-r) is attn_norm
     alone, norm-after blocks carry post-norms instead of pre-norms."""
     if cfg.extra.get("t5_encoder_only"):
@@ -348,10 +379,16 @@ def required_layer_tensors(cfg: ModelConfig) -> tuple[str, ...]:
         return ("ffn_norm", "ffn_up")
     if cfg.extra.get("encoder"):
         return ("attn_output_norm", "ffn_up")
+    if cfg.extra.get("rwkv_hybrid"):
+        return ("attn_norm", "time_mix_key", "ffn_up")
+    if cfg.extra.get("rwkv"):
+        return ("attn_norm", "time_mix_key", "channel_mix_key")
     if cfg.extra.get("memory") == "recurrent":
         return ("attn_norm", "ssm_in", "ssm_out")
     if cfg.extra.get("memory") == "hybrid":
         return ("attn_norm",)
+    if cfg.extra.get("n_head_arr") is not None:
+        return ()
     if cfg.extra.get("weightless_norm"):
         norms: tuple[str, ...] = ()
     elif cfg.shared_parallel_norm:

@@ -7,15 +7,18 @@ the config read from the metadata and the metadata itself, and sets that
 family's flags; the recurrent and hybrid entries (mamba, mamba2, jamba,
 qwen3next, qwen35, qwen35moe, lfm2, lfm2moe, nemotron_h, nemotron_h_moe,
 falcon-h1, granitehybrid, plamo2, kimi-linear) also name their memory and
-its geometry; the encoders (bert, modern-bert, nomic-bert, nomic-bert-moe,
-neo-bert, eurobert, jina-bert-v2, jina-bert-v3: models/bert.py; t5encoder:
-models/t5.py) set the extras their forward reads, and gemma-embedding and
-llama-embed run the shared decoder for Context.embed. Any other
-architecture raises NotImplementedError, among them deepseek32 (DeepSeek's
-sparse attention needs the DSA memory), deepseek2-ocr (it comes with the
-multimodal path), afmoe and laguna (their softplus attention gates),
-minimax-m3 (its block-sparse attention), the RWKV entries (their own
-forward) and t5 (the encoder-decoder's cross-attention flow).
+its geometry, and the RWKV entries (rwkv6, rwkv7, rwkv6qwen2, arwkv7: their
+own forward, models/rwkv.py) the RecurrentState's; the encoders (bert,
+modern-bert, nomic-bert, nomic-bert-moe, neo-bert, eurobert, jina-bert-v2,
+jina-bert-v3: models/bert.py; t5encoder: models/t5.py) set the extras their
+forward reads, and gemma-embedding and llama-embed run the shared decoder
+for Context.embed. The MLA entries (deepseek2, mistral4, plm, minicpm3)
+cache the absorbed latent. Any other architecture raises
+NotImplementedError, among them deepseek32 (DeepSeek's sparse attention
+needs the DSA memory), deepseek2-ocr (it comes with the multimodal path),
+afmoe and laguna (their softplus attention gates), minimax-m3 (its
+block-sparse attention), t5 (the encoder-decoder's cross-attention flow),
+openelm and nanbeige (not taken yet).
 """
 
 from __future__ import annotations
@@ -1046,3 +1049,216 @@ def _jina_bert_v2(cfg: ModelConfig, md) -> ModelConfig:
     cfg.extra["encoder"] = True
     return cfg.with_(rope_type=ROPE_TYPE_NONE, use_rms_norm=False, act="gelu", glu=False,
                      alibi_bias=8.0)
+
+
+# -- RWKV: its own forward (models/rwkv.py) over the RecurrentState ------------
+# The token-shift rows live in the conv window (2 rows of n_embd: slot 0 the
+# time mix's, slot 1 the channel mix's) and the wkv state in the ssm plane
+# [head_size, n_embd], a layer and a sequence.
+
+
+def _rwkv_extras(cfg: ModelConfig, md, hybrid: bool = False) -> None:
+    hs = int(md.get(f"{cfg.arch}.wkv.head_size", 64))
+    cfg.extra.update(memory="recurrent", rwkv=True, wkv_head_size=hs,
+                     ssm_d_conv=3, ssm_d_inner=cfg.n_embd, ssm_d_state=hs)
+    if hybrid:
+        cfg.extra["rwkv_hybrid"] = True
+
+
+@register("rwkv6")  # 615
+def _rwkv6(cfg: ModelConfig, md) -> ModelConfig:
+    """RWKV-6 (reference src/models/rwkv6.cpp): LayerNorms, time mix with
+    the u bonus and the group-norm tail, channel mix with its receptance
+    gate, the residual halved every rescale_every layers."""
+    _rwkv_extras(cfg, md)
+    cfg.extra["rescale_every"] = int(md.get(f"{cfg.arch}.rescale_every_n_layers", 0))
+    return cfg.with_(use_rms_norm=False)
+
+
+@register("rwkv7")  # 634
+def _rwkv7(cfg: ModelConfig, md) -> ModelConfig:
+    """RWKV-7 Goose (reference src/models/rwkv7.cpp): the rank-1-update wkv
+    state, the value residual from layer 0, LoRA-projected decay, in-context
+    learning rate and gate; channel mix without the receptance gate."""
+    _rwkv_extras(cfg, md)
+    return cfg.with_(use_rms_norm=False)
+
+
+@register("rwkv6qwen2")  # 1773
+def _rwkv6qwen2(cfg: ModelConfig, md) -> ModelConfig:
+    """RWKV6-Qwen2 / QRWKV (reference src/models/rwkv6qwen2.cpp): the RWKV-6
+    time mix without the u bonus (gated linear attention, sigmoid gate,
+    GQA-repeated k/v, k * (1 - w)), Qwen2's SiLU-GLU FFN and RMS norms, one
+    token-shift stream."""
+    _rwkv_extras(cfg, md, hybrid=True)
+    return cfg
+
+
+@register("arwkv7")  # 1789
+def _arwkv7(cfg: ModelConfig, md) -> ModelConfig:
+    """ARWKV-7 (reference src/models/arwkv7.cpp): the RWKV-7 time mix without
+    the group-norm tail, Qwen2's SiLU-GLU FFN and RMS norms, one token-shift
+    stream."""
+    _rwkv_extras(cfg, md, hybrid=True)
+    return cfg
+
+
+# -- MLA at MHA width ----------------------------------------------------------
+
+
+@register("minicpm3")  # 1179
+def _minicpm3(cfg: ModelConfig, md) -> ModelConfig:
+    """MiniCPM3 (reference src/models/minicpm3.cpp): DeepSeek-2's MLA (q-LoRA
+    and the kv latent) at MHA width with MiniCPM's muP scales: embedding 12,
+    residual 1.4 / sqrt(L), logits dim_model_base / n_embd; a tied head.
+    Its absorbed cache row is (256 + 32 -> 384, 256): K5/K6's second MLA
+    pair."""
+    a = cfg.arch
+    cfg.extra.update(
+        kv_lora_rank=int(md.get(f"{a}.attention.kv_lora_rank", 256)),
+        q_lora_rank=int(md.get(f"{a}.attention.q_lora_rank", 0) or 0))
+    dim_base = float(md.get(f"{a}.embedding_scale_base",
+                            md.get(f"{a}.dim_model_base", 256.0)) or 256.0)
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, n_kv_heads=cfg.n_heads, embd_scale=12.0,
+                  residual_scale=1.4 / (cfg.n_layers ** 0.5),
+                  logit_scale=dim_base / max(cfg.n_embd, 1), tie_embeddings=True)
+    _mla_absorb_extras(c)
+    return c
+
+
+@register("plm")  # 1817
+def _plm(cfg: ModelConfig, md) -> ModelConfig:
+    """PLM (reference src/models/plm.cpp): DeepSeek-2's MLA without q-LoRA,
+    a non-gated ReLU^2 FFN, a tied head."""
+    cfg.extra.update(kv_lora_rank=int(md.get("plm.attention.kv_lora_rank", 512)),
+                     q_lora_rank=0)
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, n_kv_heads=cfg.n_heads, act="relu2", glu=False,
+                  tie_embeddings=True)
+    _mla_absorb_extras(c)
+    return c
+
+
+@register("mistral4")  # 1801
+def _mistral4(cfg: ModelConfig, md) -> ModelConfig:
+    """Mistral-4: an alias of deepseek2 (reference models.h:1316), its keys
+    under its own prefix."""
+    md2 = {k.replace("mistral4.", "deepseek2."): v for k, v in md.items()}
+    return _deepseek2(cfg.with_(arch="deepseek2"), md2).with_(arch=cfg.arch)
+
+
+# -- the shared decoder's last text families -----------------------------------
+
+
+def _as_arr(v) -> tuple[int, ...] | None:
+    """A per-layer int array of the metadata as a tuple; None for a scalar
+    (uniform across layers)."""
+    if v is None:
+        return None
+    if hasattr(v, "tolist"):
+        v = v.tolist()
+    if not isinstance(v, (list, tuple)):
+        return None
+    return tuple(int(x) for x in v)
+
+
+@register("hy_v3")  # 1979
+def _hy_v3(cfg: ModelConfig, md) -> ModelConfig:
+    """Hunyuan V3 (reference src/models/hy-v3.cpp): per-head qk norms, NEOX
+    rope, a sigmoid router with a selection bias, leading dense layers and
+    an always-on shared expert, a tied head."""
+    a = cfg.arch
+    gating = {1: "softmax", 2: "sigmoid"}.get(
+        int(md.get(f"{a}.expert_gating_func", 2) or 2), "sigmoid")
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, tie_embeddings=True,
+                     expert_gating=gating,
+                     expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", False)),
+                     expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+                     n_expert_shared=int(md.get(f"{a}.expert_shared_count", 1) or 1))
+
+
+@register("apertus")  # 793
+def _apertus(cfg: ModelConfig, md) -> ModelConfig:
+    """Apertus (reference src/models/apertus.cpp): per-head qk norms and the
+    non-gated xIELU FFN with learned scalars a layer."""
+    a = cfg.arch
+    n = cfg.n_layers
+
+    def arr(key, default):
+        v = md.get(f"{a}.{key}", default)
+        if hasattr(v, "tolist"):
+            v = v.tolist()
+        if not isinstance(v, (list, tuple)):
+            v = [float(v)] * n
+        return tuple(float(x) for x in v)
+
+    cfg.extra["xielu"] = {"alpha_n": arr("xielu_alpha_n", 0.8),
+                          "alpha_p": arr("xielu_alpha_p", 0.8),
+                          "beta": arr("xielu_beta", 0.5), "eps": arr("xielu_eps", -1e-6)}
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, act="xielu", glu=False)
+
+
+@register("bitnet")  # 1171
+def _bitnet(cfg: ModelConfig, md) -> ModelConfig:
+    """BitNet b1.58 (reference src/models/bitnet.cpp): per-tensor scalar
+    scales (folded at load), sub-norms before attn_output and ffn_down."""
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX)
+
+
+@register("talkie")  # 1630
+def _talkie(cfg: ModelConfig, md) -> ModelConfig:
+    """Talkie (reference src/models/talkie.cpp): weightless RMS norms, q/k
+    norms after rope, the normed embedding added after every layer times
+    its layer_output_scale, a logit scale."""
+    cfg.extra.update(weightless_norm=True, embd_skip=True, qk_norm_after_rope=True)
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True,
+                     logit_scale=float(md.get(f"{cfg.arch}.logit_scale", 1.0)))
+
+
+@register("chameleon")  # 816
+def _chameleon(cfg: ModelConfig, md) -> ModelConfig:
+    """Chameleon (reference src/models/chameleon.cpp): per-head q/k LayerNorms
+    with biases; with swin_norm the norm-after ordering."""
+    cfg.extra["qk_layernorm"] = True
+    c = cfg.with_(rope_type=ROPE_TYPE_NORM, qk_norm=True)
+    if bool(md.get("chameleon.swin_norm", False)):
+        c = c.with_(norm_after=True)
+    return c
+
+
+@register("jais2")  # 1715
+def _jais2(cfg: ModelConfig, md) -> ModelConfig:
+    """Jais-2 (reference src/models/jais2.cpp): LayerNorm blocks, biased
+    q/k/v, NEOX rope, a non-gated ReLU^2 FFN with biases, a tied head."""
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, use_rms_norm=False, act="relu2", glu=False,
+                     tie_embeddings=True)
+
+
+@register("maincoder")  # 1239
+def _maincoder(cfg: ModelConfig, md) -> ModelConfig:
+    """MainCoder (reference src/models/maincoder.cpp): the llama graph."""
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("pangu-embedded")  # 1270
+def _pangu_embedded(cfg: ModelConfig, md) -> ModelConfig:
+    """Pangu Embedded (reference src/models/pangu-embed.cpp): the llama graph
+    with NEOX rope and optional biases."""
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX)
+
+
+@register("deci")  # 1740
+def _deci(cfg: ModelConfig, md) -> ModelConfig:
+    """DeciLM / Llama-3.1-Nemotron NAS (reference src/models/deci.cpp): the
+    llama graph with per-layer head arrays. A layer attends, or is "linear
+    attention" (heads > 0, KV heads 0: out = wo . norm(x)), attention-free
+    (FFN only, on ffn_norm) or a dummy (identity). The KV memory holds the
+    largest KV-head count; each layer pads its writes and slices its
+    reads."""
+    a = cfg.arch
+    heads = _as_arr(md.get(f"{a}.attention.head_count"))
+    kvh = _as_arr(md.get(f"{a}.attention.head_count_kv"))
+    if heads is not None:
+        cfg.extra["n_head_arr"] = heads
+    if kvh is not None:
+        cfg.extra["n_head_kv_arr"] = kvh
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, tie_embeddings=True)

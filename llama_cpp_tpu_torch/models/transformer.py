@@ -29,7 +29,7 @@ from typing import Any, NamedTuple
 import torch
 
 # silu stays importable from this module, where the llama graph kept it
-from ..ops.basic import ACTIVATIONS, layer_norm, rms_norm, silu  # noqa: F401
+from ..ops.basic import ACTIVATIONS, layer_norm, rms_norm, silu, xielu  # noqa: F401
 from ..ops.kernels import flash_attn as fa_kernel
 from ..ops.kernels import qmm_expert as expert_kernel
 from ..ops.qtensor import QuantTensor, Weight, dot_f32, embed_lookup, matmul
@@ -98,6 +98,15 @@ def _rope_params(cfg: ModelConfig, il: int) -> RopeParams:
     )
 
 
+def layer_heads(cfg: ModelConfig, il: int) -> tuple[int, int]:
+    """Layer il's (query heads, KV heads): the per-layer head arrays where
+    the family has them (deci), else the config's. The KV memory holds
+    cfg.n_kv_heads, the arrays' largest."""
+    ha, hka = cfg.extra.get("n_head_arr"), cfg.extra.get("n_head_kv_arr")
+    return (cfg.n_heads if ha is None else int(ha[il]),
+            cfg.n_kv_heads if hka is None else int(hka[il]))
+
+
 def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
                     inputs: AttnInputs, kv: Memory, il: int,
                     kernels: bool = True, update_pos: bool | None = None) -> torch.Tensor:
@@ -110,7 +119,7 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     (q_gate_interleaved), qwen3next's gate is its own projection attn_gate;
     either gate's sigmoid scales the attention output before attn_output."""
     B, T = x.shape[:2]
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    H, Hkv = layer_heads(cfg, il)
     Dk, Dv = cfg.head_dim_k, cfg.head_dim_v
 
     if "attn_qkv" in lw:
@@ -145,7 +154,10 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     k = k.reshape(B, T, Hkv, Dk)
     v = v.reshape(B, T, Hkv, Dv)
     after_rope = cfg.extra.get("qk_norm_after_rope", False)
-    if cfg.qk_norm and not full_norm and not after_rope:  # per head, before rope
+    if cfg.qk_norm and cfg.extra.get("qk_layernorm"):  # chameleon: LayerNorm with bias
+        q = layer_norm(q, lw.get("attn_q_norm"), lw.get("attn_q_norm_bias"), cfg.norm_eps)
+        k = layer_norm(k, lw.get("attn_k_norm"), lw.get("attn_k_norm_bias"), cfg.norm_eps)
+    elif cfg.qk_norm and not full_norm and not after_rope:  # per head, before rope
         q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
         k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
     roped = cfg.rope_type != ROPE_TYPE_NONE and il not in cfg.extra.get("no_rope_layers", ())
@@ -169,14 +181,20 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     # the ISWA memory's sub-caches each write their position labels on
     # their own first layer
     seq_flat = inputs.seq_idx.repeat_interleave(T)
-    kv.write_layer(il, seq_flat, inputs.positions.reshape(-1),
-                   k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv), update_pos=update_pos)
+    k_wr, v_wr = k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv)
+    if Hkv != cfg.n_kv_heads:  # a layer of a head array: padded to the memory's heads
+        pad = (0, 0, 0, cfg.n_kv_heads - Hkv)
+        k_wr, v_wr = torch.nn.functional.pad(k_wr, pad), torch.nn.functional.pad(v_wr, pad)
+    kv.write_layer(il, seq_flat, inputs.positions.reshape(-1), k_wr, v_wr,
+                   update_pos=update_pos)
     scale = cfg.attn_scale or (1.0 / float(Dk) ** 0.5)
     window = cfg.sliding_window if cfg.is_swa_layer(il) else 0
     # the einsum path's operands follow the block input's dtype, as in the
     # JAX package: a q that a bias made f32 is rounded to bf16 there
     out = _attend(cfg, q.to(x.dtype), kv, il, inputs, Hkv, Dv, scale, window,
                   lw.get("attn_sinks"), kernels).to(x.dtype)
+    if "attn_sub_norm" in lw:  # bitnet: the attention output normed before attn_output
+        out = rms_norm(out, lw["attn_sub_norm"], cfg.rms_eps)
     if gate_q is not None:
         out = out * torch.sigmoid(gate_q.float()).to(out.dtype)
     if "attn_gate" in lw:  # per element, or per head when it is n_heads wide
@@ -199,12 +217,15 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: Attn
     # the JAX package would run its kernel, the port's runs or raises
     paged = isinstance(kvc, PagedKVCache)
     n_slots = kvc.max_pages * kvc.page if paged else kvc.n_slots
+    # a layer of a head array (deci) with fewer KV heads than the memory's
+    # takes the einsum path over its own heads, as in the JAX package
+    cache_heads = kvc.k[li].shape[0 if paged else 1]
     # ALiBi and non-causal layers take the einsum path, as the JAX package
     # keeps them from its kernels (transformer.py:375-378): the kernels know
     # no slopes and mask causally
     non_causal = cfg.extra.get("non_causal", False)
     use_flash = (kernels and q.device.type == "cuda" and cfg.alibi_bias == 0.0
-                 and not non_causal
+                 and not non_causal and Hkv == cache_heads
                  and fa_kernel.dispatches(Dk, Dv, n_slots, T * (H // Hkv)))
     if use_flash:
         # the slot-table kernel takes the cache and seq_idx as they are: no
@@ -219,6 +240,8 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: Attn
     else:
         k_seq, v_seq = kvc.read(li, inputs.seq_idx)  # [B, Hkv, S, D]
         slot_pos = kvc.pos[inputs.seq_idx.long()]  # [B, S]
+    if Hkv != cache_heads:  # drop this layer's pad heads
+        k_seq, v_seq = k_seq[:, :Hkv], v_seq[:, :Hkv]
     pos = inputs.positions.long()
     slot_pos = slot_pos.long()
     mask = (slot_pos >= 0)[:, None, :]
@@ -326,11 +349,20 @@ def mla_attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor
 
 
 def ffn_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
-              kernels: bool = True) -> torch.Tensor:
+              kernels: bool = True, il: int = -1) -> torch.Tensor:
     """Gated FFN (SwiGLU, GeGLU): act(gate) * up in the activation dtype; or,
-    with cfg.glu off, act(up) (GELU, ReLU^2); each projection plus its bias
-    where the file has one (the JAX package's transformer.py:807-826)."""
-    act = ACTIVATIONS[cfg.act]
+    with cfg.glu off, act(up) (GELU, ReLU^2, apertus' xIELU with layer il's
+    scalars, in f32); each projection plus its bias where the file has one,
+    bitnet's ffn_sub_norm before ffn_down (the JAX package's
+    transformer.py:792-826)."""
+    if cfg.act == "xielu":
+        an, ap, beta, eps = (cfg.extra["xielu"][k][il] for k in ("alpha_n", "alpha_p", "beta",
+                                                                 "eps"))
+
+        def act(v):
+            return xielu(v.float(), an, ap, beta, eps).to(v.dtype)
+    else:
+        act = ACTIVATIONS[cfg.act]
     if "ffn_gateup" in lw:  # load-time fused gate|up projection
         gu = matmul(x, lw["ffn_gateup"], kernels=kernels)
         half = gu.shape[-1] // 2
@@ -342,6 +374,8 @@ def ffn_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
             h = act(gate) * up
         else:
             h = act(up)
+    if "ffn_sub_norm" in lw:
+        h = rms_norm(h, lw["ffn_sub_norm"], cfg.rms_eps)
     return _add_bias(matmul(h, lw["ffn_down"], kernels=kernels), lw, "ffn_down_bias")
 
 
@@ -618,7 +652,7 @@ def grovemoe_ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor,
 
 
 def _ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor, x_in: torch.Tensor,
-         kernels: bool) -> torch.Tensor:
+         kernels: bool, il: int = -1) -> torch.Tensor:
     """A layer's FFN half on its normed input h (x_in: the layer's input):
     the dense FFN, or the MoE branches of the JAX package's decoder loop
     (transformer.py:1390-1415): arctic's dense FFN plus experts on their own
@@ -626,7 +660,7 @@ def _ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor, x_in: torch.T
     residual (smallthinker), and a dense FFN summed with the experts (scaled
     by dense_moe_scale: grok) where the layer has both."""
     if cfg.n_expert <= 0 or "ffn_gate_exps" not in lw:
-        return ffn_block(cfg, lw, h, kernels=kernels)
+        return ffn_block(cfg, lw, h, kernels=kernels, il=il)
     if "ffn_norm_exps" in lw:
         moe_in = rms_norm(x_in, lw["ffn_norm_exps"], cfg.rms_eps)
         return ffn_block(cfg, lw, h, kernels=kernels).float() + moe_block(cfg, lw, moe_in,
@@ -648,27 +682,36 @@ def first_attention_layer(cfg: ModelConfig, layers: list[dict[str, Weight]]) -> 
     attends (an SSM mixer, Falcon-H1's, may attend beside it; KDA's
     attn_output is its mixer's own), 0 when none does. The JAX package
     takes the first layer that is no recurrent mixer (transformer.py
-    :1253-1254), which on Nemotron-H's pattern M-M-... is an FFN block, so
-    its attention layers never label their rows; the two agree wherever an
-    attention layer comes before any FFN block."""
+    :1253-1254), which on Nemotron-H's pattern M-M-... is an FFN block (and
+    on a deci stack that opens with a linear-attention or dummy layer, that
+    layer), so its attention layers never label their rows; the two agree
+    wherever an attention layer comes first."""
     attends = (None,) + mamba.SSM_MIXERS
+    projects = ("attn_q", "attn_qk", "attn_qkv", "attn_kv_a_mqa")  # not deci's linear layers
     return next((i for i, lw in enumerate(layers)
-                 if "attn_output" in lw and mamba.mixer_of(cfg, lw) in attends), 0)
+                 if "attn_output" in lw and any(k in lw for k in projects)
+                 and mamba.mixer_of(cfg, lw) in attends), 0)
 
 
 def _mixer_less_ffn(cfg: ModelConfig, lw: dict[str, Weight], h: torch.Tensor,
-                    kernels: bool) -> torch.Tensor:
-    """Nemotron-H's FFN block (reference nemotron-h.cpp build_ffn_layer):
-    the dense FFN on the block norm, or the experts with an ungated shared
-    expert (up -> act -> down) beside them (the JAX package's
-    transformer.py:1268-1290)."""
+                    kernels: bool, il: int = -1) -> torch.Tensor:
+    """Nemotron-H's FFN block (reference nemotron-h.cpp build_ffn_layer) and
+    deci's attention-free layer: the dense FFN on the block norm, or the
+    experts with an ungated shared expert (up -> act -> down) beside them
+    (the JAX package's transformer.py:1268-1290)."""
     if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
         ff = moe_block(cfg, lw, h, kernels=kernels)
         if "ffn_up_shexp" in lw and "ffn_gate_shexp" not in lw:
             hsh = ACTIVATIONS[cfg.act](matmul(h, lw["ffn_up_shexp"], kernels=kernels))
             ff = ff + matmul(hsh, lw["ffn_down_shexp"], kernels=kernels).to(ff.dtype)
         return ff.to(h.dtype)
-    return ffn_block(cfg, lw, h, kernels=kernels)
+    return ffn_block(cfg, lw, h, kernels=kernels, il=il)
+
+
+def _linear_attention(lw: dict[str, Weight]) -> bool:
+    """deci's "linear attention" layer (heads > 0, KV heads 0): attn_output
+    alone, no q/k/v and no KV."""
+    return "attn_output" in lw and not any(k in lw for k in ("attn_q", "attn_qk", "attn_qkv"))
 
 
 def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
@@ -684,7 +727,10 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     decoder loop, transformer.py:1252-1371): a recurrent mixer on the
     recurrent state (Falcon-H1's with attention beside it, the two summed),
     an attention block on the KV part, or Nemotron-H's mixer-less FFN block;
-    a mixer-only block has no FFN half."""
+    a mixer-only block has no FFN half. With per-layer head arrays (deci) a
+    layer may also be linear attention (attn_output of the normed input),
+    attention-free (its FFN on ffn_norm) or a dummy (identity). Talkie adds
+    its normed embedding, times layer_out_scale, after every layer."""
     cdtype = cfg.compute_dtype
     x = embed_lookup(params["token_embd"], tokens.long(), dtype=cdtype)  # [B, T, E]
     if cfg.embd_scale != 1.0:
@@ -695,6 +741,11 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     if "token_embd_norm" in params:  # bloom's embedding LayerNorm
         x = layer_norm(x, params["token_embd_norm"], params.get("token_embd_norm_bias"),
                        cfg.norm_eps)
+    embd_skip = None
+    if cfg.extra.get("embd_skip"):  # talkie: the weightless-normed embedding
+        x = rms_norm(x, None, cfg.rms_eps)
+        embd_skip = x
+    heads = cfg.extra.get("n_head_arr")
     cvec = params.get("cvec")  # [n_layers, n_embd] f32 residual directions
     post = cfg.post_norms or cfg.norm_after
     rscale = cfg.residual_scale
@@ -703,6 +754,9 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     first_attn = first_attention_layer(cfg, layers)
     for il, lw in enumerate(layers):
         x_in = x  # the layer input (arctic's MoE branch, smallthinker's router)
+        if (heads is not None and int(heads[il]) == 0
+                and not any(k in lw for k in ("ffn_up", "ffn_gateup", "ffn_gate_exps"))):
+            continue  # deci's dummy layer: neither attention nor FFN
         # norm-after blocks (olmo2): the mixer sees the raw residual stream
         # and its output is normalised before the add
         h = x if cfg.norm_after else norm(cfg, x, lw, "attn_norm")
@@ -710,7 +764,9 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
         # ISWA sub-caches label their positions on their own first layers
         up = None if isinstance(akv, ISWACache) else il == first_attn
         if mixer is None and "attn_output" not in lw:  # Nemotron-H's FFN block
-            ff = _mixer_less_ffn(cfg, lw, h, kernels)
+            if "attn_norm" not in lw and "ffn_norm" in lw:  # deci's attention-free layer
+                h = norm(cfg, x, lw, "ffn_norm")
+            ff = _mixer_less_ffn(cfg, lw, h, kernels, il)
             x = x + (ff * rscale if rscale != 1.0 else ff)
             if cvec is not None:
                 x = x + cvec[il].to(x.dtype)
@@ -725,6 +781,9 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
                 attn2 = attention_block(cfg, lw, h, inputs, akv, il, kernels=kernels,
                                         update_pos=up)
                 attn = attn + attn2.to(attn.dtype)
+        elif heads is not None and _linear_attention(lw):  # deci: out = wo . norm(x)
+            attn = _add_bias(matmul(h, lw["attn_output"], kernels=kernels), lw,
+                             "attn_output_bias").to(x.dtype)
         else:
             blk = mla_attention_block if "attn_kv_a_mqa" in lw else attention_block
             attn = blk(cfg, lw, h, inputs, akv, il, kernels=kernels, update_pos=up)
@@ -736,7 +795,7 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             if cfg.n_expert > 0 and "ffn_gate_exps" in lw:
                 ff = moe_block(cfg, lw, h2, kernels=kernels).to(x.dtype)  # cohere2moe
             else:
-                ff = ffn_block(cfg, lw, h2, kernels=kernels)
+                ff = ffn_block(cfg, lw, h2, kernels=kernels, il=il)
             x = x + attn + ff
         else:
             x = x + (attn * rscale if rscale != 1.0 else attn)
@@ -746,10 +805,12 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
                     x = x + cvec[il].to(x.dtype)
                 continue
             h = x if cfg.norm_after else norm(cfg, x, lw, "ffn_norm")
-            ff = _ffn(cfg, lw, h, x_in, kernels)
+            ff = _ffn(cfg, lw, h, x_in, kernels, il)
             if post and "ffn_post_norm" in lw:
                 ff = rms_norm(ff, lw["ffn_post_norm"], cfg.rms_eps)
             x = x + (ff * rscale if rscale != 1.0 else ff)
+        if embd_skip is not None and "layer_out_scale" in lw:
+            x = x + embd_skip * lw["layer_out_scale"].reshape(-1)[0].to(x.dtype)
         if cvec is not None:  # control vector (build_cvec analog)
             x = x + cvec[il].to(x.dtype)
     B, T, E = x.shape

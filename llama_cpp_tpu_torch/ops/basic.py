@@ -56,4 +56,15 @@ def relu2(x: torch.Tensor) -> torch.Tensor:
     return r * r
 
 
+def xielu(x: torch.Tensor, alpha_n: float, alpha_p: float, beta: float,
+          eps: float) -> torch.Tensor:
+    """Apertus' xIELU (reference ggml op_xielu, ggml-cpu/unary-ops.cpp:55;
+    the JAX package's transformer.py:785-789): alpha_p x^2 + beta x above 0,
+    (expm1(min(x, eps)) - x) alpha_n + beta x at or below, in x's dtype (the
+    caller passes f32)."""
+    pos = alpha_p * x * x + beta * x
+    neg = (torch.expm1(torch.clamp(x, max=eps)) - x) * alpha_n + beta * x
+    return torch.where(x > 0, pos, neg)
+
+
 ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": relu, "relu2": relu2}

@@ -33,8 +33,9 @@ counters per CUDA kernel: "flash_attention_paged/prefill",
 "flash_attention/prefill ring" and "flash_attention/decode ring". Head dims 32, 64, 128 and 256 (K and V alike):
 every head dim of this kind that the JAX package sends to its kernel.
 
-Multi-head Latent Attention (DeepSeek-V2/V3's absorbed cache: one KV head,
-K rows of 576 or 640, V rows of 512; MLA_DIMS) takes an instantiation of its
+Multi-head Latent Attention (an absorbed latent cache: one KV head, K rows
+of 576 or 640 and V rows of 512 for DeepSeek-V2/V3 and PLM, K rows of 384
+and V rows of 256 for MiniCPM3; MLA_DIMS) takes an instantiation of its
 own in each layout (csrc/flash_attn_mla.cuh), on the same route rule: from
 PREFILL_MIN_ROWS rows a 64-row block and one split, below it 16-row blocks
 (64-row above 16 rows) with the live tiles split over blocks and merged in
@@ -59,7 +60,8 @@ _DECODE_ROWS = 8  # query rows per decode block
 _MIN_BLOCKS = 132  # decode: one block per SM on 132 SMs before splitting KV
 _MAX_SPLITS = 64  # the decode kernel's bound on KV splits
 _LANES = 128  # the TPU lane width the JAX package's dispatch tests against
-MLA_DIMS = ((576, 512), (640, 512))  # (Dk, Dv) of the MLA instantiation, one KV head
+# (Dk, Dv) of the MLA instantiation, one KV head
+MLA_DIMS = ((576, 512), (640, 512), (384, 256))
 
 launches = {f"{name}/{mla}{route}": 0 for name in ("flash_attention_paged", "flash_attention")
             for mla in ("", "mla ") for route in ("prefill", "decode")}
@@ -192,11 +194,11 @@ def smem_bytes(head_dim: int, prefill: bool, bf16_kv: bool) -> int:
         int(head_dim), int(prefill), int(bf16_kv)))
 
 
-def mla_smem_bytes(head_dim_k: int, wide: bool, bf16_kv: bool) -> int:
-    """Dynamic shared memory of one MLA block, 64 rows (wide) or 16 (read
-    from the built library)."""
+def mla_smem_bytes(head_dim_k: int, wide: bool, bf16_kv: bool, head_dim_v: int = 512) -> int:
+    """Dynamic shared memory of one MLA block at (Dk, Dv), 64 rows (wide) or
+    16 (read from the built library); -1 for a pair not in MLA_DIMS."""
     return int(build.library("flash_attn_paged.cu").fa_mla_smem_bytes(
-        int(head_dim_k), int(wide), int(bf16_kv)))
+        int(head_dim_k), int(head_dim_v), int(wide), int(bf16_kv)))
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -20,7 +20,11 @@ patterns.
   tensors under the names memory_tensors gives, in its order, and the
   header's "layout" names that layout. The JAX package's whole-context
   files hold its memory pytree's leaves instead and are refused with a
-  ValueError, never loaded wrong.
+  ValueError, never loaded wrong; except for a RecurrentState (the Mamba
+  and RWKV stacks' memory), whose two leaves are this package's conv and
+  ssm tensors in the same order and shapes: its file is written in the
+  JAX package's layout ("leaf_0", "leaf_1", n_leaves 2), so whole-context
+  files of it move between the two packages both ways.
 
 Loads copy into the memory's existing tensors, so a context's captured
 decode loops go on reading the right storage; the page allocator is rebuilt
@@ -43,6 +47,7 @@ from .paged_kv import PagedKVCache
 STATE_MAGIC = "tpu-llm-state"
 STATE_VERSION = 3
 LAYOUT = "llama_cpp_tpu_torch/memory_tensors-1"
+LEAVES = "memory pytree leaves (the JAX package)"
 
 
 def _pack(t: torch.Tensor) -> np.ndarray:
@@ -116,11 +121,20 @@ def memory_tensors(kv) -> list[tuple[str, torch.Tensor]]:
     return out
 
 
+def _file_tensors(kv) -> tuple[list[tuple[str, torch.Tensor]], str]:
+    """A whole-context file's (name, tensor) pairs and its layout: a
+    RecurrentState's conv and ssm as the JAX package's leaves, any other
+    memory's memory_tensors."""
+    if isinstance(kv, RecurrentState):
+        return [("leaf_0", kv.conv), ("leaf_1", kv.ssm)], LEAVES
+    return memory_tensors(kv), LAYOUT
+
+
 def save_state(ctx, path: str, extra: dict | None = None) -> int:
     """Snapshot the whole context (every sequence). Returns the bytes
     written. `extra` rides along in the header (the prompt cache's token
     list)."""
-    tensors = memory_tensors(ctx.kv)
+    tensors, layout = _file_tensors(ctx.kv)
     arrays = {name: _pack(t) for name, t in tensors}
     arrays["seq_len"] = np.asarray(ctx.seq_len)
     header = {
@@ -131,8 +145,9 @@ def save_state(ctx, path: str, extra: dict | None = None) -> int:
         "n_seqs": ctx.n_seqs,
         "n_slots": ctx.n_slots,
         "memory": type(ctx.kv).__name__,
-        "layout": LAYOUT,
+        "layout": layout,
         "tensors": [name for name, _ in tensors],
+        "n_leaves": len(tensors),
         "extra": extra or {},
     }
     data = _write(header, arrays)
@@ -158,14 +173,15 @@ def load_state(ctx, path: str) -> dict:
     if header.get("memory") != type(ctx.kv).__name__:
         raise ValueError(f"memory type mismatch ({header.get('memory')} vs "
                          f"{type(ctx.kv).__name__})")
-    if header.get("layout") != LAYOUT:
-        held = header.get("layout") or "memory pytree leaves (the JAX package)"
+    tensors, layout = _file_tensors(ctx.kv)
+    held = header.get("layout") or LEAVES
+    if held != layout:
         raise ValueError(
-            f"state layout mismatch: the file holds {held}, this package reads {LAYOUT}; "
+            f"state layout mismatch: the file holds {held}, this package reads {layout}; "
             "per-sequence blobs (save_seq_state) move between the two packages, whole-context "
-            "files do not")
-    tensors = memory_tensors(ctx.kv)
-    if header.get("tensors") != [name for name, _ in tensors]:
+            "files only for a recurrent state")
+    if any(name not in z.files for name, _ in tensors) or header.get(
+            "n_leaves", len(tensors)) != len(tensors):
         raise ValueError("memory structure mismatch (tensor names)")
     new = []
     for name, cur in tensors:

@@ -330,6 +330,14 @@ def make_bench_arch_gguf(
     chunk_experts: int = 0,
     matrix_type: str = "",
     expert_type: str = "",
+    qk_norm_bias: bool = False,
+    sub_norms: bool = False,
+    tensor_scales: bool = False,
+    layer_out_scale: bool = False,
+    q_head_scale: bool = False,
+    head_arr: tuple[int, ...] | None = None,
+    kv_arr: tuple[int, ...] | None = None,
+    dummy_layers: tuple[int, ...] = (),
     f32: bool = False,
     ftype: str = "q4_k_m",
     real_quant: bool = False,
@@ -388,8 +396,20 @@ def make_bench_arch_gguf(
     chunk-expert stacks ffn_*_chexps of that many experts of n_ff_exp.
     matrix_type gives every quantized matrix that type and expert_type the
     expert stacks theirs (gpt-oss: "q8_0" and "mxfp4"), whatever ftype
-    says. Left at their defaults they write nothing, so the default files
-    stay byte for byte what they were."""
+    says.
+
+    The last text families' tensors: qk_norm_bias adds the per-head q/k
+    norms' biases (chameleon's LayerNorms); sub_norms bitnet's attn_sub_norm
+    [n_heads * head_dim] and ffn_sub_norm [n_ff]; tensor_scales a per-tensor
+    F32 scale "<name>.scale" [1] beside each projection (bitnet);
+    layer_out_scale talkie's layer_output_scale [1] a layer; q_head_scale
+    talkie's attn_q_norm [n_heads, 1] (a scalar a head, no k norm).
+    head_arr and kv_arr (deci) write the head counts as per-layer arrays: a
+    layer of 0 KV heads and some heads is linear attention (attn_norm and a
+    square attn_output), one of 0 heads attention-free (its FFN alone, on
+    ffn_norm), and a layer in dummy_layers has no tensors at all.
+    Left at their defaults they write nothing, so the default files stay
+    byte for byte what they were."""
     rng = np.random.default_rng(seed)
     w = GGUFWriter()
     w.add(Keys.General.ARCHITECTURE, arch)
@@ -400,7 +420,11 @@ def make_bench_arch_gguf(
                      ("attention.head_count", n_heads), ("attention.head_count_kv", n_kv_heads),
                      ("attention.key_length", head_dim), ("attention.value_length", head_dim),
                      ("rope.dimension_count", head_dim), ("vocab_size", vocab_size)):
-        w.add(P + key, np.uint32(val))
+        if key == "attention.head_count" and head_arr is not None:
+            val = np.asarray(head_arr, np.uint32)
+        elif key == "attention.head_count_kv" and kv_arr is not None:
+            val = np.asarray(kv_arr, np.uint32)
+        w.add(P + key, np.uint32(val) if np.ndim(val) == 0 else val)
     w.add(P + "attention.layer_norm_rms_epsilon", float(rms_eps))
     w.add(P + "rope.freq_base", float(rope_base))
     if n_expert:
@@ -480,9 +504,28 @@ def make_bench_arch_gguf(
         emit_q("output.weight", vocab_size, n_embd, q6)
         if output_bias:
             bias("output.bias", vocab_size)
-    q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
+
+    def emit_scale(name):  # bitnet: the projection's per-tensor scale
+        if tensor_scales:
+            emit_f(name + ".scale", [0.5 + rng.random()])
+
     for i in range(n_layers):
         b = f"blk.{i}."
+        if i in dummy_layers:
+            continue
+        lh = n_heads if head_arr is None else head_arr[i]
+        lkv = n_kv_heads if kv_arr is None else kv_arr[i]
+        q_dim, kv_dim = lh * head_dim, lkv * head_dim
+        if lh and not lkv:  # deci's linear attention: wo of the normed input
+            emit_norm(b + "attn_norm", n_embd)
+            emit_q(b + "attn_output.weight", n_embd, n_embd, q4)
+        if not (lh and lkv):
+            if pre_norms == "both":
+                emit_norm(b + ffn_norm_name, n_embd)
+            emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
+            emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
+            emit_q(b + "ffn_down.weight", n_embd, n_ff, q6)
+            continue
         if pre_norms != "none":
             emit_norm(b + "attn_norm", n_embd)
         if fused_qkv:
@@ -491,7 +534,17 @@ def make_bench_arch_gguf(
             emit_q(b + "attn_q.weight", q_dim, n_embd, q4)
             emit_q(b + "attn_k.weight", kv_dim, n_embd, q4)
             emit_q(b + "attn_v.weight", kv_dim, n_embd, q6)
+            for name in ("attn_q", "attn_k", "attn_v"):
+                emit_scale(b + name)
         emit_q(b + "attn_output.weight", n_embd, q_dim, q4)
+        emit_scale(b + "attn_output")
+        if sub_norms:
+            emit_f(b + "attn_sub_norm.weight", norm_w(q_dim))
+            emit_f(b + "ffn_sub_norm.weight", norm_w(n_ff))
+        if layer_out_scale:
+            emit_f(b + "layer_output_scale.weight", [0.1 + 0.2 * rng.random()])
+        if q_head_scale:
+            emit_f(b + "attn_q_norm.weight", norm_w((lh, 1)))
         if qkv_bias and fused_qkv:
             bias(b + "attn_qkv.bias", q_dim + 2 * kv_dim)
         elif qkv_bias:
@@ -504,6 +557,9 @@ def make_bench_arch_gguf(
         if qk_norm:
             emit_f(b + "attn_q_norm.weight", norm_w(q_dim if qk_norm_full else head_dim))
             emit_f(b + "attn_k_norm.weight", norm_w(kv_dim if qk_norm_full else head_dim))
+            if qk_norm_bias:
+                bias(b + "attn_q_norm.bias", head_dim)
+                bias(b + "attn_k_norm.bias", head_dim)
         if post_norms:
             emit_f(b + "post_attention_norm.weight", norm_w(n_embd))
             emit_f(b + "post_ffw_norm.weight", norm_w(n_embd))
@@ -543,6 +599,8 @@ def make_bench_arch_gguf(
                     emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
                 emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
             emit_q(b + "ffn_down.weight", n_embd, n_ff, q6)
+            for name in ("ffn_gate", "ffn_up", "ffn_down"):
+                emit_scale(b + name)
             if ffn_bias:
                 for name, n in [("ffn_gate", n_ff)] * glu + [("ffn_up", n_ff),
                                                              ("ffn_down", n_embd)]:
@@ -658,6 +716,38 @@ MOE_FAMILY_LAYOUTS: dict[str, dict] = {
                    sliding_window=16, swa_pattern=2),
 }
 FAMILY_LAYOUTS.update(MOE_FAMILY_LAYOUTS)
+
+# the shared decoder's last text families (make_bench_arch_gguf), kept apart
+# from FAMILY_LAYOUTS: tests/test_torch_families_late.py holds them. deci's
+# five layers: full attention, attention at half the KV heads (its writes
+# padded to the memory's), linear attention, attention-free, a dummy.
+_XIELU = {"xielu_alpha_n": [0.8, 0.6], "xielu_alpha_p": [0.8, 1.1], "xielu_beta": [0.5, 0.4],
+          "xielu_eps": [-1e-6, -1e-6]}
+LATE_FAMILY_LAYOUTS: dict[str, dict] = {
+    "hy_v3": dict(qk_norm=True, tie=True, **_MOE, **_SHARED, exp_probs_b=True, n_dense_lead=1,
+                  metadata={"expert_gating_func": np.uint32(2)}),
+    "apertus": dict(qk_norm=True, glu=False, metadata=_XIELU),
+    "bitnet": dict(sub_norms=True, tensor_scales=True),
+    "talkie": dict(weightless=True, fused_qkv=True, q_head_scale=True, layer_out_scale=True,
+                   metadata={"logit_scale": 0.5}),
+    "chameleon": dict(qk_norm=True, qk_norm_bias=True, norm_eps=1e-5),
+    "jais2": dict(**_LN, glu=False, **_GPT, tie=True),
+    "maincoder": dict(),
+    "pangu-embedded": dict(qkv_bias=True),
+    "deci": dict(n_layers=5, head_arr=(8, 8, 8, 0, 0), kv_arr=(4, 2, 0, 0, 0),
+                 dummy_layers=(4,)),
+}
+# the MLA entries at MHA width (make_bench_deepseek2_gguf with their arch):
+# MiniCPM3's absorbed row (256 + 32 -> 384, 256), PLM's (512 + 64, 512),
+# mistral4 a deepseek2 file under its own name
+MLA_FAMILY_LAYOUTS: dict[str, dict] = {
+    "minicpm3": dict(q_lora_rank=256, kv_lora_rank=256, qk_nope=64, qk_rope=32, v_dim=64,
+                     n_expert=0, tie=True),
+    "plm": dict(kv_lora_rank=512, qk_nope=128, qk_rope=64, v_dim=128, n_expert=0, tie=True,
+                glu=False),
+    "mistral4": dict(kv_lora_rank=512, qk_nope=128, qk_rope=64, v_dim=128, n_dense=1,
+                     n_expert=8, n_expert_used=2, n_ff_exp=256, n_expert_shared=1),
+}
 
 
 # the recurrent and hybrid families: the mixer a family's "S" layers carry
@@ -1161,6 +1251,10 @@ def make_bench_deepseek2_gguf(
     yarn_orig_ctx: int = 4096,
     mscale_all_dim: float = 0.707,
     split_kv_b: bool = False,
+    arch: str = "deepseek2",
+    tie: bool = False,
+    glu: bool = True,
+    synth_scale: float = 1.0,
     f32: bool = False,
     seed: int = 0,
 ) -> str:
@@ -1176,7 +1270,16 @@ def make_bench_deepseek2_gguf(
     n_expert_used, and n_expert_shared shared experts in one FFN of
     n_expert_shared * n_ff_exp; gating "sigmoid" adds the selection bias
     exp_probs_b (V3); the YaRN keys as the converter writes them
-    (yarn_log_mul = 0.1 * mscale_all_dim).
+    (yarn_log_mul = 0.1 * mscale_all_dim). n_expert=0 makes every layer
+    dense.
+
+    The other MLA entries, by `arch`: "mistral4" is the same file under its
+    own name; "minicpm3" and "plm" write their head dims as key_length
+    (qk_nope + qk_rope) and value_length (v_dim), as their converters do,
+    without the _mla keys or YaRN; plm has no q-LoRA. tie=True writes no
+    output (the head is the Q6_K token_embd, row-major); glu=False drops
+    ffn_gate (plm's ReLU^2 FFN). synth_scale multiplies the synthetic blocks'
+    scales.
 
     Storage types are llama-quantize's Q4_K_M mix as make_bench_arch_gguf
     writes it: Q4_K, Q6_K for ffn_down, the shared and routed experts' down
@@ -1190,34 +1293,41 @@ def make_bench_deepseek2_gguf(
     from .ops.qtensor import load_weight
 
     rng = np.random.default_rng(seed)
-    arch = "deepseek2"
     P = arch + "."
+    deepseek = arch in ("deepseek2", "mistral4")
+    if not n_expert:
+        n_dense = n_layers
     w = GGUFWriter()
     w.add(Keys.General.ARCHITECTURE, arch)
-    w.add(Keys.General.NAME, "bench-deepseek2-synthetic")
+    w.add(Keys.General.NAME, f"bench-{arch}-synthetic")
+    if deepseek:  # the absorbed lengths, the naive ones under _mla
+        dims = (("attention.key_length", kv_lora_rank + qk_rope),
+                ("attention.value_length", kv_lora_rank),
+                ("attention.key_length_mla", qk_nope + qk_rope),
+                ("attention.value_length_mla", v_dim),
+                ("rope.scaling.original_context_length", yarn_orig_ctx))
+    else:
+        dims = (("attention.key_length", qk_nope + qk_rope), ("attention.value_length", v_dim))
     for key, val in (("block_count", n_layers), ("context_length", n_ctx),
                      ("embedding_length", n_embd), ("feed_forward_length", n_ff),
-                     ("attention.head_count", n_heads), ("attention.head_count_kv", 1),
-                     ("attention.key_length", kv_lora_rank + qk_rope),
-                     ("attention.value_length", kv_lora_rank),
-                     ("attention.key_length_mla", qk_nope + qk_rope),
-                     ("attention.value_length_mla", v_dim),
+                     ("attention.head_count", n_heads),
+                     ("attention.head_count_kv", 1 if deepseek else n_heads), *dims,
                      ("attention.kv_lora_rank", kv_lora_rank),
                      ("rope.dimension_count", qk_rope), ("vocab_size", vocab_size),
                      ("leading_dense_block_count", n_dense), ("expert_count", n_expert),
                      ("expert_used_count", n_expert_used),
                      ("expert_feed_forward_length", n_ff_exp),
                      ("expert_shared_count", n_expert_shared),
-                     ("expert_gating_func", 2 if gating == "sigmoid" else 1),
-                     ("rope.scaling.original_context_length", yarn_orig_ctx)):
+                     ("expert_gating_func", 2 if gating == "sigmoid" else 1)):
         w.add(P + key, np.uint32(val))
     if q_lora_rank:
         w.add(P + "attention.q_lora_rank", np.uint32(q_lora_rank))
     w.add(P + "attention.layer_norm_rms_epsilon", 1e-6)
     w.add(P + "rope.freq_base", 10000.0)
-    w.add(P + "rope.scaling.type", "yarn")
-    w.add(P + "rope.scaling.factor", float(yarn_factor))
-    w.add(P + "rope.scaling.yarn_log_mul", float(0.1 * mscale_all_dim))
+    if deepseek:
+        w.add(P + "rope.scaling.type", "yarn")
+        w.add(P + "rope.scaling.factor", float(yarn_factor))
+        w.add(P + "rope.scaling.yarn_log_mul", float(0.1 * mscale_all_dim))
     w.add(P + "expert_weights_norm", bool(weights_norm))
     w.add(P + "expert_weights_scale", float(weights_scale))
     _add_bench_vocab(w, vocab_size)
@@ -1230,7 +1340,8 @@ def make_bench_deepseek2_gguf(
 
     def qbytes(rows, cols, t, stack=()):
         n = rows * cols * int(np.prod(stack, dtype=np.int64))
-        return synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)))
+        return synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)),
+                                 scale_mult=synth_scale)
 
     def emit_q(name, rows, cols, t, stack=()):
         if f32 or cols % 256:
@@ -1267,9 +1378,10 @@ def make_bench_deepseek2_gguf(
         w.add_tensor(b + "attn_v_b.weight", blocks[:, qk_nope:].tobytes(), (C, v_dim, n_heads),
                      q4)
 
-    emit_q("token_embd.weight", vocab_size, n_embd, q4)
+    emit_q("token_embd.weight", vocab_size, n_embd, q6 if tie else q4)
     emit_f("output_norm.weight", norm_w(n_embd))
-    emit_q("output.weight", vocab_size, n_embd, q6)
+    if not tie:
+        emit_q("output.weight", vocab_size, n_embd, q6)
     Dq = n_heads * (qk_nope + qk_rope)
     for i in range(n_layers):
         b = f"blk.{i}."
@@ -1286,7 +1398,8 @@ def make_bench_deepseek2_gguf(
         emit_q(b + "attn_output.weight", n_embd, n_heads * v_dim, q4)
         emit_f(b + "ffn_norm.weight", norm_w(n_embd))
         if i < n_dense:
-            emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
+            if glu:
+                emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
             emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
             emit_q(b + "ffn_down.weight", n_embd, n_ff, q6)
             continue
@@ -1303,6 +1416,172 @@ def make_bench_deepseek2_gguf(
             emit_q(b + "ffn_down_shexp.weight", n_embd, ff_sh, q6)
     w.write(path)
     return path
+
+
+# -- RWKV: the four entries of models/rwkv.py ----------------------------------
+
+RWKV_ARCHS = ("rwkv6", "rwkv7", "rwkv6qwen2", "arwkv7")
+
+
+def make_bench_rwkv_gguf(path: str, arch: str = "rwkv7", n_layers: int = 32,
+                         n_embd: int = 2560, head_size: int = 64, n_ff: int = 10240,
+                         vocab_size: int = 65536, n_kv_heads: int = 0,
+                         lora: tuple[int, int, int, int] = (96, 96, 64, 320),
+                         gated: bool = True, rescale_every: int = 0, n_ctx: int = 1 << 20,
+                         vocab: str = "bench", synth_scale: float = 1.0, f32: bool = False,
+                         seed: int = 0) -> str:
+    """An RWKV GGUF of `arch` (RWKV_ARCHS) with synthetic weights, laid out as
+    the reference's load_arch_tensors (src/models/rwkv6.cpp, rwkv7.cpp,
+    rwkv6qwen2.cpp, arwkv7.cpp) and the JAX package's tiny writers: RWKV-7
+    World 2.9B's widths by default (BlinkDL/rwkv7-g1 RWKV-x070-World-2.9B:
+    n_embd 2560, 40 heads of 64, channel mix 10240, vocab 65536, LoRA ranks
+    96 decay, 96 in-context learning rate, 64 value residual, 320 gate).
+    lora = (decay, iclr, value, gate) ranks for RWKV-7 and ARWKV-7; RWKV-6
+    and RWKV6-Qwen2 take the first as the decay LoRA's and the mixing
+    LoRA's rank. rwkv6qwen2's key/value are n_kv_heads heads wide (0: as
+    many as the receptance) with biases; the hybrids carry a SiLU-GLU FFN
+    of n_ff on ffn_norm and RMS norms. gated=False leaves RWKV-7's gate out.
+    The Q4_K_M mix: Q4_K for token_embd and the projections, Q6_K for the
+    down projection (channel_mix_value, ffn_down: Q4_K_M's ffn_down on the
+    layers where it spends more bits) and output, F32 for the LoRA factors,
+    mixing vectors and decays (llama-quantize keeps them: reference
+    llama-quant.cpp's time_mix_* exclusions) and the norms; f32=True writes
+    every matrix F32 (scale 1/sqrt(in)). vocab "tiny" writes the tiny SPM
+    vocab (the JAX package's tiny writers'), "bench" its word-piece
+    padding."""
+    rng = np.random.default_rng(seed)
+    hybrid = arch in ("rwkv6qwen2", "arwkv7")
+    v7 = arch in ("rwkv7", "arwkv7")
+    H = n_embd // head_size
+    w = GGUFWriter()
+    w.add(Keys.General.ARCHITECTURE, arch)
+    w.add(Keys.General.NAME, f"bench-{arch}-synthetic")
+    P = arch + "."
+    for key, val in (("block_count", n_layers), ("context_length", n_ctx),
+                     ("embedding_length", n_embd), ("feed_forward_length", n_ff),
+                     ("wkv.head_size", head_size), ("vocab_size", vocab_size),
+                     ("attention.head_count", H if hybrid else 0),
+                     ("token_shift_count", 1 if hybrid else 2)):
+        w.add(P + key, np.uint32(val))
+    if hybrid:
+        w.add(P + "attention.head_count_kv", np.uint32(n_kv_heads or H))
+        w.add(P + "attention.layer_norm_rms_epsilon", 1e-5)
+    else:
+        w.add(P + "attention.layer_norm_epsilon", 1e-5)
+    if rescale_every:
+        w.add(P + "rescale_every_n_layers", np.uint32(rescale_every))
+    if vocab == "tiny":
+        tv = tiny_spm_vocab(vocab_size)
+        for k in (Keys.Tokenizer.TOKENS, Keys.Tokenizer.SCORES, Keys.Tokenizer.TOKEN_TYPE):
+            tv[k] = tv[k][:vocab_size]
+        w.add_all(tv)
+    else:
+        _add_bench_vocab(w, vocab_size)
+
+    def emit_f(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+
+    def rand(*shape, scale=None):
+        return rng.standard_normal(shape) * (scale or 1.0 / np.sqrt(shape[-1]))
+
+    def mat(name, rows, cols, t=GGMLType.Q4_K):
+        if f32 or cols % 256:
+            emit_f(name, rand(rows, cols))
+            return
+        data = synth_quant_bytes(rng, rows * cols, t, offset=int(rng.integers(1, 1 << 24)),
+                                 scale_mult=synth_scale)
+        w.add_tensor(name, data, (cols, rows), t)
+
+    def norm(name, bias=True):
+        emit_f(name + ".weight", 1 + rand(n_embd, scale=0.02))
+        if bias:
+            emit_f(name + ".bias", rand(n_embd, scale=0.02))
+
+    rw, ra, rv, rg = lora
+    mat("token_embd.weight", vocab_size, n_embd)
+    if not hybrid:
+        norm("token_embd_norm")
+    norm("output_norm", bias=not hybrid)
+    mat("output.weight", vocab_size, n_embd, GGMLType.Q6_K)
+    kv = (n_kv_heads or H) * head_size if arch == "rwkv6qwen2" else n_embd
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        norm(b + "attn_norm", bias=not hybrid)
+        if not hybrid:
+            norm(b + "attn_norm_2")
+        if v7:
+            emit_f(b + "time_mix_lerp_fused.weight",
+                   rand(6 if gated else 5, 1, 1, n_embd, scale=0.3))
+            for name, r in (("w", rw), ("a", ra)) + ((("v", rv),) if i > 0 else ()):
+                emit_f(b + f"time_mix_{name}0.weight", rand(n_embd, scale=0.3))
+                emit_f(b + f"time_mix_{name}1.weight", rand(r, n_embd))
+                emit_f(b + f"time_mix_{name}2.weight", rand(n_embd, r))
+            if gated:
+                emit_f(b + "time_mix_g1.weight", rand(rg, n_embd))
+                emit_f(b + "time_mix_g2.weight", rand(n_embd, rg))
+            emit_f(b + "time_mix_k_k.weight", rand(n_embd, scale=0.3))
+            emit_f(b + "time_mix_k_a.weight", rand(n_embd, scale=0.3))
+            emit_f(b + "time_mix_r_k.weight", rand(H, head_size, scale=0.3))
+        else:
+            emit_f(b + "time_mix_w1.weight", rand(5 * rw, n_embd))
+            emit_f(b + "time_mix_w2.weight", rand(5, n_embd, rw))
+            emit_f(b + "time_mix_lerp_x.weight", rand(n_embd, scale=0.3))
+            emit_f(b + "time_mix_lerp_fused.weight", rand(5, 1, 1, n_embd, scale=0.3))
+            if not hybrid:  # rwkv6qwen2 has no bonus: the qrwkv branch
+                emit_f(b + "time_mix_first.weight", rand(H, head_size, scale=0.3))
+            emit_f(b + "time_mix_decay.weight", rand(n_embd, scale=0.3))
+            emit_f(b + "time_mix_decay_w1.weight", rand(rw, n_embd))
+            emit_f(b + "time_mix_decay_w2.weight", rand(n_embd, rw))
+            mat(b + "time_mix_gate.weight", n_embd, n_embd)
+        mat(b + "time_mix_key.weight", kv, n_embd)
+        mat(b + "time_mix_value.weight", kv, n_embd)
+        mat(b + "time_mix_receptance.weight", n_embd, n_embd)
+        if arch == "rwkv6qwen2":
+            for name, n in (("key", kv), ("value", kv), ("receptance", n_embd)):
+                emit_f(b + f"time_mix_{name}.bias", rand(n, scale=0.05))
+        if not hybrid:  # the group-norm tail (arwkv7 has none)
+            norm(b + "time_mix_ln")
+        mat(b + "time_mix_output.weight", n_embd, n_embd)
+        if hybrid:
+            emit_f(b + "ffn_norm.weight", 1 + rand(n_embd, scale=0.02))
+            mat(b + "ffn_gate.weight", n_ff, n_embd)
+            mat(b + "ffn_up.weight", n_ff, n_embd)
+            mat(b + "ffn_down.weight", n_embd, n_ff, GGMLType.Q6_K)
+            continue
+        emit_f(b + "channel_mix_lerp_k.weight", rand(n_embd, scale=0.3))
+        mat(b + "channel_mix_key.weight", n_ff, n_embd)
+        mat(b + "channel_mix_value.weight", n_embd, n_ff, GGMLType.Q6_K)
+        if not v7:  # RWKV-6's receptance gate
+            emit_f(b + "channel_mix_lerp_r.weight", rand(n_embd, scale=0.3))
+            mat(b + "channel_mix_receptance.weight", n_embd, n_embd)
+    w.write(path)
+    return path
+
+
+_TINY_RWKV = dict(vocab_size=256, n_layers=2, n_embd=64, head_size=16, n_ff=128,
+                  lora=(8, 8, 8, 8), vocab="tiny", f32=True)
+
+
+def make_tiny_rwkv6_gguf(path: str, seed: int = 0, **kw) -> str:
+    """The port's copy of the JAX package's tiny RWKV-6 writer: 2 layers,
+    n_embd 64, heads of 16, channel mix 128, vocab 256, F32 (the layout of
+    make_bench_rwkv_gguf; its own random values)."""
+    return make_bench_rwkv_gguf(path, "rwkv6", **{**_TINY_RWKV, **kw}, seed=seed)
+
+
+def make_tiny_rwkv7_gguf(path: str, seed: int = 0, gated: bool = True, **kw) -> str:
+    """The tiny RWKV-7 writer's copy (make_tiny_rwkv6_gguf's widths)."""
+    return make_bench_rwkv_gguf(path, "rwkv7", **{**_TINY_RWKV, **kw}, gated=gated, seed=seed)
+
+
+def make_tiny_rwkv_hybrid_gguf(path: str, arch: str = "rwkv6qwen2", seed: int = 0,
+                               n_kv_heads: int = 2, **kw) -> str:
+    """The tiny qrwkv hybrid writer's copy: rwkv6qwen2 (key/value on 2 of the
+    4 heads, with biases) or arwkv7, each with a SiLU-GLU FFN of 128."""
+    return make_bench_rwkv_gguf(path, arch, **{**_TINY_RWKV, **kw},
+                                n_kv_heads=n_kv_heads if arch == "rwkv6qwen2" else 0,
+                                seed=seed)
 
 
 def make_bench_deepseek_v3_gguf(path: str, n_layers: int = 61, n_dense: int = 3,

@@ -88,16 +88,21 @@ def test_supported_archs():
     """The families here, llama, deepseek2 (tests/test_torch_deepseek2.py),
     the dense-decoder families of tests/test_torch_families.py, the MoE
     families of tests/test_torch_moe_families.py, the recurrent and
-    hybrid families of tests/test_torch_hybrid.py and the encoders and
-    embedding models of tests/test_torch_encoders.py."""
+    hybrid families of tests/test_torch_hybrid.py, the encoders and
+    embedding models of tests/test_torch_encoders.py, the RWKV entries of
+    tests/test_torch_rwkv.py and the last decoder families (the MLA entries
+    at MHA width among them) of tests/test_torch_families_late.py."""
     from test_torch_families import ARCHS as FAMILIES
     from test_torch_hybrid import ARCHS as HYBRID_FAMILIES
     from test_torch_moe_families import ARCHS as MOE_FAMILIES
 
-    from llama_cpp_tpu_torch.testing import EMBEDDING_ARCHS
+    from llama_cpp_tpu_torch.testing import (EMBEDDING_ARCHS, LATE_FAMILY_LAYOUTS,
+                                             MLA_FAMILY_LAYOUTS, RWKV_ARCHS)
 
     assert supported_archs() == sorted(["llama", "deepseek2", *ARCHS, *FAMILIES,
-                                        *MOE_FAMILIES, *HYBRID_FAMILIES, *EMBEDDING_ARCHS])
+                                        *MOE_FAMILIES, *HYBRID_FAMILIES, *EMBEDDING_ARCHS,
+                                        *RWKV_ARCHS, *LATE_FAMILY_LAYOUTS,
+                                        *MLA_FAMILY_LAYOUTS])
 
 
 def test_other_arch_raises_naming_it(tmp_path):

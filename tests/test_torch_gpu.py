@@ -1365,16 +1365,17 @@ def test_family_kernels_match_plain_and_graphs_match_eager(family_models, family
         assert sum(tqe.launches.values()) > 0
 
 
-# -- the MLA instantiation: one KV head, K rows of 576 or 640, V rows of 512 -----
+# -- the MLA instantiation: one KV head, K rows of 576 or 640 and V rows of 512, or
+# -- K rows of 384 and V rows of 256 (MiniCPM3)
 
-def mla_memory(device, paged, Dk, bf16, fills, n_rows, seed=0):
-    """A one-head memory of K rows of Dk and V rows of 512 (int8 with row
+def mla_memory(device, paged, Dk, bf16, fills, n_rows, seed=0, Dv=512):
+    """A one-head memory of K rows of Dk and V rows of Dv (int8 with row
     scales, or bf16): the pool [1, n_rows, D] with its position labels, or a
     slot table [len(fills), 1, n_rows, D]; sequence s holds positions 0 ..
     fills[s] - 1."""
     gen = torch.Generator(device=device).manual_seed(seed)
     lead = (1,) if paged else (len(fills), 1)
-    shape_k, shape_v = (*lead, n_rows, Dk), (*lead, n_rows, 512)
+    shape_k, shape_v = (*lead, n_rows, Dk), (*lead, n_rows, Dv)
     if bf16:
         k = (torch.randn(shape_k, generator=gen, device=device) * 0.5).to(torch.bfloat16)
         v = torch.randn(shape_v, generator=gen, device=device).to(torch.bfloat16)
@@ -1387,11 +1388,12 @@ def mla_memory(device, paged, Dk, bf16, fills, n_rows, seed=0):
     return k, v, ks, vs, gen
 
 
-def mla_paged_case(device, Dk=640, G=16, T=1, bf16=False, page=256, depths=(700, 300, 40)):
+def mla_paged_case(device, Dk=640, G=16, T=1, bf16=False, page=256, depths=(700, 300, 40),
+                   Dv=512):
     B = len(depths)
     mp = max(-(-(d + T) // page) for d in depths) + 1
     n_pages = B * mp + 1
-    k, v, ks, vs, gen = mla_memory(device, True, Dk, bf16, depths, n_pages * page)
+    k, v, ks, vs, gen = mla_memory(device, True, Dk, bf16, depths, n_pages * page, Dv=Dv)
     pos = torch.full((n_pages * page,), -1, dtype=torch.int32)
     table = torch.full((B, mp), n_pages - 1, dtype=torch.int32)
     for b, dep in enumerate(depths):
@@ -1409,8 +1411,9 @@ def mla_paged_case(device, Dk=640, G=16, T=1, bf16=False, page=256, depths=(700,
     return (q, k, v, row_pos, pos.to(device), table.to(device), ks, vs), dict(page=page)
 
 
-def mla_slot_case(device, Dk=640, G=16, T=1, bf16=False, S=1024, fills=(300, 129, 40, 700)):
-    k, v, ks, vs, gen = mla_memory(device, False, Dk, bf16, fills, S)
+def mla_slot_case(device, Dk=640, G=16, T=1, bf16=False, S=1024, fills=(300, 129, 40, 700),
+                  Dv=512):
+    k, v, ks, vs, gen = mla_memory(device, False, Dk, bf16, fills, S, Dv=Dv)
     pos = torch.full((len(fills), S), -1, dtype=torch.int32)
     for s, f in enumerate(fills):
         pos[s, :f] = torch.arange(f, dtype=torch.int32)
@@ -1440,7 +1443,7 @@ def mla_held(paged, args, kw, Dk):
     ref = plain(*args, sm_scale=sm, **kw)
     valid = args[3] >= 0
     g, r = got.transpose(1, 2)[valid], ref.transpose(1, 2)[valid]
-    assert got.shape[-1] == 512 and torch.isfinite(got).all()
+    assert got.shape[-1] == args[2].shape[-1] and torch.isfinite(got).all()
     assert (got.transpose(1, 2)[~valid] == 0).all()
     assert nmse(g, r) < 1e-5
     return got
@@ -1459,6 +1462,28 @@ def test_mla_kernel_matches_plain(cuda_device, paged, Dk, bf16, rows):
     make = mla_paged_case if paged else mla_slot_case
     args, kw = make(cuda_device, Dk=Dk, G=G, T=T, bf16=bf16)
     mla_held(paged, args, kw, Dk)
+
+
+# MiniCPM3-4B's rows: 40 query heads on the one KV head; (G, T)
+MLA_384_ROWS = {"decode1": (1, 1), "decode8": (8, 1), "decode40": (40, 1),
+                "prefill_ubatch": (40, 512)}
+
+
+@pytest.mark.parametrize("rows", list(MLA_384_ROWS), ids=list(MLA_384_ROWS))
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+@pytest.mark.parametrize("paged", [True, False], ids=["pool", "slots"])
+def test_mla_384_256_matches_plain(cuda_device, paged, bf16, rows):
+    """The (384, 256) instantiation (MiniCPM3: kv_lora_rank 256, 32 rope
+    dims padded to 384) at 1, 8 and 40 decode rows (40: no multiple of the
+    16-row block, the 64-row block holds them with 24 rows past R) and a
+    prefill ubatch of 40 heads x 512 tokens, on the pool and the slot table,
+    int8 and bf16, against its plain version; NMSE < 1e-5, one launch of its
+    route's kernel under the MLA keys, rows past R untouched."""
+    G, T = MLA_384_ROWS[rows]
+    make = mla_paged_case if paged else mla_slot_case
+    args, kw = make(cuda_device, Dk=384, Dv=256, G=G, T=T, bf16=bf16)
+    got = mla_held(paged, args, kw, 384)
+    assert got.shape[2] == G * T
 
 
 @pytest.mark.parametrize("paged", [True, False], ids=["pool", "slots"])
@@ -1498,12 +1523,13 @@ def test_mla_raises_on_what_it_does_not_take(cuda_device):
 
 def test_mla_shared_memory_budget(cuda_device):
     """Every MLA block fits the card's 227 KB beside its static memory."""
-    for Dk in (576, 640):
+    for Dk, Dv in tfa.MLA_DIMS:
         for wide in (True, False):
             for bf16 in (True, False):
-                b = tfa.mla_smem_bytes(Dk, wide, bf16)
-                assert 0 < b + 2048 <= 232448, (Dk, wide, bf16, b)
+                b = tfa.mla_smem_bytes(Dk, wide, bf16, Dv)
+                assert 0 < b + 2048 <= 232448, (Dk, Dv, wide, bf16, b)
     assert tfa.mla_smem_bytes(512, True, True) == -1
+    assert tfa.mla_smem_bytes(384, True, True) == -1  # (384, 512) is no pair
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
