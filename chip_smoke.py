@@ -74,7 +74,7 @@ Phases, each of which fails the run:
      the plain path (Context(kernels=False)) on the prefill's last-token
      logits and greedy ids:
      - a Llama-3-8B-shaped Q4_K_M model (random weights from a seed, full
-       width, depth cut to 2 layers), load_model, a Context with a paged
+       width, depth cut to 1 layer), load_model, a Context with a paged
        int8 KV pool, a 2048-token prefill, 32 greedy tokens at B=1 and
        decode_steps_greedy at B=8 and B=32 over 512-token prefills;
      - the same model and prompt with one ubatch of 2048 rows, whose
@@ -83,7 +83,7 @@ Phases, each of which fails the run:
        and 32 of 32 greedy ids);
      - the same model on the slot-table cache (Context(paged=False)): every
        attention goes through the slot-table kernels;
-     - a Mixtral-8x7B-shaped MoE model (full width, depth cut to 2 layers):
+     - a Mixtral-8x7B-shaped MoE model (full width, depth cut to 1 layer):
        the sort-by-expert prefill, B=1 decode through the indexed-expert
        kernel, batched decode at B=8;
      - a TinyLlama-shaped model with 64-wide heads on both memories;
@@ -95,7 +95,7 @@ Phases, each of which fails the run:
        (llama_cpp_tpu_torch.tools.bench_qmm) with every case at full width,
        the 4096 x 128256 vocab head included;
      - path D, the command-line tool (llama_cpp_tpu_torch.tools.cli) on the
-       2-layer llama file, text in and text out: greedy, held against
+       1-layer llama file, text in and text out: greedy, held against
        Context.generate on the encoded prompt, sampled under a seed twice,
        and constrained by a GBNF grammar (--grammar), held against
        Context.generate with the same chain behind the same grammar;
@@ -140,15 +140,15 @@ Phases, each of which fails the run:
        tokens at B=1, decode_steps_greedy at B=8, the B=1 profile, the plain
        path on the prefill logits (NMSE 5e-3), on 8 teacher-forced decode
        steps' logits and on the greedy ids, then the graph phase at B=8:
-       Qwen3-8B (depth 36 -> 2; K1-K5; then one round of four concurrent
+       Qwen3-8B (depth 36 -> 1; K1-K5; then one round of four concurrent
        16-token greedy /completion requests through run_server, graphed,
-       ids against Context.generate), Qwen3-30B-A3B (48 -> 2, all 128
+       ids against Context.generate), Qwen3-30B-A3B (48 -> 1, all 128
        experts; K1-K5 and K7 at R = 8 and 64) and Gemma-3-4B (34 -> 6, one
        period of its pattern: five window layers on ISWA rings of 1792
        slots through K6 in ring mode, one full layer on the pool through
        K5; the tied 262208-row head on the library route, timed);
      - embeddings and rerank: Qwen3-Embedding-8B (Qwen3-8B's stack, the
-       qwen3-8b path's 2-layer model) through Context.embed(pooling="last")
+       qwen3-8b path's 1-layer model) through Context.embed(pooling="last")
        at 512 tokens (a 512-row forward over a 520-slot table: the prefill
        GEMM, the einsum attention, as the JAX package's flash_supported
        wants slots in 128s); BGE-M3 (BAAI/bge-m3 in GGUF as bert, full
@@ -216,12 +216,12 @@ Phases, each of which fails the run:
        it), lfm2 and lfm2moe on F32 values beside a reading of their Q4_K_M
        files against an f32 path;
      - RWKV on the recurrent memory (models/rwkv.py, the RecurrentState
-       alone): RWKV-7 World 2.9B (depth 32 -> 4, so the value residual
+       alone): RWKV-7 World 2.9B (depth 32 -> 2, so the value residual
        crosses layers; K1-K4 on its projections, the wkv7 step loop plain)
        with the Qwen3-8B path's whole treatment with near_ties, a served
        round and a state round trip (whole file and sequence blob, bit for
        bit); rwkv6, rwkv6qwen2 and arwkv7 narrow (heads of 64);
-     - MLA at MHA width: MiniCPM3-4B (depth 62 -> 2: every attention on K5's
+     - MLA at MHA width: MiniCPM3-4B (depth 62 -> 1: every attention on K5's
        MLA instantiation at (384, 256), the tied 73448-row head on the
        library route) with the same treatment, then on the slot table int8
        and the pool and the slot table bf16 (K6's or K5's MLA launches at
@@ -229,10 +229,31 @@ Phases, each of which fails the run:
        path); plm, mistral4 and the other last decoder families (hy_v3,
        apertus, bitnet, talkie, chameleon, jais2, maincoder, pangu-embedded,
        deci) narrow;
+     - the diffusion LMs (runtime/diffusion.py): LLaDA-8B (depth 32 ->
+       2, bidirectional) through llama-diffusion-cli (max_length 128, 16
+       steps, confidence), timed, K3/K4 alone launched in every step, then
+       the same loop and the block schedule with each step held
+       teacher-forced against the plain path (the logits at the masked
+       positions within the limit, the commits the plain ranking's wherever
+       its gap at the cut exceeds DIFFUSION_MARGIN times the two paths'
+       largest confidence difference, each id the plain argmax or a
+       near-tie); dream, llada-moe and rnd1 narrow, 4 steps each;
+     - T5's encoder-decoder: flan-t5-large (24 + 24 -> 4 + 4 layers)
+       through Context.generate from a 96-token prompt (the encoder and the
+       cross K/V projections on K3/K4, the decoder steps eager on K1/K2),
+       encode and step times, the plain path on the logits, 8 teacher-forced
+       steps and each id, a batch of 3 with encoder outputs of 96, 40 and 200
+       rows against their B=1 runs, a served round;
+     - the last shared-decoder entries narrow: afmoe (sigmoid output gate,
+       periodic NoPE, post-norms, a window layer on K6's ring), laguna (the
+       softplus gate per head and, a second path, per element; its window
+       layer roping 64 dims), openelm (per-layer heads: its first layer at
+       fewer KV heads on the einsum path) and nanbeige (the stack looped
+       twice), K7 at the MoE entries' decode steps;
      - the storage types users download beside Q4_K_M: Qwen3-8B at Q8_0
-       (depth 36 -> 2, every matrix Q8_0: K2 and K4 over int8 flat-g32
+       (depth 36 -> 1, every matrix Q8_0: K2 and K4 over int8 flat-g32
        planes, no other qmm kernel; the families' whole treatment), at
-       Q5_K_M and at Q4_0 (depth 2: prefill 2048, 16 greedy tokens, B=8,
+       Q5_K_M and at Q4_0 (depth 1: prefill 2048, 16 greedy tokens, B=8,
        the plain path on the logits and the ids); then path Q, the port's
        llama-quantize on this machine: an F16 Qwen3-0.6B-shaped file through
        tools/quantize_tool.main to q8_0 and q4_0, each loaded and held
@@ -282,17 +303,17 @@ from dataclasses import replace
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 NMSE_LIMIT = 5e-3  # the reference's conformance threshold
-SMOKE_LAYERS = 2  # Llama-3-8B: 32 layers; 4 until the MoE families kept the call near 930 s
+SMOKE_LAYERS = 1  # Llama-3-8B: 32 layers; one keeps the call's time
 CLI_PROMPT = "the cat is on the mat and that was the end of it"
 CLI_GRAMMAR = 'root ::= (" w" [0-9]+)+'  # the fixture's word pieces, " w0" ... " w127999"
 GRAMMAR_TOKENS = 6
 SERVER_PROMPTS = (CLI_PROMPT, "a long story: " + CLI_PROMPT * 4, "the mat was on the cat",
                   "and that was the end")  # the second takes the prefill kernels (>= 64 rows)
-MOE_LAYERS = 2  # experts are 97% of a Mixtral layer's bytes
-QWEN3_LAYERS = 2  # Qwen3-8B: 36 layers; 2 keep the whole call near 860 s beside DeepSeek
-QWEN3MOE_LAYERS = 2  # Qwen3-30B-A3B: 48 layers, all 128 experts each
+MOE_LAYERS = 1  # experts are 97% of a Mixtral layer's bytes
+QWEN3_LAYERS = 1  # Qwen3-8B: 36 layers
+QWEN3MOE_LAYERS = 1  # Qwen3-30B-A3B: 48 layers, all 128 experts each
 GEMMA3_LAYERS = 6  # Gemma-3-4B: 34 layers; one period of its pattern (five window, one full)
-QWEN3_MIX_LAYERS = 2  # Qwen3-8B at Q5_K_M and Q4_0
+QWEN3_MIX_LAYERS = 1  # Qwen3-8B at Q5_K_M and Q4_0
 QUANT_LAYERS = 2  # the F16 Qwen3-0.6B file llama-quantize turns into q8_0 and q4_0: 28 layers
 DS_LITE_LAYERS = 2  # DeepSeek-V2-Lite: 27 layers; one dense, one MoE
 DS_V3_LAYERS = 1  # DeepSeek-V3: 61 layers; one MoE layer of 256 experts (~14 GB; 2 until PR 20)
@@ -303,8 +324,14 @@ SCOUT_LAYERS = 1  # Llama-4-Scout-17B-16E: 48 (2 until PR 20); its NoPE layers: 
 QWEN3NEXT_LAYERS = 4  # Qwen3-Next-80B-A3B: 48 layers; three DeltaNet layers, one attention
 NEMOTRON_H_LAYERS = 8  # Nemotron-H-8B: 52 blocks; M-M-M-M*: four Mamba-2, three FFN, one attention
 BGE_M3_LAYERS = 24  # BAAI/bge-m3: 24 layers, run at full depth
-RWKV7_LAYERS = 4  # RWKV-7 World 2.9B: 32 layers; 4 carry v_first across layers
-MINICPM3_LAYERS = 2  # MiniCPM3-4B: 62 layers
+RWKV7_LAYERS = 2  # RWKV-7 World 2.9B: 32 layers; 2 carry v_first across a layer
+MINICPM3_LAYERS = 1  # MiniCPM3-4B: 62 layers
+LLADA_LAYERS = 2  # LLaDA-8B: 32 layers
+T5_LAYERS = 4  # flan-t5-large: 24 encoder and 24 decoder layers, each stack cut alike
+# a diffusion step's commits must be the plain path's wherever the plain
+# confidence ranking's gap at the cut exceeds this many times the step's
+# largest confidence difference between the kernel and the plain path
+DIFFUSION_MARGIN = 2.0
 # the narrow RWKV entries: FAMILY_SHAPE's widths with heads of 64 and LoRA
 # ranks of 32 (64 for RWKV-7's gate)
 RWKV_SHAPE = dict(n_layers=2, n_embd=1024, head_size=64, n_ff=2048, vocab_size=2048,
@@ -1164,6 +1191,11 @@ def main() -> int:
                                                              speculative_generate)
         from llama_cpp_tpu_torch.sampling.grammar import GBNFParser, GrammarSampler
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
+        from llama_cpp_tpu_torch.runtime import diffusion as diffusion_rt
+        from llama_cpp_tpu_torch.tools import diffusion_cli
+        from llama_cpp_tpu_torch.testing import (DIFFUSION_LAYOUTS, LAGUNA_ELEMENT_GATE,
+                                                 LAST_TEXT_LAYOUTS, make_bench_diffusion_gguf,
+                                                 make_bench_t5_gguf)
         from llama_cpp_tpu_torch.testing import (EMBEDDING_ARCHS, FAMILY_LAYOUTS,
                                                  HYBRID_LAYOUTS, LATE_FAMILY_LAYOUTS,
                                                  MLA_FAMILY_LAYOUTS, RWKV_ARCHS,
@@ -2021,7 +2053,7 @@ def main() -> int:
         return out.getvalue()
 
     def path_e(model, path, out_dir):
-        """The measurement tools on the 2-layer llama file: llama-bench
+        """The measurement tools on the 1-layer llama file: llama-bench
         (pp512 and tg32 through generate_ondevice, then the batched grid at
         B = 1 and 8), llama-perplexity on a seeded text of the fixture's
         vocabulary (2 chunks of 512; the head through K4 at 512 rows), its
@@ -2284,7 +2316,7 @@ def main() -> int:
             f"{grammar_ms:.1f} ms for its first token (host Python)")
 
     def path_d_features(model, cli_ids, ref_gen, run_cli, prompt):
-        """llama-cli's features beyond plain decoding on the 2-layer llama
+        """llama-cli's features beyond plain decoding on the 1-layer llama
         file, each run with its own load_model, greedy, each printed text
         against the same setup driven in this process: --spec-ngram
         --draft-max 8 against speculative_generate (its ids against
@@ -2476,7 +2508,7 @@ def main() -> int:
         ""])
 
     def path_f_features(model):
-        """llama-server's features beyond plain decoding on the 2-layer
+        """llama-server's features beyond plain decoding on the 1-layer
         llama: with --spec ngram (--draft-max 8, -np 4) one round of four
         concurrent 32-token greedy requests, ids against Context.generate's
         (held teacher-forced where they part); then at -c 512, -np 1, with
@@ -2592,6 +2624,38 @@ def main() -> int:
 
     smoke_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(smoke_dir, exist_ok=True)
+    # the full-width paths' fixtures, in the order main runs them: (make,
+    # n_layers), arch_path's own
+    FS = FAMILY_SYNTH_SCALE
+    WIDE = {
+        "qwen3-8b": (make_bench_qwen3_gguf, QWEN3_LAYERS),
+        "qwen3-30b-a3b": (make_bench_qwen3moe_gguf, QWEN3MOE_LAYERS),
+        "gemma3-4b": (make_bench_gemma3_gguf, GEMMA3_LAYERS),
+        "starcoder2-7b": (functools.partial(make_bench_starcoder2_gguf, synth_scale=FS),
+                          STARCODER2_LAYERS),
+        "command-r": (make_bench_command_r_gguf, COMMAND_R_LAYERS),
+        "gpt-oss-20b": (functools.partial(make_bench_gpt_oss_gguf, synth_scale=FS),
+                        GPT_OSS_LAYERS),
+        "llama4-scout": (functools.partial(make_bench_llama4_gguf, synth_scale=FS), SCOUT_LAYERS),
+        "qwen3-next-80b-a3b": (functools.partial(make_bench_qwen3next_gguf, synth_scale=FS),
+                               QWEN3NEXT_LAYERS),
+        "nemotron-h-8b": (functools.partial(make_bench_nemotron_h_gguf, synth_scale=FS),
+                          NEMOTRON_H_LAYERS),
+        "rwkv7-2.9b": (functools.partial(make_bench_rwkv_gguf, arch="rwkv7", synth_scale=FS),
+                       RWKV7_LAYERS),
+        "deepseek-v2-lite": (make_bench_deepseek2_gguf, DS_LITE_LAYERS),
+        "deepseek-v3": (functools.partial(make_bench_deepseek_v3_gguf, n_dense=0), DS_V3_LAYERS),
+        "minicpm3-4b": (functools.partial(
+            make_bench_deepseek2_gguf, arch="minicpm3", n_embd=2560, n_heads=40, q_lora_rank=768,
+            kv_lora_rank=256, qk_nope=64, qk_rope=32, v_dim=64, n_ff=6400, n_expert=0,
+            vocab_size=73448, n_ctx=32768, tie=True, synth_scale=FS), MINICPM3_LAYERS),
+        "qwen3-8b-q8_0": (functools.partial(make_bench_qwen3_gguf, ftype="q8_0"), QWEN3_LAYERS),
+        "qwen3-8b-q5_k_m": (functools.partial(make_bench_qwen3_gguf, ftype="q5_k_m"),
+                            QWEN3_MIX_LAYERS),
+        "qwen3-8b-q4_0": (functools.partial(make_bench_qwen3_gguf, ftype="q4_0"),
+                          QWEN3_MIX_LAYERS),
+    }
+
     path = os.path.join(smoke_dir, f"llama8b-q4km-{SMOKE_LAYERS}l.gguf")
     t0 = time.perf_counter()
     make_bench_llama_gguf(path, n_layers=SMOKE_LAYERS, seed=0)
@@ -2765,9 +2829,9 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    # heads of 64: a TinyLlama-1.1B-shaped model (depth cut 22 -> 2) on both memories
-    path = os.path.join(smoke_dir, "tinyllama-q4km-2l.gguf")
-    make_bench_llama_gguf(path, n_layers=2, n_embd=2048, n_heads=32, n_kv_heads=4, n_ff=5632,
+    # heads of 64: a TinyLlama-1.1B-shaped model (depth cut 22 -> 1) on both memories
+    path = os.path.join(smoke_dir, "tinyllama-q4km-1l.gguf")
+    make_bench_llama_gguf(path, n_layers=1, n_embd=2048, n_heads=32, n_kv_heads=4, n_ff=5632,
                           vocab_size=VM, n_ctx=2048, seed=0)
     model = load_model(path)
     os.remove(path)
@@ -3077,20 +3141,24 @@ def main() -> int:
         route)."""
         if arch in HYBRID_LAYOUTS:  # the pattern sets the depth
             shape = {k: v for k, v in FAMILY_SHAPE.items() if k != "n_layers"}
-            make_bench_hybrid_gguf(path, arch, **{**shape, **layout}, synth_scale=synth_scale,
-                                   f32=f32, seed=0)
+            fn, kw = make_bench_hybrid_gguf, dict(arch=arch, **{**shape, **layout}, f32=f32)
         elif arch in RWKV_ARCHS:  # 16 heads of 64; rwkv6qwen2's key/value on 8 of them
-            make_bench_rwkv_gguf(path, arch, **RWKV_SHAPE, **layout, synth_scale=synth_scale,
-                                 f32=f32, seed=0)
+            fn, kw = make_bench_rwkv_gguf, dict(arch=arch, **RWKV_SHAPE, **layout, f32=f32)
         elif arch in MLA_FAMILY_LAYOUTS:
-            make_bench_deepseek2_gguf(
-                path, arch=arch, n_layers=FAMILY_SHAPE["n_layers"], n_embd=FAMILY_SHAPE["n_embd"],
+            fn, kw = make_bench_deepseek2_gguf, dict(
+                arch=arch, n_layers=FAMILY_SHAPE["n_layers"], n_embd=FAMILY_SHAPE["n_embd"],
                 n_heads=FAMILY_SHAPE["n_heads"], n_ff=FAMILY_SHAPE["n_ff"],
                 vocab_size=FAMILY_SHAPE["vocab_size"], n_ctx=FAMILY_SHAPE["n_ctx"],
-                **layout, synth_scale=synth_scale, f32=f32, seed=0)
+                **layout, f32=f32)
+        elif arch in DIFFUSION_LAYOUTS:  # the vocab's last id the mask
+            shape = {k: v for k, v in FAMILY_SHAPE.items() if k != "head_dim"}
+            fn, kw = make_bench_diffusion_gguf, dict(arch=arch, **shape, mask_token=-1)
         else:
-            make_bench_arch_gguf(path, arch, **{**FAMILY_SHAPE, **layout},
-                                 synth_scale=synth_scale, seed=0)
+            fn, kw = make_bench_arch_gguf, dict(arch=arch, **{**FAMILY_SHAPE, **layout})
+        fn(path, **kw, synth_scale=synth_scale, seed=0)
+
+    def family_path_file(arch, name=None) -> str:
+        return os.path.join(smoke_dir, f"family-{(name or arch).replace(' ', '-')}.gguf")
 
     def f32_reading(arch, layout):
         """The conditioning of an F32_FAMILIES entry's Q4_K_M file, a reading
@@ -3130,7 +3198,7 @@ def main() -> int:
         del ctxs, models
         torch.cuda.empty_cache()
 
-    def family_path(arch, layout, synth_scale=FAMILY_SYNTH_SCALE):
+    def family_path(arch, layout, synth_scale=FAMILY_SYNTH_SCALE, name=None):
         """One family of the registry, narrow (family_file; the Q4_K_M mix,
         F32 values for F32_FAMILIES): a
         FAMILY_PROMPT-token prefill and 16 greedy tokens (Context.generate
@@ -3140,9 +3208,9 @@ def main() -> int:
         ISWA memory, K6 in ring mode on the window layers; no other kernel,
         so an ALiBi entry launches no K5/K6, nor a recurrent stack. Then the
         plain path on the prefill logits and each id held teacher-forced
-        (near_ties)."""
-        label = f"family {arch}"
-        path = os.path.join(smoke_dir, f"family-{arch}.gguf")
+        (near_ties). name: the path's label after "family " (default: arch)."""
+        label = f"family {name or arch}"
+        path = family_path_file(arch, name)
         family_file(path, arch, layout, synth_scale, f32=arch in F32_FAMILIES)
         model = load_model(path)
         os.remove(path)
@@ -3419,7 +3487,7 @@ def main() -> int:
 
     def path_s(model, small_q8, small_q4):
         """What llama-cli and llama-server had refused, on Qwen3-8B Q8_0 (the
-        2-layer model of the path above) and path Q's Qwen3-0.6B-shaped
+        1-layer model of the path above) and path Q's Qwen3-0.6B-shaped
         files, Context(n_ctx=4096, n_seqs=8, n_ubatch=512, quantized_kv=True):
         1. speculative_generate with NgramSpeculator over a prompt that
            repeats a 64-token span (the model's own greedy continuation of a
@@ -3752,28 +3820,31 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(times))
 
-    def profile_embed(label, ctx, toks, wall_ms):
-        """One Context.embed of toks under torch.profiler: device ms and
-        launches, the device's busy share of wall_ms (the embed's median
-        without the profiler), and the six kernels with the most device
-        time."""
+    def profile_call(label, what, fn, wall_ms):
+        """One call of fn under torch.profiler: device ms and launches, the
+        device's busy share of wall_ms (the call's host clock without the
+        profiler), and the six kernels with the most device time."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ctx.embed(toks)
+            fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
         if dev_ms <= 0:
             log(f"{label} profile: device time not measured (the profiler saw no kernels)")
             return
-        log(f"{label} profile of a {len(toks)}-token embed ({card}): {dev_ms:.3f} ms device over "
+        log(f"{label} profile of {what} ({card}): {dev_ms:.3f} ms device over "
             f"{sum(e.count for e in dev)} launches, busy share {dev_ms / wall_ms:.3f} of "
             f"{wall_ms:.3f} ms wall; most device time: " + "; ".join(
                 f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:60]}"
                 for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]))
+
+    def profile_embed(label, ctx, toks, wall_ms):
+        """One Context.embed of toks under torch.profiler (profile_call)."""
+        profile_call(label, f"a {len(toks)}-token embed", lambda: ctx.embed(toks), wall_ms)
 
     def bge_m3_path():
         """BGE-M3 (bert in GGUF) at full width and depth: Context.embed at 7,
@@ -3950,16 +4021,16 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     qwen3_model = arch_path(
-        "qwen3-8b", make_bench_qwen3_gguf, QWEN3_LAYERS, 151936, full_keys,
+        "qwen3-8b", *WIDE["qwen3-8b"], 151936, full_keys,
         "Qwen3-8B shape (n_embd 4096, 32/8 heads of 128, n_ff 12288, vocab 151936, "
         "q/k norms, NEOX rope 1e6), Q4_K/Q6_K mix", server=True, keep=True)
     # the embedding path: Qwen3-Embedding-8B is Qwen3-8B's stack (the loaded
-    # 2-layer model; its head is never read), then BGE-M3 at full depth and
+    # 1-layer model; its head is never read), then BGE-M3 at full depth and
     # the other embedding entries narrow
     t0 = time.perf_counter()
     embedding_decoder_path(
         qwen3_model, "qwen3-embedding-8b",
-        "Qwen/Qwen3-Embedding-8B: Qwen3-8B's stack (the qwen3-8b path's 2-layer model) with "
+        "Qwen/Qwen3-Embedding-8B: Qwen3-8B's stack (the qwen3-8b path's 1-layer model) with "
         "last-token pooling")
     del qwen3_model
     torch.cuda.empty_cache()
@@ -3971,27 +4042,25 @@ def main() -> int:
             embedding_family_path(arch)
     log(f"the embedding paths (Qwen3-Embedding, BGE-M3, {len(EMBEDDING_ARCHS) - 1} narrow "
         f"entries): {time.perf_counter() - t0:.1f} s")
-    arch_path("qwen3-30b-a3b", make_bench_qwen3moe_gguf, QWEN3MOE_LAYERS, 151936,
+    arch_path("qwen3-30b-a3b", *WIDE["qwen3-30b-a3b"], 151936,
               full_keys + (expert_key,),
               "Qwen3-30B-A3B shape (n_embd 2048, 32/4 heads of 128, 128 experts of 768, top 8, "
               "vocab 151936), Q4_K experts gate/up, Q6_K down", profile_qe=qmm_expert)
-    arch_path("gemma3-4b", make_bench_gemma3_gguf, GEMMA3_LAYERS, 262208,
+    arch_path("gemma3-4b", *WIDE["gemma3-4b"], 262208,
               full_keys + slots_keys + ring_keys,
               "Gemma-3-4B shape (n_embd 2560, 8/4 heads of 256, n_ff 10240, vocab 262208, "
               "window 1024 on five layers of six, GeGLU, post-norms, tied Q6_K head)")
 
     # the dense-decoder families that differ from llama only in block variants
     arch_path(
-        "starcoder2-7b",
-        functools.partial(make_bench_starcoder2_gguf, synth_scale=FAMILY_SYNTH_SCALE),
-        STARCODER2_LAYERS, 49152, full_keys,
+        "starcoder2-7b", *WIDE["starcoder2-7b"], 49152, full_keys,
         "StarCoder2-7B shape (bigcode/starcoder2-7b config.json: n_embd 4608, 36 heads on 4 KV "
         "heads of 128 (G = 9), a non-gated GELU FFN of 18432, biases throughout, LayerNorm eps "
         "1e-5, NEOX rope 1e6, vocab 49152; depth 32 -> "
         f"{STARCODER2_LAYERS}), Q4_K_M mix, an untied Q6_K head, synthetic block scales / 256",
         server=True, near_ties=True, routes=True)
     arch_path(
-        "command-r", make_bench_command_r_gguf, COMMAND_R_LAYERS, 256000, full_keys,
+        "command-r", *WIDE["command-r"], 256000, full_keys,
         "Command-R v01 shape (CohereForAI/c4ai-command-r-v01 config.json: n_embd 8192, 64 heads "
         "and 64 KV heads of 128, a SwiGLU FFN of 22528, one LayerNorm without bias feeding a "
         "parallel residual, logit scale 0.0625, NORM rope 8e6, vocab 256000, tied; depth 40 -> "
@@ -4031,9 +4100,7 @@ def main() -> int:
     gpt_oss_keys = (expert_key, "flash_attention_paged/prefill", "flash_attention/prefill",
                     "flash_attention/prefill ring")
     arch_path(
-        "gpt-oss-20b",
-        functools.partial(make_bench_gpt_oss_gguf, synth_scale=FAMILY_SYNTH_SCALE),
-        GPT_OSS_LAYERS, 201088, gpt_oss_keys,
+        "gpt-oss-20b", *WIDE["gpt-oss-20b"], 201088, gpt_oss_keys,
         "gpt-oss-20B shape (openai/gpt-oss-20b config.json: n_embd 2880, 64 query heads on 8 "
         "KV heads of 64 with sinks, q/k/v and output biases, window 128 on even layers and "
         "full attention on odd ones, NEOX rope 150000 (freq_base_swa the same) with YaRN "
@@ -4048,9 +4115,7 @@ def main() -> int:
         batch=4)
     default_scale("gpt-oss")
     arch_path(
-        "llama4-scout",
-        functools.partial(make_bench_llama4_gguf, synth_scale=FAMILY_SYNTH_SCALE),
-        SCOUT_LAYERS, 202048, full_keys + (expert_key,),
+        "llama4-scout", *WIDE["llama4-scout"], 202048, full_keys + (expert_key,),
         "Llama-4-Scout-17B-16E shape (meta-llama/Llama-4-Scout-17B-16E config.json, text "
         "config: n_embd 5120, 40 heads on 8 KV heads of 128 (G = 5), NORM rope 500000 with "
         "every fourth layer NoPE (not the first), the weightless q/k norm after rope, "
@@ -4064,9 +4129,7 @@ def main() -> int:
     # Nemotron-H-8B (Mamba-2, NoPE attention, relu^2 FFN blocks)
     t0 = time.perf_counter()
     model = arch_path(
-        "qwen3-next-80b-a3b",
-        functools.partial(make_bench_qwen3next_gguf, synth_scale=FAMILY_SYNTH_SCALE),
-        QWEN3NEXT_LAYERS, 151936, full_keys + (expert_key,),
+        "qwen3-next-80b-a3b", *WIDE["qwen3-next-80b-a3b"], 151936, full_keys + (expert_key,),
         "Qwen3-Next-80B-A3B shape (Qwen/Qwen3-Next-80B-A3B-Instruct config.json: n_embd 2048; "
         "layers 0-2 gated DeltaNet (16 key heads, 32 value heads of 128, conv 4), layer 3 gated "
         "full attention (16 query heads on 2 KV heads of 256, NEOX rope over 64 dims at 1e7, "
@@ -4079,9 +4142,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     model = arch_path(
-        "nemotron-h-8b",
-        functools.partial(make_bench_nemotron_h_gguf, synth_scale=FAMILY_SYNTH_SCALE),
-        NEMOTRON_H_LAYERS, 131072, full_keys,
+        "nemotron-h-8b", *WIDE["nemotron-h-8b"], 131072, full_keys,
         "Nemotron-H-8B shape (nvidia/Nemotron-H-8B-Base-8K config.json: n_embd 4096; the first "
         f"{NEMOTRON_H_LAYERS} blocks of hybrid_override_pattern M-M-M-M*-...: Mamba-2 at 0, 2, "
         "4, 6 (128 heads of 64, 8 groups, state 128, conv 4), relu^2 FFN blocks of 21504 at 1, "
@@ -4105,9 +4166,7 @@ def main() -> int:
     # three RWKV entries narrow
     t0 = time.perf_counter()
     model = arch_path(
-        "rwkv7-2.9b",
-        functools.partial(make_bench_rwkv_gguf, arch="rwkv7", synth_scale=FAMILY_SYNTH_SCALE),
-        RWKV7_LAYERS, 65536, decode_keys + prefill_keys,
+        "rwkv7-2.9b", *WIDE["rwkv7-2.9b"], 65536, decode_keys + prefill_keys,
         "RWKV-7 World 2.9B shape (BlinkDL RWKV-x070-World-2.9B: n_embd 2560, 40 heads of 64, "
         "channel mix 10240, vocab 65536, LoRA ranks 96 decay, 96 in-context learning rate, 64 "
         f"value residual, 320 gate; depth 32 -> {RWKV7_LAYERS}, so v_first crosses layers), "
@@ -4136,7 +4195,7 @@ def main() -> int:
     mla_slots = ("flash_attention/mla decode", "flash_attention/mla prefill")
     qmm_keys = decode_keys + prefill_keys
     ds_model = arch_path(
-        "deepseek-v2-lite", make_bench_deepseek2_gguf, DS_LITE_LAYERS, 102400,
+        "deepseek-v2-lite", *WIDE["deepseek-v2-lite"], 102400,
         qmm_keys + mla_paged + (expert_key,),
         "DeepSeek-V2-Lite shape (deepseek-ai/DeepSeek-V2-Lite config.json: n_embd 2048, 16 "
         "heads, no q-LoRA, kv_lora 512, qk_nope 128, qk_rope 64, v 128, 64 routed experts of "
@@ -4150,8 +4209,7 @@ def main() -> int:
     del ds_model
     torch.cuda.empty_cache()
     arch_path(
-        "deepseek-v3", functools.partial(make_bench_deepseek_v3_gguf, n_dense=0),
-        DS_V3_LAYERS, 129280, qmm_keys + ("flash_attention_paged/mla prefill", expert_key),
+        "deepseek-v3", *WIDE["deepseek-v3"], 129280, qmm_keys + ("flash_attention_paged/mla prefill", expert_key),
         "DeepSeek-V3 shape (deepseek-ai/DeepSeek-V3 config.json: n_embd 7168, 128 heads, "
         "q-LoRA 1536, kv_lora 512, qk_nope 128, qk_rope 64, v 128, 256 routed experts of 2048 "
         "top 8 by sigmoid with exp_probs_b, normalised, scaled by 2.5, one shared, vocab 129280, "
@@ -4164,12 +4222,7 @@ def main() -> int:
     # second MLA pair, on the pool and the slot table, int8 and bf16
     t0 = time.perf_counter()
     model = arch_path(
-        "minicpm3-4b",
-        functools.partial(make_bench_deepseek2_gguf, arch="minicpm3", n_embd=2560, n_heads=40,
-                          q_lora_rank=768, kv_lora_rank=256, qk_nope=64, qk_rope=32, v_dim=64,
-                          n_ff=6400, n_expert=0, vocab_size=73448, n_ctx=32768, tie=True,
-                          synth_scale=FAMILY_SYNTH_SCALE),
-        MINICPM3_LAYERS, 73448, qmm_keys + mla_paged,
+        "minicpm3-4b", *WIDE["minicpm3-4b"], 73448, qmm_keys + mla_paged,
         "MiniCPM3-4B shape (openbmb/MiniCPM3-4B config.json: n_embd 2560, 40 heads, q-LoRA 768, "
         "kv_lora 256, qk_nope 64, qk_rope 32, v 64, a SwiGLU FFN of 6400, vocab 73448, tied; "
         "embedding x 12, residual x 1.4 / sqrt(62), logits x 256 / 2560; depth 62 -> "
@@ -4190,18 +4243,267 @@ def main() -> int:
     log(f"MiniCPM3-4B and the slice's {len(MLA_FAMILY_LAYOUTS) + len(LATE_FAMILY_LAYOUTS) - 1} "
         f"narrow decoder entries: {time.perf_counter() - t0:.1f} s")
 
+    # T5's encoder-decoder (models/t5.py; Context's encoder-decoder flow),
+    # the diffusion LMs (runtime/diffusion.py, llama-diffusion-cli) and the
+    # shared decoder's last text entries
+    def diffusion_held(label, model, prompt, params):
+        """diffusion_generate on the kernel path (a Context as
+        llama-diffusion-cli builds it: n_ctx = n_ubatch = max_length), each
+        step's forward teacher-forced on the plain path over the kernel
+        path's sequence before the step: the logits at the step's candidate
+        (masked) positions within the limit; the committed positions the
+        plain confidence ranking's top count wherever the plain ranking's gap
+        at the cut exceeds DIFFUSION_MARGIN times the step's largest
+        confidence difference between the two paths (else a near-tie at the
+        cut, counted); each committed id the plain argmax or a near-tie
+        (against_plain's rule: the plain logit of the id within that row's
+        largest logit difference). Every step's forward launches K3 and K4
+        and no other kernel. -> (ids, step ms on the host clock)."""
+        L = params.max_length
+        kw = dict(n_ctx=L, n_seqs=1, n_ubatch=L)
+        kern, plain = Context(model, **kw), Context(model, kernels=False, **kw)
+        steps = []
+
+        def held(ctx, seq):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lk = diffusion_rt.step_logits(ctx, seq)  # ends in a host copy
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v for c in counters for k, v in c.items() if v}
+            steps.append((seq.copy(), lk, diffusion_rt.step_logits(plain, seq), ms, counts))
+            return lk
+
+        ids = diffusion_rt.diffusion_generate(kern, prompt, params, logits_fn=held)
+        mask = params.mask_token_id if params.mask_token_id >= 0 else model.tokenizer.vocab.mask_id
+        final = np.asarray(list(prompt) + ids)
+        errs, wrong, cut_ties, id_ties, bad_launch = [], [], [], [], []
+        for i, (before, lk, lp, _, counts) in enumerate(steps):
+            after = steps[i + 1][0] if i + 1 < len(steps) else final
+            committed = np.where((before == mask) & (after != mask))[0]
+            cand = np.where(before == mask)[0]
+            if params.schedule == "block" and len(committed):
+                b0 = len(prompt) + (int(committed[0]) - len(prompt)) // params.block_length * (
+                    params.block_length)
+                cand = cand[(cand >= b0) & (cand < b0 + params.block_length)]
+            if set(counts) != set(prefill_keys):
+                bad_launch.append((i, counts))
+            errs.append(nmse(torch.from_numpy(lk[cand]), torch.from_numpy(lp[cand])))
+            pk = diffusion_rt._softmax(lk[cand].astype(np.float64)).max(axis=-1)
+            pp = diffusion_rt._softmax(lp[cand].astype(np.float64)).max(axis=-1)
+            n = len(committed)
+            ranked = np.sort(pp)[::-1]
+            gap = ranked[n - 1] - ranked[n] if 0 < n < len(cand) else np.inf
+            margin = DIFFUSION_MARGIN * float(np.abs(pk - pp).max())
+            plain_set = set(cand[np.argsort(-pp, kind="stable")[:n]].tolist())
+            if gap > margin and plain_set != set(committed.tolist()):
+                wrong.append((i, "positions", round(float(gap), 6), round(margin, 6)))
+            elif gap <= margin and n:
+                cut_ties.append((i, round(float(gap), 6), round(margin, 6)))
+            for j in committed:
+                t, row = int(after[j]), lp[j]
+                if int(np.argmax(row)) != t:
+                    g, d = float(row.max() - row[t]), float(np.abs(lk[j] - row).max())
+                    (id_ties if g <= d else wrong).append((i, int(j), t, round(g, 5),
+                                                           round(d, 5)))
+        step_ms = [s[3] for s in steps]
+        log(f"{label} {params.schedule} schedule, {params.algorithm}, {len(steps)} steps of "
+            f"{L} rows ({card}): logits at the masked positions against the plain path "
+            f"teacher-forced, NMSE largest {max(errs):.3e} (limit {NMSE_LIMIT}); near-ties at "
+            f"the cut (step, plain gap, margin) {cut_ties}; committed ids at near-ties (step, "
+            f"position, id, plain gap, difference) {id_ties}; step ms (host clock, kernel "
+            f"path) median {float(np.median(step_ms)):.3f}, all {[round(m, 3) for m in step_ms]}; "
+            f"a step's launches {steps[0][4]}")
+        if not max(errs) < NMSE_LIMIT:
+            failures.append(f"{label} {params.schedule}: step logits NMSE {errs}")
+        if wrong:
+            failures.append(f"{label} {params.schedule}: commits off the plain path beyond a "
+                            f"near-tie: {wrong[:4]}")
+        if bad_launch:
+            failures.append(f"{label} {params.schedule}: a step's launches not K3 and K4 "
+                            f"alone: {bad_launch[:2]}")
+        del kern, plain
+        return ids, step_ms
+
+    def llada_path():
+        """LLaDA-8B at full width, depth cut to LLADA_LAYERS: llama-diffusion-
+        cli on it (max_length 128, 16 steps, confidence), timed, its launches
+        read (K3/K4 alone: every projection and the head at 128 rows; the
+        bidirectional attention on the einsum path, as in the JAX package);
+        then diffusion_held on the same prompt (its ids must equal the
+        CLI's) and on the block schedule (blocks of 32)."""
+        label = "llada-8b"
+        path = os.path.join(smoke_dir, f"{label}.gguf")
+        t0 = time.perf_counter()
+        # the synthetic blocks at their default scale: at / 256 every masked
+        # row's logits are about equal (near-uniform attention over the
+        # same tokens), so each step's ranking ties at its cut
+        make_bench_diffusion_gguf(path, n_layers=LLADA_LAYERS, seed=0)
+        t1 = time.perf_counter()
+        model = load_model(path)
+        torch.cuda.synchronize()
+        log(f"{label}: LLaDA-8B shape (GSAI-ML/LLaDA-8B-Instruct config.json: n_embd 4096, 32 "
+            f"heads and 32 KV heads of 128, a SwiGLU FFN of 12288, vocab 126464, mask token "
+            f"126336, rope base 500000, bidirectional attention; depth 32 -> {LLADA_LAYERS}), "
+            f"Q4_K_M mix; random weights (seed 0) (fixture "
+            f"{t1 - t0:.1f} s, load_model {time.perf_counter() - t1:.1f} s, device memory "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+        argv = ["-m", path, "-p", CLI_PROMPT, "--diffusion-steps", "16",
+                "--diffusion-max-length", "128", "--diffusion-algorithm", "confidence"]
+        with contextlib.redirect_stdout(io.StringIO()):  # one untimed step: start-up
+            diffusion_cli.main(argv[:2] + ["-p", "warm", "--diffusion-steps", "1"], model=model)
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli_ids = diffusion_cli.main(argv, model=model)
+        wall = time.perf_counter() - t0
+        os.remove(path)
+        counts = read_counts(f"{label} llama-diffusion-cli", prefill_keys)
+        all_counts[label] = counts
+        prompt = model.tokenizer.encode(CLI_PROMPT)
+        ids, step_ms = diffusion_held(label, model, prompt, diffusion_rt.DiffusionParams(
+            steps=16, max_length=128, algorithm="confidence"))
+        n_steps = len(step_ms)  # the run ends early once no position is masked
+        log(f"{label} llama-diffusion-cli ({card}): {len(prompt)}-token prompt, 128 rows, at "
+            f"most 16 steps ({n_steps} run, as the held run's): {wall * 1e3:.1f} ms, "
+            f"{len(cli_ids) / wall:.1f} tokens a second ({len(cli_ids)} generated), "
+            f"{wall * 1e3 / n_steps:.2f} ms a step; K3 {counts['qmm4_planes_prefill/wgmma']} and "
+            f"K4 {counts['qmm_planes_prefill/wgmma']} launches "
+            f"({counts['qmm4_planes_prefill/wgmma'] / n_steps:g} and "
+            f"{counts['qmm_planes_prefill/wgmma'] / n_steps:g} a step)")
+        if ids != cli_ids:
+            failures.append(f"{label}: the held run's ids part from llama-diffusion-cli's")
+        diffusion_held(label, model, prompt, diffusion_rt.DiffusionParams(
+            steps=16, max_length=128, algorithm="confidence", schedule="block",
+            block_length=32))
+        seq = np.full(128, model.tokenizer.vocab.mask_id)
+        seq[: len(prompt)] = prompt
+        pctx = Context(model, n_ctx=128, n_seqs=1, n_ubatch=128)
+        diffusion_rt.step_logits(pctx, seq)
+        profile_call(label, "a diffusion step's forward (128 rows, the logits to the host)",
+                     lambda: diffusion_rt.step_logits(pctx, seq), float(np.median(step_ms)))
+        del model, pctx
+        torch.cuda.empty_cache()
+
+    def diffusion_family_path(arch):
+        """A diffusion entry narrow (FAMILY_SHAPE's widths, the Q4_K_M mix):
+        diffusion_held at 128 rows, 4 steps (the MoE pair's experts on the
+        per-expert route: no K7 at 128 rows)."""
+        label = f"family {arch}"
+        path = family_path_file(arch)
+        family_file(path, arch, {})
+        model = load_model(path)
+        os.remove(path)
+        prompt = [int(t) for t in prng.integers(3, model.cfg.vocab_size - 1, 40)]
+        reset_counts()
+        diffusion_held(label, model, prompt, diffusion_rt.DiffusionParams(steps=4,
+                                                                          max_length=128))
+        all_counts[label] = read_counts(label, prefill_keys)
+        del model
+
+    def t5_path():
+        """flan-t5-large at full width, both stacks cut to T5_LAYERS:
+        Context.generate from a 96-token prompt (the encoder at its 128-row
+        bucket on K3/K4, each decoder step on K1/K2 with its cross K/V
+        projected at 128 rows on K3/K4; attention plain in both packages),
+        the encode and a decoder step timed, the plain path on the start
+        token's logits, 8 teacher-forced steps and each id (near_ties); a
+        batch of 3 sequences whose encoder outputs are 96, 40 and 200 rows
+        (one cross state padded to 256) against each row's B=1 run; a
+        served round against Context.generate."""
+        label = "flan-t5-large"
+        path = os.path.join(smoke_dir, f"{label}.gguf")
+        t0 = time.perf_counter()
+        make_bench_t5_gguf(path, n_layers=T5_LAYERS, n_dec_layers=T5_LAYERS,
+                           synth_scale=FAMILY_SYNTH_SCALE, seed=0)
+        t1 = time.perf_counter()
+        model = load_model(path)
+        os.remove(path)
+        log(f"{label}: flan-t5-large shape (google/flan-t5-large config.json: d_model 1024, 16 "
+            f"heads of 64, a gated-GELU FFN of 2816, 32 relative-position buckets, vocab 32128, "
+            f"an untied head; 24 encoder and 24 decoder layers -> {T5_LAYERS} each), Q4_K_M "
+            f"mix, synthetic block scales / 256; random weights (seed 0) (fixture "
+            f"{t1 - t0:.1f} s, load_model {time.perf_counter() - t1:.1f} s)")
+        kw = dict(n_ctx=512, n_seqs=4, n_ubatch=512, quantized_kv=True)
+        ctx = Context(model, **kw)
+        vocab = model.cfg.vocab_size
+        prompt = [int(t) for t in prng.integers(3, vocab, 96)]
+        ctx.prefill(prompt[:80], seq=3)  # the allocator's first allocations
+        ctx.seq_rm(3)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.encode(prompt, seq=2)  # ends in a host copy
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        logits = ctx.prefill(prompt, seq=1)
+        n0, d0 = ctx.perf.n_decode, ctx.perf.t_decode_ms
+        gen_ids = ctx.generate(prompt, max_new_tokens=32, seq=0)
+        step_ms = (ctx.perf.t_decode_ms - d0) / max(ctx.perf.n_decode - n0, 1)
+        del ctx
+        all_counts[label] = read_counts(label, decode_keys + prefill_keys)
+        check_logits(label, logits, vocab)
+        log(f"{label} ({card}): encode of 96 tokens {enc_ms:.3f} ms, decoder step (eager, "
+            f"B=1, cross state of 128 rows) {step_ms:.3f} ms, {1e3 / step_ms:.1f} tokens a "
+            f"second (host clock); launches K1 {all_counts[label]['qmm4_planes/decode']}, K2 "
+            f"{all_counts[label]['qmm_planes/decode']}, K3 "
+            f"{all_counts[label]['qmm4_planes_prefill/wgmma']}, K4 "
+            f"{all_counts[label]['qmm_planes_prefill/wgmma']}")
+        pctx = Context(model, **kw)
+        pctx.prefill(prompt)
+        profile_call(label, "an encode of 96 tokens", lambda: pctx.encode(prompt, seq=1), enc_ms)
+        profile_call(label, "a decoder step (B=1, eager)",
+                     lambda: pctx.decode_one(gen_ids[0]), step_ms)
+        del pctx
+        against_plain(label, model, logits, gen_ids, prompt, decode_logits=8, near_ties=True,
+                      **{**kw, "n_seqs": 2})
+        prompts3 = [prompt, prompt[:40], [int(t) for t in prng.integers(3, vocab, 200)]]
+        bctx = Context(model, **kw)
+        toks = np.asarray([int(np.argmax(bctx.prefill(p, seq=s)))
+                           for s, p in enumerate(prompts3)], np.int32)
+        rows = [[int(t)] for t in toks]
+        for _ in range(8):
+            toks = bctx.decode_step_greedy(toks, np.arange(3))
+            for s in range(3):
+                rows[s].append(int(toks[s]))
+        del bctx
+        for s, p in enumerate(prompts3):
+            single = Context(model, **kw).generate(p, max_new_tokens=9)
+            same = single == rows[s]
+            log(f"{label} batch of 3 (encoder outputs of {[len(q) for q in prompts3]} rows), "
+                f"row {s}: ids equal to its B=1 run {same}")
+            if not same:
+                hold_ids(f"{label} batch row {s}", model, p, rows[s], **kw)
+        server_round(model, f"{label} server", must_run=decode_keys + prefill_keys,
+                     near_ties=True)
+        del model
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    llada_path()
+    for arch in DIFFUSION_LAYOUTS:
+        if arch != "llada":
+            diffusion_family_path(arch)
+    log(f"the diffusion paths (LLaDA-8B and 3 narrow entries): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    t5_path()
+    log(f"the flan-t5-large path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for arch, layout in LAST_TEXT_LAYOUTS.items():
+        family_path(arch, layout)
+    family_path("laguna", LAGUNA_ELEMENT_GATE, name="laguna element gate")
+    torch.cuda.empty_cache()
+    log(f"the last shared-decoder entries (5 narrow paths): {time.perf_counter() - t0:.1f} s")
+
     # the storage types users download beside Q4_K_M, on the main path
     q8_model = arch_path(
-        "qwen3-8b-q8_0", functools.partial(make_bench_qwen3_gguf, ftype="q8_0"),
-        QWEN3_LAYERS, 151936, int8_keys,
+        "qwen3-8b-q8_0", *WIDE["qwen3-8b-q8_0"], 151936, int8_keys,
         "Qwen3-8B shape, every matrix Q8_0 (token_embd and output included; the Q8_0 "
         "file of Qwen/Qwen3-8B-GGUF), F32 norms", want_layout="int8 flat g32",
         near_ties=True, keep=True)
-    arch_path("qwen3-8b-q5_k_m", functools.partial(make_bench_qwen3_gguf, ftype="q5_k_m"),
-              QWEN3_MIX_LAYERS, 151936, int8_keys,
+    arch_path("qwen3-8b-q5_k_m", *WIDE["qwen3-8b-q5_k_m"], 151936, int8_keys,
               "Qwen3-8B shape, Q5_K_M mix (Q5_K everywhere, Q6_K attn_v)", n_gen=16, full=False)
-    arch_path("qwen3-8b-q4_0", functools.partial(make_bench_qwen3_gguf, ftype="q4_0"),
-              QWEN3_MIX_LAYERS, 151936,
+    arch_path("qwen3-8b-q4_0", *WIDE["qwen3-8b-q4_0"], 151936,
               ("qmm4_planes/decode", "qmm4_planes_prefill/wgmma", "qmm_planes/decode")
               + paged_keys,
               "Qwen3-8B shape, Q4_0 (Q6_K output)", n_gen=16, full=False)

@@ -11,7 +11,8 @@ layer (biases, q/k norms, post-norms, the recurrent mixers' ssm_*,
 shortconv_* and attn_gate, RWKV's time_mix_* and channel_mix_*, bitnet's
 sub-norms and talkie's layer_out_scale included) comes across as it is; an
 encoder's token_types, T5's enc_layers (attn_rel_b among their keys) and
-nomic-bert-moe's expert stacks too.
+its decoder layers' cross_attn_*, and nomic-bert-moe's expert stacks too;
+nanbeige's looped layers stay one set of tensors (n_loops).
 kv_cache_from_jax does the same for a slot-table KVCache, iswa_from_jax
 for an ISWACache on slot tables and recurrent_from_jax for a
 RecurrentState, so a test can continue a JAX prefill in the port. Nothing
@@ -51,11 +52,19 @@ def _weight(w, device):
     return _tensor(w, device)
 
 
-def params_from_jax(jparams: dict[str, Any], device="cpu") -> dict[str, Any]:
-    """JAX `Model.params` (arrays as numpy) -> the port's params on `device`."""
+def params_from_jax(jparams: dict[str, Any], device="cpu", n_loops: int = 1) -> dict[str, Any]:
+    """JAX `Model.params` (arrays as numpy) -> the port's params on `device`.
+    n_loops (nanbeige's cfg.extra["n_loops"]): the layer list is the
+    physical stack n_loops times, so only its first pass is converted and
+    the rest refer to it, as the port's loader lists it (a converted tree
+    of numpy arrays no longer shows which dicts were one)."""
     out: dict[str, Any] = {}
     for key, val in jparams.items():
-        if key in ("layers", "enc_layers"):  # decoder blocks; T5's encoder blocks
+        if key == "layers" and n_loops > 1:
+            phys = [{k: _weight(w, device) for k, w in lw.items()}
+                    for lw in val[: len(val) // n_loops]]
+            out[key] = phys * n_loops
+        elif key in ("layers", "enc_layers"):  # decoder blocks; T5's encoder blocks
             out[key] = [{k: _weight(w, device) for k, w in lw.items()} for lw in val]
         else:
             out[key] = _weight(val, device)

@@ -1,7 +1,8 @@
 """Model loader for the registry's families, decoders and encoders: GGUF
 file -> (ModelConfig, weights on the device), and the family's graph
 (Model.forward_fn). T5's encoder blocks (enc.blk.N.*) land in
-params["enc_layers"].
+params["enc_layers"], its decoder blocks (dec.blk.N.*) in params["layers"];
+nanbeige's physical stack is listed once a loop, by reference.
 
 Analog of reference llama_model_loader + llama_model::load_tensors
 (src/llama-model-loader.cpp; src/models/llama.cpp:35-94). Weights are read
@@ -157,7 +158,9 @@ LAYER_TENSORS = {
         "lerp_k", "lerp_r", "key", "value", "receptance")},
 }
 
-# T5's encoder blocks, enc.blk.N.* (reference llama-arch.cpp LLM_TENSOR_ENC_*)
+# T5's encoder blocks, enc.blk.N.*, and decoder blocks, dec.blk.N.* (reference
+# llama-arch.cpp LLM_TENSOR_ENC_* and LLM_TENSOR_DEC_*; the JAX package's
+# loader.py:192-208): the decoder's carry the cross-attention's
 T5_LAYER_TENSORS = {
     "attn_q.weight": "attn_q",
     "attn_k.weight": "attn_k",
@@ -165,6 +168,11 @@ T5_LAYER_TENSORS = {
     "attn_o.weight": "attn_output",
     "attn_rel_b.weight": "attn_rel_b",
     "attn_norm.weight": "attn_norm",
+    "cross_attn_q.weight": "cross_attn_q",
+    "cross_attn_k.weight": "cross_attn_k",
+    "cross_attn_v.weight": "cross_attn_v",
+    "cross_attn_o.weight": "cross_attn_output",
+    "cross_attn_norm.weight": "cross_attn_norm",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
@@ -182,6 +190,7 @@ GLOBAL_TENSORS = {
     "output.bias": "output_bias",
     "rope_freqs.weight": "rope_factors",
     "enc.output_norm.weight": "enc_output_norm",  # neo-bert's, T5 encoder's final norm
+    "dec.output_norm.weight": "output_norm",  # T5 decoder's final norm
     "token_types.weight": "token_types",  # the BERT family's token-type rows
     # the rank head (loaded, not read: the server's rerank scores embedding cosine)
     "cls.weight": "cls",
@@ -244,13 +253,18 @@ class Model:
     @property
     def forward_fn(self):
         """The family's graph (the JAX package's loader.py:338-378): the BERT
-        family's encoder, T5's encoder alone (no return_hidden, as in the
-        JAX package), RWKV's forward, the pure-recurrent forward, or the
-        shared decoder. RWKV is asked first: its memory is recurrent too."""
+        family's encoder, T5's decoder step over the encoder's output (its
+        cross state), T5's encoder alone (no return_hidden, as in the JAX
+        package), RWKV's forward, the pure-recurrent forward, or the shared
+        decoder. RWKV is asked first: its memory is recurrent too."""
         if self.cfg.extra.get("encoder"):
             from . import bert
 
             return bert.forward
+        if self.cfg.extra.get("encoder_decoder"):
+            from . import t5
+
+            return t5.t5_forward
         if self.cfg.extra.get("t5_encoder_only"):
             from . import t5
 
@@ -302,11 +316,12 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
             key = LAYER_TENSORS.get(suffix)
             if key is not None and int(il) < cfg.n_layers:
                 target = layers[int(il)]
-        elif name.startswith("enc.blk.") and "enc_layers" in params:
-            _, _, il, suffix = name.split(".", 3)
+        elif name.startswith(("enc.blk.", "dec.blk.")) and "enc_layers" in params:
+            part, _, il, suffix = name.split(".", 3)
             key = T5_LAYER_TENSORS.get(suffix)
-            if key is not None and int(il) < len(params["enc_layers"]):
-                target = params["enc_layers"][int(il)]
+            group = params["enc_layers"] if part == "enc" else layers
+            if key is not None and int(il) < len(group):
+                target = group[int(il)]
         if key is None or target is None:
             continue
         # a family's own name for a role (gpt-oss stores its pre-FFN norm as
@@ -324,6 +339,11 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
 
     if cfg.extra.get("t5_encoder_only"):  # the encoder's blocks are the ones that run
         layers = params["enc_layers"]
+    # nanbeige: the file holds the physical stack; the logical layers past it
+    # are filled below by reference (the JAX package's loader.py:519-521)
+    n_loops = int(cfg.extra.get("n_loops", 1))
+    if n_loops > 1:
+        layers = layers[: cfg.n_layers // n_loops]
     # an MoE layer's experts; a file-fused gate|up
     stand_ins = {"ffn_down": ("ffn_down_exps",), "ffn_up": ("ffn_gateup", "ffn_up_exps")}
     if cfg.extra.get("kv_lora_rank") and any("attn_kv_a_mqa" not in lw and "ssm_f_a" not in lw
@@ -354,6 +374,11 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
             _split_mla_kv_b(lw, cfg)
     if "rope_factors" in params:
         cfg.extra["rope_factors_arr"] = params["rope_factors"].float().cpu().numpy()
+    if n_loops > 1:
+        # logical layer il is physical il % n_phys: the same dicts, so the
+        # same tensors on the card, not n_loops copies (the JAX package's
+        # loader.py:594-599); each logical layer keeps its own KV rows
+        params["layers"] = list(layers) * n_loops
     # vocab-head O padding: 128256-style widths have no wide multiple-of-128
     # divisors; pad to a 4096 multiple once, matmul slices via out_dim
     hw = params.get("output")
@@ -369,12 +394,16 @@ def required_layer_tensors(cfg: ModelConfig) -> tuple[str, ...]:
     and up projection, a post-norm encoder's attention output norm and up
     projection; a recurrent stack's SSM projections; a hybrid's attn_norm
     alone (its mixer or FFN is checked a layer); RWKV's time mix and its
-    channel mix or, on the qwen2-FFN hybrids, ffn_up; per-layer head arrays
-    (deci) allow partial blocks, so none; a weightless norm carries
+    channel mix or, on the qwen2-FFN hybrids, ffn_up; T5's decoder blocks
+    their self-attention, cross-attention and FFN; per-layer head arrays
+    (deci, openelm) allow partial blocks, so none; a weightless norm carries
     no norm tensors, a shared parallel norm (phi2, command-r) is attn_norm
     alone, norm-after blocks carry post-norms instead of pre-norms."""
     if cfg.extra.get("t5_encoder_only"):
         return ()
+    if cfg.extra.get("encoder_decoder"):
+        return ("attn_norm", "attn_output", "cross_attn_norm", "cross_attn_q", "cross_attn_k",
+                "cross_attn_v", "cross_attn_output", "ffn_norm", "ffn_down")
     if cfg.extra.get("pre_norm_encoder"):
         return ("ffn_norm", "ffn_up")
     if cfg.extra.get("encoder"):

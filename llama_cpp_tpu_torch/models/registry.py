@@ -13,12 +13,16 @@ modern-bert, nomic-bert, nomic-bert-moe, neo-bert, eurobert, jina-bert-v2,
 jina-bert-v3: models/bert.py; t5encoder: models/t5.py) set the extras their
 forward reads, and gemma-embedding and llama-embed run the shared decoder
 for Context.embed. The MLA entries (deepseek2, mistral4, plm, minicpm3)
-cache the absorbed latent. Any other architecture raises
-NotImplementedError, among them deepseek32 (DeepSeek's sparse attention
-needs the DSA memory), deepseek2-ocr (it comes with the multimodal path),
-afmoe and laguna (their softplus attention gates), minimax-m3 (its
-block-sparse attention), t5 (the encoder-decoder's cross-attention flow),
-openelm and nanbeige (not taken yet).
+cache the absorbed latent. t5 runs models/t5.py's encoder and decoder
+(Context's encoder-decoder flow); dream, llada, llada-moe and rnd1 are the
+shared decoder run bidirectionally for runtime/diffusion.py; afmoe, laguna
+(the softplus output gate, rope_dims_swa), openelm (per-layer head arrays)
+and nanbeige (the physical stack looped) are the shared decoder. Any other
+architecture raises NotImplementedError naming itself: minimax-m3 (its
+block-sparse attention), gemma3n, gemma4 and gemma4-assistant, deepseek32,
+glm-dsa and deepseek4 (sparse attention memories), the eagle3 and dflash
+drafts, the vision-language entries (qwen2vl, qwen3vl, qwen3vlmoe, cogvlm,
+hunyuan_vl, paddleocr, deepseek2-ocr) and qwen3tts.
 """
 
 from __future__ import annotations
@@ -1262,3 +1266,140 @@ def _deci(cfg: ModelConfig, md) -> ModelConfig:
     if kvh is not None:
         cfg.extra["n_head_kv_arr"] = kvh
     return cfg.with_(rope_type=ROPE_TYPE_NORM, tie_embeddings=True)
+
+
+# -- T5's encoder-decoder, the diffusion LMs and the last shared-decoder text
+# entries (the JAX package's registry.py entries of the same names, its line
+# given)
+
+
+@register("t5")  # 1047
+def _t5(cfg: ModelConfig, md) -> ModelConfig:
+    """T5 / flan-t5 / mt5 encoder-decoder (reference src/models/t5.cpp;
+    models/t5.py's t5_encode and t5_forward). cfg.n_layers becomes the
+    decoder's depth (the layers the KV memory and params["layers"] cover);
+    the encoder's depth goes to extra."""
+    cfg.extra.update(
+        t5=True, encoder_decoder=True,
+        rel_buckets=int(md.get("t5.attention.relative_buckets_count", 32)),
+        enc_n_layers=cfg.n_layers,
+        decoder_start_token=int(md.get("t5.decoder_start_token_id", 0)))
+    return cfg.with_(rope_type=ROPE_TYPE_NONE,
+                     n_layers=int(md.get("t5.decoder_block_count", cfg.n_layers)))
+
+
+def _diffusion(cfg: ModelConfig, shift: bool) -> None:
+    """A diffusion LM's extras: bidirectional attention over the whole
+    sequence (the einsum path, in both packages), generation by iterative
+    unmasking (runtime/diffusion.py)."""
+    cfg.extra.update(non_causal=True, diffusion=True, diffusion_shift_logits=shift)
+
+
+@register("dream")  # 827
+def _dream(cfg: ModelConfig, md) -> ModelConfig:
+    """Dream 7B (reference src/models/dream.cpp): qwen2's graph (q/k/v
+    biases, NEOX rope) run bidirectionally; position i is scored with the
+    logits of position i - 1. Its biases apply wherever the loader finds
+    them."""
+    _diffusion(cfg, shift=True)
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX)
+
+
+@register("llada")  # 836
+def _llada(cfg: ModelConfig, md) -> ModelConfig:
+    """LLaDA 8B (reference src/models/llada.cpp): llama's graph run
+    bidirectionally."""
+    _diffusion(cfg, shift=False)
+    return cfg.with_(rope_type=ROPE_TYPE_NORM)
+
+
+@register("llada-moe")  # 1367
+def _llada_moe(cfg: ModelConfig, md) -> ModelConfig:
+    """LLaDA-MoE (reference src/models/llada-moe.cpp): bidirectional, per-head
+    q/k norms, a softmax router whose top-k weights stay raw (build_moe_ffn
+    norm_w=false, llada-moe.cpp:133)."""
+    _diffusion(cfg, shift=False)
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, expert_weights_norm=False)
+
+
+@register("rnd1")  # 1378
+def _rnd1(cfg: ModelConfig, md) -> ModelConfig:
+    """RND1 (reference src/models/rnd1.cpp): qwen3moe's blocks run
+    bidirectionally, the top-k weights normalised."""
+    _diffusion(cfg, shift=False)
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, expert_weights_norm=True)
+
+
+@register("afmoe")  # 1573
+def _afmoe(cfg: ModelConfig, md) -> ModelConfig:
+    """AFMoE (reference src/models/afmoe.cpp): a sigmoid output gate
+    (attn_gate) before attn_output, per-head q/k norms, NoPE every
+    no_rope_layer_step-th layer, post-norms on both halves, the embedding
+    times sqrt(n_embd), leading dense layers, then a sigmoid router with a
+    selection bias and shared experts; an optional window pattern."""
+    a = cfg.arch
+    step = int(md.get(f"{a}.rope.no_rope_layer_step", 0) or 0)
+    if step > 0:
+        cfg.extra["no_rope_layers"] = tuple(il for il in range(cfg.n_layers)
+                                            if (il + 1) % step == 0)
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, post_norms=True,
+                  embd_scale=float(cfg.n_embd) ** 0.5,
+                  expert_gating=_gating(md, f"{a}.expert_gating_func", 2),
+                  expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", True)),
+                  expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+                  n_expert_shared=int(md.get(f"{a}.expert_shared_count", 0)))
+    return _swa_pattern_extra(c, md, a)
+
+
+@register("laguna")  # 1834
+def _laguna(cfg: ModelConfig, md) -> ModelConfig:
+    """Laguna (reference src/models/laguna.cpp): qwen3's per-head q/k norms
+    with a softplus output gate, per head (a gate n_heads wide, broadcast
+    over the head) or per element, told apart by the gate's width; a sigmoid
+    router with a selection bias and one shared expert after leading dense
+    layers; on the full/window variant the window layers rope
+    dimension_count_swa dims at freq_base_swa, without YaRN."""
+    a = cfg.arch
+    heads = _as_arr(md.get(f"{a}.attention.head_count"))
+    if heads is not None and len(set(heads)) > 1:
+        cfg.extra["n_head_arr"] = heads
+    cfg.extra.update(attn_gate_fn="softplus", swa_first_global=True)
+    dims_swa = md.get(f"{a}.rope.dimension_count_swa")
+    if dims_swa:
+        cfg.extra["rope_dims_swa"] = int(dims_swa)
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True,
+                  expert_gating=_gating(md, f"{a}.expert_gating_func", 2),
+                  expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", False)),
+                  expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+                  n_expert_shared=int(md.get(f"{a}.expert_shared_count", 1) or 1))
+    return _swa_pattern_extra(c, md, a)
+
+
+@register("openelm")  # 1724
+def _openelm(cfg: ModelConfig, md) -> ModelConfig:
+    """Apple OpenELM (reference src/models/openelm.cpp): per-layer head and
+    KV-head arrays, a file-fused QKV split [q | k | v] by each layer's own
+    counts, shared per-head q/k RMSNorms, NEOX rope, a SiLU GLU FFN whose
+    width each layer's tensors give, a tied head."""
+    a = cfg.arch
+    heads = _as_arr(md.get(f"{a}.attention.head_count"))
+    kvh = _as_arr(md.get(f"{a}.attention.head_count_kv"))
+    if heads is not None:
+        cfg.extra["n_head_arr"] = heads
+    if kvh is not None:
+        cfg.extra["n_head_kv_arr"] = kvh
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True, tie_embeddings=True)
+
+
+@register("nanbeige")  # 1757
+def _nanbeige(cfg: ModelConfig, md) -> ModelConfig:
+    """Nanbeige (reference src/models/nanbeige.cpp): llama's graph with the
+    physical stack run num_loops times on shared weights (each logical
+    layer keeps its own KV rows), output_norm applied again at each loop
+    boundary unless skip_loop_final_norm. cfg.n_layers counts the logical
+    layers."""
+    a = cfg.arch
+    loops = int(md.get(f"{a}.num_loops", 1))
+    cfg.extra.update(n_loops=loops,
+                     skip_loop_final_norm=bool(md.get(f"{a}.skip_loop_final_norm", False)))
+    return cfg.with_(rope_type=ROPE_TYPE_NORM, n_layers=cfg.n_layers * max(loops, 1))

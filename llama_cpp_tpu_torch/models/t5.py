@@ -1,17 +1,21 @@
-"""T5's encoder (t5encoder: flan-t5 and mt5 encoders, T5-based embedding
-models).
+"""T5: the encoder (t5encoder: flan-t5 and mt5 encoders, T5-based embedding
+models) and the encoder-decoder's decoder step (t5).
 
-Port of the JAX package's models/t5.py:25-121 (analog of reference
-src/models/t5.cpp's encoder graph; the bucket math of
+Port of the JAX package's models/t5.py (analog of reference
+src/models/t5.cpp's encoder and decoder graphs; the bucket math of
 llama_relative_position_bucket, src/llama-graph.cpp:3729): RMSNorm blocks,
 attention at scale 1 with a learned bias of relative-position buckets
-(bidirectional, max distance 128), a gated GELU or a ReLU FFN, and the
-final enc_output_norm. Activations in the compute dtype, attention in f32,
-as in the JAX package. Projections go through ops.qtensor.matmul (the qmm
-kernels where the JAX package takes its own: under 64 rows the decode
+(bidirectional in the encoder, unidirectional in the decoder's
+self-attention, max distance 128; a layer without its own table takes
+layer 0's), a gated GELU or a ReLU FFN, the final norm. The decoder's
+self-attention reads the slot-table KV memory; its cross-attention reads
+the encoder's output (the cross state [B, Ne, E], padded rows masked by
+cross_pos < 0) with no position bias, its K/V projected from it on every
+call as in the JAX package. Activations in the compute dtype, attention in
+f32, as in the JAX package. Projections go through ops.qtensor.matmul (the
+qmm kernels where the JAX package takes its own: under 64 rows the decode
 kernel, 64-1023 the prefill GEMM); attention is plain PyTorch, as the JAX
-package's is plain XLA. The encoder-decoder t5 (t5_forward, its
-cross-attention) is not ported.
+package's is plain XLA.
 """
 
 from __future__ import annotations
@@ -107,3 +111,61 @@ def t5_encode(params, cfg: ModelConfig, tokens: torch.Tensor,
         h = rms_norm(x, lw["ffn_norm"], cfg.rms_eps)
         x = x + _ffn(lw, h, kernels).to(x.dtype)
     return rms_norm(x, params["enc_output_norm"], cfg.rms_eps)
+
+
+def t5_forward(params, cfg: ModelConfig, tokens: torch.Tensor, inputs, kv,
+               output_rows: torch.Tensor | None = None, kernels: bool = True,
+               cross: torch.Tensor | None = None, cross_pos: torch.Tensor | None = None,
+               return_hidden: bool = False) -> torch.Tensor:
+    """The decoder step (the JAX package's t5.py:124-191): tokens [B, T] at
+    inputs.positions over the slot-table memory `kv` (written in place),
+    attending the encoder's output `cross` [B, Ne, E] (f32) where cross_pos
+    [B, Ne] >= 0 -> logits [M or B * T, vocab] f32, or with return_hidden
+    the rows after output_norm."""
+    if cross is None:
+        raise ValueError("t5_forward needs the encoder's output (cross): the encoder-decoder "
+                         "flow is Context.prefill / Context.encode")
+    n_bkts = cfg.extra.get("rel_buckets", 32)
+    H, Dk, Dv = cfg.n_heads, cfg.head_dim_k, cfg.head_dim_v
+    B, T = tokens.shape
+    x = embed_lookup(params["token_embd"], tokens.long(), dtype=cfg.compute_dtype)
+    layers = params["layers"]
+    rel0 = layers[0].get("attn_rel_b")
+    Ne = cross.shape[1]
+    cmask = ((cross_pos >= 0)[:, None, :] if cross_pos is not None
+             else torch.ones((B, 1, Ne), dtype=torch.bool, device=x.device))
+    pos = inputs.positions.long()
+    seq_flat = inputs.seq_idx.repeat_interleave(T)
+    for il, lw in enumerate(layers):
+        # self-attention over the KV memory
+        h = rms_norm(x, lw["attn_norm"], cfg.rms_eps)
+        q, k, v = qkv_projections(lw, h, H * Dk, H * Dk, kernels)
+        kv.write_layer(il, seq_flat, pos.reshape(-1), k.reshape(B * T, H, Dk),
+                       v.reshape(B * T, H, Dv))
+        k_seq, v_seq = kv.read(il, inputs.seq_idx, dtype=torch.float32)  # [B, H, S, D]
+        slot_pos = kv.pos[inputs.seq_idx.long()].long()  # [B, S]
+        mask = (slot_pos >= 0)[:, None, :] & (slot_pos[:, None, :] <= pos[:, :, None])
+        bias = _pos_bias(lw.get("attn_rel_b", rel0), pos, slot_pos, n_bkts, False)
+        attn = _attn(q, k_seq, v_seq, mask, bias, H, Dk, Dv)
+        x = x + matmul(attn.to(x.dtype), lw["attn_output"], kernels=kernels)
+        # cross-attention over the encoder's output, no position bias
+        h = rms_norm(x, lw["cross_attn_norm"], cfg.rms_eps)
+        q = matmul(h, lw["cross_attn_q"], kernels=kernels)
+        ck = matmul(cross, lw["cross_attn_k"], kernels=kernels).reshape(B, Ne, H, Dk)
+        cv = matmul(cross, lw["cross_attn_v"], kernels=kernels).reshape(B, Ne, H, Dv)
+        attn = _attn(q, ck.transpose(1, 2), cv.transpose(1, 2), cmask, None, H, Dk, Dv)
+        x = x + matmul(attn.to(x.dtype), lw["cross_attn_output"], kernels=kernels)
+        h = rms_norm(x, lw["ffn_norm"], cfg.rms_eps)
+        x = x + _ffn(lw, h, kernels).to(x.dtype)
+    x = x.reshape(B * T, -1)
+    if output_rows is not None:
+        x = x[output_rows]
+    x = rms_norm(x, params["output_norm"], cfg.rms_eps)
+    if return_hidden:
+        return x
+    out_w = params.get("output")
+    logits = matmul(x, params["token_embd"] if out_w is None else out_w, dtype=torch.float32,
+                    kernels=kernels)
+    if cfg.logit_scale != 1.0:
+        logits = logits * cfg.logit_scale
+    return logits

@@ -80,17 +80,23 @@ def _add_bias(y: torch.Tensor, lw: dict[str, Weight], key: str) -> torch.Tensor:
 
 def _rope_params(cfg: ModelConfig, il: int) -> RopeParams:
     """Layer il's rope: gemma3's SWA layers take their own base at scale 1,
-    its full layers the metadata's base and (linear) scaling."""
+    its full layers the metadata's base and (linear) scaling; laguna's SWA
+    layers rope their own dimension count (rope_dims_swa) without YaRN
+    (the JAX package's transformer.py:95-125)."""
     base, scale = cfg.rope_freq_base, cfg.rope_freq_scale
-    if cfg.is_swa_layer(il) and cfg.extra.get("rope_freq_base_swa"):
-        base, scale = cfg.extra["rope_freq_base_swa"], 1.0
+    dims, ext = cfg.rope_dims, cfg.rope_ext_factor
+    if cfg.is_swa_layer(il):
+        if cfg.extra.get("rope_freq_base_swa"):
+            base, scale = cfg.extra["rope_freq_base_swa"], 1.0
+        if cfg.extra.get("rope_dims_swa"):
+            dims, ext = cfg.extra["rope_dims_swa"], 0.0
     return RopeParams(
         freq_factors=cfg.extra.get("rope_factors_arr"),
         rope_type=cfg.rope_type,
-        n_dims=cfg.rope_dims,
+        n_dims=dims,
         freq_base=base,
         freq_scale=scale,
-        ext_factor=cfg.rope_ext_factor,
+        ext_factor=ext,
         attn_factor=cfg.rope_attn_factor,
         beta_fast=cfg.rope_beta_fast,
         beta_slow=cfg.rope_beta_slow,
@@ -117,7 +123,8 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     the memory's first layer). kernels=False takes the gather + einsum path
     everywhere. Gated attention: qwen35's wq emits per-head [q | gate] pairs
     (q_gate_interleaved), qwen3next's gate is its own projection attn_gate;
-    either gate's sigmoid scales the attention output before attn_output."""
+    either gate's sigmoid scales the attention output before attn_output;
+    laguna's attn_gate takes a softplus instead, per head or per element."""
     B, T = x.shape[:2]
     H, Hkv = layer_heads(cfg, il)
     Dk, Dv = cfg.head_dim_k, cfg.head_dim_v
@@ -198,7 +205,10 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     if gate_q is not None:
         out = out * torch.sigmoid(gate_q.float()).to(out.dtype)
     if "attn_gate" in lw:  # per element, or per head when it is n_heads wide
-        g = torch.sigmoid(matmul(x, lw["attn_gate"], dtype=torch.float32, kernels=kernels))
+        g = matmul(x, lw["attn_gate"], dtype=torch.float32, kernels=kernels)
+        # laguna's gate is a softplus, qwen3next's and afmoe's a sigmoid
+        g = (torch.nn.functional.softplus(g) if cfg.extra.get("attn_gate_fn") == "softplus"
+             else torch.sigmoid(g))
         if g.shape[-1] == H and H * Dv != H:
             out = (out.reshape(B, T, H, Dv) * g[..., None].to(out.dtype)).reshape(B, T, H * Dv)
         else:
@@ -730,7 +740,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     a mixer-only block has no FFN half. With per-layer head arrays (deci) a
     layer may also be linear attention (attn_output of the normed input),
     attention-free (its FFN on ffn_norm) or a dummy (identity). Talkie adds
-    its normed embedding, times layer_out_scale, after every layer."""
+    its normed embedding, times layer_out_scale, after every layer;
+    nanbeige's loops apply output_norm at each loop boundary."""
     cdtype = cfg.compute_dtype
     x = embed_lookup(params["token_embd"], tokens.long(), dtype=cdtype)  # [B, T, E]
     if cfg.embd_scale != 1.0:
@@ -752,6 +763,11 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     layers = params["layers"]
     akv = kv.kv if isinstance(kv, HybridMemory) else kv
     first_attn = first_attention_layer(cfg, layers)
+    # nanbeige: the loader lists the physical stack n_loops times (the same
+    # weight dicts); output_norm again after each loop but the last
+    n_loops = cfg.extra.get("n_loops", 1)
+    phys = max(len(layers) // max(n_loops, 1), 1)
+    loop_norm = n_loops > 1 and not cfg.extra.get("skip_loop_final_norm")
     for il, lw in enumerate(layers):
         x_in = x  # the layer input (arctic's MoE branch, smallthinker's router)
         if (heads is not None and int(heads[il]) == 0
@@ -813,6 +829,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             x = x + embd_skip * lw["layer_out_scale"].reshape(-1)[0].to(x.dtype)
         if cvec is not None:  # control vector (build_cvec analog)
             x = x + cvec[il].to(x.dtype)
+        if loop_norm and (il + 1) % phys == 0 and il + 1 < len(layers):
+            x = norm(cfg, x, params, "output_norm")
     B, T, E = x.shape
     x = x.reshape(B * T, E)
     if output_rows is not None:

@@ -17,8 +17,11 @@ once a step (runtime/decode_graph.py).
 context_shift slides a sequence down in place, and a captured loop is made
 again when the memory or the model's weights (adapters) change. embed pools
 the final hidden rows of one forward over a throwaway memory (encoders,
-embedding decoders); encode runs T5's encoder. The family's graph is the
-model's forward_fn.
+embedding decoders); encode runs T5's encoder and keeps its output as the
+sequence's cross state, which T5's decoder steps read (the encoder-decoder
+flow: prefill encodes the prompt and decodes the decoder's start token;
+its steps run eagerly through decode, on the slot table). The family's
+graph is the model's forward_fn.
 """
 
 from __future__ import annotations
@@ -111,6 +114,11 @@ class Context:
         # a recurrent or hybrid memory's state cannot absorb padding: its
         # ubatches and decode batches run at their exact shapes
         self.recurrent = self.cfg.extra.get("memory") in ("recurrent", "hybrid")
+        # T5: each sequence's encoder output [Ne, E] f32 on the device, the
+        # cross state its decoder steps attend (the JAX package's
+        # runtime/context.py:74-75)
+        self.enc_dec = bool(self.cfg.extra.get("encoder_decoder"))
+        self._cross: dict[int, torch.Tensor] = {}
         self.n_ctx = n_ctx
         self.n_seqs = n_seqs
         self.n_ubatch = n_ubatch
@@ -124,8 +132,10 @@ class Context:
         want = n_ctx + 1 + headroom
         self.n_slots = 256 if want <= 256 else -(-want // 512) * 512
         # a recurrent stack has no KV to page (a hybrid's attention layers
-        # take the pool, as in the JAX package)
-        self.paged = paged = paged and self.cfg.extra.get("memory") != "recurrent"
+        # take the pool, as in the JAX package); T5's decoder keeps the slot
+        # table (the JAX package's runtime/context.py:98-105)
+        self.paged = paged = (paged and self.cfg.extra.get("memory") != "recurrent"
+                              and not self.enc_dec)
         self.alloc = None
         if paged:
             # 512-row pages keep the attention kernel's page walk short;
@@ -241,10 +251,38 @@ class Context:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _forward(self, toks, sidx, pos, out_rows) -> torch.Tensor:
+    def _forward(self, toks, sidx, pos, out_rows, **cross) -> torch.Tensor:
         inputs = AttnInputs(seq_idx=sidx, positions=pos)
         return self.model.forward_fn(self.model.params, self.cfg, toks, inputs, self.kv,
-                                     out_rows, kernels=self.kernels)
+                                     out_rows, kernels=self.kernels, **cross)
+
+    def _cross_state(self, sidx: np.ndarray, B: int) -> dict[str, torch.Tensor]:
+        """The decoder rows' cross state (the JAX package's
+        runtime/context.py:468-484): row r attends its sequence's encoder
+        output, every row padded to the batch's longest (a bucket of 64 to
+        4096, 512 multiples beyond), the padding at cross_pos -1; a sequence
+        that was never encoded attends nothing."""
+        ne = max((len(self._cross.get(int(q), ())) for q in sidx[:B]), default=1)
+        ne_b = _bucket(max(ne, 1), (64, 128, 256, 512, 1024, 2048, 4096))
+        ne_b = max(ne_b, -(-ne // 512) * 512)
+        cross = torch.zeros((len(sidx), ne_b, self.cfg.n_embd), dtype=torch.float32,
+                            device=self.device)
+        cross_pos = torch.full((len(sidx), ne_b), -1, dtype=torch.int32, device=self.device)
+        for r in range(B):
+            ce = self._cross.get(int(sidx[r]))
+            if ce is not None:
+                cross[r, : len(ce)] = ce
+                cross_pos[r, : len(ce)] = torch.arange(len(ce), dtype=torch.int32,
+                                                       device=self.device)
+        return {"cross": cross, "cross_pos": cross_pos}
+
+    def _no_device_loop(self, what: str) -> None:
+        """T5's decoder steps read a cross state that the on-device loops do
+        not carry (nor do the JAX package's, runtime/context.py:711,1069)."""
+        if self.enc_dec:
+            raise NotImplementedError(
+                f"{what}: {self.cfg.arch!r} (an encoder-decoder) has no on-device decode loop; "
+                "its steps run eagerly through Context.decode (Context.generate)")
 
     # -- embeddings (llama_encode + pooling) -------------------------------
     def embed(self, prompt: list[int], seq: int = 0, pooling: str = "mean") -> np.ndarray:
@@ -280,7 +318,7 @@ class Context:
         """T5's encoder over the prompt (llama_encode; the JAX package's
         runtime/context.py:590-615): the prefill bucket of its length, pad
         keys masked by `valid`, the rows of the prompt -> [n, E] f32 on the
-        host. The decoder that would read it (t5) is not ported."""
+        host, kept on the device as the sequence's cross state."""
         from ..models import t5
 
         n = len(prompt)
@@ -291,7 +329,9 @@ class Context:
         valid[0, :n] = True
         out = t5.t5_encode(self.model.params, self.cfg, self._tensor(toks), self._tensor(valid),
                            kernels=self.kernels)[0]
-        return out[:n].float().cpu().numpy()  # the padded rows saw pad tokens
+        out = out[:n].float()  # the padded rows saw pad tokens
+        self._cross[seq] = out
+        return out.cpu().numpy()
 
     # ------------------------------------------------------------------
     def set_aux_capture(self, layer_ids) -> None:
@@ -330,13 +370,27 @@ class Context:
         rows = np.asarray(output_rows, dtype=np.int64)
         out_rows = (rows // T) * Tb + (rows % T)  # flat [B, T] -> padded [Bb, Tb]
         self._ensure_pages(sidx[:B], pos[:B])
+        cross = self._cross_state(sidx, B) if self.enc_dec else {}
         logits = self._forward(self._tensor(toks), self._tensor(sidx), self._tensor(pos),
-                               self._tensor(out_rows))
+                               self._tensor(out_rows), **cross)
         return logits[: len(rows)].cpu().numpy()
 
     def prefill(self, prompt: list[int], seq: int = 0) -> np.ndarray:
-        """Feed a prompt in ubatches; returns last-token logits [vocab]."""
+        """Feed a prompt in ubatches; returns last-token logits [vocab]. On an
+        encoder-decoder whose sequence holds no cross state yet, the prompt
+        goes to the encoder instead, and the decoder's start token is
+        decoded at position 0 (the JAX package's runtime/context.py:
+        617-630)."""
         t0 = time.perf_counter()
+        if self.enc_dec and seq not in self._cross:
+            self.encode(prompt, seq=seq)
+            start = int(self.cfg.extra.get("decoder_start_token", 0))
+            logits = self.decode(np.asarray([[start]]), np.asarray([seq]), np.asarray([[0]]),
+                                 np.asarray([0]))
+            self.seq_len[seq] = 1
+            self.perf.n_prefill += len(prompt)
+            self.perf.t_prefill_ms += (time.perf_counter() - t0) * 1e3
+            return logits[0]
         pos0 = int(self.seq_len[seq])
         logits = None
         for off in range(0, len(prompt), self.n_ubatch):
@@ -373,7 +427,8 @@ class Context:
         graph is captured at its first run on the card). Loops made over an
         earlier KV memory, or before the model's weights last changed
         (adapters applied or removed), are dropped: their graphs read the old
-        tensors."""
+        tensors. An encoder-decoder raises."""
+        self._no_device_loop("decode_loop")
         if any(loop.kv is not self.kv or loop.weights != self.model.version
                for loop in self._loops.values()):
             self._loops.clear()
@@ -389,7 +444,9 @@ class Context:
         sequence (B int32s to the host instead of [B, vocab] logits): one
         step of the batch bucket's greedy loop, a replay on the card. Pages
         are allocated first, so a full pool raises KVCacheFull before the
-        step runs."""
+        step runs. An encoder-decoder's step is decode_step_multi's, eager."""
+        if self.enc_dec:  # eager: the step reads the cross state
+            return np.argmax(self.decode_step_multi(tokens, seqs), axis=-1).astype(np.int32)
         t0 = time.perf_counter()
         seqs = np.asarray(seqs)
         B = len(seqs)
@@ -408,7 +465,9 @@ class Context:
         on the card each step is a replay of the batch bucket's captured
         graph; the [B, n_steps] ids come to the host once. All sequences
         advance n_steps; callers finishing a sequence early drop its tail
-        (and seq_rm it)."""
+        (and seq_rm it). An encoder-decoder raises: its steps go through
+        decode_step_greedy, eagerly."""
+        self._no_device_loop("decode_steps_greedy")
         t0 = time.perf_counter()
         seqs = np.asarray(seqs)
         B = len(seqs)
@@ -429,12 +488,17 @@ class Context:
         batching): tokens[i] appended to seqs[i]; logits [len(seqs), vocab]
         f32 on the host. One step of the batch bucket's LOGITS loop, a
         replay on the card; pages are allocated first (KVCacheFull before
-        the step runs)."""
+        the step runs). An encoder-decoder's step runs eagerly (decode), as
+        in the JAX package."""
         t0 = time.perf_counter()
         seqs = np.asarray(seqs)
-        self._ensure_pages(seqs, self.seq_len[seqs][:, None])
-        loop = self.decode_loop(self._batch_bucket(len(seqs)), LOGITS)
-        logits = loop.logits_step(np.asarray(tokens), self.seq_len[seqs], seqs)
+        if self.enc_dec:
+            logits = self.decode(np.asarray(tokens)[:, None], seqs, self.seq_len[seqs][:, None],
+                                 np.arange(len(seqs)))
+        else:
+            self._ensure_pages(seqs, self.seq_len[seqs][:, None])
+            loop = self.decode_loop(self._batch_bucket(len(seqs)), LOGITS)
+            logits = loop.logits_step(np.asarray(tokens), self.seq_len[seqs], seqs)
         self.seq_len[seqs] += 1
         self.perf.n_decode += len(seqs)
         self.perf.t_decode_ms += (time.perf_counter() - t0) * 1e3
@@ -444,6 +508,7 @@ class Context:
     def seq_rm(self, seq: int, p0: int = 0, p1: int = 1 << 30) -> None:
         self.kv.seq_rm(seq, p0, p1)
         if p0 == 0:
+            self._cross.pop(seq, None)  # the encoder's output goes with the sequence
             self.seq_len[seq] = 0
         else:
             self.seq_len[seq] = min(self.seq_len[seq], p0)
@@ -469,6 +534,8 @@ class Context:
                 self.kv.swa.seq_cp(dst, src)
             elif isinstance(self.kv, HybridMemory):
                 self.kv.rs.seq_cp(dst, src)
+        if src in self._cross:
+            self._cross[dst] = self._cross[src]
         self.seq_len[dst] = self.seq_len[src]
 
     def context_shift(self, seq: int = 0, n_keep: int = 0, n_discard: int | None = None) -> int:
@@ -508,6 +575,7 @@ class Context:
                                        self.page)
         self.kv = self._make_memory()
         self._loops.clear()  # their graphs write the old memory
+        self._cross.clear()
         self.seq_len[:] = 0
 
     # ------------------------------------------------------------------
@@ -567,7 +635,9 @@ class Context:
         is checked on the host once a chunk (the loop stops at it; the chunk's
         positions stay written), and the loop stops before a chunk would
         reach n_ctx. The JAX package's semantics (runtime/context.py
-        generate_ondevice); the sampled ids differ from jax.random's."""
+        generate_ondevice); the sampled ids differ from jax.random's. An
+        encoder-decoder raises (Context.generate runs it)."""
+        self._no_device_loop("generate_ondevice")
         logits = self.prefill(prompt, seq=seq)
         if temp <= 0:
             first = int(np.argmax(logits))

@@ -20,7 +20,11 @@ reaches n_ctx shifts its context (Context.context_shift: the older half
 past n_keep is dropped and the rest slides down) and goes on, unless
 enable_ctx_shift=False, when it finishes with "length". Multimodal prompts
 are refused, not emulated: a task with `chunks` fails with a message naming
-mtmd. The EAGLE3-style drafts that read the target's features are not
+mtmd. An encoder-decoder (T5) takes its whole prompt through
+Context.prefill (the encoder, then the decoder's start token) and its
+decode steps run eagerly (Context.decode_step_greedy and
+decode_step_multi take Context.decode for it); its slots keep no prompt
+prefix, since their memory holds decoder tokens. The EAGLE3-style drafts that read the target's features are not
 ported (Context.set_aux_capture refuses them).
 """
 
@@ -192,8 +196,9 @@ class Scheduler:
         # final token, whose logits we need)
         n_keep = 0
         # a recurrent state holds no positions to keep a prefix of (seq_rm
-        # with p0 > 0 raises): its prompt is decoded whole
-        if task.cache_prompt and not self.ctx.recurrent:
+        # with p0 > 0 raises): its prompt is decoded whole; an
+        # encoder-decoder's memory holds decoder tokens, not the prompt
+        if task.cache_prompt and not self.ctx.recurrent and not self.ctx.enc_dec:
             limit = min(len(slot.cache_tokens), len(task.prompt_ids) - 1)
             while n_keep < limit and slot.cache_tokens[n_keep] == task.prompt_ids[n_keep]:
                 n_keep += 1
@@ -326,7 +331,8 @@ class Scheduler:
                 self._finish(slot, MTMD_REFUSED)
                 continue
             remaining = task.prompt_ids[slot.prompt_pos :]
-            chunk = remaining[: self.ctx.n_ubatch]
+            # an encoder-decoder's prompt is the encoder's input, in one piece
+            chunk = remaining if self.ctx.enc_dec else remaining[: self.ctx.n_ubatch]
             is_last = len(chunk) == len(remaining)
             try:
                 logits = self._prefill_chunk(slot.idx, chunk, slot.prompt_pos)
@@ -497,6 +503,8 @@ class Scheduler:
         return token
 
     def _prefill_chunk(self, seq: int, chunk: list[int], pos0: int):
+        if self.ctx.enc_dec:  # the encoder, then the decoder's start token
+            return self.ctx.prefill(chunk, seq=seq)
         positions = np.arange(pos0, pos0 + len(chunk))
         logits = self.ctx.decode(
             np.asarray(chunk)[None, :],

@@ -338,6 +338,9 @@ def make_bench_arch_gguf(
     head_arr: tuple[int, ...] | None = None,
     kv_arr: tuple[int, ...] | None = None,
     dummy_layers: tuple[int, ...] = (),
+    attn_gate: str = "",
+    ff_arr: tuple[int, ...] | None = None,
+    mask_token: int = -1,
     f32: bool = False,
     ftype: str = "q4_k_m",
     real_quant: bool = False,
@@ -408,6 +411,11 @@ def make_bench_arch_gguf(
     layer of 0 KV heads and some heads is linear attention (attn_norm and a
     square attn_output), one of 0 heads attention-free (its FFN alone, on
     ffn_norm), and a layer in dummy_layers has no tensors at all.
+    attn_gate writes an attention output gate attn_gate.weight: "element"
+    as wide as the attention output (afmoe, laguna M.1; Q4_K in q4_k_m),
+    "head" one row a head (laguna XS.2; F32); ff_arr gives each layer's
+    dense FFN its own width (openelm); mask_token >= 0 writes the vocab's
+    mask token id (the diffusion LMs).
     Left at their defaults they write nothing, so the default files stay
     byte for byte what they were."""
     rng = np.random.default_rng(seed)
@@ -452,6 +460,8 @@ def make_bench_arch_gguf(
     for key, val in (metadata or {}).items():
         w.add(P + key, val)
     _add_bench_vocab(w, vocab_size)
+    if mask_token >= 0:
+        w.add(Keys.Tokenizer.MASK_ID, np.uint32(mask_token))
 
     q4, q6 = GGMLType.Q4_K, GGMLType.Q6_K
 
@@ -515,6 +525,7 @@ def make_bench_arch_gguf(
             continue
         lh = n_heads if head_arr is None else head_arr[i]
         lkv = n_kv_heads if kv_arr is None else kv_arr[i]
+        lff = n_ff if ff_arr is None else ff_arr[i]
         q_dim, kv_dim = lh * head_dim, lkv * head_dim
         if lh and not lkv:  # deci's linear attention: wo of the normed input
             emit_norm(b + "attn_norm", n_embd)
@@ -538,6 +549,10 @@ def make_bench_arch_gguf(
                 emit_scale(b + name)
         emit_q(b + "attn_output.weight", n_embd, q_dim, q4)
         emit_scale(b + "attn_output")
+        if attn_gate == "element":
+            emit_q(b + "attn_gate.weight", q_dim, n_embd, q4)
+        elif attn_gate == "head":
+            emit_f(b + "attn_gate.weight", rng.standard_normal((lh, n_embd)) / np.sqrt(n_embd))
         if sub_norms:
             emit_f(b + "attn_sub_norm.weight", norm_w(q_dim))
             emit_f(b + "ffn_sub_norm.weight", norm_w(n_ff))
@@ -593,12 +608,12 @@ def make_bench_arch_gguf(
                 emit_q(b + "ffn_down_chexps.weight", n_embd, n_ff_exp, q6, (chunk_experts,))
         if not moe or dense_ffn:
             if fused_gateup:
-                emit_q(b + "ffn_up.weight", 2 * n_ff, n_embd, q4)
+                emit_q(b + "ffn_up.weight", 2 * lff, n_embd, q4)
             else:
                 if glu:
-                    emit_q(b + "ffn_gate.weight", n_ff, n_embd, q4)
-                emit_q(b + "ffn_up.weight", n_ff, n_embd, q4)
-            emit_q(b + "ffn_down.weight", n_embd, n_ff, q6)
+                    emit_q(b + "ffn_gate.weight", lff, n_embd, q4)
+                emit_q(b + "ffn_up.weight", lff, n_embd, q4)
+            emit_q(b + "ffn_down.weight", n_embd, lff, q6)
             for name in ("ffn_gate", "ffn_up", "ffn_down"):
                 emit_scale(b + name)
             if ffn_bias:
@@ -748,6 +763,118 @@ MLA_FAMILY_LAYOUTS: dict[str, dict] = {
     "mistral4": dict(kv_lora_rank=512, qk_nope=128, qk_rope=64, v_dim=128, n_dense=1,
                      n_expert=8, n_expert_used=2, n_ff_exp=256, n_expert_shared=1),
 }
+
+
+# the shared decoder's last text entries (make_bench_arch_gguf), each as
+# llama.cpp lays it out: afmoe (the sigmoid gate, NoPE on every second
+# layer, post-norms, a window layer and a full one, a dense lead layer, then
+# 8 experts top 2 with a selection bias and a shared expert), laguna (the
+# per-head softplus gate, its window layer roping 64 dims at its own base;
+# LAGUNA_ELEMENT_GATE the per-element gate), openelm (4 heads on 2 KV heads,
+# then 8 on 4: the first layer below the memory's KV heads; FFNs of two
+# widths; a fused QKV) and nanbeige (the stack run twice, output_norm at the
+# loop boundary)
+LAST_TEXT_LAYOUTS: dict[str, dict] = {
+    "afmoe": dict(qk_norm=True, post_norms=True, attn_gate="element", **_MOE, **_SHARED,
+                  exp_probs_b=True, n_dense_lead=1, sliding_window=16, swa_pattern=2,
+                  metadata={"expert_gating_func": np.uint32(2), "expert_weights_scale": 1.5,
+                            "rope.no_rope_layer_step": np.uint32(2)}),
+    "laguna": dict(qk_norm=True, attn_gate="head", **_MOE, **_SHARED, exp_probs_b=True,
+                   n_dense_lead=1, sliding_window=16, swa_pattern=2, rope_base_swa=10000.0,
+                   metadata={"expert_gating_func": np.uint32(2),
+                             "rope.dimension_count_swa": np.uint32(64)}),
+    "openelm": dict(fused_qkv=True, qk_norm=True, tie=True, head_arr=(4, 8), kv_arr=(2, 4),
+                    ff_arr=(1024, 2048)),
+    "nanbeige": dict(metadata={"num_loops": np.uint32(2), "skip_loop_final_norm": False}),
+}
+LAGUNA_ELEMENT_GATE = {**LAST_TEXT_LAYOUTS["laguna"], "attn_gate": "element"}
+
+# the diffusion LMs on the shared decoder, run bidirectionally: dream
+# (qwen2's biases, the logits shifted), llada, and the MoE pair (8 experts
+# top 2, per-head q/k norms)
+DIFFUSION_LAYOUTS: dict[str, dict] = {
+    "dream": dict(qkv_bias=True),
+    "llada": dict(),
+    "llada-moe": dict(qk_norm=True, **_MOE),
+    "rnd1": dict(qk_norm=True, **_MOE),
+}
+
+
+def make_bench_diffusion_gguf(path: str, arch: str = "llada", n_layers: int = 32,
+                              n_embd: int = 4096, n_heads: int = 32, n_kv_heads: int = 32,
+                              n_ff: int = 12288, vocab_size: int = 126464,
+                              mask_token: int = 126336, rope_base: float = 500000.0,
+                              n_ctx: int = 4096, **kw) -> str:
+    """A diffusion LM's GGUF in DIFFUSION_LAYOUTS[arch]'s layout (kw override
+    it and pass make_bench_arch_gguf's options: f32, synth_scale, seed,
+    ...), LLaDA-8B-Instruct's widths by default (GSAI-ML/LLaDA-8B-Instruct
+    config.json: n_embd 4096, 32 heads and 32 KV heads of 128, a SwiGLU FFN
+    of 12288, vocab 126464, mask token 126336, rope base 500000), the
+    Q4_K_M mix. mask_token -1 takes the vocab's last id."""
+    return make_bench_arch_gguf(
+        path, arch, n_layers=n_layers, n_embd=n_embd, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        head_dim=n_embd // n_heads, n_ff=n_ff, vocab_size=vocab_size, n_ctx=n_ctx,
+        rope_base=rope_base, rms_eps=1e-5,
+        mask_token=vocab_size - 1 if mask_token < 0 else mask_token,
+        **{**DIFFUSION_LAYOUTS[arch], **kw})
+
+
+def make_tiny_diffusion_gguf(path: str, arch: str = "llada", vocab_size: int = 160,
+                             seed: int = 0) -> str:
+    """The JAX package's tiny diffusion-LM fixture (its testing.py:363) in
+    the port's own writer: llada (llama's graph) or dream (qwen2's, with
+    q/k/v biases), 2 layers of 48, 4 heads on 2 KV heads, F32 random
+    weights; the vocab's last id is the mask token."""
+    rng = np.random.default_rng(seed)
+    n_embd, n_heads, n_kv, n_ff, n_layers = 48, 4, 2, 96, 2
+    hd = n_embd // n_heads
+    w = GGUFWriter()
+    w.add(Keys.General.ARCHITECTURE, arch)
+    w.add(Keys.General.NAME, f"tiny-{arch}")
+    P = arch + "."
+    for key, val in (("block_count", n_layers), ("context_length", 256),
+                     ("embedding_length", n_embd), ("feed_forward_length", n_ff),
+                     ("attention.head_count", n_heads), ("attention.head_count_kv", n_kv),
+                     ("attention.key_length", hd), ("attention.value_length", hd)):
+        w.add(P + key, np.uint32(val))
+    w.add(P + "attention.layer_norm_rms_epsilon", 1e-5)
+    w.add(P + "rope.freq_base", 10000.0)
+    w.add(P + "rope.dimension_count", np.uint32(hd))
+    w.add(P + "vocab_size", np.uint32(vocab_size))
+    vocab = tiny_spm_vocab(vocab_size)
+    for k in (Keys.Tokenizer.TOKENS, Keys.Tokenizer.SCORES, Keys.Tokenizer.TOKEN_TYPE):
+        vocab[k] = vocab[k][:vocab_size]
+    vocab[Keys.Tokenizer.MASK_ID] = np.uint32(vocab_size - 1)
+    w.add_all(vocab)
+
+    def emit(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+
+    def rand(*shape, scale=None):
+        scale = scale or (1.0 / np.sqrt(shape[-1]))
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    emit("token_embd.weight", rand(vocab_size, n_embd, scale=0.05))
+    emit("output_norm.weight", 1 + rand(n_embd, scale=0.02))
+    emit("output.weight", rand(vocab_size, n_embd))
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        emit(b + "attn_norm.weight", 1 + rand(n_embd, scale=0.02))
+        emit(b + "ffn_norm.weight", 1 + rand(n_embd, scale=0.02))
+        emit(b + "attn_q.weight", rand(n_heads * hd, n_embd))
+        emit(b + "attn_k.weight", rand(n_kv * hd, n_embd))
+        emit(b + "attn_v.weight", rand(n_kv * hd, n_embd))
+        emit(b + "attn_output.weight", rand(n_embd, n_heads * hd))
+        if arch == "dream":  # qwen2's q/k/v biases
+            emit(b + "attn_q.bias", rand(n_heads * hd, scale=0.1))
+            emit(b + "attn_k.bias", rand(n_kv * hd, scale=0.1))
+            emit(b + "attn_v.bias", rand(n_kv * hd, scale=0.1))
+        emit(b + "ffn_gate.weight", rand(n_ff, n_embd))
+        emit(b + "ffn_up.weight", rand(n_ff, n_embd))
+        emit(b + "ffn_down.weight", rand(n_embd, n_ff))
+    w.write(path)
+    return path
 
 
 # the recurrent and hybrid families: the mixer a family's "S" layers carry
@@ -1896,17 +2023,24 @@ def make_bench_bge_m3_gguf(path: str, n_layers: int = 24, n_embd: int = 1024,
 
 def make_bench_t5encoder_gguf(path: str, n_layers: int, n_embd: int, n_heads: int, n_ff: int,
                               vocab_size: int, n_buckets: int = 32, f32: bool = False,
-                              synth_scale: float = 1.0, seed: int = 0) -> str:
+                              synth_scale: float = 1.0, seed: int = 0, n_dec_layers: int = 0,
+                              tie: bool = False) -> str:
     """A t5encoder GGUF (flan-T5's encoder: enc.blk.N.* with RMSNorm blocks, a
     relative-position bias table attn_rel_b [n_buckets, n_heads] on layer 0,
     the gated GELU FFN, enc.output_norm; rms eps 1e-6) with synthetic
-    weights in the Q4_K_M mix, or F32 values with f32."""
+    weights in the Q4_K_M mix, or F32 values with f32. With n_dec_layers > 0
+    a t5 (encoder-decoder) GGUF: the decoder's dec.blk.N.* after the
+    encoder's, each with its self-attention (attn_rel_b on layer 0), its
+    cross-attention cross_attn_{norm,q,k,v,o} (Q4_K, attn_v and cross_attn_v
+    Q6_K) and the FFN, dec.output_norm, and a Q6_K output head unless tie;
+    decoder_block_count and decoder_start_token_id 0 in the metadata."""
     rng = np.random.default_rng(seed)
     head_dim = n_embd // n_heads
+    arch = "t5" if n_dec_layers else "t5encoder"
     w = GGUFWriter()
-    w.add(Keys.General.ARCHITECTURE, "t5encoder")
-    w.add(Keys.General.NAME, "bench-t5encoder-synthetic")
-    P = "t5encoder."
+    w.add(Keys.General.ARCHITECTURE, arch)
+    w.add(Keys.General.NAME, f"bench-{arch}-synthetic")
+    P = arch + "."
     for key, val in (("block_count", n_layers), ("context_length", 512),
                      ("embedding_length", n_embd), ("feed_forward_length", n_ff),
                      ("attention.head_count", n_heads), ("attention.head_count_kv", n_heads),
@@ -1914,6 +2048,9 @@ def make_bench_t5encoder_gguf(path: str, n_layers: int, n_embd: int, n_heads: in
                      ("attention.relative_buckets_count", n_buckets),
                      ("vocab_size", vocab_size)):
         w.add(P + key, np.uint32(val))
+    if n_dec_layers:
+        w.add(P + "decoder_block_count", np.uint32(n_dec_layers))
+        w.add(P + "decoder_start_token_id", np.uint32(0))
     w.add(P + "attention.layer_norm_rms_epsilon", 1e-6)
     _add_bench_vocab(w, vocab_size)
     q4, q6 = GGMLType.Q4_K, GGMLType.Q6_K
@@ -1933,20 +2070,46 @@ def make_bench_t5encoder_gguf(path: str, n_layers: int, n_embd: int, n_heads: in
     E, F, D = n_embd, n_ff, n_heads * head_dim
     emit_q("token_embd.weight", vocab_size, E, q4)
     emit_f("enc.output_norm.weight", 1.0 + 0.1 * rng.standard_normal(E))
-    for i in range(n_layers):
-        b = f"enc.blk.{i}."
+
+    def block(b, i, cross):
         emit_f(b + "attn_norm.weight", 1.0 + 0.1 * rng.standard_normal(E))
         for name, t in (("attn_q", q4), ("attn_k", q4), ("attn_v", q6)):
             emit_q(b + name + ".weight", D, E, t)
         emit_q(b + "attn_o.weight", E, D, q4)
         if i == 0:
             emit_f(b + "attn_rel_b.weight", 0.5 * rng.standard_normal((n_buckets, n_heads)))
+        if cross:
+            emit_f(b + "cross_attn_norm.weight", 1.0 + 0.1 * rng.standard_normal(E))
+            for name, t in (("cross_attn_q", q4), ("cross_attn_k", q4), ("cross_attn_v", q6)):
+                emit_q(b + name + ".weight", D, E, t)
+            emit_q(b + "cross_attn_o.weight", E, D, q4)
         emit_f(b + "ffn_norm.weight", 1.0 + 0.1 * rng.standard_normal(E))
         emit_q(b + "ffn_gate.weight", F, E, q4)
         emit_q(b + "ffn_up.weight", F, E, q4)
         emit_q(b + "ffn_down.weight", E, F, q6)
+
+    for i in range(n_layers):
+        block(f"enc.blk.{i}.", i, False)
+    if n_dec_layers:
+        emit_f("dec.output_norm.weight", 1.0 + 0.1 * rng.standard_normal(E))
+        if not tie:
+            emit_q("output.weight", vocab_size, E, q6)
+        for i in range(n_dec_layers):
+            block(f"dec.blk.{i}.", i, True)
     w.write(path)
     return path
+
+
+def make_bench_t5_gguf(path: str, n_layers: int = 24, n_dec_layers: int = 24,
+                       n_embd: int = 1024, n_heads: int = 16, n_ff: int = 2816,
+                       vocab_size: int = 32128, **kw) -> str:
+    """A T5 encoder-decoder GGUF (make_bench_t5encoder_gguf with a decoder),
+    flan-t5-large's widths by default (google/flan-t5-large config.json:
+    d_model 1024, 16 heads of 64, a gated-GELU FFN of 2816, 24 encoder and
+    24 decoder layers, 32 relative-position buckets, vocab 32128, an untied
+    head)."""
+    return make_bench_t5encoder_gguf(path, n_layers, n_embd, n_heads, n_ff, vocab_size,
+                                     n_dec_layers=n_dec_layers, **kw)
 
 
 # the embedding entries on the shared decoder: EmbeddingGemma (gemma3's

@@ -5,7 +5,8 @@ the JAX package's tools/bench_tool.py).
     python -m llama_cpp_tpu_torch.tools.bench_tool -m m.gguf --batched -b 1,8
 
 Measures pp{N} (prompt throughput), tg{N} (decode throughput through
-Context.generate_ondevice, one graph replay a token on the card), optionally
+Context.generate_ondevice, one graph replay a token on the card; an
+encoder-decoder's eager steps through Context.generate), optionally
 at KV depth d{N}, and a batched PP/TG/B grid with aggregate S t/s: the
 measurement axes of reference tools/llama-bench/llama-bench.cpp:322-362 and
 tools/batched-bench. Output: markdown or JSON. Runs on the card unless
@@ -38,6 +39,15 @@ def bench_pp(ctx, n_prompt: int, n_rep: int = 3) -> float:
     return n_prompt / min(times)
 
 
+def _generate(ctx, prompt: list[int], n: int, chunk: int) -> list[int]:
+    """Greedy ids after `prompt` through the on-device loop, or for an
+    encoder-decoder (whose steps read its cross state) through
+    Context.generate's eager steps."""
+    if ctx.enc_dec:
+        return ctx.generate(prompt, max_new_tokens=n)
+    return ctx.generate_ondevice(prompt, max_new_tokens=n, chunk=chunk)
+
+
 def bench_tg(ctx, n_gen: int, depth: int = 0, n_rep: int = 2) -> float:
     rng = np.random.default_rng(0)
     ctx.seq_rm(0)
@@ -46,14 +56,12 @@ def bench_tg(ctx, n_gen: int, depth: int = 0, n_rep: int = 2) -> float:
     else:
         ctx.prefill([1])
     # warm-up: captures the B=1 decode graph
-    ctx.generate_ondevice([int(rng.integers(10, 100))], max_new_tokens=9, chunk=8)
+    _generate(ctx, [int(rng.integers(10, 100))], 9, 8)
     best = 0.0
     for _ in range(n_rep):
         ctx.perf.t_decode_ms = 0.0
         ctx.perf.n_decode = 0
-        ctx.generate_ondevice(
-            [int(rng.integers(10, 100))], max_new_tokens=n_gen + 1, chunk=min(32, n_gen)
-        )
+        _generate(ctx, [int(rng.integers(10, 100))], n_gen + 1, min(32, n_gen))
         if ctx.perf.n_decode:
             best = max(best, ctx.perf.n_decode / (ctx.perf.t_decode_ms / 1e3))
     return best

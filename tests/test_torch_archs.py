@@ -90,26 +90,31 @@ def test_supported_archs():
     families of tests/test_torch_moe_families.py, the recurrent and
     hybrid families of tests/test_torch_hybrid.py, the encoders and
     embedding models of tests/test_torch_encoders.py, the RWKV entries of
-    tests/test_torch_rwkv.py and the last decoder families (the MLA entries
-    at MHA width among them) of tests/test_torch_families_late.py."""
+    tests/test_torch_rwkv.py, the last decoder families (the MLA entries
+    at MHA width among them) of tests/test_torch_families_late.py, and
+    t5 (tests/test_torch_t5.py), the diffusion LMs
+    (tests/test_torch_diffusion.py) and the last text entries
+    (tests/test_torch_families_last.py)."""
     from test_torch_families import ARCHS as FAMILIES
     from test_torch_hybrid import ARCHS as HYBRID_FAMILIES
     from test_torch_moe_families import ARCHS as MOE_FAMILIES
 
-    from llama_cpp_tpu_torch.testing import (EMBEDDING_ARCHS, LATE_FAMILY_LAYOUTS,
+    from llama_cpp_tpu_torch.testing import (DIFFUSION_LAYOUTS, EMBEDDING_ARCHS,
+                                             LAST_TEXT_LAYOUTS, LATE_FAMILY_LAYOUTS,
                                              MLA_FAMILY_LAYOUTS, RWKV_ARCHS)
 
     assert supported_archs() == sorted(["llama", "deepseek2", *ARCHS, *FAMILIES,
                                         *MOE_FAMILIES, *HYBRID_FAMILIES, *EMBEDDING_ARCHS,
                                         *RWKV_ARCHS, *LATE_FAMILY_LAYOUTS,
-                                        *MLA_FAMILY_LAYOUTS])
+                                        *MLA_FAMILY_LAYOUTS, "t5", *DIFFUSION_LAYOUTS,
+                                        *LAST_TEXT_LAYOUTS])
 
 
 def test_other_arch_raises_naming_it(tmp_path):
-    """afmoe (attention output gates) is not ported: loading its file raises
-    naming it."""
-    path = make_bench_arch_gguf(str(tmp_path / "afmoe.gguf"), "afmoe", **SHAPE)
-    with pytest.raises(NotImplementedError, match="'afmoe'"):
+    """minimax-m3 (its block-sparse attention) is not ported: loading its
+    file raises naming it."""
+    path = make_bench_arch_gguf(str(tmp_path / "minimax-m3.gguf"), "minimax-m3", **SHAPE)
+    with pytest.raises(NotImplementedError, match="'minimax-m3'"):
         load_model(path, device="cpu")
 
 

@@ -1848,3 +1848,128 @@ def test_embedding_bucket_of_1024_rows_takes_the_library_route(embedding_models)
     assert sum(tqmm.launches.values()) == 0 and sum(tfa.launches.values()) == 0
     ref = Context(model, kernels=False, n_ctx=1024, n_seqs=1).embed(toks)
     assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+
+
+# -- T5's encoder-decoder, the diffusion LMs, the last shared-decoder entries --
+
+@pytest.fixture(scope="module")
+def late_entry_models(tmp_path_factory):
+    """flan-t5's blocks at 1024 wide (16 heads of 64, 2 encoder and 2 decoder
+    layers, vocab 1024), the four diffusion entries and the last text
+    entries (laguna with both gate shapes) at FAMILY_SHAPE; the Q4_K_M mix
+    with synthetic block scales / 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run `python -m pytest --noconftest -m gpu "
+                    "tests/test_torch_gpu.py` on the card")
+    from llama_cpp_tpu_torch.testing import (DIFFUSION_LAYOUTS, LAGUNA_ELEMENT_GATE,
+                                             LAST_TEXT_LAYOUTS, make_bench_arch_gguf,
+                                             make_bench_diffusion_gguf, make_bench_t5_gguf)
+
+    d = tmp_path_factory.mktemp("late_entries")
+    sc = dict(synth_scale=1.0 / 256)
+    models = {"t5": load_model(make_bench_t5_gguf(str(d / "t5.gguf"), n_layers=2,
+                                                  n_dec_layers=2, vocab_size=1024, **sc))}
+    shape = {k: v for k, v in FAMILY_SHAPE.items() if k not in ("n_ctx", "head_dim")}
+    for arch in DIFFUSION_LAYOUTS:
+        models[arch] = load_model(make_bench_diffusion_gguf(
+            str(d / f"{arch}.gguf"), arch, mask_token=-1, **shape, **sc))
+    layouts = {**LAST_TEXT_LAYOUTS, "laguna-element": LAGUNA_ELEMENT_GATE}
+    for name, layout in layouts.items():
+        arch = name.split("-")[0]
+        models[name] = load_model(make_bench_arch_gguf(str(d / f"{name}.gguf"), arch,
+                                                       **{**FAMILY_SHAPE, **layout}, **sc))
+    return models
+
+
+def test_t5_kernels_match_plain_and_refuse_the_device_loops(late_entry_models):
+    """A 96-token prompt through T5's encoder (K3/K4 at its 128-row bucket,
+    and at the cross K/V projections) and 8 decoder steps (K1/K2), each
+    step's logits teacher-forced against Context(kernels=False) (NMSE <
+    5e-3); no attention kernel (T5's attention is plain in both packages);
+    the on-device loops raise naming t5."""
+    model = late_entry_models["t5"]
+    p = [int(t) for t in np.random.default_rng(4).integers(3, 1024, 96)]
+    kw = dict(n_ctx=512, n_seqs=2, n_ubatch=512, quantized_kv=True)
+    _zero_counts()
+    kern, plain = Context(model, **kw), Context(model, kernels=False, **kw)
+    assert not kern.paged
+    lk, lp = kern.prefill(p), plain.prefill(p)
+    for key in ("qmm4_planes_prefill/wgmma", "qmm_planes_prefill/wgmma", "qmm4_planes/decode",
+                "qmm_planes/decode"):
+        assert tqmm.launches[key] > 0, key
+    errs = [nmse(torch.from_numpy(lk), torch.from_numpy(lp))]
+    for _ in range(8):
+        t = int(np.argmax(lp))
+        lk, lp = kern.decode_one(t), plain.decode_one(t)
+        errs.append(nmse(torch.from_numpy(lk), torch.from_numpy(lp)))
+    assert np.isfinite(lk).all() and max(errs) < 5e-3, errs
+    assert sum(tfa.launches.values()) == 0
+    with pytest.raises(NotImplementedError, match="'t5'"):
+        kern.decode_steps_greedy(np.asarray([5]), np.asarray([0]), 4)
+    with pytest.raises(NotImplementedError, match="'t5'"):
+        kern.generate_ondevice(p, max_new_tokens=4, seq=1)
+
+
+@pytest.mark.parametrize("arch", ["dream", "llada", "llada-moe", "rnd1"])
+def test_diffusion_step_takes_the_prefill_gemms(late_entry_models, arch):
+    """One diffusion step's whole-sequence forward (128 rows, half of them
+    the mask) on the kernel path against the plain path (NMSE < 5e-3 at the
+    masked rows): K3 and K4 launch in the step, no decode kernel, no
+    attention kernel (non-causal: the einsum path in both packages), no K7
+    (the per-expert route at 128 rows)."""
+    from llama_cpp_tpu_torch.runtime.diffusion import step_logits
+
+    model = late_entry_models[arch]
+    mask = model.tokenizer.vocab.mask_id
+    seq = np.full(128, mask, np.int64)
+    seq[:64] = np.random.default_rng(5).integers(3, 1000, 64)
+    kw = dict(n_ctx=128, n_seqs=1, n_ubatch=128)
+    _zero_counts()
+    before = tqe.launches["qmm_planes_expert"]
+    got = step_logits(Context(model, **kw), seq)
+    assert tqmm.launches["qmm4_planes_prefill/wgmma"] > 0
+    assert tqmm.launches["qmm_planes_prefill/wgmma"] > 0
+    assert tqmm.launches["qmm4_planes/decode"] == tqmm.launches["qmm_planes/decode"] == 0
+    assert sum(tfa.launches.values()) == 0 and tqe.launches["qmm_planes_expert"] == before
+    ref = step_logits(Context(model, kernels=False, **kw), seq)
+    assert np.isfinite(got).all()
+    assert nmse(torch.from_numpy(got[64:]), torch.from_numpy(ref[64:])) < 5e-3
+
+
+@pytest.mark.parametrize("name", ["afmoe", "laguna", "laguna-element", "openelm", "nanbeige"])
+def test_last_text_entries_match_plain_and_graphs_match_eager(late_entry_models, name):
+    """The kernel path against Context(kernels=False) on a 300-token prefill
+    (NMSE < 5e-3), K5 launched (openelm's first layer, at fewer KV heads
+    than the memory, on the einsum path), then decode_steps_greedy at B=1
+    graphed against eager (equal ids), with K7 at the decode steps of the
+    MoE entries."""
+    model = late_entry_models[name]
+    p = [int(t) for t in np.random.default_rng(6).integers(3, 1024, 300)]
+    kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=128, quantized_kv=True)
+    _zero_counts()
+    got = Context(model, **kw).prefill(p)
+    assert fa_launches("flash_attention_paged") > 0
+    ref = Context(model, kernels=False, **kw).prefill(p)
+    assert np.isfinite(got).all()
+    assert nmse(torch.from_numpy(got), torch.from_numpy(ref)) < 5e-3
+    before = tqe.launches["qmm_planes_expert"]
+    runs = []
+    for graphs in (True, False):
+        ctx, firsts = prefilled(model, 1, graphs)
+        runs.append(ctx.decode_steps_greedy(firsts, np.arange(1), 12))
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert (tqe.launches["qmm_planes_expert"] > before) == (model.cfg.n_expert > 0)
+
+
+def test_nanbeige_loops_share_the_card_storage(late_entry_models):
+    """nanbeige's logical layers past the physical stack are the same
+    tensors on the card (equal data_ptr), not copies."""
+    layers = late_entry_models["nanbeige"].params["layers"]
+    n_loops = late_entry_models["nanbeige"].cfg.extra["n_loops"]
+    phys = len(layers) // n_loops
+    assert n_loops == 2 and len(layers) == 2 * phys
+    for il in range(phys, len(layers)):
+        for key, w in layers[il].items():
+            a, b = w, layers[il % phys][key]
+            a, b = (a.q, b.q) if isinstance(a, tq.QuantTensor) else (a, b)
+            assert a.data_ptr() == b.data_ptr(), (il, key)

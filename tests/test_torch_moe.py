@@ -16,7 +16,11 @@ arithmetic, and so does the port's CPU route; the kernel's plain version
 differing by where W is rounded to bf16. The router hook (route_hook) and
 testing.RouteHold, which holds a reference path's expert choice to a path
 under test's at a near-tie whose router inputs agree, are held on a
-four-expert router: a near-tie is held, a fault upstream is not."""
+four-expert router: a near-tie is held, a fault upstream is not. The
+quantizer model's decode steps are held in tests/test_torch_moe_decode.py,
+a file of its own so that pytest-xdist's --dist loadfile runs them on
+another worker. Torch runs on one thread here: under pytest-xdist's workers
+on a shared CPU its thread pool costs these small steps more than the work."""
 
 import numpy as np
 import pytest
@@ -53,6 +57,14 @@ def nmse(got, ref):
 def prompts(n, length, seed=0):
     rng = np.random.default_rng(seed)
     return [[int(t) for t in rng.integers(3, 512, length)] for _ in range(n)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -335,49 +347,6 @@ def test_prefill_logits_and_greedy_ids_match_jax(models, paged):
         jids.append(int(np.argmax(ref)))
         got, ref = ctx.decode_one(ids[-1]), jctx.decode_one(jids[-1])
     assert ids == jids
-
-
-@MEM
-def test_teacher_forced_steps_with_quantizer_weights_match_jax(quantized_models, paged):
-    """Both packages consume the JAX package's greedy ids; each step's logits
-    agree to NMSE < 1e-3 and the argmax agrees wherever the JAX top-2 gap
-    exceeds 0.1 (a closer near-tie may part free-running ids: the two sum
-    f32 products in different orders)."""
-    model, jmodel = quantized_models
-    prompt = prompts(1, 40, seed=6)[0]
-    ctx = Context(model, quantized_kv=True, device="cpu", paged=paged, **CTX)
-    jctx = JaxContext(jmodel, quantized_kv=True, paged=paged, **CTX)
-    got, ref = ctx.prefill(prompt), jctx.prefill(prompt)
-    decided, seen = 0, set()
-    for _ in range(12):
-        assert nmse(got, ref) < 1e-3
-        top2 = np.sort(ref)[-2:]
-        if top2[1] - top2[0] > 0.1:
-            assert int(np.argmax(got)) == int(np.argmax(ref))
-            decided += 1
-        tok = int(np.argmax(ref))
-        seen.add(tok)
-        got, ref = ctx.decode_one(tok), jctx.decode_one(tok)
-    assert decided >= 6 and len(seen) > 3
-
-
-def test_decode_steps_greedy_rows_are_independent(quantized_models):
-    """Batched greedy decode at B = 3 (6 slots >= 4 experts: the ragged
-    route) gives each sequence the ids of its own B = 1 decode (the gather
-    route): XLA:CPU has no bf16 x bf16 -> f32 dot for the JAX batched step,
-    so the batch is held against the port's own B = 1 steps, and those
-    against JAX above."""
-    model, _ = quantized_models
-    ps = prompts(3, 30, seed=8)
-    ctx = Context(model, quantized_kv=True, device="cpu", **CTX)
-    one = Context(model, quantized_kv=True, device="cpu", **CTX)
-    first, ref = [], []
-    for s, p in enumerate(ps):
-        p = p[: 20 + 4 * s]
-        first.append(int(np.argmax(ctx.prefill(p, seq=s))))
-        ref.append(one.generate(p, 7, seq=s)[1:])
-    got = ctx.decode_steps_greedy(np.asarray(first), np.arange(3), 6)
-    np.testing.assert_array_equal(got, np.asarray(ref))
 
 
 def test_from_jax_round_trip_of_the_stacked_experts(models):

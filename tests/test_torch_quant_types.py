@@ -17,7 +17,8 @@ Tolerances: the planes, dequantized values and quantized bytes are equal;
 the expert product as tests/test_torch_qmm_expert.py holds it; the models'
 prefill and teacher-forced decode logits NMSE < 1e-4 with equal greedy ids
 (both packages read the same planes; they sum f32 products in different
-orders)."""
+orders). Torch runs on one thread here: under pytest-xdist's workers on a
+shared CPU its thread pool costs these small products more than the work."""
 
 import importlib
 
@@ -51,6 +52,14 @@ O, K = 128, 512  # K a multiple of 512: the hierarchical types keep superblock f
 BLOCK_TYPES = sorted(JD._DEQUANT, key=int)
 DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16, GGMLType.F64, GGMLType.I8,
                GGMLType.I16, GGMLType.I32, GGMLType.I64)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def ids_of(types):
