@@ -147,6 +147,21 @@ Phases, each of which fails the run:
        period of its pattern: five window layers on ISWA rings of 1792
        slots through K6 in ring mode, one full layer on the pool through
        K5; the tied 262208-row head on the library route, timed);
+     - the 2-D planes cut on the card (quant/device_planes.py): every
+       quantized 2-D tensor of a 2-layer Gemma-3n-E4B file and 4096 x 4096
+       matrices of Q8_0, Q4_0, Q5_0 and MXFP4, as matmul weights and as
+       tables, bit for bit the host's extraction, with both routes'
+       seconds; Gemma-3n-E4B (35 -> 6 layers, the last a window layer
+       sharing the KV of the last owned one; AltUp, LAUREL, per-layer
+       inputs, activation sparsity; the types llama-quantize gives under
+       Q4_K_M; scales / 256) through the full treatment above (K1-K6, ring
+       launches included), then a check that its shared layers own and
+       write no line; narrow gemma4 (window heads of 128, full heads of
+       256, a shared tail layer, V from K, the dual-branch MoE on K7) and
+       minimax-m3 (a dense-lead layer on K6 over the DSAMemory's slot
+       table, an MSA layer with K7 experts), each as the narrow families;
+       and a gemma4-assistant speculation round over a Gemma 4 target,
+       its ids the target's greedy ids;
      - embeddings and rerank: Qwen3-Embedding-8B (Qwen3-8B's stack, the
        qwen3-8b path's 1-layer model) through Context.embed(pooling="last")
        at 512 tokens (a 512-row forward over a 520-slot table: the prefill
@@ -283,8 +298,10 @@ Phases, each of which fails the run:
        over --mcp and a 600-token request through context shifts at -c 512;
      Launch counts include every graph replay (a graph adds its step's
      launches at each replay).
-The last two lines are the kernels JSON object and
-{"ok": true, "device": {...}}. Without a card, or without the port next to
+Before the last two lines: the card's name and power limit, and the
+seconds of each section (the build, phase 3, the fixture writes and the
+loads summed, each path). The last two lines are the kernels JSON object
+and {"ok": true, "device": {...}}. Without a card, or without the port next to
 this script, it exits non-zero and prints no result.
 """
 
@@ -313,6 +330,11 @@ MOE_LAYERS = 1  # experts are 97% of a Mixtral layer's bytes
 QWEN3_LAYERS = 1  # Qwen3-8B: 36 layers
 QWEN3MOE_LAYERS = 1  # Qwen3-30B-A3B: 48 layers, all 128 experts each
 GEMMA3_LAYERS = 6  # Gemma-3-4B: 34 layers; one period of its pattern (five window, one full)
+# Gemma-3n-E4B: 35 layers, the last 15 sharing KV; cut to one period of its
+# pattern (four window, one full) and one shared window layer, for the
+# call's time; the full class's sharing is held on the CPU
+# (tests/test_torch_gemma3n.py)
+GEMMA3N_LAYERS, GEMMA3N_SHARED = 6, 1
 QWEN3_MIX_LAYERS = 1  # Qwen3-8B at Q5_K_M and Q4_0
 QUANT_LAYERS = 2  # the F16 Qwen3-0.6B file llama-quantize turns into q8_0 and q4_0: 28 layers
 DS_LITE_LAYERS = 2  # DeepSeek-V2-Lite: 27 layers; one dense, one MoE
@@ -1172,7 +1194,38 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # the seconds of each section, printed on a line before the last: the
+    # build, phase 3, the fixture writes and the loads summed over the run
+    # (each outermost call, the card's work in it synchronized), and each
+    # path (a path function's outermost calls, under its label)
+    sections: dict[str, float] = {}
+    active: set[str] = set()
+
+    def timed(fn, cat: str):
+        def run(*a, **k):
+            if cat in active:  # a call inside another of its category
+                return fn(*a, **k)
+            active.add(cat)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                active.discard(cat)
+                key = cat
+                if cat == "path":
+                    key = "path " + (a[0] if a and isinstance(a[0], str) else fn.__name__)
+                sections[key] = sections.get(key, 0.0) + time.perf_counter() - t0
+        return run
+
     try:
+        import llama_cpp_tpu_torch.testing as fixture_mod
+        from llama_cpp_tpu_torch.models import loader as loader_mod
+
+        for name in dir(fixture_mod):
+            if name.startswith("make_"):
+                setattr(fixture_mod, name, timed(getattr(fixture_mod, name), "fixture writes"))
+        loader_mod.load_model = timed(loader_mod.load_model, "loads")
         from llama_cpp_tpu_torch.gguf.constants import GGMLType
         from llama_cpp_tpu_torch.models import adapters, mamba
         from llama_cpp_tpu_torch.models.transformer import first_attention_layer
@@ -1193,6 +1246,11 @@ def main() -> int:
         from llama_cpp_tpu_torch.sampling.samplers import SamplerChain, SamplingParams
         from llama_cpp_tpu_torch.runtime import diffusion as diffusion_rt
         from llama_cpp_tpu_torch.tools import diffusion_cli
+        from llama_cpp_tpu_torch.models.gemma3n import Gemma4AssistantSpeculator
+        from llama_cpp_tpu_torch.quant import device_planes
+        from llama_cpp_tpu_torch.testing import (MINIMAX_M3_LAYOUT, make_bench_gemma3n_gguf,
+                                                 make_bench_gemma4_assistant_gguf,
+                                                 make_bench_gemma4_gguf)
         from llama_cpp_tpu_torch.testing import (DIFFUSION_LAYOUTS, LAGUNA_ELEMENT_GATE,
                                                  LAST_TEXT_LAYOUTS, make_bench_diffusion_gguf,
                                                  make_bench_t5_gguf)
@@ -1240,7 +1298,9 @@ def main() -> int:
     # -- phase 2: build --------------------------------------------------
     t0 = time.perf_counter()
     build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    sections["build"] = time.perf_counter() - t0
+    log(f"build: {sections['build']:.1f} s")
+    t_phase3 = time.perf_counter()
     for src, text in build.BUILD_LOGS.items():
         for line in text.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
@@ -1674,6 +1734,7 @@ def main() -> int:
             log(f"FAIL {f}")
         return 1
 
+    sections["phase 3"] = time.perf_counter() - t_phase3
     log(f"phase 3 ends at {time.perf_counter() - t_all:.1f} s")
 
     # -- phase 4: the main paths ---------------------------------------------
@@ -1978,7 +2039,9 @@ def main() -> int:
             failures.append(f"{label}: 100 replays: {agree} of 100 ids equal the eager loop's")
         if server_steps:
             server_steps_phase(label, ctxs, server_steps)
-        rows = {g: decode_wall.measure(torch, c, (1, *[b for b in batches if b > 1]), 16, 2)
+        # one timed call of 8 steps a batch size, then 8 profiled: the
+        # profiles take most of a graph phase
+        rows = {g: decode_wall.measure(torch, c, (1, *[b for b in batches if b > 1]), 8, 1)
                 for g, c in ctxs.items()}
         for g_row, e_row in zip(rows[True], rows[False]):
             B = g_row["B"]
@@ -2631,6 +2694,9 @@ def main() -> int:
         "qwen3-8b": (make_bench_qwen3_gguf, QWEN3_LAYERS),
         "qwen3-30b-a3b": (make_bench_qwen3moe_gguf, QWEN3MOE_LAYERS),
         "gemma3-4b": (make_bench_gemma3_gguf, GEMMA3_LAYERS),
+        "gemma-3n-e4b": (functools.partial(make_bench_gemma3n_gguf,
+                                           shared_kv_layers=GEMMA3N_SHARED, synth_scale=FS),
+                         GEMMA3N_LAYERS),
         "starcoder2-7b": (functools.partial(make_bench_starcoder2_gguf, synth_scale=FS),
                           STARCODER2_LAYERS),
         "command-r": (make_bench_command_r_gguf, COMMAND_R_LAYERS),
@@ -2789,6 +2855,9 @@ def main() -> int:
     if g_text != g_ref_text or not accepted or len(g_text) < 2:
         failures.append(f"path D: constrained text {g_text!r}, Context.generate behind the "
                         f"grammar {g_ref_text!r}, accepted {accepted}")
+    path_d_features = timed(path_d_features, "path")
+    path_e, path_f, path_f_features = (timed(f, "path") for f in (path_e, path_f,
+                                                                  path_f_features))
     path_d_features(model, cli_ids, ref_gen, run_cli, prompt)
     path_e(model, llama_path, smoke_dir)
     path_f(model)
@@ -2951,7 +3020,7 @@ def main() -> int:
         return want
 
     def tied_head_phase(model, label):
-        """The tied head (the row-major Q6_K token_embd, which the qmm
+        """The tied head (the row-major token_embd, which the qmm
         dispatch refuses, as the JAX package's does): its library route,
         dequantize LIBRARY_SLAB rows at a time then torch.mm, timed at the
         decode rows beside its byte bound; no qmm kernel may launch."""
@@ -2961,7 +3030,8 @@ def main() -> int:
             x = torch.randn((n, w.in_features), device="cuda").to(torch.bfloat16)
             ms = timer(lambda: qtensor.matmul(x, w, dtype=torch.float32), reps=5)
             nbytes = plane_bytes(w) + x.numel() * 2 + n * w.out_features * 4
-            log(f"{label} tied head {w.out_features} x {w.in_features} (Q6_K, row-major), "
+            log(f"{label} tied head {w.out_features} x {w.in_features} "
+                f"({GGMLType(w.ggml_type).name}, row-major), "
                 f"library route at N={n} ({card}): {ms:.4f} ms, byte bound "
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
         after = {k: v for c in counters for k, v in c.items()}
@@ -3150,12 +3220,36 @@ def main() -> int:
                 n_heads=FAMILY_SHAPE["n_heads"], n_ff=FAMILY_SHAPE["n_ff"],
                 vocab_size=FAMILY_SHAPE["vocab_size"], n_ctx=FAMILY_SHAPE["n_ctx"],
                 **layout, f32=f32)
+        elif arch == "gemma4":  # window heads of 128, full heads of 256
+            fn, kw = make_bench_gemma4_gguf, dict(
+                n_embd=FAMILY_SHAPE["n_embd"], n_heads=FAMILY_SHAPE["n_heads"],
+                n_kv_heads=FAMILY_SHAPE["n_kv_heads"], head_dim=256, head_dim_swa=128,
+                n_ff=FAMILY_SHAPE["n_ff"], vocab_size=FAMILY_SHAPE["vocab_size"], **layout,
+                f32=f32)
         elif arch in DIFFUSION_LAYOUTS:  # the vocab's last id the mask
             shape = {k: v for k, v in FAMILY_SHAPE.items() if k != "head_dim"}
             fn, kw = make_bench_diffusion_gguf, dict(arch=arch, **shape, mask_token=-1)
         else:
             fn, kw = make_bench_arch_gguf, dict(arch=arch, **{**FAMILY_SHAPE, **layout})
         fn(path, **kw, synth_scale=synth_scale, seed=0)
+
+    def qmm_must(model, ubatch: bool) -> set:
+        """The qmm kernels a model's quantized 2-D matrices dispatch to at
+        decode, its layers' also at a ubatch where ubatch is set (the head
+        and the assistant's projections take one row a step: the decode
+        kernel only), and K7 for an expert stack."""
+        must = set()
+        mats = [(w, ubatch) for lw in model.params["layers"] for w in lw.values()] + [
+            (model.params.get(k), False) for k in ("output", "nextn_proj_pre", "nextn_proj_post")]
+        for w, rows in mats:
+            if not isinstance(w, qtensor.QuantTensor):
+                continue
+            if w.q.dim() == 3 and qmm_expert.supported(w):
+                must.add(expert_key)
+            elif w.q.dim() == 2 and qmm.dispatches(w):
+                i = 0 if w.packed else 1
+                must.update((decode_keys[i],) + ((prefill_keys[i],) if rows else ()))
+        return must
 
     def family_path_file(arch, name=None) -> str:
         return os.path.join(smoke_dir, f"family-{(name or arch).replace(' ', '-')}.gguf")
@@ -3215,18 +3309,7 @@ def main() -> int:
         model = load_model(path)
         os.remove(path)
         cfg = model.cfg
-        must = set()
-        head = model.params.get("output")  # one row a prefill: the decode kernel only
-        mats = [(w, True) for lw in model.params["layers"] for w in lw.values()] + [
-            (head, False)]
-        for w, ubatch in mats:
-            if not isinstance(w, qtensor.QuantTensor):
-                continue
-            if w.q.dim() == 3 and qmm_expert.supported(w):
-                must.add(expert_key)
-            elif w.q.dim() == 2 and qmm.dispatches(w):
-                i = 0 if w.packed else 1
-                must.update((decode_keys[i],) + ((prefill_keys[i],) if ubatch else ()))
+        must = qmm_must(model, ubatch=True)
         ctx_kw = dict(n_ctx=1024, n_seqs=2, n_ubatch=512, quantized_kv=True)
         ctx = Context(model, **ctx_kw)
         attends = first_attention_layer(cfg, model.params["layers"])
@@ -3235,7 +3318,9 @@ def main() -> int:
                         for rows in (FAMILY_PROMPT * cfg.n_heads, cfg.n_heads))
         elif not cfg.alibi_bias and "attn_output" in model.params["layers"][attends]:
             G = cfg.n_heads // cfg.n_kv_heads
-            must.update(f"flash_attention_paged/{flash_attn.route(rows)}"
+            # MSA's DSAMemory is a slot table: its dense-lead layers on K6
+            kind = "flash_attention_paged" if ctx.paged else "flash_attention"
+            must.update(f"{kind}/{flash_attn.route(rows)}"
                         for rows in (FAMILY_PROMPT * G, G)
                         if flash_attn.dispatches(cfg.head_dim_k, cfg.head_dim_v, ctx.n_slots,
                                                  rows))
@@ -4020,6 +4105,10 @@ def main() -> int:
         del ctx, model
         torch.cuda.empty_cache()
 
+    (arch_path, family_path, path_quantize, path_s, bge_m3_path, embedding_decoder_path,
+     embedding_family_path) = (
+        timed(f, "path") for f in (arch_path, family_path, path_quantize, path_s, bge_m3_path,
+                                   embedding_decoder_path, embedding_family_path))
     qwen3_model = arch_path(
         "qwen3-8b", *WIDE["qwen3-8b"], 151936, full_keys,
         "Qwen3-8B shape (n_embd 4096, 32/8 heads of 128, n_ff 12288, vocab 151936, "
@@ -4050,6 +4139,176 @@ def main() -> int:
               full_keys + slots_keys + ring_keys,
               "Gemma-3-4B shape (n_embd 2560, 8/4 heads of 256, n_ff 10240, vocab 262208, "
               "window 1024 on five layers of six, GeGLU, post-norms, tied Q6_K head)")
+
+    def planes_phase():
+        """The 2-D matrices cut into planes on the card (quant/device_planes.py)
+        against the host's extraction (quant/repack.py), bit for bit: every
+        quantized 2-D tensor of a Gemma-3n-E4B file of 2 layers (vocab cut to
+        4096: Q4_K and Q6_K hierarchical, Q4_K flat at 256 columns, the
+        4-row AltUp router) and synthetic 4096 x 4096 matrices of the other
+        flat types (Q8_0, Q4_0, Q5_0, MXFP4), each as a matmul weight and as a
+        row-major table; then each route's load seconds, and load_model of
+        the file both ways."""
+        label = "2-D planes cut on the card"
+        path = os.path.join(smoke_dir, "planes.gguf")
+        make_bench_gemma3n_gguf(path, n_layers=2, shared_kv_layers=0, vocab_size=4096, seed=0)
+        from llama_cpp_tpu_torch.gguf.reader import read_gguf
+
+        cases = [(name, np.asarray(info.data), info.dtype, tuple(info.shape))
+                 for name, info in read_gguf(path).tensors.items()
+                 if len(info.shape) == 2 and info.dtype in device_planes.MATRIX_PLANE_TYPES]
+        for t in (GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q5_0, GGMLType.MXFP4):
+            raw = np.frombuffer(synth_quant_bytes(rng, 4096 * 4096, t), np.uint8)
+            cases.append((f"synthetic {t.name}", raw, t, (4096, 4096)))
+        routes = {"host": lambda device: False, "card": device_planes.cuts_on}
+        cut_on = device_planes.cuts_on
+        secs = {k: 0.0 for k in routes}
+        n_bytes, wrong = 0, []
+        try:
+            for name, raw, t, shape in cases:
+                n_bytes += raw.nbytes
+                for transpose in (True, False):
+                    got = {}
+                    for k, rule in routes.items():
+                        device_planes.cuts_on = rule
+                        t0 = time.perf_counter()
+                        got[k] = load_weight(raw, t, shape, transpose=transpose, device="cuda")
+                        torch.cuda.synchronize()
+                        secs[k] += time.perf_counter() - t0
+                    for f in ("q", "scales", "mins", "d", "dmin"):
+                        a, b = getattr(got["card"], f), getattr(got["host"], f)
+                        if (a is None) != (b is None) or (a is not None and not (
+                                a.dtype == b.dtype and a.shape == b.shape
+                                and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))):
+                            wrong.append((name, GGMLType(t).name, transpose, f))
+                    if got["card"].packed != got["host"].packed:
+                        wrong.append((name, GGMLType(t).name, transpose, "packed"))
+            loads = {}
+            for k, rule in routes.items():
+                device_planes.cuts_on = rule
+                t0 = time.perf_counter()
+                m = load_model(path)
+                torch.cuda.synchronize()
+                loads[k] = time.perf_counter() - t0
+                del m
+        finally:
+            device_planes.cuts_on = cut_on
+        os.remove(path)
+        log(f"{label} ({card}): {len(cases)} matrices ({n_bytes / 2 ** 20:.1f} MiB of blocks), "
+            f"each as a matmul weight and a table: card planes equal to the host's bit for bit "
+            f"{not wrong}; load_weight seconds summed: host extraction "
+            f"{secs['host']:.3f}, cut on the card {secs['card']:.3f}; load_model of the "
+            f"2-layer Gemma-3n-E4B file: host {loads['host']:.3f} s, card {loads['card']:.3f} s")
+        if wrong:
+            failures.append(f"{label}: planes differ from the host's: {wrong[:6]}")
+
+    def gemma3n_lines(model, label):
+        """The shared-KV layers of a Gemma 3n model own no line and write
+        none: the ISWA memory's pool and rings hold the owned layers of each
+        class, each shared layer's indices alias its source's, and a prefill
+        and a decode step write the owned layers alone (each write_layer
+        call's layer recorded)."""
+        cfg = model.cfg
+        reuse = cfg.extra["kv_reuse"]
+        ctx = Context(model, n_ctx=1024, n_seqs=1, n_ubatch=512, quantized_kv=True)
+        kv = ctx.kv
+        owned = [il for il in range(cfg.n_layers) if reuse[il] < 0]
+        n_full = sum(not cfg.is_swa_layer(il) for il in owned)
+        seen = set()
+        write = kv.write_layer
+
+        def spy(il, *a, **k):
+            seen.add(il)
+            return write(il, *a, **k)
+
+        kv.write_layer = spy
+        prompt = [int(t) for t in prng.integers(3, cfg.vocab_size, 600)]
+        first = int(np.argmax(ctx.prefill(prompt)))
+        ctx.decode_one(first)
+        aliased = all((kv.full_idx[il], kv.swa_idx[il]) == (kv.full_idx[reuse[il]],
+                                                             kv.swa_idx[reuse[il]])
+                      for il in range(cfg.n_layers) if reuse[il] >= 0)
+        lines = (len(kv.full.k), len(kv.swa.k))
+        log(f"{label}: kv_reuse {reuse}; pool layers and rings {lines} for the owned full and "
+            f"window layers {(n_full, len(owned) - n_full)}; shared layers alias their "
+            f"source's lines {aliased}; layers written by a 600-token prefill and a step "
+            f"{sorted(seen)} (owned {owned})")
+        if sorted(seen) != owned or lines != (n_full, len(owned) - n_full) or not aliased:
+            failures.append(f"{label}: a shared layer owns or writes a line: written "
+                            f"{sorted(seen)}, owned {owned}, lines {lines}, aliased {aliased}")
+        del ctx
+
+    def gemma4_assistant_round():
+        """A Gemma 4 target (FAMILY_SHAPE's widths, window heads of 128 and
+        full heads of 256, layers window, window, window, full; an untied
+        head, each block adding 0.15 of the embedded row's RMS) and its MTP
+        assistant mirrored on it (a window and a full q-only layer over the
+        target's live KV; testing.make_bench_gemma4_assistant_gguf's
+        mirror_of: it predicts the target's next token but where the
+        target's blocks or a near-tie part them), so the target accepts
+        some drafts and rejects others: Context.generate's 16 greedy ids,
+        then speculative_generate with the assistant (p_min 0, 4 drafts a
+        step) on a fresh context. It fails where no draft is accepted; its
+        ids equal the greedy ids (or each is held teacher-forced against
+        the plain path, hold_ids, where a verify step's 8 rows part from a
+        one-row step at a near-tie); the counters read over the speculative
+        round (the prefill and verify steps on the target's kernels, the
+        drafts' q-only attention on K5 and the ring's K6)."""
+        label = "gemma4-assistant"
+        shape = dict(n_embd=FAMILY_SHAPE["n_embd"], n_heads=FAMILY_SHAPE["n_heads"],
+                     n_kv_heads=FAMILY_SHAPE["n_kv_heads"], head_dim=256, head_dim_swa=128,
+                     n_ff=FAMILY_SHAPE["n_ff"], vocab_size=FAMILY_SHAPE["vocab_size"],
+                     sliding_window=512, synth_scale=FAMILY_SYNTH_SCALE)
+        tpath = os.path.join(smoke_dir, "gemma4-target.gguf")
+        apath = os.path.join(smoke_dir, "gemma4-assistant.gguf")
+        make_bench_gemma4_gguf(tpath, n_layers=4, is_swa=(1, 1, 1, 0), shared_kv_layers=0,
+                               n_embd_per_layer=0, n_expert=0, moe_layers=(), alt_v_layers=(),
+                               untied_head=True, block_gain=0.15, seed=0, **shape)
+        make_bench_gemma4_assistant_gguf(apath, n_layers=2, is_swa=(1, 0),
+                                         n_embd_out=shape["n_embd"], mirror_of=tpath,
+                                         block_gain=0.15, h_gain=0.05, seed=1, **shape)
+        target, draft = load_model(tpath), load_model(apath)
+        os.remove(tpath)
+        os.remove(apath)
+        kw = dict(n_ctx=1024, n_seqs=1, n_ubatch=512, quantized_kv=True)
+        prompt = [int(t) for t in prng.integers(3, shape["vocab_size"], FAMILY_PROMPT)]
+        greedy = Context(target, **kw).generate(prompt, max_new_tokens=16)
+        ctx = Context(target, **kw)
+        spec = Gemma4AssistantSpeculator(draft, ctx, p_min=0.0)
+        must = (qmm_must(target, ubatch=True) | qmm_must(draft, ubatch=False)
+                | set(paged_keys + slots_keys + ring_keys))
+        reset_counts()
+        ids, stats = speculative_generate(ctx, spec, prompt, max_new_tokens=16, n_draft=4)
+        all_counts[label] = read_counts(label, sorted(must))
+        same = ids == greedy
+        log(f"{label} ({card}): speculative_generate with the assistant over the target's "
+            f"memory: {stats}; ids equal Context.generate's {same}")
+        if not stats["n_accept"]:
+            failures.append(f"{label}: the target accepted none of the assistant's "
+                            f"{stats['n_draft']} drafts")
+        if not same:
+            hold_ids(label, target, prompt, ids, **kw)
+        del ctx, spec, target, draft
+        torch.cuda.empty_cache()
+
+    planes_phase = timed(planes_phase, "path")
+    gemma4_assistant_round = timed(gemma4_assistant_round, "path")
+    planes_phase()
+    g3n_model = arch_path(
+        "gemma-3n-e4b", *WIDE["gemma-3n-e4b"], 262144, full_keys + slots_keys + ring_keys,
+        "Gemma-3n-E4B shape (google/gemma-3n-E4B config.json, text_config: n_embd 2048, 8 "
+        "heads on 2 KV heads of 256, n_ff 16384, per-layer inputs of 256 from a 262144-row "
+        "table, 4 AltUp streams, LAUREL rank 64, window 512 on four layers of five, the last 15 "
+        "of 35 layers sharing KV, activation sparsity on the first 10, final softcap 30, a "
+        f"tied head; depth 35 -> {GEMMA3N_LAYERS}, {GEMMA3N_SHARED} shared), the types "
+        "llama-quantize gives each tensor under Q4_K_M, synthetic block scales / 256",
+        near_ties=True, keep=True)
+    gemma3n_lines(g3n_model, "gemma-3n-e4b")
+    del g3n_model
+    torch.cuda.empty_cache()
+    family_path("gemma4", dict(is_swa=(1, 0, 1, 1), sliding_window=64))
+    family_path("minimax-m3", MINIMAX_M3_LAYOUT)
+    gemma4_assistant_round()
 
     # the dense-decoder families that differ from llama only in block variants
     arch_path(
@@ -4479,6 +4738,8 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
+    llada_path, diffusion_family_path, t5_path = (
+        timed(f, "path") for f in (llada_path, diffusion_family_path, t5_path))
     t0 = time.perf_counter()
     llada_path()
     for arch in DIFFUSION_LAYOUTS:
@@ -4560,8 +4821,14 @@ def main() -> int:
                         **({k: r[k] for k in ("kernel", "tile", "rows", "types") if k in r})})
     log("decode loop, graphed and eager, ms a step by path and B (smoke runs, not a "
         f"benchmark; {card}): " + json.dumps(graph_rows))
-    log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s")
+    total = time.perf_counter() - t_all
+    paths = sum(v for k, v in sections.items() if k.startswith("path "))
+    sections["other (the inline paths and phases)"] = (
+        total - paths - sections["build"] - sections["phase 3"])
+    log(f"chip_smoke: {total:.1f} s")
     log(f"card: {gpu_line()}")
+    print("sections (s): " + json.dumps({k: round(v, 1) for k, v in sections.items()}),
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

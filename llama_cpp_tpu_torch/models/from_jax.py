@@ -11,10 +11,13 @@ layer (biases, q/k norms, post-norms, the recurrent mixers' ssm_*,
 shortconv_* and attn_gate, RWKV's time_mix_* and channel_mix_*, bitnet's
 sub-norms and talkie's layer_out_scale included) comes across as it is; an
 encoder's token_types, T5's enc_layers (attn_rel_b among their keys) and
-its decoder layers' cross_attn_*, and nomic-bert-moe's expert stacks too;
-nanbeige's looped layers stay one set of tensors (n_loops).
+its decoder layers' cross_attn_*, nomic-bert-moe's expert stacks, Gemma
+3n's AltUp, LAUREL and per-layer tensors (the [A-1, E, E] AltUp
+projections dense) and MiniMax-M3's indexer too; nanbeige's looped layers
+stay one set of tensors (n_loops).
 kv_cache_from_jax does the same for a slot-table KVCache, iswa_from_jax
-for an ISWACache on slot tables and recurrent_from_jax for a
+for an ISWACache on slot tables (a shared-KV layer's aliased indices
+included), dsa_from_jax for a DSAMemory and recurrent_from_jax for a
 RecurrentState, so a test can continue a JAX prefill in the port. Nothing
 of JAX is imported.
 """
@@ -28,7 +31,7 @@ import torch
 
 from ..ops.qtensor import QuantTensor
 from ..runtime.kv_cache import ISWACache, KVCache
-from ..runtime.memory import RecurrentState
+from ..runtime.memory import DSAMemory, RecurrentState
 
 
 def _tensor(a, device) -> torch.Tensor | None:
@@ -101,3 +104,9 @@ def recurrent_from_jax(jrs, device="cpu") -> RecurrentState:
     """The JAX package's RecurrentState (conv [L, n_seqs, d_conv - 1, C],
     ssm [L, n_seqs, d_state, d_inner] as numpy arrays) -> the port's."""
     return RecurrentState(conv=_tensor(jrs.conv, device), ssm=_tensor(jrs.ssm, device))
+
+
+def dsa_from_jax(jkv, device="cpu") -> DSAMemory:
+    """The JAX package's DSAMemory (kv and idx, slot-table KVCaches whose
+    arrays are numpy) -> the port's."""
+    return DSAMemory(kv=kv_cache_from_jax(jkv.kv, device), idx=kv_cache_from_jax(jkv.idx, device))

@@ -6,8 +6,9 @@ nanbeige's physical stack is listed once a loop, by reference.
 
 Analog of reference llama_model_loader + llama_model::load_tensors
 (src/llama-model-loader.cpp; src/models/llama.cpp:35-94). Weights are read
-from the memory-mapped GGUF blob, repacked to planes on the host
-(quant/repack.py) and copied to the device once per plane. After load,
+from the memory-mapped GGUF blob and repacked to planes: on the card the
+usual types go up as raw blocks and are cut there (quant/device_planes.py),
+elsewhere on the host (quant/repack.py) and copied once per plane. After load,
 same-type projections are fused (q+k, gate+up) and the vocab head is padded.
 """
 
@@ -156,6 +157,30 @@ LAYER_TENSORS = {
     "time_mix_ln.bias": "time_mix_ln_bias",
     **{f"channel_mix_{n}.weight": f"channel_mix_{n}" for n in (
         "lerp_k", "lerp_r", "key", "value", "receptance")},
+    # Gemma 3n's AltUp, LAUREL and per-layer inputs (reference
+    # llama-arch.cpp:485-497); Gemma 4's dual-branch MoE norms, router
+    # scale and fused gate|up experts (llama-arch.cpp:403-423)
+    "altup_correct_coef.weight": "altup_correct_coef",
+    "altup_correct_scale.weight": "altup_correct_scale",
+    "altup_predict_coef.weight": "altup_predict_coef",
+    "altup_router.weight": "altup_router",
+    "altup_router_norm.weight": "altup_router_norm",
+    "laurel_l.weight": "laurel_l",
+    "laurel_r.weight": "laurel_r",
+    "laurel_post_norm.weight": "laurel_post_norm",
+    "inp_gate.weight": "per_layer_inp_gate",
+    "proj.weight": "per_layer_proj",
+    "post_norm.weight": "per_layer_post_norm",
+    "pre_ffw_norm_2.weight": "ffn_pre_norm_2",
+    "post_ffw_norm_1.weight": "ffn_post_norm_1",
+    "post_ffw_norm_2.weight": "ffn_post_norm_2",
+    "ffn_gate_inp.scale": "ffn_gate_inp_s",
+    "ffn_gate_up_exps.weight": "ffn_gate_up_exps",
+    # MiniMax-M3's block-sparse indexer (llama-arch.cpp:608-610)
+    "indexer.q_proj.weight": "indexer_q_proj",
+    "indexer.k_proj.weight": "indexer_k_proj",
+    "indexer.q_norm.weight": "indexer_q_norm",
+    "indexer.k_norm.weight": "indexer_k_norm",
 }
 
 # T5's encoder blocks, enc.blk.N.*, and decoder blocks, dec.blk.N.* (reference
@@ -197,6 +222,15 @@ GLOBAL_TENSORS = {
     "cls.bias": "cls_bias",
     "cls.output.weight": "cls_out",
     "cls.output.bias": "cls_out_bias",
+    # Gemma 3n/4's per-layer token embeddings and AltUp projections; the
+    # Gemma 4 assistant's projections in and out (llama-arch.cpp:503-504)
+    "per_layer_token_embd.weight": "per_layer_token_embd",
+    "per_layer_model_proj.weight": "per_layer_model_proj",
+    "per_layer_proj_norm.weight": "per_layer_proj_norm",
+    "altup_proj.weight": "altup_proj",
+    "altup_unembd_proj.weight": "altup_unembd_proj",
+    "nextn.pre_projection.weight": "nextn_proj_pre",
+    "nextn.post_projection.weight": "nextn_proj_post",
 }
 
 # 1-D tensors stay dense fp32; everything else follows its storage type
@@ -221,9 +255,15 @@ _DENSE_KEYS = {"attn_norm", "attn_norm_bias", "attn_q_norm", "attn_k_norm", "att
                "time_mix_lerp_x", "time_mix_lerp_w", "time_mix_lerp_k", "time_mix_lerp_v",
                "time_mix_lerp_r", "time_mix_lerp_g", "time_mix_lerp_fused", "time_mix_first",
                "time_mix_decay", "time_mix_ln", "time_mix_ln_bias", "time_mix_w2",
-               "channel_mix_lerp_k", "channel_mix_lerp_r"}
+               "channel_mix_lerp_k", "channel_mix_lerp_r",
+               # Gemma 3n's small AltUp and LAUREL tensors and its AltUp
+               # projections (exact f32, no planes), Gemma 4's MoE norms
+               "altup_correct_coef", "altup_predict_coef", "altup_router_norm",
+               "altup_correct_scale", "laurel_post_norm", "per_layer_post_norm",
+               "per_layer_proj_norm", "altup_proj", "altup_unembd_proj",
+               "ffn_pre_norm_2", "ffn_post_norm_1", "ffn_post_norm_2", "ffn_gate_inp_s"}
 # gather tables: row-major, not transposed planes
-_ROW_TABLES = ("token_embd", "pos_embd")
+_ROW_TABLES = ("token_embd", "pos_embd", "per_layer_token_embd")
 
 
 def resolve_device(device) -> torch.device:
@@ -271,6 +311,19 @@ class Model:
             def enc_only(params, cfg, tokens, inputs, kv, output_rows=None, kernels=True):
                 return t5.t5_encode(params, cfg, tokens, kernels=kernels)
             return enc_only
+        if self.cfg.extra.get("gemma3n"):
+            from . import gemma3n
+
+            return gemma3n.forward
+        if self.cfg.extra.get("gemma4"):
+            from . import gemma3n
+
+            return gemma3n.forward_gemma4
+        if self.cfg.extra.get("gemma4_assistant"):
+            def no_standalone(*a, **k):
+                raise RuntimeError("gemma4-assistant is an MTP drafter over a target context; "
+                                   "use models.gemma3n.Gemma4AssistantSpeculator")
+            return no_standalone
         if self.cfg.extra.get("rwkv"):
             from . import rwkv
 
@@ -367,8 +420,15 @@ def load_model(path: str, device="cuda", prefer_quant: bool = True,
     # qwen35's wq holds per-head [q | gate] pairs at twice the width: a fused
     # q|k|v would be split at the wrong columns, so its projections stay apart
     if not cfg.extra.get("q_gate_interleaved"):
-        for lw in layers:
-            _fuse_projections(lw)
+        # a shared-KV layer (gemma3n, gemma4) keeps a standalone attn_q for
+        # its q-only projection
+        reuse = cfg.extra.get("kv_reuse")
+        for il, lw in enumerate(layers):
+            _fuse_projections(lw, fuse_qkv=reuse is None or int(reuse[il]) < 0)
+    for lw in layers:  # gemma4's fused [gate | up] expert stacks
+        if "ffn_gate_up_exps" in lw:
+            lw["ffn_gate_exps"], lw["ffn_up_exps"] = _split_gateup_exps(
+                lw.pop("ffn_gate_up_exps"))
     if cfg.extra.get("mla_absorb"):
         for lw in layers:
             _split_mla_kv_b(lw, cfg)
@@ -530,16 +590,34 @@ def _concat_weights(ws: list) -> Weight | None:
     return None
 
 
-def _fuse_projections(lw: dict) -> None:
+def _split_gateup_exps(w: Weight) -> tuple[Weight, Weight]:
+    """A fused [gate | up] expert stack -> its gate and up stacks: the first
+    half of the output rows is the gate (the JAX package's
+    loader.py:624-645)."""
+    if isinstance(w, QuantTensor):
+        F = w.q.shape[-1] // 2
+
+        def half(sl):
+            return replace(w, **{k: None if getattr(w, k) is None else
+                                 getattr(w, k)[..., sl].contiguous()
+                                 for k in ("q", "scales", "mins", "d", "dmin")})
+
+        return half(slice(None, F)), half(slice(F, None))
+    F = w.shape[-2] // 2
+    return w[..., :F, :].contiguous(), w[..., F:, :].contiguous()
+
+
+def _fuse_projections(lw: dict, fuse_qkv: bool = True) -> None:
     """Fuse Q/K/V and gate/up projections into single matmuls (fewer
     launches per layer). Q4_K_M stores attn_v as Q6_K (reference
     llama_tensor_get_type, src/llama-quant.cpp:424): then q+k fuse and v
     stays standalone. Biases follow the JAX package's rule: projections fuse
     only when all of them or none carry a bias (the fused bias is
     attn_qkv_bias or attn_qk_bias), and gate/up only when neither does; a
-    file's own attn_qkv stays as it is."""
+    file's own attn_qkv stays as it is; fuse_qkv=False (a shared-KV layer)
+    leaves the attention projections apart."""
     names = ("attn_q", "attn_k", "attn_v")
-    if all(k in lw for k in names) and "attn_qkv" not in lw:
+    if fuse_qkv and all(k in lw for k in names) and "attn_qkv" not in lw:
         fused = _concat_weights([lw[k] for k in names])
         biased = [f"{k}_bias" in lw for k in names]
         if fused is not None and (all(biased) or not any(biased)):

@@ -17,11 +17,13 @@ cache the absorbed latent. t5 runs models/t5.py's encoder and decoder
 (Context's encoder-decoder flow); dream, llada, llada-moe and rnd1 are the
 shared decoder run bidirectionally for runtime/diffusion.py; afmoe, laguna
 (the softplus output gate, rope_dims_swa), openelm (per-layer head arrays)
-and nanbeige (the physical stack looped) are the shared decoder. Any other
-architecture raises NotImplementedError naming itself: minimax-m3 (its
-block-sparse attention), gemma3n, gemma4 and gemma4-assistant, deepseek32,
-glm-dsa and deepseek4 (sparse attention memories), the eagle3 and dflash
-drafts, the vision-language entries (qwen2vl, qwen3vl, qwen3vlmoe, cogvlm,
+and nanbeige (the physical stack looped) are the shared decoder. gemma3n
+and gemma4 run models/gemma3n.py's forwards, gemma4-assistant is a draft
+over a target context (Gemma4AssistantSpeculator), and minimax-m3 is the
+shared decoder with MSA's block-sparse attention on a DSAMemory. Any other
+architecture raises NotImplementedError naming itself: deepseek32, glm-dsa
+and deepseek4 (sparse attention memories), the eagle3 and dflash drafts,
+the vision-language entries (qwen2vl, qwen3vl, qwen3vlmoe, cogvlm,
 hunyuan_vl, paddleocr, deepseek2-ocr) and qwen3tts.
 """
 
@@ -477,7 +479,7 @@ def _swa_pattern_extra(cfg: ModelConfig, md, a: str, scalar_is_array: bool = Fal
     broadcasts to every layer: any nonzero scalar makes every layer a window
     layer."""
     pat = md.get(f"{a}.attention.sliding_window_pattern", 4)
-    if isinstance(pat, (list, tuple)) or hasattr(pat, "__len__"):
+    if hasattr(pat, "__len__"):  # a per-layer array
         cfg.extra["is_swa_layers"] = tuple(bool(int(v)) for v in pat)
         pat_i = 0
     elif scalar_is_array:
@@ -1403,3 +1405,132 @@ def _nanbeige(cfg: ModelConfig, md) -> ModelConfig:
     cfg.extra.update(n_loops=loops,
                      skip_loop_final_norm=bool(md.get(f"{a}.skip_loop_final_norm", False)))
     return cfg.with_(rope_type=ROPE_TYPE_NORM, n_layers=cfg.n_layers * max(loops, 1))
+
+
+# -- Gemma 3n and Gemma 4 (their own forwards, models/gemma3n.py), the Gemma 4
+# MTP assistant (a draft over a target context), MiniMax-M3's block-sparse
+# attention on the shared decoder
+
+
+def _kv_reuse_layers(cfg: ModelConfig, n_shared: int,
+                     default_from_start: int | None = None) -> list[int]:
+    """The cross-layer KV sharing map (reference llama-model.cpp:2311-2320;
+    the JAX package's registry.py:210-227): each layer past
+    n_layer_kv_from_start reads the last owned layer of its own window
+    class (-1: the layer owns its lines)."""
+    L = cfg.n_layers
+    from_start = L - n_shared if n_shared > 0 else (default_from_start or L)
+    from_start = max(1, min(from_start, L))
+    reuse = []
+    for il in range(L):
+        if il < from_start:
+            reuse.append(-1)
+            continue
+        cls = cfg.is_swa_layer(il)
+        reuse.append(next((j for j in range(from_start - 1, -1, -1)
+                           if cfg.is_swa_layer(j) == cls), -1))
+    return reuse
+
+
+def _gemma4_class_dims(cfg: ModelConfig, md, a: str) -> ModelConfig:
+    """Gemma 4's window pattern (a per-layer array, with swa_pattern 1 as
+    the marker that a window pattern is there) and the window layers'
+    narrower heads, whose rope spans their own width."""
+    pat = md.get(f"{a}.attention.sliding_window_pattern")
+    if hasattr(pat, "__len__"):  # a per-layer array
+        cfg.extra["is_swa_layers"] = [bool(int(v)) for v in pat]
+        cfg = cfg.with_(swa_pattern=1)
+    else:
+        cfg = cfg.with_(swa_pattern=int(pat or 6))
+    cfg.extra["rope_factors_full_only"] = True
+    cfg.extra["rope_freq_base_swa"] = float(md.get(f"{a}.rope.freq_base_swa", 10000.0))
+    dk_swa = int(md.get(f"{a}.attention.key_length_swa", 0))
+    if dk_swa and dk_swa != cfg.head_dim_k:
+        cfg.extra["head_dim_k_swa"] = dk_swa
+        cfg.extra["head_dim_v_swa"] = int(md.get(f"{a}.attention.value_length_swa", dk_swa))
+        cfg.extra["rope_dims_swa"] = dk_swa
+    return cfg
+
+
+@register("gemma3n")  # 229
+def _gemma3n(cfg: ModelConfig, md) -> ModelConfig:
+    """Gemma 3n (reference src/models/gemma3n.cpp): AltUp streams, LAUREL,
+    per-layer token embeddings, Gaussian top-k activation sparsity,
+    shared-KV tail layers, V normed without a weight, attention scale 1."""
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, act="gelu", embd_scale=float(cfg.n_embd) ** 0.5,
+                  post_norms=True, qk_norm=True, tie_embeddings=True, attn_scale=1.0,
+                  swa_pattern=int(md.get("gemma3n.attention.sliding_window_pattern", 5)))
+    c.extra.update(gemma3n=True, v_rms_norm=True)
+    c.extra["rope_freq_base_swa"] = float(md.get("gemma3n.rope.freq_base_swa", 10000.0))
+    c.extra["n_altup"] = int(md.get("gemma3n.altup.num_inputs", 4))
+    c.extra["i_altup_act"] = int(md.get("gemma3n.altup.active_idx", 0))
+    c.extra["n_embd_altup"] = int(md.get("gemma3n.embedding_length_per_layer_input", 256))
+    # the per-layer std multipliers; the default is the reference's constant
+    # (models.h:804-805: the first 10 layers at icdf(0.95))
+    sp = md.get("gemma3n.activation_sparsity_scale")
+    if sp is None:
+        sp = [1.6448533535003662 if il < 10 else 0.0 for il in range(cfg.n_layers)]
+    c.extra["act_sparsity_std"] = [float(v) for v in sp]
+    n_shared = int(md.get("gemma3n.attention.shared_kv_layers", 0))
+    c.extra["kv_reuse"] = _kv_reuse_layers(c, n_shared, default_from_start=min(20, cfg.n_layers))
+    return c
+
+
+@register("gemma4")  # 262
+def _gemma4(cfg: ModelConfig, md) -> ModelConfig:
+    """Gemma 4 (reference src/models/gemma4.cpp): a per-layer window array
+    with narrower window heads, a shared-KV tail, V from the K projection
+    where a layer has no attn_v, the dual-branch MoE, per-layer
+    embeddings, proportional rope on the full layers, per-layer output
+    scalars."""
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, act="gelu", embd_scale=float(cfg.n_embd) ** 0.5,
+                  post_norms=True, qk_norm=True, tie_embeddings=True, attn_scale=1.0,
+                  expert_weights_norm=True)
+    c = _gemma4_class_dims(c, md, "gemma4")
+    c.extra.update(gemma4=True, v_rms_norm=True)
+    c.extra["n_embd_altup"] = int(md.get("gemma4.embedding_length_per_layer_input", 0))
+    n_shared = int(md.get("gemma4.attention.shared_kv_layers", 0))
+    if n_shared > 0:
+        c.extra["kv_reuse"] = _kv_reuse_layers(c, n_shared)
+    return c
+
+
+@register("gemma4-assistant")  # 305
+def _gemma4_assistant(cfg: ModelConfig, md) -> ModelConfig:
+    """The Gemma 4 MTP assistant (reference src/models/gemma4-assistant.cpp):
+    a q-only draft whose every layer attends the target context's KV; it
+    runs through models.gemma3n.Gemma4AssistantSpeculator, which binds its
+    kv_reuse map into the target's layers."""
+    c = cfg.with_(rope_type=ROPE_TYPE_NEOX, act="gelu", post_norms=True, qk_norm=True,
+                  tie_embeddings=True, attn_scale=1.0)
+    c = _gemma4_class_dims(c, md, "gemma4-assistant")
+    c.extra["gemma4_assistant"] = True
+    c.extra["n_embd_out"] = int(md.get("gemma4-assistant.embedding_length_out", cfg.n_embd))
+    c.extra["n_layer_nextn"] = int(md.get("gemma4-assistant.nextn_predict_layers",
+                                          cfg.n_layers))
+    return c
+
+
+@register("minimax-m3")  # 1388
+def _minimax_m3(cfg: ModelConfig, md) -> ModelConfig:
+    """MiniMax-M3 (reference src/models/minimax-m3.cpp, llama-kv-cache-msa.h):
+    dense-lead layers, then block-sparse attention: a per-GQA-group indexer
+    scores the cached positions, max-pooled over blocks with the local
+    blocks forced in, and the top-k blocks gate the mask (on a DSAMemory);
+    per-head q/k norms, partial rope, MoE with shared experts and softmax
+    or sigmoid gating."""
+    a = cfg.arch
+    cfg.extra.update(
+        msa=True,
+        indexer_n_head=int(md.get(f"{a}.attention.indexer.head_count", cfg.n_kv_heads)),
+        indexer_head_size=int(md.get(f"{a}.attention.indexer.key_length", 128)),
+        indexer_top_k=int(md.get(f"{a}.attention.indexer.top_k", 16)),
+        indexer_block_size=int(md.get(f"{a}.attention.indexer.block_size", 64)),
+        indexer_local_blocks=int(md.get(f"{a}.attention.indexer.local_blocks", 1)),
+        msa_dense_lead=int(md.get(f"{a}.leading_dense_block_count", 0)),
+    )
+    return cfg.with_(rope_type=ROPE_TYPE_NEOX, qk_norm=True,
+                     expert_gating=_gating(md, f"{a}.expert_gating_func", 1),
+                     expert_weights_norm=bool(md.get(f"{a}.expert_weights_norm", False)),
+                     expert_weights_scale=float(md.get(f"{a}.expert_weights_scale", 1.0)),
+                     n_expert_shared=int(md.get(f"{a}.expert_shared_count", 0)))

@@ -35,7 +35,7 @@ from ..ops.kernels import qmm_expert as expert_kernel
 from ..ops.qtensor import QuantTensor, Weight, dot_f32, embed_lookup, matmul
 from ..ops.rope import ROPE_TYPE_NONE, RopeParams, apply_mrope, apply_rope
 from ..runtime.kv_cache import ISWACache, KVCache
-from ..runtime.memory import HybridMemory
+from ..runtime.memory import DSAMemory, HybridMemory
 from ..runtime.paged_kv import PagedKVCache
 from . import mamba
 from .config import ModelConfig
@@ -50,7 +50,7 @@ class AttnInputs(NamedTuple):
     positions: torch.Tensor  # [B, T] rope/causal position (< 0 = pad)
 
 
-Memory = PagedKVCache | KVCache | ISWACache | HybridMemory
+Memory = PagedKVCache | KVCache | ISWACache | HybridMemory | DSAMemory
 
 
 def norm(cfg: ModelConfig, x: torch.Tensor, w: dict[str, Weight], key: str) -> torch.Tensor:
@@ -85,13 +85,18 @@ def _rope_params(cfg: ModelConfig, il: int) -> RopeParams:
     (the JAX package's transformer.py:95-125)."""
     base, scale = cfg.rope_freq_base, cfg.rope_freq_scale
     dims, ext = cfg.rope_dims, cfg.rope_ext_factor
+    # gemma4's proportional rope: rope_freqs divides the full layers' only
+    factors = cfg.extra.get("rope_factors_arr")
     if cfg.is_swa_layer(il):
+        if cfg.extra.get("rope_factors_full_only"):
+            factors = None
         if cfg.extra.get("rope_freq_base_swa"):
-            base, scale = cfg.extra["rope_freq_base_swa"], 1.0
+            base = cfg.extra["rope_freq_base_swa"]
+            scale = cfg.extra.get("rope_freq_scale_swa", 1.0)
         if cfg.extra.get("rope_dims_swa"):
             dims, ext = cfg.extra["rope_dims_swa"], 0.0
     return RopeParams(
-        freq_factors=cfg.extra.get("rope_factors_arr"),
+        freq_factors=factors,
         rope_type=cfg.rope_type,
         n_dims=dims,
         freq_base=base,
@@ -113,6 +118,24 @@ def layer_heads(cfg: ModelConfig, il: int) -> tuple[int, int]:
             cfg.n_kv_heads if hka is None else int(hka[il]))
 
 
+def class_head_dims(cfg: ModelConfig, il: int) -> tuple[int, int]:
+    """Layer il's (K, V) head dims: gemma4's window layers run narrower
+    heads (head_dim_k_swa / head_dim_v_swa), every other layer the
+    config's."""
+    if cfg.extra.get("head_dim_k_swa") and cfg.is_swa_layer(il):
+        dk = int(cfg.extra["head_dim_k_swa"])
+        return dk, int(cfg.extra.get("head_dim_v_swa", dk))
+    return cfg.head_dim_k, cfg.head_dim_v
+
+
+def kv_source(cfg: ModelConfig, il: int) -> int:
+    """The layer whose KV lines layer il attends: its own, or for a shared
+    layer (gemma3n, gemma4: kv_reuse[il] >= 0) the last owned layer of its
+    window class, which it neither projects nor writes."""
+    reuse = cfg.extra.get("kv_reuse")
+    return int(reuse[il]) if reuse is not None and int(reuse[il]) >= 0 else il
+
+
 def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
                     inputs: AttnInputs, kv: Memory, il: int,
                     kernels: bool = True, update_pos: bool | None = None) -> torch.Tensor:
@@ -124,12 +147,27 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     everywhere. Gated attention: qwen35's wq emits per-head [q | gate] pairs
     (q_gate_interleaved), qwen3next's gate is its own projection attn_gate;
     either gate's sigmoid scales the attention output before attn_output;
-    laguna's attn_gate takes a softplus instead, per head or per element."""
+    laguna's attn_gate takes a softplus instead, per head or per element.
+    Gemma 3n/4: a shared layer (kv_source) projects q alone and attends its
+    source's lines; a layer without attn_v takes V from the raw K
+    projection; v_rms_norm norms V per head without a weight; the window
+    layers may have their own head dims (class_head_dims). MiniMax-M3's MSA
+    layers (indexer_q_proj, on a DSAMemory) select key blocks per GQA group
+    from the indexer's scores and attend on the einsum path; its dense-lead
+    layers attend the DSAMemory's slot table as any layer does."""
     B, T = x.shape[:2]
     H, Hkv = layer_heads(cfg, il)
-    Dk, Dv = cfg.head_dim_k, cfg.head_dim_v
+    Dk, Dv = class_head_dims(cfg, il)
+    mem = kv if isinstance(kv, DSAMemory) else None
+    if mem is not None:
+        kv = mem.kv
+    src_il = kv_source(cfg, il)
+    shared = src_il != il
 
-    if "attn_qkv" in lw:
+    k = v = None
+    if shared:
+        q = _add_bias(matmul(x, lw["attn_q"], kernels=kernels), lw, "attn_q_bias")
+    elif "attn_qkv" in lw:
         qkv = _add_bias(matmul(x, lw["attn_qkv"], kernels=kernels), lw, "attn_qkv_bias")
         q = qkv[..., : H * Dk]
         k = qkv[..., H * Dk: H * Dk + Hkv * Dk]
@@ -141,8 +179,11 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
         v = _add_bias(matmul(x, lw["attn_v"], kernels=kernels), lw, "attn_v_bias")
     else:
         q = _add_bias(matmul(x, lw["attn_q"], kernels=kernels), lw, "attn_q_bias")
-        k = _add_bias(matmul(x, lw["attn_k"], kernels=kernels), lw, "attn_k_bias")
-        v = _add_bias(matmul(x, lw["attn_v"], kernels=kernels), lw, "attn_v_bias")
+        k_raw = matmul(x, lw["attn_k"], kernels=kernels)
+        # gemma4's alternative attention: no attn_v, V is the raw K projection
+        v = (_add_bias(matmul(x, lw["attn_v"], kernels=kernels), lw, "attn_v_bias")
+             if "attn_v" in lw else k_raw)
+        k = _add_bias(k_raw, lw, "attn_k_bias")
 
     gate_q = None
     if cfg.extra.get("q_gate_interleaved") and q.shape[-1] == 2 * H * Dk:
@@ -152,21 +193,29 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
 
     clamp = cfg.extra.get("clamp_kqv", 0.0)
     if clamp:  # olmo/dbrx: the projected q, k, v clamped
-        q, k, v = (torch.clamp(t, -clamp, clamp) for t in (q, k, v))
+        q = torch.clamp(q, -clamp, clamp)
+        if k is not None:
+            k, v = torch.clamp(k, -clamp, clamp), torch.clamp(v, -clamp, clamp)
     full_norm = cfg.qk_norm and cfg.extra.get("qk_norm_full", False)
     if full_norm:  # olmo2/olmoe: RMSNorm over the whole projection
         q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
-        k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
+        if k is not None:
+            k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
     q = q.reshape(B, T, H, Dk)
-    k = k.reshape(B, T, Hkv, Dk)
-    v = v.reshape(B, T, Hkv, Dv)
+    if k is not None:
+        k = k.reshape(B, T, Hkv, Dk)
+        v = v.reshape(B, T, Hkv, Dv)
+        if cfg.extra.get("v_rms_norm"):  # gemma3n/gemma4: V normed per head, no weight
+            v = rms_norm(v, None, cfg.rms_eps)
     after_rope = cfg.extra.get("qk_norm_after_rope", False)
     if cfg.qk_norm and cfg.extra.get("qk_layernorm"):  # chameleon: LayerNorm with bias
         q = layer_norm(q, lw.get("attn_q_norm"), lw.get("attn_q_norm_bias"), cfg.norm_eps)
-        k = layer_norm(k, lw.get("attn_k_norm"), lw.get("attn_k_norm_bias"), cfg.norm_eps)
+        if k is not None:
+            k = layer_norm(k, lw.get("attn_k_norm"), lw.get("attn_k_norm_bias"), cfg.norm_eps)
     elif cfg.qk_norm and not full_norm and not after_rope:  # per head, before rope
         q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
-        k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
+        if k is not None:
+            k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
     roped = cfg.rope_type != ROPE_TYPE_NONE and il not in cfg.extra.get("no_rope_layers", ())
     if roped:
         rp = _rope_params(cfg, il)
@@ -176,30 +225,38 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
             # drives the three t/h/w streams
             pos3 = inputs.positions[None].expand(3, *inputs.positions.shape)
             q = apply_mrope(q, pos3, sections, rp)
-            k = apply_mrope(k, pos3, sections, rp)
+            if k is not None:
+                k = apply_mrope(k, pos3, sections, rp)
         else:
             q = apply_rope(q, inputs.positions, rp)
-            k = apply_rope(k, inputs.positions, rp)
+            if k is not None:
+                k = apply_rope(k, inputs.positions, rp)
     if cfg.qk_norm and after_rope and roped:  # hunyuan: per head, after rope
         q = rms_norm(q, lw.get("attn_q_norm"), cfg.rms_eps)
-        k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
+        if k is not None:
+            k = rms_norm(k, lw.get("attn_k_norm"), cfg.rms_eps)
 
     # position-addressed write of the [B, T] token grid (SET_ROWS analog);
     # the ISWA memory's sub-caches each write their position labels on
-    # their own first layer
+    # their own first layer; a shared layer writes nothing
     seq_flat = inputs.seq_idx.repeat_interleave(T)
-    k_wr, v_wr = k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv)
-    if Hkv != cfg.n_kv_heads:  # a layer of a head array: padded to the memory's heads
-        pad = (0, 0, 0, cfg.n_kv_heads - Hkv)
-        k_wr, v_wr = torch.nn.functional.pad(k_wr, pad), torch.nn.functional.pad(v_wr, pad)
-    kv.write_layer(il, seq_flat, inputs.positions.reshape(-1), k_wr, v_wr,
-                   update_pos=update_pos)
+    if not shared:
+        k_wr, v_wr = k.reshape(B * T, Hkv, Dk), v.reshape(B * T, Hkv, Dv)
+        if Hkv != cfg.n_kv_heads:  # a layer of a head array: padded to the memory's heads
+            pad = (0, 0, 0, cfg.n_kv_heads - Hkv)
+            k_wr = torch.nn.functional.pad(k_wr, pad)
+            v_wr = torch.nn.functional.pad(v_wr, pad)
+        kv.write_layer(il, seq_flat, inputs.positions.reshape(-1), k_wr, v_wr,
+                       update_pos=update_pos)
+    group_sel = None
+    if cfg.extra.get("msa") and "indexer_q_proj" in lw and mem is not None:
+        group_sel = _msa_blocks(cfg, lw, x, inputs, mem, il, Hkv, seq_flat, kernels)
     scale = cfg.attn_scale or (1.0 / float(Dk) ** 0.5)
     window = cfg.sliding_window if cfg.is_swa_layer(il) else 0
     # the einsum path's operands follow the block input's dtype, as in the
     # JAX package: a q that a bias made f32 is rounded to bf16 there
-    out = _attend(cfg, q.to(x.dtype), kv, il, inputs, Hkv, Dv, scale, window,
-                  lw.get("attn_sinks"), kernels).to(x.dtype)
+    out = _attend(cfg, q.to(x.dtype), kv, src_il, inputs, Hkv, Dv, scale, window,
+                  lw.get("attn_sinks"), kernels, group_sel).to(x.dtype)
     if "attn_sub_norm" in lw:  # bitnet: the attention output normed before attn_output
         out = rms_norm(out, lw["attn_sub_norm"], cfg.rms_eps)
     if gate_q is not None:
@@ -216,11 +273,58 @@ def attention_block(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor,
     return _add_bias(matmul(out, lw["attn_output"], kernels=kernels), lw, "attn_output_bias")
 
 
+def _msa_blocks(cfg: ModelConfig, lw: dict[str, Weight], x: torch.Tensor, inputs: AttnInputs,
+                mem: DSAMemory, il: int, Hkv: int, seq_flat: torch.Tensor,
+                kernels: bool) -> torch.Tensor:
+    """MiniMax-M3's index branch (reference minimax-m3.cpp:100-120; the JAX
+    package's transformer.py:312-335): a per-GQA-group indexer query and
+    one indexer key a token, each rms-normed and roped, the key written to
+    the DSAMemory's indexer cache at the token's position; scores over
+    every cached key (causal), max-pooled over blocks of
+    indexer_block_size, the indexer_local_blocks blocks ending at the
+    query's own forced in, then the top indexer_top_k blocks of each
+    (token, group) -> the selected keys [B, Hkv, T, S] bool. The indexer
+    cache labels its positions on every MSA layer (the same labels each
+    time), so a model whose first layers are dense-lead ones labels them
+    too."""
+    B, T = x.shape[:2]
+    Di = cfg.extra["indexer_head_size"]
+    blk = cfg.extra["indexer_block_size"]
+    local = cfg.extra.get("indexer_local_blocks", 1)
+    rp = _rope_params(cfg, il)
+    iq = matmul(x, lw["indexer_q_proj"], kernels=kernels).reshape(B, T, Hkv, Di)
+    ik = matmul(x, lw["indexer_k_proj"], kernels=kernels).reshape(B, T, 1, Di)
+    iq = apply_rope(rms_norm(iq, lw.get("indexer_q_norm"), cfg.rms_eps), inputs.positions, rp)
+    ik = apply_rope(rms_norm(ik, lw.get("indexer_k_norm"), cfg.rms_eps), inputs.positions, rp)
+    idx = mem.idx
+    idx.write_layer(il, seq_flat, inputs.positions.reshape(-1), ik.reshape(B * T, 1, Di),
+                    ik.new_zeros((B * T, 1, idx.v[il].shape[-1])), update_pos=True)
+    ik_all = idx.read(il, inputs.seq_idx, dtype=idx.k[il].dtype)[0][:, 0]  # [B, S, Di]
+    ipos = idx.pos[inputs.seq_idx.long()].long()  # [B, S]: slot == position
+    pos = inputs.positions.long()
+    sc = torch.einsum("bthd,bsd->bhts", iq.float(), ik_all.float())
+    keep = (ipos >= 0)[:, None, None, :] & (ipos[:, None, None, :] <= pos[:, None, :, None])
+    sc = sc.masked_fill(~keep, float("-inf"))
+    S = sc.shape[-1]
+    nblk = S // blk
+    bs = sc.reshape(B, Hkv, T, nblk, blk).amax(dim=-1)  # [B, Hkv, T, nblk]
+    qblk = torch.div(pos, blk, rounding_mode="floor")  # [B, T]
+    bi = torch.arange(nblk, device=x.device)
+    is_local = (bi[None, None] <= qblk[:, :, None]) & (bi[None, None] > qblk[:, :, None] - local)
+    bs = bs + torch.where(is_local[:, None], 1e30, 0.0)
+    top = _top_k(bs, min(cfg.extra["indexer_top_k"], nblk))  # [B, Hkv, T, k]
+    sel = torch.zeros_like(bs, dtype=torch.bool).scatter_(-1, top, True)
+    return sel.repeat_interleave(blk, dim=-1)  # [B, Hkv, T, S]
+
+
 def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: AttnInputs,
-            Hkv: int, Dv: int, scale: float, window: int, sinks, kernels: bool) -> torch.Tensor:
+            Hkv: int, Dv: int, scale: float, window: int, sinks, kernels: bool,
+            group_sel: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, T, H, Dk] over layer il's cached K/V (Hkv heads, V rows of Dv)
     -> [B, T, H * Dv]: the attention kernel where the JAX package runs its
-    own (f32 out), else gather + einsum in the compute dtype."""
+    own (f32 out), else gather + einsum in the compute dtype. group_sel
+    [B, Hkv, T, S] (MSA's selected keys) takes the einsum path, as in the
+    JAX package."""
     B, T, H, Dk = q.shape
     kvc, li = kv.layer_view(il)
     # the kernel path needs a card, as the JAX package's needs a TPU; where
@@ -235,7 +339,7 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: Attn
     # no slopes and mask causally
     non_causal = cfg.extra.get("non_causal", False)
     use_flash = (kernels and q.device.type == "cuda" and cfg.alibi_bias == 0.0
-                 and not non_causal and Hkv == cache_heads
+                 and not non_causal and Hkv == cache_heads and group_sel is None
                  and fa_kernel.dispatches(Dk, Dv, n_slots, T * (H // Hkv)))
     if use_flash:
         # the slot-table kernel takes the cache and seq_idx as they are: no
@@ -273,6 +377,8 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, kv: Memory, il: int, inputs: Attn
         cap = cfg.attn_logit_softcap
         scores = torch.tanh(scores / cap) * cap
     scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    if group_sel is not None:  # MSA: each GQA group's selected key blocks
+        scores = scores.masked_fill(~group_sel[:, :, None], float("-inf"))
     if sinks is not None:
         sink_col = sinks.float().reshape(1, Hkv, groups, 1, 1).expand(*scores.shape[:-1], 1)
         probs = torch.softmax(torch.cat([scores, sink_col], dim=-1), dim=-1)[..., :-1]
@@ -727,10 +833,12 @@ def _linear_attention(lw: dict[str, Weight]) -> bool:
 def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             inputs: AttnInputs, kv: Memory,
             output_rows: torch.Tensor | None = None, kernels: bool = True,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False, tap=None) -> torch.Tensor:
     """tokens [B, T] -> logits [M or B*T, vocab] f32, or with return_hidden
     the hidden rows after output_norm in the compute dtype (Context.embed);
-    writes the memory in place. A control vector (params["cvec"]) is added
+    writes the memory in place. tap (Context.decode(aux=True)), where given,
+    is called as tap(layer, x) with each layer's input x [B, T, E] and, at
+    layer n_layers, the pre-output-norm row. A control vector (params["cvec"]) is added
     to the residual after each layer; LoRA-wrapped weights take their base's
     route in matmul.
     On a HybridMemory each layer is what its weights say (the JAX package's
@@ -769,6 +877,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     phys = max(len(layers) // max(n_loops, 1), 1)
     loop_norm = n_loops > 1 and not cfg.extra.get("skip_loop_final_norm")
     for il, lw in enumerate(layers):
+        if tap is not None:
+            tap(il, x)
         x_in = x  # the layer input (arctic's MoE branch, smallthinker's router)
         if (heads is not None and int(heads[il]) == 0
                 and not any(k in lw for k in ("ffn_up", "ffn_gateup", "ffn_gate_exps"))):
@@ -831,6 +941,8 @@ def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             x = x + cvec[il].to(x.dtype)
         if loop_norm and (il + 1) % phys == 0 and il + 1 < len(layers):
             x = norm(cfg, x, params, "output_norm")
+    if tap is not None:
+        tap(len(layers), x)
     B, T, E = x.shape
     x = x.reshape(B * T, E)
     if output_rows is not None:

@@ -210,24 +210,29 @@ def load_weight(
 ) -> Weight:
     """GGUF raw bytes -> weight on `device` (planes or dense).
 
-    Extraction runs on the host in numpy (for the expert stacks of the usual
-    types on the card, there: quant/device_planes.py); the planes go to the
-    device as the file lays them out, and transpose=True swaps them into
-    the matmul layout (and packs nibbles) there."""
+    Extraction runs on the host in numpy, and the planes go to the device as
+    the file lays them out; on the card the usual types (Q4_K and Q6_K
+    hierarchical, the flat types of device_planes.MATRIX_PLANE_TYPES, and
+    the expert stacks) go up as raw blocks and are cut there instead
+    (quant/device_planes.py), the same values. transpose=True swaps the
+    planes into the matmul layout (and packs nibbles) on the device."""
     n = int(np.prod(shape))
+    on_card = device_planes.cuts_on(device)
 
     def dev(a):
         return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     if (prefer_quant and transpose and len(shape) == 2
             and shape[-1] % 512 == 0 and ggml_dtype in HIER_TYPES):
-        q, sub, d, subm, dm, g = extract_planes_hier(raw, ggml_dtype, n)
         O, K = shape
-        q = _t(dev(q.reshape(O, K)))
-        sub = _t(dev(sub.reshape(O, K // g)))
-        d = _t(dev(d.reshape(O, K // 256)))
-        subm = None if subm is None else _t(dev(subm.reshape(O, K // g)))
-        dm = None if dm is None else _t(dev(dm.reshape(O, K // 256)))
+        if on_card and ggml_dtype in device_planes.MATRIX_HIER_TYPES:
+            q, sub, d, subm, dm, g = device_planes.matrix_hier(raw, ggml_dtype, shape, device)
+        else:
+            q, sub, d, subm, dm, g = extract_planes_hier(raw, ggml_dtype, n)
+            q, sub, d = dev(q.reshape(O, K)), dev(sub.reshape(O, K // g)), dev(d.reshape(O, -1))
+            subm = None if subm is None else dev(subm.reshape(O, K // g))
+            dm = None if dm is None else dev(dm.reshape(O, -1))
+        q, sub, d, subm, dm = _t(q), _t(sub), _t(d), _t(subm), _t(dm)
         packed = False
         lo, hi = int(q.min()), int(q.max())
         if hi - lo <= 15 and q.shape[0] % 2 == 0 and (lo >= 0 or subm is None):
@@ -250,7 +255,7 @@ def load_weight(
     stack64 = (len(shape) == 3 and transpose
                and expert_kernel.takes_widths(shape[-1], shape[-2]))
     if prefer_quant and ggml_dtype in PLANE_TYPES and (shape[-1] % 256 == 0 or stack64):
-        if (transpose and len(shape) == 3 and torch.device(device).type == "cuda"
+        if (transpose and len(shape) == 3 and on_card
                 and ggml_dtype in device_planes.DEVICE_PLANE_TYPES):
             # expert stacks of the usual types: the raw blocks go up and are
             # cut into planes on the card, the same values as the host's
@@ -258,10 +263,13 @@ def load_weight(
             q, sc, mn, g = device_planes.expert_stack(raw, ggml_dtype, shape, device)
             return QuantTensor(q=q, scales=sc, mins=mn, group=g, ggml_type=int(ggml_dtype),
                                transposed=True)
-        q, sc, mn, g = extract_planes(raw, ggml_dtype, n)
-        q = dev(q.reshape(shape))
-        sc = dev(sc.reshape(*shape[:-1], shape[-1] // g))
-        mn = None if mn is None else dev(mn.reshape(*shape[:-1], shape[-1] // g))
+        if on_card and len(shape) == 2 and ggml_dtype in device_planes.MATRIX_PLANE_TYPES:
+            q, sc, mn, g = device_planes.matrix_flat(raw, ggml_dtype, shape, device)
+        else:
+            q, sc, mn, g = extract_planes(raw, ggml_dtype, n)
+            q = dev(q.reshape(shape))
+            sc = dev(sc.reshape(*shape[:-1], shape[-1] // g))
+            mn = None if mn is None else dev(mn.reshape(*shape[:-1], shape[-1] // g))
         if transpose:
             q, sc, mn = _t(q), _t(sc), _t(mn)
         packed = False

@@ -26,6 +26,7 @@ graph is the model's forward_fn.
 
 from __future__ import annotations
 
+import inspect
 import time
 from dataclasses import dataclass, fields, is_dataclass
 from typing import Callable, Iterable
@@ -38,7 +39,7 @@ from ..models.transformer import AttnInputs
 from ..sampling.samplers import SamplerChain, SamplingParams
 from .decode_graph import GREEDY, LOGITS, DecodeLoop, DeviceSampler
 from .kv_cache import ISWACache, KVCache
-from .memory import HybridMemory, RecurrentState
+from .memory import DSAMemory, HybridMemory, RecurrentState
 from .paged_kv import PageAllocator, PagedKVCache
 
 
@@ -82,8 +83,8 @@ def _nbytes(obj) -> int:
 
 
 class Context:
-    # a member the JAX package's server scheduler reads: the port's
-    # speculators draft from tokens, so no layer's features are captured
+    # the layers whose input rows decode(aux=True) returns (set_aux_capture;
+    # the JAX package's server scheduler reads it too)
     aux_layers: tuple[int, ...] = ()
 
     def __init__(
@@ -132,10 +133,11 @@ class Context:
         want = n_ctx + 1 + headroom
         self.n_slots = 256 if want <= 256 else -(-want // 512) * 512
         # a recurrent stack has no KV to page (a hybrid's attention layers
-        # take the pool, as in the JAX package); T5's decoder keeps the slot
-        # table (the JAX package's runtime/context.py:98-105)
+        # take the pool, as in the JAX package); T5's decoder and MSA's
+        # DSAMemory keep slot tables (the JAX package's
+        # runtime/context.py:98-105)
         self.paged = paged = (paged and self.cfg.extra.get("memory") != "recurrent"
-                              and not self.enc_dec)
+                              and not self.enc_dec and not self.cfg.extra.get("msa"))
         self.alloc = None
         if paged:
             # 512-row pages keep the attention kernel's page walk short;
@@ -186,11 +188,21 @@ class Context:
                                      cfg.head_dim_k, cfg.head_dim_v, dtype=cfg.compute_dtype,
                                      quantized=self._kv_quant, device=self.device)
             return HybridMemory(kv=kvc, rs=rs)
+        if cfg.extra.get("msa"):
+            # the main KV and the one-head indexer key cache, slot tables of
+            # the same slots (the JAX package's runtime/context.py:233-250)
+            return DSAMemory(
+                kv=KVCache.create(cfg.n_layers, n_seqs, n_slots, cfg.n_kv_heads, cfg.head_dim_k,
+                                  cfg.head_dim_v, dtype=cfg.compute_dtype,
+                                  quantized=self._kv_quant, device=self.device),
+                idx=KVCache.create(cfg.n_layers, n_seqs, n_slots, 1,
+                                   cfg.extra["indexer_head_size"], 8, dtype=cfg.compute_dtype,
+                                   device=self.device))
         # an encoder's window (ModernBERT) is its own forward's mask: no rings
         iswa = cfg.sliding_window > 0 and cfg.swa_pattern > 0 and not cfg.extra.get("encoder")
         n_layers = cfg.n_layers
-        if iswa:  # the pool (if any) holds the full layers only
-            n_layers = max(sum(not cfg.is_swa_layer(i) for i in range(cfg.n_layers)), 1)
+        if iswa:  # the pool (if any) holds the owned full layers only
+            n_layers = ISWACache.n_lines(cfg)[0]
         # an absorbed-MLA memory holds one KV head of the latent (registry
         # _mla_absorb_extras), any other the config's heads (the JAX
         # package's runtime/context.py:199-200)
@@ -251,10 +263,12 @@ class Context:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _forward(self, toks, sidx, pos, out_rows, **cross) -> torch.Tensor:
+    def _forward(self, toks, sidx, pos, out_rows, **kw) -> torch.Tensor:
+        """One forward over the serving memory; kw: the cross state of an
+        encoder-decoder, or the tap of decode(aux=True)."""
         inputs = AttnInputs(seq_idx=sidx, positions=pos)
         return self.model.forward_fn(self.model.params, self.cfg, toks, inputs, self.kv,
-                                     out_rows, kernels=self.kernels, **cross)
+                                     out_rows, kernels=self.kernels, **kw)
 
     def _cross_state(self, sidx: np.ndarray, B: int) -> dict[str, torch.Tensor]:
         """The decoder rows' cross state (the JAX package's
@@ -335,21 +349,18 @@ class Context:
 
     # ------------------------------------------------------------------
     def set_aux_capture(self, layer_ids) -> None:
-        """Capture of hidden features for an EAGLE3 speculator: refused, the
-        port's speculators (runtime/speculative.py) draft from tokens only
-        (an empty capture is a no-op)."""
-        if layer_ids:
-            raise NotImplementedError("set_aux_capture: speculative decoding with an eagle3 "
-                                      "draft (feature capture) is not ported")
+        """Arm decode(aux=True): the input row of each named layer (id
+        n_layers: the pre-output-norm row), concatenated along the feature
+        axis (the JAX package's runtime/context.py:357-363; the reference's
+        layer_inp / nextn rows, common/speculative.cpp:604-618)."""
+        self.aux_layers = tuple(int(i) for i in layer_ids)
 
     def decode(self, tokens: np.ndarray, seq_idx: np.ndarray, positions: np.ndarray,
-               output_rows: np.ndarray, aux: bool = False) -> np.ndarray:
+               output_rows: np.ndarray, aux: bool = False):
         """Low-level ubatch step -> logits [M, vocab] (f32, host) for the flat
-        rows `output_rows` of the [B, T] token grid. aux=True (logits and an
-        EAGLE3 speculator's features) is refused."""
-        if aux:
-            raise NotImplementedError("decode(aux=True): speculative decoding with an eagle3 "
-                                      "draft (feature capture) is not ported")
+        rows `output_rows` of the [B, T] token grid. aux=True also returns
+        the rows of the layers set_aux_capture named, (logits, feats [B, T,
+        n_aux * n_embd] f32 on the host); that step runs eagerly."""
         tokens = np.atleast_2d(np.asarray(tokens))
         positions = np.atleast_2d(np.asarray(positions))
         seq_idx = np.asarray(seq_idx).reshape(-1)
@@ -371,12 +382,36 @@ class Context:
         out_rows = (rows // T) * Tb + (rows % T)  # flat [B, T] -> padded [Bb, Tb]
         self._ensure_pages(sidx[:B], pos[:B])
         cross = self._cross_state(sidx, B) if self.enc_dec else {}
+        if aux:
+            return self._aux_forward(toks, sidx, pos, out_rows, len(rows), B, T)
         logits = self._forward(self._tensor(toks), self._tensor(sidx), self._tensor(pos),
                                self._tensor(out_rows), **cross)
         return logits[: len(rows)].cpu().numpy()
 
-    def prefill(self, prompt: list[int], seq: int = 0) -> np.ndarray:
-        """Feed a prompt in ubatches; returns last-token logits [vocab]. On an
+    def _aux_forward(self, toks, sidx, pos, out_rows, m: int, B: int, T: int):
+        """One forward with a tap on the named layers' input rows: [B, T,
+        n_aux * E] f32 beside the logits, on the host."""
+        if not self.aux_layers:
+            raise ValueError("decode(aux=True) needs set_aux_capture's layers first")
+        fn = self.model.forward_fn
+        if self.enc_dec or "tap" not in inspect.signature(fn).parameters:
+            raise NotImplementedError(f"aux capture: {self.cfg.arch!r}'s forward has no tap of "
+                                      "its layers' rows (the shared decoder and Gemma 3n/4 do)")
+        feats: dict[int, torch.Tensor] = {}
+
+        def tap(il, x):
+            if il in self.aux_layers:
+                feats[il] = x
+
+        logits = self._forward(self._tensor(toks), self._tensor(sidx), self._tensor(pos),
+                               self._tensor(out_rows), tap=tap)
+        f = torch.cat([feats[i].float() for i in self.aux_layers], dim=-1)
+        return logits[:m].cpu().numpy(), f[:B, :T].cpu().numpy()
+
+    def prefill(self, prompt: list[int], seq: int = 0, aux: bool = False):
+        """Feed a prompt in ubatches; returns last-token logits [vocab], or
+        with aux (decode(aux=True) on every ubatch) (logits, the prompt's
+        rows of set_aux_capture's layers [n, n_aux * n_embd] f32). On an
         encoder-decoder whose sequence holds no cross state yet, the prompt
         goes to the encoder instead, and the decoder's start token is
         decoded at position 0 (the JAX package's runtime/context.py:
@@ -386,22 +421,25 @@ class Context:
             self.encode(prompt, seq=seq)
             start = int(self.cfg.extra.get("decoder_start_token", 0))
             logits = self.decode(np.asarray([[start]]), np.asarray([seq]), np.asarray([[0]]),
-                                 np.asarray([0]))
+                                 np.asarray([0]), aux=aux)  # aux refuses an encoder-decoder
             self.seq_len[seq] = 1
             self.perf.n_prefill += len(prompt)
             self.perf.t_prefill_ms += (time.perf_counter() - t0) * 1e3
             return logits[0]
         pos0 = int(self.seq_len[seq])
-        logits = None
+        logits, feats = None, []
         for off in range(0, len(prompt), self.n_ubatch):
             chunk = prompt[off: off + self.n_ubatch]
             positions = np.arange(pos0 + off, pos0 + off + len(chunk))
             logits = self.decode(np.asarray(chunk)[None, :], np.asarray([seq]),
-                                 positions[None, :], np.asarray([len(chunk) - 1]))
+                                 positions[None, :], np.asarray([len(chunk) - 1]), aux=aux)
+            if aux:
+                logits, f = logits
+                feats.append(f[0])
         self.seq_len[seq] = pos0 + len(prompt)
         self.perf.n_prefill += len(prompt)
         self.perf.t_prefill_ms += (time.perf_counter() - t0) * 1e3
-        return logits[0]
+        return (logits[0], np.concatenate(feats)) if aux else logits[0]
 
     def decode_one(self, token: int, seq: int = 0) -> np.ndarray:
         t0 = time.perf_counter()

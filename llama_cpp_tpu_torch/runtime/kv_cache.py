@@ -195,7 +195,15 @@ class ISWACache:
 
     is_swa:   per model layer, whether it is a window layer
     full_idx: model layer -> layer of `full` (-1 for a window layer)
-    swa_idx:  model layer -> layer of `swa` (-1 for a full layer)"""
+    swa_idx:  model layer -> layer of `swa` (-1 for a full layer)
+
+    Cross-layer KV sharing (gemma3n, gemma4: cfg.extra["kv_reuse"]): a
+    shared layer has no line of its own; its indices alias the line of the
+    owned layer it reads (reference llama-kv-cache.cpp map_layer_ids), so
+    layer_view resolves it on the pool and on the rings alike, and the
+    state files, seq_cp, seq_rm and the sub-caches' own layers know only
+    the owned lines. The window rings may have their own head dims
+    (gemma4's head_dim_k_swa / head_dim_v_swa)."""
 
     full: KVCache | PagedKVCache
     swa: KVCache
@@ -205,37 +213,52 @@ class ISWACache:
 
     @staticmethod
     def layer_split(cfg) -> tuple[tuple, tuple, tuple]:
-        """-> (is_swa, full_idx, swa_idx) of cfg's layers."""
+        """-> (is_swa, full_idx, swa_idx) of cfg's layers, a shared layer
+        (kv_reuse[il] >= 0) aliasing its source's line (the JAX package's
+        kv_cache.py:296-330)."""
         is_swa = tuple(cfg.is_swa_layer(i) for i in range(cfg.n_layers))
+        reuse = cfg.extra.get("kv_reuse")
         full_idx, swa_idx = [], []
         n_full = n_swa = 0
-        for s in is_swa:
+        for il, s in enumerate(is_swa):
+            if reuse is not None and int(reuse[il]) >= 0:
+                src = int(reuse[il])
+                full_idx.append(full_idx[src])
+                swa_idx.append(swa_idx[src])
+                continue
             full_idx.append(-1 if s else n_full)
             swa_idx.append(n_swa if s else -1)
             n_swa += s
             n_full += not s
         return is_swa, tuple(full_idx), tuple(swa_idx)
 
+    @staticmethod
+    def n_lines(cfg) -> tuple[int, int]:
+        """-> (full lines, window lines): the owned layers of each class,
+        at least one each."""
+        _, full_idx, swa_idx = ISWACache.layer_split(cfg)
+        return max(max(full_idx) + 1, 1), max(max(swa_idx) + 1, 1)
+
     @classmethod
     def build(cls, cfg, n_seqs: int, n_slots_full: int, n_slots_swa: int,
               dtype=torch.bfloat16, quantized: bool = False, device="cpu",
               full: PagedKVCache | None = None) -> "ISWACache":
         """Window rings of n_slots_swa for the SWA layers; for the full
-        layers `full` (a pool with one layer per full layer) or, without
-        it, a slot table of n_slots_full."""
+        layers `full` (a pool with one layer per owned full layer) or,
+        without it, a slot table of n_slots_full."""
         is_swa, full_idx, swa_idx = cls.layer_split(cfg)
-        n_full = max(sum(not s for s in is_swa), 1)
-        n_swa = max(sum(is_swa), 1)
+        n_full, n_swa = cls.n_lines(cfg)
+        dk_swa = int(cfg.extra.get("head_dim_k_swa", cfg.head_dim_k))
+        dv_swa = int(cfg.extra.get("head_dim_v_swa", cfg.head_dim_v))
 
-        def table(n_layers, n_slots, ring):
-            return KVCache.create(n_layers, n_seqs, n_slots, cfg.n_kv_heads, cfg.head_dim_k,
-                                  cfg.head_dim_v, dtype=dtype, quantized=quantized,
-                                  ring=ring, device=device)
+        def table(n_layers, n_slots, ring, dk, dv):
+            return KVCache.create(n_layers, n_seqs, n_slots, cfg.n_kv_heads, dk, dv,
+                                  dtype=dtype, quantized=quantized, ring=ring, device=device)
 
         if full is None:
-            full = table(n_full, n_slots_full, False)
-        return cls(full=full, swa=table(n_swa, n_slots_swa, True), is_swa=is_swa,
-                   full_idx=full_idx, swa_idx=swa_idx)
+            full = table(n_full, n_slots_full, False, cfg.head_dim_k, cfg.head_dim_v)
+        return cls(full=full, swa=table(n_swa, n_slots_swa, True, dk_swa, dv_swa),
+                   is_swa=is_swa, full_idx=full_idx, swa_idx=swa_idx)
 
     @property
     def quantized(self) -> bool:

@@ -102,3 +102,37 @@ class HybridMemory:
         context, which owns their table)."""
         self.kv.seq_cp(dst, src)
         self.rs.seq_cp(dst, src)
+
+
+@dataclass
+class DSAMemory:
+    """The memory of block-sparse and sparse attention (reference
+    llama_kv_cache_msa / llama_kv_cache_dsa; the JAX package's
+    runtime/memory.py:126): the main KV on a slot table (`kv`) and a
+    one-head indexer key cache (`idx`, its V rows unused) beside it, written
+    at the same positions. Both are slot tables of the same slots, so a
+    sequence's rows keep one position layout in each; seq_rm and seq_cp go
+    to both."""
+
+    kv: object  # KVCache
+    idx: object  # KVCache, one head of the indexer's key width
+
+    @property
+    def pos(self):
+        return self.kv.pos
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv.quantized
+
+    @property
+    def n_slots(self) -> int:
+        return self.kv.n_slots
+
+    def seq_rm(self, seq: int, p0: int = 0, p1: int = 1 << 30) -> None:
+        self.kv.seq_rm(seq, p0, p1)
+        self.idx.seq_rm(seq, p0, p1)
+
+    def seq_cp(self, dst: int, src: int) -> None:
+        self.kv.seq_cp(dst, src)
+        self.idx.seq_cp(dst, src)

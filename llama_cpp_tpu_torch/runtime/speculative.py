@@ -10,8 +10,10 @@ drafted tokens in one decode of a [1, 1 + n_draft] ubatch (bucketed to 8 or
 decode or prefill kernel by the rows a KV head), sampling each position and
 accepting the longest agreeing prefix; the rejected rows are dropped by a
 suffix seq_rm, which labels their rows empty (position -1) before the next
-verify. The EAGLE3, DFlash and Gemma-4-assistant drafts, which read the
-target's hidden features, are not ported (Context.set_aux_capture refuses).
+verify. A speculator that reads the target's hidden features
+(needs_features: the Gemma 4 assistant, models/gemma3n.py) gets them from
+the target's prefill and verify steps through Context.decode(aux=True);
+the EAGLE3 and DFlash drafts are not ported and are refused by name.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from ..sampling.samplers import SamplerChain, SamplingParams
 from .context import Context
 
 
-# draft arches whose speculators read the target's hidden features: refused
-FEATURE_DRAFTS = ("eagle3", "dflash", "gemma4-assistant")
+# draft arches whose speculators (feature drafts) are not ported: refused
+FEATURE_DRAFTS = ("eagle3", "dflash")
 
 
 def refused_draft(path: str) -> str | None:
@@ -118,15 +120,21 @@ def speculative_generate(
     """-> (generated tokens, stats {n_draft, n_accept, n_steps}). Greedy
     (a temp=0 sampler) output is token-identical to plain Context.generate
     wherever the verify step's logits pick the same argmax as the one-row
-    step's."""
-    if getattr(speculator, "needs_features", False):
-        raise NotImplementedError("speculative decoding with a draft that reads the target's "
-                                  "features (eagle3, dflash, gemma4-assistant) is not ported")
+    step's. A speculator with needs_features gets the rows of its
+    target_layers from the prefill and from every verify step, through
+    process(tokens, feats, pos0), as the JAX package's loop feeds them."""
     if sampler is None:
         sampler = SamplerChain.from_params(SamplingParams(temp=0.0))
     vocab = ctx.model.tokenizer.vocab if ctx.model.tokenizer else None
 
-    logits = ctx.prefill(prompt, seq=seq)
+    feat = bool(getattr(speculator, "needs_features", False))
+    if feat:
+        ctx.set_aux_capture(speculator.target_layers)
+    pos0 = int(ctx.seq_len[seq])
+    logits = ctx.prefill(prompt, seq=seq, aux=feat)
+    if feat:
+        logits, feats = logits
+        speculator.process(prompt, feats, pos0)
     cur = sampler.sample(logits)
     out = [cur]
     if stream:
@@ -149,7 +157,9 @@ def speculative_generate(
         pos0 = len(all_toks) - 1
         positions = np.arange(pos0, pos0 + len(toks))
         logits_all = ctx.decode(np.asarray(toks)[None, :], np.asarray([seq]),
-                                positions[None, :], np.arange(len(toks)))
+                                positions[None, :], np.arange(len(toks)), aux=feat)
+        if feat:
+            logits_all, vfeats = logits_all
         ctx.perf.n_decode += len(toks)
         stats["n_steps"] += 1
         stats["n_draft"] += len(drafted)
@@ -178,6 +188,10 @@ def speculative_generate(
             ctx.seq_rm(seq, p0=pos0 + n_acc + 1)
         ctx.seq_len[seq] = pos0 + n_acc + 1
         all_toks.extend(drafted[:n_acc])
+        if feat and nxt is not None:
+            # the accepted rows' features back to the draft (the reference
+            # runs process() on every verify batch)
+            speculator.process(toks[: n_acc + 1] + [nxt], vfeats[0][: n_acc + 1], pos0)
 
         if nxt is None:  # stopped inside the accept loop (end of generation, budget)
             break

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .kv_cache import ISWACache, KVCache
-from .memory import HybridMemory, RecurrentState
+from .memory import DSAMemory, HybridMemory, RecurrentState
 from .paged_kv import PagedKVCache
 
 STATE_MAGIC = "tpu-llm-state"
@@ -101,7 +101,8 @@ def memory_tensors(kv) -> list[tuple[str, torch.Tensor]]:
     k_scale.<il> and v_scale.<il>, then pos, and the pool's page table;
     an ISWA memory's full tier under "full." and its rings under "swa.";
     a recurrent state's conv and ssm; a hybrid memory's attention part
-    under "kv." and its recurrent state under "rs."."""
+    under "kv." and its recurrent state under "rs."; a DSAMemory's main KV
+    under "kv." and its indexer keys under "idx."."""
     if isinstance(kv, ISWACache):
         return ([("full." + n, t) for n, t in memory_tensors(kv.full)]
                 + [("swa." + n, t) for n, t in memory_tensors(kv.swa)])
@@ -110,6 +111,9 @@ def memory_tensors(kv) -> list[tuple[str, torch.Tensor]]:
     if isinstance(kv, HybridMemory):
         return ([("kv." + n, t) for n, t in memory_tensors(kv.kv)]
                 + [("rs." + n, t) for n, t in memory_tensors(kv.rs)])
+    if isinstance(kv, DSAMemory):
+        return ([("kv." + n, t) for n, t in memory_tensors(kv.kv)]
+                + [("idx." + n, t) for n, t in memory_tensors(kv.idx)])
     out = [(f"k.{i}", t) for i, t in enumerate(kv.k)]
     out += [(f"v.{i}", t) for i, t in enumerate(kv.v)]
     if kv.quantized:
@@ -335,6 +339,8 @@ def _seq_parts(kv) -> list[tuple[object, str]]:
         return [(kv, "rs_")]
     if isinstance(kv, HybridMemory):
         return [(kv.kv, "kv_"), (kv.rs, "rs_")]
+    if isinstance(kv, DSAMemory):
+        return [(kv.kv, "kv_"), (kv.idx, "idx_")]
     raise ValueError(f"per-sequence state unsupported for {type(kv).__name__}")
 
 

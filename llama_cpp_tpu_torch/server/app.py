@@ -29,8 +29,9 @@ draft model of the same vocab) or --spec ngram each slot decodes
 speculatively, --draft-max tokens a verify step (server/scheduler.py).
 Refused with 501 and the module they need: chat messages with image or
 audio parts (multimodal/mtmd.py); refused with exit code 2: --mmproj, the
-drafts that read the target's features (eagle3, dflash, gemma4-assistant),
-a second -m and parallel or multi-host serving.
+eagle3 and dflash drafts, a second -m and parallel or multi-host serving.
+A gemma4-assistant draft drafts over each slot's own target sequence
+(models/gemma3n.Gemma4AssistantSpeculator).
 """
 
 from __future__ import annotations
@@ -760,6 +761,10 @@ def spec_factory(ctx, draft_model=None, spec: str = ""):
 
         if not isinstance(draft_model, Model):
             draft_model = load_model(draft_model, device=ctx.device)
+        if draft_model.cfg.arch == "gemma4-assistant":  # a draft over the target's own KV
+            from ..models.gemma3n import Gemma4AssistantSpeculator
+
+            return lambda i: Gemma4AssistantSpeculator(draft_model, ctx, seq=i)
         drafts = {}
 
         def make(i):
@@ -898,7 +903,7 @@ def main(argv=None) -> int:
         arch = refused_draft(args.model_draft)
         if arch:
             print(f"llama-server: -md with a draft of arch {arch!r} is not ported yet to the "
-                  "PyTorch/CUDA package (its speculator reads the target's hidden features)",
+                  "PyTorch/CUDA package (its draft model is not ported)",
                   file=sys.stderr)
             return 2
     path = args.model[0].split("=", 1)[-1]

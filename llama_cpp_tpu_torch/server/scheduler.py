@@ -24,8 +24,9 @@ mtmd. An encoder-decoder (T5) takes its whole prompt through
 Context.prefill (the encoder, then the decoder's start token) and its
 decode steps run eagerly (Context.decode_step_greedy and
 decode_step_multi take Context.decode for it); its slots keep no prompt
-prefix, since their memory holds decoder tokens. The EAGLE3-style drafts that read the target's features are not
-ported (Context.set_aux_capture refuses them).
+prefix, since their memory holds decoder tokens. A draft that reads the
+target's features (the Gemma 4 assistant) gets them from the slot's
+prefill chunks and from every batched verify step (Context.decode(aux=True)).
 """
 
 from __future__ import annotations
@@ -180,6 +181,8 @@ class Scheduler:
             slot.speculator = self.spec_factory(slot.idx)
             if slot.speculator is not None and hasattr(slot.speculator, "reset"):
                 slot.speculator.reset()
+            if getattr(slot.speculator, "needs_features", False) and not self.ctx.aux_layers:
+                self.ctx.set_aux_capture(slot.speculator.target_layers)
         if task.grammar and tok is not None:
             try:
                 slot.grammar = GrammarSampler(
@@ -335,7 +338,7 @@ class Scheduler:
             chunk = remaining if self.ctx.enc_dec else remaining[: self.ctx.n_ubatch]
             is_last = len(chunk) == len(remaining)
             try:
-                logits = self._prefill_chunk(slot.idx, chunk, slot.prompt_pos)
+                logits = self._prefill_chunk(slot.idx, chunk, slot.prompt_pos, slot)
             except KVCacheFull:
                 # pool over-committed (reference FAILED_PREPARE): release
                 # this slot's pages; retry once other slots free capacity,
@@ -442,8 +445,9 @@ class Scheduler:
                 cap = s.task.max_tokens - len(s.generated) - 1
                 d = d[: max(0, min(len(d), room, cap))]
             drafts.append(d)
+        featured = any(getattr(s.speculator, "needs_features", False) for s in gen)
         T = 1 + max((len(d) for d in drafts), default=0)
-        if T == 1:
+        if T == 1 and not featured:
             return False
         B = len(gen)
         Bb = 1
@@ -458,8 +462,12 @@ class Scheduler:
             toks[i, : len(row)] = row
             pos[i, : len(row)] = np.arange(p0, p0 + len(row))
             seqs[i] = s.idx
+        feats = None
         try:
-            logits = ctx.decode(toks, seqs, pos, np.arange(Bb * T))
+            # featured: every row's target features for the drafts' process()
+            logits = ctx.decode(toks, seqs, pos, np.arange(Bb * T), aux=featured)
+            if featured:
+                logits, feats = logits
         except KVCacheFull:
             self._reclaim_victim(gen)
             return True
@@ -487,6 +495,9 @@ class Scheduler:
             ctx.seq_len[s.idx] = p0 + n_acc + 1
             s.cache_tokens.extend(d[:n_acc])
             self.metrics["draft_tokens_accepted"] += n_acc
+            if feats is not None and getattr(s.speculator, "needs_features", False):
+                row = [int(toks[i, 0])] + d[:n_acc] + [int(emit[n_acc])]
+                s.speculator.process(row, feats[i, : n_acc + 1], p0)
             for t in emit:
                 self._process_token(s, int(t))
                 if s.state != SlotState.GENERATING:
@@ -502,16 +513,16 @@ class Scheduler:
             slot.grammar.accept(token)
         return token
 
-    def _prefill_chunk(self, seq: int, chunk: list[int], pos0: int):
+    def _prefill_chunk(self, seq: int, chunk: list[int], pos0: int, slot: Slot | None = None):
         if self.ctx.enc_dec:  # the encoder, then the decoder's start token
             return self.ctx.prefill(chunk, seq=seq)
         positions = np.arange(pos0, pos0 + len(chunk))
-        logits = self.ctx.decode(
-            np.asarray(chunk)[None, :],
-            np.asarray([seq]),
-            positions[None, :],
-            np.asarray([len(chunk) - 1]),
-        )
+        featured = slot is not None and getattr(slot.speculator, "needs_features", False)
+        logits = self.ctx.decode(np.asarray(chunk)[None, :], np.asarray([seq]),
+                                 positions[None, :], np.asarray([len(chunk) - 1]), aux=featured)
+        if featured:
+            logits, feats = logits
+            slot.speculator.process(chunk, feats[0], pos0)
         self.ctx.seq_len[seq] = pos0 + len(chunk)
         return logits[0]
 

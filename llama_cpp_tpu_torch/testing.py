@@ -11,7 +11,9 @@ import numpy as np
 import torch
 
 from .gguf.constants import GGML_BLOCK_LAYOUT, GGMLType, Keys, TokenType
+from .gguf.reader import read_gguf
 from .gguf.writer import GGUFWriter
+from .quant.dequant import dequantize
 from .quant.quantize import quantize
 from .tools.quantize_tool import FTYPES, tensor_target_type
 
@@ -341,6 +343,7 @@ def make_bench_arch_gguf(
     attn_gate: str = "",
     ff_arr: tuple[int, ...] | None = None,
     mask_token: int = -1,
+    indexer_dim: int = 0,
     f32: bool = False,
     ftype: str = "q4_k_m",
     real_quant: bool = False,
@@ -415,7 +418,10 @@ def make_bench_arch_gguf(
     as wide as the attention output (afmoe, laguna M.1; Q4_K in q4_k_m),
     "head" one row a head (laguna XS.2; F32); ff_arr gives each layer's
     dense FFN its own width (openelm); mask_token >= 0 writes the vocab's
-    mask token id (the diffusion LMs).
+    mask token id (the diffusion LMs); indexer_dim > 0 gives each layer past
+    the n_dense_lead ones MiniMax-M3's MSA indexer (indexer.q_proj
+    [n_kv_heads * indexer_dim, n_embd], indexer.k_proj [indexer_dim,
+    n_embd], Q4_K in q4_k_m, and their per-head norms).
     Left at their defaults they write nothing, so the default files stay
     byte for byte what they were."""
     rng = np.random.default_rng(seed)
@@ -578,6 +584,11 @@ def make_bench_arch_gguf(
         if post_norms:
             emit_f(b + "post_attention_norm.weight", norm_w(n_embd))
             emit_f(b + "post_ffw_norm.weight", norm_w(n_embd))
+        if indexer_dim and i >= n_dense_lead:
+            emit_q(b + "indexer.q_proj.weight", n_kv_heads * indexer_dim, n_embd, q4)
+            emit_q(b + "indexer.k_proj.weight", indexer_dim, n_embd, q4)
+            emit_f(b + "indexer.q_norm.weight", norm_w(indexer_dim))
+            emit_f(b + "indexer.k_norm.weight", norm_w(indexer_dim))
         if pre_norms == "both":
             emit_norm(b + ffn_norm_name, n_embd)
         moe = n_expert and i >= n_dense_lead
@@ -1351,6 +1362,309 @@ def make_bench_gemma3_gguf(path: str, n_layers: int = 34, n_embd: int = 2560, n_
                                 post_norms=True, tie=True, sliding_window=sliding_window,
                                 swa_pattern=swa_pattern, rope_base_swa=1e4,
                                 rope_linear_factor=8.0, seed=seed)
+
+
+def _gemma_emitters(w: GGUFWriter, rng, ftype: str, f32: bool, synth_scale: float):
+    """-> (emit_f, emit_m, norm_w) of a Gemma 3n/4 fixture: emit_f writes F32
+    values; emit_m a matrix (numpy shape [..., out, in]) in the type that
+    llama-quantize gives its name under ftype (tensor_target_type: F32 for
+    norms and for rows that are no multiple of 256), as synthetic blocks, or
+    F32 random values (scale 1/sqrt(in)) with f32; norm_w a norm's weight."""
+    default = FTYPES[ftype][0]
+
+    def emit_f(name, arr):
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        w.add_tensor(name, arr.tobytes(), tuple(reversed(arr.shape)), GGMLType.F32)
+        return GGMLType.F32, arr.tobytes()
+
+    def emit_m(name, *shape, scale=None):
+        """-> (type, the bytes written)."""
+        t = tensor_target_type(name, shape, default, ftype)
+        if f32 or t == GGMLType.F32:
+            return emit_f(name, rng.standard_normal(shape) * (scale or 1.0 / np.sqrt(shape[-1])))
+        n = int(np.prod(shape, dtype=np.int64))
+        if t in (GGMLType.F16, GGMLType.BF16):
+            data = quantize((rng.standard_normal(shape) / np.sqrt(shape[-1])).astype(np.float32),
+                            t).tobytes()
+        else:
+            data = synth_quant_bytes(rng, n, t, offset=int(rng.integers(1, 1 << 24)),
+                                     scale_mult=synth_scale)
+        w.add_tensor(name, data, tuple(reversed(shape)), t)
+        return t, data
+
+    def norm_w(n):
+        return 1.0 + 0.1 * rng.standard_normal(n)
+
+    return emit_f, emit_m, norm_w
+
+
+def _embedded_rms(t: GGMLType, data, n_embd: int) -> float:
+    """The RMS of a Gemma token_embd table's rows as the model embeds them
+    (times sqrt(n_embd)), from the bytes the file holds."""
+    raw = np.frombuffer(bytes(data), np.uint8)
+    n = raw.nbytes // GGML_BLOCK_LAYOUT[t].type_size * GGML_BLOCK_LAYOUT[t].block_size
+    v = dequantize(raw, t, n)
+    return float(np.sqrt(np.mean(np.square(v, dtype=np.float64)) * n_embd))
+
+
+def _gemma_md(w: GGUFWriter, arch: str, n_layers: int, n_embd: int, n_heads: int,
+              n_kv_heads: int, head_dim: int, n_ff: int, vocab_size: int, n_ctx: int,
+              rope_base: float, rope_base_swa: float, sliding_window: int, rms_eps: float,
+              final_softcap: float, extra: dict) -> None:
+    w.add(Keys.General.ARCHITECTURE, arch)
+    w.add(Keys.General.NAME, f"bench-{arch}-synthetic")
+    P = arch + "."
+    for key, val in (("block_count", n_layers), ("context_length", n_ctx),
+                     ("embedding_length", n_embd), ("feed_forward_length", n_ff),
+                     ("attention.head_count", n_heads), ("attention.head_count_kv", n_kv_heads),
+                     ("attention.key_length", head_dim), ("attention.value_length", head_dim),
+                     ("rope.dimension_count", head_dim), ("vocab_size", vocab_size),
+                     ("attention.sliding_window", sliding_window)):
+        w.add(P + key, np.uint32(val))
+    w.add(P + "attention.layer_norm_rms_epsilon", float(rms_eps))
+    w.add(P + "rope.freq_base", float(rope_base))
+    w.add(P + "rope.freq_base_swa", float(rope_base_swa))
+    if final_softcap:
+        w.add(P + "final_logit_softcapping", float(final_softcap))
+    for key, val in extra.items():
+        w.add(P + key, val)
+    _add_bench_vocab(w, vocab_size)
+
+
+def make_bench_gemma3n_gguf(path: str, n_layers: int = 35, n_embd: int = 2048, n_heads: int = 8,
+                            n_kv_heads: int = 2, head_dim: int = 256, n_ff: int = 16384,
+                            vocab_size: int = 262144, n_embd_altup: int = 256, n_altup: int = 4,
+                            laurel_rank: int = 64, sliding_window: int = 512,
+                            swa_pattern: int = 5, shared_kv_layers: int = 15,
+                            final_softcap: float = 30.0, n_ctx: int = 32768,
+                            ftype: str = "q4_k_m", f32: bool = False, synth_scale: float = 1.0,
+                            seed: int = 0) -> str:
+    """A Gemma-3n-E4B-shaped GGUF (by default; google/gemma-3n-E4B
+    config.json, text_config): 8 heads on 2 KV heads of 256, four window
+    layers (window 512, rope base 1e4) to each full one (rope base 1e6),
+    the last shared_kv_layers layers reading the KV of the last owned layer
+    of their class, 4 AltUp streams, LAUREL of rank 64, per-layer inputs of
+    256 from a 262144-row table, a tied head, final softcap 30; the
+    activation sparsity left to the registry's default (the first 10
+    layers). Each tensor in the type llama-quantize gives it under ftype
+    (_gemma_emitters), or F32 values with f32. Every layer carries its K/V
+    projections, as the published files do; a shared layer's go unused."""
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter()
+    _gemma_md(w, "gemma3n", n_layers, n_embd, n_heads, n_kv_heads, head_dim, n_ff, vocab_size,
+              n_ctx, 1e6, 1e4, sliding_window, 1e-6, final_softcap, {
+                  "attention.sliding_window_pattern": np.uint32(swa_pattern),
+                  "attention.shared_kv_layers": np.uint32(shared_kv_layers),
+                  "altup.num_inputs": np.uint32(n_altup),
+                  "altup.active_idx": np.uint32(0),
+                  "embedding_length_per_layer_input": np.uint32(n_embd_altup)})
+    emit_f, emit_m, norm_w = _gemma_emitters(w, rng, ftype, f32, synth_scale)
+    E, A, Ep, L = n_embd, n_altup, n_embd_altup, n_layers
+    emit_m("token_embd.weight", vocab_size, E, scale=0.05)
+    emit_f("output_norm.weight", norm_w(E))
+    emit_m("per_layer_token_embd.weight", vocab_size, L * Ep, scale=0.05)
+    emit_m("per_layer_model_proj.weight", L * Ep, E)
+    emit_f("per_layer_proj_norm.weight", norm_w(Ep))
+    emit_m("altup_proj.weight", A - 1, E, E)
+    emit_m("altup_unembd_proj.weight", A - 1, E, E)
+    q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
+    for i in range(L):
+        b = f"blk.{i}."
+        emit_f(b + "attn_norm.weight", norm_w(E))
+        emit_m(b + "attn_q.weight", q_dim, E)
+        emit_m(b + "attn_k.weight", kv_dim, E)
+        emit_m(b + "attn_v.weight", kv_dim, E)
+        emit_m(b + "attn_output.weight", E, q_dim)
+        emit_f(b + "attn_q_norm.weight", norm_w(head_dim))
+        emit_f(b + "attn_k_norm.weight", norm_w(head_dim))
+        emit_f(b + "post_attention_norm.weight", norm_w(E))
+        emit_f(b + "ffn_norm.weight", norm_w(E))
+        emit_m(b + "ffn_gate.weight", n_ff, E)
+        emit_m(b + "ffn_up.weight", n_ff, E)
+        emit_m(b + "ffn_down.weight", E, n_ff)
+        emit_f(b + "post_ffw_norm.weight", norm_w(E))
+        emit_f(b + "altup_correct_coef.weight", rng.standard_normal((A, A)) * 0.1)
+        emit_f(b + "altup_correct_scale.weight", norm_w(E))
+        emit_f(b + "altup_predict_coef.weight", rng.standard_normal((A * A, A)) * 0.1)
+        emit_m(b + "altup_router.weight", A, E)
+        emit_f(b + "altup_router_norm.weight", norm_w(E))
+        emit_m(b + "laurel_l.weight", laurel_rank, E)
+        emit_m(b + "laurel_r.weight", E, laurel_rank)
+        emit_f(b + "laurel_post_norm.weight", norm_w(E))
+        emit_m(b + "inp_gate.weight", Ep, E)
+        emit_m(b + "proj.weight", E, Ep)
+        emit_f(b + "post_norm.weight", norm_w(E))
+    w.write(path)
+    return path
+
+
+def make_bench_gemma4_gguf(path: str, n_layers: int = 4, n_embd: int = 1024, n_heads: int = 8,
+                           n_kv_heads: int = 4, head_dim: int = 256, head_dim_swa: int = 128,
+                           n_ff: int = 2048, vocab_size: int = 2048,
+                           is_swa: tuple = (1, 0, 1, 1), sliding_window: int = 512,
+                           shared_kv_layers: int = 1, n_embd_per_layer: int = 256,
+                           n_expert: int = 8, n_expert_used: int = 2, n_ff_exp: int = 256,
+                           moe_layers: tuple = (1,), alt_v_layers: tuple = (2,),
+                           final_softcap: float = 30.0, n_ctx: int = 4096,
+                           ftype: str = "q4_k_m", f32: bool = False, synth_scale: float = 1.0,
+                           untied_head: bool = False, block_gain: float | None = None,
+                           seed: int = 0) -> str:
+    """A Gemma 4 GGUF on the layout of the JAX package's test_gemma4: a
+    per-layer window array is_swa (window heads of head_dim_swa, full heads
+    of head_dim), the last shared_kv_layers layers without K/V of their
+    own, the alt_v_layers without attn_v (V from the K projection), the
+    moe_layers with the dual-branch MoE (an F32 router and its scale, fused
+    [gate | up] expert stacks and the branches' norms), per-layer inputs
+    (none with n_embd_per_layer 0),
+    rope_freqs on the full layers, a per-layer output scalar and final
+    softcap. Types as make_bench_gemma3n_gguf's. untied_head adds an output
+    head of its own; block_gain scales every block's post norms so that each
+    block adds about block_gain of the embedded row's RMS (a target whose
+    next token nearly follows from the current one, which a mirrored
+    assistant, make_bench_gemma4_assistant_gguf's mirror_of, predicts)."""
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter()
+    L = n_layers
+    _gemma_md(w, "gemma4", L, n_embd, n_heads, n_kv_heads, head_dim, n_ff, vocab_size, n_ctx,
+              1e6, 1e4, sliding_window, 1e-6, final_softcap, {
+                  "attention.key_length_swa": np.uint32(head_dim_swa),
+                  "attention.value_length_swa": np.uint32(head_dim_swa),
+                  "attention.sliding_window_pattern": np.asarray(is_swa, np.uint32),
+                  "attention.shared_kv_layers": np.uint32(shared_kv_layers),
+                  "embedding_length_per_layer_input": np.uint32(n_embd_per_layer),
+                  "expert_count": np.uint32(n_expert),
+                  "expert_used_count": np.uint32(n_expert_used),
+                  "expert_feed_forward_length": np.uint32(n_ff_exp)})
+    emit_f, emit_m, norm_w = _gemma_emitters(w, rng, ftype, f32, synth_scale)
+    E, Ep = n_embd, n_embd_per_layer
+    t_embd, embd = emit_m("token_embd.weight", vocab_size, E, scale=0.05)
+    emit_f("output_norm.weight", norm_w(E))
+    if untied_head:
+        emit_m("output.weight", vocab_size, E)
+    gain = 1.0 if block_gain is None else block_gain * _embedded_rms(t_embd, embd, E)
+    emit_f("rope_freqs.weight", np.linspace(1.0, 2.0, head_dim // 2))
+    if Ep:
+        emit_m("per_layer_token_embd.weight", vocab_size, L * Ep, scale=0.05)
+        emit_m("per_layer_model_proj.weight", L * Ep, E)
+        emit_f("per_layer_proj_norm.weight", norm_w(Ep))
+    for i in range(L):
+        b = f"blk.{i}."
+        dk = head_dim_swa if is_swa[i] else head_dim
+        emit_f(b + "attn_norm.weight", norm_w(E))
+        emit_m(b + "attn_q.weight", n_heads * dk, E)
+        emit_f(b + "attn_q_norm.weight", norm_w(dk))
+        if i < L - shared_kv_layers:
+            emit_m(b + "attn_k.weight", n_kv_heads * dk, E)
+            if i not in alt_v_layers:
+                emit_m(b + "attn_v.weight", n_kv_heads * dk, E)
+            emit_f(b + "attn_k_norm.weight", norm_w(dk))
+        emit_m(b + "attn_output.weight", E, n_heads * dk)
+        emit_f(b + "post_attention_norm.weight", norm_w(E) * gain)
+        emit_f(b + "ffn_norm.weight", norm_w(E))
+        emit_m(b + "ffn_gate.weight", n_ff, E)
+        emit_m(b + "ffn_up.weight", n_ff, E)
+        emit_m(b + "ffn_down.weight", E, n_ff)
+        emit_f(b + "post_ffw_norm.weight", norm_w(E) * gain)
+        if i in moe_layers:
+            emit_f(b + "ffn_gate_inp.weight", rng.standard_normal((n_expert, E)) * 0.5)
+            emit_f(b + "ffn_gate_inp.scale", norm_w(E))
+            emit_f(b + "pre_ffw_norm_2.weight", norm_w(E))
+            emit_f(b + "post_ffw_norm_1.weight", norm_w(E))
+            emit_f(b + "post_ffw_norm_2.weight", norm_w(E))
+            emit_m(b + "ffn_gate_up_exps.weight", n_expert, 2 * n_ff_exp, E)
+            emit_m(b + "ffn_down_exps.weight", n_expert, E, n_ff_exp)
+        if Ep:
+            emit_m(b + "inp_gate.weight", Ep, E)
+            emit_m(b + "proj.weight", E, Ep)
+            emit_f(b + "post_norm.weight", norm_w(E))
+        emit_f(b + "layer_output_scale.weight", [0.98 + 0.01 * i])
+    w.write(path)
+    return path
+
+
+def make_bench_gemma4_assistant_gguf(path: str, n_layers: int = 2, n_embd: int = 1024,
+                                     n_heads: int = 8, n_kv_heads: int = 4, head_dim: int = 256,
+                                     head_dim_swa: int = 128, n_ff: int = 2048,
+                                     vocab_size: int = 2048, is_swa: tuple = (1, 0),
+                                     sliding_window: int = 512, n_embd_out: int = 1024,
+                                     ftype: str = "q4_k_m", f32: bool = False,
+                                     synth_scale: float = 1.0, mirror_of: str | None = None,
+                                     block_gain: float = 0.15, h_gain: float = 0.05,
+                                     seed: int = 1) -> str:
+    """A Gemma 4 MTP assistant GGUF for a make_bench_gemma4_gguf target of
+    n_embd_out (the JAX package's tests/test_speculative.py _gemma4_pair
+    layout): q-only layers (each attends the target's last layer of its
+    window class), nextn.pre_projection [n_embd, n_embd + n_embd_out] and
+    nextn.post_projection [n_embd_out, n_embd], a tied head of its own.
+
+    mirror_of, the path of a target written with untied_head and
+    block_gain, makes an assistant whose drafts that target accepts: its
+    pre-projection (Q8_0) passes the token's embedding through and adds the
+    target's feature row at h_gain of the embedded row's RMS through a
+    random map, its blocks add block_gain each as the target's do, and it
+    reads the target's output norm and head (copied), so it predicts the
+    token that follows the current one but for near-ties."""
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter()
+    a = "gemma4-assistant"
+    _gemma_md(w, a, n_layers, n_embd, n_heads, n_kv_heads, head_dim, n_ff, vocab_size, 4096,
+              1e6, 1e4, sliding_window, 1e-6, 0.0, {
+                  "attention.key_length_swa": np.uint32(head_dim_swa),
+                  "attention.value_length_swa": np.uint32(head_dim_swa),
+                  "attention.sliding_window_pattern": np.asarray(is_swa, np.uint32),
+                  "embedding_length_out": np.uint32(n_embd_out),
+                  "nextn_predict_layers": np.uint32(n_layers)})
+    emit_f, emit_m, norm_w = _gemma_emitters(w, rng, ftype, f32, synth_scale)
+    E = n_embd
+    emit_m("token_embd.weight", vocab_size, E, scale=0.05)
+    gain = 1.0
+    if mirror_of is None:
+        emit_f("output_norm.weight", norm_w(E))
+        emit_m("nextn.pre_projection.weight", E, E + n_embd_out)
+    else:
+        if E != n_embd_out:
+            raise ValueError("a mirrored assistant is as wide as its target")
+        tf = read_gguf(mirror_of)
+        te = tf.tensors["token_embd.weight"]
+        x_rms = _embedded_rms(te.dtype, te.data, n_embd_out)
+        for name in ("output_norm.weight", "output.weight"):
+            info = tf.tensors[name]
+            w.add_tensor(name, np.asarray(info.data).tobytes(), info.ne, info.dtype)
+        pre = np.concatenate([np.eye(E), rng.standard_normal((E, n_embd_out))
+                              * (h_gain * x_rms / np.sqrt(n_embd_out))], axis=1)
+        w.add_tensor("nextn.pre_projection.weight",
+                     quantize(pre.astype(np.float32), GGMLType.Q8_0).tobytes(),
+                     (E + n_embd_out, E), GGMLType.Q8_0)
+        gain = block_gain * x_rms
+    emit_m("nextn.post_projection.weight", n_embd_out, E)
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        dk = head_dim_swa if is_swa[i] else head_dim
+        emit_f(b + "attn_norm.weight", norm_w(E))
+        emit_m(b + "attn_q.weight", n_heads * dk, E)
+        emit_f(b + "attn_q_norm.weight", norm_w(dk))
+        emit_m(b + "attn_output.weight", E, n_heads * dk)
+        emit_f(b + "post_attention_norm.weight", norm_w(E) * gain)
+        emit_f(b + "ffn_norm.weight", norm_w(E))
+        emit_m(b + "ffn_gate.weight", n_ff, E)
+        emit_m(b + "ffn_up.weight", n_ff, E)
+        emit_m(b + "ffn_down.weight", E, n_ff)
+        emit_f(b + "post_ffw_norm.weight", norm_w(E) * gain)
+        emit_f(b + "layer_output_scale.weight", [1.0])
+    w.write(path)
+    return path
+
+
+# MiniMax-M3's narrow layout: a dense-lead layer (no indexer: its attention
+# on the slot table's kernel), then MSA layers with 8 experts top 2 and a
+# shared expert; partial rope; indexer keys of 128 in blocks of 64, top 2
+MINIMAX_M3_LAYOUT = dict(qk_norm=True, **_MOE, **_SHARED, n_dense_lead=1, indexer_dim=128,
+                         metadata={"rope.dimension_count": np.uint32(64),
+                                   "attention.indexer.key_length": np.uint32(128),
+                                   "attention.indexer.top_k": np.uint32(2),
+                                   "attention.indexer.block_size": np.uint32(64),
+                                   "attention.indexer.local_blocks": np.uint32(1),
+                                   "leading_dense_block_count": np.uint32(1)})
 
 
 def make_bench_deepseek2_gguf(

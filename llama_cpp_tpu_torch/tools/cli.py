@@ -13,8 +13,9 @@ step's logits on the host. --prompt-cache keeps the prompt's KV in a state
 file (runtime/state.py) and reuses its longest common prefix on the next
 run. -md (a draft model of the same vocab) or --spec-ngram (prompt lookup)
 decode speculatively, --draft-max tokens a verify step
-(runtime/speculative.py); the EAGLE3, DFlash and Gemma-4-assistant drafts
-are refused by their arch with exit code 2. --lora and --control-vector
+(runtime/speculative.py); a gemma4-assistant draft drafts over the target's
+own KV (models/gemma3n.py); the EAGLE3 and DFlash drafts are refused by
+their arch with exit code 2. --lora and --control-vector
 steer the model (models/adapters.py); --no-quant loads dense bf16 weights.
 Runs on the card unless --device cpu is given. Multimodal input (--mmproj,
 --image) is not part of the port yet: refused by name with exit code 2.
@@ -109,7 +110,7 @@ def main(argv=None) -> int:
         arch = refused_draft(args.model_draft)
         if arch:
             print(f"llama-cli: -md with a draft of arch {arch!r} is not ported yet to the "
-                  "PyTorch/CUDA package (its speculator reads the target's hidden features)",
+                  "PyTorch/CUDA package (its draft model is not ported)",
                   file=sys.stderr)
             return 2
 
@@ -169,12 +170,17 @@ def main(argv=None) -> int:
         print("speculative decoding: off, a recurrent state cannot be rolled back",
               file=sys.stderr)
     elif args.model_draft:
-        from ..runtime.speculative import DraftModelSpeculator
-
         dmodel = load_model(args.model_draft, device=args.device,
                             prefer_quant=not args.no_quant)
-        speculator = DraftModelSpeculator(Context(dmodel, n_ctx=args.ctx_size,
-                                                  device=args.device))
+        if dmodel.cfg.arch == "gemma4-assistant":
+            from ..models.gemma3n import Gemma4AssistantSpeculator
+
+            speculator = Gemma4AssistantSpeculator(dmodel, ctx)
+        else:
+            from ..runtime.speculative import DraftModelSpeculator
+
+            speculator = DraftModelSpeculator(Context(dmodel, n_ctx=args.ctx_size,
+                                                      device=args.device))
     elif args.spec_ngram:
         from ..runtime.speculative import NgramSpeculator
 

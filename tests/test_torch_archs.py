@@ -107,14 +107,15 @@ def test_supported_archs():
                                         *MOE_FAMILIES, *HYBRID_FAMILIES, *EMBEDDING_ARCHS,
                                         *RWKV_ARCHS, *LATE_FAMILY_LAYOUTS,
                                         *MLA_FAMILY_LAYOUTS, "t5", *DIFFUSION_LAYOUTS,
-                                        *LAST_TEXT_LAYOUTS])
+                                        *LAST_TEXT_LAYOUTS, "gemma3n", "gemma4",
+                                        "gemma4-assistant", "minimax-m3"])
 
 
 def test_other_arch_raises_naming_it(tmp_path):
-    """minimax-m3 (its block-sparse attention) is not ported: loading its
-    file raises naming it."""
-    path = make_bench_arch_gguf(str(tmp_path / "minimax-m3.gguf"), "minimax-m3", **SHAPE)
-    with pytest.raises(NotImplementedError, match="'minimax-m3'"):
+    """deepseek32 (DeepSeek's sparse attention memory) is not ported:
+    loading its file raises naming it."""
+    path = make_bench_arch_gguf(str(tmp_path / "deepseek32.gguf"), "deepseek32", **SHAPE)
+    with pytest.raises(NotImplementedError, match="'deepseek32'"):
         load_model(path, device="cpu")
 
 

@@ -5,8 +5,9 @@ second run reuses the cached prefix), --lora with --lora-scale,
 --control-vector with its scale, and --no-quant print the JAX CLI's text;
 -cnv over two turns of stdin prints the port's own chat loop, whose ids are
 held teacher-forced against the JAX package's (the two part at a
-near-tie); a draft of the eagle3, dflash or gemma4-assistant arch exits
-with 2 and names its arch. No grammar is
+near-tie); a draft of the eagle3 or dflash arch exits with 2 and names
+its arch, and a gemma4-assistant draft over a Gemma 4 target prints the
+target's own greedy text (against the JAX CLI too). No grammar is
 combined with these flags: the JAX CLI's grammar loop raises on the CPU.
 
 Fixtures: a llama (2 layers, n_embd 256, 4/2 heads of 64, n_ff 512, vocab
@@ -28,7 +29,9 @@ from llama_cpp_tpu_torch.gguf.writer import GGUFWriter
 from llama_cpp_tpu_torch.models.loader import load_model
 from llama_cpp_tpu_torch.runtime.context import Context
 from llama_cpp_tpu_torch.server.chat import apply_chat_template
-from llama_cpp_tpu_torch.testing import make_control_vector_gguf, make_lora_gguf
+from llama_cpp_tpu_torch.testing import (make_bench_gemma4_assistant_gguf,
+                                         make_bench_gemma4_gguf, make_control_vector_gguf,
+                                         make_lora_gguf)
 from llama_cpp_tpu_torch.tools import cli
 
 SHAPE = dict(vocab_size=256, n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2, n_ff=512, seed=3)
@@ -159,9 +162,33 @@ def test_prompt_cache_reuses_the_prefix_as_the_jax_cli(files, capsys):
     assert [out1, out2] == [r[1] for r in outs["jax"]]
 
 
+# a Gemma 4 target whose last two layers are a window and a full one, and
+# its assistant (tests/test_speculative.py _gemma4_pair's layout)
+G4_PAIR = dict(n_embd=64, n_heads=4, n_kv_heads=2, head_dim=16, head_dim_swa=8, n_ff=96,
+               vocab_size=256, sliding_window=8, f32=True)
+
+
 @pytest.mark.parametrize("arch", ["eagle3", "dflash", "gemma4-assistant"])
 def test_feature_drafts_exit_with_2_and_name_their_arch(files, capsys, arch):
+    """eagle3 and dflash are refused by name; a gemma4-assistant draft
+    (ported) drafts over its Gemma 4 target: the text is the target's own
+    greedy text, as the JAX CLI prints it with the same draft."""
     path = str(files["dir"] / f"{arch}.gguf")
+    if arch == "gemma4-assistant":
+        target = make_bench_gemma4_gguf(
+            str(files["dir"] / "g4.gguf"), n_layers=4, is_swa=(1, 1, 1, 0), shared_kv_layers=0,
+            n_embd_per_layer=0, n_expert=0, moe_layers=(), alt_v_layers=(), **G4_PAIR)
+        make_bench_gemma4_assistant_gguf(path, n_layers=2, is_swa=(1, 0), n_embd_out=64,
+                                         **G4_PAIR)
+        argv = ["-m", target, "-p", PROMPT, "-n", "8", "-c", "128", "--temp", "0",
+                "--draft-max", "3"]
+        rc, out, err = run(cli.main, argv + ["-md", path, "--device", "cpu"], capsys)
+        rc0, plain, _ = run(cli.main, argv + ["--device", "cpu"], capsys)
+        rcj, jout, _ = run(jax_cli.main, argv + ["-md", path], capsys)
+        # the speculative loop's text ends without the plain loop's newline,
+        # in both CLIs
+        assert rc == rc0 == rcj == 0 and out == jout and out.rstrip() == plain.rstrip() and out
+        return
     w = GGUFWriter()
     w.add("general.architecture", arch)
     w.write(path)

@@ -64,16 +64,22 @@ def test_memory_breakdown_counts_the_model_and_the_kv_memory(model):
 
 def test_speculator_members_refuse_by_name(model):
     """recurrent and aux_layers read as a plain transformer's; a feature
-    capture for a speculator is refused: the port has no speculator yet."""
+    capture needs its layers named first (decode(aux=True) refuses
+    without them), then returns each named layer's input rows, the
+    pre-output-norm row for layer n_layers, beside the same logits."""
     ctx = Context(model, **CTX)
     assert ctx.recurrent is False and ctx.aux_layers == ()
     ctx.set_aux_capture(())  # nothing to capture
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ctx.set_aux_capture((1,))
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(ValueError, match="set_aux_capture"):
         ctx.decode(np.asarray([[5, 6]]), np.asarray([0]), np.asarray([[0, 1]]),
                    np.asarray([1]), aux=True)
+    ctx.set_aux_capture((1, model.cfg.n_layers))
+    lg_aux, feats = ctx.decode(np.asarray([[5, 6]]), np.asarray([0]), np.asarray([[0, 1]]),
+                               np.asarray([1]), aux=True)
+    assert feats.shape == (1, 2, 2 * model.cfg.n_embd) and np.isfinite(feats).all()
+    ctx.seq_rm(0)
     logits = ctx.decode(np.asarray([[5, 6]]), np.asarray([0]), np.asarray([[0, 1]]),
                         np.asarray([1]), aux=False)
     assert logits.shape == (1, SHAPE["vocab_size"]) and np.isfinite(logits).all()
+    np.testing.assert_array_equal(lg_aux, logits)
     assert torch.is_tensor(ctx.kv.pos)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from llama_cpp_tpu_torch.gguf.constants import GGMLType
+from llama_cpp_tpu_torch.gguf.constants import GGML_BLOCK_LAYOUT, GGMLType
 from llama_cpp_tpu_torch.models.loader import load_model
 from llama_cpp_tpu_torch.ops import qtensor as tq
 from llama_cpp_tpu_torch.ops.kernels import flash_attn as tfa
@@ -133,7 +133,9 @@ def test_expert_stacks_cut_on_the_card_equal_the_host_planes(cuda_device, monkey
     scales and mins as the host's extraction."""
     from llama_cpp_tpu_torch.quant import device_planes
 
-    monkeypatch.setattr(device_planes, "CHUNK_ELEMENTS", 4 * shape[1] * shape[2])
+    lay = GGML_BLOCK_LAYOUT[t]
+    monkeypatch.setattr(device_planes, "CHUNK_BYTES",
+                        4 * shape[1] * shape[2] // lay.block_size * lay.type_size)
     raw = np.frombuffer(synth_quant_bytes(np.random.default_rng(int(t)), int(np.prod(shape)), t),
                         np.uint8)
     w = tq.load_weight(raw, t, shape, transpose=True, device=cuda_device)
@@ -141,6 +143,79 @@ def test_expert_stacks_cut_on_the_card_equal_the_host_planes(cuda_device, monkey
     assert w.q.is_cuda and w.group == ref.group and (w.mins is None) == (ref.mins is None)
     assert torch.equal(w.q.cpu(), ref.q) and torch.equal(w.scales.cpu(), ref.scales)
     assert w.mins is None or torch.equal(w.mins.cpu(), ref.mins)
+
+
+@pytest.mark.parametrize("t,shape", [(GGMLType.Q4_K, (768, 4096)), (GGMLType.Q6_K, (768, 4096)),
+                                     (GGMLType.Q4_K, (2048, 256)), (GGMLType.Q8_0, (768, 4096)),
+                                     (GGMLType.Q4_0, (768, 4096)), (GGMLType.Q5_0, (768, 4096)),
+                                     (GGMLType.MXFP4, (768, 4096))],
+                         ids=["q4_k", "q6_k", "q4_k_flat", "q8_0", "q4_0", "q5_0", "mxfp4"])
+@pytest.mark.parametrize("transpose", [True, False], ids=["matmul", "table"])
+def test_matrices_cut_on_the_card_equal_the_host_planes(cuda_device, monkeypatch, t, shape,
+                                                        transpose):
+    """load_weight cuts a 2-D matrix's planes on the card (quant/
+    device_planes.py), a few rows a pass through the pinned buffers here:
+    every field (q, the flat or hierarchical scales and mins, the nibble
+    packing) bit for bit the host's extraction."""
+    from llama_cpp_tpu_torch.quant import device_planes
+
+    monkeypatch.setattr(device_planes, "CHUNK_BYTES", 1 << 20)
+    raw = np.frombuffer(synth_quant_bytes(np.random.default_rng(int(t)), int(np.prod(shape)), t),
+                        np.uint8)
+    w = tq.load_weight(raw, t, shape, transpose=transpose, device=cuda_device)
+    ref = tq.load_weight(raw, t, shape, transpose=transpose)
+    assert w.q.is_cuda and (w.packed, w.group, w.sgroup) == (ref.packed, ref.group, ref.sgroup)
+    for f in ("q", "scales", "mins", "d", "dmin"):
+        a, b = getattr(w, f), getattr(ref, f)
+        assert (a is None) == (b is None), f
+        assert a is None or (a.dtype == b.dtype and torch.equal(a.cpu(), b)), f
+
+
+@pytest.mark.parametrize("t,shape,transpose", [(GGMLType.Q4_K, (768, 4096), True),
+                                               (GGMLType.Q8_0, (768, 4096), False),
+                                               (GGMLType.Q6_K, (6, 2048, 512), True)],
+                         ids=["q4_k", "q8_0_table", "q6_k_stack"])
+def test_planes_cut_on_a_card_that_is_not_the_current_one(cuda_device, monkeypatch, t, shape,
+                                                          transpose):
+    """A load onto the second card while the first is current, a few rows
+    (one expert) a pass: the raw blocks' copies and the events that free
+    the pinned buffers go on the target card's stream, so each buffer is
+    refilled only after its copy has read it, and the planes equal the
+    host's."""
+    from llama_cpp_tpu_torch.quant import device_planes
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    lay = GGML_BLOCK_LAYOUT[t]
+    row = shape[-1] // lay.block_size * lay.type_size
+    monkeypatch.setattr(device_planes, "CHUNK_BYTES", row * (shape[1] if len(shape) == 3 else 4))
+    raw = np.frombuffer(synth_quant_bytes(np.random.default_rng(int(t)), int(np.prod(shape)), t),
+                        np.uint8)
+    ref = tq.load_weight(raw, t, shape, transpose=transpose)
+    with torch.cuda.device(0):
+        w = tq.load_weight(raw, t, shape, transpose=transpose, device="cuda:1")
+    assert w.q.device == torch.device("cuda:1")
+    for f in ("q", "scales", "mins", "d", "dmin"):
+        a, b = getattr(w, f), getattr(ref, f)
+        assert (a is None) == (b is None), f
+        assert a is None or torch.equal(a.cpu(), b), f
+
+
+def test_heads_wider_than_the_kernels_refuse_by_name(cuda_device, tmp_path):
+    """Full heads of 512 (Gemma 4's full layers at full width): the JAX
+    package's kernel takes them, the port's attention kernels have no such
+    instantiation, so a prefill on the card raises naming the head dims the
+    kernels take instead of running the plain attention."""
+    from llama_cpp_tpu_torch.testing import make_bench_gemma4_gguf
+
+    path = make_bench_gemma4_gguf(str(tmp_path / "g4.gguf"), n_layers=2, n_embd=256,
+                                  n_heads=2, n_kv_heads=1, head_dim=512, head_dim_swa=128,
+                                  n_ff=512, vocab_size=512, is_swa=(1, 0), sliding_window=64,
+                                  shared_kv_layers=0, n_embd_per_layer=0, n_expert=0,
+                                  moe_layers=(), alt_v_layers=())
+    ctx = Context(load_model(path), n_ctx=512, n_seqs=1, n_ubatch=128, quantized_kv=True)
+    with pytest.raises(ValueError, match=r"head dims alike in \(32, 64, 128, 256\)"):
+        ctx.prefill(list(range(3, 40)))
 
 
 @pytest.mark.parametrize("ftype", ["q8_0", "q5_k_m", "q4_0"])

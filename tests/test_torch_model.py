@@ -264,7 +264,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "            'server.webui', 'quant.dequant', 'quant.repack', 'quant.quantize',\n"
         "            'tools.quantize_tool', 'runtime.state', 'runtime.speculative',\n"
         "            'models.adapters', 'tools.export_lora', 'server.mcp', 'models.t5',\n"
-        "            'runtime.diffusion', 'tools.diffusion_cli'):\n"
+        "            'runtime.diffusion', 'tools.diffusion_cli', 'models.gemma3n',\n"
+        "            'quant.device_planes', 'runtime.memory'):\n"
         "    assert 'llama_cpp_tpu_torch.' + new in sys.modules, new\n"
         "assert 'aiohttp' not in sys.modules, 'a module of the port imported aiohttp'\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

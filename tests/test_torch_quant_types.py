@@ -138,7 +138,7 @@ def test_extract_planes_matches_jax(monkeypatch, t, chunk):
                                       (GGMLType.Q8_0, (5, 128, 2880)),
                                       (GGMLType.MXFP4, (5, 192, 2880))],
                          ids=["q4_k", "q6_k", "q8_0", "mxfp4"])
-def test_device_expert_stack_equals_the_host_planes(monkeypatch, t, shape, experts_a_pass):
+def test_device_expert_stack_equals_the_host_planes(t, shape, experts_a_pass):
     """quant/device_planes.expert_stack (the card's route for transposed
     expert stacks, run here on the CPU) gives load_weight's host planes,
     scales and mins in the [E, K, O] layout bit for bit, whole or a few
@@ -146,11 +146,13 @@ def test_device_expert_stack_equals_the_host_planes(monkeypatch, t, shape, exper
     from llama_cpp_tpu_torch.quant import device_planes
 
     assert device_planes.DEVICE_PLANE_TYPES <= set(R._PLANES)
-    monkeypatch.setattr(device_planes, "CHUNK_ELEMENTS", experts_a_pass * shape[1] * shape[2])
+    lay = GGML_BLOCK_LAYOUT[t]
+    per = shape[1] * shape[2] // lay.block_size * lay.type_size  # bytes an expert
     raw = np.frombuffer(synth_quant_bytes(np.random.default_rng(int(t)), int(np.prod(shape)), t),
                         np.uint8)
     ref = tq.load_weight(raw, t, shape, transpose=True)
-    q, sc, mn, g = device_planes.expert_stack(raw, t, shape, "cpu")
+    q, sc, mn, g = device_planes.expert_stack(raw, t, shape, "cpu",
+                                              chunk_bytes=experts_a_pass * per)
     assert g == ref.group and (mn is None) == (ref.mins is None)
     assert torch.equal(q, ref.q) and torch.equal(sc, ref.scales)
     assert mn is None or torch.equal(mn, ref.mins)
